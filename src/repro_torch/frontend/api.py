@@ -1,0 +1,91 @@
+"""SensorFrontend — the single API over the P2M in-pixel first layer.
+
+Port of ``repro.frontend.api``: a registry of backends behind one call,
+
+    frontend = SensorFrontend(FrontendConfig(p2m=..., backend="cuda"))
+    params = frontend.init(torch.Generator().manual_seed(0), device=dev)
+    activations, aux = frontend(params, images, key=key)
+
+returning ``(activations, aux)`` with the reference's aux keys. Stateful
+backends (their result is held in MTJ states) go through the global-shutter
+burst read. This slice registers the ``cuda`` backend (the hand-kernel
+counterpart of ``pallas``); ``ideal``, ``analog`` and ``device`` come later.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import p2m
+from repro_torch.frontend import shutter
+
+# backend signature: (cfg, params, images, key) -> (activations, aux)
+BackendFn = Callable[["FrontendConfig", dict, torch.Tensor, Optional[object]],
+                     Tuple[torch.Tensor, Dict]]
+
+_BACKENDS: Dict[str, BackendFn] = {}
+# backends whose result is held in MTJ states (global-shutter burst read)
+_STATEFUL: set = set()
+
+
+def register_backend(name: str, stateful: bool = False):
+    def deco(fn: BackendFn) -> BackendFn:
+        _BACKENDS[name] = fn
+        if stateful:
+            _STATEFUL.add(name)
+        return fn
+    return deco
+
+
+def get_backend(name: str) -> BackendFn:
+    if name not in _BACKENDS:
+        raise KeyError(f"unknown frontend backend {name!r}; "
+                       f"registered: {list_backends()}")
+    return _BACKENDS[name]
+
+
+def list_backends() -> list:
+    return sorted(_BACKENDS)
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Configuration of the sensor frontend. ``precision`` is the matmul
+    precision of the kernel path: ``None`` or ``"f32"`` in this port so far
+    (``"int8"`` raises ``NotImplementedError`` at call time)."""
+    p2m: p2m.P2MConfig = p2m.P2MConfig()
+    backend: str = "cuda"
+    global_shutter: bool = True   # run burst_read + reset accounting
+    precision: Optional[str] = None
+
+
+class SensorFrontend:
+    """The one surface every consumer of the P2M first layer talks to."""
+
+    def __init__(self, cfg: FrontendConfig = FrontendConfig()):
+        get_backend(cfg.backend)   # fail fast on typos
+        self.cfg = cfg
+
+    def init(self, generator: torch.Generator, device=None) -> dict:
+        return p2m.init_params(generator, self.cfg.p2m, device=device)
+
+    def __call__(self, params: dict, images: torch.Tensor, *, key=None,
+                 mode: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
+        """images (B, H, W, C) in [0, 1] -> (binary activations, aux).
+        ``mode`` overrides ``cfg.backend`` for this call."""
+        name = mode or self.cfg.backend
+        acts, aux = get_backend(name)(self.cfg, params, images, key)
+        if self.cfg.global_shutter and name in _STATEFUL:
+            # one exposure per batch element: shutter stats are per frame
+            acts, shutter_aux = shutter.global_shutter_readout(
+                acts, self.cfg.p2m.mtj, frames=acts.shape[0])
+            aux = {**aux, **shutter_aux}
+        if "channel_rates" not in aux:
+            # per-channel rates of the map as read out (the fused kernel
+            # emits them itself from its per-block draw counts)
+            aux["channel_rates"] = torch.mean(
+                acts, dim=tuple(range(acts.ndim - 1)))
+        aux["sparsity"] = 1.0 - torch.mean(aux["channel_rates"])
+        return acts, aux

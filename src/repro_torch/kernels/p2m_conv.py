@@ -1,0 +1,400 @@
+"""The P2M in-pixel layer's three CUDA kernels, each beside its plain version.
+
+Port of ``repro.kernels.p2m_conv``'s serving kernels (csrc/p2m_kernels.cu):
+
+  kernel A (``p2m_phase_a_implicit``) — implicit im2col + the packed
+      two-phase MAC: u = g(x·w⁺) - g(x·w⁻) and per-block Hoyer partials
+      (sum |z_clip|, sum z_clip²) with z = u / v_th.
+  host-free combine (``combine_hoyer_partials``) — theta from the partials,
+      by a deterministic ``torch.sum`` on the device.
+  kernel B (``p2m_phase_b``) — u -> voltage -> switching probability ->
+      folded majority -> Bernoulli draw, with the draw words hashed
+      in-kernel from the key, plus per-block (sum, min, max) of V_CONV.
+  fused streaming kernel (``p2m_fused_stream``) — A and B in one pass at a
+      carried theta, plus fresh Hoyer partials, V partials and per-block
+      per-channel draw counts.
+
+Each wrapper runs its CUDA kernel for a CUDA tensor and its plain PyTorch
+version (``*_plain``) for a CPU tensor; any other device raises. There is no
+fallback: a CUDA tensor launches the kernel or raises. Each wrapper counts
+its launches in ``<wrapper>.launches``. Per-block partials are a layout
+choice of the kernels; the contract is what the ``combine_*`` functions
+return.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch import prng
+from repro_torch.core import mtj as mtj_model
+from repro_torch.core import p2m as p2m_core
+from repro_torch.core import pixel as pixel_model
+from repro_torch.kernels import blocking, cuda_lib
+from repro_torch.variation.chip import (CHAN_LOGIT_GAIN, CHAN_LOGIT_OFFSET,
+                                        CHAN_ROWS, CHAN_U_GAIN, CHAN_U_OFFSET,
+                                        identity_operands)
+
+_M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# draw words (the kernels hash them in-register; this is the plain version)
+# ---------------------------------------------------------------------------
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on uint32 values held in int64: every
+    product is masked back to 32 bits (a wrapped int64 product keeps its
+    low 32 bits right)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _M32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
+
+
+def draw_bits(key, n: int, c: int, device=None) -> torch.Tensor:
+    """The (n, c) uint16 draw words of ``key`` (held as int32): two
+    murmur3 rounds over ``(index + 0x9E3779B9) ^ key`` — bit-exact with
+    ``repro.kernels.ops.draw_bits`` and with the kernels' in-register hash."""
+    k0, k1 = (int(w) for w in prng.key_data(key))
+    idx = (torch.arange(n * c, dtype=torch.int64, device=device)
+           + 0x9E3779B9) & _M32
+    h = _fmix32(idx ^ k0)
+    h = _fmix32(h ^ k1)
+    return (h & 0xFFFF).to(torch.int32).reshape(n, c)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (CPU tensors, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def pack_phase_weights(wm: torch.Tensor) -> torch.Tensor:
+    """(K, C) signed weights -> the (K, 2C) packed two-phase operand."""
+    return p2m_core.relu_split_pack(wm)
+
+
+def _gather_patches(images: torch.Tensor, kernel: int, stride: int
+                    ) -> torch.Tensor:
+    """SAME im2col: (B, H, W, Cin) -> (B*H'*W', k*k*Cin) rows, tap-major and
+    channel-minor, so an HWIO weight reshapes straight onto the columns."""
+    b, h, w, cin = images.shape
+    ho, wo = blocking.conv_out_hw(h, stride), blocking.conv_out_hw(w, stride)
+    x = blocking.pad_same(images, kernel, stride)
+    rows, cols = (ho - 1) * stride + 1, (wo - 1) * stride + 1
+    taps = [x[:, di:di + rows:stride, dj:dj + cols:stride, :]
+            for di in range(kernel) for dj in range(kernel)]
+    return torch.stack(taps, dim=3).reshape(b * ho * wo, kernel * kernel * cin)
+
+
+def _phase_a_epilogue(a: torch.Tensor, v_th: torch.Tensor, c_out: int,
+                      pixel_params: pixel_model.PixelCircuitParams):
+    """Packed MAC (N, 2C) -> (u, (1, 2) Hoyer partials)."""
+    g = pixel_model.get_curve(pixel_params.curve, pixel_params)
+    u = g(a[:, :c_out]) - g(a[:, c_out:])
+    zc = torch.clamp(u / torch.clamp(v_th.reshape(()), min=1e-6), 0.0, 1.0)
+    partials = torch.stack([torch.sum(torch.abs(zc)),
+                            torch.sum(torch.square(zc))]).reshape(1, 2)
+    return u, partials
+
+
+def p2m_phase_a_implicit_plain(images, w_packed, v_th, *, kernel: int,
+                               stride: int,
+                               pixel_params=pixel_model.DEFAULT_PIXEL):
+    """Kernel A's function in PyTorch ops: ``(u (N, C), partials (1, 2))``."""
+    a = _gather_patches(images, kernel, stride) @ w_packed
+    return _phase_a_epilogue(a, v_th, w_packed.shape[1] // 2, pixel_params)
+
+
+def device_chain_q(u: torch.Tensor, theta: torch.Tensor,
+                   chan: Optional[torch.Tensor],
+                   pixel_params=pixel_model.DEFAULT_PIXEL,
+                   mtj_params=mtj_model.DEFAULT_MTJ):
+    """(u, theta, (4, C) rows) -> ``(q, v)``: the folded-majority activation
+    probability and the subtractor voltage, in the kernels' order."""
+    if chan is None:
+        chan = identity_operands(u.shape[1], device=u.device)
+    u = u * chan[CHAN_U_GAIN] + chan[CHAN_U_OFFSET]
+    v = pixel_model.conv_voltage(u, theta.reshape(()), pixel_params)
+    p_sw = mtj_model.switching_probability(
+        v, mtj_params.write_pulse_ps, mtj_params,
+        logit_offset=chan[CHAN_LOGIT_OFFSET],
+        logit_gain=chan[CHAN_LOGIT_GAIN])
+    q = mtj_model.majority_prob_poly(p_sw, mtj_params.n_redundant,
+                                     mtj_params.majority)
+    return q, v
+
+
+def _v_partials(v: torch.Tensor) -> torch.Tensor:
+    return torch.stack([torch.sum(v), torch.min(v), torch.max(v)]).reshape(
+        1, 3)
+
+
+def p2m_phase_b_plain(u, theta, key, *, chan=None,
+                      pixel_params=pixel_model.DEFAULT_PIXEL,
+                      mtj_params=mtj_model.DEFAULT_MTJ):
+    """Kernel B's function in PyTorch ops: ``(acts (N, C), partials (1, 3))``."""
+    q, v = device_chain_q(u, theta, chan, pixel_params, mtj_params)
+    bits = draw_bits(key, u.shape[0], u.shape[1], device=u.device)
+    return mtj_model.bernoulli_from_bits(bits, q), _v_partials(v)
+
+
+def p2m_fused_stream_plain(images, w_packed, v_th, theta, key, chan=None, *,
+                           kernel: int, stride: int,
+                           pixel_params=pixel_model.DEFAULT_PIXEL,
+                           mtj_params=mtj_model.DEFAULT_MTJ):
+    """The fused kernel's function in PyTorch ops: ``(acts, hoyer (1, 2),
+    v (1, 3), rates (1, C))``."""
+    u, hoyer_partials = p2m_phase_a_implicit_plain(
+        images, w_packed, v_th, kernel=kernel, stride=stride,
+        pixel_params=pixel_params)
+    acts, v_partials = p2m_phase_b_plain(
+        u, theta, key, chan=chan, pixel_params=pixel_params,
+        mtj_params=mtj_params)
+    return (acts, hoyer_partials, v_partials,
+            torch.sum(acts, dim=0, keepdim=True))
+
+
+# ---------------------------------------------------------------------------
+# combines: per-block partials -> the aux statistics
+# ---------------------------------------------------------------------------
+
+def combine_hoyer_partials(partials: torch.Tensor,
+                           v_th: torch.Tensor) -> torch.Tensor:
+    """theta = sum z_clip² / sum |z_clip| * v_th, on the partials' device."""
+    abs_sum = torch.sum(partials[:, 0])
+    sq_sum = torch.sum(partials[:, 1])
+    return sq_sum / torch.clamp(abs_sum, min=1e-9) * v_th.reshape(())
+
+
+def combine_v_conv_partials(partials: torch.Tensor, n_valid: int,
+                            c_valid: int) -> dict:
+    """Per-block (sum, min, max) -> the ``v_conv_*`` aux stats."""
+    return {"v_conv_mean": torch.sum(partials[:, 0]) / (n_valid * c_valid),
+            "v_conv_min": torch.min(partials[:, 1]),
+            "v_conv_max": torch.max(partials[:, 2])}
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def physics_args(pixel_params: pixel_model.PixelCircuitParams,
+                 mtj_params: mtj_model.MTJParams) -> cuda_lib.P2MPhysics:
+    """The kernels' physics argument, built from the frozen dataclasses
+    (ctypes rounds each value to float32, as JAX rounds a Python constant)."""
+    if not 0 < mtj_params.n_redundant <= 24:
+        raise ValueError("the kernels' binomial coefficients are exact for "
+                         f"n_redundant <= 24, got {mtj_params.n_redundant}")
+    v0, v1, l0, l1, slope_lo, slope_hi = mtj_model.logit_fit(mtj_params)
+    return cuda_lib.P2MPhysics(
+        curve=pixel_model.CURVE_IDS[pixel_params.curve],
+        n_redundant=mtj_params.n_redundant, majority=mtj_params.majority,
+        saturation=pixel_params.saturation, half_vdd=0.5 * pixel_params.vdd,
+        v_sw=pixel_params.v_sw, volts_per_unit=pixel_params.volts_per_unit,
+        v_max=1.2 * pixel_params.vdd, v0=v0, v1=v1, l0=l0, l1=l1,
+        slope_lo=slope_lo, slope_hi=slope_hi,
+        env_factor=mtj_model.envelope_factor(mtj_params.write_pulse_ps,
+                                             mtj_params))
+
+
+def _conv_geom(images: torch.Tensor, w_packed: torch.Tensor, kernel: int,
+               stride: int) -> cuda_lib.ConvGeom:
+    if kernel % 2 == 0:
+        raise ValueError(
+            f"implicit im2col only supports odd kernel sizes (got "
+            f"kernel={kernel}): even kernels cannot reproduce SAME "
+            "convolution placement")
+    if images.ndim != 4:
+        raise ValueError(f"images must be (B, H, W, Cin), got "
+                         f"{tuple(images.shape)}")
+    b, h, w, cin = images.shape
+    kk = kernel * kernel * cin
+    if w_packed.ndim != 2 or w_packed.shape[0] != kk or w_packed.shape[1] % 2:
+        raise ValueError(f"w_packed must be ({kk}, 2C), got "
+                         f"{tuple(w_packed.shape)}")
+    (pt, _), (pl, _) = blocking.same_pads(h, w, kernel, stride)
+    return cuda_lib.ConvGeom(
+        batch=b, h=h, w=w, cin=cin, ho=blocking.conv_out_hw(h, stride),
+        wo=blocking.conv_out_hw(w, stride), kernel=kernel, stride=stride,
+        pad_top=pt, pad_left=pl, c_out=w_packed.shape[1] // 2)
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every operand is a CPU tensor (the plain version runs);
+    False when all are on one CUDA device; raises on anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    return False
+
+
+def _check_f32(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_scalar(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.numel() != 1:
+            raise ValueError(f"{name} must hold one value, got "
+                             f"{tuple(t.shape)}")
+
+
+@functools.lru_cache(maxsize=16)
+def _identity_chan(c: int, device: torch.device) -> torch.Tensor:
+    """The identity rows, made once per (C, device): the nominal chip's
+    serving step then launches no kernels to build them."""
+    return identity_operands(c, device=device)
+
+
+def _check_chan(chan: Optional[torch.Tensor], c: int, device) -> torch.Tensor:
+    if chan is None:
+        return _identity_chan(c, device)
+    if chan.ndim != 2 or tuple(chan.shape) != (CHAN_ROWS, c):
+        raise NotImplementedError(
+            f"chan must be the ({CHAN_ROWS}, {c}) per-channel rows; the "
+            "per-pixel operand comes with the variation slice")
+    return chan
+
+
+def _launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _key_words(key):
+    k0, k1 = prng.key_data(key)
+    return ctypes.c_uint32(int(k0)), ctypes.c_uint32(int(k1))
+
+
+def p2m_phase_a_implicit(images: torch.Tensor, w_packed: torch.Tensor,
+                         v_th: torch.Tensor, *, kernel: int, stride: int,
+                         pixel_params=pixel_model.DEFAULT_PIXEL):
+    """Kernel A. images (B, H, W, Cin) unpadded float32 in [0, 1]; w_packed
+    (k*k*Cin, 2C) from ``pack_phase_weights``; v_th one float32 value.
+    Returns ``(u (B*H'*W', C), hoyer_partials (G, 2))``."""
+    geom = _conv_geom(images, w_packed, kernel, stride)
+    if _on_cpu(images, w_packed, v_th):
+        return p2m_phase_a_implicit_plain(images, w_packed, v_th,
+                                          kernel=kernel, stride=stride,
+                                          pixel_params=pixel_params)
+    _check_f32(images=images, w_packed=w_packed, v_th=v_th)
+    _check_scalar(v_th=v_th)
+    lib = cuda_lib.load()
+    n = geom.batch * geom.ho * geom.wo
+    blocks = -(-n // lib.p2m_rows_per_block())
+    u = torch.empty((n, geom.c_out), dtype=torch.float32, device=images.device)
+    partials = torch.empty((blocks, 2), dtype=torch.float32,
+                           device=images.device)
+    _launch(lib.p2m_phase_a_implicit(
+        images.data_ptr(), w_packed.data_ptr(), v_th.data_ptr(),
+        u.data_ptr(), partials.data_ptr(), ctypes.byref(geom),
+        ctypes.byref(physics_args(pixel_params, mtj_model.DEFAULT_MTJ)),
+        _stream(images.device)), "p2m_phase_a_implicit")
+    p2m_phase_a_implicit.launches += 1
+    return u, partials
+
+
+def p2m_phase_b(u: torch.Tensor, theta: torch.Tensor, key, *,
+                chan: Optional[torch.Tensor] = None,
+                pixel_params=pixel_model.DEFAULT_PIXEL,
+                mtj_params=mtj_model.DEFAULT_MTJ):
+    """Kernel B. u (N, C) float32; theta one float32 value ON THE DEVICE
+    (read by the kernel, so no host sync sits between A and B); key the
+    host-side key whose two words seed the in-kernel draw hash; chan the
+    optional (4, C) rows. Returns ``(acts (N, C) {0,1}, v_partials (G, 3))``."""
+    if u.ndim != 2:
+        raise ValueError(f"u must be (N, C), got {tuple(u.shape)}")
+    n, c = u.shape
+    chan = _check_chan(chan, c, u.device)
+    if _on_cpu(u, theta, chan):
+        return p2m_phase_b_plain(u, theta, key, chan=chan,
+                                 pixel_params=pixel_params,
+                                 mtj_params=mtj_params)
+    _check_f32(u=u, theta=theta, chan=chan)
+    _check_scalar(theta=theta)
+    if n * c >= 2 ** 31:
+        raise ValueError(f"{n * c} elements exceed the kernel's int32 index")
+    lib = cuda_lib.load()
+    blocks = -(-(n * c) // lib.p2m_threads_per_block())
+    acts = torch.empty((n, c), dtype=torch.float32, device=u.device)
+    partials = torch.empty((blocks, 3), dtype=torch.float32, device=u.device)
+    k0, k1 = _key_words(key)
+    _launch(lib.p2m_phase_b(
+        u.data_ptr(), theta.data_ptr(), chan.data_ptr(), acts.data_ptr(),
+        partials.data_ptr(), n * c, c, k0, k1,
+        ctypes.byref(physics_args(pixel_params, mtj_params)),
+        _stream(u.device)), "p2m_phase_b")
+    p2m_phase_b.launches += 1
+    return acts, partials
+
+
+def p2m_fused_stream(images: torch.Tensor, w_packed: torch.Tensor,
+                     v_th: torch.Tensor, theta: torch.Tensor, key,
+                     chan: Optional[torch.Tensor] = None, *, kernel: int,
+                     stride: int, pixel_params=pixel_model.DEFAULT_PIXEL,
+                     mtj_params=mtj_model.DEFAULT_MTJ):
+    """The fused streaming kernel: A's gather and MAC, then B's chain on the
+    in-register u at the CARRIED theta (one float32 value on the device).
+    Returns ``(acts (N, C), hoyer_partials (G, 2), v_partials (G, 3),
+    rate_partials (G, C))`` — the fresh Hoyer partials feed the caller's
+    drift guard; the rate rows sum to the per-channel draw counts. With
+    theta pinned to the exact path's theta the draws equal A -> B's."""
+    geom = _conv_geom(images, w_packed, kernel, stride)
+    chan = _check_chan(chan, geom.c_out, images.device)
+    if _on_cpu(images, w_packed, v_th, theta, chan):
+        return p2m_fused_stream_plain(
+            images, w_packed, v_th, theta, key, chan, kernel=kernel,
+            stride=stride, pixel_params=pixel_params, mtj_params=mtj_params)
+    _check_f32(images=images, w_packed=w_packed, v_th=v_th, theta=theta,
+               chan=chan)
+    _check_scalar(v_th=v_th, theta=theta)
+    lib = cuda_lib.load()
+    n, c = geom.batch * geom.ho * geom.wo, geom.c_out
+    blocks = -(-n // lib.p2m_rows_per_block())
+    dev = images.device
+    acts = torch.empty((n, c), dtype=torch.float32, device=dev)
+    hoyer = torch.empty((blocks, 2), dtype=torch.float32, device=dev)
+    vpart = torch.empty((blocks, 3), dtype=torch.float32, device=dev)
+    rates = torch.empty((blocks, c), dtype=torch.float32, device=dev)
+    k0, k1 = _key_words(key)
+    _launch(lib.p2m_fused_stream(
+        images.data_ptr(), w_packed.data_ptr(), v_th.data_ptr(),
+        theta.data_ptr(), chan.data_ptr(), acts.data_ptr(), hoyer.data_ptr(),
+        vpart.data_ptr(), rates.data_ptr(), ctypes.byref(geom), k0, k1,
+        ctypes.byref(physics_args(pixel_params, mtj_params)),
+        _stream(dev)), "p2m_fused_stream")
+    p2m_fused_stream.launches += 1
+    return acts, hoyer, vpart, rates
+
+
+KERNEL_WRAPPERS = (p2m_phase_a_implicit, p2m_phase_b, p2m_fused_stream)
+for _fn in KERNEL_WRAPPERS:
+    _fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """``{wrapper name: kernel launches since the last reset}``."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0

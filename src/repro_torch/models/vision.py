@@ -1,0 +1,191 @@
+"""The paper's model zoo: VGG16 / ResNet sparse-BNNs behind the P2M layer.
+
+Port of ``repro.models.vision``'s eval path. The first layer goes through
+the SensorFrontend; every later conv is a 4-bit fake-quantized conv + BN
+(stored running stats) + the Hoyer binary spike with a per-example
+threshold, so a frame's prediction does not depend on its batchmates.
+
+The backbone convs are ``F.conv2d`` (the reference leaves them to XLA).
+Frames and frontend activations are NHWC and weights HWIO at the public
+functions; the backbone views the NHWC map as channels-last NCHW (no copy)
+and permutes each HWIO weight to OIHW inside the forward. cuDNN runs with
+TF32 off: TF32 would move logits by ~1e-3 against the float32 reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import frontend
+from repro_torch.core import hoyer, p2m
+from repro_torch.kernels import blocking
+from repro_torch.models.params import ParamSpec, init_tree
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    name: str = "vgg16_cifar10"
+    arch: str = "vgg16"       # vgg16 | vgg_tiny | resnet18 | resnet20
+    num_classes: int = 10
+    in_hw: int = 32
+    p2m: p2m.P2MConfig = p2m.P2MConfig()
+    frontend_backend: str = "cuda"       # default SensorFrontend backend
+    weight_bits: int = 4
+    remove_first_maxpool: bool = False   # paper's Model* variants
+    hoyer_coeff: float = 1e-8
+    bn_momentum: float = 0.9             # EMA decay of the BN running stats
+
+    @property
+    def frontend(self) -> frontend.FrontendConfig:
+        return frontend.FrontendConfig(p2m=self.p2m,
+                                       backend=self.frontend_backend)
+
+
+_VGG_PLANS = {
+    "vgg16": [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+              512, 512, 512, "M", 512, 512, 512, "M"],
+    "vgg_tiny": [32, "M", 64, "M", 64, "M"],
+}
+_RESNET_PLAN = {"resnet18": (2, 2, 2, 2), "resnet20": (3, 3, 3)}
+
+
+def _conv_spec(cin: int, cout: int, k: int = 3) -> Dict[str, Any]:
+    return {
+        "w": ParamSpec((k, k, cin, cout)),
+        "bn_scale": ParamSpec((cout,), init="ones"),
+        "bn_bias": ParamSpec((cout,), init="zeros"),
+        "bn_mean": ParamSpec((cout,), init="zeros"),
+        "bn_var": ParamSpec((cout,), init="ones"),
+        "v_th": ParamSpec((), init="ones"),
+    }
+
+
+def model_spec(cfg: VisionConfig) -> Dict[str, Any]:
+    spec: Dict[str, Any] = {
+        "p2m": {
+            "w": ParamSpec((cfg.p2m.kernel_size, cfg.p2m.kernel_size,
+                            cfg.p2m.in_channels, cfg.p2m.out_channels)),
+            "v_th": ParamSpec((), init="ones"),
+        },
+    }
+    c_in = cfg.p2m.out_channels
+    layers: Dict[str, Any] = {}
+    if cfg.arch.startswith("vgg"):
+        i = 0
+        for item in _VGG_PLANS[cfg.arch]:
+            if item == "M":
+                continue
+            layers[f"conv{i}"] = _conv_spec(c_in, item)
+            c_in = item
+            i += 1
+    else:
+        blocks_per = _RESNET_PLAN[cfg.arch]
+        widths = [64 * (2 ** i) for i in range(len(blocks_per))] \
+            if cfg.arch == "resnet18" else [16, 32, 64]
+        for si, (n, w) in enumerate(zip(blocks_per, widths)):
+            for bi in range(n):
+                blk = {"c1": _conv_spec(c_in, w), "c2": _conv_spec(w, w)}
+                if c_in != w:
+                    blk["proj"] = _conv_spec(c_in, w, k=1)
+                layers[f"s{si}b{bi}"] = blk
+                c_in = w
+    spec["layers"] = layers
+    spec["head"] = {"w": ParamSpec((c_in, cfg.num_classes)),
+                    "b": ParamSpec((cfg.num_classes,), init="zeros")}
+    return spec
+
+
+def init_params(seed: int, cfg: VisionConfig, device=None) -> Dict:
+    """Seeded random weights (the repo ships no trained ones)."""
+    gen = torch.Generator().manual_seed(seed)
+    return init_tree(gen, model_spec(cfg), device=device)
+
+
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    """A (C,) per-channel vector shaped to broadcast over NCHW."""
+    return v.reshape(1, -1, 1, 1)
+
+
+def _conv_same(x: torch.Tensor, w_hwio: torch.Tensor,
+               stride: int) -> torch.Tensor:
+    """SAME conv of an NCHW map with an HWIO weight (extra pad high)."""
+    k = w_hwio.shape[0]
+    (pt, pb), (pl, pr) = blocking.same_pads(x.shape[2], x.shape[3], k, stride)
+    w = w_hwio.permute(3, 2, 0, 1)
+    if (pt, pl) != (pb, pr):
+        x, pt, pl = F.pad(x, (pl, pr, pt, pb)), 0, 0
+    return F.conv2d(x, w, stride=stride, padding=(pt, pl))
+
+
+def _conv_apply(params: Dict, x: torch.Tensor, stride: int, bits: int,
+                binary: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One quantized conv + BN (stored stats) + per-example Hoyer spike."""
+    w = p2m.quantize_weights(params["w"], bits)
+    y = _conv_same(x, w, stride)
+    y = (y - _channel(params["bn_mean"])) / torch.sqrt(
+        _channel(params["bn_var"]) + 1e-5)
+    y = y * _channel(params["bn_scale"]) + _channel(params["bn_bias"])
+    if not binary:
+        return F.relu(y), torch.zeros((), device=y.device)
+    z = y / torch.clamp(params["v_th"], min=1e-6)
+    zc = hoyer.clip01(z)
+    thr = hoyer.hoyer_extremum(zc, axis=(1, 2, 3), keepdims=True)
+    return (z >= thr).to(y.dtype), hoyer.hoyer_regularizer(zc)
+
+
+def _maxpool(x: torch.Tensor) -> torch.Tensor:
+    """SAME 2x2/2 max-pool: ceil_mode reproduces the high-side -inf pad."""
+    return F.max_pool2d(x, 2, 2, ceil_mode=True)
+
+
+def _backbone(params: Dict, x: torch.Tensor, cfg: VisionConfig):
+    hoyer_total = torch.zeros((), device=x.device)
+
+    def conv(layer_params, x, binary=True):
+        return _conv_apply(layer_params, x, 1, cfg.weight_bits, binary)
+
+    if cfg.arch.startswith("vgg"):
+        i = 0
+        first_pool = True
+        for item in _VGG_PLANS[cfg.arch]:
+            if item == "M":
+                if first_pool and cfg.remove_first_maxpool:
+                    first_pool = False
+                    continue
+                first_pool = False
+                if x.shape[2] > 1:
+                    x = _maxpool(x)
+                continue
+            x, hl = conv(params["layers"][f"conv{i}"], x)
+            hoyer_total = hoyer_total + hl
+            i += 1
+    else:
+        for name in sorted(params["layers"]):
+            blk = params["layers"][name]
+            h, hl1 = conv(blk["c1"], x)
+            h, hl2 = conv(blk["c2"], h)
+            sc = conv(blk["proj"], x, binary=False)[0] if "proj" in blk else x
+            x = h + sc
+            hoyer_total = hoyer_total + hl1 + hl2
+    return torch.mean(x, dim=(2, 3)), hoyer_total
+
+
+def forward(params: Dict, images: torch.Tensor, cfg: VisionConfig, *,
+            key=None, backend: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Eval forward. images (B, H, W, C) in [0, 1]; ``key`` a host key
+    (``repro_torch.prng``) for the stochastic frontend. Returns
+    ``(logits, hoyer_loss, aux)`` with the frontend aux (minus the loss term)
+    and ``p2m_sparsity``."""
+    fe = frontend.SensorFrontend(cfg.frontend)
+    x, fe_aux = fe(params["p2m"], images, key=key, mode=backend)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        feat, hoyer_total = _backbone(params, x.permute(0, 3, 1, 2), cfg)
+    logits = feat @ params["head"]["w"] + params["head"]["b"]
+    aux = {"p2m_sparsity": fe_aux["sparsity"],
+           **{k: v for k, v in fe_aux.items()
+              if k not in ("hoyer_loss", "sparsity")}}
+    return logits, cfg.hoyer_coeff * (fe_aux["hoyer_loss"] + hoyer_total), aux

@@ -1,0 +1,236 @@
+"""VisionEngine: serve camera frames through the SensorFrontend + backbone.
+
+Port of ``repro.serving.vision.VisionEngine`` for one device:
+
+    engine = VisionEngine(cfg, params)                  # runs on the GPU
+    out = engine.classify(frames)                       # one batch
+    for out in engine.stream(frame_batches):            # a frame stream
+        ...
+
+``stream`` splits incoming batches into ``microbatch``-sized steps with a
+key folded per microbatch. With the ``cuda`` backend the first microbatch
+of every stream runs the exact two-kernel step and seeds a carried Hoyer
+threshold; later microbatches run the single fused kernel at the carried
+EMA and fall back to the exact step whenever the fresh threshold drifts by
+more than ``fused_theta_tol`` (relative).
+
+``device=None`` means the GPU; without CUDA the engine raises rather than
+moving to the CPU on its own. ``device="cpu"`` runs the kernels' plain
+PyTorch versions. Timing is synchronous: the device is synchronized around
+every step, so ``wall_ms`` is the honest end-to-end time of the step.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterable, Iterator, List, Optional
+
+import torch
+
+from repro_torch import prng
+from repro_torch.core import energy
+from repro_torch.frontend.api import get_backend
+from repro_torch.models import vision
+from repro_torch.models.params import to_device
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the GPU, or a RuntimeError when there is none."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; VisionEngine runs "
+                           "on the GPU unless asked otherwise — pass "
+                           "device=\"cpu\" to run the plain PyTorch versions")
+    return torch.device("cuda")
+
+
+class VisionEngine:
+    """Synchronous batched frame-classification engine on one device."""
+
+    def __init__(self, cfg: vision.VisionConfig, params,
+                 backend: str = "cuda", seed: int = 0, device=None,
+                 microbatch: Optional[int] = None,
+                 fused_stream: Optional[bool] = None,
+                 fused_theta_tol: float = 0.02,
+                 fused_theta_ema: float = 0.9):
+        self.device = resolve_device(device)
+        get_backend(backend)   # fail fast on typos
+        if fused_stream and backend != "cuda":
+            raise ValueError("fused_stream=True requires the 'cuda' backend "
+                             f"(got {backend!r})")
+        self.cfg = cfg
+        self.backend = backend
+        self.microbatch = microbatch
+        self.params = to_device(params, self.device)
+        self._key = prng.PRNGKey(seed)
+        self._frame_count = 0
+        # None = the untuned default of the reference: fused steady state
+        self._fused_stream = True if fused_stream is None else fused_stream
+        self._fused_theta_tol = fused_theta_tol
+        self._fused_theta_ema = fused_theta_ema
+        self._theta_carry: Optional[float] = None
+        self.fused_step_count = 0
+        self.fused_fallback_count = 0
+        lat = energy.frame_latency_us(self._frame_spec())
+        self._sensor_latency_us = float(lat["total_us"])
+        self._sensor_fps = float(lat["fps"])
+
+    def _frame_spec(self) -> energy.FrameSpec:
+        cfg, pcfg = self.cfg, self.cfg.p2m
+        conv = -(-cfg.in_hw // pcfg.stride)
+        return energy.FrameSpec(
+            h_in=cfg.in_hw, w_in=cfg.in_hw, c_in=pcfg.in_channels,
+            h_out=max(conv // 2, 1), w_out=max(conv // 2, 1),
+            c_out=pcfg.out_channels, kernel=pcfg.kernel_size,
+            stride=pcfg.stride, n_mtj=pcfg.mtj.n_redundant)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _forward(self, params, frames: torch.Tensor, key) -> Dict:
+        logits, _, aux = vision.forward(params, frames, self.cfg, key=key,
+                                        backend=self.backend)
+        return {"labels": torch.argmax(logits, -1),
+                "probs": torch.softmax(logits, dim=-1), **aux}
+
+    def _frames(self, frames) -> torch.Tensor:
+        return torch.as_tensor(frames, dtype=torch.float32,
+                               device=self.device)
+
+    def classify(self, frames, key=None) -> Dict:
+        """frames (B, H, W, C) in [0, 1]. Returns labels/probs/frontend aux
+        plus serving telemetry (wall_ms, throughput_fps, sensor_latency_us,
+        sensor_fps). Without ``key`` the engine folds its frame counter into
+        the seed key and advances it; an explicit key replays a draw."""
+        return self._classify(self._frames(frames), key)
+
+    def _classify(self, frames: torch.Tensor, key,
+                  fused: Optional[bool] = None) -> Dict:
+        """``fused`` is tri-state: None = not a cuda-stream step (no
+        streaming telemetry keys); False = a stream step kept on the exact
+        path; True = attempt the fused carried-theta step."""
+        if key is None:
+            key = prng.fold_in(self._key, self._frame_count)
+            self._frame_count += 1
+        n = frames.shape[0]
+        self._sync()
+        t0 = time.perf_counter()
+        if fused:
+            out, drift, ran_fused = self._fused_classify(frames, key)
+        else:
+            drift, ran_fused = 0.0, False
+            out = self._forward(self.params, frames, key)
+        self._sync()
+        wall = time.perf_counter() - t0
+        out = dict(out)
+        if fused is not None:
+            out["stream_fused"] = 1.0 if ran_fused else 0.0
+            out["stream_theta_drift"] = drift
+            if "theta_used" not in out:     # exact step: it used its own
+                out["theta_used"] = out["theta"]
+        out["wall_ms"] = wall * 1e3
+        out["throughput_fps"] = n / wall
+        out["sensor_latency_us"] = self._sensor_latency_us
+        out["sensor_fps"] = self._sensor_fps
+        return out
+
+    def _fused_classify(self, frames: torch.Tensor, key):
+        """One stream microbatch on the fused path with the theta-EMA drift
+        guard. Returns ``(out, rel_drift, ran_fused)``: the first microbatch
+        runs exact and seeds the carry; a fused step whose fresh theta moved
+        more than ``fused_theta_tol`` from the carry is re-run exact with
+        the same key and re-seeds it; otherwise the carry advances as
+        ``ema * carry + (1 - ema) * fresh``."""
+        if self._theta_carry is None:
+            out = self._forward(self.params, frames, key)
+            out["theta_used"] = out["theta"]
+            self._theta_carry = float(out["theta"])
+            return out, 0.0, False
+        carry = self._theta_carry
+        params = {**self.params, "p2m": {
+            **self.params["p2m"],
+            "theta_carry": torch.tensor(carry, dtype=torch.float32,
+                                        device=self.device)}}
+        out = self._forward(params, frames, key)
+        self.fused_step_count += 1
+        fresh = float(out["theta"])
+        drift = abs(fresh - carry) / max(abs(carry), 1e-9)
+        if drift > self._fused_theta_tol:
+            out = self._forward(self.params, frames, key)
+            out["theta_used"] = out["theta"]
+            self._theta_carry = float(out["theta"])
+            self.fused_fallback_count += 1
+            return out, drift, False
+        self._theta_carry = (self._fused_theta_ema * carry
+                             + (1.0 - self._fused_theta_ema) * fresh)
+        return out, drift, True
+
+    def stream(self, frame_batches: Iterable) -> Iterator[Dict]:
+        """Classify a stream of frame batches; yields one merged output per
+        incoming batch regardless of microbatching. Each stream starts a new
+        scene: the carried threshold is dropped."""
+        self._theta_carry = None
+        fused = self._fused_stream if self.backend == "cuda" else None
+        for frames in frame_batches:
+            frames = self._frames(frames)
+            mb = self.microbatch
+            b = frames.shape[0]
+            if not mb or b <= mb:
+                outs = [self._classify(frames, None, fused=fused)]
+                sizes = [b]
+            else:
+                base = prng.fold_in(self._key, self._frame_count)
+                self._frame_count += 1
+                starts = list(range(0, b, mb))
+                sizes = [min(mb, b - i) for i in starts]
+                outs = [self._classify(frames[i:i + sz],
+                                       prng.fold_in(base, j), fused=fused)
+                        for j, (i, sz) in enumerate(zip(starts, sizes))]
+            yield _merge_outputs(outs, sizes) if len(outs) > 1 else outs[0]
+
+
+# aux keys that are per-CHANNEL vectors: merged by frame-weighted mean
+_CHANNEL_KEYS = ("channel_rates",)
+# additive costs: the batch's total
+_SUM_KEYS = ("wall_ms",)
+# engine constants: passed through verbatim from the first microbatch
+_CONSTANT_KEYS = ("sensor_latency_us", "sensor_fps")
+
+
+def _stack(vals) -> torch.Tensor:
+    device = next((v.device for v in vals if isinstance(v, torch.Tensor)),
+                  None)
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                        device=device) for v in vals])
+
+
+def _merge_outputs(outs: List[Dict], sizes: List[int]) -> Dict:
+    """Merge per-microbatch outputs into one batch-level dict: per-example
+    rows concatenated, per-channel vectors and scalar stats by frame-weighted
+    mean (min/max keys by min/max), wall time summed and throughput
+    recomputed from it, engine constants passed through."""
+    w = torch.tensor(sizes, dtype=torch.float32)
+    w = w / torch.sum(w)
+    merged: Dict = {}
+    for k in outs[0]:
+        vals = [o[k] for o in outs]
+        if k in _SUM_KEYS:
+            merged[k] = sum(float(v) for v in vals)
+        elif k in _CONSTANT_KEYS:
+            merged[k] = vals[0]
+        elif k in _CHANNEL_KEYS:
+            stacked = _stack(vals)
+            merged[k] = torch.sum(stacked * w.to(stacked.device)[:, None],
+                                  dim=0)
+        elif getattr(vals[0], "ndim", 0) >= 1:
+            merged[k] = torch.cat(vals, dim=0)
+        elif k.endswith("_min"):
+            merged[k] = torch.min(_stack(vals))
+        elif k.endswith("_max"):
+            merged[k] = torch.max(_stack(vals))
+        else:
+            stacked = _stack(vals)
+            merged[k] = torch.sum(stacked * w.to(stacked.device))
+    merged["throughput_fps"] = sum(sizes) / (merged["wall_ms"] / 1e3)
+    return merged

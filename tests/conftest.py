@@ -45,6 +45,10 @@ def pytest_configure(config):
         "markers",
         "slow: long fleet Monte-Carlo runs — excluded from the tier-1 "
         "command; select explicitly with `-m slow`")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU (the PyTorch port's hand-written kernels); "
+        "skips without one — on the card: `-m cuda tests/test_torch_*.py`")
 
 
 def pytest_collection_modifyitems(config, items):
