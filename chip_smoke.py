@@ -9,18 +9,29 @@ then, printing one JSON object per line:
 
 1. ``env``: torch/CUDA versions and the card's name and power limit;
 2. ``build``: seconds for the nvcc build and the compiler's register report;
-3. one ``kernel`` line per kernel (A, B, fused) and geometry: the serving
-   shape (16, 32, 32, 3) -> (4096, 32) and two odd geometries. Each kernel is
-   held against its plain PyTorch version on the same card tensors (u at
-   atol 3e-6, theta at rtol 1e-5, draws by the word-boundary rule, fused at a
-   pinned theta == A -> B bit for bit) and timed (device time, median of 30)
-   beside its plain version, its bound and, for A, a cuDNN conv yardstick;
+3. one ``kernel`` line per kernel and geometry: the serving shape
+   (16, 32, 32, 3) -> (4096, 32) and two odd geometries. Each of the seven
+   kernels (f32 A, B, f32 fused, int8 A, int8 fused, explicit-patch A,
+   legacy fused) is held against its plain PyTorch version on the same card
+   tensors (u at atol 3e-6, theta at rtol 1e-5, draws by the word-boundary
+   rule) and against its siblings bit for bit (fused at a pinned theta ==
+   A -> B at both precisions; on power-of-two grid inputs int8 == f32;
+   explicit A == implicit A; legacy at A's theta == pinned fused), and timed
+   (device time, median of 30) beside its plain version, its bound and, where
+   one PyTorch call computes the same function, that call;
 4. ``engine``: full-width vgg16 at CIFAR-10 geometry, seeded random weights:
-   ``classify`` on 16 frames and ``stream`` of 4 batches of 16, with every
-   kernel's launch count read from that run alone; the classify result is
-   held against the same engine on the CPU;
+   ``classify`` on 16 frames and ``stream`` of 4 batches of 16 on the f32
+   path, with every kernel's launch count read from that run alone; the
+   classify result is held against the same engine on the CPU;
 5. ``profile``: device time of a classify step by kernel family;
-6. the card's ``nvidia-smi`` line, the ``kernels`` summary line, and last the
+6. ``baseline``: the double-conv baseline at the serving shape (explicit
+   kernel A over an im2col matrix for theta, then ``ops.p2m_conv``), held
+   against the exact f32 path bit for bit, with its own launch counts;
+7. ``engine_int8``: the same vgg16 engine with a port tile table that picks
+   int8 at (4096, 27, 32), with its own launch counts and CPU comparison;
+8. ``autotune``: the port's search at the serving shape (data, no check);
+9. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+   kernel's launches from its own path's run), and last the
    ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises, so the exit code is non-zero.
@@ -39,6 +50,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12          # non-tensor-core float32 (the kernels use FFMA)
+INT8_OPS = 1979e12          # dense int8 tensor-core peak (the int8 MACs)
 # rough per-element operation counts of the elementwise stages, used only
 # for the operation side of the bound (the byte side dominates)
 EPILOGUE_A_OPS = 12         # two curves, subtract, z, clip, two partial sums
@@ -55,8 +67,23 @@ REPLACES = {
     "p2m_phase_b": "src/repro/kernels/p2m_conv.py:417 (p2m_phase_b_pallas)",
     "p2m_fused_stream":
         "src/repro/kernels/p2m_conv.py:531 (p2m_fused_stream_pallas)",
+    "p2m_phase_a_implicit_q8":
+        "src/repro/kernels/p2m_conv.py:718 (p2m_phase_a_implicit_q8_pallas)",
+    "p2m_fused_stream_q8":
+        "src/repro/kernels/p2m_conv.py:816 (p2m_fused_stream_q8_pallas)",
+    "p2m_phase_a": "src/repro/kernels/p2m_conv.py:138 (p2m_phase_a_pallas)",
+    "p2m_conv": "src/repro/kernels/p2m_conv.py:963 (p2m_conv_pallas)",
 }
 SOURCE = "src/repro_torch/csrc/p2m_kernels.cu"
+# the kernels each main path launches; every other wrapper must launch 0
+# times on that path
+PATH_KERNELS = {
+    "engine": ("p2m_phase_a_implicit", "p2m_phase_b", "p2m_fused_stream"),
+    "engine_int8": ("p2m_phase_a_implicit_q8", "p2m_phase_b",
+                    "p2m_fused_stream_q8"),
+    "baseline": ("p2m_phase_a", "p2m_conv"),
+}
+SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
 
 
 def emit(kind: str, **fields) -> None:
@@ -103,10 +130,25 @@ def device_ms(fn, device) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
+def bound(bytes_moved: float, ops: float, int8_ops: float = 0.0) -> tuple:
+    """Least time in ms: bytes over the memory rate against the float32
+    operations over the FFMA peak plus the int8 MACs over the int8 peak."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
+    t_ops = (ops / FP32_FLOPS + int8_ops / INT8_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_path_counts(counts: dict, path: str) -> None:
+    """The kernels of ``path`` launched, and no other wrapper did."""
+    for name, cnt in counts.items():
+        if name in PATH_KERNELS[path]:
+            check(cnt >= 1, f"{name} was not launched on the {path} path")
+        else:
+            check(cnt == 0, f"{name} launched {cnt} times on the {path} path")
+
+
+def max_abs(a, b) -> float:
+    return float((a - b).abs().max())
 
 
 def assert_draws(acts, q, bits, max_frac: float = 1e-3) -> int:
@@ -125,14 +167,25 @@ def assert_draws(acts, q, bits, max_frac: float = 1e-3) -> int:
     return n
 
 
+def grid_inputs(gen, k: int, c: int, b: int, h: int, w: int):
+    """Power-of-two grid operands: integer * 2^-9 weights with +-127 pinned
+    in every channel (every packed int8 scale is exactly 2^-9) and frames on
+    the 1/128 grid, so both MACs are exact at either precision."""
+    import torch
+    w_int = torch.randint(-126, 127, (k, k, 3, c), generator=gen)
+    w_int[0, 0, 0, :], w_int[0, 0, 1, :] = 127, -127
+    frames = torch.randint(0, 128, (b, h, w, 3), generator=gen) / 128.0
+    return w_int.to(torch.float32) * 2.0 ** -9, frames.to(torch.float32)
+
+
 def kernel_phase(geom: dict, device):
-    """Hold the three kernels against their plain versions at one geometry
-    and time them; returns one summary row per kernel."""
+    """Hold the seven kernels against their plain versions and each other at
+    one geometry and time them; returns one summary row per kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch import prng
     from repro_torch.core import p2m
-    from repro_torch.kernels import blocking
+    from repro_torch.kernels import blocking, ops
     from repro_torch.kernels import p2m_conv as pk
 
     gen = torch.Generator().manual_seed(7)
@@ -148,21 +201,24 @@ def kernel_phase(geom: dict, device):
     n, kk = b * ho * wo, k * k * 3
     tag = f"{b}x{h}x{w}x3 k{k} s{s} -> ({n}, {c})"
     kw = dict(kernel=k, stride=s)
+    bits = pk.draw_bits(key, n, c, device=device)
+
+    def theta_rel(hp, hp_p):
+        t, t_p = (pk.combine_hoyer_partials(x, v_th) for x in (hp, hp_p))
+        return abs(float(t) - float(t_p)) / abs(float(t_p))
 
     # kernel A
     u, hp = pk.p2m_phase_a_implicit(images, wm, v_th, **kw)
     u_p, hp_p = pk.p2m_phase_a_implicit_plain(images, wm, v_th, **kw)
-    err_u = float((u - u_p).abs().max())
+    err_u = max_abs(u, u_p)
     theta = pk.combine_hoyer_partials(hp, v_th)
-    theta_p = pk.combine_hoyer_partials(hp_p, v_th)
     check(err_u <= 3e-6, f"kernel A u error {err_u} > 3e-6 at {tag}")
-    rel_theta = abs(float(theta) - float(theta_p)) / abs(float(theta_p))
+    rel_theta = theta_rel(hp, hp_p)
     check(rel_theta <= 1e-5, f"kernel A theta rel error {rel_theta} at {tag}")
 
     # kernel B on A's u and theta
     acts, vp = pk.p2m_phase_b(u, theta, key)
     q, v = pk.device_chain_q(u, theta, None)
-    bits = pk.draw_bits(key, n, c, device=device)
     acts_p, vp_p = pk.p2m_phase_b_plain(u, theta, key)
     flips_b = assert_draws(acts, q, bits)
     v_k = pk.combine_v_conv_partials(vp, n, c)
@@ -181,7 +237,72 @@ def kernel_phase(geom: dict, device):
     acts_fp = pk.p2m_fused_stream_plain(images, wm, v_th, theta, key, **kw)[0]
     flips_f = assert_draws(acts_f, pk.device_chain_q(u_p, theta, None)[0],
                            bits)
-    err_acts_fp = float((acts_f - acts_fp).abs().max())
+
+    # int8 kernel A, on uniform and on 1/256-grid frames (x * 128 lands on
+    # .5 there: the kernel must round half to even, as the plain version)
+    w8, dq = ops.quantize_frontend_weights(wm)
+    u8, hp8 = pk.p2m_phase_a_implicit_q8(images, w8, dq, v_th, **kw)
+    u8_p, hp8_p = pk.p2m_phase_a_implicit_q8_plain(images, w8, dq, v_th, **kw)
+    err_u8 = max_abs(u8, u8_p)
+    rel_theta8 = theta_rel(hp8, hp8_p)
+    check(err_u8 <= 3e-6, f"int8 kernel A u error {err_u8} > 3e-6 at {tag}")
+    check(rel_theta8 <= 1e-5, f"int8 kernel A theta rel error {rel_theta8}")
+    img256 = (torch.randint(0, 257, (b, h, w, 3), generator=gen)
+              / 256.0).to(torch.float32).to(device)
+    ug, hg = pk.p2m_phase_a_implicit_q8(img256, w8, dq, v_th, **kw)
+    ug_p, hg_p = pk.p2m_phase_a_implicit_q8_plain(img256, w8, dq, v_th, **kw)
+    err_u8_grid = max_abs(ug, ug_p)
+    rel_theta8_grid = theta_rel(hg, hg_p)
+    check(err_u8_grid <= 3e-6 and rel_theta8_grid <= 1e-5,
+          f"int8 kernel A on 1/256-grid frames: u {err_u8_grid}, theta "
+          f"{rel_theta8_grid} at {tag}")
+    theta8 = pk.combine_hoyer_partials(hp8, v_th)
+
+    # int8 fused at the int8 theta: int8 A -> B bit for bit
+    acts8, _ = pk.p2m_phase_b(u8, theta8, key)
+    acts8_f, hf8, _, rf8 = pk.p2m_fused_stream_q8(images, w8, dq, v_th,
+                                                  theta8, key, **kw)
+    check(torch.equal(acts8_f, acts8),
+          f"pinned-theta int8 fused != int8 A -> B at {tag}")
+    check(torch.equal(pk.combine_hoyer_partials(hf8, v_th), theta8),
+          f"int8 fused fresh theta != int8 A's at {tag}")
+    check(torch.equal(rf8.sum(0), acts8_f.sum(0)),
+          f"int8 fused rates wrong at {tag}")
+    acts8_fp = pk.p2m_fused_stream_q8_plain(images, w8, dq, v_th, theta8, key,
+                                            **kw)[0]
+    flips_f8 = assert_draws(acts8_f, pk.device_chain_q(u8_p, theta8,
+                                                       None)[0], bits)
+
+    # power-of-two grid: int8 == f32, u and fused draws bit for bit
+    wg, img_g = grid_inputs(gen, k, c, b, h, w)
+    wmg = pk.pack_phase_weights(wg.reshape(kk, c)).to(device).contiguous()
+    img_g = img_g.to(device)
+    w8g, dqg = ops.quantize_frontend_weights(wmg)
+    u32g = pk.p2m_phase_a_implicit(img_g, wmg, v_th, **kw)[0]
+    u8g = pk.p2m_phase_a_implicit_q8(img_g, w8g, dqg, v_th, **kw)[0]
+    check(torch.equal(u8g, u32g), f"grid inputs: int8 u != f32 u at {tag}")
+    th7 = torch.tensor(0.7, device=device)
+    check(torch.equal(
+        pk.p2m_fused_stream_q8(img_g, w8g, dqg, v_th, th7, key, **kw)[0],
+        pk.p2m_fused_stream(img_g, wmg, v_th, th7, key, **kw)[0]),
+        f"grid inputs: int8 fused draws != f32 fused draws at {tag}")
+
+    # explicit kernel A == implicit kernel A; legacy at A's theta == fused
+    patches = ops.im2col(images, k, s).contiguous()
+    ue, he = pk.p2m_phase_a(patches, wm, v_th)
+    check(torch.equal(ue, u) and torch.equal(he, hp),
+          f"explicit kernel A != implicit kernel A at {tag}")
+    ue_p, he_p = pk.p2m_phase_a_plain(patches, wm, v_th)
+    err_ue = max_abs(ue, ue_p)
+    rel_theta_e = theta_rel(he, he_p)
+    check(err_ue <= 3e-6 and rel_theta_e <= 1e-5,
+          f"explicit kernel A: u {err_ue}, theta {rel_theta_e} at {tag}")
+    acts_l = pk.p2m_conv(patches, wm, theta, key)
+    check(torch.equal(acts_l, acts_f),
+          f"legacy kernel at A's theta != pinned-theta fused at {tag}")
+    acts_lp = pk.p2m_conv_plain(patches, wm, theta, key)
+    flips_l = assert_draws(acts_l, pk.device_chain_q(ue_p, theta, None)[0],
+                           bits)
 
     checks = {
         "p2m_phase_a_implicit": dict(max_abs_err_u=err_u,
@@ -190,20 +311,41 @@ def kernel_phase(geom: dict, device):
                             v_conv={k_: float(v_) for k_, v_ in v_k.items()}),
         "p2m_fused_stream": dict(draw_mismatches_vs_plain=flips_f,
                                  pinned_theta_equals_two_kernel=True),
+        "p2m_phase_a_implicit_q8": dict(
+            max_abs_err_u=err_u8, theta_rel_err=rel_theta8,
+            grid256_max_abs_err_u=err_u8_grid,
+            grid256_theta_rel_err=rel_theta8_grid,
+            pow2_grid_u_equals_f32=True),
+        "p2m_fused_stream_q8": dict(draw_mismatches_vs_plain=flips_f8,
+                                    pinned_theta_equals_two_kernel=True,
+                                    pow2_grid_draws_equal_f32=True),
+        "p2m_phase_a": dict(max_abs_err_u=err_ue, theta_rel_err=rel_theta_e,
+                            equals_implicit_a=True),
+        "p2m_conv": dict(draw_mismatches_vs_plain=flips_l,
+                         equals_pinned_theta_fused=True),
     }
 
     # device times and bounds (each input read once, each output written
-    # once; operations: the MAC FMAs plus the per-element estimates above)
+    # once; operations: the MACs plus the per-element estimates above)
     f32 = 4
     img_bytes, w_bytes = images.numel() * f32, wm.numel() * f32
-    g_a, g_b = hp.shape[0], vp.shape[0]
-    a_bytes = img_bytes + w_bytes + f32 + n * c * f32 + g_a * 2 * f32
-    a_ops = 2 * n * kk * 2 * c + EPILOGUE_A_OPS * n * c
-    b_bytes = n * c * f32 * 2 + 4 * c * f32 + f32 + g_b * 3 * f32
-    b_ops = DEVICE_CHAIN_OPS * n * c
-    fu_bytes = (img_bytes + w_bytes + 4 * c * f32 + 2 * f32 + n * c * f32
-                + g_a * (2 + 3 + c) * f32)
-    fu_ops = a_ops + b_ops
+    w8_bytes = w8.numel() + dq.numel() * f32
+    chan_bytes = 4 * c * f32
+    g = hp.shape[0]
+    out_bytes = n * c * f32
+    macs = 2 * n * kk * 2 * c                       # multiply + add, 2C cols
+    epi_a, chain = EPILOGUE_A_OPS * n * c, DEVICE_CHAIN_OPS * n * c
+    a_bytes = img_bytes + w_bytes + f32 + out_bytes + g * 2 * f32
+    b_bytes = out_bytes * 2 + chan_bytes + f32 + vp.shape[0] * 3 * f32
+    fu_stats = g * (2 + 3 + c) * f32
+    fu_bytes = (img_bytes + w_bytes + chan_bytes + 2 * f32 + out_bytes
+                + fu_stats)
+    a8_bytes = img_bytes + w8_bytes + f32 + out_bytes + g * 2 * f32
+    fu8_bytes = (img_bytes + w8_bytes + chan_bytes + 2 * f32 + out_bytes
+                 + fu_stats)
+    patch_bytes = patches.numel() * f32
+    ae_bytes = patch_bytes + w_bytes + f32 + out_bytes + g * 2 * f32
+    l_bytes = patch_bytes + w_bytes + chan_bytes + f32 + out_bytes
 
     (pt, pb), (pl, pr) = blocking.same_pads(h, w, k, s)
     img_nchw = F.pad(images.permute(0, 3, 1, 2), (pl, pr, pt, pb)).contiguous()
@@ -215,80 +357,104 @@ def kernel_phase(geom: dict, device):
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             F.conv2d(img_nchw, w_oihw, stride=s)
 
+    # the yardstick for int8 A: torch._int_mm of the quantized patch matrix
+    # with K zero-padded to a multiple of 32, as it requires
+    kpad = -(-kk // 32) * 32
+    xq_pad = torch.zeros((n, kpad), dtype=torch.int8, device=device)
+    xq_pad[:, :kk] = p2m.quantize_acts_q8(patches)
+    w8_pad = torch.zeros((kpad, 2 * c), dtype=torch.int8, device=device)
+    w8_pad[:kk] = w8
+
+    def int_mm_library():
+        torch._int_mm(xq_pad, w8_pad)
+
+    def matmul_library():
+        # the yardstick for explicit A: the patch matmul alone, TF32 off
+        torch.matmul(patches, wm)
+
     rows = []
-    for name, fn, plain, lib, nbytes, ops, err in (
+    for name, fn, plain, lib, nbytes, ops_f32, ops_i8, err in (
             ("p2m_phase_a_implicit",
              lambda: pk.p2m_phase_a_implicit(images, wm, v_th, **kw),
              lambda: pk.p2m_phase_a_implicit_plain(images, wm, v_th, **kw),
-             conv_library, a_bytes, a_ops, err_u),
+             conv_library, a_bytes, macs + epi_a, 0, err_u),
             ("p2m_phase_b", lambda: pk.p2m_phase_b(u, theta, key),
              lambda: pk.p2m_phase_b_plain(u, theta, key), None, b_bytes,
-             b_ops, float((acts - acts_p).abs().max())),
+             chain, 0, max_abs(acts, acts_p)),
             ("p2m_fused_stream",
              lambda: pk.p2m_fused_stream(images, wm, v_th, theta, key, **kw),
              lambda: pk.p2m_fused_stream_plain(images, wm, v_th, theta, key,
                                                **kw),
-             None, fu_bytes, fu_ops, err_acts_fp)):
-        t_bound, by = bound(nbytes, ops)
+             None, fu_bytes, macs + epi_a + chain, 0, max_abs(acts_f,
+                                                              acts_fp)),
+            ("p2m_phase_a_implicit_q8",
+             lambda: pk.p2m_phase_a_implicit_q8(images, w8, dq, v_th, **kw),
+             lambda: pk.p2m_phase_a_implicit_q8_plain(images, w8, dq, v_th,
+                                                      **kw),
+             int_mm_library, a8_bytes, epi_a, macs, err_u8),
+            ("p2m_fused_stream_q8",
+             lambda: pk.p2m_fused_stream_q8(images, w8, dq, v_th, theta8, key,
+                                            **kw),
+             lambda: pk.p2m_fused_stream_q8_plain(images, w8, dq, v_th,
+                                                  theta8, key, **kw),
+             None, fu8_bytes, epi_a + chain, macs, max_abs(acts8_f,
+                                                           acts8_fp)),
+            ("p2m_phase_a", lambda: pk.p2m_phase_a(patches, wm, v_th),
+             lambda: pk.p2m_phase_a_plain(patches, wm, v_th),
+             matmul_library, ae_bytes, macs + epi_a, 0, err_ue),
+            ("p2m_conv", lambda: pk.p2m_conv(patches, wm, theta, key),
+             lambda: pk.p2m_conv_plain(patches, wm, theta, key), None,
+             l_bytes, macs + chain, 0, max_abs(acts_l, acts_lp))):
+        t_bound, by = bound(nbytes, ops_f32, ops_i8)
+        lib_ms, lib_error = None, None
+        if lib is not None:
+            try:
+                lib_ms = device_ms(lib, device)
+            except RuntimeError as exc:      # a yardstick only, never a check
+                lib_error = str(exc).splitlines()[0]
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name], "launches": 0,
                "max_abs_err": err, "ms": device_ms(fn, device),
                "plain_ms": device_ms(plain, device),
-               "bound_ms": t_bound, "bound_by": by,
-               "library_ms": (device_ms(lib, device) if lib is not None
-                              else None)}
+               "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms}
         rows.append(row)
         emit("kernel", geometry=tag, **{k_: v_ for k_, v_ in row.items()
                                          if k_ != "launches"},
-             bound_us=t_bound * 1e3, bytes=nbytes, ops=ops, **checks[name])
+             bound_us=t_bound * 1e3, bytes=nbytes, fp32_ops=ops_f32,
+             int8_ops=ops_i8, library_error=lib_error, **checks[name])
     return rows
 
 
-def engine_phase(device):
-    """Full-width vgg16 through classify and stream; returns launch counts."""
+def compare_with_cpu(cfg, params, frames0, out, device, precision: str):
+    """The same engine on the CPU: frontend draws by the word-boundary rule,
+    probs where every frontend activation agrees. Returns the comparison."""
     import torch
     from repro_torch import prng
     from repro_torch.core import p2m
     from repro_torch.frontend import SensorFrontend
+    from repro_torch.kernels import ops
     from repro_torch.kernels import p2m_conv as pk
     from repro_torch.models import params as mparams
-    from repro_torch.models import vision
     from repro_torch.serving import VisionEngine
 
-    cfg = vision.VisionConfig()          # vgg16, CIFAR-10 geometry
-    params = vision.init_params(0, cfg, device=device)
-    gen = torch.Generator().manual_seed(11)
-    frames = [torch.rand((16, 32, 32, 3), generator=gen) for _ in range(5)]
-    engine = VisionEngine(cfg, params, seed=0, device=device, microbatch=16)
-
-    pk.reset_launch_counts()
-    out = engine.classify(frames[0])
-    stream_outs = list(engine.stream(frames[1:]))
-    counts = pk.launch_counts()
-    if device.type == "cuda":
-        for name, cnt in counts.items():
-            check(cnt >= 1, f"{name} was not launched on the main path")
-    for o in [out, *stream_outs]:
-        check(tuple(o["probs"].shape) == (16, 10), "probs shape")
-        check(bool(torch.isfinite(o["probs"]).all()), "non-finite probs")
-        check(abs(float(o["probs"].sum()) - 16.0) < 1e-3, "probs not normed")
-    check(engine.fused_step_count >= 1, "no fused stream step ran")
-
-    # the same engine on the CPU: frontend draws by the word-boundary rule,
-    # probs where every frontend activation agrees
     cpu = torch.device("cpu")
     params_cpu = mparams.to_device(params, cpu)
     engine_cpu = VisionEngine(cfg, params_cpu, seed=0, device=cpu)
-    out_cpu = engine_cpu.classify(frames[0])
+    out_cpu = engine_cpu.classify(frames0)
     key = prng.fold_in(prng.PRNGKey(0), 0)
     fe = SensorFrontend(cfg.frontend)
-    acts_dev, aux_dev = fe(params["p2m"], frames[0].to(device), key=key)
-    acts_cpu, aux_cpu = fe(params_cpu["p2m"], frames[0], key=key)
+    acts_dev, aux_dev = fe(params["p2m"], frames0.to(device), key=key)
+    acts_cpu, aux_cpu = fe(params_cpu["p2m"], frames0, key=key)
     wq = p2m.quantize_weights(params_cpu["p2m"]["w"], 4)
     wm = pk.pack_phase_weights(wq.reshape(27, 32))
-    u_cpu, _ = pk.p2m_phase_a_implicit_plain(frames[0], wm,
-                                             params_cpu["p2m"]["v_th"],
-                                             kernel=3, stride=2)
+    v_th = params_cpu["p2m"]["v_th"]
+    if precision == "int8":
+        w8, dq = ops.quantize_frontend_weights(wm)
+        u_cpu, _ = pk.p2m_phase_a_implicit_q8_plain(frames0, w8, dq, v_th,
+                                                    kernel=3, stride=2)
+    else:
+        u_cpu, _ = pk.p2m_phase_a_implicit_plain(frames0, wm, v_th,
+                                                 kernel=3, stride=2)
     q_cpu = pk.device_chain_q(u_cpu, aux_cpu["theta"], None)[0]
     bits = pk.draw_bits(key, u_cpu.shape[0], 32)
     flips = assert_draws(acts_dev.cpu().reshape(-1, 32), q_cpu, bits)
@@ -298,8 +464,47 @@ def engine_phase(device):
     check(probs_err is None or probs_err <= 1e-3,
           f"classify probs differ from the CPU engine by {probs_err}")
     check(int(same.sum()) >= 12, "frontend activations differ on most frames")
+    return dict(frontend_draw_mismatches=flips,
+                frames_with_equal_frontend=int(same.sum()),
+                max_probs_err_on_those=probs_err,
+                labels_equal=int((out["labels"].cpu()
+                                  == out_cpu["labels"]).sum()),
+                theta_dev=float(aux_dev["theta"]),
+                theta_cpu=float(aux_cpu["theta"]))
 
-    emit("engine", model="vgg16", batch=16, launches=counts,
+
+def engine_run(device, path: str, **engine_kw):
+    """Full-width vgg16 through classify and a 4-batch stream, the launch
+    counts read from that run alone; then the CPU comparison and the
+    steady-state walls. Emits one ``path`` line and one ``<path>_steady``
+    line; returns (counts, engine, frames)."""
+    import torch
+    from repro_torch.kernels import p2m_conv as pk
+    from repro_torch.models import vision
+    from repro_torch.serving import VisionEngine
+
+    cfg = vision.VisionConfig()          # vgg16, CIFAR-10 geometry
+    params = vision.init_params(0, cfg, device=device)
+    gen = torch.Generator().manual_seed(11)
+    frames = [torch.rand((16, 32, 32, 3), generator=gen) for _ in range(5)]
+    engine = VisionEngine(cfg, params, seed=0, device=device, microbatch=16,
+                          **engine_kw)
+
+    pk.reset_launch_counts()
+    out = engine.classify(frames[0])
+    stream_outs = list(engine.stream(frames[1:]))
+    counts = pk.launch_counts()
+    if device.type == "cuda":
+        check_path_counts(counts, path)
+    for o in [out, *stream_outs]:
+        check(tuple(o["probs"].shape) == (16, 10), "probs shape")
+        check(bool(torch.isfinite(o["probs"]).all()), "non-finite probs")
+        check(abs(float(o["probs"].sum()) - 16.0) < 1e-3, "probs not normed")
+    check(engine.fused_step_count >= 1, "no fused stream step ran")
+    precision = "int8" if path == "engine_int8" else "f32"
+    vs_cpu = compare_with_cpu(cfg, params, frames[0], out, device, precision)
+
+    emit(path, model="vgg16", batch=16, precision=precision, launches=counts,
          classify_wall_ms=out["wall_ms"],
          classify_throughput_fps=out["throughput_fps"],
          stream_wall_ms=[o["wall_ms"] for o in stream_outs],
@@ -307,27 +512,100 @@ def engine_phase(device):
          fused_step_count=engine.fused_step_count,
          fused_fallback_count=engine.fused_fallback_count,
          theta=float(out["theta"]), p2m_sparsity=float(out["p2m_sparsity"]),
-         vs_cpu=dict(frontend_draw_mismatches=flips,
-                     frames_with_equal_frontend=int(same.sum()),
-                     max_probs_err_on_those=probs_err,
-                     labels_equal=int((out["labels"].cpu()
-                                       == out_cpu["labels"]).sum()),
-                     theta_dev=float(aux_dev["theta"]),
-                     theta_cpu=float(aux_cpu["theta"])))
+         vs_cpu=vs_cpu)
 
     # steady-state walls after the counted run (the first steps above
     # include cuDNN's first-use set-up)
     walls = [engine.classify(frames[0])["wall_ms"] for _ in range(20)]
     engine_s = VisionEngine(cfg, params, seed=0, device=device, microbatch=16,
-                            fused_theta_tol=1e9)
+                            fused_theta_tol=1e9, **engine_kw)
     steps = list(engine_s.stream([frames[1]] * 21))[1:]
-    emit("engine_steady", model="vgg16", batch=16,
+    emit(f"{path}_steady", model="vgg16", batch=16, precision=precision,
          classify_wall_ms_median=statistics.median(walls),
          classify_fps_median=16 / (statistics.median(walls) / 1e3),
          fused_step_wall_ms_median=statistics.median(
              o["wall_ms"] for o in steps),
          fused_steps=engine_s.fused_step_count)
     return counts, engine, frames
+
+
+def engine_int8_phase(device):
+    """The int8 serving path: a port tile table written with int8 at the
+    serving key, loaded by ``VisionEngine(tile_table=...)``."""
+    from repro_torch.kernels import autotune
+    table = os.path.join(ROOT, "build", "repro_torch", "smoke_tiles_int8.json")
+    os.makedirs(os.path.dirname(table), exist_ok=True)
+    autotune.clear()
+    autotune.put(*SERVING_KEY, autotune.TileChoice(fused=True,
+                                                   precision="int8"))
+    autotune.save_table(table)
+    autotune.clear()
+    counts, _, _ = engine_run(device, "engine_int8", tile_table=table)
+    check(autotune.lookup(*SERVING_KEY).precision == "int8",
+          "the int8 table was not in force")
+    return counts
+
+
+def baseline_phase(device):
+    """The double-conv baseline at the serving shape: explicit kernel A over
+    a materialised im2col matrix for theta, then the legacy kernel through
+    ``ops.p2m_conv``. Held against the exact f32 path, which it must equal
+    bit for bit; returns its launch counts."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import p2m
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import p2m_conv as pk
+    from repro_torch.models import vision
+
+    cfg = vision.VisionConfig()
+    params = vision.init_params(0, cfg, device=device)["p2m"]
+    frames = torch.rand((16, 32, 32, 3), generator=torch.Generator()
+                        .manual_seed(13)).to(device)
+    key = prng.fold_in(prng.PRNGKey(0), 1)
+    wq = p2m.quantize_weights(params["w"], 4)
+    wm = pk.pack_phase_weights(wq.reshape(27, 32)).contiguous()
+    v_th = params["v_th"]
+
+    def step():
+        patches = ops.im2col(frames, 3, 2).contiguous()
+        _, hp = pk.p2m_phase_a(patches, wm, v_th)
+        theta = pk.combine_hoyer_partials(hp, v_th)
+        return ops.p2m_conv(frames, wq, theta, key), theta
+
+    pk.reset_launch_counts()
+    acts, theta = step()
+    counts = pk.launch_counts()
+    check_path_counts(counts, "baseline")
+    acts_x, aux_x = ops.p2m_frontend(frames, wq, v_th, key, precision="f32")
+    check(torch.equal(theta, aux_x["theta"]), "baseline theta != exact theta")
+    check(torch.equal(acts, acts_x), "baseline draws != exact path draws")
+    emit("baseline", shape=list(SERVING_KEY), launches=counts,
+         equals_exact_path=True,
+         step_device_ms=device_ms(step, device),
+         exact_path_device_ms=device_ms(
+             lambda: ops.p2m_frontend(frames, wq, v_th, key,
+                                      precision="f32"), device))
+    return counts
+
+
+def autotune_phase(device, smi: str):
+    """The port's search at the serving shape: data, not a check."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import p2m
+    from repro_torch.kernels import autotune
+    from repro_torch.models import vision
+
+    cfg = vision.VisionConfig()
+    params = vision.init_params(0, cfg, device=device)["p2m"]
+    frames = torch.rand((16, 32, 32, 3), generator=torch.Generator()
+                        .manual_seed(17)).to(device)
+    wq = p2m.quantize_weights(params["w"], 4)
+    choice, report = autotune.autotune_frontend(
+        frames, wq, params["v_th"], prng.PRNGKey(2), repeats=30, store=False)
+    emit("autotune", shape=list(SERVING_KEY), choice=choice.to_json(),
+         report_ms=report, nvidia_smi=smi)
 
 
 def profile_phase(engine, frames, device):
@@ -345,7 +623,8 @@ def profile_phase(engine, frames, device):
                 continue
             name = evt.key
             if any(k in name for k in ("phase_a_kernel", "phase_b_kernel",
-                                       "fused_stream_kernel")):
+                                       "fused_stream_kernel",
+                                       "legacy_conv_kernel")):
                 fam["frontend_kernels"] += us
             elif any(k in name.lower() for k in ("conv", "xmma", "gemm",
                                                  "implicit", "cudnn")):
@@ -373,9 +652,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import cuda_lib
-    from repro_torch.kernels import p2m_conv as pk
 
     device = torch.device("cuda")
+    # the library yardsticks and the plain versions' matmuls in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi_line()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], nvidia_smi=smi,
@@ -392,10 +672,18 @@ def main() -> int:
     rows = kernel_phase(SERVING, device)
     for geom in ODD_GEOMETRIES:
         kernel_phase(geom, device)
-    counts, engine, frames = engine_phase(device)
+    # the f32 path: the table holds no entry yet, so the frontend runs f32
+    counts, engine, frames = engine_run(device, "engine")
     profile_phase(engine, frames, device)
+    counts_base = baseline_phase(device)
+    counts_int8 = engine_int8_phase(device)
+    autotune_phase(device, smi)
+    own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
+                **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},
+                **{n_: counts_int8 for n_ in PATH_KERNELS["engine_int8"]
+                   if n_ != "p2m_phase_b"}}
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["launches"] = own_path[row["name"]][row["name"]]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

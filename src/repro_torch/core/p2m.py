@@ -1,12 +1,14 @@
 """P2M first-layer physics: configuration, weight init and quantization.
 
 Port of the serving subset of ``repro.core.p2m``: ``P2MConfig``,
-``init_params``, the 4-bit symmetric fake-quant and the relu-split phase
-packing ``[w+, w-]`` that kernel A and the fused kernel consume.
+``init_params``, the 4-bit symmetric fake-quant, the relu-split phase
+packing ``[w+, w-]`` that kernel A and the fused kernel consume, and the
+int8 operand helpers of the quantized kernels.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -58,3 +60,46 @@ def relu_split_pack(w: torch.Tensor) -> torch.Tensor:
     """(..., C) signed weights -> (..., 2C): ``[max(w, 0), max(-w, 0)]``."""
     return torch.cat([torch.clamp(w, min=0.0), torch.clamp(-w, min=0.0)],
                      dim=-1)
+
+
+# --- int8 packed-operand quantization ----------------------------------------
+#
+# Weights: per-output-column symmetric int8 over the (K, 2C) relu-split
+# operand, so column j of the packed dot dequantizes by its own scale and the
+# two phases need no cross term. Activations: the fixed 1/128 grid over the
+# [0, 1] photocurrent range; a power-of-two step makes the combined dequant
+# factor scale/128 one exact float32 multiply. Products are < 2^14 and the
+# contraction depth k*k*C_in keeps partial sums < 2^24, so any accumulator
+# (int32 in the kernels, float64/float32 in the plain versions) is exact.
+# torch.round rounds half to even, as jnp.round does.
+
+ACT_SCALE_Q8 = 128.0   # activation quantization step = 1/128 (power of two)
+QMAX_INT8 = 127.0      # symmetric int8 range
+
+
+def quantize_packed_weights(wm: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, 2C) packed weights -> ``(wq int8, scale float32 (2C,))`` with
+    ``scale_j = max|wm[:, j]| / 127`` (guarded for all-zero columns)."""
+    scale = torch.clamp(torch.amax(torch.abs(wm), dim=0), min=1e-12) / QMAX_INT8
+    wq = torch.clamp(torch.round(wm / scale), -QMAX_INT8, QMAX_INT8)
+    return wq.to(torch.int8), scale.to(torch.float32)
+
+
+def dequantize_packed_weights(wq: torch.Tensor,
+                              scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_packed_weights`` (round-trip error <= scale/2)."""
+    return wq.to(torch.float32) * scale[None, :].to(torch.float32)
+
+
+def quantize_acts_q8(x: torch.Tensor) -> torch.Tensor:
+    """[0, 1] activations -> int8 on the 1/128 grid: ``round(x * 128)``
+    clipped to +-127."""
+    return torch.clamp(torch.round(x * ACT_SCALE_Q8),
+                       -QMAX_INT8, QMAX_INT8).to(torch.int8)
+
+
+def packed_dequant_row(scale: torch.Tensor) -> torch.Tensor:
+    """The (1, 2C) combined dequant factor ``weight_scale / 128`` of the
+    int8 packed dot (the division by a power of two is exact)."""
+    return (scale.to(torch.float32) / ACT_SCALE_Q8)[None, :]

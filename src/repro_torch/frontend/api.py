@@ -53,8 +53,11 @@ def list_backends() -> list:
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
     """Configuration of the sensor frontend. ``precision`` is the matmul
-    precision of the kernel path: ``None`` or ``"f32"`` in this port so far
-    (``"int8"`` raises ``NotImplementedError`` at call time)."""
+    precision of the kernel path: ``"f32"`` or ``"int8"`` pins it (int8
+    quantizes both packed-matmul operands and runs the int8 kernel A / fused
+    kernel; the device chain after the MAC is the same), ``None`` defers to
+    the per-shape table of ``repro_torch.kernels.autotune`` (f32 when the
+    shape is untuned)."""
     p2m: p2m.P2MConfig = p2m.P2MConfig()
     backend: str = "cuda"
     global_shutter: bool = True   # run burst_read + reset accounting

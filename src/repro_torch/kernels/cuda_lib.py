@@ -98,12 +98,18 @@ def load() -> ctypes.CDLL:
     lib.p2m_rows_per_block.argtypes = []
     lib.p2m_threads_per_block.argtypes = []
     lib.p2m_phase_a_implicit.argtypes = [p, p, p, p, p, geom, phys, p]
+    lib.p2m_phase_a_implicit_q8.argtypes = [p, p, p, p, p, p, geom, phys, p]
+    lib.p2m_phase_a.argtypes = [p, p, p, p, p, i32, i32, i32, phys, p]
     lib.p2m_phase_b.argtypes = [p, p, p, p, p, i32, i32, u32, u32, phys, p]
     lib.p2m_fused_stream.argtypes = [p, p, p, p, p, p, p, p, p, geom, u32,
                                      u32, phys, p]
+    lib.p2m_fused_stream_q8.argtypes = [p, p, p, p, p, p, p, p, p, p, geom,
+                                        u32, u32, phys, p]
+    lib.p2m_conv.argtypes = [p, p, p, p, p, i32, i32, i32, u32, u32, phys, p]
     for fn in (lib.p2m_rows_per_block, lib.p2m_threads_per_block,
-               lib.p2m_phase_a_implicit, lib.p2m_phase_b,
-               lib.p2m_fused_stream):
+               lib.p2m_phase_a_implicit, lib.p2m_phase_a_implicit_q8,
+               lib.p2m_phase_a, lib.p2m_phase_b, lib.p2m_fused_stream,
+               lib.p2m_fused_stream_q8, lib.p2m_conv):
         fn.restype = ctypes.c_int
     _LIB = lib
     return lib

@@ -1,25 +1,42 @@
-"""The P2M in-pixel layer's three CUDA kernels, each beside its plain version.
+"""The P2M in-pixel layer's CUDA kernels, each beside its plain version.
 
-Port of ``repro.kernels.p2m_conv``'s serving kernels (csrc/p2m_kernels.cu):
+Port of every P2M kernel of ``repro.kernels.p2m_conv`` (csrc/p2m_kernels.cu):
 
   kernel A (``p2m_phase_a_implicit``) — implicit im2col + the packed
       two-phase MAC: u = g(x·w⁺) - g(x·w⁻) and per-block Hoyer partials
       (sum |z_clip|, sum z_clip²) with z = u / v_th.
+  int8 kernel A (``p2m_phase_a_implicit_q8``) — the same with the patch
+      values quantized to the 1/128 grid as they enter shared memory, an
+      exact int32 MAC against the int8 packed weights and one dequant
+      multiply per column before the curve.
+  explicit kernel A (``p2m_phase_a``) — kernel A over the rows of a
+      materialised (N, K) patch matrix (the reference's regression surface).
   host-free combine (``combine_hoyer_partials``) — theta from the partials,
       by a deterministic ``torch.sum`` on the device.
   kernel B (``p2m_phase_b``) — u -> voltage -> switching probability ->
       folded majority -> Bernoulli draw, with the draw words hashed
       in-kernel from the key, plus per-block (sum, min, max) of V_CONV.
-  fused streaming kernel (``p2m_fused_stream``) — A and B in one pass at a
-      carried theta, plus fresh Hoyer partials, V partials and per-block
-      per-channel draw counts.
+  fused streaming kernel (``p2m_fused_stream``) and its int8 twin
+      (``p2m_fused_stream_q8``) — A and B in one pass at a carried theta,
+      plus fresh Hoyer partials, V partials and per-block per-channel draw
+      counts.
+  legacy fused kernel (``p2m_conv``) — explicit patch rows through the
+      device chain at a GIVEN theta (the pre-split baseline).
 
 Each wrapper runs its CUDA kernel for a CUDA tensor and its plain PyTorch
 version (``*_plain``) for a CPU tensor; any other device raises. There is no
 fallback: a CUDA tensor launches the kernel or raises. Each wrapper counts
 its launches in ``<wrapper>.launches``. Per-block partials are a layout
 choice of the kernels; the contract is what the ``combine_*`` functions
-return.
+return. The int8 fused kernel keeps the f32 fused kernel's three partial
+outputs (the reference packs them into one 128-lane stats row per block, a
+TPU layout choice), so ``combine_hoyer_partials`` /
+``combine_v_conv_partials`` and the rate-row sum serve both precisions and
+``combine_q8_stream_stats`` has no counterpart here.
+
+The plain versions are the port's counterparts of ``repro.kernels.ref``'s
+P2M oracles: the same function in plain tensor ops. Their int8 MAC
+accumulates in float64, which is exact for these operands as int32 is.
 """
 from __future__ import annotations
 
@@ -90,11 +107,17 @@ def _gather_patches(images: torch.Tensor, kernel: int, stride: int
     return torch.stack(taps, dim=3).reshape(b * ho * wo, kernel * kernel * cin)
 
 
+def _subtract(a: torch.Tensor, c_out: int,
+              pixel_params: pixel_model.PixelCircuitParams) -> torch.Tensor:
+    """Packed MAC (N, 2C) -> u: the per-phase curve, then the difference."""
+    g = pixel_model.get_curve(pixel_params.curve, pixel_params)
+    return g(a[:, :c_out]) - g(a[:, c_out:])
+
+
 def _phase_a_epilogue(a: torch.Tensor, v_th: torch.Tensor, c_out: int,
                       pixel_params: pixel_model.PixelCircuitParams):
     """Packed MAC (N, 2C) -> (u, (1, 2) Hoyer partials)."""
-    g = pixel_model.get_curve(pixel_params.curve, pixel_params)
-    u = g(a[:, :c_out]) - g(a[:, c_out:])
+    u = _subtract(a, c_out, pixel_params)
     zc = torch.clamp(u / torch.clamp(v_th.reshape(()), min=1e-6), 0.0, 1.0)
     partials = torch.stack([torch.sum(torch.abs(zc)),
                             torch.sum(torch.square(zc))]).reshape(1, 2)
@@ -107,6 +130,32 @@ def p2m_phase_a_implicit_plain(images, w_packed, v_th, *, kernel: int,
     """Kernel A's function in PyTorch ops: ``(u (N, C), partials (1, 2))``."""
     a = _gather_patches(images, kernel, stride) @ w_packed
     return _phase_a_epilogue(a, v_th, w_packed.shape[1] // 2, pixel_params)
+
+
+def _q8_mac(x: torch.Tensor, wq_packed: torch.Tensor,
+            dequant_row: torch.Tensor) -> torch.Tensor:
+    """The int8 packed MAC: quantize the rows, an exact integer-valued dot
+    (float64 here; int32 in the kernels), then the per-column dequant."""
+    xq = p2m_core.quantize_acts_q8(x)
+    acc = (xq.to(torch.float64) @ wq_packed.to(torch.float64)).to(torch.float32)
+    return acc * dequant_row.reshape(1, -1)
+
+
+def p2m_phase_a_implicit_q8_plain(images, wq_packed, dequant_row, v_th, *,
+                                  kernel: int, stride: int,
+                                  pixel_params=pixel_model.DEFAULT_PIXEL):
+    """int8 kernel A's function in PyTorch ops: ``(u (N, C), partials (1, 2))``."""
+    a = _q8_mac(_gather_patches(images, kernel, stride), wq_packed,
+                dequant_row)
+    return _phase_a_epilogue(a, v_th, wq_packed.shape[1] // 2, pixel_params)
+
+
+def p2m_phase_a_plain(patches, w_packed, v_th, *,
+                      pixel_params=pixel_model.DEFAULT_PIXEL):
+    """Explicit kernel A's function: ``(u (N, C), partials (1, 2))`` from an
+    (N, K) patch matrix."""
+    return _phase_a_epilogue(patches @ w_packed, v_th,
+                             w_packed.shape[1] // 2, pixel_params)
 
 
 def device_chain_q(u: torch.Tensor, theta: torch.Tensor,
@@ -142,6 +191,15 @@ def p2m_phase_b_plain(u, theta, key, *, chan=None,
     return mtj_model.bernoulli_from_bits(bits, q), _v_partials(v)
 
 
+def _stream_from_u(u, hoyer_partials, theta, key, chan, pixel_params,
+                   mtj_params):
+    acts, v_partials = p2m_phase_b_plain(
+        u, theta, key, chan=chan, pixel_params=pixel_params,
+        mtj_params=mtj_params)
+    return (acts, hoyer_partials, v_partials,
+            torch.sum(acts, dim=0, keepdim=True))
+
+
 def p2m_fused_stream_plain(images, w_packed, v_th, theta, key, chan=None, *,
                            kernel: int, stride: int,
                            pixel_params=pixel_model.DEFAULT_PIXEL,
@@ -151,11 +209,31 @@ def p2m_fused_stream_plain(images, w_packed, v_th, theta, key, chan=None, *,
     u, hoyer_partials = p2m_phase_a_implicit_plain(
         images, w_packed, v_th, kernel=kernel, stride=stride,
         pixel_params=pixel_params)
-    acts, v_partials = p2m_phase_b_plain(
-        u, theta, key, chan=chan, pixel_params=pixel_params,
-        mtj_params=mtj_params)
-    return (acts, hoyer_partials, v_partials,
-            torch.sum(acts, dim=0, keepdim=True))
+    return _stream_from_u(u, hoyer_partials, theta, key, chan, pixel_params,
+                          mtj_params)
+
+
+def p2m_fused_stream_q8_plain(images, wq_packed, dequant_row, v_th, theta,
+                              key, chan=None, *, kernel: int, stride: int,
+                              pixel_params=pixel_model.DEFAULT_PIXEL,
+                              mtj_params=mtj_model.DEFAULT_MTJ):
+    """The int8 fused kernel's function: the outputs of the f32 one."""
+    u, hoyer_partials = p2m_phase_a_implicit_q8_plain(
+        images, wq_packed, dequant_row, v_th, kernel=kernel, stride=stride,
+        pixel_params=pixel_params)
+    return _stream_from_u(u, hoyer_partials, theta, key, chan, pixel_params,
+                          mtj_params)
+
+
+def p2m_conv_plain(patches, w_packed, theta, key, *,
+                   pixel_params=pixel_model.DEFAULT_PIXEL,
+                   mtj_params=mtj_model.DEFAULT_MTJ):
+    """The legacy fused kernel's function: (N, C) draws of the explicit
+    patch rows at the given theta (identity channel rows)."""
+    u = _subtract(patches @ w_packed, w_packed.shape[1] // 2, pixel_params)
+    q, _ = device_chain_q(u, theta, None, pixel_params, mtj_params)
+    bits = draw_bits(key, u.shape[0], u.shape[1], device=u.device)
+    return mtj_model.bernoulli_from_bits(bits, q)
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +362,21 @@ def _key_words(key):
     return ctypes.c_uint32(int(k0)), ctypes.c_uint32(int(k1))
 
 
+def _phase_a_outputs(lib, n: int, c: int, device):
+    """Kernel A's outputs: u (N, C) and one Hoyer partial row per block."""
+    blocks = -(-n // lib.p2m_rows_per_block())
+    return (torch.empty((n, c), dtype=torch.float32, device=device),
+            torch.empty((blocks, 2), dtype=torch.float32, device=device))
+
+
+def _fused_outputs(lib, n: int, c: int, device):
+    """The fused kernels' outputs: acts (N, C) and, per block, the Hoyer
+    partials (2), the V partials (3) and the per-channel draw counts (C)."""
+    blocks = -(-n // lib.p2m_rows_per_block())
+    return tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                 for shape in ((n, c), (blocks, 2), (blocks, 3), (blocks, c)))
+
+
 def p2m_phase_a_implicit(images: torch.Tensor, w_packed: torch.Tensor,
                          v_th: torch.Tensor, *, kernel: int, stride: int,
                          pixel_params=pixel_model.DEFAULT_PIXEL):
@@ -298,11 +391,8 @@ def p2m_phase_a_implicit(images: torch.Tensor, w_packed: torch.Tensor,
     _check_f32(images=images, w_packed=w_packed, v_th=v_th)
     _check_scalar(v_th=v_th)
     lib = cuda_lib.load()
-    n = geom.batch * geom.ho * geom.wo
-    blocks = -(-n // lib.p2m_rows_per_block())
-    u = torch.empty((n, geom.c_out), dtype=torch.float32, device=images.device)
-    partials = torch.empty((blocks, 2), dtype=torch.float32,
-                           device=images.device)
+    u, partials = _phase_a_outputs(lib, geom.batch * geom.ho * geom.wo,
+                                   geom.c_out, images.device)
     _launch(lib.p2m_phase_a_implicit(
         images.data_ptr(), w_packed.data_ptr(), v_th.data_ptr(),
         u.data_ptr(), partials.data_ptr(), ctypes.byref(geom),
@@ -367,13 +457,9 @@ def p2m_fused_stream(images: torch.Tensor, w_packed: torch.Tensor,
                chan=chan)
     _check_scalar(v_th=v_th, theta=theta)
     lib = cuda_lib.load()
-    n, c = geom.batch * geom.ho * geom.wo, geom.c_out
-    blocks = -(-n // lib.p2m_rows_per_block())
     dev = images.device
-    acts = torch.empty((n, c), dtype=torch.float32, device=dev)
-    hoyer = torch.empty((blocks, 2), dtype=torch.float32, device=dev)
-    vpart = torch.empty((blocks, 3), dtype=torch.float32, device=dev)
-    rates = torch.empty((blocks, c), dtype=torch.float32, device=dev)
+    acts, hoyer, vpart, rates = _fused_outputs(
+        lib, geom.batch * geom.ho * geom.wo, geom.c_out, dev)
     k0, k1 = _key_words(key)
     _launch(lib.p2m_fused_stream(
         images.data_ptr(), w_packed.data_ptr(), v_th.data_ptr(),
@@ -385,7 +471,154 @@ def p2m_fused_stream(images: torch.Tensor, w_packed: torch.Tensor,
     return acts, hoyer, vpart, rates
 
 
-KERNEL_WRAPPERS = (p2m_phase_a_implicit, p2m_phase_b, p2m_fused_stream)
+def _check_int8(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name} must be int8, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_dequant(dequant_row: torch.Tensor, c2: int) -> None:
+    if dequant_row.numel() != c2:
+        raise ValueError(f"dequant_row must hold {c2} values, got "
+                         f"{tuple(dequant_row.shape)}")
+
+
+def _rows_shape(patches: torch.Tensor, w_packed: torch.Tensor):
+    """(N, K, C) of an explicit-patch call."""
+    if patches.ndim != 2:
+        raise ValueError(f"patches must be (N, K), got {tuple(patches.shape)}")
+    n, kk = patches.shape
+    if w_packed.ndim != 2 or w_packed.shape[0] != kk or w_packed.shape[1] % 2:
+        raise ValueError(f"w_packed must be ({kk}, 2C), got "
+                         f"{tuple(w_packed.shape)}")
+    return n, kk, w_packed.shape[1] // 2
+
+
+def p2m_phase_a_implicit_q8(images: torch.Tensor, wq_packed: torch.Tensor,
+                            dequant_row: torch.Tensor, v_th: torch.Tensor, *,
+                            kernel: int, stride: int,
+                            pixel_params=pixel_model.DEFAULT_PIXEL):
+    """int8 kernel A. images as kernel A's; wq_packed (k*k*Cin, 2C) int8 and
+    dequant_row (1, 2C) float32 from ``ops.quantize_frontend_weights``.
+    Returns ``(u (B*H'*W', C), hoyer_partials (G, 2))``: kernel B consumes
+    this u unchanged."""
+    geom = _conv_geom(images, wq_packed, kernel, stride)
+    _check_dequant(dequant_row, 2 * geom.c_out)
+    if _on_cpu(images, wq_packed, dequant_row, v_th):
+        return p2m_phase_a_implicit_q8_plain(
+            images, wq_packed, dequant_row, v_th, kernel=kernel,
+            stride=stride, pixel_params=pixel_params)
+    _check_f32(images=images, dequant_row=dequant_row, v_th=v_th)
+    _check_int8(wq_packed=wq_packed)
+    _check_scalar(v_th=v_th)
+    lib = cuda_lib.load()
+    u, partials = _phase_a_outputs(lib, geom.batch * geom.ho * geom.wo,
+                                   geom.c_out, images.device)
+    _launch(lib.p2m_phase_a_implicit_q8(
+        images.data_ptr(), wq_packed.data_ptr(), dequant_row.data_ptr(),
+        v_th.data_ptr(), u.data_ptr(), partials.data_ptr(),
+        ctypes.byref(geom),
+        ctypes.byref(physics_args(pixel_params, mtj_model.DEFAULT_MTJ)),
+        _stream(images.device)), "p2m_phase_a_implicit_q8")
+    p2m_phase_a_implicit_q8.launches += 1
+    return u, partials
+
+
+def p2m_fused_stream_q8(images: torch.Tensor, wq_packed: torch.Tensor,
+                        dequant_row: torch.Tensor, v_th: torch.Tensor,
+                        theta: torch.Tensor, key,
+                        chan: Optional[torch.Tensor] = None, *, kernel: int,
+                        stride: int, pixel_params=pixel_model.DEFAULT_PIXEL,
+                        mtj_params=mtj_model.DEFAULT_MTJ):
+    """The int8 fused streaming kernel: int8 kernel A's MAC, then B's chain
+    at the CARRIED theta. Same outputs as ``p2m_fused_stream``; with theta
+    pinned to the exact int8 path's theta the draws equal int8 A -> B's."""
+    geom = _conv_geom(images, wq_packed, kernel, stride)
+    _check_dequant(dequant_row, 2 * geom.c_out)
+    chan = _check_chan(chan, geom.c_out, images.device)
+    if _on_cpu(images, wq_packed, dequant_row, v_th, theta, chan):
+        return p2m_fused_stream_q8_plain(
+            images, wq_packed, dequant_row, v_th, theta, key, chan,
+            kernel=kernel, stride=stride, pixel_params=pixel_params,
+            mtj_params=mtj_params)
+    _check_f32(images=images, dequant_row=dequant_row, v_th=v_th,
+               theta=theta, chan=chan)
+    _check_int8(wq_packed=wq_packed)
+    _check_scalar(v_th=v_th, theta=theta)
+    lib = cuda_lib.load()
+    dev = images.device
+    acts, hoyer, vpart, rates = _fused_outputs(
+        lib, geom.batch * geom.ho * geom.wo, geom.c_out, dev)
+    k0, k1 = _key_words(key)
+    _launch(lib.p2m_fused_stream_q8(
+        images.data_ptr(), wq_packed.data_ptr(), dequant_row.data_ptr(),
+        v_th.data_ptr(), theta.data_ptr(), chan.data_ptr(), acts.data_ptr(),
+        hoyer.data_ptr(), vpart.data_ptr(), rates.data_ptr(),
+        ctypes.byref(geom), k0, k1,
+        ctypes.byref(physics_args(pixel_params, mtj_params)),
+        _stream(dev)), "p2m_fused_stream_q8")
+    p2m_fused_stream_q8.launches += 1
+    return acts, hoyer, vpart, rates
+
+
+def p2m_phase_a(patches: torch.Tensor, w_packed: torch.Tensor,
+                v_th: torch.Tensor, *,
+                pixel_params=pixel_model.DEFAULT_PIXEL):
+    """Explicit-patch kernel A: patches (N, K) float32 (``ops.im2col``),
+    w_packed (K, 2C). Returns ``(u (N, C), hoyer_partials (G, 2))``, equal
+    to kernel A's on the same rows (same MAC loop, same row blocks)."""
+    n, kk, c = _rows_shape(patches, w_packed)
+    if _on_cpu(patches, w_packed, v_th):
+        return p2m_phase_a_plain(patches, w_packed, v_th,
+                                 pixel_params=pixel_params)
+    _check_f32(patches=patches, w_packed=w_packed, v_th=v_th)
+    _check_scalar(v_th=v_th)
+    lib = cuda_lib.load()
+    u, partials = _phase_a_outputs(lib, n, c, patches.device)
+    _launch(lib.p2m_phase_a(
+        patches.data_ptr(), w_packed.data_ptr(), v_th.data_ptr(),
+        u.data_ptr(), partials.data_ptr(), n, kk, c,
+        ctypes.byref(physics_args(pixel_params, mtj_model.DEFAULT_MTJ)),
+        _stream(patches.device)), "p2m_phase_a")
+    p2m_phase_a.launches += 1
+    return u, partials
+
+
+def p2m_conv(patches: torch.Tensor, w_packed: torch.Tensor,
+             theta: torch.Tensor, key, *,
+             pixel_params=pixel_model.DEFAULT_PIXEL,
+             mtj_params=mtj_model.DEFAULT_MTJ) -> torch.Tensor:
+    """The legacy fused kernel: patches (N, K) float32, w_packed (K, 2C),
+    theta one float32 value on the device, key the host key of the draw
+    hash. Returns the (N, C) {0, 1} draws; at kernel A's theta they equal
+    the pinned-theta fused kernel's."""
+    n, kk, c = _rows_shape(patches, w_packed)
+    if _on_cpu(patches, w_packed, theta):
+        return p2m_conv_plain(patches, w_packed, theta, key,
+                              pixel_params=pixel_params,
+                              mtj_params=mtj_params)
+    _check_f32(patches=patches, w_packed=w_packed, theta=theta)
+    _check_scalar(theta=theta)
+    if n * c >= 2 ** 31:
+        raise ValueError(f"{n * c} elements exceed the kernel's int32 index")
+    lib = cuda_lib.load()
+    chan = _identity_chan(c, patches.device)
+    acts = torch.empty((n, c), dtype=torch.float32, device=patches.device)
+    k0, k1 = _key_words(key)
+    _launch(lib.p2m_conv(
+        patches.data_ptr(), w_packed.data_ptr(), theta.data_ptr(),
+        chan.data_ptr(), acts.data_ptr(), n, kk, c, k0, k1,
+        ctypes.byref(physics_args(pixel_params, mtj_params)),
+        _stream(patches.device)), "p2m_conv")
+    p2m_conv.launches += 1
+    return acts
+
+
+KERNEL_WRAPPERS = (p2m_phase_a_implicit, p2m_phase_b, p2m_fused_stream,
+                   p2m_phase_a_implicit_q8, p2m_fused_stream_q8, p2m_phase_a,
+                   p2m_conv)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 

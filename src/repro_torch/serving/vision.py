@@ -14,6 +14,12 @@ threshold; later microbatches run the single fused kernel at the carried
 EMA and fall back to the exact step whenever the fresh threshold drifts by
 more than ``fused_theta_tol`` (relative).
 
+``tile_table=`` merges a table written by
+``repro_torch.kernels.autotune.save_table`` into the process: the frontend's
+precision (f32 or int8) and, with ``fused_stream=None``, whether a stream
+step runs fused, then come from the entry of the executed microbatch's
+(N, K, C) shape.
+
 ``device=None`` means the GPU; without CUDA the engine raises rather than
 moving to the CPU on its own. ``device="cpu"`` runs the kernels' plain
 PyTorch versions. Timing is synchronous: the device is synchronized around
@@ -29,6 +35,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core import energy
 from repro_torch.frontend.api import get_backend
+from repro_torch.kernels import autotune, blocking
 from repro_torch.models import vision
 from repro_torch.models.params import to_device
 
@@ -52,20 +59,23 @@ class VisionEngine:
                  microbatch: Optional[int] = None,
                  fused_stream: Optional[bool] = None,
                  fused_theta_tol: float = 0.02,
-                 fused_theta_ema: float = 0.9):
+                 fused_theta_ema: float = 0.9,
+                 tile_table: Optional[str] = None):
         self.device = resolve_device(device)
         get_backend(backend)   # fail fast on typos
         if fused_stream and backend != "cuda":
             raise ValueError("fused_stream=True requires the 'cuda' backend "
                              f"(got {backend!r})")
+        if tile_table is not None:
+            autotune.load_table(tile_table)
         self.cfg = cfg
         self.backend = backend
         self.microbatch = microbatch
         self.params = to_device(params, self.device)
         self._key = prng.PRNGKey(seed)
         self._frame_count = 0
-        # None = the untuned default of the reference: fused steady state
-        self._fused_stream = True if fused_stream is None else fused_stream
+        # None = the table's choice for the executed microbatch's shape
+        self._fused_stream = fused_stream
         self._fused_theta_tol = fused_theta_tol
         self._fused_theta_ema = fused_theta_ema
         self._theta_carry: Optional[float] = None
@@ -83,6 +93,18 @@ class VisionEngine:
             h_out=max(conv // 2, 1), w_out=max(conv // 2, 1),
             c_out=pcfg.out_channels, kernel=pcfg.kernel_size,
             stride=pcfg.stride, n_mtj=pcfg.mtj.n_redundant)
+
+    def _stream_fused_enabled(self, n_frames: int, h: int, w: int) -> bool:
+        """Whether a stream step of ``n_frames`` (h, w) frames runs the
+        fused kernel: an explicit ``fused_stream=`` wins, otherwise the
+        table's entry for the EXECUTED step's (N, K, C) shape."""
+        if self._fused_stream is not None:
+            return self._fused_stream
+        pcfg = self.cfg.p2m
+        n = (n_frames * blocking.conv_out_hw(h, pcfg.stride)
+             * blocking.conv_out_hw(w, pcfg.stride))
+        k_eff = pcfg.kernel_size ** 2 * pcfg.in_channels
+        return autotune.get(n, k_eff, pcfg.out_channels).fused
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -171,13 +193,19 @@ class VisionEngine:
         incoming batch regardless of microbatching. Each stream starts a new
         scene: the carried threshold is dropped."""
         self._theta_carry = None
-        fused = self._fused_stream if self.backend == "cuda" else None
         for frames in frame_batches:
             frames = self._frames(frames)
             mb = self.microbatch
-            b = frames.shape[0]
+            b, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+
+            def fused_arg(n_frames: int) -> Optional[bool]:
+                # tri-state: None off the cuda backend (no stream telemetry)
+                if self.backend != "cuda":
+                    return None
+                return self._stream_fused_enabled(n_frames, h, w)
+
             if not mb or b <= mb:
-                outs = [self._classify(frames, None, fused=fused)]
+                outs = [self._classify(frames, None, fused=fused_arg(b))]
                 sizes = [b]
             else:
                 base = prng.fold_in(self._key, self._frame_count)
@@ -185,7 +213,8 @@ class VisionEngine:
                 starts = list(range(0, b, mb))
                 sizes = [min(mb, b - i) for i in starts]
                 outs = [self._classify(frames[i:i + sz],
-                                       prng.fold_in(base, j), fused=fused)
+                                       prng.fold_in(base, j),
+                                       fused=fused_arg(sz))
                         for j, (i, sz) in enumerate(zip(starts, sizes))]
             yield _merge_outputs(outs, sizes) if len(outs) > 1 else outs[0]
 

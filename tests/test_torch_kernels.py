@@ -196,16 +196,81 @@ def test_frontend_matches_reference_pipeline():
         float(auxt["theta"]), rel=1e-5)
 
 
+@pytest.mark.parametrize("kernel,stride,h,w", [GEOMETRIES[0], GEOMETRIES[4],
+                                               GEOMETRIES[6]])
+def test_explicit_phase_a_matches_pallas(kernel, stride, h, w):
+    """Explicit-patch kernel A (plain) against ``p2m_phase_a_pallas`` on the
+    same im2col rows, and against the port's implicit kernel A: same rows,
+    same MAC, so u and the partials are equal."""
+    images, wm = _inputs(kernel, h, w, b=4)
+    patches = np.array(j_ops.im2col(jnp.asarray(images), kernel, stride))
+    n = patches.shape[0]
+    block = 16 if n % 16 == 0 else n
+    uj, hj = jk.p2m_phase_a_pallas(jnp.asarray(patches), jnp.asarray(wm),
+                                   jnp.ones((1, 1)), block_n=block)
+    v_th = torch.ones(())
+    wp = tk.pack_phase_weights(_t(wm))
+    ut, ht = tk.p2m_phase_a(_t(patches), wp, v_th)
+    np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=0, atol=3e-6)
+    np.testing.assert_allclose(
+        float(tk.combine_hoyer_partials(ht, v_th)),
+        float(jk.combine_hoyer_partials(hj, jnp.asarray(1.0))), rtol=1e-5)
+    ui, hi = tk.p2m_phase_a_implicit(_t(images), wp, v_th, kernel=kernel,
+                                     stride=stride)
+    assert torch.equal(ut, ui) and torch.equal(ht, hi)
+
+
+@pytest.mark.parametrize("kernel,stride,h,w", [GEOMETRIES[0], GEOMETRIES[6]])
+def test_legacy_conv_matches_reference(kernel, stride, h, w):
+    """``ops.p2m_conv`` (the legacy baseline) against the reference's: the
+    draws by the word-boundary rule against ``ref.p2m_conv_ref_q``; at
+    kernel A's theta they equal the pinned-theta fused step's."""
+    images, wm = _inputs(kernel, h, w, c=16, b=2, seed=21)
+    w4 = wm.reshape(kernel, kernel, 3, 16)
+    theta = np.float32(0.55)
+    kj, kt = jax.random.fold_in(jax.random.PRNGKey(6), 1), prng.fold_in(
+        prng.PRNGKey(6), 1)
+    oj = j_ops.p2m_conv(jnp.asarray(images), jnp.asarray(w4),
+                        jnp.asarray(theta), kj, kernel=kernel, stride=stride,
+                        block_n=16)
+    ot = t_ops.p2m_conv(_t(images), _t(w4), _t(theta), kt, kernel=kernel,
+                        stride=stride)
+    assert ot.shape == tuple(oj.shape)
+    patches = j_ops.im2col(jnp.asarray(images), kernel, stride)
+    q_ref = j_ref.p2m_conv_ref_q(patches, jnp.asarray(wm), jnp.asarray(theta))
+    bits = j_ops.draw_bits(kj, patches.shape[0], 16)
+    assert_draws_match_modulo_word_boundary(ot.numpy().reshape(-1, 16),
+                                            q_ref, bits)
+    assert_draws_match_modulo_word_boundary(np.asarray(oj).reshape(-1, 16),
+                                            q_ref, bits)
+    _, aux = t_ops.p2m_frontend(_t(images), _t(w4), torch.ones(()), kt,
+                                kernel=kernel, stride=stride)
+    of, _ = t_ops.p2m_frontend_fused(_t(images), _t(w4), torch.ones(()),
+                                     aux["theta"], kt, kernel=kernel,
+                                     stride=stride)
+    assert torch.equal(t_ops.p2m_conv(_t(images), _t(w4), aux["theta"], kt,
+                                      kernel=kernel, stride=stride), of)
+
+
 def test_cpu_tensors_never_launch():
     tk.reset_launch_counts()
     rng = np.random.default_rng(13)
     images = _t(rng.uniform(size=(2, 8, 8, 3)).astype(np.float32))
     w = _t((rng.normal(size=(3, 3, 3, 8)) * 0.3).astype(np.float32))
-    o, aux = t_ops.p2m_frontend(images, w, torch.ones(()), prng.PRNGKey(0))
-    t_ops.p2m_frontend_fused(images, w, torch.ones(()), aux["theta"],
-                             prng.PRNGKey(0))
-    assert tk.launch_counts() == {"p2m_phase_a_implicit": 0,
-                                  "p2m_phase_b": 0, "p2m_fused_stream": 0}
+    for prec in ("f32", "int8"):
+        o, aux = t_ops.p2m_frontend(images, w, torch.ones(()),
+                                    prng.PRNGKey(0), precision=prec)
+        t_ops.p2m_frontend_fused(images, w, torch.ones(()), aux["theta"],
+                                 prng.PRNGKey(0), precision=prec)
+    t_ops.p2m_conv(images, w, aux["theta"], prng.PRNGKey(0))
+    tk.p2m_phase_a(t_ops.im2col(images, 3, 2),
+                   tk.pack_phase_weights(w.reshape(27, 8)), torch.ones(()))
+    assert tk.launch_counts() == {fn.__name__: 0
+                                  for fn in tk.KERNEL_WRAPPERS}
+    assert set(tk.launch_counts()) == {
+        "p2m_phase_a_implicit", "p2m_phase_b", "p2m_fused_stream",
+        "p2m_phase_a_implicit_q8", "p2m_fused_stream_q8", "p2m_phase_a",
+        "p2m_conv"}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -224,9 +289,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="no kernel for device"):
         tk.p2m_phase_b(torch.rand(64, 8, device="meta"),
                        torch.ones((), device="meta"), prng.PRNGKey(0))
-    with pytest.raises(NotImplementedError):
-        t_ops.p2m_frontend(images, w, torch.ones(()), prng.PRNGKey(0),
-                           precision="int8")
+    with pytest.raises(ValueError, match="patches"):
+        tk.p2m_phase_a(images, wm, torch.ones(()))
+    with pytest.raises(ValueError, match="w_packed"):
+        tk.p2m_conv(t_ops.im2col(images, 3, 2), wm[:20], torch.ones(()),
+                    prng.PRNGKey(0))
     with pytest.raises(ValueError):
         t_ops.p2m_frontend(images, w, torch.ones(()), prng.PRNGKey(0),
                            precision="bf16")

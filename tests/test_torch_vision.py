@@ -230,7 +230,7 @@ def test_engine_refuses_unported_options():
     cfg = tv.VisionConfig(name="t", arch="vgg_tiny")
     params = tv.init_params(0, cfg)
     for kw in ({"mesh": None}, {"calibration": None}, {"drift": None},
-               {"obs": None}, {"tile_table": None}):
+               {"obs": None}):
         with pytest.raises(TypeError):
             VisionEngine(cfg, params, device="cpu", **kw)
     with pytest.raises(KeyError):
