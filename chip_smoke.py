@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and exits non-zero without one. It builds the frontend
-kernels from ``src/repro_torch/csrc`` (nvcc, into ``build/repro_torch/``),
-then, printing one JSON object per line:
+Needs one CUDA card and exits non-zero without one. It builds the port's
+two kernel libraries from ``src/repro_torch/csrc`` (one nvcc each, started
+together, into ``build/repro_torch/``), then, printing one JSON object per
+line:
 
 1. ``env``: torch/CUDA versions and the card's name and power limit;
-2. ``build``: seconds for the nvcc build and the compiler's register report;
+2. ``build``: seconds for each library's nvcc build and the compiler's
+   register report;
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32) and two odd geometries. Each of the seven
    kernels (f32 A, B, f32 fused, int8 A, int8 fused, explicit-patch A,
@@ -30,7 +32,23 @@ then, printing one JSON object per line:
 7. ``engine_int8``: the same vgg16 engine with a port tile table that picks
    int8 at (4096, 27, 32), with its own launch counts and CPU comparison;
 8. ``autotune``: the port's search at the serving shape (data, no check);
-9. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+9. ``flash`` lines: the flash-attention kernel at the LM serving geometry
+   (B 4, S 2048, H 32, Hkv 8, D 128, bf16, causal) and three odd ones
+   (S 77 MHA D 64 bf16; S 256 non-causal float32; S 1000 GQA, a ragged
+   tail), each held against its plain version on the same card tensors
+   (max-abs 2e-2 for bf16 outputs, 2e-5 for float32) and timed beside its
+   plain version, its bound and ``scaled_dot_product_attention``;
+10. ``lm``: full-width, full-depth granite-8b with seeded bf16 weights
+   drawn on the card, ``ServingEngine.generate`` of a (4, 2048) prompt for
+   32 new tokens, with its launch counts (one flash launch per layer, no
+   P2M kernel), finite logits, token ids in range, and the prefill logits
+   held against a ``forward(mode="train")`` of the prompt (teacher
+   forcing); then the steady generate times, peak memory and the flash
+   kernel's share of prefill device time (``lm_profile``);
+11. ``lm_vs_cpu``: granite-8b at full width but 2 layers (a depth cut: the
+   CPU engine at 36 layers would take minutes), the card's engine against
+   the CPU engine on a (1, 128) prompt and 8 new tokens;
+12. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run), and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -38,12 +56,14 @@ Any failed check raises, so the exit code is non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -51,6 +71,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12          # non-tensor-core float32 (the kernels use FFMA)
 INT8_OPS = 1979e12          # dense int8 tensor-core peak (the int8 MACs)
+BF16_OPS = 989e12           # dense bf16 tensor-core peak (attention, bf16)
 # rough per-element operation counts of the elementwise stages, used only
 # for the operation side of the bound (the byte side dominates)
 EPILOGUE_A_OPS = 12         # two curves, subtract, z, clip, two partial sums
@@ -73,8 +94,11 @@ REPLACES = {
         "src/repro/kernels/p2m_conv.py:816 (p2m_fused_stream_q8_pallas)",
     "p2m_phase_a": "src/repro/kernels/p2m_conv.py:138 (p2m_phase_a_pallas)",
     "p2m_conv": "src/repro/kernels/p2m_conv.py:963 (p2m_conv_pallas)",
+    "flash_attention":
+        "src/repro/kernels/flash_attention.py:72 (flash_attention_pallas)",
 }
 SOURCE = "src/repro_torch/csrc/p2m_kernels.cu"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 # the kernels each main path launches; every other wrapper must launch 0
 # times on that path
 PATH_KERNELS = {
@@ -82,8 +106,39 @@ PATH_KERNELS = {
     "engine_int8": ("p2m_phase_a_implicit_q8", "p2m_phase_b",
                     "p2m_fused_stream_q8"),
     "baseline": ("p2m_phase_a", "p2m_conv"),
+    "lm": ("flash_attention",),
 }
 SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
+
+# flash attention: the LM serving geometry (granite-8b prefill of 4 x 2048
+# tokens) and three odd ones
+FLASH_SERVING = dict(batch=4, seq=2048, heads=32, kv_heads=8, head_dim=128,
+                     dtype="bfloat16", causal=True)
+FLASH_ODD = (dict(batch=2, seq=77, heads=4, kv_heads=4, head_dim=64,
+                  dtype="bfloat16", causal=True),
+             dict(batch=2, seq=256, heads=8, kv_heads=2, head_dim=128,
+                  dtype="float32", causal=False),
+             dict(batch=1, seq=1000, heads=32, kv_heads=8, head_dim=128,
+                  dtype="bfloat16", causal=True))
+# kernel vs plain: bf16 output rounding (one ulp is 2^-8 relative) plus a
+# different summation order; float32: the summation order alone
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# beside it, the largest error of an output row over that row's RMS: late
+# causal rows average ~S keys and are small (|out| ~ S^-0.5), so a fault
+# confined to them could hide under the absolute limit. Another kv tile order
+# (the plain version at 32, 128 or S) stays under it, one kv tile dropped from
+# the last rows lies 10x above it (tests/test_torch_flash.py).
+FLASH_ROW_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
+LM_ARCH = "granite-8b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+# prefill logits vs a train-mode forward of the same prompt: the same
+# kernels on the same inputs, so equal up to bf16 rounding of the logits
+# (|logit| < 8 here, one bf16 ulp there is 2^-5)
+LM_TEACHER_TOL = 0.0625
+# the card's engine vs the CPU engine at 2 layers: every activation is
+# rounded to bf16 after sums taken in another order on each side; four
+# bf16 ulps at |logit| < 8
+LM_CPU_TOL = 0.125
 
 
 def emit(kind: str, **fields) -> None:
@@ -130,11 +185,14 @@ def device_ms(fn, device) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(bytes_moved: float, ops: float, int8_ops: float = 0.0) -> tuple:
+def bound(bytes_moved: float, ops: float, int8_ops: float = 0.0,
+          bf16_ops: float = 0.0) -> tuple:
     """Least time in ms: bytes over the memory rate against the float32
-    operations over the FFMA peak plus the int8 MACs over the int8 peak."""
+    operations over the FFMA peak plus the int8 MACs over the int8 peak
+    plus the bf16 tensor-core operations over the bf16 peak."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = (ops / FP32_FLOPS + int8_ops / INT8_OPS) * 1e3
+    t_ops = (ops / FP32_FLOPS + int8_ops / INT8_OPS
+             + bf16_ops / BF16_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -149,6 +207,14 @@ def check_path_counts(counts: dict, path: str) -> None:
 
 def max_abs(a, b) -> float:
     return float((a - b).abs().max())
+
+
+def row_rel_err(out, ref) -> float:
+    """Largest over the rows (last axis) of max |out - ref| / RMS(ref)."""
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs().amax(dim=-1)
+    rms = ref.square().mean(dim=-1).sqrt().clamp_min(1e-30)
+    return float((diff / rms).max())
 
 
 def assert_draws(acts, q, bits, max_frac: float = 1e-3) -> int:
@@ -479,7 +545,7 @@ def engine_run(device, path: str, **engine_kw):
     steady-state walls. Emits one ``path`` line and one ``<path>_steady``
     line; returns (counts, engine, frames)."""
     import torch
-    from repro_torch.kernels import p2m_conv as pk
+    from repro_torch.kernels import cuda_lib
     from repro_torch.models import vision
     from repro_torch.serving import VisionEngine
 
@@ -490,10 +556,10 @@ def engine_run(device, path: str, **engine_kw):
     engine = VisionEngine(cfg, params, seed=0, device=device, microbatch=16,
                           **engine_kw)
 
-    pk.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     out = engine.classify(frames[0])
     stream_outs = list(engine.stream(frames[1:]))
-    counts = pk.launch_counts()
+    counts = cuda_lib.launch_counts()
     if device.type == "cuda":
         check_path_counts(counts, path)
     for o in [out, *stream_outs]:
@@ -554,7 +620,7 @@ def baseline_phase(device):
     import torch
     from repro_torch import prng
     from repro_torch.core import p2m
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import cuda_lib, ops
     from repro_torch.kernels import p2m_conv as pk
     from repro_torch.models import vision
 
@@ -573,9 +639,9 @@ def baseline_phase(device):
         theta = pk.combine_hoyer_partials(hp, v_th)
         return ops.p2m_conv(frames, wq, theta, key), theta
 
-    pk.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     acts, theta = step()
-    counts = pk.launch_counts()
+    counts = cuda_lib.launch_counts()
     check_path_counts(counts, "baseline")
     acts_x, aux_x = ops.p2m_frontend(frames, wq, v_th, key, precision="f32")
     check(torch.equal(theta, aux_x["theta"]), "baseline theta != exact theta")
@@ -608,30 +674,47 @@ def autotune_phase(device, smi: str):
          report_ms=report, nvidia_smi=smi)
 
 
+def device_breakdown(prof, families, n_top: int = 0):
+    """Device ms of a profile by family, and the ``n_top`` device events
+    with the most time. Only device-side events (kernels, copies) count:
+    the CPU ops that launched them carry the same time and are skipped.
+    ``families``: (name, substrings of the lower-case event name) pairs,
+    the first match wins; the rest is ``other``."""
+    from torch.autograd import DeviceType
+    fam = {name: 0.0 for name, _ in families}
+    fam["other"] = 0.0
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        key = evt.key.lower()
+        name = next((f for f, subs in families
+                     if any(x in key for x in subs)), "other")
+        fam[name] += us / 1e3
+        rows.append((us / 1e3, evt.count, evt.key[:90]))
+    rows.sort(reverse=True)
+    return fam, [{"ms": ms, "count": n, "name": name}
+                 for ms, n, name in rows[:n_top]]
+
+
+VISION_FAMILIES = (("frontend_kernels", ("phase_a_kernel", "phase_b_kernel",
+                                         "fused_stream_kernel",
+                                         "legacy_conv_kernel")),
+                   ("backbone_conv", ("conv", "xmma", "gemm", "implicit",
+                                      "cudnn")))
+LM_FAMILIES = (("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
+               ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
+                           "nvjet")))
+
+
 def profile_phase(engine, frames, device):
     """Device time of one classify and one fused stream step, by family."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
-
-    def families(prof):
-        fam = {"frontend_kernels": 0.0, "backbone_conv": 0.0, "other": 0.0}
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = getattr(evt, "self_cuda_time_total", 0.0)
-            if not us:
-                continue
-            name = evt.key
-            if any(k in name for k in ("phase_a_kernel", "phase_b_kernel",
-                                       "fused_stream_kernel",
-                                       "legacy_conv_kernel")):
-                fam["frontend_kernels"] += us
-            elif any(k in name.lower() for k in ("conv", "xmma", "gemm",
-                                                 "implicit", "cudnn")):
-                fam["backbone_conv"] += us
-            else:
-                fam["other"] += us
-        return {k: v / 1e3 for k, v in fam.items()}    # ms
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -640,8 +723,276 @@ def profile_phase(engine, frames, device):
         engine.classify(frames[0])
     with profile(activities=acts) as prof_s:
         list(engine.stream([frames[1], frames[1]]))
-    emit("profile", classify_device_ms=families(prof_c),
-         stream_exact_plus_fused_device_ms=families(prof_s))
+    emit("profile",
+         classify_device_ms=device_breakdown(prof_c, VISION_FAMILIES)[0],
+         stream_exact_plus_fused_device_ms=device_breakdown(
+             prof_s, VISION_FAMILIES)[0])
+
+
+def flash_phase(geom: dict, device):
+    """The flash-attention kernel at one geometry: held against its plain
+    version on the same card tensors and timed beside it, its bound and
+    ``scaled_dot_product_attention``. Returns the summary row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
+                                         "kv_heads", "head_dim"))
+    dtype, causal = getattr(torch, geom["dtype"]), geom["causal"]
+    gen = torch.Generator().manual_seed(23)
+    q, k, v = (torch.randn(shape, generator=gen).to(device=device,
+                                                    dtype=dtype)
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    tag = (f"B{b} S{s} H{h}/{hkv} D{d} {geom['dtype']} "
+           f"{'causal' if causal else 'full'}")
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_plain(q, k, v, causal=causal)
+    err = max_abs(out.float(), plain.float())
+    row_err = row_rel_err(out, plain)
+    check(bool(torch.isfinite(out).all()), f"non-finite flash output at {tag}")
+    check(err <= FLASH_TOL[geom["dtype"]],
+          f"flash kernel vs plain max-abs {err} > "
+          f"{FLASH_TOL[geom['dtype']]} at {tag}")
+    check(row_err <= FLASH_ROW_TOL[geom["dtype"]],
+          f"flash kernel vs plain row error / row RMS {row_err} > "
+          f"{FLASH_ROW_TOL[geom['dtype']]} at {tag}")
+
+    # the work this run needs: every visible (q, kv) pair, two products of
+    # D multiply-adds each; each input read once, the output written once
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * h * pairs * d
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    if dtype == torch.bfloat16:
+        t_bound, by = bound(nbytes, 0.0, bf16_ops=flops)
+    else:
+        t_bound, by = bound(nbytes, flops)
+
+    def sdpa():
+        F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=h != hkv)
+
+    lib_ms, lib_error = None, None
+    try:
+        lib_ms = device_ms(sdpa, device)
+    except (RuntimeError, TypeError) as exc:   # a yardstick only
+        lib_error = str(exc).splitlines()[0]
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": FLASH_SOURCE, "replaces": REPLACES["flash_attention"],
+           "launches": 0, "max_abs_err": err,
+           "ms": device_ms(lambda: fa.flash_attention(q, k, v,
+                                                      causal=causal), device),
+           "plain_ms": device_ms(lambda: fa.flash_attention_plain(
+               q, k, v, causal=causal), device),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms}
+    # the causal skip, seen in time: the same inputs without the mask
+    full_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=False),
+                        device) if causal else None
+    emit("flash", geometry=tag, tolerance=FLASH_TOL[geom["dtype"]],
+         row_rel_err=row_err, row_tolerance=FLASH_ROW_TOL[geom["dtype"]],
+         **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
+         flops=flops, bytes=nbytes, library_error=lib_error,
+         achieved_tflops=flops / (row["ms"] * 1e-3) / 1e12,
+         noncausal_ms=full_ms)
+    return row
+
+
+def _lm_prompts(cfg, batch: int, length: int, seed: int):
+    import torch
+    return torch.randint(0, cfg.vocab_size, (batch, length),
+                         generator=torch.Generator().manual_seed(seed),
+                         dtype=torch.int32)
+
+
+def lm_phase(device, smi: str):
+    """granite-8b at full width and depth through ``ServingEngine.generate``,
+    the launch counts read from that run alone; returns them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import pad_prefill_cache
+
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(0, cfg, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = _lm_prompts(cfg, LM_BATCH, LM_PROMPT, 29).to(device)
+    engine = ServingEngine(cfg, params, max_len=LM_PROMPT + LM_NEW,
+                           device=device)
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    tokens = engine.generate(prompts, LM_NEW)
+    counts = cuda_lib.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first = dict(engine.stats)
+    check_path_counts(counts, "lm")
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"flash_attention launched {counts['flash_attention']} times, "
+          f"want one per layer ({cfg.num_layers})")
+    logits = engine.prefill_logits.float()
+    check(tuple(tokens.shape) == (LM_BATCH, LM_NEW), "generated shape")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "token ids out of range")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+
+    # teacher forcing: the prefill's last-position logits == a train-mode
+    # forward over the prompt
+    with torch.inference_mode():
+        ref, _ = lm.forward(engine.params, prompts, cfg, mode="train")
+    ref = ref[:, -1].float()
+    tf_err = max_abs(logits, ref)
+    check(tf_err <= LM_TEACHER_TOL,
+          f"prefill logits vs train forward max-abs {tf_err}")
+    top2 = torch.topk(ref, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_TEACHER_TOL
+    check(bool((ref.argmax(-1) == tokens[:, 0].long())[sure].all()),
+          "first generated token != teacher-forced argmax")
+
+    steady = []
+    for _ in range(2):
+        engine.generate(prompts, LM_NEW)
+        steady.append(dict(engine.stats))
+    emit("lm", model=LM_ARCH, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, dtype=cfg.param_dtype, params=n_params,
+         init_s=init_s, batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
+         launches=counts, first_run=first, steady_runs=steady,
+         peak_memory_gb=peak_gb, teacher_forcing_max_abs=tf_err,
+         teacher_forcing_tol=LM_TEACHER_TOL,
+         teacher_forcing_checked_rows=int(sure.sum()), nvidia_smi=smi)
+
+    # device time of one prefill by family and by kernel, and of one decode
+    # step against its wall time (the device's idle share while decoding)
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, cache = engine.prefill(engine.params, prompts)
+        torch.cuda.synchronize()
+    fam, top = device_breakdown(prof, LM_FAMILIES, 12)
+    total = sum(fam.values())
+    with torch.inference_mode():
+        cache = pad_prefill_cache(cfg, cache, LM_BATCH, LM_PROMPT + LM_NEW)
+        tok = tokens[:, :1]
+        tok, cache = engine.decode(engine.params, cache, tok)   # warm-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_d:
+            engine.decode(engine.params, cache, tok)
+            torch.cuda.synchronize()
+    fam_d, top_d = device_breakdown(prof_d, LM_FAMILIES, 12)
+    decode_device = sum(fam_d.values())
+    decode_wall = statistics.median(r["decode_ms_per_token"] for r in steady)
+    emit("lm_profile", prefill_device_ms=fam, prefill_device_ms_total=total,
+         flash_share=fam["flash_attention"] / total if total else None,
+         prefill_top_kernels=top, decode_step_device_ms=fam_d,
+         decode_step_device_ms_total=decode_device,
+         decode_step_wall_ms_median=decode_wall,
+         decode_device_idle_share=1.0 - decode_device / decode_wall,
+         decode_top_kernels=top_d)
+    del engine, params, ref, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_vs_cpu_phase(device):
+    """granite-8b at full width, 2 layers: the card's engine against the
+    CPU engine on one prompt. Prefill logits, and the logits of every decode
+    step fed the CPU's tokens, within LM_CPU_TOL; greedy tokens equal up to
+    the first step whose CPU top-1/top-2 margin is within twice the
+    tolerance (after a divergence the contexts differ)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.models.params import to_device
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=2)
+    params = lm.init_params(1, cfg, device=device)
+    prompts = _lm_prompts(cfg, 1, 128, 31)
+    n_new = 8
+    gpu = ServingEngine(cfg, params, max_len=128 + n_new, device=device)
+    tok_gpu = gpu.generate(prompts, n_new).cpu()
+    params_cpu = to_device(params, torch.device("cpu"))
+    cpu = ServingEngine(cfg, params_cpu, max_len=128 + n_new, device="cpu")
+    tok_cpu = cpu.generate(prompts, n_new)
+    err = max_abs(gpu.prefill_logits.float().cpu(),
+                  cpu.prefill_logits.float())
+    check(err <= LM_CPU_TOL,
+          f"card vs CPU prefill logits max-abs {err} > {LM_CPU_TOL}")
+    # both devices decode the CPU's tokens: the logits of every step, so the
+    # decode path is compared too, and the CPU's margins
+    forced = [_forced_decode_logits(cfg, p_, prompts, tok_cpu, dev_)
+              for p_, dev_ in ((params, device), (params_cpu, cpu.device))]
+    step_err = (forced[0] - forced[1]).abs().amax(dim=-1)[0].tolist()
+    check(max(step_err) <= LM_CPU_TOL,
+          f"card vs CPU decode logits max-abs {max(step_err)}")
+    top2 = torch.topk(forced[1][0], 2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    equal = 0
+    for i in range(n_new):
+        if int(tok_gpu[0, i]) != int(tok_cpu[0, i]):
+            check(margins[i] <= 2 * LM_CPU_TOL,
+                  f"token {i} differs at a CPU margin {margins[i]}")
+            break
+        equal += 1
+    emit("lm_vs_cpu", model=LM_ARCH, layers=2, cut="depth 36 -> 2",
+         prompt=128, new_tokens=n_new, prefill_logits_max_abs=err,
+         tolerance=LM_CPU_TOL, decode_logits_max_abs_per_step=step_err,
+         tokens_equal_before_divergence=equal,
+         tokens_gpu=tok_gpu[0].tolist(), tokens_cpu=tok_cpu[0].tolist(),
+         cpu_margins=margins, gpu_stats=gpu.stats, cpu_stats=cpu.stats)
+    del gpu, params
+    torch.cuda.empty_cache()
+
+
+def _forced_decode_logits(cfg, params, prompts, tokens, device):
+    """Last-position logits of the prefill and of each decode step fed
+    ``tokens[:, i]``, float32 on the host: (B, n, vocab)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import make_prefill_step, pad_prefill_cache
+
+    n = tokens.shape[1]
+    with torch.inference_mode():
+        last, cache = make_prefill_step(cfg)(params, prompts.to(device))
+        cache = pad_prefill_cache(cfg, cache, prompts.shape[0],
+                                  prompts.shape[1] + n)
+        out = [last.float().cpu()]
+        for i in range(n - 1):
+            logits, cache = lm.forward(params, tokens[:, i:i + 1].to(device),
+                                       cfg, mode="decode", cache=cache)
+            out.append(logits[:, -1].float().cpu())
+    return torch.stack(out, dim=1)
+
+
+def build_libraries() -> dict:
+    """Build every kernel library at once (one nvcc each); returns
+    ``{name: (path, seconds)}``."""
+    from repro_torch.kernels import cuda_lib
+
+    def one(lib):
+        t0 = time.perf_counter()
+        path = cuda_lib.build(lib)
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(cuda_lib.LIBRARIES)) as pool:
+        futures = {lib.name: pool.submit(one, lib)
+                   for lib in cuda_lib.LIBRARIES}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def main() -> int:
@@ -651,7 +1002,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import cuda_lib
 
     device = torch.device("cuda")
     # the library yardsticks and the plain versions' matmuls in full float32
@@ -663,11 +1013,14 @@ def main() -> int:
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          matmul_precision=torch.get_float32_matmul_precision())
     t0 = time.perf_counter()
-    lib_path = cuda_lib.build()
+    built = build_libraries()
     build_s = time.perf_counter() - t0
-    log = lib_path.with_suffix(".log").read_text().splitlines()
-    emit("build", seconds=build_s, library=str(lib_path.relative_to(ROOT)),
-         ptxas=[ln.strip() for ln in log if "Used" in ln or "spill" in ln])
+    for name, (lib_path, lib_s) in built.items():
+        log = lib_path.with_suffix(".log").read_text().splitlines()
+        emit("build", library=name, seconds=lib_s, wall_seconds=build_s,
+             path=str(lib_path.relative_to(ROOT)),
+             ptxas=[ln.strip() for ln in log
+                    if "Used" in ln or "spill" in ln or "Compiling" in ln])
 
     rows = kernel_phase(SERVING, device)
     for geom in ODD_GEOMETRIES:
@@ -678,10 +1031,17 @@ def main() -> int:
     counts_base = baseline_phase(device)
     counts_int8 = engine_int8_phase(device)
     autotune_phase(device, smi)
+    flash_row = flash_phase(FLASH_SERVING, device)
+    for geom in FLASH_ODD:
+        flash_phase(geom, device)
+    counts_lm = lm_phase(device, smi)
+    lm_vs_cpu_phase(device)
+    rows.append(flash_row)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},
                 **{n_: counts_int8 for n_ in PATH_KERNELS["engine_int8"]
-                   if n_ != "p2m_phase_b"}}
+                   if n_ != "p2m_phase_b"},
+                "flash_attention": counts_lm}
     for row in rows:
         row["launches"] = own_path[row["name"]][row["name"]]
     print(smi, flush=True)

@@ -1,30 +1,51 @@
-"""Build and load the frontend's CUDA library: nvcc -> shared object -> ctypes.
+"""Build and load the port's CUDA libraries: nvcc -> shared object -> ctypes.
 
 The sources under ``repro_torch/csrc`` have a plain C interface, so one
-``nvcc`` call builds them in seconds without PyTorch's headers. The build
-runs at first use, into ``build/repro_torch/`` at the root of the checkout,
-under a name keyed by a hash of the sources and flags: an edited source
-never loads a stale library. Nothing here runs at import time.
+``nvcc`` call per library builds it in seconds without PyTorch's headers.
+Two libraries: ``p2m`` (the sensor frontend's seven kernels) and
+``flash_attention``. A build runs at first use, into ``build/repro_torch/``
+at the root of the checkout, under a name keyed by a hash of the library's
+sources and flags: an edited source never loads a stale library. Nothing
+here runs at import time. The launch helpers shared by the kernel wrappers
+(device dispatch, stream, launch check) live here too, and so does the
+port-wide launch count: each wrapper module registers its wrappers, and
+``launch_counts()`` reads them all.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable, Dict, List, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("p2m_kernels.cu", "p2m_physics.cuh")
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+_COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    name: str
+    sources: Tuple[str, ...]   # the first is compiled; the rest it includes
+    flags: Tuple[str, ...]
+
+
 # --fmad=false: no contracted multiply-add anywhere, so the device chain
 # rounds exactly where the plain PyTorch version does (the dot in kernel A
-# asks for its FMAs explicitly). No --use_fast_math.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+# asks for its FMAs explicitly). No --use_fast_math in either library.
+P2M = Library("p2m", ("p2m_kernels.cu", "p2m_physics.cuh"),
+              _COMMON_FLAGS + ("--fmad=false",))
+FLASH = Library("flash_attention", ("flash_attention.cu",), _COMMON_FLAGS)
+LIBRARIES = (P2M, FLASH)
 
 
 class P2MPhysics(ctypes.Structure):
@@ -46,53 +67,55 @@ class ConvGeom(ctypes.Structure):
         "pad_left", "c_out")]
 
 
+class FlashGeom(ctypes.Structure):
+    """Mirror of ``struct FlashGeom`` in csrc/flash_attention.cu (strides in
+    elements)."""
+    _fields_ = ([(name, ctypes.c_int32) for name in (
+        "batch", "seq", "heads", "kv_heads", "causal")]
+        + [("scale", ctypes.c_float)]
+        + [(f"{t}_{a}", ctypes.c_int64) for t in "qkvo" for a in "bsh"])
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the frontend's CUDA kernels are "
-                       "built from csrc/ on a machine with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from csrc/ on a machine with the CUDA toolkit")
 
 
-def digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+def digest(lib: Library = P2M) -> str:
+    h = hashlib.sha256(" ".join(lib.flags).encode())
+    for name in lib.sources:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libp2m_{digest()}.so"
+def library_path(lib: Library = P2M) -> Path:
+    return BUILD_DIR / f"lib{lib.name}_{digest(lib)}.so"
 
 
-def build() -> Path:
-    """Compile the library unless this exact source set is already built.
+def build(lib: Library = P2M) -> Path:
+    """Compile ``lib`` unless this exact source set is already built.
     Returns its path; the compiler's register/spill report is kept beside
-    it as ``.log``."""
-    out = library_path()
+    it as ``.log``. Safe to call for several libraries at once."""
+    out = library_path(lib)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[0])]
+    cmd = [_nvcc(), *lib.flags, "-o", str(tmp), str(CSRC / lib.sources[0])]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed for {lib.name} ({res.returncode}):"
+                           f"\n{res.stderr}")
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
     return out
 
 
-_LIB = None
-
-
-def load() -> ctypes.CDLL:
-    """The loaded library (built on first use), with every entry typed."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = ctypes.CDLL(str(build()))
+def _bind_p2m(lib: ctypes.CDLL) -> None:
     p, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     geom, phys = ctypes.POINTER(ConvGeom), ctypes.POINTER(P2MPhysics)
     lib.p2m_rows_per_block.argtypes = []
@@ -111,5 +134,96 @@ def load() -> ctypes.CDLL:
                lib.p2m_phase_a, lib.p2m_phase_b, lib.p2m_fused_stream,
                lib.p2m_fused_stream_q8, lib.p2m_conv):
         fn.restype = ctypes.c_int
-    _LIB = lib
-    return lib
+
+
+def _bind_flash(lib: ctypes.CDLL) -> None:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32,
+                                        ctypes.POINTER(FlashGeom), p]
+    lib.flash_attention_fwd.restype = ctypes.c_int
+
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _load(lib: Library, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    if lib.name not in _LOADED:
+        handle = ctypes.CDLL(str(build(lib)))
+        bind(handle)
+        _LOADED[lib.name] = handle
+    return _LOADED[lib.name]
+
+
+def load() -> ctypes.CDLL:
+    """The P2M library (built on first use), with every entry typed."""
+    return _load(P2M, _bind_p2m)
+
+
+def load_flash() -> ctypes.CDLL:
+    """The flash-attention library (built on first use), entries typed."""
+    return _load(FLASH, _bind_flash)
+
+
+# ---------------------------------------------------------------------------
+# launch helpers shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every operand is a CPU tensor (the plain version runs);
+    False when all are on one CUDA device; raises on anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    return False
+
+
+def check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_of(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# launch counts over every kernel wrapper of the port
+# ---------------------------------------------------------------------------
+
+# the modules whose wrappers register below: one for each library
+_WRAPPER_MODULES = ("repro_torch.kernels.p2m_conv",
+                    "repro_torch.kernels.flash_attention")
+_WRAPPERS: List[Callable] = []
+
+
+def register(*wrappers: Callable) -> None:
+    """Enter kernel wrappers into the port-wide count at 0 launches. Each
+    wrapper adds one to its ``.launches`` where it launches its kernel, and
+    nowhere else."""
+    for fn in wrappers:
+        fn.launches = 0
+        _WRAPPERS.append(fn)
+
+
+def kernel_wrappers() -> Tuple[Callable, ...]:
+    """Every kernel wrapper of the port (importing the modules that hold
+    them, so the answer does not depend on what was imported before)."""
+    for name in _WRAPPER_MODULES:
+        importlib.import_module(name)
+    return tuple(_WRAPPERS)
+
+
+def launch_counts() -> Dict[str, int]:
+    """``{wrapper name: kernel launches since the last reset}``, over every
+    kernel of the port."""
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
+
+
+def reset_launch_counts() -> None:
+    for fn in kernel_wrappers():
+        fn.launches = 0

@@ -1,0 +1,149 @@
+"""Flash attention: the hand-written Hopper kernel beside its plain version.
+
+Port of ``repro.kernels.flash_attention.flash_attention_pallas`` (``_kernel``,
+``pallas_call`` at flash_attention.py:92) as ``csrc/flash_attention.cu``:
+online-softmax attention with float32 scores and accumulator, the scale
+applied to the float32 scores, ``NEG_INF`` masking with the reference's
+``m_safe`` / ``alpha`` guards, p rounded to v's type for the P.V product (the
+row sum takes the float32 p), and the output ``acc / max(l, 1e-30)`` in q's
+type. With ``causal`` the kernel never visits a kv tile that lies wholly in
+the future of its q tile.
+
+The reference wrapper (``repro.kernels.ops.flash_attention``) repeats the kv
+heads and pads D to 128 lanes: both are TPU layout choices. Here the kernel
+reads q (B, S, H, D) and k, v (B, S, Hkv, D) in place through their strides
+and indexes kv head ``h // (H / Hkv)`` itself; any S works (a ragged tail is
+masked). The kernel takes float32 (IEEE FFMA, never TF32) and bfloat16
+(mma.sync tensor-core fragments, float32 accumulation) with D in 16, 32, 64
+or 128.
+
+``flash_attention`` launches the kernel for CUDA tensors and runs
+``flash_attention_plain`` for CPU tensors; any other device raises, and
+there is no fallback: a CUDA tensor launches the kernel or raises. Its
+launches are counted in ``flash_attention.launches`` (and in
+``cuda_lib.launch_counts()``, which covers every kernel of the port).
+
+``flash_attention_plain`` is the port's counterpart of
+``repro.kernels.ref.flash_attention_ref`` computed with the kernel's own
+arithmetic (online softmax over kv tiles, p rounded to v's type). It also
+computes what ``repro.models.blocks.flash_attention`` computes on the CPU:
+a sliding ``window``, a ``q_offset`` and unequal q / kv lengths or head
+dims.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.cuda_lib import check_launch, on_cpu, stream_of
+
+NEG_INF = -1e30
+BLOCK_KV = 64                     # the kernel's kv tile
+HEAD_DIMS = (16, 32, 64, 128)     # the head dims the kernel is built for
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0,
+                          kv_chunk: int = BLOCK_KV) -> torch.Tensor:
+    """Online-softmax attention in PyTorch ops, one kv chunk at a time.
+
+    q (B, Sq, H, D); k (B, Sk, Hkv, D); v (B, Sk, Hkv, Dv); H % Hkv == 0.
+    Query row i sits at position ``q_offset + i``; ``window > 0`` also masks
+    keys ``window`` or more positions behind it. Returns (B, Sq, H, Dv) in
+    q's dtype."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hkv
+    scale = d ** -0.5
+    f32 = torch.float32
+    qg = q.reshape(b, sq, hkv, g, d).to(f32)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    acc = torch.zeros((b, sq, hkv, g, dv), dtype=f32, device=q.device)
+    m = torch.full((b, sq, hkv, g), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, sq, hkv, g), dtype=f32, device=q.device)
+    for k0 in range(0, sk, kv_chunk):
+        kj = k[:, k0:k0 + kv_chunk].to(f32)                 # (B, C, Hkv, D)
+        vj = v[:, k0:k0 + kv_chunk]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kj) * scale
+        k_pos = k0 + torch.arange(kj.shape[1], device=q.device)
+        mask = torch.ones((sq, kj.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window > 0:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        mask = mask[None, :, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(v.dtype).to(f32), vj.to(f32))
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"want q (B, S, H, D) and k, v (B, S, Hkv, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, h, d = q.shape
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+        raise ValueError(f"k, v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} in batch, length or head dim")
+    if h % k.shape[2]:
+        raise ValueError(f"{h} query heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+
+
+def _check_card_operands(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> None:
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS}")
+    vec = 16 // q.element_size()      # elements in one 16-byte load
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(t.stride(i) % vec for i in range(3)) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: rows must be unit-stride and 16-byte "
+                             f"aligned (strides {t.stride()})")
+    if q.shape[0] * q.shape[2] > 65535:
+        raise ValueError("batch * heads exceeds the kernel's grid (65535)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention of q (B, S, H, D) over k, v (B, S, Hkv, D), H % Hkv == 0.
+    Returns (B, S, H, D) in q's dtype: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    _check_shapes(q, k, v)
+    if on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal)
+    _check_card_operands(q, k, v)
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    geom = cuda_lib.FlashGeom(
+        b, s, h, k.shape[2], int(causal), d ** -0.5,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3])
+    lib = cuda_lib.load_flash()
+    check_launch(lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[q.dtype], d, ctypes.byref(geom), stream_of(q.device)),
+        "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+cuda_lib.register(flash_attention)

@@ -14,6 +14,9 @@ device chain are the same either way.
 
 ``p2m_conv`` is the legacy entry kept as the baseline: a materialised
 ``im2col`` patch matrix, then the legacy fused kernel at a given theta.
+
+``flash_attention`` is the GQA-aware attention op over the flash-attention
+kernel (``kernels/flash_attention.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.core import mtj as mtj_model
 from repro_torch.core import p2m as p2m_core
 from repro_torch.core import pixel as pixel_model
 from repro_torch.kernels import autotune, blocking
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import p2m_conv as pk
 from repro_torch.kernels.p2m_conv import (_fmix32, _gather_patches,  # noqa: F401
                                           combine_hoyer_partials,
@@ -152,3 +156,13 @@ def p2m_conv(images: torch.Tensor, w: torch.Tensor, theta, key, *,
     out = pk.p2m_conv(patches, wm.contiguous(), theta, key,
                       pixel_params=pixel_params, mtj_params=mtj_params)
     return out.reshape(b, ho, wo, cout)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA-aware attention: (B, S, H, D) x (B, S, Hkv, D) -> (B, S, H, D),
+    the counterpart of ``repro.kernels.ops.flash_attention``. The reference's
+    kv-head repeat, 128-lane D padding and block sizes are TPU layout
+    choices: the kernel reads kv head ``h // (H / Hkv)`` in place and picks
+    its own tiles."""
+    return fa.flash_attention(q, k, v, causal=causal)

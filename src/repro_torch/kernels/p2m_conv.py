@@ -26,7 +26,8 @@ Port of every P2M kernel of ``repro.kernels.p2m_conv`` (csrc/p2m_kernels.cu):
 Each wrapper runs its CUDA kernel for a CUDA tensor and its plain PyTorch
 version (``*_plain``) for a CPU tensor; any other device raises. There is no
 fallback: a CUDA tensor launches the kernel or raises. Each wrapper counts
-its launches in ``<wrapper>.launches``. Per-block partials are a layout
+its launches in ``<wrapper>.launches`` (``cuda_lib.launch_counts()`` reads
+them with every other kernel's of the port). Per-block partials are a layout
 choice of the kernels; the contract is what the ``combine_*`` functions
 return. The int8 fused kernel keeps the f32 fused kernel's three partial
 outputs (the reference packs them into one 128-lane stats row per block, a
@@ -51,6 +52,9 @@ from repro_torch.core import mtj as mtj_model
 from repro_torch.core import p2m as p2m_core
 from repro_torch.core import pixel as pixel_model
 from repro_torch.kernels import blocking, cuda_lib
+from repro_torch.kernels.cuda_lib import check_launch as _launch
+from repro_torch.kernels.cuda_lib import on_cpu as _on_cpu
+from repro_torch.kernels.cuda_lib import stream_of as _stream
 from repro_torch.variation.chip import (CHAN_LOGIT_GAIN, CHAN_LOGIT_OFFSET,
                                         CHAN_ROWS, CHAN_U_GAIN, CHAN_U_OFFSET,
                                         identity_operands)
@@ -302,20 +306,6 @@ def _conv_geom(images: torch.Tensor, w_packed: torch.Tensor, kernel: int,
         pad_top=pt, pad_left=pl, c_out=w_packed.shape[1] // 2)
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every operand is a CPU tensor (the plain version runs);
-    False when all are on one CUDA device; raises on anything else."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
-    (device,) = devices
-    if device.type == "cpu":
-        return True
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
-    return False
-
-
 def _check_f32(**tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t.dtype != torch.float32:
@@ -346,15 +336,6 @@ def _check_chan(chan: Optional[torch.Tensor], c: int, device) -> torch.Tensor:
             f"chan must be the ({CHAN_ROWS}, {c}) per-channel rows; the "
             "per-pixel operand comes with the variation slice")
     return chan
-
-
-def _launch(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def _key_words(key):
@@ -616,18 +597,6 @@ def p2m_conv(patches: torch.Tensor, w_packed: torch.Tensor,
     return acts
 
 
-KERNEL_WRAPPERS = (p2m_phase_a_implicit, p2m_phase_b, p2m_fused_stream,
-                   p2m_phase_a_implicit_q8, p2m_fused_stream_q8, p2m_phase_a,
-                   p2m_conv)
-for _fn in KERNEL_WRAPPERS:
-    _fn.launches = 0
-
-
-def launch_counts() -> dict:
-    """``{wrapper name: kernel launches since the last reset}``."""
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
+cuda_lib.register(p2m_phase_a_implicit, p2m_phase_b, p2m_fused_stream,
+                  p2m_phase_a_implicit_q8, p2m_fused_stream_q8, p2m_phase_a,
+                  p2m_conv)

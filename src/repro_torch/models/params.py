@@ -1,11 +1,14 @@
 """Parameter specs, seeded init, and the numpy bridge to the JAX tree.
 
-Port of ``repro.models.params`` for the vision models: a tree of
-``ParamSpec`` leaves gives shapes and init. Parameters are nested dicts of
-tensors in the reference's layouts (HWIO conv weights, NHWC data at the
-public functions); any layout change happens inside a forward.
+Port of ``repro.models.params``: a tree of ``ParamSpec`` leaves gives
+shapes, init and (optionally) a per-leaf dtype; ``stack_specs`` prepends the
+layer-stack axis of a run of identical layers, as the reference does for its
+scan. Parameters are nested dicts of tensors in the reference's layouts
+(HWIO conv weights, NHWC data, (d, heads, head_dim) projections, the stacked
+``body`` axis first); any layout change happens inside a forward.
 ``from_numpy`` / ``to_numpy`` carry a JAX parameter tree across (as
-``jax.tree.map(np.asarray, params)``) and back.
+``jax.tree.map(np.asarray, params)``) and back. The logical sharding axes of
+the reference's specs have no counterpart: one card has no mesh.
 """
 from __future__ import annotations
 
@@ -22,26 +25,53 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str = "normal"      # normal | zeros | ones
     scale: float = 1.0        # multiplier on 1/sqrt(fan_in) for "normal"
+    dtype: Optional[str] = None   # override the tree-wide dtype (e.g. "int32")
+    stacked: bool = False     # leading axis is a layer stack (stack_specs)
+
+
+def stack_specs(spec_tree, n: int):
+    """Prepend a layer-stack axis of size n to every spec. The init scale
+    keeps the reference's fan-in over the stacked shape."""
+    if isinstance(spec_tree, ParamSpec):
+        return dataclasses.replace(spec_tree, shape=(n,) + spec_tree.shape,
+                                   stacked=True)
+    return {k: stack_specs(v, n) for k, v in spec_tree.items()}
 
 
 def _fan_in(shape: Tuple[int, ...]) -> int:
     return math.prod(shape[:-1]) if len(shape) > 1 else shape[0] or 1
 
 
+def _init_leaf(generator: torch.Generator, s: ParamSpec, device, dtype):
+    dt = getattr(torch, s.dtype) if s.dtype else dtype
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=dt, device=device)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=dt, device=device)
+    std = s.scale / _fan_in(s.shape) ** 0.5
+    if not s.stacked:
+        w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (w * std).to(device=device, dtype=dt)
+    # one layer slice at a time: the float32 draw never exceeds one layer
+    out = torch.empty(s.shape, dtype=dt, device=device)
+    for i in range(s.shape[0]):
+        w = torch.randn(s.shape[1:], generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        out[i].copy_(w * std)
+    return out
+
+
 def init_tree(generator: torch.Generator, spec_tree, *, device=None,
               dtype=torch.float32):
-    """Materialize a spec tree. Leaves are drawn from ``generator`` (a CPU
-    generator) in sorted-key order, then moved to ``device``: one seed gives
-    the same weights on every device."""
+    """Materialize a spec tree. Leaves are drawn in float32 from
+    ``generator``, on the generator's device, in sorted-key order, one leaf
+    (and one layer of a stacked leaf) at a time, cast to the leaf's dtype
+    and placed on ``device``. A CPU generator gives the same weights on
+    every device; a CUDA generator draws billions of parameters on the card
+    without a host copy (different numbers from the same seed)."""
     if isinstance(spec_tree, ParamSpec):
-        s = spec_tree
-        if s.init == "zeros":
-            return torch.zeros(s.shape, dtype=dtype, device=device)
-        if s.init == "ones":
-            return torch.ones(s.shape, dtype=dtype, device=device)
-        std = s.scale / _fan_in(s.shape) ** 0.5
-        w = torch.randn(s.shape, generator=generator, dtype=torch.float32)
-        return (w * std).to(device=device, dtype=dtype)
+        return _init_leaf(generator, spec_tree, device, dtype)
     return {k: init_tree(generator, spec_tree[k], device=device, dtype=dtype)
             for k in sorted(spec_tree)}
 
@@ -51,7 +81,11 @@ def from_numpy(tree, device: Optional[torch.device] = None):
     ``device`` (copies; the layouts are the reference's)."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree), device=device)
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)
 
 
 def to_numpy(state):

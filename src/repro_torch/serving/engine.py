@@ -1,0 +1,130 @@
+"""Batched LM serving engine: prefill -> KV cache -> greedy decode.
+
+Port of ``repro.serving.engine`` for one device and the dense GQA models
+(``models/lm.py``):
+
+    engine = ServingEngine(cfg, params, max_len=2080)      # runs on the GPU
+    tokens = engine.generate(prompts, max_new_tokens=32)   # (B, 32) int32
+    engine.stats     # prefill_ms, decode_ms_per_token, tokens_per_s
+
+Prefill runs every layer's attention through the flash-attention kernel,
+fills a (B, max_len) KV cache, and decode then attends to that cache one
+token at a time, writing each new K/V row in place. This slice decodes
+greedily: ``temperature > 0`` (sampling, which needs key splitting) and a
+``mesh`` raise. ``device=None`` means the GPU; without CUDA the engine
+raises rather than moving to the CPU on its own. ``device="cpu"`` runs the
+kernels' plain PyTorch versions.
+
+Timing is synchronous: the device is synchronized around the prefill (which
+includes growing its cache to ``max_len``) and around the decode loop, so
+the recorded times are honest end-to-end times.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
+from repro_torch.models.params import to_device
+from repro_torch.serving.vision import resolve_device
+
+
+def make_prefill_step(cfg: ArchConfig, mesh=None, rules=None):
+    def prefill(params, tokens):
+        logits, cache = lm.forward(params, tokens, cfg, mesh, rules,
+                                   mode="prefill")
+        return logits[:, -1], cache
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig, mesh=None, rules=None,
+                     temperature: float = 0.0):
+    if temperature > 0.0:
+        raise NotImplementedError(
+            "temperature sampling comes with a later slice of the port "
+            "(it needs prng.split and a distribution test); this engine "
+            "decodes greedily")
+
+    def decode(params, cache, tokens):
+        """tokens: (B, 1) current token. Returns (next_token, new_cache);
+        ``cache`` is updated in place and must not be reused."""
+        logits, new_cache = lm.forward(params, tokens, cfg, mesh, rules,
+                                       mode="decode", cache=cache)
+        nxt = torch.argmax(logits[:, -1].to(torch.float32), dim=-1)
+        return nxt[:, None].to(torch.int32), new_cache
+    return decode
+
+
+def pad_prefill_cache(cfg: ArchConfig, prefill_cache, batch: int,
+                      max_len: int):
+    """Grow a seq-sized prefill cache into a max_len decode cache."""
+    target = lm.init_cache(cfg, batch, max_len,
+                           device=prefill_cache["pos"].device)
+
+    def merge(dst, src):
+        if isinstance(dst, dict):
+            return {k: merge(dst[k], src[k]) for k in dst}
+        if dst.ndim == 0 or dst.shape == src.shape:
+            return src.to(dst.dtype).reshape(dst.shape)
+        sl = tuple(slice(0, min(a, b)) for a, b in zip(dst.shape, src.shape))
+        dst[sl] = src[sl].to(dst.dtype)
+        return dst
+
+    return merge(target, prefill_cache)
+
+
+class ServingEngine:
+    """Synchronous batched engine: prefill + greedy decode on one device."""
+
+    def __init__(self, cfg: ArchConfig, params, max_len: int = 512,
+                 mesh=None, temperature: float = 0.0, device=None):
+        if mesh is not None:
+            raise NotImplementedError("one card has no mesh: sharding comes "
+                                      "with the multi-card slice")
+        lm.check_supported(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = to_device(params, self.device)
+        self.max_len = max_len
+        self.prefill = make_prefill_step(cfg)
+        self.decode = make_decode_step(cfg, temperature=temperature)
+        self.stats: Dict[str, float] = {}
+        self.prefill_logits: Optional[torch.Tensor] = None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def generate(self, prompts, max_new_tokens: int) -> torch.Tensor:
+        """prompts: (B, S) integer ids. Returns (B, max_new_tokens) int32 on
+        the engine's device. Keeps the prefill's last-position logits in
+        ``prefill_logits`` and the step times in ``stats``: ``prefill_ms``,
+        ``decode_ms_per_token`` (per decode step of the batch) and
+        ``tokens_per_s`` (generated tokens over the whole call)."""
+        prompts = torch.as_tensor(prompts, device=self.device)
+        b = prompts.shape[0]
+        with torch.inference_mode():
+            self._sync()
+            t0 = time.perf_counter()
+            last_logits, cache = self.prefill(self.params, prompts)
+            cache = pad_prefill_cache(self.cfg, cache, b, self.max_len)
+            tok = torch.argmax(last_logits.to(torch.float32), dim=-1)
+            out = [tok[:, None].to(torch.int32)]
+            self._sync()
+            t1 = time.perf_counter()
+            for _ in range(max_new_tokens - 1):
+                nxt, cache = self.decode(self.params, cache, out[-1])
+                out.append(nxt)
+            self._sync()
+            t2 = time.perf_counter()
+        self.prefill_logits = last_logits
+        self.stats = {
+            "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_token": (t2 - t1) * 1e3 / max(max_new_tokens - 1,
+                                                         1),
+            "tokens_per_s": b * max_new_tokens / (t2 - t0),
+        }
+        return torch.cat(out, dim=1)

@@ -45,8 +45,8 @@ def resolve_device(device=None) -> torch.device:
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; VisionEngine runs "
-                           "on the GPU unless asked otherwise — pass "
+        raise RuntimeError("no CUDA device is available; the port's engines "
+                           "run on the GPU unless asked otherwise — pass "
                            "device=\"cpu\" to run the plain PyTorch versions")
     return torch.device("cuda")
 

@@ -14,18 +14,29 @@ equals f32 on power-of-two grid inputs, explicit kernel A equals implicit
 kernel A, and the legacy kernel at A's theta equals the pinned fused kernel.
 The engine tests show each main path launches its own kernels and no
 other: f32 A / B / f32 fused on the f32 engine, int8 A / B / int8 fused on
-an engine whose tile table picks int8.
+an engine whose tile table picks int8, and one flash-attention launch per
+layer (no P2M kernel) on the LM engine.
+
+The flash-attention kernel is held against its plain version at max-abs
+2e-2 for bf16 outputs (bf16 output rounding plus another kv-tile summation
+order) and 2e-5 for float32 (the summation order alone).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import prng
-from repro_torch.kernels import autotune
+from repro_torch.configs import get_arch
+from repro_torch.configs.reduced import reduced
+from repro_torch.kernels import autotune, cuda_lib
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import p2m_conv as tk
+from repro_torch.models import lm as tlm
 from repro_torch.models import vision as tv
-from repro_torch.serving import VisionEngine
+from repro_torch.serving import ServingEngine, VisionEngine
 
 GEOMETRIES = [(3, 2, 32, 32), (3, 1, 16, 16), (3, 3, 18, 18), (5, 2, 12, 12),
               (3, 2, 15, 15), (3, 2, 14, 10), (5, 3, 13, 11)]
@@ -58,7 +69,7 @@ def test_kernels_match_plain_on_card(cuda_device, kernel, stride, h, w):
     wp = tk.pack_phase_weights(wt).to(cuda_device)
     v_th = torch.ones((), device=cuda_device)
     key = prng.PRNGKey(5)
-    tk.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     u, hp = tk.p2m_phase_a_implicit(images, wp, v_th, kernel=kernel,
                                     stride=stride)
     u_p, hp_p = tk.p2m_phase_a_implicit_plain(images, wp, v_th,
@@ -75,7 +86,7 @@ def test_kernels_match_plain_on_card(cuda_device, kernel, stride, h, w):
     assert torch.equal(acts_f, acts)
     assert torch.equal(tk.combine_hoyer_partials(hf, v_th), theta)
     assert torch.equal(rf.sum(0), acts_f.sum(0))
-    counts = tk.launch_counts()
+    counts = cuda_lib.launch_counts()
     assert {k: v for k, v in counts.items() if v} == {
         "p2m_phase_a_implicit": 1, "p2m_phase_b": 1, "p2m_fused_stream": 1}
 
@@ -104,7 +115,7 @@ def test_new_kernels_match_plain_on_card(cuda_device, kernel, stride, h, w):
     v_th = torch.ones((), device=dev)
     key = prng.PRNGKey(6)
     kw = dict(kernel=kernel, stride=stride)
-    tk.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
 
     # int8 kernel A, on uniform and on 1/256-grid frames
     grid256 = torch.tensor(rng.integers(0, 257, size=(4, h, w, 3)) / 256.0,
@@ -155,7 +166,7 @@ def test_new_kernels_match_plain_on_card(cuda_device, kernel, stride, h, w):
     assert torch.equal(acts_l, acts_f)
     _assert_word_boundary(acts_l, tk.device_chain_q(ue_p, theta, None)[0],
                           tk.draw_bits(key, *u.shape))
-    counts = tk.launch_counts()
+    counts = cuda_lib.launch_counts()
     assert counts["p2m_phase_a_implicit_q8"] == 4
     assert counts["p2m_fused_stream_q8"] == 2
     assert counts["p2m_phase_a"] == 1 and counts["p2m_conv"] == 1
@@ -168,12 +179,12 @@ INT8_PATH = {"p2m_phase_a_implicit_q8", "p2m_phase_b", "p2m_fused_stream_q8"}
 def _run_engine(engine):
     frames = torch.rand(4, 32, 32, 3, generator=torch.Generator()
                         .manual_seed(1))
-    tk.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     out = engine.classify(frames)
     list(engine.stream([frames, frames]))
     assert out["probs"].device.type == "cuda"
     assert bool(torch.isfinite(out["probs"]).all())
-    return tk.launch_counts()
+    return cuda_lib.launch_counts()
 
 
 @pytest.mark.cuda
@@ -200,3 +211,118 @@ def test_int8_engine_launches_the_int8_kernels(cuda_device, monkeypatch,
     counts = _run_engine(engine)
     assert {k for k, v in counts.items() if v} == INT8_PATH
     assert counts["p2m_fused_stream_q8"] == engine.fused_step_count >= 1
+
+
+# (batch, seq, heads, kv_heads, head_dim, dtype, causal): the LM serving
+# geometry and the odd ones chip_smoke.py also checks
+FLASH_GEOMETRIES = [(4, 2048, 32, 8, 128, torch.bfloat16, True),
+                    (2, 77, 4, 4, 64, torch.bfloat16, True),
+                    (2, 256, 8, 2, 128, torch.float32, False),
+                    (1, 1000, 32, 8, 128, torch.bfloat16, True),
+                    (2, 100, 4, 2, 16, torch.float32, True),
+                    (1, 130, 2, 1, 32, torch.bfloat16, False),
+                    (3, 1, 4, 2, 64, torch.bfloat16, True),
+                    (1, 65, 8, 8, 128, torch.float32, True)]
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# the largest error of an output row over that row's RMS, so that a fault in
+# the small late causal rows cannot hide under the absolute limit
+FLASH_ROW_TOL = {torch.bfloat16: 1e-1, torch.float32: 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,dtype,causal", FLASH_GEOMETRIES)
+def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, hkv, d,
+                                            dtype, causal):
+    gen = torch.Generator().manual_seed(s)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda_device, dtype)
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    fa.flash_attention.launches = 0
+    out = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention.launches == 1
+    plain = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+    row_err = (out.float() - plain.float()).abs().amax(dim=-1) / \
+        plain.float().square().mean(dim=-1).sqrt()
+    assert float(row_err.max()) <= FLASH_ROW_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_operands(cuda_device):
+    """q, k, v sliced out of one packed projection (no copies) give the
+    same result as contiguous copies."""
+    gen = torch.Generator().manual_seed(3)
+    qkv = torch.randn((2, 96, 4 + 2 * 2, 64), generator=gen).to(
+        cuda_device, torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    assert not q.is_contiguous()
+    out = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=True)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 64, 4, 64), device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 2, 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.float(), k)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :48], k[..., :48], k[..., :48])
+    with pytest.raises(ValueError, match="unit-stride"):
+        fa.flash_attention(q[..., ::2], k[..., ::2], k[..., ::2])
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q[:, :, :3], k, k)
+    with pytest.raises(ValueError, match="several devices"):
+        fa.flash_attention(q, k.cpu(), k)
+
+
+@pytest.mark.cuda
+def test_lm_engine_launches_flash_once_per_layer(cuda_device, monkeypatch):
+    """The card's engine launches the kernel once per layer and never
+    reaches the plain version; it agrees with the CPU engine."""
+    from repro_torch.models import blocks
+    cfg = dataclasses.replace(reduced(get_arch("granite-8b")), num_kv_heads=2,
+                              num_layers=3)
+    params = tlm.init_params(0, cfg)              # float32, on the CPU
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                            generator=torch.Generator().manual_seed(0))
+    engine = ServingEngine(cfg, params, max_len=48)
+    cuda_lib.reset_launch_counts()
+    with monkeypatch.context() as m:
+        def refuse(*args, **kwargs):
+            raise AssertionError("the plain version ran on the card path")
+        m.setattr(fa, "flash_attention_plain", refuse)
+        m.setattr(blocks, "flash_attention_plain", refuse)
+        out = engine.generate(prompts, 6)
+    counts = cuda_lib.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {"flash_attention": 3}
+    cpu = ServingEngine(cfg, params, max_len=48, device="cpu")
+    assert torch.equal(out.cpu(), cpu.generate(prompts, 6))
+    torch.testing.assert_close(engine.prefill_logits.cpu(),
+                               cpu.prefill_logits, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_model_attention_refuses_what_the_kernel_does_not_compute(
+        cuda_device):
+    """No silent plain fallback on the card: a window, Dv != D and unequal
+    or offset lengths raise, naming the slice that brings them."""
+    from repro_torch.models import blocks
+    q = torch.zeros((1, 32, 4, 16), device=cuda_device)
+    k = torch.zeros((1, 32, 2, 16), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="local-attention"):
+        blocks.flash_attention(q, k, k, causal=True, window=8)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        blocks.flash_attention(q, k, k[..., :8], causal=True)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        blocks.flash_attention(q[:, :16], k, k, causal=True)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        blocks.flash_attention(q, k, k, causal=True, q_offset=4)
+    cuda_lib.reset_launch_counts()
+    blocks.flash_attention(q, k, k, causal=True)
+    assert cuda_lib.launch_counts()["flash_attention"] == 1

@@ -1,0 +1,172 @@
+"""The port's flash attention held against the JAX package on the CPU.
+
+The same numpy inputs go to the reference's Pallas kernel (through
+``repro.kernels.ops.flash_attention``, in interpret mode, as
+tests/test_kernels.py runs it), to its oracle ``ref.flash_attention_ref``
+and to the JAX model layer ``blocks.flash_attention``, and to their
+counterparts in the port: ``flash_attention_plain``, the port's
+``ops.flash_attention`` (whose wrapper runs the plain version for CPU
+tensors) and the port's ``blocks.flash_attention``. Tolerances: 2e-5 for
+float32 (summation order), 2e-2 for bfloat16 outputs (one bf16 ulp of the
+output plus another kv-tile order), as in tests/test_kernels.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import blocks as jblocks
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import ops as tops
+from repro_torch.models import blocks as tblocks
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(seed, b, s, h, hkv, d, dtype="float32", sk=None, dv=None):
+    """numpy float32 draws, cast to ``dtype`` on both sides (both round to
+    nearest even)."""
+    rng = np.random.default_rng(seed)
+    sk = sk or s
+    arrs = [rng.normal(size=shape).astype(np.float32) for shape in
+            ((b, s, h, d), (b, sk, hkv, d), (b, sk, hkv, dv or d))]
+    jx = [jnp.asarray(a).astype(dtype) for a in arrs]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, tx
+
+
+def _close(port, ref, atol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("s", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sweep_causal_matches_pallas_kernel_and_oracle(s, d, dtype):
+    (qj, kj, vj), (q, k, v) = _inputs(s + d, 2, s, 2, 2, d, dtype)
+    kern = jops.flash_attention(qj, kj, vj, causal=True, block_q=32,
+                                block_kv=32)
+    oracle = jref.flash_attention_ref(qj, kj, vj, causal=True)
+    plain = fa.flash_attention_plain(q, k, v, causal=True)
+    op = tops.flash_attention(q, k, v, causal=True)
+    assert plain.dtype == q.dtype and torch.equal(op, plain)
+    _close(plain, kern, TOL[dtype])
+    _close(plain, oracle, TOL[dtype])
+
+
+def test_non_causal():
+    (qj, kj, vj), (q, k, v) = _inputs(1, 1, 128, 4, 4, 32)
+    kern = jops.flash_attention(qj, kj, vj, causal=False, block_q=32,
+                                block_kv=64)
+    _close(tops.flash_attention(q, k, v, causal=False), kern, 2e-5)
+    _close(tops.flash_attention(q, k, v, causal=False),
+           jref.flash_attention_ref(qj, kj, vj, causal=False), 2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gqa_reads_kv_head_without_repeat(dtype):
+    """GQA 8/2: the reference repeats the kv heads; the port indexes them."""
+    (qj, kj, vj), (q, k, v) = _inputs(2, 1, 64, 8, 2, 16, dtype)
+    kern = jops.flash_attention(qj, kj, vj, causal=True, block_q=16,
+                                block_kv=16)
+    _close(tops.flash_attention(q, k, v, causal=True), kern, TOL[dtype])
+
+
+@pytest.mark.parametrize("s", [77, 130])
+def test_ragged_length(s):
+    """Any S: the reference kernel needs S % block == 0, so the oracle (kv
+    heads repeated) and the JAX model layer are the references here."""
+    (qj, kj, vj), (q, k, v) = _inputs(s, 2, s, 4, 2, 32)
+    oracle = jref.flash_attention_ref(qj, jnp.repeat(kj, 2, axis=2),
+                                      jnp.repeat(vj, 2, axis=2), causal=True)
+    out = tops.flash_attention(q, k, v, causal=True)
+    _close(out, oracle, 2e-5)
+    _close(out, jblocks.flash_attention(qj, kj, vj, causal=True,
+                                        q_chunk=16, kv_chunk=16), 2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_model_layer_matches_jax_scan(window, causal):
+    (qj, kj, vj), (q, k, v) = _inputs(3, 2, 64, 4, 2, 16)
+    kw = dict(causal=causal, window=window, kv_chunk=16)
+    _close(tblocks.flash_attention(q, k, v, **kw),
+           jblocks.flash_attention(qj, kj, vj, q_chunk=16, **kw), 2e-5)
+
+
+def test_model_layer_offset_queries_and_value_dim():
+    """Unequal lengths, a q offset and Dv != D (the reference's cross /
+    MLA shapes): the CPU path computes them as the JAX scan does."""
+    (qj, kj, vj), (q, k, v) = _inputs(4, 1, 16, 4, 4, 16, sk=48, dv=8)
+    kw = dict(causal=True, q_offset=32, kv_chunk=16)
+    _close(tblocks.flash_attention(q, k, v, **kw),
+           jblocks.flash_attention(qj, kj, vj, q_chunk=8, **kw), 2e-5)
+
+
+def test_model_layer_bf16_matches_jax_scan():
+    (qj, kj, vj), (q, k, v) = _inputs(5, 2, 64, 4, 1, 32, "bfloat16")
+    kw = dict(causal=True, kv_chunk=32)
+    _close(tblocks.flash_attention(q, k, v, **kw),
+           jblocks.flash_attention(qj, kj, vj, q_chunk=16, **kw), 2e-2)
+
+
+def test_kernel_tiles_do_not_change_the_function():
+    """The plain version at the kernel's kv tile equals it at the JAX
+    layer's chunk (and the oracle) up to summation order."""
+    _, (q, k, v) = _inputs(6, 1, 200, 4, 2, 32)
+    a = fa.flash_attention_plain(q, k, v, kv_chunk=fa.BLOCK_KV)
+    b = fa.flash_attention_plain(q, k, v, kv_chunk=200)
+    torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
+
+
+def test_cpu_tensors_never_launch_flash():
+    cuda_lib.reset_launch_counts()
+    _, (q, k, v) = _inputs(7, 1, 32, 2, 1, 16)
+    tops.flash_attention(q, k, v)
+    tblocks.flash_attention(q, k, v, causal=True)
+    assert cuda_lib.launch_counts()["flash_attention"] == 0
+    assert fa.flash_attention.launches == 0
+
+
+def test_wrapper_refuses_mismatched_operands():
+    _, (q, k, v) = _inputs(8, 1, 32, 4, 2, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="do not match"):
+        fa.flash_attention(q, k[:, :16], v[:, :16])
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[0], k, v)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-1}   # chip_smoke.py's FLASH_ROW_TOL
+
+
+def _row_rel_err(out, ref):
+    out, ref = out.float(), ref.float()
+    return float(((out - ref).abs().amax(dim=-1)
+                  / ref.square().mean(dim=-1).sqrt()).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_error_limit_passes_tile_order_and_fails_a_dropped_tile(dtype):
+    """The card check's second limit, error over each output row's RMS:
+    another kv tile order stays under it, and one kv tile dropped from the
+    last rows only (where |out| is small) lies far above it."""
+    _, (q, k, v) = _inputs(9, 1, 1024, 2, 1, 128, dtype)
+    ref = fa.flash_attention_plain(q, k, v, kv_chunk=fa.BLOCK_KV)
+    for chunk in (32, 128, 1024):
+        alt = fa.flash_attention_plain(q, k, v, kv_chunk=chunk)
+        assert _row_rel_err(alt, ref) <= ROW_TOL[dtype]
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    scores = qf @ kf.transpose(-1, -2) * 128 ** -0.5
+    keep = torch.ones(1024, 1024, dtype=torch.bool).tril()
+    keep[768:, 256:256 + fa.BLOCK_KV] = False
+    dropped = (scores.masked_fill(~keep, float("-inf")).softmax(-1) @ vf)
+    dropped = dropped.transpose(1, 2).to(q.dtype)
+    assert _row_rel_err(dropped, ref) > 10 * ROW_TOL[dtype]

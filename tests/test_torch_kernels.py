@@ -24,6 +24,7 @@ from repro.kernels import ops as j_ops
 from repro.kernels import p2m_conv as jk
 from repro.kernels import ref as j_ref
 from repro_torch import prng
+from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import p2m_conv as tk
 
@@ -253,7 +254,7 @@ def test_legacy_conv_matches_reference(kernel, stride, h, w):
 
 
 def test_cpu_tensors_never_launch():
-    tk.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     rng = np.random.default_rng(13)
     images = _t(rng.uniform(size=(2, 8, 8, 3)).astype(np.float32))
     w = _t((rng.normal(size=(3, 3, 3, 8)) * 0.3).astype(np.float32))
@@ -265,12 +266,12 @@ def test_cpu_tensors_never_launch():
     t_ops.p2m_conv(images, w, aux["theta"], prng.PRNGKey(0))
     tk.p2m_phase_a(t_ops.im2col(images, 3, 2),
                    tk.pack_phase_weights(w.reshape(27, 8)), torch.ones(()))
-    assert tk.launch_counts() == {fn.__name__: 0
-                                  for fn in tk.KERNEL_WRAPPERS}
-    assert set(tk.launch_counts()) == {
+    assert cuda_lib.launch_counts() == {fn.__name__: 0
+                                  for fn in cuda_lib.kernel_wrappers()}
+    assert set(cuda_lib.launch_counts()) == {
         "p2m_phase_a_implicit", "p2m_phase_b", "p2m_fused_stream",
         "p2m_phase_a_implicit_q8", "p2m_fused_stream_q8", "p2m_phase_a",
-        "p2m_conv"}
+        "p2m_conv", "flash_attention"}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -34,6 +34,7 @@ from repro.serving import VisionEngine as JaxEngine
 from repro_torch import prng
 from repro_torch.core import p2m as t_p2m
 from repro_torch.kernels import autotune as t_autotune
+from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import p2m_conv as tk
 from repro_torch.models import params as tp
@@ -269,7 +270,7 @@ def test_int8_engine_matches_reference_engine(tmp_path, monkeypatch):
     assert t_autotune.lookup(*key).precision == "int8"
     frames = np.random.default_rng(0).uniform(
         size=(4, 32, 32, 3)).astype(np.float32)
-    tk.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     _compare(ej.classify(jnp.asarray(frames)), et.classify(frames),
              4 * 16 * 16 * 32)
     batches = [frames, (0.9 * frames).astype(np.float32)]
@@ -281,4 +282,4 @@ def test_int8_engine_matches_reference_engine(tmp_path, monkeypatch):
         (ej.fused_step_count, ej.fused_fallback_count)
     assert et.fused_step_count == 1
     # CPU tensors run the plain versions: nothing launched
-    assert set(tk.launch_counts().values()) == {0}
+    assert set(cuda_lib.launch_counts().values()) == {0}
