@@ -10,7 +10,7 @@ line:
 
 1. ``env``: torch/CUDA versions and the card's name and power limit;
 2. ``build``: seconds for each library's nvcc build and the compiler's
-   register report;
+   register report (a wgmma serialization warning fails the run);
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32) and two odd geometries. Each of the seven
    kernels (f32 A, B, f32 fused, int8 A, int8 fused, explicit-patch A,
@@ -32,12 +32,15 @@ line:
 7. ``engine_int8``: the same vgg16 engine with a port tile table that picks
    int8 at (4096, 27, 32), with its own launch counts and CPU comparison;
 8. ``autotune``: the port's search at the serving shape (data, no check);
-9. ``flash`` lines: the flash-attention kernel at the LM serving geometry
-   (B 4, S 2048, H 32, Hkv 8, D 128, bf16, causal) and three odd ones
-   (S 77 MHA D 64 bf16; S 256 non-causal float32; S 1000 GQA, a ragged
-   tail), each held against its plain version on the same card tensors
-   (max-abs 2e-2 for bf16 outputs, 2e-5 for float32) and timed beside its
-   plain version, its bound and ``scaled_dot_product_attention``;
+9. ``flash`` lines: the flash-attention kernels at the LM serving geometry
+   (B 4, S 2048, H 32, Hkv 8, D 128, bf16, causal: ``flash_wgmma_kernel``),
+   at stablelm-3b's prefill (B 1, S 2048, H 32, MHA, D 80, bf16, causal:
+   ``flash_bf16_kernel``) and three odd ones (S 77 MHA D 64 bf16; S 256
+   non-causal float32; S 1000 GQA, a ragged tail), each held against its
+   plain version on the same card tensors (max-abs 2e-2 for bf16 outputs,
+   2e-5 for float32, and the row gate below), timed beside its plain
+   version, its bound and ``scaled_dot_product_attention``, and naming the
+   kernel symbol a profiled call shows ran;
 10. ``lm``: full-width, full-depth granite-8b with seeded bf16 weights
    drawn on the card, ``ServingEngine.generate`` of a (4, 2048) prompt for
    32 new tokens, with its launch counts (one flash launch per layer, no
@@ -47,7 +50,9 @@ line:
    kernel's share of prefill device time (``lm_profile``);
 11. ``lm_vs_cpu``: granite-8b at full width but 2 layers (a depth cut: the
    CPU engine at 36 layers would take minutes), the card's engine against
-   the CPU engine on a (1, 128) prompt and 8 new tokens;
+   the CPU engine on a (1, 128) prompt and 8 new tokens, with its flash
+   launch count; ``lm_stablelm``: the same check for stablelm-3b (head dim
+   80) at full width, 2 layers;
 12. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run), and last the
    ``{"ok": true, "device": ...}`` line.
@@ -111,10 +116,12 @@ PATH_KERNELS = {
 SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
 
 # flash attention: the LM serving geometry (granite-8b prefill of 4 x 2048
-# tokens) and three odd ones
+# tokens), stablelm-3b's prefill at head dim 80 and three odd ones
 FLASH_SERVING = dict(batch=4, seq=2048, heads=32, kv_heads=8, head_dim=128,
                      dtype="bfloat16", causal=True)
-FLASH_ODD = (dict(batch=2, seq=77, heads=4, kv_heads=4, head_dim=64,
+FLASH_ODD = (dict(batch=1, seq=2048, heads=32, kv_heads=32, head_dim=80,
+                  dtype="bfloat16", causal=True),    # stablelm-3b prefill
+             dict(batch=2, seq=77, heads=4, kv_heads=4, head_dim=64,
                   dtype="bfloat16", causal=True),
              dict(batch=2, seq=256, heads=8, kv_heads=2, head_dim=128,
                   dtype="float32", causal=False),
@@ -130,6 +137,7 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the last rows lies 10x above it (tests/test_torch_flash.py).
 FLASH_ROW_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
 LM_ARCH = "granite-8b"
+LM_D80_ARCH = "stablelm-3b"     # head dim 80: the mma.sync kernel
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 # prefill logits vs a train-mode forward of the same prompt: the same
 # kernels on the same inputs, so equal up to bf16 rounding of the logits
@@ -707,7 +715,8 @@ VISION_FAMILIES = (("frontend_kernels", ("phase_a_kernel", "phase_b_kernel",
                                          "legacy_conv_kernel")),
                    ("backbone_conv", ("conv", "xmma", "gemm", "implicit",
                                       "cudnn")))
-LM_FAMILIES = (("flash_attention", ("flash_bf16_kernel", "flash_f32_kernel")),
+LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel", "flash_bf16_kernel",
+                                     "flash_f32_kernel")),
                ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
                            "nvjet")))
 
@@ -735,6 +744,7 @@ def flash_phase(geom: dict, device):
     ``scaled_dot_product_attention``. Returns the summary row."""
     import torch
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
 
     b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
@@ -746,8 +756,13 @@ def flash_phase(geom: dict, device):
                for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
     tag = (f"B{b} S{s} H{h}/{hkv} D{d} {geom['dtype']} "
            f"{'causal' if causal else 'full'}")
-    out = fa.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
+    symbol = fa.kernel_symbol(dtype, d)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+    ran = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
+    check(len(ran) == 1 and symbol in ran[0],
+          f"flash kernels {ran} ran at {tag}, want {symbol} alone")
     plain = fa.flash_attention_plain(q, k, v, causal=causal)
     err = max_abs(out.float(), plain.float())
     row_err = row_rel_err(out, plain)
@@ -790,7 +805,8 @@ def flash_phase(geom: dict, device):
     # the causal skip, seen in time: the same inputs without the mask
     full_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=False),
                         device) if causal else None
-    emit("flash", geometry=tag, tolerance=FLASH_TOL[geom["dtype"]],
+    emit("flash", geometry=tag, kernel=symbol,
+         tolerance=FLASH_TOL[geom["dtype"]],
          row_rel_err=row_err, row_tolerance=FLASH_ROW_TOL[geom["dtype"]],
          **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
          flops=flops, bytes=nbytes, library_error=lib_error,
@@ -877,6 +893,16 @@ def lm_phase(device, smi: str):
         torch.cuda.synchronize()
     fam, top = device_breakdown(prof, LM_FAMILIES, 12)
     total = sum(fam.values())
+    # every flash launch of the prefill is the serving width's one kernel
+    from torch.autograd import DeviceType
+    from repro_torch.kernels import flash_attention as fa
+    symbol = fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim)
+    flash_ran = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and "flash" in e.key}
+    check(len(flash_ran) == 1 and symbol in next(iter(flash_ran))
+          and next(iter(flash_ran.values())) == cfg.num_layers,
+          f"prefill flash launches {flash_ran}, want {cfg.num_layers} of "
+          f"{symbol}")
     with torch.inference_mode():
         cache = pad_prefill_cache(cfg, cache, LM_BATCH, LM_PROMPT + LM_NEW)
         tok = tokens[:, :1]
@@ -888,7 +914,9 @@ def lm_phase(device, smi: str):
     fam_d, top_d = device_breakdown(prof_d, LM_FAMILIES, 12)
     decode_device = sum(fam_d.values())
     decode_wall = statistics.median(r["decode_ms_per_token"] for r in steady)
-    emit("lm_profile", prefill_device_ms=fam, prefill_device_ms_total=total,
+    emit("lm_profile", flash_kernel=symbol,
+         flash_launches_in_prefill=cfg.num_layers,
+         prefill_device_ms=fam, prefill_device_ms_total=total,
          flash_share=fam["flash_attention"] / total if total else None,
          prefill_top_kernels=top, decode_step_device_ms=fam_d,
          decode_step_device_ms_total=decode_device,
@@ -908,24 +936,32 @@ def _leaves(tree):
         yield tree
 
 
-def lm_vs_cpu_phase(device):
-    """granite-8b at full width, 2 layers: the card's engine against the
-    CPU engine on one prompt. Prefill logits, and the logits of every decode
+def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu"):
+    """``arch`` at full width, 2 layers: the card's engine against the CPU
+    engine on one prompt, with its launch counts (one flash launch per
+    layer, nothing else). Prefill logits, and the logits of every decode
     step fed the CPU's tokens, within LM_CPU_TOL; greedy tokens equal up to
     the first step whose CPU top-1/top-2 margin is within twice the
     tolerance (after a divergence the contexts differ)."""
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
     from repro_torch.models.params import to_device
     from repro_torch.serving import ServingEngine
 
-    cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=2)
+    cfg = dataclasses.replace(get_arch(arch), num_layers=2)
     params = lm.init_params(1, cfg, device=device)
     prompts = _lm_prompts(cfg, 1, 128, 31)
     n_new = 8
     gpu = ServingEngine(cfg, params, max_len=128 + n_new, device=device)
+    cuda_lib.reset_launch_counts()
     tok_gpu = gpu.generate(prompts, n_new).cpu()
+    counts = cuda_lib.launch_counts()
+    check({k_: v_ for k_, v_ in counts.items() if v_}
+          == {"flash_attention": cfg.num_layers},
+          f"{arch} launches {counts}, want one flash launch per layer")
     params_cpu = to_device(params, torch.device("cpu"))
     cpu = ServingEngine(cfg, params_cpu, max_len=128 + n_new, device="cpu")
     tok_cpu = cpu.generate(prompts, n_new)
@@ -949,8 +985,12 @@ def lm_vs_cpu_phase(device):
                   f"token {i} differs at a CPU margin {margins[i]}")
             break
         equal += 1
-    emit("lm_vs_cpu", model=LM_ARCH, layers=2, cut="depth 36 -> 2",
-         prompt=128, new_tokens=n_new, prefill_logits_max_abs=err,
+    emit(phase, model=arch, layers=2,
+         cut=f"depth {get_arch(arch).num_layers} -> 2",
+         head_dim=cfg.resolved_head_dim,
+         flash_kernel=fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim),
+         launches=counts, prompt=128, new_tokens=n_new,
+         prefill_logits_max_abs=err,
          tolerance=LM_CPU_TOL, decode_logits_max_abs_per_step=step_err,
          tokens_equal_before_divergence=equal,
          tokens_gpu=tok_gpu[0].tolist(), tokens_cpu=tok_cpu[0].tolist(),
@@ -1017,10 +1057,15 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, (lib_path, lib_s) in built.items():
         log = lib_path.with_suffix(".log").read_text().splitlines()
+        serialized = [ln.strip() for ln in log if "serialized" in ln]
         emit("build", library=name, seconds=lib_s, wall_seconds=build_s,
              path=str(lib_path.relative_to(ROOT)),
              ptxas=[ln.strip() for ln in log
-                    if "Used" in ln or "spill" in ln or "Compiling" in ln])
+                    if "Used" in ln or "spill" in ln or "Compiling" in ln],
+             wgmma_serialized=serialized)
+        # ptxas C7513/C7514: a register of an in-flight wgmma is touched,
+        # so every wgmma waits for the one before (the overlap is lost)
+        check(not serialized, f"{name}: ptxas serialized the wgmmas")
 
     rows = kernel_phase(SERVING, device)
     for geom in ODD_GEOMETRIES:
@@ -1036,6 +1081,7 @@ def main() -> int:
         flash_phase(geom, device)
     counts_lm = lm_phase(device, smi)
     lm_vs_cpu_phase(device)
+    lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
     rows.append(flash_row)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},

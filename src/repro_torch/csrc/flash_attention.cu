@@ -14,40 +14,70 @@
 // the P.V product takes p rounded to v's type (p.astype(v.dtype)); the
 // output is acc / max(l, 1e-30) in q's type.
 //
-// Design. One block per (batch * head, 64-row q tile); the TPU's sequential
-// kv grid axis becomes a loop over 64-row kv tiles inside the block, with m,
-// l and the accumulator carried in registers. With `causal`, the loop ends at
-// the last kv tile that is not wholly in the future of the q tile, so the
-// causal half of the work is skipped, not masked. Query head h reads kv head
-// h / (H / Hkv) directly: no repeated K/V. A ragged tail is masked: kv
-// columns past S score NEG_INF, q rows past S are not stored. q tiles are
-// issued last-first so the long causal rows start early.
+// Common to every kernel: the TPU's sequential kv grid axis becomes a loop
+// over kv tiles inside the block, with m, l and the accumulator carried in
+// registers. With `causal`, the loop ends at the last kv tile that is not
+// wholly in the future of the q tile, so the causal half of the work is
+// skipped, not masked. Query head h reads kv head h / (H / Hkv) directly:
+// no repeated K/V. A ragged tail is masked: kv columns past S score NEG_INF,
+// q rows past S are not stored. q tiles are issued last-first so the long
+// causal rows start early. One kernel serves each (dtype, D):
 //
-//  * bf16 (the serving type): 4 warps, 16 q rows each, on mma.sync
-//    m16n8k16 bf16 -> f32 tensor-core fragments (the products of two bf16
-//    values are exact in f32). Q stays in registers as A fragments; K is
-//    read from shared memory as B fragments; P is re-packed from the score
-//    fragments as bf16 A fragments without a trip through shared memory; V
-//    fragments come from ldmatrix.trans.
-//  * float32: IEEE FFMA (no TF32), 8 q rows x 4 kv columns of scores and
-//    8 rows x D/16 columns of the accumulator per thread, P through shared
-//    memory.
-//
-// What bounds it: at the serving geometry (B 4, S 2048, H 32, Hkv 8, D 128,
-// bf16, causal) one launch does 4*B*H*S(S+1)/2*D = 137 GFLOP against 34 MB
-// of q, k, v and o, so it is bound by the tensor-core rate (0.139 ms at
-// 989 TFLOP/s against 0.010 ms of bytes). mma.sync reaches a fraction of
-// that rate; wgmma with TMA-fed shared-memory rings is the later step.
+//  * bf16, D = 128 (every dense serving config but stablelm-3b):
+//    flash_wgmma_kernel, the Hopper design. Bound: at the serving geometry
+//    (B 4, S 2048, H 32, Hkv 8, D 128, causal) one launch does
+//    4*B*H*S(S+1)/2*D = 137 GFLOP, 0.139 ms at the 989 TFLOP/s bf16
+//    tensor-core peak, against 0.050 ms for the 168 MB of q, k, v and o at
+//    3.35 TB/s: it is bound by the tensor cores, which only wgmma reaches
+//    at full rate. Its predecessor (mma.sync fragments fed by synchronous
+//    loads between two block barriers per kv tile) ran at 1.315 ms, 10.6%
+//    of that peak. So:
+//     - 3 warpgroups: a producer that keeps TMA loads in flight and two
+//       consumers of 64 q rows each of a 128-row q tile; setmaxnreg moves
+//       the producer's registers to the consumers;
+//     - persistent: one block per SM walks the (q tile, b*H) work items,
+//       longest causal tiles first, so one tile's tail (last product,
+//       stores) overlaps the next tile's Q and K loads;
+//     - TMA with 128-byte swizzle through rank-4 tensor maps over (D, S,
+//       H, B) encoded per call from the operands' strides (no copies of a
+//       sliced packed projection); out-of-bounds rows arrive as zeros;
+//     - shared memory: the Q tile (32 KB) and a ring of 3 stages of K and V
+//       tiles (128 x 128 bf16 each, 192 KB), 225 KB in all, just under the
+//       227 KB a block may have; full and empty mbarriers for K and V
+//       apart, so S = QK^T starts before V lands and K is refilled as soon
+//       as its scores are in;
+//     - S = QK^T by wgmma m64n128k16, Q and K from shared memory, float32
+//       accumulator in registers; the softmax stays in registers (quad
+//       shuffles, e^x as ex2.approx of x log2 e), and the mask compare runs
+//       on the last kv tile only (the diagonal and the ragged tail);
+//     - O += bf16(P) V by wgmma m64n128k16 with A = P straight from the
+//       registers of the first product's accumulator (its fragment layout)
+//       and V from shared memory through a transposed (MN-major)
+//       descriptor: no transposed copy exists anywhere;
+//     - overlap: a consumer issues S of tile j + 1 before O += P_j V_j and
+//       runs tile j + 1's softmax while that product is in flight, and the
+//       two consumers take turns to issue (ping-pong on named barriers), so
+//       one's softmax runs under the other's wgmmas.
+//  * bf16, D = 16, 32, 64, 80: flash_bf16_kernel, 4 warps of 16 q rows on
+//    mma.sync m16n8k16 fragments over 64 x 64 tiles. Q stays in registers
+//    as A fragments; P is re-packed from the score fragments as bf16 A
+//    fragments; V fragments come from ldmatrix.trans. D = 80 (stablelm-3b)
+//    is 5 k-steps and 10 d-tiles; its 176-byte padded rows keep ldmatrix
+//    rows 16-byte aligned.
+//  * float32, D = 16, 32, 64, 80, 128: flash_f32_kernel, IEEE FFMA (no
+//    TF32), 8 q rows x 4 kv columns of scores and 8 rows x D/16 columns of
+//    the accumulator per thread, P through shared memory.
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBlockM = 64;    // query rows per block
-constexpr int kBlockN = 64;    // kv rows per tile
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kBlockM = 64;    // query rows per block (mma.sync, FFMA)
+constexpr int kBlockN = 64;    // kv rows per tile (mma.sync, FFMA)
+constexpr int kThreads = 128;  // 4 warps (mma.sync, FFMA)
 
 }  // namespace
 
@@ -64,16 +94,19 @@ struct Tile {
   int q0, b, h, hk, n_kv;
 };
 
-__device__ Tile tile_of(const FlashGeom& g) {
+// q tile qi (counted from the last, so the long causal rows come first) of
+// batch * head bh
+template <int BM = kBlockM, int BN = kBlockN>
+__device__ Tile tile_of(const FlashGeom& g, int qi, int bh) {
   Tile t;
-  const int n_qb = (g.seq + kBlockM - 1) / kBlockM;
-  t.q0 = (n_qb - 1 - static_cast<int>(blockIdx.x)) * kBlockM;
-  t.b = blockIdx.y / g.heads;
-  t.h = blockIdx.y % g.heads;
+  const int n_qb = (g.seq + BM - 1) / BM;
+  t.q0 = (n_qb - 1 - qi) * BM;
+  t.b = bh / g.heads;
+  t.h = bh % g.heads;
   t.hk = t.h / (g.heads / g.kv_heads);
-  const int last_row = min(t.q0 + kBlockM, g.seq) - 1;
+  const int last_row = min(t.q0 + BM, g.seq) - 1;
   // causal: kv tiles wholly in the future of the q tile are never visited
-  t.n_kv = g.causal ? last_row / kBlockN + 1 : (g.seq + kBlockN - 1) / kBlockN;
+  t.n_kv = g.causal ? last_row / BN + 1 : (g.seq + BN - 1) / BN;
   return t;
 }
 
@@ -145,7 +178,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ks = qs + kBlockM * kStride;
   __nv_bfloat16* vs = ks + kBlockN * kStride;
 
-  const Tile t = tile_of(g);
+  const Tile t = tile_of(g, blockIdx.x, blockIdx.y);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tig = lane % 4;  // fragment row / column pair
   const __nv_bfloat16* qp = q + t.b * g.q_b + t.h * g.q_h;
@@ -312,7 +345,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + kBlockN * kQK;
   float* ps = vs + kBlockN * D;
 
-  const Tile t = tile_of(g);
+  const Tile t = tile_of(g, blockIdx.x, blockIdx.y);
   // 16 threads share 8 rows: kv column / d column tx + 16 * j
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const float* qp = q + t.b * g.q_b + t.h * g.q_h;
@@ -415,6 +448,461 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 D = 128: warp-specialised wgmma kernel fed by TMA through an mbarrier
+// ring
+// ---------------------------------------------------------------------------
+
+constexpr int kHopperD = 128;
+constexpr int kHopperBM = 128;        // q rows per block: 2 consumers x 64
+constexpr int kHopperBN = 128;        // kv rows per tile
+constexpr int kHopperThreads = 384;   // producer + 2 consumer warpgroups
+constexpr int kStages = 3;          // K/V ring depth
+constexpr int kBoxCols = 64;          // 128 bytes of bf16: one swizzle row
+constexpr int kHalfBytes = 128 * kBoxCols * 2;    // 128 rows x 64 columns
+constexpr int kTileBytes = 2 * kHalfBytes;        // 128 rows x 128 columns
+constexpr int kQOff = 0;
+constexpr int kKOff = kTileBytes;                  // + stage * 2 tiles
+constexpr int kBarOff = kTileBytes * (1 + 2 * kStages);
+constexpr int kHopperSmem = kBarOff + 128 + 1024;  // + 14 barriers + alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// returns once the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// one (64 columns, 128 rows) box of a rank-4 (D, S, heads, B) tensor map
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int s0, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(s0),
+         "r"(h), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; byte offsets lbo / sbo
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// the work item of a persistent block's round r (see flash_wgmma_kernel)
+__device__ __forceinline__ int item_of(int r) {
+  const int g = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
+  return r * g + ((r & 1) ? g - 1 - b : b);
+}
+
+// named barriers over the 256 consumer threads
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// e^(s - m) as 2^(s log2 e - m log2 e): one FMA and the special-function
+// unit's ex2.approx (about 2 ulp), the flash-attention idiom; expf's exact
+// range reduction costs several instructions for each score
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float exp_diff(float s, float m_log2e) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n"
+      : "=f"(y) : "f"(fmaf(s, kLog2e, -m_log2e)));
+  return y;
+}
+
+// Register fences: an empty asm that "reads and writes" the registers, so
+// the compiler keeps their accesses on this side of the neighbouring
+// (volatile) wgmma issue or wait
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[kHopperBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kHopperBN / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[kk][e]) :: "memory");
+}
+
+#define WG_D64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define WG_OUT64(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),          \
+  "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),          \
+  "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),          \
+  "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),          \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),          \
+  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128, f32) = [d +] A B^T: A (64 x 16) and B (128 x 16) K-major in
+// shared memory; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += A B: A (64 x 16) bf16 fragments in registers, B
+// (16 x 128) MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_OUT64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// issue S = Q K^T for one kv tile: 8 k-steps of 16 columns, 4 in each
+// 64-column half; q_rows / k_tile are the shared addresses of the
+// consumer's 64 Q rows and of the K tile
+__device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t q_rows,
+                                             uint32_t k_tile) {
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kHopperD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
+    wgmma_ss(s, smem_desc(q_rows + off, 16, 1024),
+             smem_desc(k_tile + off, 16, 1024), kk > 0);
+  }
+}
+
+// issue O += bf16(P) V for one kv tile: V (kv rows x D) is MN-major for
+// this product; a k-step is 16 kv rows (2048 bytes), the two 64-column
+// halves lie kHalfBytes apart (the leading byte offset), 8-row groups 1024
+// bytes (the stride byte offset)
+__device__ __forceinline__ void issue_pv(float (&acc)[64],
+                                         const uint32_t (&pa)[kHopperBN / 16][4],
+                                         uint32_t v_tile) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kHopperBN / 16; ++kk)
+    wgmma_rs(acc, pa[kk], smem_desc(v_tile + kk * 2048, kHalfBytes, 1024));
+}
+
+// online softmax of one tile of raw scores s, in place in registers: scale,
+// mask (the last kv tile only: the diagonal and the ragged tail), p, the
+// running max m_r and sum l_r (from the float32 p) and the accumulator's
+// factor alpha. Register i holds row rows[(i >> 1) & 1], column
+// k0 + 8 (i / 4) + 2 tig + (i & 1).
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[64], float (&alpha)[2], float (&m_r)[2], float (&l_r)[2],
+    const FlashGeom& g, const int (&rows)[2], int k0, int tig, bool edge) {
+  float mx[2] = {kNegInf, kNegInf};
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
+      s[i] = visible(g, rows[(i >> 1) & 1], col) ? s[i] * g.scale : kNegInf;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      s[i] *= g.scale;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  }
+  float ml2[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_r[r], mx[r]);
+    const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
+    ml2[r] = m_safe * kLog2e;
+    alpha[r] = m_r[r] <= kNegInf / 2 ? 0.f : exp_diff(m_r[r], ml2[r]);
+    m_r[r] = m_new;
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i >> 1) & 1;
+      const int col = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
+      const float p = exp_diff(s[i], ml2[r]);   // no branch around the asm
+      s[i] = visible(g, rows[r], col) ? p : 0.f;
+      rs[r] += s[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp_diff(s[i], ml2[r]);
+      rs[r] += s[i];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    l_r[r] = l_r[r] * alpha[r] + rs[r];
+  }
+}
+
+// bf16(P) as the A fragments of the second product: the accumulator layout
+// of the first is the A layout of the second, k-step kk being columns
+// 16 kk .. 16 kk + 15, i.e. registers 8 kk .. 8 kk + 7
+__device__ __forceinline__ void pack_p(const float (&p)[64],
+                                       uint32_t (&pa)[kHopperBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kHopperBN / 16; ++kk) {
+    pa[kk][0] = pack_bf16(p[8 * kk + 0], p[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(p[8 * kk + 2], p[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);
+  }
+}
+
+struct HopperMaps {
+  CUtensorMap q, k, v;
+};
+
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
+                   __nv_bfloat16* __restrict__ o, const FlashGeom g) {
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled TMA boxes want 1024-byte aligned destinations
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + kBarOff;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t full_k = q_empty + 8;                // + 8 * stage
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
+
+  // persistent: in round r block b takes work item r G + b, or r G + G - 1
+  // - b in odd rounds (G blocks; the snake evens out the blocks' sums of
+  // causal tile lengths); item i is q tile i / (B H) (the longest causal
+  // tiles first) of batch * head i % (B H). One tile's tail overlaps the
+  // next one's loads
+  const int bh_count = g.batch * g.heads;
+  const int n_items = (g.seq + kHopperBM - 1) / kHopperBM * bh_count;
+  const int warpgroup = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 256);            // every consumer thread arrives
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 256);
+      mbar_init(empty_v + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup == 0) {
+    // producer: one thread keeps the ring full. K and V are released apart:
+    // K once its scores are in, V once its product is, so K runs two tiles
+    // ahead of the consumers' need. `it` counts the block's kv tiles.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int k = 0, item = item_of(0); item < n_items; item = item_of(++k)) {
+        const Tile t = tile_of<kHopperBM, kHopperBN>(g, item / bh_count,
+                                                     item % bh_count);
+        if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
+        mbar_expect_tx(q_full, kTileBytes);
+        tma_load(base + kQOff, &maps.q, q_full, 0, t.q0, t.h, t.b);
+        tma_load(base + kQOff + kHalfBytes, &maps.q, q_full, kBoxCols, t.q0,
+                 t.h, t.b);
+        for (int j = 0; j < t.n_kv; ++j, ++it) {
+          const int s = it % kStages, round = it / kStages;
+          const uint32_t ks = base + kKOff + s * 2 * kTileBytes;
+          const uint32_t vs = ks + kTileBytes;
+          const int k0 = j * kHopperBN;
+          if (round > 0) mbar_wait(empty_k + 8 * s, (round - 1) & 1);
+          mbar_expect_tx(full_k + 8 * s, kTileBytes);
+          tma_load(ks, &maps.k, full_k + 8 * s, 0, k0, t.hk, t.b);
+          tma_load(ks + kHalfBytes, &maps.k, full_k + 8 * s, kBoxCols, k0,
+                   t.hk, t.b);
+          if (round > 0) mbar_wait(empty_v + 8 * s, (round - 1) & 1);
+          mbar_expect_tx(full_v + 8 * s, kTileBytes);
+          tma_load(vs, &maps.v, full_v + 8 * s, 0, k0, t.hk, t.b);
+          tma_load(vs + kHalfBytes, &maps.v, full_v + 8 * s, kBoxCols, k0,
+                   t.hk, t.b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup c owns q rows [64 c, 64 c + 64) of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = warpgroup - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int tig = lane % 4;
+    const int row0 = c * 64 + warp * 16 + lane / 4;   // rows row0, row0 + 8
+    // Q: rows of this consumer in each 64-column half, K-major
+    const uint32_t q_rows = base + kQOff + c * 64 * 128;
+    // ping-pong: the consumers take turns to issue their products (named
+    // barrier 1 + c is consumer c's turn), so one's softmax runs under the
+    // other's wgmmas; consumer 0 goes first
+    const int my_turn = 1 + c, next_turn = 2 - c;
+    if (c == 1) bar_arrive(1);
+
+    float s[64], acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    uint32_t pa[kHopperBN / 16][4];
+    int it = 0;
+    for (int k = 0, item = item_of(0); item < n_items; item = item_of(++k)) {
+      const Tile t = tile_of<kHopperBM, kHopperBN>(g, item / bh_count,
+                                                   item % bh_count);
+      const int rows[2] = {t.q0 + row0, t.q0 + row0 + 8};
+      float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      mbar_wait(q_full, k & 1);
+
+      // the first tile's scores and softmax
+      {
+        const int st = it % kStages;
+        mbar_wait(full_k + 8 * st, (it / kStages) & 1);
+        bar_sync(my_turn);
+        issue_scores(s, q_rows, base + kKOff + st * 2 * kTileBytes);
+        wgmma_commit();
+        bar_arrive(next_turn);
+        wgmma_wait<0>();
+        fence_regs(s);
+        mbar_arrive(empty_k + 8 * st);
+        if (t.n_kv == 1) mbar_arrive(q_empty);
+        softmax_tile(s, alpha, m_r, l_r, g, rows, 0, tig, t.n_kv == 1);
+        pack_p(s, pa);
+        fence_frags(pa);
+      }
+
+      // tile j < n_kv - 1: S of tile j + 1 is issued before O += P_j V_j,
+      // and its softmax runs while that second product is in flight; P_{j+1}
+      // is packed once P_j's product is done. The loop body has no branch
+      // around a wgmma, so no accumulator is copied while one is in flight
+      for (int j = 0; j + 1 < t.n_kv; ++j) {
+        const int cur = it + j, nxt = cur + 1;
+        const int st = cur % kStages, st1 = nxt % kStages;
+        mbar_wait(full_k + 8 * st1, (nxt / kStages) & 1);
+        mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
+        bar_sync(my_turn);
+        issue_scores(s, q_rows, base + kKOff + st1 * 2 * kTileBytes);
+        wgmma_commit();
+        issue_pv(acc, pa, base + kKOff + st * 2 * kTileBytes + kTileBytes);
+        wgmma_commit();
+        bar_arrive(next_turn);
+        wgmma_wait<1>();   // the scores of tile j + 1 are in
+        fence_regs(s);
+        mbar_arrive(empty_k + 8 * st1);
+        if (j + 2 == t.n_kv) mbar_arrive(q_empty);   // Q's last read is done
+        softmax_tile(s, alpha, m_r, l_r, g, rows, (j + 1) * kHopperBN, tig,
+                     j + 2 == t.n_kv);
+        wgmma_wait<0>();
+        // pa is read by the product just waited for: kept live to here, it
+        // cannot share registers with the next P
+        fence_regs(acc);
+        fence_frags(pa);
+        mbar_arrive(empty_v + 8 * st);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        pack_p(s, pa);
+        // pinned here: sunk below the next S issue, these writes to the next
+        // second product's inputs would serialize the wgmmas
+        fence_regs(acc);
+        fence_frags(pa);
+      }
+
+      {  // the last tile's O += P V
+        const int cur = it + t.n_kv - 1, st = cur % kStages;
+        mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
+        bar_sync(my_turn);
+        issue_pv(acc, pa, base + kKOff + st * 2 * kTileBytes + kTileBytes);
+        wgmma_commit();
+        // consumer 1's very last turn has no successor
+        if (c == 0 || item_of(k + 1) < n_items) bar_arrive(next_turn);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_frags(pa);
+        mbar_arrive(empty_v + 8 * st);
+      }
+      it += t.n_kv;
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] >= g.seq) continue;
+        const float l = fmaxf(l_r[r], 1e-30f);
+        __nv_bfloat16* op = o + t.b * g.o_b + rows[r] * g.o_s +
+                            t.h * g.o_h + tig * 2;
+#pragma unroll
+        for (int dt = 0; dt < kHopperD / 8; ++dt) {
+          const uint32_t w = pack_bf16(acc[4 * dt + 2 * r] / l,
+                                       acc[4 * dt + 2 * r + 1] / l);
+          *reinterpret_cast<uint32_t*>(op + dt * 8) = w;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -449,33 +937,140 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
       flash_f32_kernel<D>, smem, q, k, v, o, g, stream);
 }
 
+// cuTensorMapEncodeTiled is a driver entry point: it is looked up through
+// the runtime, so the library links no libcuda
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+constexpr int kErrNoEncoder = 9999;   // the driver has no tensor-map encoder
+constexpr int kErrEncode = 10000;     // + the CUresult of a refused map
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a rank-4 (D, S, heads, B) bf16 map read in (64 columns, 128 rows) boxes;
+// strides in elements
+int encode_map(CUtensorMap* map, const void* ptr, const FlashGeom& g,
+               int heads, int64_t s_stride, int64_t h_stride,
+               int64_t b_stride) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {kHopperD, static_cast<cuuint64_t>(g.seq),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(g.batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_stride) * 2,
+                                 static_cast<cuuint64_t>(h_stride) * 2,
+                                 static_cast<cuuint64_t>(b_stride) * 2};
+  const cuuint32_t box[4] = {kBoxCols, kHopperBN, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);   // out-of-bounds rows read 0
+  return res == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(res);
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 const FlashGeom& g, void* stream) {
+  HopperMaps maps;
+  int err = encode_map(&maps.q, q, g, g.heads, g.q_s, g.q_h, g.q_b);
+  if (err == 0) err = encode_map(&maps.k, k, g, g.kv_heads, g.k_s, g.k_h, g.k_b);
+  if (err == 0) err = encode_map(&maps.v, v, g, g.kv_heads, g.v_s, g.v_h, g.v_b);
+  if (err != 0) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kHopperSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int device = 0, sms = 0;
+  cudaError_t dev = cudaGetDevice(&device);
+  if (dev == cudaSuccess)
+    dev = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (dev != cudaSuccess) return static_cast<int>(dev);
+  // one persistent block per SM, or one per work item where there are fewer
+  const int items = (g.seq + kHopperBM - 1) / kHopperBM * g.batch * g.heads;
+  const int grid = items < sms ? items : sms;
+  flash_wgmma_kernel<<<grid, kHopperThreads, kHopperSmem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      maps, static_cast<__nv_bfloat16*>(o), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the one kernel of each (dtype, D)
+enum Route { kNoKernel, kWgmma, kMmaSync, kFfma };
+
+Route route_of(int dtype, int head_dim) {
+  const bool small = head_dim == 16 || head_dim == 32 || head_dim == 64 ||
+                     head_dim == 80;
+  if (dtype == 1) return head_dim == 128 ? kWgmma : small ? kMmaSync : kNoKernel;
+  if (dtype == 0) return small || head_dim == 128 ? kFfma : kNoKernel;
+  return kNoKernel;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype 0: float32, 1: bfloat16. head_dim 16, 32, 64 or 128. Returns the
-// cudaError_t of the launch (0 = success).
+// dtype 0: float32, 1: bfloat16; head_dim 16, 32, 64, 80 or 128. Returns
+// the cudaError_t of the launch (0 = success), kErrNoEncoder or kErrEncode
+// + CUresult when a tensor map cannot be made.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int head_dim, const FlashGeom* g,
                         void* stream) {
   if (g->seq <= 0 || g->kv_heads <= 0 || g->heads % g->kv_heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) {
-    switch (head_dim) {
-      case 16: return launch_bf16<16>(q, k, v, o, *g, stream);
-      case 32: return launch_bf16<32>(q, k, v, o, *g, stream);
-      case 64: return launch_bf16<64>(q, k, v, o, *g, stream);
-      case 128: return launch_bf16<128>(q, k, v, o, *g, stream);
-    }
-  } else if (dtype == 0) {
-    switch (head_dim) {
-      case 16: return launch_f32<16>(q, k, v, o, *g, stream);
-      case 32: return launch_f32<32>(q, k, v, o, *g, stream);
-      case 64: return launch_f32<64>(q, k, v, o, *g, stream);
-      case 128: return launch_f32<128>(q, k, v, o, *g, stream);
-    }
+  switch (route_of(dtype, head_dim)) {
+    case kWgmma: return launch_wgmma(q, k, v, o, *g, stream);
+    case kMmaSync:
+      switch (head_dim) {
+        case 16: return launch_bf16<16>(q, k, v, o, *g, stream);
+        case 32: return launch_bf16<32>(q, k, v, o, *g, stream);
+        case 64: return launch_bf16<64>(q, k, v, o, *g, stream);
+        case 80: return launch_bf16<80>(q, k, v, o, *g, stream);
+      }
+      break;
+    case kFfma:
+      switch (head_dim) {
+        case 16: return launch_f32<16>(q, k, v, o, *g, stream);
+        case 32: return launch_f32<32>(q, k, v, o, *g, stream);
+        case 64: return launch_f32<64>(q, k, v, o, *g, stream);
+        case 80: return launch_f32<80>(q, k, v, o, *g, stream);
+        case 128: return launch_f32<128>(q, k, v, o, *g, stream);
+      }
+      break;
+    case kNoKernel: break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the symbol of the kernel flash_attention_fwd launches for (dtype, D), or
+// null where it launches none
+const char* flash_attention_kernel(int dtype, int head_dim) {
+  switch (route_of(dtype, head_dim)) {
+    case kWgmma: return "flash_wgmma_kernel";
+    case kMmaSync: return "flash_bf16_kernel";
+    case kFfma: return "flash_f32_kernel";
+    case kNoKernel: break;
+  }
+  return nullptr;
 }
 
 }  // extern "C"

@@ -141,6 +141,8 @@ def _bind_flash(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32,
                                         ctypes.POINTER(FlashGeom), p]
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_kernel.argtypes = [i32, i32]
+    lib.flash_attention_kernel.restype = ctypes.c_char_p
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -183,6 +185,11 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def check_launch(err: int, name: str) -> None:
+    """Raise on a launch's return code: a cudaError_t, or (flash attention)
+    9999 when the driver has no tensor-map encoder and 10000 + the CUresult
+    of a tensor map it refused."""
+    if err >= 9999:
+        raise RuntimeError(f"{name}: tensor map refused (code {err}) at launch")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

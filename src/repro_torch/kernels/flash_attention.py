@@ -1,4 +1,4 @@
-"""Flash attention: the hand-written Hopper kernel beside its plain version.
+"""Flash attention: the hand-written Hopper kernels beside their plain version.
 
 Port of ``repro.kernels.flash_attention.flash_attention_pallas`` (``_kernel``,
 ``pallas_call`` at flash_attention.py:92) as ``csrc/flash_attention.cu``:
@@ -13,9 +13,14 @@ The reference wrapper (``repro.kernels.ops.flash_attention``) repeats the kv
 heads and pads D to 128 lanes: both are TPU layout choices. Here the kernel
 reads q (B, S, H, D) and k, v (B, S, Hkv, D) in place through their strides
 and indexes kv head ``h // (H / Hkv)`` itself; any S works (a ragged tail is
-masked). The kernel takes float32 (IEEE FFMA, never TF32) and bfloat16
-(mma.sync tensor-core fragments, float32 accumulation) with D in 16, 32, 64
-or 128.
+masked). One kernel serves each (dtype, D), with no switch:
+- bfloat16, D 128: ``flash_wgmma_kernel`` (TMA, an mbarrier ring, wgmma;
+  128-row q and kv tiles);
+- bfloat16, D 16, 32, 64, 80: ``flash_bf16_kernel`` (mma.sync fragments,
+  64-row tiles);
+- float32, D 16, 32, 64, 80, 128: ``flash_f32_kernel`` (IEEE FFMA, never
+  TF32, 64-row tiles).
+``kernel_symbol`` asks the library which one a call launches.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; any other device raises, and
@@ -40,8 +45,8 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import check_launch, on_cpu, stream_of
 
 NEG_INF = -1e30
-BLOCK_KV = 64                     # the kernel's kv tile
-HEAD_DIMS = (16, 32, 64, 128)     # the head dims the kernel is built for
+BLOCK_KV = 64                     # the mma.sync and FFMA kernels' kv tile
+HEAD_DIMS = (16, 32, 64, 80, 128)  # the head dims the kernels are built for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -144,6 +149,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+def kernel_symbol(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel ``flash_attention`` launches for CUDA operands of this
+    dtype and head dim, as the library dispatches (builds the library)."""
+    name = cuda_lib.load_flash().flash_attention_kernel(
+        _DTYPE_CODES.get(dtype, -1), head_dim)
+    if name is None:
+        raise ValueError(f"no flash kernel for {dtype}, head dim {head_dim}")
+    return name.decode()
 
 
 cuda_lib.register(flash_attention)

@@ -17,9 +17,11 @@ other: f32 A / B / f32 fused on the f32 engine, int8 A / B / int8 fused on
 an engine whose tile table picks int8, and one flash-attention launch per
 layer (no P2M kernel) on the LM engine.
 
-The flash-attention kernel is held against its plain version at max-abs
-2e-2 for bf16 outputs (bf16 output rounding plus another kv-tile summation
-order) and 2e-5 for float32 (the summation order alone).
+The flash-attention kernels are held against their plain version at
+max-abs 2e-2 for bf16 outputs (bf16 output rounding plus another kv-tile
+summation order) and 2e-5 for float32 (the summation order alone): the
+wgmma kernel (bf16, D 128) at S 1 to 2048 and GQA 4:1, 7:1 and 16:1, the
+mma.sync and FFMA kernels at D 16 to 128, D 80 included.
 """
 import dataclasses
 
@@ -214,7 +216,9 @@ def test_int8_engine_launches_the_int8_kernels(cuda_device, monkeypatch,
 
 
 # (batch, seq, heads, kv_heads, head_dim, dtype, causal): the LM serving
-# geometry and the odd ones chip_smoke.py also checks
+# geometry and the odd ones chip_smoke.py also checks; then the wgmma
+# kernel (bf16, D 128) at S 1, 100, 128, 129 and 2048, causal and not, GQA
+# 4:1 (granite-8b), 7:1 (yi-34b) and 16:1 (glm4-9b); then D 80 (stablelm-3b)
 FLASH_GEOMETRIES = [(4, 2048, 32, 8, 128, torch.bfloat16, True),
                     (2, 77, 4, 4, 64, torch.bfloat16, True),
                     (2, 256, 8, 2, 128, torch.float32, False),
@@ -222,7 +226,21 @@ FLASH_GEOMETRIES = [(4, 2048, 32, 8, 128, torch.bfloat16, True),
                     (2, 100, 4, 2, 16, torch.float32, True),
                     (1, 130, 2, 1, 32, torch.bfloat16, False),
                     (3, 1, 4, 2, 64, torch.bfloat16, True),
-                    (1, 65, 8, 8, 128, torch.float32, True)]
+                    (1, 65, 8, 8, 128, torch.float32, True),
+                    (2, 1, 32, 8, 128, torch.bfloat16, True),
+                    (1, 1, 8, 2, 128, torch.bfloat16, False),
+                    (2, 100, 8, 2, 128, torch.bfloat16, False),
+                    (2, 100, 56, 8, 128, torch.bfloat16, True),
+                    (1, 128, 56, 8, 128, torch.bfloat16, True),
+                    (2, 128, 32, 2, 128, torch.bfloat16, False),
+                    (1, 129, 32, 2, 128, torch.bfloat16, True),
+                    (2, 129, 56, 8, 128, torch.bfloat16, False),
+                    (1, 2048, 56, 8, 128, torch.bfloat16, True),
+                    (1, 2048, 32, 2, 128, torch.bfloat16, False),
+                    (1, 2048, 32, 32, 80, torch.bfloat16, True),
+                    (2, 100, 4, 4, 80, torch.bfloat16, False),
+                    (1, 130, 4, 2, 80, torch.float32, True),
+                    (1, 77, 8, 8, 80, torch.float32, False)]
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # the largest error of an output row over that row's RMS, so that a fault in
 # the small late causal rows cannot hide under the absolute limit
@@ -249,11 +267,13 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, hkv, d,
 
 
 @pytest.mark.cuda
-def test_flash_kernel_reads_strided_operands(cuda_device):
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_reads_strided_operands(cuda_device, d):
     """q, k, v sliced out of one packed projection (no copies) give the
-    same result as contiguous copies."""
+    same result as contiguous copies (at D 128 through the wgmma kernel's
+    tensor maps)."""
     gen = torch.Generator().manual_seed(3)
-    qkv = torch.randn((2, 96, 4 + 2 * 2, 64), generator=gen).to(
+    qkv = torch.randn((2, 96, 4 + 2 * 2, d), generator=gen).to(
         cuda_device, torch.bfloat16)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
     assert not q.is_contiguous()
@@ -261,6 +281,28 @@ def test_flash_kernel_reads_strided_operands(cuda_device):
     ref = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=True)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_flash_dispatch_has_one_kernel_per_dtype_and_head_dim(cuda_device):
+    """bf16 D 128 goes to the wgmma kernel, and a profiled call shows it ran
+    (and no other flash kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert fa.kernel_symbol(bf16, 128) == "flash_wgmma_kernel"
+    for d in (16, 32, 64, 80):
+        assert fa.kernel_symbol(bf16, d) == "flash_bf16_kernel"
+    for d in fa.HEAD_DIMS:
+        assert fa.kernel_symbol(f32, d) == "flash_f32_kernel"
+    with pytest.raises(ValueError, match="no flash kernel"):
+        fa.kernel_symbol(bf16, 48)
+    q = torch.randn((1, 256, 8, 128), device=cuda_device, dtype=bf16)
+    k = torch.randn((1, 256, 2, 128), device=cuda_device, dtype=bf16)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention(q, k, k, causal=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "flash" in e.key]
+    assert len(names) == 1 and "flash_wgmma_kernel" in names[0]
 
 
 @pytest.mark.cuda

@@ -18,10 +18,12 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import blocks as jblocks
+from repro_torch import configs as tconfigs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import ops as tops
 from repro_torch.models import blocks as tblocks
+from repro_torch.models import lm as tlm
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -44,7 +46,7 @@ def _close(port, ref, atol):
 
 
 @pytest.mark.parametrize("s", [64, 128, 256])
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [16, 64, 80])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sweep_causal_matches_pallas_kernel_and_oracle(s, d, dtype):
     (qj, kj, vj), (q, k, v) = _inputs(s + d, 2, s, 2, 2, d, dtype)
@@ -170,3 +172,29 @@ def test_row_error_limit_passes_tile_order_and_fails_a_dropped_tile(dtype):
     dropped = (scores.masked_fill(~keep, float("-inf")).softmax(-1) @ vf)
     dropped = dropped.transpose(1, 2).to(q.dtype)
     assert _row_rel_err(dropped, ref) > 10 * ROW_TOL[dtype]
+
+
+# the configs the LM path serves (the dense GQA ones)
+SERVED = {"granite-8b", "yi-34b", "stablelm-3b", "glm4-9b", "chameleon-34b"}
+
+
+@pytest.mark.parametrize("name", sorted(tconfigs.ARCHS))
+def test_card_wrapper_takes_every_served_head_dim(name):
+    """Every config the LM path serves has a head dim the card kernels take:
+    ``_check_card_operands`` passes bf16 operands of its width (CPU tensors
+    here: the check reads only dtype, shape, strides and alignment). The
+    configs it does not serve are refused before any attention runs."""
+    cfg = tconfigs.get_arch(name)
+    try:
+        tlm.check_supported(cfg)
+    except NotImplementedError:
+        assert name not in SERVED
+        return
+    assert name in SERVED
+    d = cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    q = torch.zeros((1, 8, h, d), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, hkv, d), dtype=torch.bfloat16)
+    fa._check_shapes(q, k, k)
+    fa._check_card_operands(q, k, k)
+

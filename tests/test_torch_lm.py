@@ -230,6 +230,31 @@ def test_generate_greedy_equals_reference_engine(model):
                                atol=1e-6)
 
 
+def test_head_dim_80_generate_equals_reference_engine():
+    """stablelm-3b's head dim, 80 (d_model 2560 over 32 heads), which the
+    card serves through the mma.sync kernel: reduced stablelm-3b with
+    ``head_dim=80``, the CPU engine against the JAX engine with the granite
+    case's tolerances (greedy tokens equal, logits within 1e-5)."""
+    assert tconfigs.get_arch("stablelm-3b").resolved_head_dim == 80
+    cfg = dataclasses.replace(treduced(tconfigs.get_arch("stablelm-3b")),
+                              head_dim=80)
+    jcfg = dataclasses.replace(jreduced(jconfigs.get_arch("stablelm-3b")),
+                               head_dim=80)
+    jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = tparams.from_numpy(jax.tree.map(np.asarray, jp))
+    prompts = _tokens(6, 2, 8, cfg.vocab_size)
+    ref = jengine.ServingEngine(jcfg, jp, max_len=64).generate(
+        jnp.asarray(prompts), max_new_tokens=5)
+    eng = ServingEngine(cfg, tp, max_len=64, device="cpu")
+    out = eng.generate(prompts, max_new_tokens=5)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    logits, _ = tlm.forward(tp, torch.from_numpy(prompts), cfg)
+    jlogits, _ = jlm.forward(jp, jnp.asarray(prompts), jcfg)
+    np.testing.assert_allclose(_np(logits), _jnp(jlogits), rtol=0, atol=1e-5)
+    torch.testing.assert_close(eng.prefill_logits, logits[:, -1], rtol=0,
+                               atol=1e-6)
+
+
 def test_bf16_forward_matches_reference_loosely():
     """bfloat16 weights and activations: each side rounds every
     intermediate to bf16 after its own summation order, so the logits
