@@ -32,30 +32,34 @@ line:
 7. ``engine_int8``: the same vgg16 engine with a port tile table that picks
    int8 at (4096, 27, 32), with its own launch counts and CPU comparison;
 8. ``autotune``: the port's search at the serving shape (data, no check);
-9. ``flash`` lines: the flash-attention kernels at the LM serving geometry
-   (B 4, S 2048, H 32, Hkv 8, D 128, bf16, causal: ``flash_wgmma_kernel``),
-   at stablelm-3b's prefill (B 1, S 2048, H 32, MHA, D 80, bf16, causal:
-   ``flash_bf16_kernel``) and three odd ones (S 77 MHA D 64 bf16; S 256
-   non-causal float32; S 1000 GQA, a ragged tail), each held against its
-   plain version on the same card tensors (max-abs 2e-2 for bf16 outputs,
-   2e-5 for float32, and the row gate below), timed beside its plain
-   version, its bound and ``scaled_dot_product_attention``, and naming the
-   kernel symbol a profiled call shows ran;
-10. ``lm``: full-width, full-depth granite-8b with seeded bf16 weights
-   drawn on the card, ``ServingEngine.generate`` of a (4, 2048) prompt for
-   32 new tokens, with its launch counts (one flash launch per layer, no
-   P2M kernel), finite logits, token ids in range, and the prefill logits
-   held against a ``forward(mode="train")`` of the prompt (teacher
-   forcing); then the steady generate times, peak memory and the flash
-   kernel's share of prefill device time (``lm_profile``);
+9. ``flash`` lines: the flash-attention kernels at granite-8b's prefill
+   (B 4, S 2048, H 32, Hkv 8, D 128, bf16, causal), at stablelm-3b's (B 4
+   and B 1, S 2048, H 32, MHA, D 80, bf16, causal), all three
+   ``flash_wgmma_kernel``, and four odd ones (S 77 MHA D 64 bf16, the
+   wgmma kernel too; S 256 non-causal float32; S 1000 GQA, a ragged tail;
+   S 130 D 32 bf16, the mma.sync kernel), each held against its plain
+   version on the same card tensors (max-abs 2e-2 for bf16 outputs, 2e-5
+   for float32, and the row gate below), timed beside its plain version,
+   its bound and ``scaled_dot_product_attention``, and naming the kernel
+   symbol a profiled call shows ran;
+10. ``lm``: full-width, full-depth granite-8b, then stablelm-3b (head dim
+   80), with seeded bf16 weights drawn on the card (granite's freed
+   first), each ``ServingEngine.generate`` of a (4, 2048) prompt for 32
+   new tokens, with its launch counts (one flash launch per layer, every
+   one ``flash_wgmma_kernel``, no P2M kernel), finite logits, token ids in
+   range, and the prefill logits held against a ``forward(mode="train")``
+   of the prompt (teacher forcing); then the steady generate times, peak
+   memory and the flash kernel's share of prefill device time
+   (``lm_profile``);
 11. ``lm_vs_cpu``: granite-8b at full width but 2 layers (a depth cut: the
    CPU engine at 36 layers would take minutes), the card's engine against
    the CPU engine on a (1, 128) prompt and 8 new tokens, with its flash
    launch count; ``lm_stablelm``: the same check for stablelm-3b (head dim
-   80) at full width, 2 layers;
+   80, the wgmma kernel) at full width, 2 layers;
 12. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
-   kernel's launches from its own path's run), and last the
-   ``{"ok": true, "device": ...}`` line.
+   kernel's launches from its own path's run; one flash row per served
+   head dim: D 128 with granite-8b's launches, D 80 with stablelm-3b's),
+   and last the ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises, so the exit code is non-zero.
 """
@@ -116,17 +120,23 @@ PATH_KERNELS = {
 SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
 
 # flash attention: the LM serving geometry (granite-8b prefill of 4 x 2048
-# tokens), stablelm-3b's prefill at head dim 80 and three odd ones
+# tokens), stablelm-3b's prefill at head dim 80 (the `lm` generate's batch
+# of 4 and batch 1) and four odd ones
 FLASH_SERVING = dict(batch=4, seq=2048, heads=32, kv_heads=8, head_dim=128,
                      dtype="bfloat16", causal=True)
-FLASH_ODD = (dict(batch=1, seq=2048, heads=32, kv_heads=32, head_dim=80,
-                  dtype="bfloat16", causal=True),    # stablelm-3b prefill
+FLASH_D80_SERVING = dict(batch=4, seq=2048, heads=32, kv_heads=32,
+                         head_dim=80, dtype="bfloat16", causal=True)
+FLASH_ODD = (FLASH_D80_SERVING,
+             dict(batch=1, seq=2048, heads=32, kv_heads=32, head_dim=80,
+                  dtype="bfloat16", causal=True),    # stablelm-3b, batch 1
              dict(batch=2, seq=77, heads=4, kv_heads=4, head_dim=64,
                   dtype="bfloat16", causal=True),
              dict(batch=2, seq=256, heads=8, kv_heads=2, head_dim=128,
                   dtype="float32", causal=False),
              dict(batch=1, seq=1000, heads=32, kv_heads=8, head_dim=128,
-                  dtype="bfloat16", causal=True))
+                  dtype="bfloat16", causal=True),
+             dict(batch=2, seq=130, heads=4, kv_heads=1, head_dim=32,
+                  dtype="bfloat16", causal=False))   # the mma.sync kernel
 # kernel vs plain: bf16 output rounding (one ulp is 2^-8 relative) plus a
 # different summation order; float32: the summation order alone
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -137,7 +147,7 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the last rows lies 10x above it (tests/test_torch_flash.py).
 FLASH_ROW_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
 LM_ARCH = "granite-8b"
-LM_D80_ARCH = "stablelm-3b"     # head dim 80: the mma.sync kernel
+LM_D80_ARCH = "stablelm-3b"     # head dim 80: flash_wgmma_kernel<80>
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 # prefill logits vs a train-mode forward of the same prompt: the same
 # kernels on the same inputs, so equal up to bf16 rounding of the logits
@@ -822,8 +832,8 @@ def _lm_prompts(cfg, batch: int, length: int, seed: int):
                          dtype=torch.int32)
 
 
-def lm_phase(device, smi: str):
-    """granite-8b at full width and depth through ``ServingEngine.generate``,
+def lm_phase(device, smi: str, arch: str = LM_ARCH):
+    """``arch`` at full width and depth through ``ServingEngine.generate``,
     the launch counts read from that run alone; returns them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -833,7 +843,7 @@ def lm_phase(device, smi: str):
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import pad_prefill_cache
 
-    cfg = get_arch(LM_ARCH)
+    cfg = get_arch(arch)
     t0 = time.perf_counter()
     params = lm.init_params(0, cfg, device=device)
     torch.cuda.synchronize()
@@ -876,7 +886,7 @@ def lm_phase(device, smi: str):
     for _ in range(2):
         engine.generate(prompts, LM_NEW)
         steady.append(dict(engine.stats))
-    emit("lm", model=LM_ARCH, layers=cfg.num_layers, d_model=cfg.d_model,
+    emit("lm", model=arch, layers=cfg.num_layers, d_model=cfg.d_model,
          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff,
          vocab=cfg.vocab_size, dtype=cfg.param_dtype, params=n_params,
          init_s=init_s, batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
@@ -914,7 +924,7 @@ def lm_phase(device, smi: str):
     fam_d, top_d = device_breakdown(prof_d, LM_FAMILIES, 12)
     decode_device = sum(fam_d.values())
     decode_wall = statistics.median(r["decode_ms_per_token"] for r in steady)
-    emit("lm_profile", flash_kernel=symbol,
+    emit("lm_profile", model=arch, flash_kernel=symbol,
          flash_launches_in_prefill=cfg.num_layers,
          prefill_device_ms=fam, prefill_device_ms_total=total,
          flash_share=fam["flash_attention"] / total if total else None,
@@ -1042,6 +1052,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_arch
 
     device = torch.device("cuda")
     # the library yardsticks and the plain versions' matmuls in full float32
@@ -1076,20 +1087,32 @@ def main() -> int:
     counts_base = baseline_phase(device)
     counts_int8 = engine_int8_phase(device)
     autotune_phase(device, smi)
+    from repro_torch.kernels import flash_attention as fa
     flash_row = flash_phase(FLASH_SERVING, device)
-    for geom in FLASH_ODD:
-        flash_phase(geom, device)
+    odd_rows = [flash_phase(geom, device) for geom in FLASH_ODD]
+    flash_d80_row = odd_rows[FLASH_ODD.index(FLASH_D80_SERVING)]
+    # both served head dims run the Hopper kernel; lm_phase checks that
+    # every prefill launch was the kernel named here
+    for arch in (LM_ARCH, LM_D80_ARCH):
+        d = get_arch(arch).resolved_head_dim
+        check(fa.kernel_symbol(torch.bfloat16, d) == "flash_wgmma_kernel",
+              f"{arch} (head dim {d}) is not served by flash_wgmma_kernel")
     counts_lm = lm_phase(device, smi)
+    counts_d80 = lm_phase(device, smi, LM_D80_ARCH)
     lm_vs_cpu_phase(device)
     lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
-    rows.append(flash_row)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},
                 **{n_: counts_int8 for n_ in PATH_KERNELS["engine_int8"]
-                   if n_ != "p2m_phase_b"},
-                "flash_attention": counts_lm}
+                   if n_ != "p2m_phase_b"}}
     for row in rows:
         row["launches"] = own_path[row["name"]][row["name"]]
+    # one flash row per served head dim, its launches from its own model's
+    # generate (the wrapper's count is one for every head dim)
+    for row, n_launch, d in ((flash_row, counts_lm, 128),
+                             (flash_d80_row, counts_d80, 80)):
+        rows.append({**row, "name": f"flash_attention_bf16_d{d}",
+                     "launches": n_launch["flash_attention"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
 """Time versions of the flash-attention library against each other on one card.
 
-    python3 scripts/flash_ab.py A.cu B.cu [...]
+    python3 scripts/flash_ab.py [--geometry NAME ...] [--diagnose] A.cu ...
 
 Each argument is a version of ``src/repro_torch/csrc/flash_attention.cu``
 (the file from another commit, or an edited copy). All are compiled at
 once with the port's flags (one nvcc each, into ``build/flash_ab/``). Then,
-at the LM serving geometry of ``chip_smoke.py`` (B 4, S 2048, H 32/8, D 128,
-bf16), each version is held against the plain version (max-abs 2e-2) and
-its device time is taken causal and non-causal, in turns: the versions in
-order, then in reverse, for three rounds, so that versions are compared on
-one card within one run. Prints one JSON line per version (its times and
-any ptxas warning that the wgmmas were serialized) and one for
-``scaled_dot_product_attention`` on the same inputs. Needs a CUDA card and
-exits non-zero without one.
+at each geometry (by default all of ``geometries()``: granite-8b's
+prefill, B 4, S 2048, H 32/8, D 128; stablelm-3b's at B 4 and B 1, S 2048,
+H 32 MHA, D 80; the same at D 64 and D 128; all bf16), each version is held
+against the plain version (max-abs 2e-2) and its device time is taken causal and
+non-causal, in turns: the versions in order, then in reverse, for three
+rounds, so that versions are compared on one card within one run. Prints
+one JSON line per version and geometry (its times and any ptxas warning
+that the wgmmas were serialized) and one per geometry for
+``scaled_dot_product_attention`` on the same inputs. With ``--diagnose``,
+copies of the first source that each leave one stage of the per-tile work
+out (``DIAGNOSTICS``) are timed beside it, unchecked: their outputs are
+wrong by design, and their times say what that stage costs. Needs a CUDA
+card and exits non-zero without one.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -26,22 +32,72 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUNDS = 3
+# (old text, new text) of flash_attention.cu for each diagnostic copy
+DIAGNOSTICS = {
+    # e^x without the special-function unit: the exponent's FMA alone
+    "no_exp": ('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : '
+               '"f"(fmaf(s, c, -mc)));', "y = fmaf(s, c, -mc);"),
+    # no online softmax at all: P is the raw scores, alpha 1
+    "no_softmax": ("const FlashGeom& g, const int (&rows)[2], int k0, int "
+                   "tig, bool edge) {",
+                   "const FlashGeom& g, const int (&rows)[2], int k0, int "
+                   "tig, bool edge) {\n  alpha[0] = alpha[1] = 1.f;\n"
+                   "  return;"),
+    # no O += P V product
+    "no_pv": ("    wgmma_rs<D>(acc, pa[kk], smem_desc(v_tile + kk * 2048, "
+              "kBoxBytes, 1024));", "    ;"),
+}
 
 
-def main(sources) -> int:
-    import torch
-    if not torch.cuda.is_available() or not sources:
-        print("usage: flash_ab.py A.cu B.cu ... (on a machine with a CUDA "
-              "card)", file=sys.stderr)
-        return 1
+def diagnostic_sources(source: str, out_dir: str) -> list:
+    """Write the DIAGNOSTICS copies of ``source``; returns their paths."""
+    text = open(source).read()
+    paths = []
+    for name, (old, new) in DIAGNOSTICS.items():
+        if text.count(old) != 1:
+            raise ValueError(f"{name}: the text to replace is not in {source}")
+        path = os.path.join(out_dir, f"diag_{name}.cu")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+        paths.append(path)
+    return paths
+
+
+def geometries() -> dict:
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import chip_smoke as cs
+    d80 = cs.FLASH_D80_SERVING
+    return {"granite_d128_b4": cs.FLASH_SERVING,
+            "stablelm_d80_b4": d80,
+            "stablelm_d80_b1": {**d80, "batch": 1},
+            "mha_d64_b4": {**d80, "head_dim": 64},
+            "mha_d128_b4": {**d80, "head_dim": 128}}
+
+
+def main(argv) -> int:
+    import torch
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--geometry", action="append", default=None)
+    parser.add_argument("--diagnose", action="store_true")
+    parser.add_argument("sources", nargs="*")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available() or not args.sources:
+        print("usage: flash_ab.py [--geometry NAME] A.cu B.cu ... (on a "
+              "machine with a CUDA card)", file=sys.stderr)
+        return 1
+    geoms = geometries()
+    names = args.geometry or list(geoms)
     import torch.nn.functional as F
     import chip_smoke as cs
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import flash_attention as fa
 
+    sources = list(args.sources)
     out_dir = os.path.join(ROOT, "build", "flash_ab")
     os.makedirs(out_dir, exist_ok=True)
+    unchecked = (set(diagnostic_sources(sources[0], out_dir))
+                 if args.diagnose else set())
+    sources += sorted(unchecked)
     builds = []
     for i, src in enumerate(sources):
         so = os.path.join(out_dir, f"lib_{i}.so")
@@ -59,36 +115,45 @@ def main(sources) -> int:
         cuda_lib._bind_flash(lib)
         libs[src] = lib
 
-    geom = cs.FLASH_SERVING
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(23)
-    b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
-                                         "kv_heads", "head_dim"))
-    q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
-               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
-    plain = fa.flash_attention_plain(q, k, v, causal=True).float()
-    times = {src: {"causal": [], "noncausal": []} for src in sources}
-    for rnd in range(ROUNDS):
-        for src in (sources if rnd % 2 == 0 else sources[::-1]):
-            cuda_lib._LOADED[cuda_lib.FLASH.name] = libs[src]
-            err = float((fa.flash_attention(q, k, v).float() - plain)
-                        .abs().max())
-            cs.check(err <= cs.FLASH_TOL["bfloat16"],
-                     f"{src}: max-abs {err} against the plain version")
-            for key, causal in (("causal", True), ("noncausal", False)):
-                times[src][key].append(cs.device_ms(
-                    lambda: fa.flash_attention(q, k, v, causal=causal), dev))
-    for src in sources:
-        print(json.dumps({"source": src, "ms": times[src],
-                          "median_ms": {key: statistics.median(t)
-                                        for key, t in times[src].items()},
-                          "wgmma_serialized": serialized[src]}))
-    sdpa = cs.device_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True), dev)
-    print(json.dumps({"sdpa_causal_ms": sdpa,
-                      "nvidia_smi": cs.nvidia_smi_line(),
-                      "device": torch.cuda.get_device_name(0)}))
+    smi = cs.nvidia_smi_line()
+    for name in names:
+        geom = geoms[name]
+        gen = torch.Generator().manual_seed(23)
+        b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
+                                             "kv_heads", "head_dim"))
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, s, hkv, d),
+                                 (b, s, hkv, d)))
+        plain = fa.flash_attention_plain(q, k, v, causal=True).float()
+        times = {src: {"causal": [], "noncausal": []} for src in sources}
+        for rnd in range(ROUNDS):
+            for src in (sources if rnd % 2 == 0 else sources[::-1]):
+                cuda_lib._LOADED[cuda_lib.FLASH.name] = libs[src]
+                err = float((fa.flash_attention(q, k, v).float() - plain)
+                            .abs().max())
+                cs.check(src in unchecked or err <= cs.FLASH_TOL["bfloat16"],
+                         f"{src}: max-abs {err} against the plain version "
+                         f"at {name}")
+                for key, causal in (("causal", True), ("noncausal", False)):
+                    times[src][key].append(cs.device_ms(
+                        lambda: fa.flash_attention(q, k, v, causal=causal),
+                        dev))
+        for src in sources:
+            print(json.dumps({"geometry": name, "source": src,
+                              "checked": src not in unchecked,
+                              "ms": times[src],
+                              "median_ms": {key: statistics.median(t)
+                                            for key, t in times[src].items()},
+                              "wgmma_serialized": serialized[src]}),
+                  flush=True)
+        sdpa = cs.device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=h != hkv), dev)
+        print(json.dumps({"geometry": name, "sdpa_causal_ms": sdpa,
+                          "nvidia_smi": smi,
+                          "device": torch.cuda.get_device_name(0)}),
+              flush=True)
     return 0
 
 

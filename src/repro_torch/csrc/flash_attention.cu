@@ -23,47 +23,60 @@
 // q rows past S are not stored. q tiles are issued last-first so the long
 // causal rows start early. One kernel serves each (dtype, D):
 //
-//  * bf16, D = 128 (every dense serving config but stablelm-3b):
-//    flash_wgmma_kernel, the Hopper design. Bound: at the serving geometry
-//    (B 4, S 2048, H 32, Hkv 8, D 128, causal) one launch does
-//    4*B*H*S(S+1)/2*D = 137 GFLOP, 0.139 ms at the 989 TFLOP/s bf16
-//    tensor-core peak, against 0.050 ms for the 168 MB of q, k, v and o at
-//    3.35 TB/s: it is bound by the tensor cores, which only wgmma reaches
-//    at full rate. Its predecessor (mma.sync fragments fed by synchronous
-//    loads between two block barriers per kv tile) ran at 1.315 ms, 10.6%
-//    of that peak. So:
+//  * bf16, D = 64, 80, 128: flash_wgmma_kernel<D>, the Hopper design, one
+//    instance per head dim (D 128: every dense serving config but
+//    stablelm-3b; D 80: stablelm-3b; D 64: the reduced configs). Bound: at
+//    granite-8b's prefill (B 4, S 2048, H 32, Hkv 8, D 128, causal) one
+//    launch does 4*B*H*S(S+1)/2*D = 137 GFLOP, 0.139 ms at the 989 TFLOP/s
+//    bf16 tensor-core peak, against 0.050 ms for the 168 MB of q, k, v and
+//    o at 3.35 TB/s; at stablelm-3b's (B 4, S 2048, H 32 MHA, D 80) 86
+//    GFLOP, 0.087 ms, against 0.063 ms for its 210 MB. Both are bound by
+//    the tensor cores, which only wgmma reaches at full rate, as long as
+//    the K and V tiles that the causal loop reads again and again come
+//    from L2 (stablelm-3b's 84 MB of K and V do not fit in its 50 MB at
+//    once). The mma.sync design (fragments fed by synchronous loads between
+//    two block barriers per kv tile) ran at 9.5x and 14.8x those bounds. So:
 //     - 3 warpgroups: a producer that keeps TMA loads in flight and two
 //       consumers of 64 q rows each of a 128-row q tile; setmaxnreg moves
 //       the producer's registers to the consumers;
-//     - persistent: one block per SM walks the (q tile, b*H) work items,
-//       longest causal tiles first, so one tile's tail (last product,
-//       stores) overlaps the next tile's Q and K loads;
+//     - persistent: one block per SM walks pairs of (q tile, b*H) work
+//       items, each pair the i-th longest and the i-th shortest causal q
+//       tile of one head (equal sums of kv tiles for every block), the
+//       pairs in head order, so the ~17 heads in flight keep their K and V
+//       in L2; one tile's tail (last product, stores) overlaps the next
+//       tile's Q and K loads;
 //     - TMA with 128-byte swizzle through rank-4 tensor maps over (D, S,
 //       H, B) encoded per call from the operands' strides (no copies of a
-//       sliced packed projection); out-of-bounds rows arrive as zeros;
-//     - shared memory: the Q tile (32 KB) and a ring of 3 stages of K and V
-//       tiles (128 x 128 bf16 each, 192 KB), 225 KB in all, just under the
-//       227 KB a block may have; full and empty mbarriers for K and V
-//       apart, so S = QK^T starts before V lands and K is refilled as soon
-//       as its scores are in;
-//     - S = QK^T by wgmma m64n128k16, Q and K from shared memory, float32
-//       accumulator in registers; the softmax stays in registers (quad
-//       shuffles, e^x as ex2.approx of x log2 e), and the mask compare runs
-//       on the last kv tile only (the diagonal and the ragged tail);
-//     - O += bf16(P) V by wgmma m64n128k16 with A = P straight from the
-//       registers of the first product's accumulator (its fragment layout)
-//       and V from shared memory through a transposed (MN-major)
-//       descriptor: no transposed copy exists anywhere;
+//       sliced packed projection). A tile row is ceil(D / 64) boxes of 64
+//       columns (128 bytes, one swizzle row): columns D..127 of D 80's
+//       second box and rows past S arrive as zeros, so a head sliced out
+//       of a packed projection never reads its neighbour;
+//     - shared memory: the Q tile and a ring of 3 stages of K and V tiles
+//       (32 KB tiles at D 80 and 128, 225 KB in all, just under the 227 KB
+//       a block may have; 16 KB tiles at D 64); full and empty mbarriers
+//       for K and V apart, so S = QK^T starts before V lands and K is
+//       refilled as soon as its scores are in;
+//     - S = QK^T by wgmma m64n128k16 over D / 16 k-steps (5 at D 80, no
+//       pad to 128), Q and K from shared memory, float32 accumulator in
+//       registers; the softmax stays in registers (quad shuffles, the max
+//       over raw scores, e^(scale (s - m)) as ex2.approx of one FMA with
+//       the scale folded in), and the mask compare runs on the last kv
+//       tile only (the diagonal and the ragged tail);
+//     - O += bf16(P) V by wgmma m64nDk16 (D / 2 accumulator registers a
+//       thread) with A = P straight from the registers of the first
+//       product's accumulator (its fragment layout) and V from shared
+//       memory through a transposed (MN-major) descriptor: no transposed
+//       copy exists anywhere. At D 80 the product spans the first 64-column
+//       swizzled box and 16 columns of the second;
 //     - overlap: a consumer issues S of tile j + 1 before O += P_j V_j and
 //       runs tile j + 1's softmax while that product is in flight, and the
 //       two consumers take turns to issue (ping-pong on named barriers), so
 //       one's softmax runs under the other's wgmmas.
-//  * bf16, D = 16, 32, 64, 80: flash_bf16_kernel, 4 warps of 16 q rows on
-//    mma.sync m16n8k16 fragments over 64 x 64 tiles. Q stays in registers
-//    as A fragments; P is re-packed from the score fragments as bf16 A
-//    fragments; V fragments come from ldmatrix.trans. D = 80 (stablelm-3b)
-//    is 5 k-steps and 10 d-tiles; its 176-byte padded rows keep ldmatrix
-//    rows 16-byte aligned.
+//  * bf16, D = 16, 32 (the reduced test configs only; a 32- or 64-byte row
+//    is narrower than one 128-byte swizzle row): flash_bf16_kernel, 4 warps
+//    of 16 q rows on mma.sync m16n8k16 fragments over 64 x 64 tiles. Q
+//    stays in registers as A fragments; P is re-packed from the score
+//    fragments as bf16 A fragments; V fragments come from ldmatrix.trans.
 //  * float32, D = 16, 32, 64, 80, 128: flash_f32_kernel, IEEE FFMA (no
 //    TF32), 8 q rows x 4 kv columns of scores and 8 rows x D/16 columns of
 //    the accumulator per thread, P through shared memory.
@@ -448,22 +461,34 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 D = 128: warp-specialised wgmma kernel fed by TMA through an mbarrier
-// ring
+// bf16 D = 64, 80, 128: warp-specialised wgmma kernel fed by TMA through an
+// mbarrier ring
 // ---------------------------------------------------------------------------
 
-constexpr int kHopperD = 128;
 constexpr int kHopperBM = 128;        // q rows per block: 2 consumers x 64
 constexpr int kHopperBN = 128;        // kv rows per tile
 constexpr int kHopperThreads = 384;   // producer + 2 consumer warpgroups
-constexpr int kStages = 3;          // K/V ring depth
 constexpr int kBoxCols = 64;          // 128 bytes of bf16: one swizzle row
-constexpr int kHalfBytes = 128 * kBoxCols * 2;    // 128 rows x 64 columns
-constexpr int kTileBytes = 2 * kHalfBytes;        // 128 rows x 128 columns
-constexpr int kQOff = 0;
-constexpr int kKOff = kTileBytes;                  // + stage * 2 tiles
-constexpr int kBarOff = kTileBytes * (1 + 2 * kStages);
-constexpr int kHopperSmem = kBarOff + 128 + 1024;  // + 14 barriers + alignment
+constexpr int kBoxBytes = 128 * kBoxCols * 2;     // 128 rows x 64 columns
+
+// K/V ring depth: 32 KB tiles (D 80, 128) fill a block's shared memory at 3
+// stages. 16 KB tiles (D 64) would leave room for 5 or 6, but those ran no
+// faster than 3 (scripts/flash_ab.py), so every D has 3
+constexpr int kStages = 3;
+
+// shared-memory layout of flash_wgmma_kernel<D>: the Q tile at 0, then
+// stage s's K tile at kKOff + 2 s kTileBytes and its V tile after it, then
+// the mbarriers
+template <int D>
+struct HopperLayout {
+  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;  // per row
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kKOff = kTileBytes;
+  static constexpr int kBarOff = kTileBytes * (1 + 2 * kStages);
+  // + 2 Q and 4 per stage K/V barriers + the 1024-byte alignment
+  static constexpr int kSmem = kBarOff + 8 * (2 + 4 * kStages) + 1024;
+  static_assert(D % 16 == 0 && kSmem <= 232448, "shared memory");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -516,10 +541,21 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
 }
 
-// the work item of a persistent block's round r (see flash_wgmma_kernel)
-__device__ __forceinline__ int item_of(int r) {
-  const int g = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
-  return r * g + ((r & 1) ? g - 1 - b : b);
+// the k-th work item of a persistent block (see flash_wgmma_kernel): block
+// b of G takes items 2 (r G + b) and 2 (r G + b) + 1 in round r = k / 2
+__device__ __forceinline__ int item_of(int k) {
+  return 2 * ((k >> 1) * static_cast<int>(gridDim.x) +
+              static_cast<int>(blockIdx.x)) + (k & 1);
+}
+
+// item -> tile: items run head-major (b * H + h) and, within a head, zigzag
+// over its n_qb q tiles: the longest causal tile, the shortest, the second
+// longest, ... (tile_of counts q tiles from the last)
+__device__ __forceinline__ Tile hopper_tile(const FlashGeom& g, int item,
+                                            int n_qb) {
+  const int z = item % n_qb;
+  const int qi = (z & 1) ? n_qb - 1 - z / 2 : z / 2;
+  return tile_of<kHopperBM, kHopperBN>(g, qi, item / n_qb);
 }
 
 // named barriers over the 256 consumer threads
@@ -537,24 +573,26 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// e^(s - m) as 2^(s log2 e - m log2 e): one FMA and the special-function
-// unit's ex2.approx (about 2 ulp), the flash-attention idiom; expf's exact
-// range reduction costs several instructions for each score
+// e^(scale (s - m)) as 2^(s c - m c) with c = scale log2 e: the scale is
+// applied in float32 after the dot, inside the exponent's one FMA, and the
+// special-function unit's ex2.approx (about 2 ulp) does the rest, the
+// flash-attention idiom; expf's exact range reduction costs several
+// instructions for each score. mc is m c
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float exp_diff(float s, float m_log2e) {
+__device__ __forceinline__ float exp_diff(float s, float c, float mc) {
   float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n"
-      : "=f"(y) : "f"(fmaf(s, kLog2e, -m_log2e)));
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(fmaf(s, c, -mc)));
   return y;
 }
 
 // Register fences: an empty asm that "reads and writes" the registers, so
 // the compiler keeps their accesses on this side of the neighbouring
 // (volatile) wgmma issue or wait
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 __device__ __forceinline__ void fence_frags(uint32_t (&a)[kHopperBN / 16][4]) {
@@ -564,26 +602,39 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[kHopperBN / 16][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[kk][e]) :: "memory");
 }
 
-#define WG_D64                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+// the accumulator operands of a wgmma: registers %0 .. %(n - 1), in
+// pieces of 32, 8 and 24 for n = 32 (N 64), 40 (N 80) and 64 (N 128)
+#define WG_R0_31                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-#define WG_OUT64(d)                                                         \
+  "%30, %31"
+#define WG_R32_39 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define WG_R40_63                                                           \
+  ", %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_D32 "{" WG_R0_31 "}"
+#define WG_D40 "{" WG_R0_31 WG_R32_39 "}"
+#define WG_D64 "{" WG_R0_31 WG_R32_39 WG_R40_63 "}"
+#define WG_OUT0_31(d)                                                       \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
   "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
   "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
   "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
   "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
-  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
-  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),          \
-  "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),          \
-  "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),          \
-  "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),          \
-  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),          \
-  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+  "+f"(d[31])
+#define WG_OUT32_39(d)                                                      \
+  , "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),        \
+  "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+#define WG_OUT40_63(d)                                                      \
+  , "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),        \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),          \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),          \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define WG_OUT32(d) WG_OUT0_31(d)
+#define WG_OUT40(d) WG_OUT0_31(d) WG_OUT32_39(d)
+#define WG_OUT64(d) WG_OUT0_31(d) WG_OUT32_39(d) WG_OUT40_63(d)
 
 // d (64 x 128, f32) = [d +] A B^T: A (64 x 16) and B (128 x 16) K-major in
 // shared memory; scale_d = 0 overwrites d
@@ -597,17 +648,35 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x 128, f32) += A B: A (64 x 16) bf16 fragments in registers, B
-// (16 x 128) MN-major in shared memory (the transpose bit)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+// d (64 x N, f32) += A B: A (64 x 16) bf16 fragments in registers, B
+// (16 x N) MN-major in shared memory (the transpose bit); N = D
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_OUT64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  static_assert(N == 64 || N == 80 || N == 128, "wgmma_rs: N 64, 80, 128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_OUT32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " WG_D40
+        ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : WG_OUT40(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_OUT64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
 }
 
 template <int N>
@@ -615,66 +684,70 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// issue S = Q K^T for one kv tile: 8 k-steps of 16 columns, 4 in each
-// 64-column half; q_rows / k_tile are the shared addresses of the
-// consumer's 64 Q rows and of the K tile
+// issue S = Q K^T for one kv tile: D / 16 k-steps of 16 columns, 4 in each
+// 64-column box (5 at D 80: the second box's zero columns are never read);
+// q_rows / k_tile are the shared addresses of the consumer's 64 Q rows and
+// of the K tile
+template <int D>
 __device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t q_rows,
                                              uint32_t k_tile) {
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kHopperD / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
     wgmma_ss(s, smem_desc(q_rows + off, 16, 1024),
              smem_desc(k_tile + off, 16, 1024), kk > 0);
   }
 }
 
 // issue O += bf16(P) V for one kv tile: V (kv rows x D) is MN-major for
-// this product; a k-step is 16 kv rows (2048 bytes), the two 64-column
-// halves lie kHalfBytes apart (the leading byte offset), 8-row groups 1024
-// bytes (the stride byte offset)
-__device__ __forceinline__ void issue_pv(float (&acc)[64],
+// this product; a k-step is 16 kv rows (2048 bytes), the 64-column boxes
+// lie kBoxBytes apart (the leading byte offset; at D 80 the product reads
+// 16 columns of the second), 8-row groups 1024 bytes (the stride byte
+// offset)
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
                                          const uint32_t (&pa)[kHopperBN / 16][4],
                                          uint32_t v_tile) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kHopperBN / 16; ++kk)
-    wgmma_rs(acc, pa[kk], smem_desc(v_tile + kk * 2048, kHalfBytes, 1024));
+    wgmma_rs<D>(acc, pa[kk], smem_desc(v_tile + kk * 2048, kBoxBytes, 1024));
 }
 
-// online softmax of one tile of raw scores s, in place in registers: scale,
-// mask (the last kv tile only: the diagonal and the ragged tail), p, the
-// running max m_r and sum l_r (from the float32 p) and the accumulator's
-// factor alpha. Register i holds row rows[(i >> 1) & 1], column
-// k0 + 8 (i / 4) + 2 tig + (i & 1).
+// online softmax of one tile of raw scores s, in place in registers: mask
+// (the last kv tile only: the diagonal and the ragged tail), the running max
+// m_r of the raw scores (the scale is positive, so it commutes with the
+// max), p = e^(scale (s - m)), the running sum l_r (from the float32 p) and
+// the accumulator's factor alpha. Register i holds row rows[(i >> 1) & 1],
+// column k0 + 8 (i / 4) + 2 tig + (i & 1).
 __device__ __forceinline__ void softmax_tile(
     float (&s)[64], float (&alpha)[2], float (&m_r)[2], float (&l_r)[2],
     const FlashGeom& g, const int (&rows)[2], int k0, int tig, bool edge) {
+  const float c = g.scale * kLog2e;
   float mx[2] = {kNegInf, kNegInf};
   if (edge) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       const int col = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
-      s[i] = visible(g, rows[(i >> 1) & 1], col) ? s[i] * g.scale : kNegInf;
+      s[i] = visible(g, rows[(i >> 1) & 1], col) ? s[i] : kNegInf;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      s[i] *= g.scale;
+    for (int i = 0; i < 64; ++i)
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    }
   }
-  float ml2[2], rs[2] = {0.f, 0.f};
+  float mc[2], rs[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     const float m_new = fmaxf(m_r[r], mx[r]);
     const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
-    ml2[r] = m_safe * kLog2e;
-    alpha[r] = m_r[r] <= kNegInf / 2 ? 0.f : exp_diff(m_r[r], ml2[r]);
+    mc[r] = m_safe * c;
+    alpha[r] = m_r[r] <= kNegInf / 2 ? 0.f : exp_diff(m_r[r], c, mc[r]);
     m_r[r] = m_new;
   }
   if (edge) {
@@ -682,7 +755,7 @@ __device__ __forceinline__ void softmax_tile(
     for (int i = 0; i < 64; ++i) {
       const int r = (i >> 1) & 1;
       const int col = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
-      const float p = exp_diff(s[i], ml2[r]);   // no branch around the asm
+      const float p = exp_diff(s[i], c, mc[r]);   // no branch around the asm
       s[i] = visible(g, rows[r], col) ? p : 0.f;
       rs[r] += s[i];
     }
@@ -690,7 +763,7 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       const int r = (i >> 1) & 1;
-      s[i] = exp_diff(s[i], ml2[r]);
+      s[i] = exp_diff(s[i], c, mc[r]);
       rs[r] += s[i];
     }
   }
@@ -720,26 +793,31 @@ struct HopperMaps {
   CUtensorMap q, k, v;
 };
 
+template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
                    __nv_bfloat16* __restrict__ o, const FlashGeom g) {
+  using L = HopperLayout<D>;
+  constexpr int kTileBytes = L::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled TMA boxes want 1024-byte aligned destinations
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_full = base + kBarOff;
+  const uint32_t q_full = base + L::kBarOff;
   const uint32_t q_empty = q_full + 8;
   const uint32_t full_k = q_empty + 8;                // + 8 * stage
   const uint32_t full_v = full_k + 8 * kStages;
   const uint32_t empty_k = full_v + 8 * kStages;
   const uint32_t empty_v = empty_k + 8 * kStages;
 
-  // persistent: in round r block b takes work item r G + b, or r G + G - 1
-  // - b in odd rounds (G blocks; the snake evens out the blocks' sums of
-  // causal tile lengths); item i is q tile i / (B H) (the longest causal
-  // tiles first) of batch * head i % (B H). One tile's tail overlaps the
+  // persistent: block b takes the pairs of work items b, b + G, b + 2 G, ...
+  // (item_of), a pair being two q tiles of one head, the i-th longest and
+  // the i-th shortest (hopper_tile): every pair holds n_qb + 1 causal kv
+  // tiles, so the blocks' sums match, and the pairs in flight at once
+  // cover some 17 heads, whose K and V stay in L2 (MHA at S 2048 has 84 MB
+  // of K and V, more than the 50 MB of L2). One tile's tail overlaps the
   // next one's loads
-  const int bh_count = g.batch * g.heads;
-  const int n_items = (g.seq + kHopperBM - 1) / kHopperBM * bh_count;
+  const int n_qb = (g.seq + kHopperBM - 1) / kHopperBM;
+  const int n_items = n_qb * g.batch * g.heads;
   const int warpgroup = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -762,28 +840,29 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
     if (threadIdx.x == 0) {
       int it = 0;
       for (int k = 0, item = item_of(0); item < n_items; item = item_of(++k)) {
-        const Tile t = tile_of<kHopperBM, kHopperBN>(g, item / bh_count,
-                                                     item % bh_count);
+        const Tile t = hopper_tile(g, item, n_qb);
         if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
+        // the transaction count is the whole boxes': TMA counts the
+        // zero-filled columns past D and rows past S too
         mbar_expect_tx(q_full, kTileBytes);
-        tma_load(base + kQOff, &maps.q, q_full, 0, t.q0, t.h, t.b);
-        tma_load(base + kQOff + kHalfBytes, &maps.q, q_full, kBoxCols, t.q0,
-                 t.h, t.b);
+        for (int x = 0; x < L::kBoxes; ++x)
+          tma_load(base + x * kBoxBytes, &maps.q, q_full, x * kBoxCols, t.q0,
+                   t.h, t.b);
         for (int j = 0; j < t.n_kv; ++j, ++it) {
           const int s = it % kStages, round = it / kStages;
-          const uint32_t ks = base + kKOff + s * 2 * kTileBytes;
+          const uint32_t ks = base + L::kKOff + s * 2 * kTileBytes;
           const uint32_t vs = ks + kTileBytes;
           const int k0 = j * kHopperBN;
           if (round > 0) mbar_wait(empty_k + 8 * s, (round - 1) & 1);
           mbar_expect_tx(full_k + 8 * s, kTileBytes);
-          tma_load(ks, &maps.k, full_k + 8 * s, 0, k0, t.hk, t.b);
-          tma_load(ks + kHalfBytes, &maps.k, full_k + 8 * s, kBoxCols, k0,
-                   t.hk, t.b);
+          for (int x = 0; x < L::kBoxes; ++x)
+            tma_load(ks + x * kBoxBytes, &maps.k, full_k + 8 * s,
+                     x * kBoxCols, k0, t.hk, t.b);
           if (round > 0) mbar_wait(empty_v + 8 * s, (round - 1) & 1);
           mbar_expect_tx(full_v + 8 * s, kTileBytes);
-          tma_load(vs, &maps.v, full_v + 8 * s, 0, k0, t.hk, t.b);
-          tma_load(vs + kHalfBytes, &maps.v, full_v + 8 * s, kBoxCols, k0,
-                   t.hk, t.b);
+          for (int x = 0; x < L::kBoxes; ++x)
+            tma_load(vs + x * kBoxBytes, &maps.v, full_v + 8 * s,
+                     x * kBoxCols, k0, t.hk, t.b);
         }
       }
     }
@@ -794,26 +873,26 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int tig = lane % 4;
     const int row0 = c * 64 + warp * 16 + lane / 4;   // rows row0, row0 + 8
-    // Q: rows of this consumer in each 64-column half, K-major
-    const uint32_t q_rows = base + kQOff + c * 64 * 128;
+    // Q: rows of this consumer in each 64-column box, K-major
+    const uint32_t q_rows = base + c * 64 * 128;
+    const uint32_t kv_base = base + L::kKOff;   // + 2 st kTileBytes
     // ping-pong: the consumers take turns to issue their products (named
     // barrier 1 + c is consumer c's turn), so one's softmax runs under the
     // other's wgmmas; consumer 0 goes first
     const int my_turn = 1 + c, next_turn = 2 - c;
     if (c == 1) bar_arrive(1);
 
-    float s[64], acc[64];
+    float s[64], acc[D / 2];
 #pragma unroll
     for (int i = 0; i < 64; ++i) s[i] = 0.f;
     uint32_t pa[kHopperBN / 16][4];
     int it = 0;
     for (int k = 0, item = item_of(0); item < n_items; item = item_of(++k)) {
-      const Tile t = tile_of<kHopperBM, kHopperBN>(g, item / bh_count,
-                                                   item % bh_count);
+      const Tile t = hopper_tile(g, item, n_qb);
       const int rows[2] = {t.q0 + row0, t.q0 + row0 + 8};
       float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       fence_regs(acc);
       mbar_wait(q_full, k & 1);
 
@@ -822,7 +901,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         const int st = it % kStages;
         mbar_wait(full_k + 8 * st, (it / kStages) & 1);
         bar_sync(my_turn);
-        issue_scores(s, q_rows, base + kKOff + st * 2 * kTileBytes);
+        issue_scores<D>(s, q_rows, kv_base + st * 2 * kTileBytes);
         wgmma_commit();
         bar_arrive(next_turn);
         wgmma_wait<0>();
@@ -844,9 +923,9 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         mbar_wait(full_k + 8 * st1, (nxt / kStages) & 1);
         mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
         bar_sync(my_turn);
-        issue_scores(s, q_rows, base + kKOff + st1 * 2 * kTileBytes);
+        issue_scores<D>(s, q_rows, kv_base + st1 * 2 * kTileBytes);
         wgmma_commit();
-        issue_pv(acc, pa, base + kKOff + st * 2 * kTileBytes + kTileBytes);
+        issue_pv<D>(acc, pa, kv_base + st * 2 * kTileBytes + kTileBytes);
         wgmma_commit();
         bar_arrive(next_turn);
         wgmma_wait<1>();   // the scores of tile j + 1 are in
@@ -862,7 +941,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         fence_frags(pa);
         mbar_arrive(empty_v + 8 * st);
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
         pack_p(s, pa);
         // pinned here: sunk below the next S issue, these writes to the next
         // second product's inputs would serialize the wgmmas
@@ -874,7 +953,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         const int cur = it + t.n_kv - 1, st = cur % kStages;
         mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
         bar_sync(my_turn);
-        issue_pv(acc, pa, base + kKOff + st * 2 * kTileBytes + kTileBytes);
+        issue_pv<D>(acc, pa, kv_base + st * 2 * kTileBytes + kTileBytes);
         wgmma_commit();
         // consumer 1's very last turn has no successor
         if (c == 0 || item_of(k + 1) < n_items) bar_arrive(next_turn);
@@ -892,7 +971,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         __nv_bfloat16* op = o + t.b * g.o_b + rows[r] * g.o_s +
                             t.h * g.o_h + tig * 2;
 #pragma unroll
-        for (int dt = 0; dt < kHopperD / 8; ++dt) {
+        for (int dt = 0; dt < D / 8; ++dt) {
           const uint32_t w = pack_bf16(acc[4 * dt + 2 * r] / l,
                                        acc[4 * dt + 2 * r + 1] / l);
           *reinterpret_cast<uint32_t*>(op + dt * 8) = w;
@@ -967,13 +1046,15 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // a rank-4 (D, S, heads, B) bf16 map read in (64 columns, 128 rows) boxes;
-// strides in elements
+// strides in elements. The map ends at column D, so a box reaching past it
+// (D 80's second) reads zeros there, never the next head's columns
+template <int D>
 int encode_map(CUtensorMap* map, const void* ptr, const FlashGeom& g,
                int heads, int64_t s_stride, int64_t h_stride,
                int64_t b_stride) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[4] = {kHopperD, static_cast<cuuint64_t>(g.seq),
+  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(g.seq),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(g.batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_stride) * 2,
@@ -985,31 +1066,38 @@ int encode_map(CUtensorMap* map, const void* ptr, const FlashGeom& g,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);   // out-of-bounds rows read 0
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);   // out-of-bounds elements read 0
   return res == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(res);
 }
 
+// no fallback: a map the driver refuses is returned as an error
+template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  const FlashGeom& g, void* stream) {
   HopperMaps maps;
-  int err = encode_map(&maps.q, q, g, g.heads, g.q_s, g.q_h, g.q_b);
-  if (err == 0) err = encode_map(&maps.k, k, g, g.kv_heads, g.k_s, g.k_h, g.k_b);
-  if (err == 0) err = encode_map(&maps.v, v, g, g.kv_heads, g.v_s, g.v_h, g.v_b);
+  int err = encode_map<D>(&maps.q, q, g, g.heads, g.q_s, g.q_h, g.q_b);
+  if (err == 0)
+    err = encode_map<D>(&maps.k, k, g, g.kv_heads, g.k_s, g.k_h, g.k_b);
+  if (err == 0)
+    err = encode_map<D>(&maps.v, v, g, g.kv_heads, g.v_s, g.v_h, g.v_b);
   if (err != 0) return err;
+  constexpr int kSmem = HopperLayout<D>::kSmem;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kHopperSmem);
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   int device = 0, sms = 0;
   cudaError_t dev = cudaGetDevice(&device);
   if (dev == cudaSuccess)
     dev = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (dev != cudaSuccess) return static_cast<int>(dev);
-  // one persistent block per SM, or one per work item where there are fewer
+  // one persistent block per SM, or one per pair of work items where there
+  // are fewer
   const int items = (g.seq + kHopperBM - 1) / kHopperBM * g.batch * g.heads;
-  const int grid = items < sms ? items : sms;
-  flash_wgmma_kernel<<<grid, kHopperThreads, kHopperSmem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const int pairs = (items + 1) / 2;
+  const int grid = pairs < sms ? pairs : sms;
+  flash_wgmma_kernel<D><<<grid, kHopperThreads, kSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
       maps, static_cast<__nv_bfloat16*>(o), g);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1018,10 +1106,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 enum Route { kNoKernel, kWgmma, kMmaSync, kFfma };
 
 Route route_of(int dtype, int head_dim) {
-  const bool small = head_dim == 16 || head_dim == 32 || head_dim == 64 ||
-                     head_dim == 80;
-  if (dtype == 1) return head_dim == 128 ? kWgmma : small ? kMmaSync : kNoKernel;
-  if (dtype == 0) return small || head_dim == 128 ? kFfma : kNoKernel;
+  const bool narrow = head_dim == 16 || head_dim == 32;
+  const bool wide = head_dim == 64 || head_dim == 80 || head_dim == 128;
+  if (dtype == 1) return wide ? kWgmma : narrow ? kMmaSync : kNoKernel;
+  if (dtype == 0) return narrow || wide ? kFfma : kNoKernel;
   return kNoKernel;
 }
 
@@ -1038,13 +1126,17 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (g->seq <= 0 || g->kv_heads <= 0 || g->heads % g->kv_heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (route_of(dtype, head_dim)) {
-    case kWgmma: return launch_wgmma(q, k, v, o, *g, stream);
+    case kWgmma:
+      switch (head_dim) {
+        case 64: return launch_wgmma<64>(q, k, v, o, *g, stream);
+        case 80: return launch_wgmma<80>(q, k, v, o, *g, stream);
+        case 128: return launch_wgmma<128>(q, k, v, o, *g, stream);
+      }
+      break;
     case kMmaSync:
       switch (head_dim) {
         case 16: return launch_bf16<16>(q, k, v, o, *g, stream);
         case 32: return launch_bf16<32>(q, k, v, o, *g, stream);
-        case 64: return launch_bf16<64>(q, k, v, o, *g, stream);
-        case 80: return launch_bf16<80>(q, k, v, o, *g, stream);
       }
       break;
     case kFfma:

@@ -14,10 +14,13 @@ heads and pads D to 128 lanes: both are TPU layout choices. Here the kernel
 reads q (B, S, H, D) and k, v (B, S, Hkv, D) in place through their strides
 and indexes kv head ``h // (H / Hkv)`` itself; any S works (a ragged tail is
 masked). One kernel serves each (dtype, D), with no switch:
-- bfloat16, D 128: ``flash_wgmma_kernel`` (TMA, an mbarrier ring, wgmma;
-  128-row q and kv tiles);
-- bfloat16, D 16, 32, 64, 80: ``flash_bf16_kernel`` (mma.sync fragments,
-  64-row tiles);
+- bfloat16, D 64, 80, 128: ``flash_wgmma_kernel<D>`` (TMA, an mbarrier
+  ring, wgmma; 128-row q and kv tiles; D 80 is 5 k-steps of the first
+  product and an N 80 second product over a 64 + 16 column tile whose
+  tensor map ends at column 80). A tensor map the driver refuses raises
+  through ``check_launch``: there is no fallback to another kernel;
+- bfloat16, D 16, 32: ``flash_bf16_kernel`` (mma.sync fragments, 64-row
+  tiles; only the reduced test configs have such narrow heads);
 - float32, D 16, 32, 64, 80, 128: ``flash_f32_kernel`` (IEEE FFMA, never
   TF32, 64-row tiles).
 ``kernel_symbol`` asks the library which one a call launches.

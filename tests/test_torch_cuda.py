@@ -20,10 +20,12 @@ layer (no P2M kernel) on the LM engine.
 The flash-attention kernels are held against their plain version at
 max-abs 2e-2 for bf16 outputs (bf16 output rounding plus another kv-tile
 summation order) and 2e-5 for float32 (the summation order alone): the
-wgmma kernel (bf16, D 128) at S 1 to 2048 and GQA 4:1, 7:1 and 16:1, the
-mma.sync and FFMA kernels at D 16 to 128, D 80 included.
+wgmma kernel (bf16, D 64, 80 and 128) at S 1 to 2048, MHA and GQA 4:1, 7:1
+and 16:1, the mma.sync kernel at D 16 and 32 and the FFMA kernel at D 16
+to 128, D 80 included.
 """
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -217,8 +219,11 @@ def test_int8_engine_launches_the_int8_kernels(cuda_device, monkeypatch,
 
 # (batch, seq, heads, kv_heads, head_dim, dtype, causal): the LM serving
 # geometry and the odd ones chip_smoke.py also checks; then the wgmma
-# kernel (bf16, D 128) at S 1, 100, 128, 129 and 2048, causal and not, GQA
-# 4:1 (granite-8b), 7:1 (yi-34b) and 16:1 (glm4-9b); then D 80 (stablelm-3b)
+# kernel at D 128 at S 1, 100, 128, 129 and 2048, causal and not, GQA 4:1
+# (granite-8b), 7:1 (yi-34b) and 16:1 (glm4-9b); then D 80 (stablelm-3b);
+# then the wgmma kernel at D 64 and 80 over S 1, 77, 128, 129 (one row
+# past a tile), 1000 (a ragged tail) and 2048, causal and not, MHA and GQA
+# 4:1
 FLASH_GEOMETRIES = [(4, 2048, 32, 8, 128, torch.bfloat16, True),
                     (2, 77, 4, 4, 64, torch.bfloat16, True),
                     (2, 256, 8, 2, 128, torch.float32, False),
@@ -240,7 +245,10 @@ FLASH_GEOMETRIES = [(4, 2048, 32, 8, 128, torch.bfloat16, True),
                     (1, 2048, 32, 32, 80, torch.bfloat16, True),
                     (2, 100, 4, 4, 80, torch.bfloat16, False),
                     (1, 130, 4, 2, 80, torch.float32, True),
-                    (1, 77, 8, 8, 80, torch.float32, False)]
+                    (1, 77, 8, 8, 80, torch.float32, False)] + [
+    (1 if s >= 1000 else 2, s, 8, hkv, d, torch.bfloat16, causal)
+    for d, s, causal, hkv in itertools.product(
+        (64, 80), (1, 77, 128, 129, 1000, 2048), (True, False), (8, 2))]
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # the largest error of an output row over that row's RMS, so that a fault in
 # the small late causal rows cannot hide under the absolute limit
@@ -267,11 +275,13 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, hkv, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_flash_kernel_reads_strided_operands(cuda_device, d):
     """q, k, v sliced out of one packed projection (no copies) give the
-    same result as contiguous copies (at D 128 through the wgmma kernel's
-    tensor maps)."""
+    same result as contiguous copies, bit for bit, through the wgmma
+    kernel's tensor maps. At D 80 a tile row's second 64-column box reaches
+    48 columns past the head, into the next head of the projection: the map
+    ends at column 80, so those columns arrive as zeros."""
     gen = torch.Generator().manual_seed(3)
     qkv = torch.randn((2, 96, 4 + 2 * 2, d), generator=gen).to(
         cuda_device, torch.bfloat16)
@@ -285,24 +295,27 @@ def test_flash_kernel_reads_strided_operands(cuda_device, d):
 
 @pytest.mark.cuda
 def test_flash_dispatch_has_one_kernel_per_dtype_and_head_dim(cuda_device):
-    """bf16 D 128 goes to the wgmma kernel, and a profiled call shows it ran
-    (and no other flash kernel)."""
+    """bf16 D 64, 80 and 128 go to the wgmma kernel, D 16 and 32 to the
+    mma.sync kernel; a profiled call at D 80 and at D 128 shows the wgmma
+    kernel ran (and no other flash kernel)."""
     from torch.profiler import ProfilerActivity, profile
     bf16, f32 = torch.bfloat16, torch.float32
-    assert fa.kernel_symbol(bf16, 128) == "flash_wgmma_kernel"
-    for d in (16, 32, 64, 80):
+    for d in (64, 80, 128):
+        assert fa.kernel_symbol(bf16, d) == "flash_wgmma_kernel"
+    for d in (16, 32):
         assert fa.kernel_symbol(bf16, d) == "flash_bf16_kernel"
     for d in fa.HEAD_DIMS:
         assert fa.kernel_symbol(f32, d) == "flash_f32_kernel"
     with pytest.raises(ValueError, match="no flash kernel"):
         fa.kernel_symbol(bf16, 48)
-    q = torch.randn((1, 256, 8, 128), device=cuda_device, dtype=bf16)
-    k = torch.randn((1, 256, 2, 128), device=cuda_device, dtype=bf16)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fa.flash_attention(q, k, k, causal=True)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if "flash" in e.key]
-    assert len(names) == 1 and "flash_wgmma_kernel" in names[0]
+    for d in (80, 128):
+        q = torch.randn((1, 256, 8, d), device=cuda_device, dtype=bf16)
+        k = torch.randn((1, 256, 2, d), device=cuda_device, dtype=bf16)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_attention(q, k, k, causal=True)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "flash" in e.key]
+        assert len(names) == 1 and "flash_wgmma_kernel" in names[0]
 
 
 @pytest.mark.cuda

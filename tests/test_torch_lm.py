@@ -232,7 +232,7 @@ def test_generate_greedy_equals_reference_engine(model):
 
 def test_head_dim_80_generate_equals_reference_engine():
     """stablelm-3b's head dim, 80 (d_model 2560 over 32 heads), which the
-    card serves through the mma.sync kernel: reduced stablelm-3b with
+    card serves through the wgmma kernel: reduced stablelm-3b with
     ``head_dim=80``, the CPU engine against the JAX engine with the granite
     case's tolerances (greedy tokens equal, logits within 1e-5)."""
     assert tconfigs.get_arch("stablelm-3b").resolved_head_dim == 80
