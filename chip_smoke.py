@@ -11,16 +11,25 @@ line:
 1. ``env``: torch/CUDA versions and the card's name and power limit;
 2. ``build``: seconds for each library's nvcc build and the compiler's
    register report (a wgmma serialization warning fails the run);
+   ``tensor_cores``: the tensor-core instructions of each P2M kernel, from
+   the library's machine code (the two int8 kernels, A and fused, must run
+   s8 IMMA, no other P2M kernel IMMA, and none HMMA: the float32 MACs use
+   no TF32);
 3. one ``kernel`` line per kernel and geometry: the serving shape
-   (16, 32, 32, 3) -> (4096, 32) and two odd geometries. Each of the seven
-   kernels (f32 A, B, f32 fused, int8 A, int8 fused, explicit-patch A,
-   legacy fused) is held against its plain PyTorch version on the same card
-   tensors (u at atol 3e-6, theta at rtol 1e-5, draws by the word-boundary
-   rule) and against its siblings bit for bit (fused at a pinned theta ==
-   A -> B at both precisions; on power-of-two grid inputs int8 == f32;
-   explicit A == implicit A; legacy at A's theta == pinned fused), and timed
-   (device time, median of 30) beside its plain version, its bound and, where
-   one PyTorch call computes the same function, that call;
+   (16, 32, 32, 3) -> (4096, 32), three odd geometries (one at C 48) and
+   the paper's ImageNet frame size (16, 224, 224, 3) -> (200704, 32). Each
+   of the seven kernels (f32 A, B, f32 fused, int8 A, int8 fused,
+   explicit-patch A, legacy fused) is held against its plain PyTorch
+   version on the same card tensors (u at atol 3e-6, theta at rtol 1e-5,
+   draws by the word-boundary rule) and against its siblings bit for bit
+   (fused at a pinned theta == A -> B at both precisions; on power-of-two
+   grid inputs int8 == f32; explicit A == implicit A; legacy at A's theta
+   == pinned fused), and timed (device time between two CUDA events, median
+   of 30, and beside it the kernel's own duration from ``torch.profiler``)
+   beside its plain version (median of 30, of 5 at the ImageNet size), its
+   bound (the statistics counted as the one set the function returns, not
+   the kernel's partial rows) and, where one PyTorch call computes the same
+   function, that call;
 4. ``engine``: full-width vgg16 at CIFAR-10 geometry, seeded random weights:
    ``classify`` on 16 frames and ``stream`` of 4 batches of 16 on the f32
    path, with every kernel's launch count read from that run alone; the
@@ -56,7 +65,9 @@ line:
    the CPU engine on a (1, 128) prompt and 8 new tokens, with its flash
    launch count; ``lm_stablelm``: the same check for stablelm-3b (head dim
    80, the wgmma kernel) at full width, 2 layers;
-12. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+12. ``seconds``: the wall time of the build, the kernel lines, the vision
+   phases, the flash lines and the LM phases;
+13. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run; one flash row per served
    head dim: D 128 with granite-8b's launches, D 80 with stablelm-3b's),
    and last the ``{"ok": true, "device": ...}`` line.
@@ -90,7 +101,14 @@ REPS = 30
 
 SERVING = dict(batch=16, h=32, w=32, kernel=3, stride=2, c=32)
 ODD_GEOMETRIES = (dict(batch=4, h=16, w=16, kernel=3, stride=1, c=32),
-                  dict(batch=4, h=13, w=11, kernel=5, stride=3, c=32))
+                  dict(batch=4, h=13, w=11, kernel=5, stride=3, c=32),
+                  dict(batch=4, h=16, w=16, kernel=3, stride=1, c=48))
+# the same layer at the paper's ImageNet frame size (P2MConfig, paper
+# §2.4.4): 200,704 patch rows, where the bound is real work
+IMAGENET = dict(batch=16, h=224, w=224, kernel=3, stride=2, c=32)
+# the plain versions take 0.3-3.2 ms each there (PERF.md §6), so they are
+# timed over five runs, not REPS
+IMAGENET_PLAIN_REPS = 5
 REPLACES = {
     "p2m_phase_a_implicit":
         "src/repro/kernels/p2m_conv.py:255 (p2m_phase_a_implicit_pallas)",
@@ -107,6 +125,21 @@ REPLACES = {
         "src/repro/kernels/flash_attention.py:72 (flash_attention_pallas)",
 }
 SOURCE = "src/repro_torch/csrc/p2m_kernels.cu"
+# the device symbol each P2M wrapper launches (the profiler's event names)
+KERNEL_SYMBOLS = {
+    "p2m_phase_a_implicit": "phase_a_kernel<(anonymous namespace)::"
+                            "ImplicitRows, (anonymous namespace)::MacF32>",
+    "p2m_phase_b": "phase_b_kernel",
+    "p2m_fused_stream": "fused_stream_kernel<(anonymous namespace)::"
+                        "ImplicitRows, (anonymous namespace)::MacF32>",
+    "p2m_phase_a_implicit_q8": "phase_a_kernel<(anonymous namespace)::"
+                               "ImplicitRows, (anonymous namespace)::"
+                               "MacQ8Mma>",
+    "p2m_fused_stream_q8": "fused_stream_kernel<(anonymous namespace)::"
+                           "ImplicitRows, (anonymous namespace)::MacQ8Mma>",
+    "p2m_phase_a": "phase_a_kernel<(anonymous namespace)::ExplicitRows",
+    "p2m_conv": "legacy_conv_kernel",
+}
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 # the kernels each main path launches; every other wrapper must launch 0
 # times on that path
@@ -175,14 +208,14 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, device) -> float:
-    """Median device time of ``fn()`` in ms over REPS runs. On a card each
-    run is queued behind a ~1 ms sleep kernel, so the event pair brackets
-    the device work and not Python's enqueue time."""
+def device_ms(fn, device, reps: int = REPS) -> float:
+    """Median device time of ``fn()`` in ms over ``reps`` runs. On a card
+    each run is queued behind a ~1 ms sleep kernel, so the event pair
+    brackets the device work and not Python's enqueue time."""
     import torch
     if device.type != "cuda":
         times = []
-        for _ in range(REPS):
+        for _ in range(reps):
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
@@ -191,7 +224,7 @@ def device_ms(fn, device) -> float:
         fn()
     torch.cuda.synchronize()
     pairs = []
-    for _ in range(REPS):
+    for _ in range(reps):
         torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -201,6 +234,70 @@ def device_ms(fn, device) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+# the kernel of torch.cuda._sleep, which brackets each profiled run
+MARKER = "spin_kernel"
+
+
+def is_marker(evt) -> bool:
+    return MARKER in evt.key
+
+
+def profile_session(run, cuda: bool = True, cpu: bool = True,
+                    tries: int = 3):
+    """``(profile, run())``: ``run()`` inside a torch.profiler session that
+    kept all of its device events, as far as can be seen. The tracer now and
+    then drops a session's device events, all of them or those from its
+    start, so ``run()`` is bracketed by two short marker kernels
+    (``MARKER``; readers skip them with ``is_marker``), and a session that
+    did not keep both runs ``run()`` again, up to ``tries`` sessions; after
+    that the last session is returned, and a check that reads it fails.
+    ``cuda=False`` traces the CPU alone, once."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = ([ProfilerActivity.CPU] if cpu else []) + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    for _ in range(tries if cuda else 1):
+        if cuda:
+            torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            if cuda:
+                torch.cuda._sleep(1000)
+            out = run()
+            if cuda:
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+        if not cuda or sum(e.count for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA
+                           and is_marker(e)) == 2:
+            break
+    return prof, out
+
+
+def profiled_ms(fn, symbol: str, n: int = 20):
+    """The kernel's own device duration per launch, from torch.profiler:
+    ``fn()`` n times; every device event must be a kernel whose name holds
+    ``symbol`` (so the time is that kernel's and nothing else's). The time
+    is over the events the profiler kept; None (not measured) if every
+    session of ``profile_session`` kept none."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    prof, _ = profile_session(lambda: [fn() for _ in range(n)], cpu=False)
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or is_marker(evt):
+            continue
+        check(symbol in evt.key, f"{evt.key[:80]} ran beside {symbol}")
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        total += us
+        count += evt.count
+    return total / 1e3 / count if count else None
 
 
 def bound(bytes_moved: float, ops: float, int8_ops: float = 0.0,
@@ -262,11 +359,12 @@ def grid_inputs(gen, k: int, c: int, b: int, h: int, w: int):
     return w_int.to(torch.float32) * 2.0 ** -9, frames.to(torch.float32)
 
 
-def kernel_phase(geom: dict, device):
+def kernel_checks(geom: dict, device) -> dict:
     """Hold the seven kernels against their plain versions and each other at
-    one geometry and time them; returns one summary row per kernel."""
+    one geometry, on operands drawn from a fixed seed. Returns the operands,
+    the kernels' outputs that later checks compare, each kernel's checks
+    and its largest error against its plain version."""
     import torch
-    import torch.nn.functional as F
     from repro_torch import prng
     from repro_torch.core import p2m
     from repro_torch.kernels import blocking, ops
@@ -408,27 +506,60 @@ def kernel_phase(geom: dict, device):
         "p2m_conv": dict(draw_mismatches_vs_plain=flips_l,
                          equals_pinned_theta_fused=True),
     }
+    errors = {"p2m_phase_a_implicit": err_u,
+              "p2m_phase_b": max_abs(acts, acts_p),
+              "p2m_fused_stream": max_abs(acts_f, acts_fp),
+              "p2m_phase_a_implicit_q8": err_u8,
+              "p2m_fused_stream_q8": max_abs(acts8_f, acts8_fp),
+              "p2m_phase_a": err_ue, "p2m_conv": max_abs(acts_l, acts_lp)}
+    return dict(tag=tag, images=images, wm=wm, w8=w8, dq=dq, v_th=v_th,
+                key=key, kw=kw, theta=theta, theta8=theta8, u=u, u8=u8,
+                patches=patches, acts_f=acts_f, acts8_f=acts8_f,
+                checks=checks, errors=errors)
+
+
+def kernel_phase(geom: dict, device, plain_reps: int = REPS):
+    """Check the seven kernels at one geometry (``kernel_checks``) and time
+    each beside its plain version (median of ``plain_reps``), its bound and,
+    where one PyTorch call computes the same function, that call; returns
+    one summary row per kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import p2m
+    from repro_torch.kernels import blocking
+    from repro_torch.kernels import p2m_conv as pk
+
+    x = kernel_checks(geom, device)
+    h, w, k, s, c = (geom[n_] for n_ in ("h", "w", "kernel", "stride", "c"))
+    images, wm, w8, dq, v_th, key, kw, theta, theta8, u, patches = (
+        x[n_] for n_ in ("images", "wm", "w8", "dq", "v_th", "key", "kw",
+                         "theta", "theta8", "u", "patches"))
+    n, kk = u.shape[0], k * k * 3
 
     # device times and bounds (each input read once, each output written
-    # once; operations: the MACs plus the per-element estimates above)
+    # once; operations: the MACs plus the per-element estimates above). The
+    # statistics count as one set, what the function returns: the Hoyer
+    # sums (2), the V stats (3) and the per-channel draw counts (C). How
+    # many partial rows a kernel writes on the way is its own layout choice
+    # and no part of the least time.
     f32 = 4
     img_bytes, w_bytes = images.numel() * f32, wm.numel() * f32
     w8_bytes = w8.numel() + dq.numel() * f32
     chan_bytes = 4 * c * f32
-    g = hp.shape[0]
     out_bytes = n * c * f32
     macs = 2 * n * kk * 2 * c                       # multiply + add, 2C cols
     epi_a, chain = EPILOGUE_A_OPS * n * c, DEVICE_CHAIN_OPS * n * c
-    a_bytes = img_bytes + w_bytes + f32 + out_bytes + g * 2 * f32
-    b_bytes = out_bytes * 2 + chan_bytes + f32 + vp.shape[0] * 3 * f32
-    fu_stats = g * (2 + 3 + c) * f32
+    hoyer_bytes, v_bytes, rate_bytes = 2 * f32, 3 * f32, c * f32
+    a_bytes = img_bytes + w_bytes + f32 + out_bytes + hoyer_bytes
+    b_bytes = out_bytes * 2 + chan_bytes + f32 + v_bytes
+    fu_stats = hoyer_bytes + v_bytes + rate_bytes
     fu_bytes = (img_bytes + w_bytes + chan_bytes + 2 * f32 + out_bytes
                 + fu_stats)
-    a8_bytes = img_bytes + w8_bytes + f32 + out_bytes + g * 2 * f32
+    a8_bytes = img_bytes + w8_bytes + f32 + out_bytes + hoyer_bytes
     fu8_bytes = (img_bytes + w8_bytes + chan_bytes + 2 * f32 + out_bytes
                  + fu_stats)
     patch_bytes = patches.numel() * f32
-    ae_bytes = patch_bytes + w_bytes + f32 + out_bytes + g * 2 * f32
+    ae_bytes = patch_bytes + w_bytes + f32 + out_bytes + hoyer_bytes
     l_bytes = patch_bytes + w_bytes + chan_bytes + f32 + out_bytes
 
     (pt, pb), (pl, pr) = blocking.same_pads(h, w, k, s)
@@ -457,38 +588,36 @@ def kernel_phase(geom: dict, device):
         torch.matmul(patches, wm)
 
     rows = []
-    for name, fn, plain, lib, nbytes, ops_f32, ops_i8, err in (
+    for name, fn, plain, lib, nbytes, ops_f32, ops_i8 in (
             ("p2m_phase_a_implicit",
              lambda: pk.p2m_phase_a_implicit(images, wm, v_th, **kw),
              lambda: pk.p2m_phase_a_implicit_plain(images, wm, v_th, **kw),
-             conv_library, a_bytes, macs + epi_a, 0, err_u),
+             conv_library, a_bytes, macs + epi_a, 0),
             ("p2m_phase_b", lambda: pk.p2m_phase_b(u, theta, key),
              lambda: pk.p2m_phase_b_plain(u, theta, key), None, b_bytes,
-             chain, 0, max_abs(acts, acts_p)),
+             chain, 0),
             ("p2m_fused_stream",
              lambda: pk.p2m_fused_stream(images, wm, v_th, theta, key, **kw),
              lambda: pk.p2m_fused_stream_plain(images, wm, v_th, theta, key,
                                                **kw),
-             None, fu_bytes, macs + epi_a + chain, 0, max_abs(acts_f,
-                                                              acts_fp)),
+             None, fu_bytes, macs + epi_a + chain, 0),
             ("p2m_phase_a_implicit_q8",
              lambda: pk.p2m_phase_a_implicit_q8(images, w8, dq, v_th, **kw),
              lambda: pk.p2m_phase_a_implicit_q8_plain(images, w8, dq, v_th,
                                                       **kw),
-             int_mm_library, a8_bytes, epi_a, macs, err_u8),
+             int_mm_library, a8_bytes, epi_a, macs),
             ("p2m_fused_stream_q8",
              lambda: pk.p2m_fused_stream_q8(images, w8, dq, v_th, theta8, key,
                                             **kw),
              lambda: pk.p2m_fused_stream_q8_plain(images, w8, dq, v_th,
                                                   theta8, key, **kw),
-             None, fu8_bytes, epi_a + chain, macs, max_abs(acts8_f,
-                                                           acts8_fp)),
+             None, fu8_bytes, epi_a + chain, macs),
             ("p2m_phase_a", lambda: pk.p2m_phase_a(patches, wm, v_th),
              lambda: pk.p2m_phase_a_plain(patches, wm, v_th),
-             matmul_library, ae_bytes, macs + epi_a, 0, err_ue),
+             matmul_library, ae_bytes, macs + epi_a, 0),
             ("p2m_conv", lambda: pk.p2m_conv(patches, wm, theta, key),
              lambda: pk.p2m_conv_plain(patches, wm, theta, key), None,
-             l_bytes, macs + chain, 0, max_abs(acts_l, acts_lp))):
+             l_bytes, macs + chain, 0)):
         t_bound, by = bound(nbytes, ops_f32, ops_i8)
         lib_ms, lib_error = None, None
         if lib is not None:
@@ -498,14 +627,16 @@ def kernel_phase(geom: dict, device):
                 lib_error = str(exc).splitlines()[0]
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name], "launches": 0,
-               "max_abs_err": err, "ms": device_ms(fn, device),
-               "plain_ms": device_ms(plain, device),
+               "max_abs_err": x["errors"][name],
+               "ms": device_ms(fn, device),
+               "plain_ms": device_ms(plain, device, plain_reps),
                "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms}
         rows.append(row)
-        emit("kernel", geometry=tag, **{k_: v_ for k_, v_ in row.items()
+        emit("kernel", geometry=x["tag"], **{k_: v_ for k_, v_ in row.items()
                                          if k_ != "launches"},
+             profiler_ms=profiled_ms(fn, KERNEL_SYMBOLS[name]),
              bound_us=t_bound * 1e3, bytes=nbytes, fp32_ops=ops_f32,
-             int8_ops=ops_i8, library_error=lib_error, **checks[name])
+             int8_ops=ops_i8, library_error=lib_error, **x["checks"][name])
     return rows
 
 
@@ -703,7 +834,7 @@ def device_breakdown(prof, families, n_top: int = 0):
     fam["other"] = 0.0
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or is_marker(evt):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -733,15 +864,10 @@ LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel", "flash_bf16_kernel",
 
 def profile_phase(engine, frames, device):
     """Device time of one classify and one fused stream step, by family."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof_c:
-        engine.classify(frames[0])
-    with profile(activities=acts) as prof_s:
-        list(engine.stream([frames[1], frames[1]]))
+    cuda = device.type == "cuda"
+    prof_c, _ = profile_session(lambda: engine.classify(frames[0]), cuda)
+    prof_s, _ = profile_session(
+        lambda: list(engine.stream([frames[1], frames[1]])), cuda)
     emit("profile",
          classify_device_ms=device_breakdown(prof_c, VISION_FAMILIES)[0],
          stream_exact_plus_fused_device_ms=device_breakdown(
@@ -754,7 +880,6 @@ def flash_phase(geom: dict, device):
     ``scaled_dot_product_attention``. Returns the summary row."""
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention as fa
 
     b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
@@ -767,9 +892,8 @@ def flash_phase(geom: dict, device):
     tag = (f"B{b} S{s} H{h}/{hkv} D{d} {geom['dtype']} "
            f"{'causal' if causal else 'full'}")
     symbol = fa.kernel_symbol(dtype, d)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fa.flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
+    prof, out = profile_session(
+        lambda: fa.flash_attention(q, k, v, causal=causal), cpu=False)
     ran = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
     check(len(ran) == 1 and symbol in ran[0],
           f"flash kernels {ran} ran at {tag}, want {symbol} alone")
@@ -836,7 +960,6 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH):
     """``arch`` at full width and depth through ``ServingEngine.generate``,
     the launch counts read from that run alone; returns them."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cuda_lib
     from repro_torch.models import lm
@@ -897,10 +1020,9 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH):
 
     # device time of one prefill by family and by kernel, and of one decode
     # step against its wall time (the device's idle share while decoding)
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, cache = engine.prefill(engine.params, prompts)
-        torch.cuda.synchronize()
+    with torch.inference_mode():
+        prof, (_, cache) = profile_session(
+            lambda: engine.prefill(engine.params, prompts))
     fam, top = device_breakdown(prof, LM_FAMILIES, 12)
     total = sum(fam.values())
     # every flash launch of the prefill is the serving width's one kernel
@@ -917,10 +1039,8 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH):
         cache = pad_prefill_cache(cfg, cache, LM_BATCH, LM_PROMPT + LM_NEW)
         tok = tokens[:, :1]
         tok, cache = engine.decode(engine.params, cache, tok)   # warm-up
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof_d:
-            engine.decode(engine.params, cache, tok)
-            torch.cuda.synchronize()
+        prof_d, _ = profile_session(
+            lambda: engine.decode(engine.params, cache, tok))
     fam_d, top_d = device_breakdown(prof_d, LM_FAMILIES, 12)
     decode_device = sum(fam_d.values())
     decode_wall = statistics.median(r["decode_ms_per_token"] for r in steady)
@@ -1063,6 +1183,7 @@ def main() -> int:
          device=torch.cuda.get_device_name(0),
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          matmul_precision=torch.get_float32_matmul_precision())
+    from repro_torch.kernels import cuda_lib
     t0 = time.perf_counter()
     built = build_libraries()
     build_s = time.perf_counter() - t0
@@ -1077,16 +1198,32 @@ def main() -> int:
         # ptxas C7513/C7514: a register of an in-flight wgmma is touched,
         # so every wgmma waits for the one before (the overlap is lost)
         check(not serialized, f"{name}: ptxas serialized the wgmmas")
+    # the int8 kernels' MAC (int8 A and int8 fused) runs on the s8 tensor
+    # cores; no other P2M kernel runs IMMA, and none HMMA (the float32 MACs
+    # use no TF32)
+    census = cuda_lib.tensor_core_census(built["p2m"][0])
+    imma = {k: v for k, v in census.items() if v != (0, 0)}
+    check(len(imma) == 2 and all("MacQ8Mma" in k for k in imma)
+          and sorted("fused_stream_kernel" in k for k in imma)
+          == [False, True]
+          and all(i >= 1 and h_ == 0 for i, h_ in imma.values()),
+          f"tensor-core instructions in the P2M library: {imma}")
+    emit("tensor_cores", library="p2m", kernels=len(census),
+         imma_hmma={k: list(v) for k, v in imma.items()})
 
+    t_kernels = time.perf_counter()
     rows = kernel_phase(SERVING, device)
     for geom in ODD_GEOMETRIES:
         kernel_phase(geom, device)
+    kernel_phase(IMAGENET, device, plain_reps=IMAGENET_PLAIN_REPS)
+    t_vision = time.perf_counter()
     # the f32 path: the table holds no entry yet, so the frontend runs f32
     counts, engine, frames = engine_run(device, "engine")
     profile_phase(engine, frames, device)
     counts_base = baseline_phase(device)
     counts_int8 = engine_int8_phase(device)
     autotune_phase(device, smi)
+    t_flash = time.perf_counter()
     from repro_torch.kernels import flash_attention as fa
     flash_row = flash_phase(FLASH_SERVING, device)
     odd_rows = [flash_phase(geom, device) for geom in FLASH_ODD]
@@ -1097,10 +1234,16 @@ def main() -> int:
         d = get_arch(arch).resolved_head_dim
         check(fa.kernel_symbol(torch.bfloat16, d) == "flash_wgmma_kernel",
               f"{arch} (head dim {d}) is not served by flash_wgmma_kernel")
+    t_lm = time.perf_counter()
     counts_lm = lm_phase(device, smi)
     counts_d80 = lm_phase(device, smi, LM_D80_ARCH)
     lm_vs_cpu_phase(device)
     lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
+    t_end = time.perf_counter()
+    # wall seconds of each group of phases, and from the build to here
+    emit("seconds", build=build_s, kernels=t_vision - t_kernels,
+         vision=t_flash - t_vision, flash=t_lm - t_flash, lm=t_end - t_lm,
+         total=t_end - t0)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},
                 **{n_: counts_int8 for n_ in PATH_KERNELS["engine_int8"]

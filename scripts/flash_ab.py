@@ -18,19 +18,19 @@ that the wgmmas were serialized) and one per geometry for
 copies of the first source that each leave one stage of the per-tile work
 out (``DIAGNOSTICS``) are timed beside it, unchecked: their outputs are
 wrong by design, and their times say what that stage costs. Needs a CUDA
-card and exits non-zero without one.
+card and exits non-zero without one. The building and the turns are
+``ab_versions.py``'s, shared with ``p2m_ab.py``.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import statistics
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import ab_versions
+
 ROUNDS = 3
 # (old text, new text) of flash_attention.cu for each diagnostic copy
 DIAGNOSTICS = {
@@ -49,22 +49,8 @@ DIAGNOSTICS = {
 }
 
 
-def diagnostic_sources(source: str, out_dir: str) -> list:
-    """Write the DIAGNOSTICS copies of ``source``; returns their paths."""
-    text = open(source).read()
-    paths = []
-    for name, (old, new) in DIAGNOSTICS.items():
-        if text.count(old) != 1:
-            raise ValueError(f"{name}: the text to replace is not in {source}")
-        path = os.path.join(out_dir, f"diag_{name}.cu")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
-        paths.append(path)
-    return paths
-
-
 def geometries() -> dict:
-    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    ab_versions.import_checkout()
     import chip_smoke as cs
     d80 = cs.FLASH_D80_SERVING
     return {"granite_d128_b4": cs.FLASH_SERVING,
@@ -93,25 +79,17 @@ def main(argv) -> int:
     from repro_torch.kernels import flash_attention as fa
 
     sources = list(args.sources)
-    out_dir = os.path.join(ROOT, "build", "flash_ab")
+    out_dir = os.path.join(ab_versions.ROOT, "build", "flash_ab")
     os.makedirs(out_dir, exist_ok=True)
-    unchecked = (set(diagnostic_sources(sources[0], out_dir))
+    unchecked = (set(ab_versions.diagnostic_sources(sources[0], out_dir,
+                                                    DIAGNOSTICS))
                  if args.diagnose else set())
     sources += sorted(unchecked)
-    builds = []
-    for i, src in enumerate(sources):
-        so = os.path.join(out_dir, f"lib_{i}.so")
-        cmd = [cuda_lib._nvcc(), *cuda_lib.FLASH.flags, "-o", so, src]
-        builds.append((src, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs, serialized = {}, {}
-    for src, so, proc in builds:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+    for src, (lib, log) in ab_versions.build_versions(
+            sources, cuda_lib.FLASH.flags, out_dir).items():
         serialized[src] = [ln.strip() for ln in log.splitlines()
                            if "serialized" in ln]
-        lib = ctypes.CDLL(so)
         cuda_lib._bind_flash(lib)
         libs[src] = lib
 
@@ -126,19 +104,28 @@ def main(argv) -> int:
                    for shape in ((b, s, h, d), (b, s, hkv, d),
                                  (b, s, hkv, d)))
         plain = fa.flash_attention_plain(q, k, v, causal=True).float()
-        times = {src: {"causal": [], "noncausal": []} for src in sources}
-        for rnd in range(ROUNDS):
-            for src in (sources if rnd % 2 == 0 else sources[::-1]):
-                cuda_lib._LOADED[cuda_lib.FLASH.name] = libs[src]
-                err = float((fa.flash_attention(q, k, v).float() - plain)
-                            .abs().max())
-                cs.check(src in unchecked or err <= cs.FLASH_TOL["bfloat16"],
-                         f"{src}: max-abs {err} against the plain version "
-                         f"at {name}")
-                for key, causal in (("causal", True), ("noncausal", False)):
-                    times[src][key].append(cs.device_ms(
-                        lambda: fa.flash_attention(q, k, v, causal=causal),
-                        dev))
+        current = {}
+
+        def load(src):
+            cuda_lib._LOADED[cuda_lib.FLASH.name] = libs[src]
+            current["src"] = src
+
+        def measure():
+            src = current["src"]
+            err = float((fa.flash_attention(q, k, v).float() - plain)
+                        .abs().max())
+            cs.check(src in unchecked or err <= cs.FLASH_TOL["bfloat16"],
+                     f"{src}: max-abs {err} against the plain version at "
+                     f"{name}")
+            return {key: cs.device_ms(
+                lambda: fa.flash_attention(q, k, v, causal=causal), dev)
+                    for key, causal in (("causal", True),
+                                        ("noncausal", False))}
+
+        turns = ab_versions.in_turns(sources, ROUNDS, load, measure)
+        times = {src: {key: [r[key] for r in rounds]
+                       for key in ("causal", "noncausal")}
+                 for src, rounds in turns.items()}
         for src in sources:
             print(json.dumps({"geometry": name, "source": src,
                               "checked": src not in unchecked,

@@ -1,0 +1,183 @@
+#!/usr/bin/env python3
+"""Time versions of the P2M kernel library against each other on one card.
+
+    python3 scripts/p2m_ab.py [--geometry NAME ...] [--kernel NAME ...]
+                              [--rounds N] [--diagnose]
+                              A/p2m_kernels.cu B/p2m_kernels.cu ...
+
+Each argument is a version of ``src/repro_torch/csrc/p2m_kernels.cu`` with
+its own ``p2m_physics.cuh`` beside it (another commit's ``csrc`` unpacked
+into a directory that ``.gitignore`` lists, or an edited copy). All are
+compiled at once with the port's flags (one nvcc each, into
+``build/p2m_ab/``) and driven through this checkout's wrappers. At each
+geometry (by default all of ``geometries()``: the serving shape, the odd
+ones of ``chip_smoke.py``, C 48 among them, and the ImageNet frame size)
+every checked version passes ``chip_smoke.kernel_checks`` (the plain
+versions and the sibling checks) and is held to the first version (equal
+u and equal fused draws at both precisions). Then each kernel's device
+time is taken in turns: the versions in order, then in reverse, for
+``--rounds`` rounds. Prints one JSON line per version, geometry and kernel
+(its times per round, their median and spread, and its own duration from
+``torch.profiler``) and the card's ``nvidia-smi`` line. With
+``--diagnose``, copies of the first source that each leave one stage of
+the row-tile kernels out (``DIAGNOSTICS``) are timed beside it, unchecked:
+their outputs are wrong by design, and their times say what that stage
+costs. Needs a CUDA card and exits non-zero without one. The building and
+the turns are ``ab_versions.py``'s, shared with ``flash_ab.py``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+
+import ab_versions
+
+ROUNDS = 3
+# each kernel wrapper and the device kernel family it launches
+KERNELS = {"p2m_fused_stream": "fused_stream_kernel",
+           "p2m_fused_stream_q8": "fused_stream_kernel",
+           "p2m_phase_a_implicit": "phase_a_kernel",
+           "p2m_phase_a_implicit_q8": "phase_a_kernel",
+           "p2m_phase_b": "phase_b_kernel", "p2m_conv": "legacy_conv_kernel",
+           "p2m_phase_a": "phase_a_kernel"}
+# (old text, new text) of p2m_kernels.cu for each diagnostic copy
+DIAGNOSTICS = {
+    # the row-tile kernels' statistics: no warp sums, barrier or partials
+    "no_reductions": ("    if (Epi::kStats > 0) {\n",
+                      "    if (Epi::kStats < 0) {\n"),
+    # the device chain: the draw is u > theta, v is u
+    "no_chain": ("    const float draw = p2m_chain(ph, u, th, chan4,\n"
+                 "                                 static_cast<uint32_t>(flat)"
+                 ", k0, k1, &v);\n",
+                 "    v = u;\n"
+                 "    const float draw = u > th ? 1.0f : 0.0f;\n"),
+    # the implicit gather: every patch value is a constant
+    "const_gather": ("      cp_async4(dst + col, ok ? img + origin + "
+                     "tab[kTab * col] : img, ok);\n",
+                     "      dst[col] = ok ? 0.25f : 0.0f;\n"),
+    # the f32 MAC's circuit curves (two tanhf and two divisions an output)
+    "no_curve": ("      u[i] = p2m_curve(ph, a_pos[i]) - p2m_curve(ph, "
+                 "a_neg[i]);\n",
+                 "      u[i] = a_pos[i] - a_neg[i];\n"),
+    # the f32 MAC over the first four k only
+    "short_mac": ("    const float* x0 = xs + r0 * xstride;\n",
+                  "    const float* x0 = xs + r0 * xstride;\n"
+                  "    kk = kk < 4 ? kk : 4;\n"),
+    # kernel A's u left unstored
+    "no_store": ("    dst[flat] = u;\n    const float zc = clip01(u / vth);\n",
+                 "    if (u == 1234.5f) dst[flat] = u;\n"
+                 "    const float zc = clip01(u / vth);\n"),
+}
+
+
+def geometries() -> dict:
+    ab_versions.import_checkout()
+    import chip_smoke as cs
+    odd = {f"odd_k{g['kernel']}s{g['stride']}_c{g['c']}": g
+           for g in cs.ODD_GEOMETRIES}
+    return {"serving": cs.SERVING, **odd, "imagenet": cs.IMAGENET}
+
+
+def calls(x: dict) -> dict:
+    """Kernel name -> a no-argument call of its wrapper on the operands of
+    ``chip_smoke.kernel_checks``."""
+    from repro_torch.kernels import p2m_conv as pk
+    im, wm, w8, dq, v_th, kw, key = (x[n] for n in ("images", "wm", "w8", "dq",
+                                                    "v_th", "kw", "key"))
+    return {
+        "p2m_fused_stream": lambda: pk.p2m_fused_stream(
+            im, wm, v_th, x["theta"], key, **kw),
+        "p2m_fused_stream_q8": lambda: pk.p2m_fused_stream_q8(
+            im, w8, dq, v_th, x["theta8"], key, **kw),
+        "p2m_phase_a_implicit": lambda: pk.p2m_phase_a_implicit(
+            im, wm, v_th, **kw),
+        "p2m_phase_a_implicit_q8": lambda: pk.p2m_phase_a_implicit_q8(
+            im, w8, dq, v_th, **kw),
+        "p2m_phase_b": lambda: pk.p2m_phase_b(x["u"], x["theta"], key),
+        "p2m_conv": lambda: pk.p2m_conv(x["patches"], wm, x["theta"], key),
+        "p2m_phase_a": lambda: pk.p2m_phase_a(x["patches"], wm, v_th),
+    }
+
+
+def main(argv) -> int:
+    import torch
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--geometry", action="append", default=None)
+    parser.add_argument("--kernel", action="append", default=None)
+    parser.add_argument("--rounds", type=int, default=ROUNDS)
+    parser.add_argument("--diagnose", action="store_true")
+    parser.add_argument("sources", nargs="*")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available() or not args.sources:
+        print("usage: p2m_ab.py [--geometry NAME] [--kernel NAME] "
+              "[--diagnose] A.cu B.cu ... (on a machine with a CUDA card)",
+              file=sys.stderr)
+        return 1
+    geoms = geometries()
+    kernels = args.kernel or list(KERNELS)
+    import chip_smoke as cs
+    from repro_torch.kernels import cuda_lib
+
+    sources = [os.path.abspath(s) for s in args.sources]
+    out_dir = os.path.join(ab_versions.ROOT, "build", "p2m_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    unchecked = (ab_versions.diagnostic_sources(sources[0], out_dir,
+                                                DIAGNOSTICS)
+                 if args.diagnose else [])
+    # a diagnostic copy includes the header beside the source it copies
+    include = {src: os.path.dirname(sources[0]) for src in unchecked}
+    sources += unchecked
+    libs, ptxas = {}, {}
+    for src, (lib, log) in ab_versions.build_versions(
+            sources, cuda_lib.P2M.flags, out_dir, include).items():
+        ptxas[src] = [ln.strip() for ln in log.splitlines()
+                      if "Used" in ln or "spill" in ln]
+        cuda_lib._bind_p2m(lib)
+        libs[src] = lib
+
+    def load(src):
+        cuda_lib._LOADED[cuda_lib.P2M.name] = libs[src]
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = cs.nvidia_smi_line()
+    for src in sources:
+        print(json.dumps({"source": src, "checked": src not in unchecked,
+                          "ptxas": ptxas[src]}), flush=True)
+    for name in args.geometry or list(geoms):
+        first = None
+        for src in sources:
+            if src in unchecked:
+                continue
+            load(src)
+            got = cs.kernel_checks(geoms[name], dev)
+            first = first or got
+            for out in ("u", "acts_f", "u8", "acts8_f"):
+                cs.check(torch.equal(got[out], first[out]),
+                         f"{src}: {out} differs from {sources[0]} at {name}")
+        fns = calls(first)
+        turns = ab_versions.in_turns(
+            sources, args.rounds, load,
+            lambda: {k: cs.device_ms(fns[k], dev) for k in kernels})
+        for src in sources:
+            load(src)
+            for k in kernels:
+                t = [r[k] for r in turns[src]]
+                print(json.dumps({
+                    "geometry": name, "shape": geoms[name], "source": src,
+                    "checked": src not in unchecked, "kernel": k, "ms": t,
+                    "median_ms": statistics.median(t),
+                    "spread_ms": max(t) - min(t),
+                    "profiler_ms": cs.profiled_ms(fns[k], KERNELS[k])}),
+                      flush=True)
+    print(json.dumps({"nvidia_smi": smi,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -5,7 +5,9 @@
 //
 // Every physical constant arrives in a P2MPhysics built on the host from the
 // port's PixelCircuitParams / MTJParams (repro_torch/kernels/p2m_conv.py);
-// nothing here is baked. Each expression keeps the reference's operation
+// nothing here is baked, and the binomial coefficients of the majority
+// polynomial come from the host too (exact small integers, so the chain
+// holds no integer division). Each expression keeps the reference's operation
 // order, and the library is built with --fmad=false so no multiply-add is
 // contracted: a float32 value rounds where the plain PyTorch version rounds.
 // Transcendentals are the IEEE tanhf / expf (no fast-math intrinsics).
@@ -26,6 +28,7 @@ struct P2MPhysics {
   float l0, l1;          // measured logits at v0, v1
   float slope_lo, slope_hi;
   float env_factor;      // clip(env / env_ref, 0, 1), computed on the host
+  float binom[25];       // C(n_redundant, k) for k <= n_redundant <= 24
 };
 
 // SAME-padded implicit im2col geometry of one frontend call (NHWC frames).
@@ -80,21 +83,33 @@ __device__ __forceinline__ float p2m_ipow(float x, int y) {
   return acc;
 }
 
-// exact binomial coefficient in 32-bit integers (n_redundant is small)
-__device__ __forceinline__ float p2m_comb(int n, int k) {
-  int c = 1;
-  for (int i = 1; i <= k; ++i) c = c * (n - k + i) / i;
-  return static_cast<float>(c);
+// the polynomial's terms k >= majority of N devices, N known at compile
+// time: the loop below unrolled, every power a fixed product chain (the same
+// products in the same order, shared between terms)
+template <int N>
+__device__ __forceinline__ float p2m_majority_terms(const P2MPhysics& ph,
+                                                    float p, float q) {
+  float out = 0.0f;
+#pragma unroll
+  for (int k = 0; k <= N; ++k) {
+    if (k >= ph.majority) {
+      out = out + ph.binom[k] * p2m_ipow(p, k) * p2m_ipow(q, N - k);
+    }
+  }
+  return out;
 }
 
-// P(Binomial(n, p) >= majority), multiply/add only
+// P(Binomial(n, p) >= majority), multiply/add only. n 8 (the paper's and
+// the default MTJ count) runs unrolled; any other n the loop, bit for bit
+// the same arithmetic.
 __device__ __forceinline__ float p2m_majority_prob_poly(const P2MPhysics& ph,
                                                         float p) {
   const int n = ph.n_redundant;
   const float q = 1.0f - p;
+  if (n == 8) return p2m_majority_terms<8>(ph, p, q);
   float out = 0.0f;
   for (int k = ph.majority; k <= n; ++k) {
-    out = out + p2m_comb(n, k) * p2m_ipow(p, k) * p2m_ipow(q, n - k);
+    out = out + ph.binom[k] * p2m_ipow(p, k) * p2m_ipow(q, n - k);
   }
   return out;
 }
@@ -120,18 +135,29 @@ __device__ __forceinline__ float p2m_bernoulli_from_bits(uint32_t word,
   return (static_cast<float>(word) * (1.0f / 65536.0f)) < q ? 1.0f : 0.0f;
 }
 
-// u -> (binary draw, subtractor voltage) for channel c of flat element idx
+// u -> (binary draw, subtractor voltage) of flat element idx, given its
+// channel's four operand values (chan4[kChan*])
+__device__ __forceinline__ float p2m_chain(const P2MPhysics& ph, float u,
+                                           float theta, const float* chan4,
+                                           uint32_t idx, uint32_t k0,
+                                           uint32_t k1, float* v_out) {
+  const float uu = u * chan4[kChanUGain] + chan4[kChanUOffset];
+  const float v = p2m_conv_voltage(ph, uu, theta);
+  const float p_sw = p2m_switching_probability(
+      ph, v, chan4[kChanLogitGain], chan4[kChanLogitOffset]);
+  const float q = p2m_majority_prob_poly(ph, p_sw);
+  *v_out = v;
+  return p2m_bernoulli_from_bits(p2m_draw_word(idx, k0, k1), q);
+}
+
+// the same for channel c, reading the (4, C) rows in device memory
 __device__ __forceinline__ float p2m_device_chain(
     const P2MPhysics& ph, float u, float theta,
     const float* __restrict__ chan, int c_out, int c, uint32_t idx,
     uint32_t k0, uint32_t k1, float* v_out) {
-  const float uu = u * chan[kChanUGain * c_out + c]
-                   + chan[kChanUOffset * c_out + c];
-  const float v = p2m_conv_voltage(ph, uu, theta);
-  const float p_sw = p2m_switching_probability(
-      ph, v, chan[kChanLogitGain * c_out + c],
-      chan[kChanLogitOffset * c_out + c]);
-  const float q = p2m_majority_prob_poly(ph, p_sw);
-  *v_out = v;
-  return p2m_bernoulli_from_bits(p2m_draw_word(idx, k0, k1), q);
+  const float chan4[4] = {chan[kChanUGain * c_out + c],
+                          chan[kChanUOffset * c_out + c],
+                          chan[kChanLogitGain * c_out + c],
+                          chan[kChanLogitOffset * c_out + c]};
+  return p2m_chain(ph, u, theta, chan4, idx, k0, k1, v_out);
 }

@@ -57,7 +57,8 @@ class P2MPhysics(ctypes.Structure):
                 ("v0", ctypes.c_float), ("v1", ctypes.c_float),
                 ("l0", ctypes.c_float), ("l1", ctypes.c_float),
                 ("slope_lo", ctypes.c_float), ("slope_hi", ctypes.c_float),
-                ("env_factor", ctypes.c_float)]
+                ("env_factor", ctypes.c_float),
+                ("binom", ctypes.c_float * 25)]
 
 
 class ConvGeom(ctypes.Structure):
@@ -115,10 +116,23 @@ def build(lib: Library = P2M) -> Path:
     return out
 
 
+def tensor_core_census(path: Path) -> Dict[str, Tuple[int, int]]:
+    """``{mangled kernel name: (IMMA count, HMMA count)}`` of a built
+    library, from ``cuobjdump -sass``: which kernels run integer and which
+    floating-point tensor-core instructions (mma.sync and wgmma alike)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    census = {}
+    for block in sass.split("Function : ")[1:]:
+        census[block.split()[0]] = (block.count("IMMA"), block.count("HMMA"))
+    return census
+
+
 def _bind_p2m(lib: ctypes.CDLL) -> None:
     p, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     geom, phys = ctypes.POINTER(ConvGeom), ctypes.POINTER(P2MPhysics)
-    lib.p2m_rows_per_block.argtypes = []
+    lib.p2m_partial_rows.argtypes = [i32]
     lib.p2m_threads_per_block.argtypes = []
     lib.p2m_phase_a_implicit.argtypes = [p, p, p, p, p, geom, phys, p]
     lib.p2m_phase_a_implicit_q8.argtypes = [p, p, p, p, p, p, geom, phys, p]
@@ -129,7 +143,7 @@ def _bind_p2m(lib: ctypes.CDLL) -> None:
     lib.p2m_fused_stream_q8.argtypes = [p, p, p, p, p, p, p, p, p, p, geom,
                                         u32, u32, phys, p]
     lib.p2m_conv.argtypes = [p, p, p, p, p, i32, i32, i32, u32, u32, phys, p]
-    for fn in (lib.p2m_rows_per_block, lib.p2m_threads_per_block,
+    for fn in (lib.p2m_partial_rows, lib.p2m_threads_per_block,
                lib.p2m_phase_a_implicit, lib.p2m_phase_a_implicit_q8,
                lib.p2m_phase_a, lib.p2m_phase_b, lib.p2m_fused_stream,
                lib.p2m_fused_stream_q8, lib.p2m_conv):

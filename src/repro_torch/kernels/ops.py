@@ -113,7 +113,7 @@ def p2m_frontend_fused(images: torch.Tensor, w: torch.Tensor,
     """Fused streaming step: the draws run at the CARRIED ``theta`` (one
     value on the device). aux carries the FRESH ``theta`` of this batch
     (the drift guard's input), ``theta_used``, ``channel_rates`` from the
-    kernel's per-block counts and the ``v_conv_*`` stats — the same keys at
+    kernel's per-tile counts and the ``v_conv_*`` stats — the same keys at
     either precision."""
     images, wm, (b, ho, wo, cout), prec = _prepare(images, w, kernel, stride,
                                                    precision)

@@ -3,12 +3,12 @@
 Port of every P2M kernel of ``repro.kernels.p2m_conv`` (csrc/p2m_kernels.cu):
 
   kernel A (``p2m_phase_a_implicit``) — implicit im2col + the packed
-      two-phase MAC: u = g(x·w⁺) - g(x·w⁻) and per-block Hoyer partials
+      two-phase MAC: u = g(x·w⁺) - g(x·w⁻) and per-tile Hoyer partials
       (sum |z_clip|, sum z_clip²) with z = u / v_th.
   int8 kernel A (``p2m_phase_a_implicit_q8``) — the same with the patch
       values quantized to the 1/128 grid as they enter shared memory, an
-      exact int32 MAC against the int8 packed weights and one dequant
-      multiply per column before the curve.
+      exact int32 MAC against the int8 packed weights (an s8 tensor-core
+      product) and one dequant multiply per column before the curve.
   explicit kernel A (``p2m_phase_a``) — kernel A over the rows of a
       materialised (N, K) patch matrix (the reference's regression surface).
   host-free combine (``combine_hoyer_partials``) — theta from the partials,
@@ -17,9 +17,9 @@ Port of every P2M kernel of ``repro.kernels.p2m_conv`` (csrc/p2m_kernels.cu):
       folded majority -> Bernoulli draw, with the draw words hashed
       in-kernel from the key, plus per-block (sum, min, max) of V_CONV.
   fused streaming kernel (``p2m_fused_stream``) and its int8 twin
-      (``p2m_fused_stream_q8``) — A and B in one pass at a carried theta,
-      plus fresh Hoyer partials, V partials and per-block per-channel draw
-      counts.
+      (``p2m_fused_stream_q8``, int8 kernel A's MAC) — A and B
+      in one pass at a carried theta, plus fresh Hoyer partials, V partials
+      and per-tile per-channel draw counts.
   legacy fused kernel (``p2m_conv``) — explicit patch rows through the
       device chain at a GIVEN theta (the pre-split baseline).
 
@@ -27,9 +27,10 @@ Each wrapper runs its CUDA kernel for a CUDA tensor and its plain PyTorch
 version (``*_plain``) for a CPU tensor; any other device raises. There is no
 fallback: a CUDA tensor launches the kernel or raises. Each wrapper counts
 its launches in ``<wrapper>.launches`` (``cuda_lib.launch_counts()`` reads
-them with every other kernel's of the port). Per-block partials are a layout
-choice of the kernels; the contract is what the ``combine_*`` functions
-return. The int8 fused kernel keeps the f32 fused kernel's three partial
+them with every other kernel's of the port). The partials (one row per tile
+of patch rows, their count from the library's ``p2m_partial_rows``; kernel
+B's one per block) are a layout choice of the kernels; the contract is what
+the ``combine_*`` functions return. The int8 fused kernel keeps the f32 fused kernel's three partial
 outputs (the reference packs them into one 128-lane stats row per block, a
 TPU layout choice), so ``combine_hoyer_partials`` /
 ``combine_v_conv_partials`` and the rate-row sum serve both precisions and
@@ -43,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -268,11 +270,15 @@ def combine_v_conv_partials(partials: torch.Tensor, n_valid: int,
 def physics_args(pixel_params: pixel_model.PixelCircuitParams,
                  mtj_params: mtj_model.MTJParams) -> cuda_lib.P2MPhysics:
     """The kernels' physics argument, built from the frozen dataclasses
-    (ctypes rounds each value to float32, as JAX rounds a Python constant)."""
-    if not 0 < mtj_params.n_redundant <= 24:
+    (ctypes rounds each value to float32, as JAX rounds a Python constant).
+    The majority polynomial's binomial coefficients C(n, k), k <= n, are
+    exact in float32 for n <= 24 (C(24, 12) < 2^24)."""
+    n = mtj_params.n_redundant
+    if not 0 < n <= 24:
         raise ValueError("the kernels' binomial coefficients are exact for "
-                         f"n_redundant <= 24, got {mtj_params.n_redundant}")
+                         f"n_redundant <= 24, got {n}")
     v0, v1, l0, l1, slope_lo, slope_hi = mtj_model.logit_fit(mtj_params)
+    binom = (ctypes.c_float * 25)(*(math.comb(n, k) for k in range(n + 1)))
     return cuda_lib.P2MPhysics(
         curve=pixel_model.CURVE_IDS[pixel_params.curve],
         n_redundant=mtj_params.n_redundant, majority=mtj_params.majority,
@@ -281,7 +287,8 @@ def physics_args(pixel_params: pixel_model.PixelCircuitParams,
         v_max=1.2 * pixel_params.vdd, v0=v0, v1=v1, l0=l0, l1=l1,
         slope_lo=slope_lo, slope_hi=slope_hi,
         env_factor=mtj_model.envelope_factor(mtj_params.write_pulse_ps,
-                                             mtj_params))
+                                             mtj_params),
+        binom=binom)
 
 
 def _conv_geom(images: torch.Tensor, w_packed: torch.Tensor, kernel: int,
@@ -344,18 +351,19 @@ def _key_words(key):
 
 
 def _phase_a_outputs(lib, n: int, c: int, device):
-    """Kernel A's outputs: u (N, C) and one Hoyer partial row per block."""
-    blocks = -(-n // lib.p2m_rows_per_block())
+    """Kernel A's outputs: u (N, C) and one Hoyer partial row per row
+    tile of the kernel."""
+    tiles = lib.p2m_partial_rows(n)
     return (torch.empty((n, c), dtype=torch.float32, device=device),
-            torch.empty((blocks, 2), dtype=torch.float32, device=device))
+            torch.empty((tiles, 2), dtype=torch.float32, device=device))
 
 
 def _fused_outputs(lib, n: int, c: int, device):
-    """The fused kernels' outputs: acts (N, C) and, per block, the Hoyer
+    """The fused kernels' outputs: acts (N, C) and, per row tile, the Hoyer
     partials (2), the V partials (3) and the per-channel draw counts (C)."""
-    blocks = -(-n // lib.p2m_rows_per_block())
+    tiles = lib.p2m_partial_rows(n)
     return tuple(torch.empty(shape, dtype=torch.float32, device=device)
-                 for shape in ((n, c), (blocks, 2), (blocks, 3), (blocks, c)))
+                 for shape in ((n, c), (tiles, 2), (tiles, 3), (tiles, c)))
 
 
 def p2m_phase_a_implicit(images: torch.Tensor, w_packed: torch.Tensor,

@@ -12,6 +12,11 @@ PyTorch's ops may differ by ulps), and against its siblings bit for bit:
 the fused kernels at a pinned theta equal A -> B at both precisions, int8
 equals f32 on power-of-two grid inputs, explicit kernel A equals implicit
 kernel A, and the legacy kernel at A's theta equals the pinned fused kernel.
+The row-tile kernels are also held there at widths the serving shape does
+not reach (C 48, 40, 30 and 1, N not a multiple of the 16-row tile, K 75)
+and at the ImageNet frame size, launch to launch bit for bit; the int8
+kernels' MAC is checked to run on the s8 tensor cores (IMMA in the
+library's machine code), and the device chain at other MTJ counts.
 The engine tests show each main path launches its own kernels and no
 other: f32 A / B / f32 fused on the f32 engine, int8 A / B / int8 fused on
 an engine whose tile table picks int8, and one flash-attention launch per
@@ -174,6 +179,149 @@ def test_new_kernels_match_plain_on_card(cuda_device, kernel, stride, h, w):
     assert counts["p2m_phase_a_implicit_q8"] == 4
     assert counts["p2m_fused_stream_q8"] == 2
     assert counts["p2m_phase_a"] == 1 and counts["p2m_conv"] == 1
+
+
+# (batch, h, w, kernel, stride, C) for the row-tile kernels: C 48 (two
+# channel passes), N not a multiple of the 16-row tile (126, 20, 200), C not
+# a multiple of 4 (the tensor-core product's padded columns), K 75 (three
+# k-steps of 32), one channel, and the ImageNet frame size
+TILE_GEOMETRIES = [(4, 16, 16, 3, 1, 48), (3, 13, 11, 3, 2, 32),
+                   (1, 7, 9, 3, 2, 40), (2, 10, 10, 3, 1, 30),
+                   (2, 12, 12, 5, 2, 48), (1, 5, 5, 3, 1, 1),
+                   (16, 224, 224, 3, 2, 32)]
+
+
+def _draw_rule(acts, q, bits):
+    """chip_smoke.py's word-boundary rule: at most max(8, 1e-3 N) flips."""
+    _assert_word_boundary(acts, q, bits, max_flips=max(8, acts.numel() // 1000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,kernel,stride,c", TILE_GEOMETRIES)
+def test_row_tile_kernels_at_odd_widths_and_imagenet(cuda_device, b, h, w,
+                                                     kernel, stride, c):
+    """The fused kernels (f32 and int8 on the tensor cores) against A -> B
+    bit for bit and against the plain versions, at widths and row counts the
+    serving shape does not reach; launched twice, every output and partial
+    is bit-identical."""
+    rng = np.random.default_rng(c + h)
+    dev = cuda_device
+    images = torch.tensor(rng.uniform(size=(b, h, w, 3)),
+                          dtype=torch.float32, device=dev)
+    wt = torch.tensor(rng.normal(size=(kernel * kernel * 3, c)) * 0.3,
+                      dtype=torch.float32)
+    wp = tk.pack_phase_weights(wt).to(dev)
+    wq, dq = ops.quantize_frontend_weights(wp)
+    v_th = torch.ones((), device=dev)
+    key = prng.PRNGKey(9)
+    kw = dict(kernel=kernel, stride=stride)
+    for a_fn, a_plain, f_fn in (
+            (lambda: tk.p2m_phase_a_implicit(images, wp, v_th, **kw),
+             lambda: tk.p2m_phase_a_implicit_plain(images, wp, v_th, **kw),
+             lambda th: tk.p2m_fused_stream(images, wp, v_th, th, key, **kw)),
+            (lambda: tk.p2m_phase_a_implicit_q8(images, wq, dq, v_th, **kw),
+             lambda: tk.p2m_phase_a_implicit_q8_plain(images, wq, dq, v_th,
+                                                      **kw),
+             lambda th: tk.p2m_fused_stream_q8(images, wq, dq, v_th, th, key,
+                                               **kw))):
+        u, hp = a_fn()
+        u_p, hp_p = a_plain()
+        assert hp.shape[0] == -(-u.shape[0] // 16)
+        torch.testing.assert_close(u, u_p, rtol=0, atol=3e-6)
+        theta = tk.combine_hoyer_partials(hp, v_th)
+        torch.testing.assert_close(
+            theta, tk.combine_hoyer_partials(hp_p, v_th), rtol=1e-5, atol=0)
+        acts, _ = tk.p2m_phase_b(u, theta, key)
+        first = f_fn(theta)
+        acts_f, hf, vf, rf = first
+        assert torch.equal(acts_f, acts)
+        assert torch.equal(hf, hp)
+        assert torch.equal(tk.combine_hoyer_partials(hf, v_th), theta)
+        assert torch.equal(rf.sum(0), acts_f.sum(0))
+        _draw_rule(acts_f, tk.device_chain_q(u_p, theta, None)[0],
+                   tk.draw_bits(key, *u.shape))
+        v_k = tk.combine_v_conv_partials(vf, *u.shape)
+        _, v_p = tk.p2m_phase_b_plain(u_p, theta, key)
+        v_plain = tk.combine_v_conv_partials(v_p, *u.shape)
+        for name, val in v_k.items():
+            torch.testing.assert_close(val, v_plain[name], rtol=1e-5,
+                                       atol=1e-5)
+        again = f_fn(theta)
+        for x, y in zip(first, again):
+            assert torch.equal(x, y)
+        assert all(torch.equal(x, y) for x, y in zip((u, hp), a_fn()))
+    patches = ops.im2col(images, kernel, stride).contiguous()
+    ue, he = tk.p2m_phase_a(patches, wp, v_th)
+    u, hp = tk.p2m_phase_a_implicit(images, wp, v_th, **kw)
+    assert torch.equal(ue, u) and torch.equal(he, hp)
+    theta = tk.combine_hoyer_partials(hp, v_th)
+    assert torch.equal(tk.p2m_conv(patches, wp, theta, key),
+                       tk.p2m_fused_stream(images, wp, v_th, theta, key,
+                                           **kw)[0])
+
+
+@pytest.mark.cuda
+def test_int8_fused_kernel_runs_on_the_tensor_cores(cuda_device):
+    """The int8 kernels' MAC (int8 kernel A and the int8 fused kernel) is an
+    s8 tensor-core product (IMMA in their machine code), no other P2M
+    kernel runs IMMA and none runs HMMA (the f32 MACs use no TF32); the
+    int8 fused draws and Hoyer partials equal int8 kernel A -> B bit for
+    bit."""
+    mma = cuda_lib.tensor_core_census(cuda_lib.build())
+    q8 = {k: v for k, v in mma.items() if "MacQ8Mma" in k}
+    assert sorted("fused_stream_kernel" in k for k in q8) == [False, True]
+    assert all("phase_a_kernel" in k or "fused_stream_kernel" in k
+               for k in q8)
+    assert all(imma >= 1 for imma, _ in q8.values())
+    assert all(hmma == 0 for _, hmma in mma.values())
+    assert all(v == (0, 0) for k, v in mma.items() if k not in q8)
+
+    rng = np.random.default_rng(4)
+    images = torch.tensor(rng.uniform(size=(16, 32, 32, 3)),
+                          dtype=torch.float32, device=cuda_device)
+    wp = tk.pack_phase_weights(torch.tensor(
+        rng.normal(size=(27, 32)) * 0.3, dtype=torch.float32)).to(cuda_device)
+    wq, dq = ops.quantize_frontend_weights(wp)
+    v_th = torch.ones((), device=cuda_device)
+    key = prng.PRNGKey(2)
+    u8, hp8 = tk.p2m_phase_a_implicit_q8(images, wq, dq, v_th, kernel=3,
+                                         stride=2)
+    for theta in (tk.combine_hoyer_partials(hp8, v_th),
+                  torch.tensor(0.05, device=cuda_device),
+                  torch.tensor(0.6, device=cuda_device)):
+        acts8, _ = tk.p2m_phase_b(u8, theta, key)
+        acts_f, hf, _, _ = tk.p2m_fused_stream_q8(images, wq, dq, v_th, theta,
+                                                  key, kernel=3, stride=2)
+        assert torch.equal(acts_f, acts8) and torch.equal(hf, hp8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mtj", [5, 8, 12, 24])
+def test_device_chain_at_other_mtj_counts(cuda_device, n_mtj):
+    """The majority polynomial reads its binomials from the host; n 8 runs
+    an unrolled copy of the loop the other counts run. Kernel B against the
+    plain version, and the fused and legacy kernels against B bit for bit,
+    at each count."""
+    from repro_torch.core import mtj as mtj_model
+    mtj = dataclasses.replace(mtj_model.DEFAULT_MTJ, n_redundant=n_mtj)
+    rng = np.random.default_rng(n_mtj)
+    images = torch.tensor(rng.uniform(size=(4, 16, 16, 3)),
+                          dtype=torch.float32, device=cuda_device)
+    wp = tk.pack_phase_weights(torch.tensor(
+        rng.normal(size=(27, 32)) * 0.3, dtype=torch.float32)).to(cuda_device)
+    v_th = torch.ones((), device=cuda_device)
+    key = prng.PRNGKey(n_mtj)
+    kw = dict(kernel=3, stride=2)
+    u, hp = tk.p2m_phase_a_implicit(images, wp, v_th, **kw)
+    theta = tk.combine_hoyer_partials(hp, v_th)
+    acts, _ = tk.p2m_phase_b(u, theta, key, mtj_params=mtj)
+    q, _ = tk.device_chain_q(u, theta, None, mtj_params=mtj)
+    _assert_word_boundary(acts, q, tk.draw_bits(key, *u.shape))
+    assert torch.equal(tk.p2m_fused_stream(images, wp, v_th, theta, key,
+                                           mtj_params=mtj, **kw)[0], acts)
+    patches = ops.im2col(images, 3, 2).contiguous()
+    assert torch.equal(tk.p2m_conv(patches, wp, theta, key, mtj_params=mtj),
+                       acts)
 
 
 F32_PATH = {"p2m_phase_a_implicit", "p2m_phase_b", "p2m_fused_stream"}

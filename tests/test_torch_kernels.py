@@ -12,6 +12,9 @@ draws by the reference's word-boundary rule (XLA:CPU and PyTorch evaluate
 tanh/exp with different polynomials, so q may move by ulps and flip a draw
 only when its word sits within one step of q).
 """
+import dataclasses
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,8 @@ from repro.kernels import ops as j_ops
 from repro.kernels import p2m_conv as jk
 from repro.kernels import ref as j_ref
 from repro_torch import prng
+from repro_torch.core import mtj as t_mtj
+from repro_torch.core import pixel as t_pixel
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import p2m_conv as tk
@@ -298,3 +303,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         t_ops.p2m_frontend(images, w, torch.ones(()), prng.PRNGKey(0),
                            precision="bf16")
+
+
+@pytest.mark.parametrize("n", range(1, 25))
+def test_physics_args_carry_exact_binomials(n):
+    """The kernels' majority polynomial reads C(n, k) from the host: every
+    coefficient equals math.comb (exact in float32 up to n 24), the unused
+    slots stay 0."""
+    mtj = dataclasses.replace(t_mtj.DEFAULT_MTJ, n_redundant=n)
+    phys = tk.physics_args(t_pixel.DEFAULT_PIXEL, mtj)
+    assert phys.n_redundant == n and phys.majority == n // 2
+    assert list(phys.binom) == [float(math.comb(n, k)) if k <= n else 0.0
+                                for k in range(25)]
+
+
+@pytest.mark.parametrize("n", [0, 25, 64])
+def test_physics_args_refuse_what_the_binomials_do_not_hold(n):
+    mtj = dataclasses.replace(t_mtj.DEFAULT_MTJ, n_redundant=n)
+    with pytest.raises(ValueError, match="n_redundant <= 24"):
+        tk.physics_args(t_pixel.DEFAULT_PIXEL, mtj)

@@ -1,0 +1,89 @@
+"""The A/B scripts (scripts/p2m_ab.py, scripts/flash_ab.py and their shared
+scripts/ab_versions.py) on the CPU: what they can be asked without a card.
+
+Every diagnostic copy must apply to the kernel source in this tree (a
+renamed line would otherwise drop a stage from ``--diagnose`` unseen), the
+turns must alternate the versions, and the geometries are chip_smoke.py's,
+the C 48 and ImageNet ones included.
+"""
+import importlib.util
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPTS = os.path.join(ROOT, "scripts")
+CSRC = os.path.join(ROOT, "src", "repro_torch", "csrc")
+
+
+@pytest.fixture
+def scripts(monkeypatch):
+    """Load a script by name with ``scripts/`` on the path, as
+    ``python3 scripts/<name>.py`` runs it."""
+    monkeypatch.syspath_prepend(SCRIPTS)
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(SCRIPTS, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    return load
+
+
+@pytest.mark.parametrize("script,source,name", [
+    *(("p2m_ab", "p2m_kernels.cu", n) for n in (
+        "no_reductions", "no_chain", "const_gather", "no_curve", "short_mac",
+        "no_store")),
+    *(("flash_ab", "flash_attention.cu", n) for n in (
+        "no_exp", "no_softmax", "no_pv"))])
+def test_each_diagnostic_changes_the_current_source(tmp_path, scripts,
+                                                    script, source, name):
+    ab = scripts(script)
+    src = os.path.join(CSRC, source)
+    paths = scripts("ab_versions").diagnostic_sources(src, str(tmp_path),
+                                                      ab.DIAGNOSTICS)
+    assert len(paths) == len(ab.DIAGNOSTICS)
+    copy = open(dict(zip(ab.DIAGNOSTICS, paths))[name]).read()
+    text = open(src).read()
+    old, new = ab.DIAGNOSTICS[name]
+    assert copy != text and text.count(old) == 1
+    assert copy == text.replace(old, new)
+
+
+def test_diagnostics_refuse_a_source_without_their_text(tmp_path, scripts):
+    src = tmp_path / "other.cu"
+    src.write_text("// no kernel here\n")
+    with pytest.raises(ValueError, match="not in"):
+        scripts("ab_versions").diagnostic_sources(
+            str(src), str(tmp_path), scripts("p2m_ab").DIAGNOSTICS)
+
+
+def test_turns_alternate_the_versions(scripts):
+    order = []
+    loaded = []
+    out = scripts("ab_versions").in_turns(
+        ["a", "b", "c"], 4, loaded.append,
+        lambda: order.append(loaded[-1]) or len(order))
+    assert order == ["a", "b", "c", "c", "b", "a", "a", "b", "c", "c", "b",
+                     "a"]
+    assert out == {"a": [1, 6, 7, 12], "b": [2, 5, 8, 11],
+                   "c": [3, 4, 9, 10]}
+
+
+def test_geometries_are_chip_smokes(scripts):
+    geoms = scripts("p2m_ab").geometries()
+    assert geoms["serving"] == dict(batch=16, h=32, w=32, kernel=3, stride=2,
+                                    c=32)
+    assert geoms["imagenet"] == dict(batch=16, h=224, w=224, kernel=3,
+                                     stride=2, c=32)
+    assert geoms["odd_k3s1_c48"]["c"] == 48
+    assert len(geoms) == 5
+    assert scripts("flash_ab").geometries()["granite_d128_b4"]["head_dim"] \
+        == 128
+
+
+@pytest.mark.parametrize("script", ["p2m_ab", "flash_ab"])
+def test_without_sources_it_prints_usage_and_fails(capsys, scripts, script):
+    assert scripts(script).main([]) == 1
+    assert "usage" in capsys.readouterr().err
