@@ -245,15 +245,17 @@ def is_marker(evt) -> bool:
 
 
 def profile_session(run, cuda: bool = True, cpu: bool = True,
-                    tries: int = 3):
+                    tries: int = 3, expect: str = None):
     """``(profile, run())``: ``run()`` inside a torch.profiler session that
     kept all of its device events, as far as can be seen. The tracer now and
-    then drops a session's device events, all of them or those from its
-    start, so ``run()`` is bracketed by two short marker kernels
-    (``MARKER``; readers skip them with ``is_marker``), and a session that
-    did not keep both runs ``run()`` again, up to ``tries`` sessions; after
-    that the last session is returned, and a check that reads it fails.
-    ``cuda=False`` traces the CPU alone, once."""
+    then drops a session's device events, all of them, those from its
+    start or those of the kernel between the markers, so ``run()`` is
+    bracketed by two short marker kernels (``MARKER``; readers skip them
+    with ``is_marker``), and a session that did not keep both, or (with
+    ``expect``) kept no device event whose name holds that text, runs
+    ``run()`` again, up to ``tries`` sessions; after that the last session
+    is returned, and a check that reads it fails. ``cuda=False`` traces the
+    CPU alone, once."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -269,9 +271,11 @@ def profile_session(run, cuda: bool = True, cpu: bool = True,
             if cuda:
                 torch.cuda._sleep(1000)
                 torch.cuda.synchronize()
-        if not cuda or sum(e.count for e in prof.key_averages()
-                           if e.device_type == DeviceType.CUDA
-                           and is_marker(e)) == 2:
+        kept = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if not cuda or (sum(e.count for e in kept if is_marker(e)) == 2
+                        and (expect is None
+                             or any(expect in e.key for e in kept))):
             break
     return prof, out
 
@@ -893,7 +897,8 @@ def flash_phase(geom: dict, device):
            f"{'causal' if causal else 'full'}")
     symbol = fa.kernel_symbol(dtype, d)
     prof, out = profile_session(
-        lambda: fa.flash_attention(q, k, v, causal=causal), cpu=False)
+        lambda: fa.flash_attention(q, k, v, causal=causal), cpu=False,
+        expect="flash")
     ran = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
     check(len(ran) == 1 and symbol in ran[0],
           f"flash kernels {ran} ran at {tag}, want {symbol} alone")
@@ -1022,7 +1027,7 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH):
     # step against its wall time (the device's idle share while decoding)
     with torch.inference_mode():
         prof, (_, cache) = profile_session(
-            lambda: engine.prefill(engine.params, prompts))
+            lambda: engine.prefill(engine.params, prompts), expect="flash")
     fam, top = device_breakdown(prof, LM_FAMILIES, 12)
     total = sum(fam.values())
     # every flash launch of the prefill is the serving width's one kernel

@@ -70,6 +70,42 @@ DIAGNOSTICS = {
     "no_store": ("    dst[flat] = u;\n    const float zc = clip01(u / vth);\n",
                  "    if (u == 1234.5f) dst[flat] = u;\n"
                  "    const float zc = clip01(u / vth);\n"),
+    # kernel B's warp sums: each tile's partial row is lane 0's own values
+    "b_no_reductions": ("    v_sum = warp_reduce(v_sum, SumOp());\n"
+                        "    v_min = warp_reduce(v_min, MinOp());\n"
+                        "    v_max = warp_reduce(v_max, MaxOp());\n", ""),
+    # kernel B without its chain: the draw is u > theta, v is u
+    "b_no_chain": ("      const float draw = p2m_chain(ph, x[i], th, chan4,\n"
+                   "                                   static_cast<uint32_t>"
+                   "(idx), k0, k1, &v);\n",
+                   "      v = x[i];\n"
+                   "      const float draw = x[i] > th ? 1.0f : 0.0f;\n"),
+    # kernel B's channel rows as constants, not read from shared memory
+    "b_const_chan": ("        const float chan4[4] = {chan_s[kChanUGain * c + ch],"
+                     "\n",
+                     "        const float chan4[4] = {1.0f, 0.0f, 1.0f, 0.0f};"
+                     "\n        const float unused[4] = {chan_s[kChanUGain * c"
+                     " + ch],\n"),
+    # int8 kernel A's warp butterflies: each warp sum is its lane 0's rows
+    "q8_no_reductions": ("    const float abs_w8 = warp_sums(abs_w, lane);\n"
+                         "    const float sq_w8 = warp_sums(sq_w, lane);\n",
+                         "    const float abs_w8 = abs_w[0];\n"
+                         "    const float sq_w8 = sq_w[0];\n"),
+    # int8 kernel A's gather: every patch value is a constant
+    "q8_const_gather": ("          x[r] = ok ? __ldg(src.img + o.base + t[0])"
+                        " : 0.0f;\n",
+                        "          x[r] = ok ? 0.25f : 0.0f;\n"),
+    # int8 kernel A's u left unstored
+    "q8_no_store": ("            u_out[static_cast<int64_t>(row0 + r) * c + ch]"
+                    " = u;\n",
+                    "            if (u == 1234.5f) u_out[static_cast<int64_t>("
+                    "row0 + r) * c + ch] = u;\n"),
+    # the int8 kernels' circuit curves (two tanhf and two divisions an output)
+    "q8_no_curve": ("  return p2m_curve(ph, static_cast<float>(a_pos) * dq[ch])\n"
+                    "         - p2m_curve(ph, static_cast<float>(a_neg) * "
+                    "dq[c + ch]);\n",
+                    "  return static_cast<float>(a_pos) * dq[ch]\n"
+                    "         - static_cast<float>(a_neg) * dq[c + ch];\n"),
 }
 
 

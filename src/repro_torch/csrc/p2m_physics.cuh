@@ -149,15 +149,3 @@ __device__ __forceinline__ float p2m_chain(const P2MPhysics& ph, float u,
   *v_out = v;
   return p2m_bernoulli_from_bits(p2m_draw_word(idx, k0, k1), q);
 }
-
-// the same for channel c, reading the (4, C) rows in device memory
-__device__ __forceinline__ float p2m_device_chain(
-    const P2MPhysics& ph, float u, float theta,
-    const float* __restrict__ chan, int c_out, int c, uint32_t idx,
-    uint32_t k0, uint32_t k1, float* v_out) {
-  const float chan4[4] = {chan[kChanUGain * c_out + c],
-                          chan[kChanUOffset * c_out + c],
-                          chan[kChanLogitGain * c_out + c],
-                          chan[kChanLogitOffset * c_out + c]};
-  return p2m_chain(ph, u, theta, chan4, idx, k0, k1, v_out);
-}

@@ -15,7 +15,7 @@ Port of every P2M kernel of ``repro.kernels.p2m_conv`` (csrc/p2m_kernels.cu):
       by a deterministic ``torch.sum`` on the device.
   kernel B (``p2m_phase_b``) — u -> voltage -> switching probability ->
       folded majority -> Bernoulli draw, with the draw words hashed
-      in-kernel from the key, plus per-block (sum, min, max) of V_CONV.
+      in-kernel from the key, plus per-tile (sum, min, max) of V_CONV.
   fused streaming kernel (``p2m_fused_stream``) and its int8 twin
       (``p2m_fused_stream_q8``, int8 kernel A's MAC) — A and B
       in one pass at a carried theta, plus fresh Hoyer partials, V partials
@@ -29,7 +29,8 @@ fallback: a CUDA tensor launches the kernel or raises. Each wrapper counts
 its launches in ``<wrapper>.launches`` (``cuda_lib.launch_counts()`` reads
 them with every other kernel's of the port). The partials (one row per tile
 of patch rows, their count from the library's ``p2m_partial_rows``; kernel
-B's one per block) are a layout choice of the kernels; the contract is what
+B's one per warp tile of u rows, from ``p2m_phase_b_partial_rows``) are a
+layout choice of the kernels; the contract is what
 the ``combine_*`` functions return. The int8 fused kernel keeps the f32 fused kernel's three partial
 outputs (the reference packs them into one 128-lane stats row per block, a
 TPU layout choice), so ``combine_hoyer_partials`` /
@@ -412,9 +413,9 @@ def p2m_phase_b(u: torch.Tensor, theta: torch.Tensor, key, *,
     if n * c >= 2 ** 31:
         raise ValueError(f"{n * c} elements exceed the kernel's int32 index")
     lib = cuda_lib.load()
-    blocks = -(-(n * c) // lib.p2m_threads_per_block())
     acts = torch.empty((n, c), dtype=torch.float32, device=u.device)
-    partials = torch.empty((blocks, 3), dtype=torch.float32, device=u.device)
+    partials = torch.empty((lib.p2m_phase_b_partial_rows(n, c), 3),
+                           dtype=torch.float32, device=u.device)
     k0, k1 = _key_words(key)
     _launch(lib.p2m_phase_b(
         u.data_ptr(), theta.data_ptr(), chan.data_ptr(), acts.data_ptr(),

@@ -12,7 +12,8 @@ PyTorch's ops may differ by ulps), and against its siblings bit for bit:
 the fused kernels at a pinned theta equal A -> B at both precisions, int8
 equals f32 on power-of-two grid inputs, explicit kernel A equals implicit
 kernel A, and the legacy kernel at A's theta equals the pinned fused kernel.
-The row-tile kernels are also held there at widths the serving shape does
+The row-tile kernels, and kernel B and int8 kernel A with their
+warp-owned tiles, are also held there at widths the serving shape does
 not reach (C 48, 40, 30 and 1, N not a multiple of the 16-row tile, K 75)
 and at the ImageNet frame size, launch to launch bit for bit; the int8
 kernels' MAC is checked to run on the s8 tensor cores (IMMA in the
@@ -258,6 +259,65 @@ def test_row_tile_kernels_at_odd_widths_and_imagenet(cuda_device, b, h, w,
     assert torch.equal(tk.p2m_conv(patches, wp, theta, key),
                        tk.p2m_fused_stream(images, wp, v_th, theta, key,
                                            **kw)[0])
+
+
+# int8 kernel A's warps own their tiles from 1024 tiles (16,384 rows) on:
+# C 30 (a channel group of the product half empty) and C 48 at K 75 there
+WARP_TILE_GEOMETRIES = TILE_GEOMETRIES + [(16, 64, 64, 3, 2, 30),
+                                          (16, 64, 64, 5, 2, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,kernel,stride,c", WARP_TILE_GEOMETRIES)
+def test_warp_tile_kernels_at_odd_widths_and_imagenet(cuda_device, b, h, w,
+                                                      kernel, stride, c):
+    """Kernel B and int8 kernel A, whose warps own whole row tiles (int8 A
+    where the tiles fill the card). B writes ``p2m_phase_b_partial_rows``
+    partial rows, its V statistics sit within 1e-5 of the plain version's
+    on (4, C) rows that are not the identity, and two launches give equal
+    draws and partials. int8 A's u is the plain version's at atol 3e-6, its
+    Hoyer rows equal the int8 fused kernel's, and two launches are
+    bit-identical."""
+    rng = np.random.default_rng(c + h + 1)
+    dev = cuda_device
+    images = torch.tensor(rng.uniform(size=(b, h, w, 3)),
+                          dtype=torch.float32, device=dev)
+    wt = torch.tensor(rng.normal(size=(kernel * kernel * 3, c)) * 0.3,
+                      dtype=torch.float32)
+    wq, dq = ops.quantize_frontend_weights(tk.pack_phase_weights(wt).to(dev))
+    v_th = torch.ones((), device=dev)
+    key = prng.PRNGKey(13)
+    kw = dict(kernel=kernel, stride=stride)
+
+    u8, hp8 = tk.p2m_phase_a_implicit_q8(images, wq, dq, v_th, **kw)
+    u8_p, hp8_p = tk.p2m_phase_a_implicit_q8_plain(images, wq, dq, v_th, **kw)
+    torch.testing.assert_close(u8, u8_p, rtol=0, atol=3e-6)
+    theta8 = tk.combine_hoyer_partials(hp8, v_th)
+    torch.testing.assert_close(theta8, tk.combine_hoyer_partials(hp8_p, v_th),
+                               rtol=1e-5, atol=0)
+    assert torch.equal(
+        tk.p2m_fused_stream_q8(images, wq, dq, v_th, theta8, key, **kw)[1],
+        hp8)
+    assert all(torch.equal(x, y) for x, y in zip(
+        (u8, hp8), tk.p2m_phase_a_implicit_q8(images, wq, dq, v_th, **kw)))
+
+    n = u8.shape[0]
+    chan = torch.tensor(np.stack([1.0 + 0.1 * rng.normal(size=c),
+                                  0.02 * rng.normal(size=c),
+                                  1.0 + 0.1 * rng.normal(size=c),
+                                  0.2 * rng.normal(size=c)]),
+                        dtype=torch.float32, device=dev)
+    acts, vp = tk.p2m_phase_b(u8, theta8, key, chan=chan)
+    assert vp.shape == (cuda_lib.load().p2m_phase_b_partial_rows(n, c), 3)
+    _draw_rule(acts, tk.device_chain_q(u8, theta8, chan)[0],
+               tk.draw_bits(key, n, c))
+    v_k = tk.combine_v_conv_partials(vp, n, c)
+    v_p = tk.combine_v_conv_partials(
+        tk.p2m_phase_b_plain(u8, theta8, key, chan=chan)[1], n, c)
+    for name, val in v_k.items():
+        torch.testing.assert_close(val, v_p[name], rtol=0, atol=1e-5)
+    acts2, vp2 = tk.p2m_phase_b(u8, theta8, key, chan=chan)
+    assert torch.equal(acts2, acts) and torch.equal(vp2, vp)
 
 
 @pytest.mark.cuda

@@ -305,6 +305,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                            precision="bf16")
 
 
+@pytest.mark.parametrize("rows", [16, 1])
+@pytest.mark.parametrize("n", [1, 16, 37, 200, 4096])
+def test_v_partials_per_warp_tile_combine_to_the_one_row_result(n, rows):
+    """Kernel B writes one (sum, min, max) row per warp tile of ``rows`` rows
+    of u (16 where its tiles fill the card, 1 at the serving shape):
+    the plain version's voltages cut into such rows, with a tail tile that
+    holds no valid row (0, +inf, -inf), combine to its one-row result."""
+    rng = np.random.default_rng(n)
+    c = 32
+    u = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32) * 0.3)
+    theta = torch.tensor(0.4)
+    chan = _t(_chan(c, identity=False))
+    _, v = tk.device_chain_q(u, theta, chan)
+    tiles = [torch.stack([x.sum(), x.min(), x.max()])
+             for x in torch.split(v, rows)]
+    tiles.append(torch.tensor([0.0, math.inf, -math.inf]))
+    got = tk.combine_v_conv_partials(torch.stack(tiles), n, c)
+    want = tk.combine_v_conv_partials(
+        tk.p2m_phase_b_plain(u, theta, prng.PRNGKey(1), chan=chan)[1], n, c)
+    torch.testing.assert_close(got["v_conv_mean"], want["v_conv_mean"],
+                               rtol=1e-6, atol=0)
+    assert torch.equal(got["v_conv_min"], want["v_conv_min"])
+    assert torch.equal(got["v_conv_max"], want["v_conv_max"])
+
+
 @pytest.mark.parametrize("n", range(1, 25))
 def test_physics_args_carry_exact_binomials(n):
     """The kernels' majority polynomial reads C(n, k) from the host: every

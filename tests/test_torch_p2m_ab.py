@@ -34,7 +34,9 @@ def scripts(monkeypatch):
 @pytest.mark.parametrize("script,source,name", [
     *(("p2m_ab", "p2m_kernels.cu", n) for n in (
         "no_reductions", "no_chain", "const_gather", "no_curve", "short_mac",
-        "no_store")),
+        "no_store", "b_no_reductions", "b_no_chain", "b_const_chan",
+        "q8_no_reductions", "q8_const_gather", "q8_no_store",
+        "q8_no_curve")),
     *(("flash_ab", "flash_attention.cu", n) for n in (
         "no_exp", "no_softmax", "no_pv"))])
 def test_each_diagnostic_changes_the_current_source(tmp_path, scripts,
