@@ -29,12 +29,15 @@ line:
    beside its plain version (median of 30, of 5 at the ImageNet size), its
    bound (the statistics counted as the one set the function returns, not
    the kernel's partial rows) and, where one PyTorch call computes the same
-   function, that call;
+   function, that call. The three kernel A lines name the path that ran
+   (``tile_path``: ``warp-owned`` tiles or ``block-shared`` ones, as the
+   library's ``p2m_phase_a_warp_tiles`` chooses at that N);
 4. ``engine``: full-width vgg16 at CIFAR-10 geometry, seeded random weights:
    ``classify`` on 16 frames and ``stream`` of 4 batches of 16 on the f32
    path, with every kernel's launch count read from that run alone; the
    classify result is held against the same engine on the CPU;
-5. ``profile``: device time of a classify step by kernel family;
+5. ``profile``: device time of a classify step by kernel family, and of
+   each frontend kernel in it;
 6. ``baseline``: the double-conv baseline at the serving shape (explicit
    kernel A over an im2col matrix for theta, then ``ops.p2m_conv``), held
    against the exact f32 path bit for bit, with its own launch counts;
@@ -139,6 +142,13 @@ KERNEL_SYMBOLS = {
                            "ImplicitRows, (anonymous namespace)::MacQ8Mma>",
     "p2m_phase_a": "phase_a_kernel<(anonymous namespace)::ExplicitRows",
     "p2m_conv": "legacy_conv_kernel",
+}
+# f32 kernel A on warp-owned tiles launches a kernel of its own
+WARP_TILE_SYMBOLS = {
+    "p2m_phase_a_implicit": "phase_a_warp_kernel<(anonymous namespace)::"
+                            "ImplicitRows>",
+    "p2m_phase_a": "phase_a_warp_kernel<(anonymous namespace)::"
+                   "ExplicitRows>",
 }
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 # the kernels each main path launches; every other wrapper must launch 0
@@ -245,7 +255,7 @@ def is_marker(evt) -> bool:
 
 
 def profile_session(run, cuda: bool = True, cpu: bool = True,
-                    tries: int = 3, expect: str = None):
+                    tries: int = 6, expect: str = None):
     """``(profile, run())``: ``run()`` inside a torch.profiler session that
     kept all of its device events, as far as can be seen. The tracer now and
     then drops a session's device events, all of them, those from its
@@ -253,15 +263,19 @@ def profile_session(run, cuda: bool = True, cpu: bool = True,
     bracketed by two short marker kernels (``MARKER``; readers skip them
     with ``is_marker``), and a session that did not keep both, or (with
     ``expect``) kept no device event whose name holds that text, runs
-    ``run()`` again, up to ``tries`` sessions; after that the last session
-    is returned, and a check that reads it fails. ``cuda=False`` traces the
-    CPU alone, once."""
+    ``run()`` again, up to ``tries`` sessions, with one ``run()`` outside
+    the profiler before each retry (late in a long process three sessions
+    in a row once dropped a flash kernel's events; 120 sessions of a fresh
+    process dropped none); after that the last session is returned, and a
+    check that reads it fails. ``cuda=False`` traces the CPU alone, once."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = ([ProfilerActivity.CPU] if cpu else []) + (
         [ProfilerActivity.CUDA] if cuda else [])
-    for _ in range(tries if cuda else 1):
+    for attempt in range(tries if cuda else 1):
+        if attempt:
+            run()
         if cuda:
             torch.cuda.synchronize()
         with profile(activities=acts) as prof:
@@ -530,7 +544,7 @@ def kernel_phase(geom: dict, device, plain_reps: int = REPS):
     import torch
     import torch.nn.functional as F
     from repro_torch.core import p2m
-    from repro_torch.kernels import blocking
+    from repro_torch.kernels import blocking, cuda_lib
     from repro_torch.kernels import p2m_conv as pk
 
     x = kernel_checks(geom, device)
@@ -591,6 +605,13 @@ def kernel_phase(geom: dict, device, plain_reps: int = REPS):
         # the yardstick for explicit A: the patch matmul alone, TF32 off
         torch.matmul(patches, wm)
 
+    # the path each kernel A takes at this N, as the library chooses it
+    warp_tiles = cuda_lib.load().p2m_phase_a_warp_tiles
+    tile_paths = {name: "warp-owned" if warp_tiles(n, int8) else "block-shared"
+                  for name, int8 in (("p2m_phase_a_implicit", 0),
+                                     ("p2m_phase_a", 0),
+                                     ("p2m_phase_a_implicit_q8", 1))}
+
     rows = []
     for name, fn, plain, lib, nbytes, ops_f32, ops_i8 in (
             ("p2m_phase_a_implicit",
@@ -636,11 +657,16 @@ def kernel_phase(geom: dict, device, plain_reps: int = REPS):
                "plain_ms": device_ms(plain, device, plain_reps),
                "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms}
         rows.append(row)
+        symbol = KERNEL_SYMBOLS[name]
+        if tile_paths.get(name) == "warp-owned":
+            symbol = WARP_TILE_SYMBOLS.get(name, symbol)
         emit("kernel", geometry=x["tag"], **{k_: v_ for k_, v_ in row.items()
                                          if k_ != "launches"},
-             profiler_ms=profiled_ms(fn, KERNEL_SYMBOLS[name]),
+             profiler_ms=profiled_ms(fn, symbol),
              bound_us=t_bound * 1e3, bytes=nbytes, fp32_ops=ops_f32,
-             int8_ops=ops_i8, library_error=lib_error, **x["checks"][name])
+             int8_ops=ops_i8, library_error=lib_error,
+             **({"tile_path": tile_paths[name]} if name in tile_paths else {}),
+             **x["checks"][name])
     return rows
 
 
@@ -857,7 +883,8 @@ def device_breakdown(prof, families, n_top: int = 0):
 
 VISION_FAMILIES = (("frontend_kernels", ("phase_a_kernel", "phase_b_kernel",
                                          "fused_stream_kernel",
-                                         "legacy_conv_kernel")),
+                                         "legacy_conv_kernel",
+                                         "phase_a_warp_kernel")),
                    ("backbone_conv", ("conv", "xmma", "gemm", "implicit",
                                       "cudnn")))
 LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel", "flash_bf16_kernel",
@@ -867,13 +894,19 @@ LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel", "flash_bf16_kernel",
 
 
 def profile_phase(engine, frames, device):
-    """Device time of one classify and one fused stream step, by family."""
+    """Device time of one classify and one fused stream step, by family,
+    and of each frontend kernel in the classify (a kernel launched between
+    the backbone's kernels, not back to back as the kernel lines time it)."""
     cuda = device.type == "cuda"
     prof_c, _ = profile_session(lambda: engine.classify(frames[0]), cuda)
     prof_s, _ = profile_session(
         lambda: list(engine.stream([frames[1], frames[1]])), cuda)
-    emit("profile",
-         classify_device_ms=device_breakdown(prof_c, VISION_FAMILIES)[0],
+    fam_c, events = device_breakdown(prof_c, VISION_FAMILIES, n_top=10 ** 6)
+    frontend = dict(VISION_FAMILIES)["frontend_kernels"]
+    emit("profile", classify_device_ms=fam_c,
+         classify_frontend_kernel_ms={
+             e["name"]: e["ms"] for e in events
+             if any(x in e["name"].lower() for x in frontend)},
          stream_exact_plus_fused_device_ms=device_breakdown(
              prof_s, VISION_FAMILIES)[0])
 

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -60,6 +62,22 @@ def build_versions(sources: list, flags, out_dir: str,
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         out[src] = (ctypes.CDLL(so), log)
+    return out
+
+
+def sass_by_kernel(path: str) -> dict:
+    """``{kernel: machine code}`` of a built library, from ``cuobjdump
+    -sass``, the anonymous namespace's per-file name left out of both, so
+    that one kernel built from two sources compares equal where its code
+    is."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    sass = re.sub(r"\d*_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_anon_", sass)
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        name, _, code = block.partition("\n")
+        out[name.strip()] = " ".join(code.split())
     return out
 
 

@@ -2,7 +2,7 @@
 """Time versions of the P2M kernel library against each other on one card.
 
     python3 scripts/p2m_ab.py [--geometry NAME ...] [--kernel NAME ...]
-                              [--rounds N] [--diagnose]
+                              [--rounds N] [--diagnose] [--unchecked C.cu]
                               A/p2m_kernels.cu B/p2m_kernels.cu ...
 
 Each argument is a version of ``src/repro_torch/csrc/p2m_kernels.cu`` with
@@ -11,18 +11,21 @@ into a directory that ``.gitignore`` lists, or an edited copy). All are
 compiled at once with the port's flags (one nvcc each, into
 ``build/p2m_ab/``) and driven through this checkout's wrappers. At each
 geometry (by default all of ``geometries()``: the serving shape, the odd
-ones of ``chip_smoke.py``, C 48 among them, and the ImageNet frame size)
-every checked version passes ``chip_smoke.kernel_checks`` (the plain
-versions and the sibling checks) and is held to the first version (equal
-u and equal fused draws at both precisions). Then each kernel's device
+ones of ``chip_smoke.py``, C 48 among them, and the ImageNet frame size;
+``CROSSOVER``'s only by name) every checked version passes
+``chip_smoke.kernel_checks`` (the plain versions and the sibling checks)
+and is held to the first version (equal u and equal fused draws at both
+precisions). Then each kernel's device
 time is taken in turns: the versions in order, then in reverse, for
 ``--rounds`` rounds. Prints one JSON line per version, geometry and kernel
 (its times per round, their median and spread, and its own duration from
-``torch.profiler``) and the card's ``nvidia-smi`` line. With
+``torch.profiler``), for each version which kernels' machine code equals
+the first version's, and the card's ``nvidia-smi`` line. With
 ``--diagnose``, copies of the first source that each leave one stage of
 the row-tile kernels out (``DIAGNOSTICS``) are timed beside it, unchecked:
 their outputs are wrong by design, and their times say what that stage
-costs. Needs a CUDA card and exits non-zero without one. The building and
+costs; ``--unchecked`` adds hand-made copies timed the same way. Needs a
+CUDA card and exits non-zero without one. The building and
 the turns are ``ab_versions.py``'s, shared with ``flash_ab.py``.
 """
 from __future__ import annotations
@@ -36,13 +39,14 @@ import sys
 import ab_versions
 
 ROUNDS = 3
-# each kernel wrapper and the device kernel family it launches
+# each kernel wrapper and the device kernel family it launches (f32 kernel
+# A: phase_a_kernel, or phase_a_warp_kernel on warp-owned tiles)
 KERNELS = {"p2m_fused_stream": "fused_stream_kernel",
            "p2m_fused_stream_q8": "fused_stream_kernel",
-           "p2m_phase_a_implicit": "phase_a_kernel",
+           "p2m_phase_a_implicit": "phase_a_",
            "p2m_phase_a_implicit_q8": "phase_a_kernel",
            "p2m_phase_b": "phase_b_kernel", "p2m_conv": "legacy_conv_kernel",
-           "p2m_phase_a": "phase_a_kernel"}
+           "p2m_phase_a": "phase_a_"}
 # (old text, new text) of p2m_kernels.cu for each diagnostic copy
 DIAGNOSTICS = {
     # the row-tile kernels' statistics: no warp sums, barrier or partials
@@ -100,6 +104,26 @@ DIAGNOSTICS = {
                     " = u;\n",
                     "            if (u == 1234.5f) u_out[static_cast<int64_t>("
                     "row0 + r) * c + ch] = u;\n"),
+    # f32 kernel A's warp-owned tiles (f32_phase_a_loop): no warp sums, each
+    # warp sum is its lane 0's rows
+    "f32_no_reductions": ("    const float abs_t = warp_sums(abs_w, lane);\n"
+                          "    const float sq_t = warp_sums(sq_w, lane);\n",
+                          "    const float abs_t = abs_w[0];\n"
+                          "    const float sq_t = sq_w[0];\n"),
+    # their implicit gather: every patch value is a constant
+    "f32_const_gather": ("      cp_async4(dst + col, ok ? img + o.base + "
+                         "tab[kTab * col] : img, ok);\n",
+                         "      dst[col] = ok ? 0.25f : 0.0f;\n"),
+    # their circuit curves
+    "f32_no_curve": ("  const bool tanh_curve = ph.curve == 1;\n",
+                     "  const bool tanh_curve = false;\n"),
+    # their u left unstored
+    "f32_no_store": ("            u_row[r * c] = u[r];\n",
+                     "            if (u[r] == 1234.5f) u_row[r * c] = u[r];\n"),
+    # their MAC over the first four k only
+    "f32_short_mac": ("  float a_pos[kTileRows], a_neg[kTileRows];\n",
+                      "  float a_pos[kTileRows], a_neg[kTileRows];\n"
+                      "  kk = kk < 4 ? kk : 4;\n"),
     # the int8 kernels' circuit curves (two tanhf and two divisions an output)
     "q8_no_curve": ("  return p2m_curve(ph, static_cast<float>(a_pos) * dq[ch])\n"
                     "         - p2m_curve(ph, static_cast<float>(a_neg) * "
@@ -107,6 +131,13 @@ DIAGNOSTICS = {
                     "  return static_cast<float>(a_pos) * dq[ch]\n"
                     "         - static_cast<float>(a_neg) * dq[c + ch];\n"),
 }
+
+
+# 16 frames of 40² to 160² (400, 576, 784, 1,024, 4,096 and 6,400 row
+# tiles): where kernel A's warp-owned tiles and its block-shared ones cross
+# over. Timed only when named with --geometry.
+CROSSOVER = {f"frames{h}": dict(batch=16, h=h, w=h, kernel=3, stride=2, c=32)
+             for h in (40, 48, 56, 64, 128, 160)}
 
 
 def geometries() -> dict:
@@ -145,6 +176,8 @@ def main(argv) -> int:
     parser.add_argument("--kernel", action="append", default=None)
     parser.add_argument("--rounds", type=int, default=ROUNDS)
     parser.add_argument("--diagnose", action="store_true")
+    # hand-made copies timed beside the others, unchecked like --diagnose's
+    parser.add_argument("--unchecked", action="append", default=[])
     parser.add_argument("sources", nargs="*")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available() or not args.sources:
@@ -152,7 +185,7 @@ def main(argv) -> int:
               "[--diagnose] A.cu B.cu ... (on a machine with a CUDA card)",
               file=sys.stderr)
         return 1
-    geoms = geometries()
+    geoms = {**geometries(), **CROSSOVER}
     kernels = args.kernel or list(KERNELS)
     import chip_smoke as cs
     from repro_torch.kernels import cuda_lib
@@ -165,17 +198,26 @@ def main(argv) -> int:
                  if args.diagnose else [])
     # a diagnostic copy includes the header beside the source it copies
     include = {src: os.path.dirname(sources[0]) for src in unchecked}
+    unchecked += [os.path.abspath(s) for s in args.unchecked]
     sources += unchecked
     libs, ptxas = {}, {}
     for src, (lib, log) in ab_versions.build_versions(
             sources, cuda_lib.P2M.flags, out_dir, include).items():
         ptxas[src] = [ln.strip() for ln in log.splitlines()
-                      if "Used" in ln or "spill" in ln]
+                      if "Used" in ln or "spill" in ln or "Compiling" in ln]
         cuda_lib._bind_p2m(lib)
         libs[src] = lib
 
     def load(src):
         cuda_lib._LOADED[cuda_lib.P2M.name] = libs[src]
+
+    # which kernels' machine code each version shares with the first
+    sass = {src: ab_versions.sass_by_kernel(lib._name)
+            for src, lib in libs.items() if src not in unchecked}
+    for src in sass:
+        print(json.dumps({"source": src, "sass_equal_to_first": {
+            k: code == sass[sources[0]][k] for k, code in sass[src].items()
+            if k in sass[sources[0]]}}), flush=True)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -183,7 +225,7 @@ def main(argv) -> int:
     for src in sources:
         print(json.dumps({"source": src, "checked": src not in unchecked,
                           "ptxas": ptxas[src]}), flush=True)
-    for name in args.geometry or list(geoms):
+    for name in args.geometry or list(geometries()):
         first = None
         for src in sources:
             if src in unchecked:

@@ -12,12 +12,14 @@ PyTorch's ops may differ by ulps), and against its siblings bit for bit:
 the fused kernels at a pinned theta equal A -> B at both precisions, int8
 equals f32 on power-of-two grid inputs, explicit kernel A equals implicit
 kernel A, and the legacy kernel at A's theta equals the pinned fused kernel.
-The row-tile kernels, and kernel B and int8 kernel A with their
-warp-owned tiles, are also held there at widths the serving shape does
-not reach (C 48, 40, 30 and 1, N not a multiple of the 16-row tile, K 75)
-and at the ImageNet frame size, launch to launch bit for bit; the int8
-kernels' MAC is checked to run on the s8 tensor cores (IMMA in the
-library's machine code), and the device chain at other MTJ counts.
+The row-tile kernels, and kernel B and the three kernel A instances with
+their warp-owned tiles, are also held there at widths the serving shape
+does not reach (C 48, 40, 30 and 1, N not a multiple of the 16-row tile,
+K 75) and at the ImageNet frame size, launch to launch bit for bit (f32
+kernel A on both sides of the tile count where its warps start to own
+their tiles); the int8 kernels' MAC is checked to run on the s8 tensor
+cores (IMMA in the library's machine code), and the device chain at other
+MTJ counts.
 The engine tests show each main path launches its own kernels and no
 other: f32 A / B / f32 fused on the f32 engine, int8 A / B / int8 fused on
 an engine whose tile table picks int8, and one flash-attention launch per
@@ -318,6 +320,76 @@ def test_warp_tile_kernels_at_odd_widths_and_imagenet(cuda_device, b, h, w,
         torch.testing.assert_close(val, v_p[name], rtol=0, atol=1e-5)
     acts2, vp2 = tk.p2m_phase_b(u8, theta8, key, chan=chan)
     assert torch.equal(acts2, acts) and torch.equal(vp2, vp)
+
+
+# f32 kernel A's warps own their tiles from the library's crossover (768
+# tiles) on: the geometries above on both sides of it, and two with N not a
+# multiple of 16 beyond it (C 30 at stride 1; C 48 at K 75)
+F32_A_GEOMETRIES = WARP_TILE_GEOMETRIES + [(17, 61, 61, 3, 1, 30),
+                                           (17, 61, 65, 5, 2, 48)]
+
+
+def _rows(b, h, w, kernel, stride):
+    return b * -(-h // stride) * -(-w // stride)
+
+
+@pytest.mark.cuda
+def test_f32_kernel_a_geometries_cover_both_paths(cuda_device):
+    """The library runs block-shared tiles at some of F32_A_GEOMETRIES and
+    warp-owned ones at others, N not a multiple of 16 among the latter."""
+    lib = cuda_lib.load()
+    warp = {g: bool(lib.p2m_phase_a_warp_tiles(_rows(*g[:5]), 0))
+            for g in F32_A_GEOMETRIES}
+    assert any(warp.values()) and not all(warp.values())
+    assert any(w and _rows(*g[:5]) % 16 for g, w in warp.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,kernel,stride,c", F32_A_GEOMETRIES)
+def test_f32_kernel_a_on_both_sides_of_the_crossover(cuda_device, b, h, w,
+                                                     kernel, stride, c):
+    """f32 kernel A, implicit and explicit, on whichever path the library
+    picks at this N: u within 3e-6 of the plain version and theta within
+    rtol 1e-5, ``p2m_partial_rows`` Hoyer rows equal to the f32 fused
+    kernel's bit for bit, explicit A equal to implicit A bit for bit, the
+    fused kernel at A's theta equal to A -> B, and two launches of each
+    bit-identical."""
+    rng = np.random.default_rng(c + h + 2)
+    dev = cuda_device
+    images = torch.tensor(rng.uniform(size=(b, h, w, 3)),
+                          dtype=torch.float32, device=dev)
+    wt = torch.tensor(rng.normal(size=(kernel * kernel * 3, c)) * 0.3,
+                      dtype=torch.float32)
+    wp = tk.pack_phase_weights(wt).to(dev)
+    v_th = torch.ones((), device=dev)
+    key = prng.PRNGKey(17)
+    kw = dict(kernel=kernel, stride=stride)
+    patches = ops.im2col(images, kernel, stride).contiguous()
+
+    u, hp = tk.p2m_phase_a_implicit(images, wp, v_th, **kw)
+    n = u.shape[0]
+    assert n == _rows(b, h, w, kernel, stride)
+    assert hp.shape == (cuda_lib.load().p2m_partial_rows(n), 2)
+    u_p, hp_p = tk.p2m_phase_a_implicit_plain(images, wp, v_th, **kw)
+    torch.testing.assert_close(u, u_p, rtol=0, atol=3e-6)
+    theta = tk.combine_hoyer_partials(hp, v_th)
+    torch.testing.assert_close(theta, tk.combine_hoyer_partials(hp_p, v_th),
+                               rtol=1e-5, atol=0)
+    ue, he = tk.p2m_phase_a(patches, wp, v_th)
+    assert torch.equal(ue, u) and torch.equal(he, hp)
+    ue_p, he_p = tk.p2m_phase_a_plain(patches, wp, v_th)
+    torch.testing.assert_close(ue, ue_p, rtol=0, atol=3e-6)
+    torch.testing.assert_close(tk.combine_hoyer_partials(he, v_th),
+                               tk.combine_hoyer_partials(he_p, v_th),
+                               rtol=1e-5, atol=0)
+
+    acts, _ = tk.p2m_phase_b(u, theta, key)
+    acts_f, hf, _, _ = tk.p2m_fused_stream(images, wp, v_th, theta, key, **kw)
+    assert torch.equal(hf, hp)
+    assert torch.equal(acts_f, acts)
+    for again in (tk.p2m_phase_a_implicit(images, wp, v_th, **kw),
+                  tk.p2m_phase_a(patches, wp, v_th)):
+        assert torch.equal(again[0], u) and torch.equal(again[1], hp)
 
 
 @pytest.mark.cuda

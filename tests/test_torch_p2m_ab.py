@@ -36,7 +36,8 @@ def scripts(monkeypatch):
         "no_reductions", "no_chain", "const_gather", "no_curve", "short_mac",
         "no_store", "b_no_reductions", "b_no_chain", "b_const_chan",
         "q8_no_reductions", "q8_const_gather", "q8_no_store",
-        "q8_no_curve")),
+        "q8_no_curve", "f32_no_reductions", "f32_const_gather",
+        "f32_no_curve", "f32_no_store", "f32_short_mac")),
     *(("flash_ab", "flash_attention.cu", n) for n in (
         "no_exp", "no_softmax", "no_pv"))])
 def test_each_diagnostic_changes_the_current_source(tmp_path, scripts,
