@@ -11,10 +11,11 @@ line:
 1. ``env``: torch/CUDA versions and the card's name and power limit;
 2. ``build``: seconds for each library's nvcc build and the compiler's
    register report (a wgmma serialization warning fails the run);
-   ``tensor_cores``: the tensor-core instructions of each P2M kernel, from
-   the library's machine code (the two int8 kernels, A and fused, must run
-   s8 IMMA, no other P2M kernel IMMA, and none HMMA: the float32 MACs use
-   no TF32);
+   ``tensor_cores``: the tensor-core instructions of each kernel, from
+   the libraries' machine code (the two int8 P2M kernels, A and fused, must
+   run s8 IMMA, no other P2M kernel IMMA, and none HMMA: the float32 MACs
+   use no TF32; every ``flash_wgmma_kernel`` instance runs HGMMA and no
+   HMMA, the float32 flash kernel neither);
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32), three odd geometries (one at C 48) and
    the paper's ImageNet frame size (16, 224, 224, 3) -> (200704, 32). Each
@@ -46,14 +47,16 @@ line:
 8. ``autotune``: the port's search at the serving shape (data, no check);
 9. ``flash`` lines: the flash-attention kernels at granite-8b's prefill
    (B 4, S 2048, H 32, Hkv 8, D 128, bf16, causal), at stablelm-3b's (B 4
-   and B 1, S 2048, H 32, MHA, D 80, bf16, causal), all three
-   ``flash_wgmma_kernel``, and four odd ones (S 77 MHA D 64 bf16, the
-   wgmma kernel too; S 256 non-causal float32; S 1000 GQA, a ragged tail;
-   S 130 D 32 bf16, the mma.sync kernel), each held against its plain
+   and B 1, S 2048, H 32, MHA, D 80, bf16, causal), four odd ones (S 77
+   MHA D 64 bf16; S 256 non-causal float32, ``flash_ffma_kernel``; S 1000
+   GQA, a ragged tail; S 130 D 32 non-causal bf16) and granite-8b's
+   prefill traffic at bf16 D 32 and 16 and in float32 at D 128 and 16
+   (every bf16 line ``flash_wgmma_kernel``), each held against its plain
    version on the same card tensors (max-abs 2e-2 for bf16 outputs, 2e-5
    for float32, and the row gate below), timed beside its plain version,
-   its bound and ``scaled_dot_product_attention``, and naming the kernel
-   symbol a profiled call shows ran;
+   its bound (bytes, the products and one exponential a visible pair on
+   the special-function units) and ``scaled_dot_product_attention``, and
+   naming the kernel symbol a profiled call shows ran;
 10. ``lm``: full-width, full-depth granite-8b, then stablelm-3b (head dim
    80), with seeded bf16 weights drawn on the card (granite's freed
    first), each ``ServingEngine.generate`` of a (4, 2048) prompt for 32
@@ -95,6 +98,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12          # non-tensor-core float32 (the kernels use FFMA)
 INT8_OPS = 1979e12          # dense int8 tensor-core peak (the int8 MACs)
 BF16_OPS = 989e12           # dense bf16 tensor-core peak (attention, bf16)
+# the special-function unit: 16 exponentials (ex2) a clock on each SM of
+# Hopper, at the card's maximum SM clock (nvidia-smi reads both the clock
+# and, through torch, the SM count); attention takes one a visible pair
+EX2_PER_CLOCK_SM = 16
 # rough per-element operation counts of the elementwise stages, used only
 # for the operation side of the bound (the byte side dominates)
 EPILOGUE_A_OPS = 12         # two curves, subtract, z, clip, two partial sums
@@ -164,22 +171,32 @@ SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
 
 # flash attention: the LM serving geometry (granite-8b prefill of 4 x 2048
 # tokens), stablelm-3b's prefill at head dim 80 (the `lm` generate's batch
-# of 4 and batch 1) and four odd ones
+# of 4 and batch 1), four odd ones and granite-8b's prefill traffic at the
+# narrow bf16 heads and in float32
 FLASH_SERVING = dict(batch=4, seq=2048, heads=32, kv_heads=8, head_dim=128,
                      dtype="bfloat16", causal=True)
 FLASH_D80_SERVING = dict(batch=4, seq=2048, heads=32, kv_heads=32,
                          head_dim=80, dtype="bfloat16", causal=True)
+FLASH_NARROW_TOY = dict(batch=2, seq=130, heads=4, kv_heads=1, head_dim=32,
+                        dtype="bfloat16", causal=False)
+FLASH_F32_TOY = dict(batch=2, seq=256, heads=8, kv_heads=2, head_dim=128,
+                     dtype="float32", causal=False)
+# where the narrow and float32 kernels do real work: B 4, S 2048, H 32/8,
+# causal (D 16 is what every reduced config launches, in float32)
+FLASH_B4 = {"narrow_d32_b4": {**FLASH_SERVING, "head_dim": 32},
+            "narrow_d16_b4": {**FLASH_SERVING, "head_dim": 16},
+            "f32_d128_b4": {**FLASH_SERVING, "dtype": "float32"},
+            "f32_d16_b4": {**FLASH_SERVING, "head_dim": 16,
+                           "dtype": "float32"}}
 FLASH_ODD = (FLASH_D80_SERVING,
              dict(batch=1, seq=2048, heads=32, kv_heads=32, head_dim=80,
                   dtype="bfloat16", causal=True),    # stablelm-3b, batch 1
              dict(batch=2, seq=77, heads=4, kv_heads=4, head_dim=64,
                   dtype="bfloat16", causal=True),
-             dict(batch=2, seq=256, heads=8, kv_heads=2, head_dim=128,
-                  dtype="float32", causal=False),
+             FLASH_F32_TOY,
              dict(batch=1, seq=1000, heads=32, kv_heads=8, head_dim=128,
                   dtype="bfloat16", causal=True),
-             dict(batch=2, seq=130, heads=4, kv_heads=1, head_dim=32,
-                  dtype="bfloat16", causal=False))   # the mma.sync kernel
+             FLASH_NARROW_TOY, *FLASH_B4.values())
 # kernel vs plain: bf16 output rounding (one ulp is 2^-8 relative) plus a
 # different summation order; float32: the summation order alone
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -318,15 +335,50 @@ def profiled_ms(fn, symbol: str, n: int = 20):
     return total / 1e3 / count if count else None
 
 
+def ex2_per_s() -> float:
+    """Exponentials a second of the special-function units of card 0 at
+    its maximum SM clock."""
+    import torch
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    mhz = float(res.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EX2_PER_CLOCK_SM * sms * mhz * 1e6
+
+
 def bound(bytes_moved: float, ops: float, int8_ops: float = 0.0,
-          bf16_ops: float = 0.0) -> tuple:
+          bf16_ops: float = 0.0, exps: float = 0.0) -> tuple:
     """Least time in ms: bytes over the memory rate against the float32
     operations over the FFMA peak plus the int8 MACs over the int8 peak
-    plus the bf16 tensor-core operations over the bf16 peak."""
+    plus the bf16 tensor-core operations over the bf16 peak, or against the
+    exponentials over the special-function units' rate (``ex2_per_s``),
+    which run beside those units, where that is longer."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = (ops / FP32_FLOPS + int8_ops / INT8_OPS
              + bf16_ops / BF16_OPS) * 1e3
+    if exps:
+        t_ops = max(t_ops, exps / ex2_per_s() * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_work(geom: dict) -> dict:
+    """What one flash call at ``geom`` must do: every visible (q, kv) pair
+    takes two products of D multiply-adds and one exponential; each input
+    is read once and the output written once. With the bound (``bound``)."""
+    b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
+                                         "kv_heads", "head_dim"))
+    pairs = b * h * (s * (s + 1) // 2 if geom["causal"] else s * s)
+    size = 2 if geom["dtype"] == "bfloat16" else 4
+    work = dict(flops=4 * pairs * d, exps=pairs,
+                bytes=(2 * b * s * h + 2 * b * s * hkv) * d * size)
+    if geom["dtype"] == "bfloat16":
+        t, by = bound(work["bytes"], 0.0, bf16_ops=work["flops"],
+                      exps=pairs)
+    else:
+        t, by = bound(work["bytes"], work["flops"], exps=pairs)
+    return {**work, "bound_ms": t, "bound_by": by}
 
 
 def check_path_counts(counts: dict, path: str) -> None:
@@ -887,8 +939,8 @@ VISION_FAMILIES = (("frontend_kernels", ("phase_a_kernel", "phase_b_kernel",
                                          "phase_a_warp_kernel")),
                    ("backbone_conv", ("conv", "xmma", "gemm", "implicit",
                                       "cudnn")))
-LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel", "flash_bf16_kernel",
-                                     "flash_f32_kernel")),
+LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel",
+                                     "flash_ffma_kernel")),
                ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
                            "nvjet")))
 
@@ -946,15 +998,8 @@ def flash_phase(geom: dict, device):
           f"flash kernel vs plain row error / row RMS {row_err} > "
           f"{FLASH_ROW_TOL[geom['dtype']]} at {tag}")
 
-    # the work this run needs: every visible (q, kv) pair, two products of
-    # D multiply-adds each; each input read once, the output written once
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * b * h * pairs * d
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    if dtype == torch.bfloat16:
-        t_bound, by = bound(nbytes, 0.0, bf16_ops=flops)
-    else:
-        t_bound, by = bound(nbytes, flops)
+    work = flash_work(geom)
+    flops, t_bound, by = work["flops"], work["bound_ms"], work["bound_by"]
 
     def sdpa():
         F.scaled_dot_product_attention(
@@ -981,7 +1026,8 @@ def flash_phase(geom: dict, device):
          tolerance=FLASH_TOL[geom["dtype"]],
          row_rel_err=row_err, row_tolerance=FLASH_ROW_TOL[geom["dtype"]],
          **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
-         flops=flops, bytes=nbytes, library_error=lib_error,
+         flops=flops, bytes=work["bytes"], exps=work["exps"],
+         library_error=lib_error,
          achieved_tflops=flops / (row["ms"] * 1e-3) / 1e12,
          noncausal_ms=full_ms)
     return row
@@ -1248,6 +1294,20 @@ def main() -> int:
           f"tensor-core instructions in the P2M library: {imma}")
     emit("tensor_cores", library="p2m", kernels=len(census),
          imma_hmma={k: list(v) for k, v in imma.items()})
+    # every flash_wgmma_kernel instance runs wgmma (HGMMA) and no mma.sync
+    # (HMMA); the float32 kernel runs neither (IEEE FFMA, no TF32)
+    from repro_torch.kernels import flash_attention as fa
+    flash = cuda_lib.tensor_core_census(built["flash_attention"][0],
+                                        ("HMMA", "HGMMA"))
+    wgmma = {k: v for k, v in flash.items() if "flash_wgmma_kernel" in k}
+    ffma = {k: v for k, v in flash.items() if "flash_ffma_kernel" in k}
+    check(len(wgmma) == len(ffma) == len(fa.HEAD_DIMS)
+          and len(flash) == 2 * len(fa.HEAD_DIMS)
+          and all(h_ == 0 and g_ >= 1 for h_, g_ in wgmma.values())
+          and all(v == (0, 0) for v in ffma.values()),
+          f"tensor-core instructions in the flash library: {flash}")
+    emit("tensor_cores", library="flash_attention", kernels=len(flash),
+         hmma_hgmma={k: list(v) for k, v in flash.items()})
 
     t_kernels = time.perf_counter()
     rows = kernel_phase(SERVING, device)
@@ -1262,7 +1322,6 @@ def main() -> int:
     counts_int8 = engine_int8_phase(device)
     autotune_phase(device, smi)
     t_flash = time.perf_counter()
-    from repro_torch.kernels import flash_attention as fa
     flash_row = flash_phase(FLASH_SERVING, device)
     odd_rows = [flash_phase(geom, device) for geom in FLASH_ODD]
     flash_d80_row = odd_rows[FLASH_ODD.index(FLASH_D80_SERVING)]

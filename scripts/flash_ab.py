@@ -8,17 +8,24 @@ Each argument is a version of ``src/repro_torch/csrc/flash_attention.cu``
 once with the port's flags (one nvcc each, into ``build/flash_ab/``). Then,
 at each geometry (by default all of ``geometries()``: granite-8b's
 prefill, B 4, S 2048, H 32/8, D 128; stablelm-3b's at B 4 and B 1, S 2048,
-H 32 MHA, D 80; the same at D 64 and D 128; all bf16), each version is held
-against the plain version (max-abs 2e-2) and its device time is taken causal and
-non-causal, in turns: the versions in order, then in reverse, for three
-rounds, so that versions are compared on one card within one run. Prints
-one JSON line per version and geometry (its times and any ptxas warning
-that the wgmmas were serialized) and one per geometry for
-``scaled_dot_product_attention`` on the same inputs. With ``--diagnose``,
-copies of the first source that each leave one stage of the per-tile work
-out (``DIAGNOSTICS``) are timed beside it, unchecked: their outputs are
-wrong by design, and their times say what that stage costs. Needs a CUDA
-card and exits non-zero without one. The building and the turns are
+H 32 MHA, D 80; the same at D 64 and D 128, all bf16 and causal;
+``chip_smoke.py``'s two toy geometries of the narrow bf16 and the float32
+routes, non-causal; granite-8b's prefill traffic at bf16 D 32 and 16 and in
+float32 at D 128 and 16), each version is held against the plain version
+(``chip_smoke.FLASH_TOL`` of the geometry's dtype) and its device time is
+taken in the geometry's own mode and, for a causal geometry, non-causal
+too, in turns: the versions in order, then in reverse, for three rounds,
+so that versions are compared on one card within one run. Prints one JSON
+line per version and geometry (its times and any ptxas warning that the
+wgmmas were serialized) and one per geometry with the bound
+(``chip_smoke.flash_work``) and ``scaled_dot_product_attention`` on the
+same inputs in the same mode, after one line per checked version naming
+the kernels whose machine code (``cuobjdump -sass``) equals the first
+version's. With ``--diagnose``, copies of the first source that each
+leave one stage of the per-tile work out (``DIAGNOSTICS``) are timed
+beside it, unchecked: their outputs are wrong by design, and their times
+say what that stage costs. Needs a CUDA card and exits non-zero without
+one. The building and the turns are
 ``ab_versions.py``'s, shared with ``p2m_ab.py``.
 """
 from __future__ import annotations
@@ -46,6 +53,25 @@ DIAGNOSTICS = {
     # no O += P V product
     "no_pv": ("    wgmma_rs<D>(acc, pa[kk], smem_desc(v_tile + kk * 2048, "
               "kBoxBytes, 1024));", "    ;"),
+    # the FFMA kernel (float32): e^x as the exponent's FMA alone
+    "f32_no_exp": ("          float p = exp_diff(s[i][cc], c, mc);",
+                   "          float p = fmaf(s[i][cc], c, -mc);"),
+    # no P V product (its loads go with it)
+    "f32_no_pv": (
+        "              acc[r][4 * ch + 0] = fmaf(p, vv.x, acc[r][4 * ch + 0]);\n"
+        "              acc[r][4 * ch + 1] = fmaf(p, vv.y, acc[r][4 * ch + 1]);\n"
+        "              acc[r][4 * ch + 2] = fmaf(p, vv.z, acc[r][4 * ch + 2]);\n"
+        "              acc[r][4 * ch + 3] = fmaf(p, vv.w, acc[r][4 * ch + 3]);",
+        "              (void)p;"),
+    # no K / V loads past the first tile (every tile reuses the first)
+    "f32_no_loads": ("    const bool more = j + 1 < t.n_kv;",
+                     "    const bool more = false;"),
+    # no S = Q K^T product (scores 0; its loads go with it)
+    "f32_no_scores": (
+        "            s[i][cc] = fmaf(qv.x, kv[cc].x, s[i][cc]);\n"
+        "            s[i][cc] = fmaf(qv.y, kv[cc].y, s[i][cc]);\n"
+        "            s[i][cc] = fmaf(qv.z, kv[cc].z, s[i][cc]);\n"
+        "            s[i][cc] = fmaf(qv.w, kv[cc].w, s[i][cc]);", ""),
 }
 
 
@@ -57,7 +83,18 @@ def geometries() -> dict:
             "stablelm_d80_b4": d80,
             "stablelm_d80_b1": {**d80, "batch": 1},
             "mha_d64_b4": {**d80, "head_dim": 64},
-            "mha_d128_b4": {**d80, "head_dim": 128}}
+            "mha_d128_b4": {**d80, "head_dim": 128},
+            "narrow_d32_toy": cs.FLASH_NARROW_TOY,
+            "f32_d128_toy": cs.FLASH_F32_TOY,
+            **cs.FLASH_B4}
+
+
+def checked_tolerance(geom: dict) -> float:
+    """The max-abs limit a checked version is held to at ``geom``: that of
+    the geometry's dtype in ``chip_smoke.py``."""
+    ab_versions.import_checkout()
+    import chip_smoke as cs
+    return cs.FLASH_TOL[geom["dtype"]]
 
 
 def main(argv) -> int:
@@ -93,6 +130,14 @@ def main(argv) -> int:
         cuda_lib._bind_flash(lib)
         libs[src] = lib
 
+    # which kernels of each version have the first version's machine code
+    sass = {src: ab_versions.sass_by_kernel(lib._name)
+            for src, lib in libs.items() if src not in unchecked}
+    for src in sass:
+        print(json.dumps({"source": src, "sass_equal_to_first": {
+            k: code == sass[sources[0]][k] for k, code in sass[src].items()
+            if k in sass[sources[0]]}}), flush=True)
+
     dev = torch.device("cuda")
     smi = cs.nvidia_smi_line()
     for name in names:
@@ -100,10 +145,14 @@ def main(argv) -> int:
         gen = torch.Generator().manual_seed(23)
         b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
                                              "kv_heads", "head_dim"))
-        q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        dtype, causal = getattr(torch, geom["dtype"]), geom["causal"]
+        tol = checked_tolerance(geom)
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
                    for shape in ((b, s, h, d), (b, s, hkv, d),
                                  (b, s, hkv, d)))
-        plain = fa.flash_attention_plain(q, k, v, causal=True).float()
+        plain = fa.flash_attention_plain(q, k, v, causal=causal).float()
+        modes = (("causal", True), ("noncausal", False)) if causal else (
+            ("noncausal", False),)
         current = {}
 
         def load(src):
@@ -112,19 +161,17 @@ def main(argv) -> int:
 
         def measure():
             src = current["src"]
-            err = float((fa.flash_attention(q, k, v).float() - plain)
-                        .abs().max())
-            cs.check(src in unchecked or err <= cs.FLASH_TOL["bfloat16"],
+            err = float((fa.flash_attention(q, k, v, causal=causal).float()
+                         - plain).abs().max())
+            cs.check(src in unchecked or err <= tol,
                      f"{src}: max-abs {err} against the plain version at "
                      f"{name}")
             return {key: cs.device_ms(
-                lambda: fa.flash_attention(q, k, v, causal=causal), dev)
-                    for key, causal in (("causal", True),
-                                        ("noncausal", False))}
+                lambda: fa.flash_attention(q, k, v, causal=c), dev)
+                    for key, c in modes}
 
         turns = ab_versions.in_turns(sources, ROUNDS, load, measure)
-        times = {src: {key: [r[key] for r in rounds]
-                       for key in ("causal", "noncausal")}
+        times = {src: {key: [r[key] for r in rounds] for key, _ in modes}
                  for src, rounds in turns.items()}
         for src in sources:
             print(json.dumps({"geometry": name, "source": src,
@@ -136,8 +183,9 @@ def main(argv) -> int:
                   flush=True)
         sdpa = cs.device_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=h != hkv), dev)
-        print(json.dumps({"geometry": name, "sdpa_causal_ms": sdpa,
+            is_causal=causal, enable_gqa=h != hkv), dev)
+        print(json.dumps({"geometry": name, **geom,
+                          "sdpa_ms": sdpa, **cs.flash_work(geom),
                           "nvidia_smi": smi,
                           "device": torch.cuda.get_device_name(0)}),
               flush=True)

@@ -23,9 +23,10 @@
 // q rows past S are not stored. q tiles are issued last-first so the long
 // causal rows start early. One kernel serves each (dtype, D):
 //
-//  * bf16, D = 64, 80, 128: flash_wgmma_kernel<D>, the Hopper design, one
-//    instance per head dim (D 128: every dense serving config but
-//    stablelm-3b; D 80: stablelm-3b; D 64: the reduced configs). Bound: at
+//  * bf16, D = 16, 32, 64, 80, 128: flash_wgmma_kernel<D>, the Hopper
+//    design, one instance per head dim (D 128: every dense serving config
+//    but stablelm-3b; D 80: stablelm-3b; D 64, 32, 16: the reduced
+//    configs and narrow-headed models). Bound: at
 //    granite-8b's prefill (B 4, S 2048, H 32, Hkv 8, D 128, causal) one
 //    launch does 4*B*H*S(S+1)/2*D = 137 GFLOP, 0.139 ms at the 989 TFLOP/s
 //    bf16 tensor-core peak, against 0.050 ms for the 168 MB of q, k, v and
@@ -72,14 +73,38 @@
 //       runs tile j + 1's softmax while that product is in flight, and the
 //       two consumers take turns to issue (ping-pong on named barriers), so
 //       one's softmax runs under the other's wgmmas.
-//  * bf16, D = 16, 32 (the reduced test configs only; a 32- or 64-byte row
-//    is narrower than one 128-byte swizzle row): flash_bf16_kernel, 4 warps
-//    of 16 q rows on mma.sync m16n8k16 fragments over 64 x 64 tiles. Q
-//    stays in registers as A fragments; P is re-packed from the score
-//    fragments as bf16 A fragments; V fragments come from ldmatrix.trans.
-//  * float32, D = 16, 32, 64, 80, 128: flash_f32_kernel, IEEE FFMA (no
-//    TF32), 8 q rows x 4 kv columns of scores and 8 rows x D/16 columns of
-//    the accumulator per thread, P through shared memory.
+//    At D 16 and 32 one score costs 4 D = 64-128 tensor-core FLOP but one
+//    exponential, so the special-function unit (16 a clock an SM), not the
+//    tensor cores, sets the floor: at granite-8b's prefill traffic 0.064
+//    ms for the 269 M exponentials against 0.035 (D 32) of products. The
+//    same design serves it (the folded-scale ex2, the mask on the last
+//    tile only), but without the consumers' turns: its products are too
+//    short to cover the other consumer's softmax, and the turns only
+//    delayed the issue. A D 16 or 32 row is one 64-column box whose map ends
+//    at column D (zeros past it; no neighbouring head of a packed
+//    projection is read), and the second product reads the first D
+//    columns of that swizzled box (m64n16k16 / m64n32k16).
+//  * float32, D = 16, 32, 64, 80, 128: flash_ffma_kernel<D>, IEEE FFMA (no
+//    TF32, no tensor core). Bound: the FFMA peak (67 TFLOP/s): at
+//    granite-8b's prefill traffic 137 GFLOP at D 128, 2.05 ms; 17 GFLOP at
+//    D 16, 0.26 ms. So every operand comes in 16-byte shared loads that
+//    feed 5-16 FFMA each, and nothing else waits on memory:
+//     - 8 warps, each owning 16 of the block's 128 q rows: the softmax's
+//       row reductions are warp shuffles, P passes through the warp's own
+//       shared rows (__syncwarp, no block barrier), and a warp skips a kv
+//       tile wholly in its rows' future;
+//     - a lane holds 8 rows x 4 columns of a 64-column kv tile's S (each Q
+//       load feeds 16 FFMA, each K load 32) and kORows x 4 kChunks of O
+//       (each P load 16 kChunks FFMA, each V load 4 kORows); Q and K rows
+//       padded by one float4 so 8 consecutive rows fall on 8 distinct bank
+//       quads, and no P store or load meets a bank conflict;
+//     - K and V by cp.async, one buffer each, staggered: K_{j+1} loads
+//       under P_j V_j, V_{j+1} under S_{j+1} (three block barriers a tile);
+//       at D 16 and 32 two blocks share an SM (128 registers a thread), so
+//       one block's barriers and loads run under the other's products;
+//     - the folded-scale ex2 of the wgmma kernel, the mask only on tiles
+//       that reach past a warp's first row or past S, the row sum l kept
+//       per lane and reduced once at the end.
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
@@ -88,9 +113,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBlockM = 64;    // query rows per block (mma.sync, FFMA)
-constexpr int kBlockN = 64;    // kv rows per tile (mma.sync, FFMA)
-constexpr int kThreads = 128;  // 4 warps (mma.sync, FFMA)
 
 }  // namespace
 
@@ -108,8 +130,8 @@ struct Tile {
 };
 
 // q tile qi (counted from the last, so the long causal rows come first) of
-// batch * head bh
-template <int BM = kBlockM, int BN = kBlockN>
+// batch * head bh, for BM-row q tiles and BN-row kv tiles
+template <int BM, int BN>
 __device__ Tile tile_of(const FlashGeom& g, int qi, int bh) {
   Tile t;
   const int n_qb = (g.seq + BM - 1) / BM;
@@ -128,341 +150,8 @@ __device__ __forceinline__ bool visible(const FlashGeom& g, int row, int col) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16 fragments
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed: the B fragments of two n-tiles
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// rows [row0, row0 + rows) of a (seq, D) slice into a padded shared tile;
-// rows past the end are zero
-template <int D>
-__device__ void load_tile_bf16(__nv_bfloat16* dst, int stride,
-                               const __nv_bfloat16* src, int64_t row_stride,
-                               int row0, int rows, int seq) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * stride + c) = val;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, const FlashGeom g) {
-  constexpr int kStride = D + 8;  // padded row: conflict-free fragment reads
-  constexpr int kKSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kNTiles = kBlockN / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockM * kStride;
-  __nv_bfloat16* vs = ks + kBlockN * kStride;
-
-  const Tile t = tile_of(g, blockIdx.x, blockIdx.y);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane / 4, tig = lane % 4;  // fragment row / column pair
-  const __nv_bfloat16* qp = q + t.b * g.q_b + t.h * g.q_h;
-  const __nv_bfloat16* kp = k + t.b * g.k_b + t.hk * g.k_h;
-  const __nv_bfloat16* vp = v + t.b * g.v_b + t.hk * g.v_h;
-
-  load_tile_bf16<D>(qs, kStride, qp, g.q_s, t.q0, kBlockM, g.seq);
-  __syncthreads();
-  uint32_t qf[kKSteps][4];
-  const int wr = warp * 16;
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    const __nv_bfloat16* base = qs + (wr + gid) * kStride + kk * 16 + tig * 2;
-    qf[kk][0] = ld32(base);
-    qf[kk][1] = ld32(base + 8 * kStride);
-    qf[kk][2] = ld32(base + 8);
-    qf[kk][3] = ld32(base + 8 * kStride + 8);
-  }
-
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  const int rows[2] = {t.q0 + wr + gid, t.q0 + wr + gid + 8};
-
-  for (int j = 0; j < t.n_kv; ++j) {
-    const int k0 = j * kBlockN;
-    __syncthreads();  // the previous tile is consumed
-    load_tile_bf16<D>(ks, kStride, kp, g.k_s, k0, kBlockN, g.seq);
-    load_tile_bf16<D>(vs, kStride, vp, g.v_s, k0, kBlockN, g.seq);
-    __syncthreads();
-
-    // S = Q K^T in float32
-    float s[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kb = ks + (nt * 8 + gid) * kStride + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        mma_bf16(s[nt], qf[kk], ld32(kb + kk * 16), ld32(kb + kk * 16 + 8));
-    }
-
-    // scale, mask, online softmax (element e of a fragment: row e / 2,
-    // column e % 2 of the thread's pair)
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-        const float sc = visible(g, rows[e >> 1], col) ? s[nt][e] * g.scale
-                                                       : kNegInf;
-        s[nt][e] = sc;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc);
-      }
-    float m_safe[2], alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      m_safe[i] = m_new <= kNegInf / 2 ? 0.f : m_new;
-      alpha[i] = m_r[i] <= kNegInf / 2 ? 0.f : expf(m_r[i] - m_safe[i]);
-      m_r[i] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-        const float p = visible(g, rows[e >> 1], col)
-                            ? expf(s[nt][e] - m_safe[e >> 1]) : 0.f;
-        s[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-      l_r[i] = l_r[i] * alpha[i] + rs[i];
-    }
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
-    // acc += bf16(P) V: the score fragments of n-tiles 2kk, 2kk+1 are the
-    // A fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      // lane l addresses row l % 8 of matrix l / 8: matrices 0/1 are kv rows
-      // 0-7 / 8-15 of n-tile dt, matrices 2/3 the same of n-tile dt + 1
-      const __nv_bfloat16* vb = vs + (kk * 16 + ((lane / 8) % 2) * 8 +
-                                      lane % 8) * kStride + (lane / 16) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vb + dt * 8);
-        mma_bf16(acc[dt], pa, bf[0], bf[1]);
-        mma_bf16(acc[dt + 1], pa, bf[2], bf[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= g.seq) continue;
-    const float l = fmaxf(l_r[i], 1e-30f);
-    __nv_bfloat16* op = o + t.b * g.o_b + rows[i] * g.o_s + t.h * g.o_h +
-                        tig * 2;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      const uint32_t w = pack_bf16(acc[dt][2 * i] / l, acc[dt][2 * i + 1] / l);
-      *reinterpret_cast<uint32_t*>(op + dt * 8) = w;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32: IEEE FFMA
-// ---------------------------------------------------------------------------
-
-// rows [row0, row0 + rows) of a (seq, D) float32 slice into a shared tile of
-// row stride `stride`; rows past the end are zero
-template <int D>
-__device__ void load_tile_f32(float* dst, int stride, const float* src,
-                              int64_t row_stride, int row0, int rows,
-                              int seq) {
-  constexpr int kChunks = D / 4;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < seq)
-      val = *reinterpret_cast<const float4*>(src + (row0 + r) * row_stride + c);
-    float* d = dst + r * stride + c;
-    d[0] = val.x;
-    d[1] = val.y;
-    d[2] = val.z;
-    d[3] = val.w;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 const FlashGeom g) {
-  constexpr int kQK = D + 1;        // odd stride: conflict-free column reads
-  constexpr int kP = kBlockN + 1;
-  constexpr int kCols = kBlockN / 16;
-  constexpr int kDCols = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = qs + kBlockM * kQK;
-  float* vs = ks + kBlockN * kQK;
-  float* ps = vs + kBlockN * D;
-
-  const Tile t = tile_of(g, blockIdx.x, blockIdx.y);
-  // 16 threads share 8 rows: kv column / d column tx + 16 * j
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* qp = q + t.b * g.q_b + t.h * g.q_h;
-  const float* kp = k + t.b * g.k_b + t.hk * g.k_h;
-  const float* vp = v + t.b * g.v_b + t.hk * g.v_h;
-
-  load_tile_f32<D>(qs, kQK, qp, g.q_s, t.q0, kBlockM, g.seq);
-  float acc[8][kDCols];
-  float m_r[8], l_r[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m_r[i] = kNegInf;
-    l_r[i] = 0.f;
-#pragma unroll
-    for (int jd = 0; jd < kDCols; ++jd) acc[i][jd] = 0.f;
-  }
-
-  for (int j = 0; j < t.n_kv; ++j) {
-    const int k0 = j * kBlockN;
-    __syncthreads();  // the previous tile (and its P) is consumed
-    load_tile_f32<D>(ks, kQK, kp, g.k_s, k0, kBlockN, g.seq);
-    load_tile_f32<D>(vs, D, vp, g.v_s, k0, kBlockN, g.seq);
-    __syncthreads();
-
-    float s[8][kCols];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) s[i][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kv[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) kv[c] = ks[(tx + 16 * c) * kQK + d];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float qv = qs[(ty * 8 + i) * kQK + d];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) s[i][c] = fmaf(qv, kv[c], s[i][c]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = t.q0 + ty * 8 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int col = k0 + tx + 16 * c;
-        s[i][c] = visible(g, row, col) ? s[i][c] * g.scale : kNegInf;
-        mx = fmaxf(mx, s[i][c]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_r[i], mx);
-      const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
-      const float alpha =
-          m_r[i] <= kNegInf / 2 ? 0.f : expf(m_r[i] - m_safe);
-      m_r[i] = m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int col = k0 + tx + 16 * c;
-        const float p = visible(g, row, col) ? expf(s[i][c] - m_safe) : 0.f;
-        ps[(ty * 8 + i) * kP + tx + 16 * c] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_r[i] = l_r[i] * alpha + rs;
-#pragma unroll
-      for (int jd = 0; jd < kDCols; ++jd) acc[i][jd] *= alpha;
-    }
-    __syncthreads();  // P is complete
-
-    for (int c = 0; c < kBlockN; ++c) {
-      float vv[kDCols];
-#pragma unroll
-      for (int jd = 0; jd < kDCols; ++jd) vv[jd] = vs[c * D + tx + 16 * jd];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = ps[(ty * 8 + i) * kP + c];
-#pragma unroll
-        for (int jd = 0; jd < kDCols; ++jd)
-          acc[i][jd] = fmaf(p, vv[jd], acc[i][jd]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = t.q0 + ty * 8 + i;
-    if (row >= g.seq) continue;
-    const float l = fmaxf(l_r[i], 1e-30f);
-    float* op = o + t.b * g.o_b + row * g.o_s + t.h * g.o_h;
-#pragma unroll
-    for (int jd = 0; jd < kDCols; ++jd) op[tx + 16 * jd] = acc[i][jd] / l;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 D = 64, 80, 128: warp-specialised wgmma kernel fed by TMA through an
-// mbarrier ring
+// bf16 D = 16, 32, 64, 80, 128: warp-specialised wgmma kernel fed by TMA
+// through an mbarrier ring
 // ---------------------------------------------------------------------------
 
 constexpr int kHopperBM = 128;        // q rows per block: 2 consumers x 64
@@ -471,16 +160,20 @@ constexpr int kHopperThreads = 384;   // producer + 2 consumer warpgroups
 constexpr int kBoxCols = 64;          // 128 bytes of bf16: one swizzle row
 constexpr int kBoxBytes = 128 * kBoxCols * 2;     // 128 rows x 64 columns
 
-// K/V ring depth: 32 KB tiles (D 80, 128) fill a block's shared memory at 3
-// stages. 16 KB tiles (D 64) would leave room for 5 or 6, but those ran no
-// faster than 3 (scripts/flash_ab.py), so every D has 3
-constexpr int kStages = 3;
-
 // shared-memory layout of flash_wgmma_kernel<D>: the Q tile at 0, then
 // stage s's K tile at kKOff + 2 s kTileBytes and its V tile after it, then
 // the mbarriers
 template <int D>
 struct HopperLayout {
+  // K/V ring depth: 32 KB tiles (D 80, 128) fill a block's shared memory at
+  // 3 stages. 16 KB tiles (D 16 to 64) would leave room for 5 or 6, but
+  // those ran no faster than 3 (scripts/flash_ab.py), so every D has 3
+  static constexpr int kStages = 3;
+  // The consumers take turns to issue their products (ping-pong), so one's
+  // softmax runs under the other's wgmmas. At D 16 and 32 the products are
+  // too short to cover a softmax, and the turns only delay the issue:
+  // without them D 32 and 16 ran 7% and 10% faster (scripts/flash_ab.py)
+  static constexpr bool kPingPong = D > 32;
   static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;  // per row
   static constexpr int kTileBytes = kBoxes * kBoxBytes;
   static constexpr int kKOff = kTileBytes;
@@ -603,22 +296,30 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[kHopperBN / 16][4]) {
 }
 
 // the accumulator operands of a wgmma: registers %0 .. %(n - 1), in
-// pieces of 32, 8 and 24 for n = 32 (N 64), 40 (N 80) and 64 (N 128)
+// pieces of 8, 8, 16, 8 and 24 for n = 8 (N 16), 16 (N 32), 32 (N 64), 40
+// (N 80) and 64 (N 128)
+#define WG_R0_7 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_R0_15 WG_R0_7 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define WG_R0_31                                                            \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31"
+  WG_R0_15 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31"
 #define WG_R32_39 ", %32, %33, %34, %35, %36, %37, %38, %39"
 #define WG_R40_63                                                           \
   ", %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
   "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_D8 "{" WG_R0_7 "}"
+#define WG_D16 "{" WG_R0_15 "}"
 #define WG_D32 "{" WG_R0_31 "}"
 #define WG_D40 "{" WG_R0_31 WG_R32_39 "}"
 #define WG_D64 "{" WG_R0_31 WG_R32_39 WG_R40_63 "}"
-#define WG_OUT0_31(d)                                                       \
+#define WG_OUT0_7(d)                                                        \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
-  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+  "+f"(d[6]), "+f"(d[7])
+#define WG_OUT0_15(d)                                                       \
+  WG_OUT0_7(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define WG_OUT0_31(d)                                                       \
+  WG_OUT0_15(d),                                                            \
   "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
   "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
   "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
@@ -649,13 +350,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
 }
 
 // d (64 x N, f32) += A B: A (64 x 16) bf16 fragments in registers, B
-// (16 x N) MN-major in shared memory (the transpose bit); N = D
+// (16 x N) MN-major in shared memory (the transpose bit); N = D. At N 16
+// and 32 the product reads the first N columns of a 64-column swizzled box
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  static_assert(N == 64 || N == 80 || N == 128, "wgmma_rs: N 64, 80, 128");
-  if constexpr (N == 64) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 128,
+                "wgmma_rs: N 16, 32, 64, 80, 128");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " WG_D8
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : WG_OUT0_7(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : WG_OUT0_15(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
@@ -685,7 +402,8 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // issue S = Q K^T for one kv tile: D / 16 k-steps of 16 columns, 4 in each
-// 64-column box (5 at D 80: the second box's zero columns are never read);
+// 64-column box (1 and 2 at D 16 and 32, 5 at D 80: the zero columns past
+// D are never read);
 // q_rows / k_tile are the shared addresses of the consumer's 64 Q rows and
 // of the K tile
 template <int D>
@@ -775,6 +493,11 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // bf16(P) as the A fragments of the second product: the accumulator layout
 // of the first is the A layout of the second, k-step kk being columns
 // 16 kk .. 16 kk + 15, i.e. registers 8 kk .. 8 kk + 7
@@ -798,7 +521,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
                    __nv_bfloat16* __restrict__ o, const FlashGeom g) {
   using L = HopperLayout<D>;
-  constexpr int kTileBytes = L::kTileBytes;
+  constexpr int kTileBytes = L::kTileBytes, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled TMA boxes want 1024-byte aligned destinations
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -880,7 +603,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
     // barrier 1 + c is consumer c's turn), so one's softmax runs under the
     // other's wgmmas; consumer 0 goes first
     const int my_turn = 1 + c, next_turn = 2 - c;
-    if (c == 1) bar_arrive(1);
+    if (L::kPingPong && c == 1) bar_arrive(1);
 
     float s[64], acc[D / 2];
 #pragma unroll
@@ -900,10 +623,10 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
       {
         const int st = it % kStages;
         mbar_wait(full_k + 8 * st, (it / kStages) & 1);
-        bar_sync(my_turn);
+        if (L::kPingPong) bar_sync(my_turn);
         issue_scores<D>(s, q_rows, kv_base + st * 2 * kTileBytes);
         wgmma_commit();
-        bar_arrive(next_turn);
+        if (L::kPingPong) bar_arrive(next_turn);
         wgmma_wait<0>();
         fence_regs(s);
         mbar_arrive(empty_k + 8 * st);
@@ -922,12 +645,12 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         const int st = cur % kStages, st1 = nxt % kStages;
         mbar_wait(full_k + 8 * st1, (nxt / kStages) & 1);
         mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
-        bar_sync(my_turn);
+        if (L::kPingPong) bar_sync(my_turn);
         issue_scores<D>(s, q_rows, kv_base + st1 * 2 * kTileBytes);
         wgmma_commit();
         issue_pv<D>(acc, pa, kv_base + st * 2 * kTileBytes + kTileBytes);
         wgmma_commit();
-        bar_arrive(next_turn);
+        if (L::kPingPong) bar_arrive(next_turn);
         wgmma_wait<1>();   // the scores of tile j + 1 are in
         fence_regs(s);
         mbar_arrive(empty_k + 8 * st1);
@@ -952,11 +675,12 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
       {  // the last tile's O += P V
         const int cur = it + t.n_kv - 1, st = cur % kStages;
         mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
-        bar_sync(my_turn);
+        if (L::kPingPong) bar_sync(my_turn);
         issue_pv<D>(acc, pa, kv_base + st * 2 * kTileBytes + kTileBytes);
         wgmma_commit();
         // consumer 1's very last turn has no successor
-        if (c == 0 || item_of(k + 1) < n_items) bar_arrive(next_turn);
+        if (L::kPingPong && (c == 0 || item_of(k + 1) < n_items))
+          bar_arrive(next_turn);
         wgmma_wait<0>();
         fence_regs(acc);
         fence_frags(pa);
@@ -982,38 +706,288 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
 }
 
 // ---------------------------------------------------------------------------
+// float32 D = 16, 32, 64, 80, 128: IEEE FFMA on warp-owned rows, K and V by
+// cp.async under the other product
+// ---------------------------------------------------------------------------
+
+constexpr int kFfmaBM = 128;          // q rows per block: 16 per warp
+constexpr int kFfmaThreads = 256;     // 8 warps
+
+// shared-memory layout of flash_ffma_kernel<D>, in floats: the Q tile, one
+// K tile and one V tile, then each warp's P rows and its row factors.
+// Score lanes hold 8 rows x kCols columns: rows score_row(rg, i) of the
+// warp's 16 (rg = lane / 16), columns cg + 16 c (cg = lane % 16). Output
+// lanes hold kORows rows x kChunks float4 chunks of D: rows og + kRG i (og
+// = lane / kDG), chunks dg + kDG c (dg = lane % kDG), so that every
+// operand comes in 16-byte loads, 5 (P V at D 16) to 16 FFMA a load, and
+// no shared load or store of P meets a bank conflict.
+template <int D>
+struct FfmaLayout {
+  static constexpr int kBN = 64;                   // kv rows per tile
+  static constexpr int kBlocksPerSM = D <= 32 ? 2 : 1;
+  static constexpr int kCols = kBN / 16;
+  // Q and K rows padded by one float4: the 8 lanes of a 16-byte load phase
+  // read 8 consecutive rows on 8 distinct bank quads
+  static constexpr int kQK = D + 4;
+  static constexpr int kP = kBN + 4;
+  static constexpr int kRG = (D == 16 || D == 80) ? 8 : D == 32 ? 4 : 2;
+  static constexpr int kDG = 32 / kRG;
+  static constexpr int kORows = 16 / kRG;
+  static constexpr int kChunks = D / 4 / kDG;
+  static constexpr int kKOff = kFfmaBM * kQK;
+  static constexpr int kVOff = kKOff + kBN * kQK;
+  static constexpr int kPOff = kVOff + kBN * D;
+  static constexpr int kROff = kPOff + 8 * 16 * kP;
+  static constexpr int kSmem = (kROff + 8 * 16) * 4;
+  static_assert(kChunks * kDG * 4 == D && kSmem <= 232448, "FFMA layout");
+};
+
+// the warp-local row of score lane half rg's i-th row: the two halves'
+// rows lie 4 apart, so their scalar P stores (rows kP = 4 mod 32 floats
+// apart) fall on disjoint banks
+__device__ __forceinline__ int score_row(int rg, int i) {
+  return (i & 3) + 4 * rg + 8 * (i >> 2);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool valid) {
+  // src-size 0: the 16 bytes are zero-filled, nothing is read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// returns once at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// every thread's share of rows [row0, row0 + rows) of a (seq, D) float32
+// slice into shared rows `stride` floats apart; rows past seq are zeros
+template <int D>
+__device__ __forceinline__ void load_rows_f32(uint32_t dst, int stride,
+                                              const float* src,
+                                              int64_t row_stride, int row0,
+                                              int rows, int seq) {
+  constexpr int kChunks = D / 4;   // 16-byte chunks a row
+  for (int i = threadIdx.x; i < rows * kChunks; i += kFfmaThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = row0 + r < seq;
+    cp_async16(dst + (r * stride + c) * 4,
+               src + (ok ? row0 + r : 0) * row_stride + c, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFfmaThreads, FfmaLayout<D>::kBlocksPerSM)
+flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  const FlashGeom g) {
+  using L = FfmaLayout<D>;
+  constexpr int BN = L::kBN, kCols = L::kCols, kORows = L::kORows;
+  constexpr int kChunks = L::kChunks, kDG = L::kDG;
+  extern __shared__ __align__(16) float smem_f[];
+  const float* qs = smem_f;
+  const float* ks = smem_f + L::kKOff;
+  const float* vs = smem_f + L::kVOff;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* ps = smem_f + L::kPOff + warp * 16 * L::kP;   // the warp's P rows
+  float* rs_f = smem_f + L::kROff + warp * 16;         // its row factors
+
+  const Tile t = tile_of<kFfmaBM, BN>(g, blockIdx.x, blockIdx.y);
+  const float* qp = q + t.b * g.q_b + t.h * g.q_h;
+  const float* kp = k + t.b * g.k_b + t.hk * g.k_h;
+  const float* vp = v + t.b * g.v_b + t.hk * g.v_h;
+  const uint32_t k_sh = smem_u32(ks), v_sh = smem_u32(vs);
+  // group 0: Q and K_0; group 1: V_0. Then per kv tile j one group for
+  // K_{j+1} (issued once every warp's S_j is in) and one for V_{j+1}
+  // (issued once every warp's P_j V_j is in): each load runs under the
+  // other product
+  load_rows_f32<D>(smem_u32(qs), L::kQK, qp, g.q_s, t.q0, kFfmaBM, g.seq);
+  load_rows_f32<D>(k_sh, L::kQK, kp, g.k_s, 0, BN, g.seq);
+  cp_async_commit();
+  load_rows_f32<D>(v_sh, D, vp, g.v_s, 0, BN, g.seq);
+  cp_async_commit();
+
+  const int rg = lane / 16, cg = lane % 16;      // score lanes
+  const int og = lane / kDG, dg = lane % kDG;    // output lanes
+  const int w0 = warp * 16;                      // the warp's rows in the tile
+  const int first_row = t.q0 + w0, last_row = first_row + 15;
+  const float c = g.scale * kLog2e;
+  float m_r[8], l_r[8];     // l_r: this lane's columns only, summed at the end
+  float acc[kORows][4 * kChunks];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m_r[i] = kNegInf;
+    l_r[i] = 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < kORows; ++r)
+#pragma unroll
+    for (int e = 0; e < 4 * kChunks; ++e) acc[r][e] = 0.f;
+
+  for (int j = 0; j < t.n_kv; ++j) {
+    const int k0 = j * BN;
+    const bool more = j + 1 < t.n_kv;
+    cp_async_wait<1>();   // Q and K_j are in (V_j may not be)
+    __syncthreads();
+    // causal: a kv tile wholly in the future of the warp's 16 rows leaves
+    // them as they are; the warp only keeps to the block's barriers
+    const bool active = !g.causal || k0 <= last_row;
+    float s[8][kCols];
+    if (active) {
+      // S = Q K^T: each 16-byte Q load feeds 4 kCols FFMA, each K load 32
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc) s[i][cc] = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; d += 4) {
+        float4 kv[kCols];
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc)
+          kv[cc] = *reinterpret_cast<const float4*>(
+              ks + (cg + 16 * cc) * L::kQK + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              qs + (w0 + score_row(rg, i)) * L::kQK + d);
+#pragma unroll
+          for (int cc = 0; cc < kCols; ++cc) {
+            s[i][cc] = fmaf(qv.x, kv[cc].x, s[i][cc]);
+            s[i][cc] = fmaf(qv.y, kv[cc].y, s[i][cc]);
+            s[i][cc] = fmaf(qv.z, kv[cc].z, s[i][cc]);
+            s[i][cc] = fmaf(qv.w, kv[cc].w, s[i][cc]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();   // V_j is in
+    __syncthreads();      // and every warp is done with K_j
+    if (more) load_rows_f32<D>(k_sh, L::kQK, kp, g.k_s, k0 + BN, BN, g.seq);
+    cp_async_commit();
+
+    if (active) {
+      // online softmax on the raw scores (the scale is positive, so it
+      // commutes with the max), e^(scale (s - m)) as exp_diff; the mask
+      // only where the tile reaches past the warp's first row or past S
+      const bool edge = (g.causal && k0 + BN - 1 > first_row) ||
+                        k0 + BN > g.seq;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = first_row + score_row(rg, i);
+        float mx = kNegInf;
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc) {
+          if (edge && !visible(g, row, k0 + cg + 16 * cc)) s[i][cc] = kNegInf;
+          mx = fmaxf(mx, s[i][cc]);
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m_r[i], mx);
+        const float mc = (m_new <= kNegInf / 2 ? 0.f : m_new) * c;
+        const float alpha =
+            m_r[i] <= kNegInf / 2 ? 0.f : exp_diff(m_r[i], c, mc);
+        m_r[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc) {
+          float p = exp_diff(s[i][cc], c, mc);
+          if (edge && !visible(g, row, k0 + cg + 16 * cc)) p = 0.f;
+          ps[score_row(rg, i) * L::kP + cg + 16 * cc] = p;
+          sum += p;
+        }
+        l_r[i] = l_r[i] * alpha + sum;
+        if (cg == 0) rs_f[score_row(rg, i)] = alpha;
+      }
+      __syncwarp();
+
+      // O = alpha O + P V_j: each 16-byte P load feeds 16 kChunks FFMA,
+      // each V load 4 kORows
+#pragma unroll
+      for (int r = 0; r < kORows; ++r) {
+        const float a = rs_f[og + L::kRG * r];
+#pragma unroll
+        for (int e = 0; e < 4 * kChunks; ++e) acc[r][e] *= a;
+      }
+#pragma unroll 2
+      for (int j4 = 0; j4 < BN; j4 += 4) {
+        float4 pv[kORows];
+#pragma unroll
+        for (int r = 0; r < kORows; ++r)
+          pv[r] = *reinterpret_cast<const float4*>(
+              ps + (og + L::kRG * r) * L::kP + j4);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float* vrow = vs + (j4 + jj) * D;
+#pragma unroll
+          for (int ch = 0; ch < kChunks; ++ch) {
+            const float4 vv = *reinterpret_cast<const float4*>(
+                vrow + 4 * (dg + kDG * ch));
+#pragma unroll
+            for (int r = 0; r < kORows; ++r) {
+              const float p = jj == 0 ? pv[r].x : jj == 1 ? pv[r].y
+                            : jj == 2 ? pv[r].z : pv[r].w;
+              acc[r][4 * ch + 0] = fmaf(p, vv.x, acc[r][4 * ch + 0]);
+              acc[r][4 * ch + 1] = fmaf(p, vv.y, acc[r][4 * ch + 1]);
+              acc[r][4 * ch + 2] = fmaf(p, vv.z, acc[r][4 * ch + 2]);
+              acc[r][4 * ch + 3] = fmaf(p, vv.w, acc[r][4 * ch + 3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();      // every warp is done with V_j and its P
+    if (more) load_rows_f32<D>(v_sh, D, vp, g.v_s, k0 + BN, BN, g.seq);
+    cp_async_commit();
+  }
+
+  // each row's l: the sum over its 16 score lanes, handed to its output
+  // lanes through the row factors
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float l = l_r[i];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (cg == 0) rs_f[score_row(rg, i)] = fmaxf(l, 1e-30f);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kORows; ++r) {
+    const int row = first_row + og + L::kRG * r;
+    if (row >= g.seq) continue;
+    const float l = rs_f[og + L::kRG * r];
+    float* op = o + t.b * g.o_b + row * g.o_s + t.h * g.o_h;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch)
+      *reinterpret_cast<float4*>(op + 4 * (dg + kDG * ch)) =
+          make_float4(acc[r][4 * ch] / l, acc[r][4 * ch + 1] / l,
+                      acc[r][4 * ch + 2] / l, acc[r][4 * ch + 3] / l);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename Kernel, typename T>
-int launch(Kernel kernel, size_t smem, const void* q, const void* k,
-           const void* v, void* o, const FlashGeom& g, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((g.seq + kBlockM - 1) / kBlockM, g.batch * g.heads);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), g);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o,
+int launch_ffma(const void* q, const void* k, const void* v, void* o,
                 const FlashGeom& g, void* stream) {
-  const size_t smem = (kBlockM + 2 * kBlockN) * (D + 8) * sizeof(__nv_bfloat16);
-  return launch<decltype(&flash_bf16_kernel<D>), __nv_bfloat16>(
-      flash_bf16_kernel<D>, smem, q, k, v, o, g, stream);
-}
-
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const FlashGeom& g, void* stream) {
-  const size_t smem = ((kBlockM + kBlockN) * (D + 1) + kBlockN * D +
-                       kBlockM * (kBlockN + 1)) * sizeof(float);
-  return launch<decltype(&flash_f32_kernel<D>), float>(
-      flash_f32_kernel<D>, smem, q, k, v, o, g, stream);
+  constexpr int kSmem = FfmaLayout<D>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_ffma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((g.seq + kFfmaBM - 1) / kFfmaBM, g.batch * g.heads);
+  flash_ffma_kernel<D><<<grid, kFfmaThreads, kSmem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // cuTensorMapEncodeTiled is a driver entry point: it is looked up through
@@ -1047,7 +1021,8 @@ EncodeTiled tensor_map_encoder() {
 
 // a rank-4 (D, S, heads, B) bf16 map read in (64 columns, 128 rows) boxes;
 // strides in elements. The map ends at column D, so a box reaching past it
-// (D 80's second) reads zeros there, never the next head's columns
+// (D 80's second, the only one of D 16 and 32) reads zeros there, never the
+// next head's columns
 template <int D>
 int encode_map(CUtensorMap* map, const void* ptr, const FlashGeom& g,
                int heads, int64_t s_stride, int64_t h_stride,
@@ -1103,14 +1078,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 }
 
 // the one kernel of each (dtype, D)
-enum Route { kNoKernel, kWgmma, kMmaSync, kFfma };
+enum Route { kNoKernel, kWgmma, kFfma };
 
 Route route_of(int dtype, int head_dim) {
-  const bool narrow = head_dim == 16 || head_dim == 32;
-  const bool wide = head_dim == 64 || head_dim == 80 || head_dim == 128;
-  if (dtype == 1) return wide ? kWgmma : narrow ? kMmaSync : kNoKernel;
-  if (dtype == 0) return narrow || wide ? kFfma : kNoKernel;
-  return kNoKernel;
+  const bool built = head_dim == 16 || head_dim == 32 || head_dim == 64 ||
+                     head_dim == 80 || head_dim == 128;
+  if (!built) return kNoKernel;
+  return dtype == 1 ? kWgmma : dtype == 0 ? kFfma : kNoKernel;
 }
 
 }  // namespace
@@ -1128,24 +1102,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   switch (route_of(dtype, head_dim)) {
     case kWgmma:
       switch (head_dim) {
+        case 16: return launch_wgmma<16>(q, k, v, o, *g, stream);
+        case 32: return launch_wgmma<32>(q, k, v, o, *g, stream);
         case 64: return launch_wgmma<64>(q, k, v, o, *g, stream);
         case 80: return launch_wgmma<80>(q, k, v, o, *g, stream);
         case 128: return launch_wgmma<128>(q, k, v, o, *g, stream);
       }
       break;
-    case kMmaSync:
-      switch (head_dim) {
-        case 16: return launch_bf16<16>(q, k, v, o, *g, stream);
-        case 32: return launch_bf16<32>(q, k, v, o, *g, stream);
-      }
-      break;
     case kFfma:
       switch (head_dim) {
-        case 16: return launch_f32<16>(q, k, v, o, *g, stream);
-        case 32: return launch_f32<32>(q, k, v, o, *g, stream);
-        case 64: return launch_f32<64>(q, k, v, o, *g, stream);
-        case 80: return launch_f32<80>(q, k, v, o, *g, stream);
-        case 128: return launch_f32<128>(q, k, v, o, *g, stream);
+        case 16: return launch_ffma<16>(q, k, v, o, *g, stream);
+        case 32: return launch_ffma<32>(q, k, v, o, *g, stream);
+        case 64: return launch_ffma<64>(q, k, v, o, *g, stream);
+        case 80: return launch_ffma<80>(q, k, v, o, *g, stream);
+        case 128: return launch_ffma<128>(q, k, v, o, *g, stream);
       }
       break;
     case kNoKernel: break;
@@ -1158,8 +1128,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 const char* flash_attention_kernel(int dtype, int head_dim) {
   switch (route_of(dtype, head_dim)) {
     case kWgmma: return "flash_wgmma_kernel";
-    case kMmaSync: return "flash_bf16_kernel";
-    case kFfma: return "flash_f32_kernel";
+    case kFfma: return "flash_ffma_kernel";
     case kNoKernel: break;
   }
   return nullptr;

@@ -116,16 +116,19 @@ def build(lib: Library = P2M) -> Path:
     return out
 
 
-def tensor_core_census(path: Path) -> Dict[str, Tuple[int, int]]:
-    """``{mangled kernel name: (IMMA count, HMMA count)}`` of a built
-    library, from ``cuobjdump -sass``: which kernels run integer and which
-    floating-point tensor-core instructions (mma.sync and wgmma alike)."""
+def tensor_core_census(path: Path, opcodes: Tuple[str, ...] = ("IMMA",
+                                                               "HMMA"),
+                       ) -> Dict[str, Tuple[int, ...]]:
+    """``{mangled kernel name: (count of each opcode)}`` of a built library,
+    from ``cuobjdump -sass``: by default (IMMA, HMMA), which kernels run
+    integer and which floating-point ``mma.sync`` tensor-core instructions;
+    a ``wgmma`` shows as HGMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
     census = {}
     for block in sass.split("Function : ")[1:]:
-        census[block.split()[0]] = (block.count("IMMA"), block.count("HMMA"))
+        census[block.split()[0]] = tuple(block.count(op) for op in opcodes)
     return census
 
 

@@ -14,15 +14,16 @@ heads and pads D to 128 lanes: both are TPU layout choices. Here the kernel
 reads q (B, S, H, D) and k, v (B, S, Hkv, D) in place through their strides
 and indexes kv head ``h // (H / Hkv)`` itself; any S works (a ragged tail is
 masked). One kernel serves each (dtype, D), with no switch:
-- bfloat16, D 64, 80, 128: ``flash_wgmma_kernel<D>`` (TMA, an mbarrier
-  ring, wgmma; 128-row q and kv tiles; D 80 is 5 k-steps of the first
-  product and an N 80 second product over a 64 + 16 column tile whose
-  tensor map ends at column 80). A tensor map the driver refuses raises
+- bfloat16, D 16, 32, 64, 80, 128: ``flash_wgmma_kernel<D>`` (TMA, an
+  mbarrier ring, wgmma; 128-row q and kv tiles; a tile row is ceil(D / 64)
+  boxes of 64 columns whose tensor map ends at column D, so D 80's second
+  box and D 16's and 32's only one read zeros past the head, never the
+  next head of a packed projection; D / 16 k-steps of the first product,
+  an N = D second product). A tensor map the CUDA driver refuses raises
   through ``check_launch``: there is no fallback to another kernel;
-- bfloat16, D 16, 32: ``flash_bf16_kernel`` (mma.sync fragments, 64-row
-  tiles; only the reduced test configs have such narrow heads);
-- float32, D 16, 32, 64, 80, 128: ``flash_f32_kernel`` (IEEE FFMA, never
-  TF32, 64-row tiles).
+- float32, D 16, 32, 64, 80, 128: ``flash_ffma_kernel<D>`` (IEEE FFMA,
+  never TF32; 8 warps each own 16 of a block's 128 q rows, K and V come
+  by cp.async under the other product in tiles of 64 kv rows).
 ``kernel_symbol`` asks the library which one a call launches.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
@@ -48,7 +49,7 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import check_launch, on_cpu, stream_of
 
 NEG_INF = -1e30
-BLOCK_KV = 64                     # the mma.sync and FFMA kernels' kv tile
+BLOCK_KV = 64                     # the plain version's kv chunk
 HEAD_DIMS = (16, 32, 64, 80, 128)  # the head dims the kernels are built for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -503,7 +503,8 @@ def test_int8_engine_launches_the_int8_kernels(cuda_device, monkeypatch,
 # (granite-8b), 7:1 (yi-34b) and 16:1 (glm4-9b); then D 80 (stablelm-3b);
 # then the wgmma kernel at D 64 and 80 over S 1, 77, 128, 129 (one row
 # past a tile), 1000 (a ragged tail) and 2048, causal and not, MHA and GQA
-# 4:1
+# 4:1; then the wgmma kernel at D 16 and 32 and the FFMA kernel at every
+# head dim over the same lengths, causal and not, MHA, GQA 4:1 and 7:1
 FLASH_GEOMETRIES = [(4, 2048, 32, 8, 128, torch.bfloat16, True),
                     (2, 77, 4, 4, 64, torch.bfloat16, True),
                     (2, 256, 8, 2, 128, torch.float32, False),
@@ -528,7 +529,13 @@ FLASH_GEOMETRIES = [(4, 2048, 32, 8, 128, torch.bfloat16, True),
                     (1, 77, 8, 8, 80, torch.float32, False)] + [
     (1 if s >= 1000 else 2, s, 8, hkv, d, torch.bfloat16, causal)
     for d, s, causal, hkv in itertools.product(
-        (64, 80), (1, 77, 128, 129, 1000, 2048), (True, False), (8, 2))]
+        (64, 80), (1, 77, 128, 129, 1000, 2048), (True, False), (8, 2))] + [
+    (1 if s >= 1000 else 2, s, h, hkv, d, dtype, causal)
+    for (dtype, d), s, causal, (h, hkv) in itertools.product(
+        [(torch.bfloat16, 16), (torch.bfloat16, 32)]
+        + [(torch.float32, d) for d in (16, 32, 64, 80, 128)],
+        (1, 77, 128, 129, 1000, 2048), (True, False),
+        ((8, 8), (8, 2), (14, 2)))]
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # the largest error of an output row over that row's RMS, so that a fault in
 # the small late causal rows cannot hide under the absolute limit
@@ -555,16 +562,20 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, hkv, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80, 128])
-def test_flash_kernel_reads_strided_operands(cuda_device, d):
+@pytest.mark.parametrize("d,dtype", [
+    *((d, torch.bfloat16) for d in (16, 32, 64, 80, 128)),
+    *((d, torch.float32) for d in (16, 80, 128))])
+def test_flash_kernel_reads_strided_operands(cuda_device, d, dtype):
     """q, k, v sliced out of one packed projection (no copies) give the
     same result as contiguous copies, bit for bit, through the wgmma
-    kernel's tensor maps. At D 80 a tile row's second 64-column box reaches
-    48 columns past the head, into the next head of the projection: the map
-    ends at column 80, so those columns arrive as zeros."""
+    kernel's tensor maps and the FFMA kernel's row loads. At D 80 a tile
+    row's second 64-column box reaches 48 columns past the head, and at D
+    16 and 32 the one box 48 and 32, into the next heads of the
+    projection: the map ends at column D, so those columns arrive as
+    zeros."""
     gen = torch.Generator().manual_seed(3)
     qkv = torch.randn((2, 96, 4 + 2 * 2, d), generator=gen).to(
-        cuda_device, torch.bfloat16)
+        cuda_device, dtype)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
     assert not q.is_contiguous()
     out = fa.flash_attention(q, k, v, causal=True)
@@ -575,27 +586,39 @@ def test_flash_kernel_reads_strided_operands(cuda_device, d):
 
 @pytest.mark.cuda
 def test_flash_dispatch_has_one_kernel_per_dtype_and_head_dim(cuda_device):
-    """bf16 D 64, 80 and 128 go to the wgmma kernel, D 16 and 32 to the
-    mma.sync kernel; a profiled call at D 80 and at D 128 shows the wgmma
-    kernel ran (and no other flash kernel)."""
+    """bf16 goes to the wgmma kernel at every head dim, float32 to the FFMA
+    kernel; a profiled call at each (dtype, D) shows that kernel ran (and no
+    other flash kernel)."""
     from torch.profiler import ProfilerActivity, profile
     bf16, f32 = torch.bfloat16, torch.float32
-    for d in (64, 80, 128):
-        assert fa.kernel_symbol(bf16, d) == "flash_wgmma_kernel"
-    for d in (16, 32):
-        assert fa.kernel_symbol(bf16, d) == "flash_bf16_kernel"
-    for d in fa.HEAD_DIMS:
-        assert fa.kernel_symbol(f32, d) == "flash_f32_kernel"
+    want = {bf16: "flash_wgmma_kernel", f32: "flash_ffma_kernel"}
+    for dtype, symbol in want.items():
+        for d in fa.HEAD_DIMS:
+            assert fa.kernel_symbol(dtype, d) == symbol
     with pytest.raises(ValueError, match="no flash kernel"):
         fa.kernel_symbol(bf16, 48)
-    for d in (80, 128):
-        q = torch.randn((1, 256, 8, d), device=cuda_device, dtype=bf16)
-        k = torch.randn((1, 256, 2, d), device=cuda_device, dtype=bf16)
+    for dtype, d in itertools.product(want, fa.HEAD_DIMS):
+        q = torch.randn((1, 256, 8, d), device=cuda_device, dtype=dtype)
+        k = torch.randn((1, 256, 2, d), device=cuda_device, dtype=dtype)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fa.flash_attention(q, k, k, causal=True)
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages() if "flash" in e.key]
-        assert len(names) == 1 and "flash_wgmma_kernel" in names[0]
+        assert len(names) == 1 and want[dtype] in names[0], (dtype, d, names)
+
+
+@pytest.mark.cuda
+def test_flash_library_tensor_cores(cuda_device):
+    """Every flash_wgmma_kernel instance runs wgmma (HGMMA) and no
+    mma.sync (HMMA); the float32 kernel runs neither (IEEE FFMA, no
+    TF32)."""
+    census = cuda_lib.tensor_core_census(cuda_lib.build(cuda_lib.FLASH),
+                                         ("HMMA", "HGMMA"))
+    wgmma = {k: v for k, v in census.items() if "flash_wgmma_kernel" in k}
+    ffma = {k: v for k, v in census.items() if "flash_ffma_kernel" in k}
+    assert len(wgmma) == len(ffma) == len(fa.HEAD_DIMS) == len(census) // 2
+    assert all(hmma == 0 and hgmma >= 1 for hmma, hgmma in wgmma.values())
+    assert all(v == (0, 0) for v in ffma.values())
 
 
 @pytest.mark.cuda

@@ -39,7 +39,8 @@ def scripts(monkeypatch):
         "q8_no_curve", "f32_no_reductions", "f32_const_gather",
         "f32_no_curve", "f32_no_store", "f32_short_mac")),
     *(("flash_ab", "flash_attention.cu", n) for n in (
-        "no_exp", "no_softmax", "no_pv"))])
+        "no_exp", "no_softmax", "no_pv", "f32_no_exp", "f32_no_pv",
+        "f32_no_loads", "f32_no_scores"))])
 def test_each_diagnostic_changes_the_current_source(tmp_path, scripts,
                                                     script, source, name):
     ab = scripts(script)
@@ -84,6 +85,39 @@ def test_geometries_are_chip_smokes(scripts):
     assert len(geoms) == 5
     assert scripts("flash_ab").geometries()["granite_d128_b4"]["head_dim"] \
         == 128
+
+
+@pytest.mark.parametrize("name", [
+    "granite_d128_b4", "stablelm_d80_b4", "stablelm_d80_b1", "mha_d64_b4",
+    "mha_d128_b4", "narrow_d32_toy", "f32_d128_toy", "narrow_d32_b4",
+    "narrow_d16_b4", "f32_d128_b4", "f32_d16_b4"])
+def test_flash_geometries_name_their_dtype(scripts, name):
+    """Each flash_ab.py geometry names its dtype and mode, is checked
+    against chip_smoke.py's limit for that dtype, and the toy and _b4 ones
+    are chip_smoke.py's own flash lines."""
+    ab = scripts("flash_ab")
+    geoms = ab.geometries()          # puts the checkout's root on the path
+    import chip_smoke as cs
+    assert len(geoms) == 11
+    geom = geoms[name]
+    assert geom["dtype"] in ("bfloat16", "float32")
+    assert isinstance(geom["causal"], bool)
+    assert ab.checked_tolerance(geom) == cs.FLASH_TOL[geom["dtype"]] == {
+        "bfloat16": 2e-2, "float32": 2e-5}[geom["dtype"]]
+    toys = {"narrow_d32_toy": dict(batch=2, seq=130, heads=4, kv_heads=1,
+                                   head_dim=32, dtype="bfloat16",
+                                   causal=False),
+            "f32_d128_toy": dict(batch=2, seq=256, heads=8, kv_heads=2,
+                                 head_dim=128, dtype="float32",
+                                 causal=False)}
+    if name in toys:
+        assert geom == toys[name] and geom in cs.FLASH_ODD
+    if name.endswith("_b4") and name[:-3].split("_")[0] in ("narrow", "f32"):
+        assert geom == cs.FLASH_B4[name] and geom in cs.FLASH_ODD
+        assert (geom["batch"], geom["seq"], geom["heads"], geom["kv_heads"],
+                geom["causal"]) == (4, 2048, 32, 8, True)
+        assert geom["dtype"] == ("float32" if name.startswith("f32")
+                                 else "bfloat16")
 
 
 @pytest.mark.parametrize("script", ["p2m_ab", "flash_ab"])
