@@ -12,10 +12,10 @@ line:
 2. ``build``: seconds for each library's nvcc build and the compiler's
    register report (a wgmma serialization warning fails the run);
    ``tensor_cores``: the tensor-core instructions of each kernel, from
-   the libraries' machine code (the two int8 P2M kernels, A and fused, must
-   run s8 IMMA, no other P2M kernel IMMA, and none HMMA: the float32 MACs
-   use no TF32; every ``flash_wgmma_kernel`` instance runs HGMMA and no
-   HMMA, the float32 flash kernel neither);
+   the libraries' machine code (the three int8 P2M kernels, A's two and
+   fused, must run s8 IMMA, no other P2M kernel IMMA, and none HMMA: the
+   float32 MACs use no TF32; every ``flash_wgmma_kernel`` instance runs
+   HGMMA and no HMMA, the float32 flash kernel neither);
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32), three odd geometries (one at C 48) and
    the paper's ImageNet frame size (16, 224, 224, 3) -> (200704, 32). Each
@@ -30,20 +30,22 @@ line:
    beside its plain version (median of 30, of 5 at the ImageNet size), its
    bound (the statistics counted as the one set the function returns, not
    the kernel's partial rows) and, where one PyTorch call computes the same
-   function, that call. The three kernel A lines name the path that ran
-   (``tile_path``: ``warp-owned`` tiles or ``block-shared`` ones, as the
-   library's ``p2m_phase_a_warp_tiles`` chooses at that N);
+   function, that call. The three kernel A lines and the legacy line name
+   the path that ran (``tile_path``: ``warp-owned`` tiles or
+   ``block-shared`` ones, as the library's ``p2m_phase_a_warp_tiles`` and
+   ``p2m_conv_warp_tiles`` choose at that N);
 4. ``engine``: full-width vgg16 at CIFAR-10 geometry, seeded random weights:
    ``classify`` on 16 frames and ``stream`` of 4 batches of 16 on the f32
    path, with every kernel's launch count read from that run alone; the
    classify result is held against the same engine on the CPU;
 5. ``profile``: device time of a classify step by kernel family, and of
-   each frontend kernel in it;
+   each frontend kernel in it (kernel A and B per launch inside the step);
 6. ``baseline``: the double-conv baseline at the serving shape (explicit
    kernel A over an im2col matrix for theta, then ``ops.p2m_conv``), held
    against the exact f32 path bit for bit, with its own launch counts;
 7. ``engine_int8``: the same vgg16 engine with a port tile table that picks
-   int8 at (4096, 27, 32), with its own launch counts and CPU comparison;
+   int8 at (4096, 27, 32), with its own launch counts and CPU comparison,
+   and its ``profile`` line (int8 kernel A's device ms inside the step);
 8. ``autotune``: the port's search at the serving shape (data, no check);
 9. ``flash`` lines: the flash-attention kernels at granite-8b's prefill
    (B 4, S 2048, H 32, Hkv 8, D 128, bf16, causal), at stablelm-3b's (B 4
@@ -150,12 +152,15 @@ KERNEL_SYMBOLS = {
     "p2m_phase_a": "phase_a_kernel<(anonymous namespace)::ExplicitRows",
     "p2m_conv": "legacy_conv_kernel",
 }
-# f32 kernel A on warp-owned tiles launches a kernel of its own
+# kernel A (f32 and int8) and the legacy kernel on warp-owned tiles launch
+# kernels of their own
 WARP_TILE_SYMBOLS = {
     "p2m_phase_a_implicit": "phase_a_warp_kernel<(anonymous namespace)::"
                             "ImplicitRows>",
     "p2m_phase_a": "phase_a_warp_kernel<(anonymous namespace)::"
                    "ExplicitRows>",
+    "p2m_phase_a_implicit_q8": "phase_a_q8_warp_kernel",
+    "p2m_conv": "legacy_warp_kernel",
 }
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 # the kernels each main path launches; every other wrapper must launch 0
@@ -311,6 +316,12 @@ def profile_session(run, cuda: bool = True, cpu: bool = True,
     return prof, out
 
 
+def event_us(evt) -> float:
+    """A profiler event's own device time in us."""
+    us = getattr(evt, "self_device_time_total", None)
+    return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
+
+
 def profiled_ms(fn, symbol: str, n: int = 20):
     """The kernel's own device duration per launch, from torch.profiler:
     ``fn()`` n times; every device event must be a kernel whose name holds
@@ -327,10 +338,7 @@ def profiled_ms(fn, symbol: str, n: int = 20):
         if evt.device_type != DeviceType.CUDA or is_marker(evt):
             continue
         check(symbol in evt.key, f"{evt.key[:80]} ran beside {symbol}")
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        total += us
+        total += event_us(evt)
         count += evt.count
     return total / 1e3 / count if count else None
 
@@ -657,12 +665,17 @@ def kernel_phase(geom: dict, device, plain_reps: int = REPS):
         # the yardstick for explicit A: the patch matmul alone, TF32 off
         torch.matmul(patches, wm)
 
-    # the path each kernel A takes at this N, as the library chooses it
-    warp_tiles = cuda_lib.load().p2m_phase_a_warp_tiles
-    tile_paths = {name: "warp-owned" if warp_tiles(n, int8) else "block-shared"
-                  for name, int8 in (("p2m_phase_a_implicit", 0),
-                                     ("p2m_phase_a", 0),
-                                     ("p2m_phase_a_implicit_q8", 1))}
+    # the path each kernel A and the legacy kernel take at this N, as the
+    # library chooses it
+    p2m_lib = cuda_lib.load()
+    f32_a_warp = p2m_lib.p2m_phase_a_warp_tiles(n, 0)
+    tile_paths = {name: "warp-owned" if warp else "block-shared"
+                  for name, warp in (
+                      ("p2m_phase_a_implicit", f32_a_warp),
+                      ("p2m_phase_a", f32_a_warp),
+                      ("p2m_phase_a_implicit_q8",
+                       p2m_lib.p2m_phase_a_warp_tiles(n, 1)),
+                      ("p2m_conv", p2m_lib.p2m_conv_warp_tiles(n)))}
 
     rows = []
     for name, fn, plain, lib, nbytes, ops_f32, ops_i8 in (
@@ -770,13 +783,11 @@ def compare_with_cpu(cfg, params, frames0, out, device, precision: str):
                 theta_cpu=float(aux_cpu["theta"]))
 
 
-def engine_run(device, path: str, **engine_kw):
-    """Full-width vgg16 through classify and a 4-batch stream, the launch
-    counts read from that run alone; then the CPU comparison and the
-    steady-state walls. Emits one ``path`` line and one ``<path>_steady``
-    line; returns (counts, engine, frames)."""
+def vision_engine(device, **engine_kw):
+    """Full-width vgg16 at CIFAR-10 geometry with seeded random weights,
+    five seeded batches of 16 frames, and an engine over them: returns
+    (cfg, params, frames, engine)."""
     import torch
-    from repro_torch.kernels import cuda_lib
     from repro_torch.models import vision
     from repro_torch.serving import VisionEngine
 
@@ -786,7 +797,19 @@ def engine_run(device, path: str, **engine_kw):
     frames = [torch.rand((16, 32, 32, 3), generator=gen) for _ in range(5)]
     engine = VisionEngine(cfg, params, seed=0, device=device, microbatch=16,
                           **engine_kw)
+    return cfg, params, frames, engine
 
+
+def engine_run(device, path: str, **engine_kw):
+    """Full-width vgg16 through classify and a 4-batch stream, the launch
+    counts read from that run alone; then the CPU comparison and the
+    steady-state walls. Emits one ``path`` line and one ``<path>_steady``
+    line; returns (counts, engine, frames)."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serving import VisionEngine
+
+    cfg, params, frames, engine = vision_engine(device, **engine_kw)
     cuda_lib.reset_launch_counts()
     out = engine.classify(frames[0])
     stream_outs = list(engine.stream(frames[1:]))
@@ -828,7 +851,8 @@ def engine_run(device, path: str, **engine_kw):
 
 def engine_int8_phase(device):
     """The int8 serving path: a port tile table written with int8 at the
-    serving key, loaded by ``VisionEngine(tile_table=...)``."""
+    serving key, loaded by ``VisionEngine(tile_table=...)``; then its
+    ``profile`` line."""
     from repro_torch.kernels import autotune
     table = os.path.join(ROOT, "build", "repro_torch", "smoke_tiles_int8.json")
     os.makedirs(os.path.dirname(table), exist_ok=True)
@@ -837,9 +861,11 @@ def engine_int8_phase(device):
                                                    precision="int8"))
     autotune.save_table(table)
     autotune.clear()
-    counts, _, _ = engine_run(device, "engine_int8", tile_table=table)
+    counts, engine, frames = engine_run(device, "engine_int8",
+                                        tile_table=table)
     check(autotune.lookup(*SERVING_KEY).precision == "int8",
           "the int8 table was not in force")
+    profile_phase(engine, frames, device, "int8")
     return counts
 
 
@@ -918,9 +944,7 @@ def device_breakdown(prof, families, n_top: int = 0):
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or is_marker(evt):
             continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
+        us = event_us(evt)
         if not us:
             continue
         key = evt.key.lower()
@@ -936,7 +960,9 @@ def device_breakdown(prof, families, n_top: int = 0):
 VISION_FAMILIES = (("frontend_kernels", ("phase_a_kernel", "phase_b_kernel",
                                          "fused_stream_kernel",
                                          "legacy_conv_kernel",
-                                         "phase_a_warp_kernel")),
+                                         "phase_a_warp_kernel",
+                                         "phase_a_q8_warp_kernel",
+                                         "legacy_warp_kernel")),
                    ("backbone_conv", ("conv", "xmma", "gemm", "implicit",
                                       "cudnn")))
 LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel",
@@ -945,20 +971,47 @@ LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel",
                            "nvjet")))
 
 
-def profile_phase(engine, frames, device):
+# the kernels of a classify step (the exact path) at each precision
+STEP_KERNELS = {"f32": ("p2m_phase_a_implicit", "p2m_phase_b"),
+                "int8": ("p2m_phase_a_implicit_q8", "p2m_phase_b")}
+
+
+def kernel_event_ms(prof, symbol: str):
+    """Device ms per launch of the kernels in a profile whose name holds
+    ``symbol``; None (not measured) where the profile kept none."""
+    from torch.autograd import DeviceType
+    evts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and symbol in e.key]
+    count = sum(e.count for e in evts)
+    return sum(event_us(e) for e in evts) / 1e3 / count if count else None
+
+
+def step_kernel_ms(prof, precision: str) -> dict:
+    """Device ms per launch of each kernel of a ``precision`` classify step
+    in a profile of such steps, where each starts cold between the
+    backbone's kernels (the kernel lines time it back to back)."""
+    return {name: kernel_event_ms(prof, KERNEL_SYMBOLS[name])
+            for name in STEP_KERNELS[precision]}
+
+
+def profile_phase(engine, frames, device, precision: str = "f32"):
     """Device time of one classify and one fused stream step, by family,
     and of each frontend kernel in the classify (a kernel launched between
-    the backbone's kernels, not back to back as the kernel lines time it)."""
+    the backbone's kernels, not back to back as the kernel lines time it);
+    ``precision`` is the one the engine's tile table picks."""
     cuda = device.type == "cuda"
-    prof_c, _ = profile_session(lambda: engine.classify(frames[0]), cuda)
+    prof_c, _ = profile_session(
+        lambda: engine.classify(frames[0]), cuda,
+        expect=KERNEL_SYMBOLS[STEP_KERNELS[precision][0]])
     prof_s, _ = profile_session(
         lambda: list(engine.stream([frames[1], frames[1]])), cuda)
     fam_c, events = device_breakdown(prof_c, VISION_FAMILIES, n_top=10 ** 6)
     frontend = dict(VISION_FAMILIES)["frontend_kernels"]
-    emit("profile", classify_device_ms=fam_c,
+    emit("profile", precision=precision, classify_device_ms=fam_c,
          classify_frontend_kernel_ms={
              e["name"]: e["ms"] for e in events
              if any(x in e["name"].lower() for x in frontend)},
+         classify_kernel_in_step_ms=step_kernel_ms(prof_c, precision),
          stream_exact_plus_fused_device_ms=device_breakdown(
              prof_s, VISION_FAMILIES)[0])
 
@@ -1282,14 +1335,14 @@ def main() -> int:
         # ptxas C7513/C7514: a register of an in-flight wgmma is touched,
         # so every wgmma waits for the one before (the overlap is lost)
         check(not serialized, f"{name}: ptxas serialized the wgmmas")
-    # the int8 kernels' MAC (int8 A and int8 fused) runs on the s8 tensor
-    # cores; no other P2M kernel runs IMMA, and none HMMA (the float32 MACs
-    # use no TF32)
+    # the int8 kernels' MAC (int8 A, block-shared and warp-owned, and int8
+    # fused) runs on the s8 tensor cores; no other P2M kernel runs IMMA, and
+    # none HMMA (the float32 MACs use no TF32)
     census = cuda_lib.tensor_core_census(built["p2m"][0])
     imma = {k: v for k, v in census.items() if v != (0, 0)}
-    check(len(imma) == 2 and all("MacQ8Mma" in k for k in imma)
+    check(len(imma) == 3 and all("MacQ8Mma" in k for k in imma)
           and sorted("fused_stream_kernel" in k for k in imma)
-          == [False, True]
+          == [False, False, True]
           and all(i >= 1 and h_ == 0 for i, h_ in imma.values()),
           f"tensor-core instructions in the P2M library: {imma}")
     emit("tensor_cores", library="p2m", kernels=len(census),

@@ -3,7 +3,7 @@
 
     python3 scripts/p2m_ab.py [--geometry NAME ...] [--kernel NAME ...]
                               [--rounds N] [--diagnose] [--unchecked C.cu]
-                              A/p2m_kernels.cu B/p2m_kernels.cu ...
+                              [--served] A/p2m_kernels.cu B/p2m_kernels.cu ...
 
 Each argument is a version of ``src/repro_torch/csrc/p2m_kernels.cu`` with
 its own ``p2m_physics.cuh`` beside it (another commit's ``csrc`` unpacked
@@ -24,7 +24,12 @@ the first version's, and the card's ``nvidia-smi`` line. With
 ``--diagnose``, copies of the first source that each leave one stage of
 the row-tile kernels out (``DIAGNOSTICS``) are timed beside it, unchecked:
 their outputs are wrong by design, and their times say what that stage
-costs; ``--unchecked`` adds hand-made copies timed the same way. Needs a
+costs; ``--unchecked`` adds hand-made copies timed the same way. With
+``--served``, each version serves ``SERVED_STEPS`` classify steps of
+``chip_smoke.py``'s full-width vgg16 engine at each precision in turns,
+and the device time of each frontend kernel inside those steps (where it
+starts cold between the backbone's kernels) is printed like the kernel
+times; without ``--geometry`` it times no kernel back to back. Needs a
 CUDA card and exits non-zero without one. The building and
 the turns are ``ab_versions.py``'s, shared with ``flash_ab.py``.
 """
@@ -39,13 +44,17 @@ import sys
 import ab_versions
 
 ROUNDS = 3
-# each kernel wrapper and the device kernel family it launches (f32 kernel
-# A: phase_a_kernel, or phase_a_warp_kernel on warp-owned tiles)
+# classify steps a version serves in each profiled turn of --served
+SERVED_STEPS = 10
+# each kernel wrapper and the device kernel family it launches (kernel A:
+# phase_a_kernel, or phase_a_warp_kernel / phase_a_q8_warp_kernel on
+# warp-owned tiles; the legacy kernel: legacy_conv_kernel, or
+# legacy_warp_kernel)
 KERNELS = {"p2m_fused_stream": "fused_stream_kernel",
            "p2m_fused_stream_q8": "fused_stream_kernel",
            "p2m_phase_a_implicit": "phase_a_",
-           "p2m_phase_a_implicit_q8": "phase_a_kernel",
-           "p2m_phase_b": "phase_b_kernel", "p2m_conv": "legacy_conv_kernel",
+           "p2m_phase_a_implicit_q8": "phase_a_",
+           "p2m_phase_b": "phase_b_kernel", "p2m_conv": "legacy_",
            "p2m_phase_a": "phase_a_"}
 # (old text, new text) of p2m_kernels.cu for each diagnostic copy
 DIAGNOSTICS = {
@@ -124,6 +133,23 @@ DIAGNOSTICS = {
     "f32_short_mac": ("  float a_pos[kTileRows], a_neg[kTileRows];\n",
                       "  float a_pos[kTileRows], a_neg[kTileRows];\n"
                       "  kk = kk < 4 ? kk : 4;\n"),
+    # the legacy kernel's warp-owned tiles (legacy_warp_kernel): the device
+    # chain left out, the draw is u > theta
+    "legacy_no_chain": ("        chain_tile<M>(ph, u, th, chan4, "
+                        "static_cast<uint32_t>(idx0), c, k0,\n",
+                        "        for (int r = 0; r < kTileRows; ++r)\n"
+                        "          draws[r] = u[r] > th ? 1.0f : 0.0f;\n"
+                        "        if (false) chain_tile<M>(ph, u, th, chan4, "
+                        "static_cast<uint32_t>(idx0), c, k0,\n"),
+    # their MAC over the first four k only
+    "legacy_short_mac": ("        f32_u_tile(ph, wp + ch, xs, xstride, kk, c, "
+                         "u);\n",
+                         "        f32_u_tile(ph, wp + ch, xs, xstride, "
+                         "kk < 4 ? kk : 4, c, u);\n"),
+    # their draws left unstored
+    "legacy_no_store": ("          if (r < live) dst[r * c] = draws[r];\n",
+                        "          if (r < live && u[r] == 1234.5f) "
+                        "dst[r * c] = draws[r];\n"),
     # the int8 kernels' circuit curves (two tanhf and two divisions an output)
     "q8_no_curve": ("  return p2m_curve(ph, static_cast<float>(a_pos) * dq[ch])\n"
                     "         - p2m_curve(ph, static_cast<float>(a_neg) * "
@@ -133,11 +159,12 @@ DIAGNOSTICS = {
 }
 
 
-# 16 frames of 40² to 160² (400, 576, 784, 1,024, 4,096 and 6,400 row
-# tiles): where kernel A's warp-owned tiles and its block-shared ones cross
-# over. Timed only when named with --geometry.
+# 16 frames of 40² to 160² (400, 576, 784, 1,024, 1,089, 1,296, 1,600,
+# 2,304, 3,136, 4,096 and 6,400 row tiles): where kernel A's and the legacy
+# kernel's warp-owned tiles and their block-shared ones cross over. Timed
+# only when named with --geometry.
 CROSSOVER = {f"frames{h}": dict(batch=16, h=h, w=h, kernel=3, stride=2, c=32)
-             for h in (40, 48, 56, 64, 128, 160)}
+             for h in (40, 48, 56, 64, 66, 72, 80, 96, 112, 128, 160)}
 
 
 def geometries() -> dict:
@@ -169,6 +196,37 @@ def calls(x: dict) -> dict:
     }
 
 
+def served_turns(sources, rounds: int, load) -> dict:
+    """``{source: [{"<precision>:<kernel>": in-step ms}, ...]}``, one dict
+    a round: each version serves SERVED_STEPS classify steps at f32 and at
+    int8 (the tile table's entry at the serving key) under the profiler,
+    in turns; the frontend kernels' device ms per launch inside them."""
+    import chip_smoke as cs
+    import torch
+    from repro_torch.kernels import autotune
+    _, _, frames, engine = cs.vision_engine(torch.device("cuda"))
+
+    def measure():
+        out = {}
+        for precision in ("f32", "int8"):
+            autotune.clear()
+            if precision == "int8":
+                autotune.put(*cs.SERVING_KEY, autotune.TileChoice(
+                    fused=True, precision="int8"))
+            # a library's first launch of a kernel loads its module
+            for _ in range(2):
+                engine.classify(frames[0])
+            prof, _ = cs.profile_session(
+                lambda: [engine.classify(frames[0])
+                         for _ in range(SERVED_STEPS)],
+                expect=cs.KERNEL_SYMBOLS[cs.STEP_KERNELS[precision][0]])
+            out.update({f"{precision}:{k}": v for k, v in
+                        cs.step_kernel_ms(prof, precision).items()})
+        autotune.clear()
+        return out
+    return ab_versions.in_turns(sources, rounds, load, measure)
+
+
 def main(argv) -> int:
     import torch
     parser = argparse.ArgumentParser()
@@ -178,6 +236,7 @@ def main(argv) -> int:
     parser.add_argument("--diagnose", action="store_true")
     # hand-made copies timed beside the others, unchecked like --diagnose's
     parser.add_argument("--unchecked", action="append", default=[])
+    parser.add_argument("--served", action="store_true")
     parser.add_argument("sources", nargs="*")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available() or not args.sources:
@@ -225,7 +284,19 @@ def main(argv) -> int:
     for src in sources:
         print(json.dumps({"source": src, "checked": src not in unchecked,
                           "ptxas": ptxas[src]}), flush=True)
-    for name in args.geometry or list(geometries()):
+    if args.served:
+        turns = served_turns(sources, args.rounds, load)
+        for src in sources:
+            for k in turns[src][0]:
+                t = [r[k] for r in turns[src]]
+                known = [x for x in t if x is not None]
+                print(json.dumps({
+                    "served": k, "steps": SERVED_STEPS, "source": src,
+                    "checked": src not in unchecked, "ms": t,
+                    "median_ms": statistics.median(known) if known else None,
+                    "spread_ms": max(known) - min(known) if known else None}),
+                      flush=True)
+    for name in args.geometry or ([] if args.served else list(geometries())):
         first = None
         for src in sources:
             if src in unchecked:

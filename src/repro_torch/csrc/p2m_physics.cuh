@@ -58,12 +58,19 @@ __device__ __forceinline__ float p2m_conv_voltage(const P2MPhysics& ph,
   return fminf(fmaxf(v, 0.0f), ph.v_max);
 }
 
-__device__ __forceinline__ float p2m_switching_probability(
+// 1 + exp(-logit) of voltage v: the sigmoid's denominator
+__device__ __forceinline__ float p2m_sigmoid_denominator(
     const P2MPhysics& ph, float v, float logit_gain, float logit_offset) {
   const float lo = ph.l0 + ph.slope_lo * (v - ph.v0);
   const float hi = ph.l1 + ph.slope_hi * (v - ph.v1);
   const float logit = logit_gain * (v < ph.v1 ? lo : hi) + logit_offset;
-  const float p_v = 1.0f / (1.0f + expf(-logit));
+  return 1.0f + expf(-logit);
+}
+
+__device__ __forceinline__ float p2m_switching_probability(
+    const P2MPhysics& ph, float v, float logit_gain, float logit_offset) {
+  const float p_v =
+      1.0f / p2m_sigmoid_denominator(ph, v, logit_gain, logit_offset);
   return p_v * ph.env_factor;
 }
 
@@ -95,6 +102,20 @@ __device__ __forceinline__ float p2m_majority_terms(const P2MPhysics& ph,
     if (k >= ph.majority) {
       out = out + ph.binom[k] * p2m_ipow(p, k) * p2m_ipow(q, N - k);
     }
+  }
+  return out;
+}
+
+// p2m_majority_terms<N> with the majority M compiled in too: the terms
+// k >= M, each the same products, summed in the same order from 0, so the
+// same value bit for bit without a test per term
+template <int N, int M>
+__device__ __forceinline__ float p2m_majority_terms_from(
+    const P2MPhysics& ph, float p, float q) {
+  float out = 0.0f;
+#pragma unroll
+  for (int k = M; k <= N; ++k) {
+    out = out + ph.binom[k] * p2m_ipow(p, k) * p2m_ipow(q, N - k);
   }
   return out;
 }

@@ -138,6 +138,7 @@ def _bind_p2m(lib: ctypes.CDLL) -> None:
     lib.p2m_partial_rows.argtypes = [i32]
     lib.p2m_phase_b_partial_rows.argtypes = [i32, i32]
     lib.p2m_phase_a_warp_tiles.argtypes = [i32, i32]
+    lib.p2m_conv_warp_tiles.argtypes = [i32]
     lib.p2m_phase_a_implicit.argtypes = [p, p, p, p, p, geom, phys, p]
     lib.p2m_phase_a_implicit_q8.argtypes = [p, p, p, p, p, p, geom, phys, p]
     lib.p2m_phase_a.argtypes = [p, p, p, p, p, i32, i32, i32, phys, p]
@@ -148,7 +149,7 @@ def _bind_p2m(lib: ctypes.CDLL) -> None:
                                         u32, u32, phys, p]
     lib.p2m_conv.argtypes = [p, p, p, p, p, i32, i32, i32, u32, u32, phys, p]
     for fn in (lib.p2m_partial_rows, lib.p2m_phase_b_partial_rows,
-               lib.p2m_phase_a_warp_tiles,
+               lib.p2m_phase_a_warp_tiles, lib.p2m_conv_warp_tiles,
                lib.p2m_phase_a_implicit, lib.p2m_phase_a_implicit_q8,
                lib.p2m_phase_a, lib.p2m_phase_b, lib.p2m_fused_stream,
                lib.p2m_fused_stream_q8, lib.p2m_conv):

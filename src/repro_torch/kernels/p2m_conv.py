@@ -21,7 +21,9 @@ Port of every P2M kernel of ``repro.kernels.p2m_conv`` (csrc/p2m_kernels.cu):
       in one pass at a carried theta, plus fresh Hoyer partials, V partials
       and per-tile per-channel draw counts.
   legacy fused kernel (``p2m_conv``) — explicit patch rows through the
-      device chain at a GIVEN theta (the pre-split baseline).
+      device chain at a GIVEN theta (the pre-split baseline); its warps own
+      whole row tiles where the library's ``p2m_conv_warp_tiles(n)`` says
+      so, its blocks share each tile below that.
 
 Each wrapper runs its CUDA kernel for a CUDA tensor and its plain PyTorch
 version (``*_plain``) for a CPU tensor; any other device raises. There is no
@@ -583,7 +585,8 @@ def p2m_conv(patches: torch.Tensor, w_packed: torch.Tensor,
     """The legacy fused kernel: patches (N, K) float32, w_packed (K, 2C),
     theta one float32 value on the device, key the host key of the draw
     hash. Returns the (N, C) {0, 1} draws; at kernel A's theta they equal
-    the pinned-theta fused kernel's."""
+    the pinned-theta fused kernel's, on either of the library's paths
+    (``cuda_lib.load().p2m_conv_warp_tiles(n)``: 1 for warp-owned tiles)."""
     n, kk, c = _rows_shape(patches, w_packed)
     if _on_cpu(patches, w_packed, theta):
         return p2m_conv_plain(patches, w_packed, theta, key,

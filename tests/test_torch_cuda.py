@@ -16,10 +16,10 @@ The row-tile kernels, and kernel B and the three kernel A instances with
 their warp-owned tiles, are also held there at widths the serving shape
 does not reach (C 48, 40, 30 and 1, N not a multiple of the 16-row tile,
 K 75) and at the ImageNet frame size, launch to launch bit for bit (f32
-kernel A on both sides of the tile count where its warps start to own
-their tiles); the int8 kernels' MAC is checked to run on the s8 tensor
-cores (IMMA in the library's machine code), and the device chain at other
-MTJ counts.
+kernel A and the legacy kernel on both sides of the tile count where
+their warps start to own their tiles); the int8 kernels' MAC is checked
+to run on the s8 tensor cores (IMMA in the library's machine code), and
+the device chain at other MTJ counts.
 The engine tests show each main path launches its own kernels and no
 other: f32 A / B / f32 fused on the f32 engine, int8 A / B / int8 fused on
 an engine whose tile table picks int8, and one flash-attention launch per
@@ -392,18 +392,80 @@ def test_f32_kernel_a_on_both_sides_of_the_crossover(cuda_device, b, h, w,
         assert torch.equal(again[0], u) and torch.equal(again[1], hp)
 
 
+# the legacy kernel's warps own their tiles from the library's crossover on
+# (p2m_conv_warp_tiles): F32_A_GEOMETRIES, and C 48 at K 75 with N not a
+# multiple of 16 beyond it
+LEGACY_GEOMETRIES = F32_A_GEOMETRIES + [(17, 81, 85, 5, 2, 48)]
+
+
+@pytest.mark.cuda
+def test_legacy_kernel_geometries_cover_both_paths(cuda_device):
+    """The library runs the legacy kernel's block-shared tiles
+    (``legacy_conv_kernel``) at some of LEGACY_GEOMETRIES and warp-owned
+    ones (``legacy_warp_kernel``) at others, among the latter N not a
+    multiple of 16 at C 30 and at C 48 with K 75; the ImageNet frame size
+    is one of them."""
+    lib = cuda_lib.load()
+    warp = {g: bool(lib.p2m_conv_warp_tiles(_rows(*g[:5])))
+            for g in LEGACY_GEOMETRIES}
+    assert any(warp.values()) and not all(warp.values())
+    assert {g[5] for g, w in warp.items() if w and _rows(*g[:5]) % 16} \
+        >= {30, 48}
+    assert any(w and g[3] == 5 for g, w in warp.items())
+    assert warp[(16, 224, 224, 3, 2, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,kernel,stride,c", LEGACY_GEOMETRIES)
+def test_legacy_kernel_on_both_sides_of_the_crossover(cuda_device, b, h, w,
+                                                      kernel, stride, c):
+    """The legacy kernel on whichever path the library picks at this N: at
+    kernel A's theta and at two pinned ones its draws equal the pinned-theta
+    fused kernel's bit for bit, hold to the plain version
+    (``p2m_conv_plain``'s u and chain) by the word-boundary rule, and two
+    launches are bit-identical."""
+    rng = np.random.default_rng(c + h + 3)
+    dev = cuda_device
+    images = torch.tensor(rng.uniform(size=(b, h, w, 3)),
+                          dtype=torch.float32, device=dev)
+    wt = torch.tensor(rng.normal(size=(kernel * kernel * 3, c)) * 0.3,
+                      dtype=torch.float32)
+    wp = tk.pack_phase_weights(wt).to(dev)
+    v_th = torch.ones((), device=dev)
+    key = prng.PRNGKey(19)
+    kw = dict(kernel=kernel, stride=stride)
+    patches = ops.im2col(images, kernel, stride).contiguous()
+    n = patches.shape[0]
+    assert n == _rows(b, h, w, kernel, stride)
+
+    _, hp = tk.p2m_phase_a_implicit(images, wp, v_th, **kw)
+    u_p, _ = tk.p2m_phase_a_plain(patches, wp, v_th)
+    for theta in (tk.combine_hoyer_partials(hp, v_th),
+                  torch.tensor(0.05, device=dev),
+                  torch.tensor(0.6, device=dev)):
+        acts = tk.p2m_conv(patches, wp, theta, key)
+        assert acts.shape == (n, c)
+        assert torch.equal(
+            acts, tk.p2m_fused_stream(images, wp, v_th, theta, key, **kw)[0])
+        _draw_rule(acts, tk.device_chain_q(u_p, theta, None)[0],
+                   tk.draw_bits(key, n, c))
+        assert torch.equal(tk.p2m_conv(patches, wp, theta, key), acts)
+
+
 @pytest.mark.cuda
 def test_int8_fused_kernel_runs_on_the_tensor_cores(cuda_device):
-    """The int8 kernels' MAC (int8 kernel A and the int8 fused kernel) is an
-    s8 tensor-core product (IMMA in their machine code), no other P2M
+    """The int8 kernels' MAC (int8 kernel A, its block-shared and its
+    warp-owned kernel, and the int8 fused kernel) is an s8 tensor-core
+    product (IMMA in their machine code), no other P2M
     kernel runs IMMA and none runs HMMA (the f32 MACs use no TF32); the
     int8 fused draws and Hoyer partials equal int8 kernel A -> B bit for
     bit."""
     mma = cuda_lib.tensor_core_census(cuda_lib.build())
     q8 = {k: v for k, v in mma.items() if "MacQ8Mma" in k}
-    assert sorted("fused_stream_kernel" in k for k in q8) == [False, True]
-    assert all("phase_a_kernel" in k or "fused_stream_kernel" in k
-               for k in q8)
+    assert sorted("fused_stream_kernel" in k for k in q8) == [False, False,
+                                                              True]
+    assert all("phase_a_kernel" in k or "phase_a_q8_warp_kernel" in k
+               or "fused_stream_kernel" in k for k in q8)
     assert all(imma >= 1 for imma, _ in q8.values())
     assert all(hmma == 0 for _, hmma in mma.values())
     assert all(v == (0, 0) for k, v in mma.items() if k not in q8)
@@ -454,6 +516,36 @@ def test_device_chain_at_other_mtj_counts(cuda_device, n_mtj):
     patches = ops.im2col(images, 3, 2).contiguous()
     assert torch.equal(tk.p2m_conv(patches, wp, theta, key, mtj_params=mtj),
                        acts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mtj", [5, 8, 12, 24])
+def test_legacy_warp_tiles_at_other_mtj_counts(cuda_device, n_mtj):
+    """The legacy kernel's warp-owned tiles compile the polynomial of 8 MTJs
+    (majority 4) in and read any other count from the host: at each count,
+    above the crossover, the draws equal the pinned-theta fused kernel's
+    bit for bit and hold to the plain chain by the word-boundary rule."""
+    from repro_torch.core import mtj as mtj_model
+    mtj = dataclasses.replace(mtj_model.DEFAULT_MTJ, n_redundant=n_mtj)
+    rng = np.random.default_rng(n_mtj + 1)
+    images = torch.tensor(rng.uniform(size=(17, 61, 61, 3)),
+                          dtype=torch.float32, device=cuda_device)
+    wp = tk.pack_phase_weights(torch.tensor(
+        rng.normal(size=(27, 32)) * 0.3, dtype=torch.float32)).to(cuda_device)
+    v_th = torch.ones((), device=cuda_device)
+    key = prng.PRNGKey(n_mtj + 1)
+    kw = dict(kernel=3, stride=1)
+    patches = ops.im2col(images, 3, 1).contiguous()
+    n = patches.shape[0]
+    assert cuda_lib.load().p2m_conv_warp_tiles(n)
+    theta = tk.combine_hoyer_partials(
+        tk.p2m_phase_a_implicit(images, wp, v_th, **kw)[1], v_th)
+    acts = tk.p2m_conv(patches, wp, theta, key, mtj_params=mtj)
+    assert torch.equal(acts, tk.p2m_fused_stream(images, wp, v_th, theta, key,
+                                                 mtj_params=mtj, **kw)[0])
+    u_p, _ = tk.p2m_phase_a_plain(patches, wp, v_th)
+    _draw_rule(acts, tk.device_chain_q(u_p, theta, None, mtj_params=mtj)[0],
+               tk.draw_bits(key, n, 32))
 
 
 F32_PATH = {"p2m_phase_a_implicit", "p2m_phase_b", "p2m_fused_stream"}

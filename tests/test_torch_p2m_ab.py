@@ -37,7 +37,8 @@ def scripts(monkeypatch):
         "no_store", "b_no_reductions", "b_no_chain", "b_const_chan",
         "q8_no_reductions", "q8_const_gather", "q8_no_store",
         "q8_no_curve", "f32_no_reductions", "f32_const_gather",
-        "f32_no_curve", "f32_no_store", "f32_short_mac")),
+        "f32_no_curve", "f32_no_store", "f32_short_mac", "legacy_no_chain",
+        "legacy_short_mac", "legacy_no_store")),
     *(("flash_ab", "flash_attention.cu", n) for n in (
         "no_exp", "no_softmax", "no_pv", "f32_no_exp", "f32_no_pv",
         "f32_no_loads", "f32_no_scores"))])
