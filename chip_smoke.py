@@ -37,7 +37,11 @@ line:
 4. ``engine``: full-width vgg16 at CIFAR-10 geometry, seeded random weights:
    ``classify`` on 16 frames and ``stream`` of 4 batches of 16 on the f32
    path, with every kernel's launch count read from that run alone; the
-   classify result is held against the same engine on the CPU;
+   classify result is held against the same engine on the CPU: the
+   frontend maps by their draw rule, then the backbone layer by layer on
+   the card and on the CPU from the CPU's map (a binary unit may differ
+   only where its z lies within 4 float32 ulps of its threshold), then
+   the probs at atol 1e-3 on the frames where no activation differed;
 5. ``profile``: device time of a classify step by kernel family, and of
    each frontend kernel in it (kernel A and B per launch inside the step);
 6. ``baseline``: the double-conv baseline at the serving shape (explicit
@@ -47,6 +51,25 @@ line:
    int8 at (4096, 27, 32), with its own launch counts and CPU comparison,
    and its ``profile`` line (int8 kernel A's device ms inside the step);
 8. ``autotune``: the port's search at the serving shape (data, no check);
+   ``frontends`` lines: the plain-PyTorch backends ``ideal``, ``analog``
+   (Fig. 8 flips on at 0.01 / 0.01) and ``device`` through
+   ``SensorFrontend`` on the card. At the serving shape (16, 32, 32, 3)
+   each is held against the same call on the CPU from the same inputs and
+   key: its threefry words and uniforms bit for bit, theta and the Hoyer
+   loss at rtol 1e-5, the V_CONV stats at atol 1e-5, a binary activation
+   differing only where z lies within 4 float32 ulps of the Hoyer
+   threshold (ideal, analog) or a uniform within 1e-6 of its P_sw
+   (device), in at most 1e-3 of the elements. At ImageNet (16, 224, 224,
+   3), on the card only: the device backend's words at the first and last
+   2^20 of its 51.4 M counters against the CPU's, and its activation rate
+   within 5 binomial sigma of the mean majority probability of its P_sw.
+   Each is timed (event pair, median of 30, of 5 at ImageNet) beside the
+   ``cuda`` backend's call at the same shape, with its peak memory;
+   ``engine_device`` (and ``engine_device_steady``): the vgg16 engine of
+   phase 4 with ``backend="device"``, classify and a 4-batch stream (every
+   step exact), no kernel launched (every P2M wrapper's count 0), the
+   classify and every stream step held against the same engine on the
+   CPU as in phase 4, and its walls;
 9. ``flash`` lines: the flash-attention kernels at granite-8b's prefill
    (B 4, S 2048, H 32, Hkv 8, D 128, bf16, causal), at stablelm-3b's (B 4
    and B 1, S 2048, H 32, MHA, D 80, bf16, causal), four odd ones (S 77
@@ -74,7 +97,8 @@ line:
    launch count; ``lm_stablelm``: the same check for stablelm-3b (head dim
    80, the wgmma kernel) at full width, 2 layers;
 12. ``seconds``: the wall time of the build, the kernel lines, the vision
-   phases, the flash lines and the LM phases;
+   phases, the frontend backends' phases, the flash lines and the LM
+   phases;
 13. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run; one flash row per served
    head dim: D 128 with granite-8b's launches, D 80 with stablelm-3b's),
@@ -86,6 +110,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -171,8 +196,27 @@ PATH_KERNELS = {
                     "p2m_fused_stream_q8"),
     "baseline": ("p2m_phase_a", "p2m_conv"),
     "lm": ("flash_attention",),
+    # the device backend runs one cuDNN conv and plain PyTorch: no kernel
+    "engine_device": (),
 }
 SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
+# the plain-PyTorch frontend backends; analog with its Fig. 8 flips on
+FRONTEND_BACKENDS = ("ideal", "analog", "device")
+ANALOG_NOISE = 0.01
+# card vs CPU for those backends: theta and the Hoyer loss relative, the
+# V_CONV stats absolute; a binary activation may differ only where z lies
+# within 4 float32 ulps (relative) of the Hoyer threshold (ideal, analog)
+# or one of a neuron's uniforms within DRAW_EDGE of its P_sw (device), in
+# at most MAX_EDGE_FRAC of the elements
+FRONTEND_RTOL = 1e-5
+V_CONV_ATOL = 1e-5
+THRESHOLD_ULPS_REL = 4 * 1.1920928955078125e-07
+DRAW_EDGE = 1e-6
+MAX_EDGE_FRAC = 1e-3
+# counters of the device backend's words compared at ImageNet (at each end)
+WORD_CHECK = 1 << 20
+# the device backend's activation rate against the analytic majority
+RATE_SIGMAS = 5.0
 
 # flash attention: the LM serving geometry (granite-8b prefill of 4 x 2048
 # tokens), stablelm-3b's prefill at head dim 80 (the `lm` generate's batch
@@ -423,6 +467,40 @@ def assert_draws(acts, q, bits, max_frac: float = 1e-3) -> int:
         near = (q.double() * 65536.0 - bits.double()).abs() <= 1.0
         check(not bool((mismatch & ~near).any()),
               "draw mismatch away from the uint16 word boundary")
+    return n
+
+
+def frontend_edges(backend: str, pcfg, params, frames, key):
+    """Where a binary activation of ``backend`` may differ between two
+    devices, from the CPU's stages of that backend (``backends._stages``):
+    ideal / analog where z lies within 4 float32 ulps of the Hoyer
+    threshold, device where one of a neuron's uniforms lies within
+    ``DRAW_EDGE`` of its switching probability."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import hoyer
+    from repro_torch.frontend import backends
+    st = backends._stages(backend, pcfg, params, frames)
+    if backend == "device":
+        p_sw = st["p_sw"]
+        unif = prng.uniform(key, tuple(p_sw.shape)
+                            + (pcfg.mtj.n_redundant,))
+        return ((unif - p_sw[..., None]).abs() < DRAW_EDGE).any(dim=-1)
+    v_th = params["v_th"]
+    z = st["u"] / torch.clamp(v_th, min=1e-6)
+    thr = float(hoyer.effective_threshold(st["u"], v_th))
+    return (z - thr).abs() <= THRESHOLD_ULPS_REL * max(abs(thr), 1.0)
+
+
+def assert_edge_mismatches(acts, ref, allowed) -> int:
+    """Binary maps that may differ only where ``allowed``, in at most
+    ``MAX_EDGE_FRAC`` of the elements. Returns the mismatches."""
+    mismatch = acts.cpu() != ref.cpu()
+    n = int(mismatch.sum())
+    check(n <= MAX_EDGE_FRAC * acts.numel(),
+          f"{n} activation mismatches: beyond edge noise")
+    check(not bool((mismatch & ~allowed).any()),
+          "an activation differs away from its edge")
     return n
 
 
@@ -735,9 +813,15 @@ def kernel_phase(geom: dict, device, plain_reps: int = REPS):
     return rows
 
 
-def compare_with_cpu(cfg, params, frames0, out, device, precision: str):
-    """The same engine on the CPU: frontend draws by the word-boundary rule,
-    probs where every frontend activation agrees. Returns the comparison."""
+def compare_with_cpu(cfg, params, frames, out, stream_outs, device,
+                     precision: str, backend: str = "cuda"):
+    """The same engine on the CPU, step by step: the classify and, off the
+    ``cuda`` backend, every stream step (a ``cuda`` stream runs fused at a
+    carried theta and is checked by the kernel lines). In each step the
+    frontend draws by the word-boundary rule (``cuda``) or the edge rule
+    (``ideal`` / ``analog`` / ``device``), then the probs on the frames
+    where every frontend activation agrees and no backbone unit flipped
+    (``backbone_flips``). Returns the comparison."""
     import torch
     from repro_torch import prng
     from repro_torch.core import p2m
@@ -749,38 +833,109 @@ def compare_with_cpu(cfg, params, frames0, out, device, precision: str):
 
     cpu = torch.device("cpu")
     params_cpu = mparams.to_device(params, cpu)
-    engine_cpu = VisionEngine(cfg, params_cpu, seed=0, device=cpu)
-    out_cpu = engine_cpu.classify(frames0)
-    key = prng.fold_in(prng.PRNGKey(0), 0)
+    engine_cpu = VisionEngine(cfg, params_cpu, backend=backend, seed=0,
+                              device=cpu)
+    steps = [(frames[0], out, engine_cpu.classify(frames[0]))]
+    if backend != "cuda":
+        batches = frames[1:1 + len(stream_outs)]
+        steps += zip(batches, stream_outs, engine_cpu.stream(batches))
     fe = SensorFrontend(cfg.frontend)
-    acts_dev, aux_dev = fe(params["p2m"], frames0.to(device), key=key)
-    acts_cpu, aux_cpu = fe(params_cpu["p2m"], frames0, key=key)
-    wq = p2m.quantize_weights(params_cpu["p2m"]["w"], 4)
-    wm = pk.pack_phase_weights(wq.reshape(27, 32))
-    v_th = params_cpu["p2m"]["v_th"]
-    if precision == "int8":
-        w8, dq = ops.quantize_frontend_weights(wm)
-        u_cpu, _ = pk.p2m_phase_a_implicit_q8_plain(frames0, w8, dq, v_th,
-                                                    kernel=3, stride=2)
-    else:
-        u_cpu, _ = pk.p2m_phase_a_implicit_plain(frames0, wm, v_th,
-                                                 kernel=3, stride=2)
-    q_cpu = pk.device_chain_q(u_cpu, aux_cpu["theta"], None)[0]
-    bits = pk.draw_bits(key, u_cpu.shape[0], 32)
-    flips = assert_draws(acts_dev.cpu().reshape(-1, 32), q_cpu, bits)
-    same = (acts_dev.cpu() == acts_cpu).reshape(16, -1).all(dim=1)
-    probs_err = float((out["probs"].cpu() - out_cpu["probs"])[same].abs()
-                      .max()) if bool(same.any()) else None
-    check(probs_err is None or probs_err <= 1e-3,
-          f"classify probs differ from the CPU engine by {probs_err}")
-    check(int(same.sum()) >= 12, "frontend activations differ on most frames")
-    return dict(frontend_draw_mismatches=flips,
-                frames_with_equal_frontend=int(same.sum()),
-                max_probs_err_on_those=probs_err,
-                labels_equal=int((out["labels"].cpu()
-                                  == out_cpu["labels"]).sum()),
-                theta_dev=float(aux_dev["theta"]),
-                theta_cpu=float(aux_cpu["theta"]))
+    rows = []
+    for j, (x, o, o_cpu) in enumerate(steps):
+        key = prng.fold_in(prng.PRNGKey(0), j)    # the engine's frame key
+        acts_dev, aux_dev = fe(params["p2m"], x.to(device), key=key,
+                               mode=backend)
+        acts_cpu, aux_cpu = fe(params_cpu["p2m"], x, key=key, mode=backend)
+        if backend == "cuda":
+            wq = p2m.quantize_weights(params_cpu["p2m"]["w"], 4)
+            wm = pk.pack_phase_weights(wq.reshape(27, 32))
+            v_th = params_cpu["p2m"]["v_th"]
+            if precision == "int8":
+                w8, dq = ops.quantize_frontend_weights(wm)
+                u_cpu, _ = pk.p2m_phase_a_implicit_q8_plain(
+                    x, w8, dq, v_th, kernel=3, stride=2)
+            else:
+                u_cpu, _ = pk.p2m_phase_a_implicit_plain(x, wm, v_th,
+                                                         kernel=3, stride=2)
+            q_cpu = pk.device_chain_q(u_cpu, aux_cpu["theta"], None)[0]
+            bits = pk.draw_bits(key, u_cpu.shape[0], 32)
+            flips = assert_draws(acts_dev.cpu().reshape(-1, 32), q_cpu, bits)
+        else:
+            flips = assert_edge_mismatches(
+                acts_dev, acts_cpu, frontend_edges(backend, cfg.p2m,
+                                                   params_cpu["p2m"], x, key))
+        equal = (acts_dev.cpu() == acts_cpu).reshape(x.shape[0], -1).all(1)
+        flipped, layers, max_ulps = backbone_flips(cfg, params, params_cpu,
+                                                   acts_cpu, device)
+        same = equal & ~flipped
+        probs_err = float((o["probs"].cpu() - o_cpu["probs"])[same].abs()
+                          .max()) if bool(same.any()) else None
+        step = "classify" if j == 0 else f"stream step {j}"
+        check(probs_err is None or probs_err <= 1e-3,
+              f"{step}: probs differ from the CPU engine by {probs_err}")
+        check(int(same.sum()) >= 12,
+              f"{step}: frontend or backbone differs on most frames")
+        rows.append(dict(frontend_draw_mismatches=flips,
+                         frames_with_equal_frontend=int(equal.sum()),
+                         backbone_unit_flips=layers,
+                         backbone_flip_max_ulps=max_ulps,
+                         frames_with_backbone_flips=int(flipped.sum()),
+                         frames_compared=int(same.sum()),
+                         max_probs_err_on_those=probs_err,
+                         labels_equal=int((o["labels"].cpu()
+                                           == o_cpu["labels"]).sum()),
+                         theta_dev=float(aux_dev["theta"]),
+                         theta_cpu=float(aux_cpu["theta"])))
+    return {**rows[0], "stream_steps": rows[1:]}
+
+
+def backbone_flips(cfg, params, params_cpu, acts_cpu, device):
+    """The vgg backbone layer by layer on the card and on the CPU, every
+    layer fed the CPU's input on both sides (from the CPU's frontend map).
+    A binary unit may differ only where its raw z lies within 4 float32
+    ulps of its per-example threshold on the CPU, where convs that sum in
+    another order may put it on either side (the rule of
+    ``tests/test_torch_vision.py``); anywhere else is a fault. The card's
+    engine fed the same map runs exactly these layers wherever no unit
+    flipped. Returns (a bool per frame: a unit flipped, the flips of each
+    layer that had any, the largest distance of a flipped unit's z from
+    its threshold in float32 ulps of max(|thr|, 1))."""
+    import torch
+    from repro_torch.models import vision
+    check(cfg.arch.startswith("vgg"), f"backbone_flips: {cfg.arch}")
+    bits = cfg.weight_bits
+    x = acts_cpu.permute(0, 3, 1, 2)
+    flipped = torch.zeros(x.shape[0], dtype=torch.bool)
+    layers, max_ulps, i, first_pool = {}, 0.0, 0, True
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        for item in vision._VGG_PLANS[cfg.arch]:
+            if item == "M":
+                if not (first_pool and cfg.remove_first_maxpool) \
+                        and x.shape[2] > 1:
+                    x = vision._maxpool(x)
+                first_pool = False
+                continue
+            name = f"conv{i}"
+            i += 1
+            lp_cpu = params_cpu["layers"][name]
+            out = vision._conv_apply(lp_cpu, x, 1, bits)[0]
+            out_dev = vision._conv_apply(params["layers"][name],
+                                         x.to(device), 1, bits)[0].cpu()
+            z, _, thr = vision._spike_terms(
+                lp_cpu, vision._conv_bn(lp_cpu, x, 1, bits))
+            diff = out_dev != out
+            dist = (z - thr).abs() / thr.abs().clamp(min=1.0)
+            check(not bool((diff & (dist > THRESHOLD_ULPS_REL)).any()),
+                  f"backbone {name}: a binary unit differs on the card "
+                  "away from its threshold")
+            flipped |= diff.reshape(diff.shape[0], -1).any(dim=1)
+            if bool(diff.any()):
+                layers[name] = int(diff.sum())
+                max_ulps = max(max_ulps, float(dist[diff].max())
+                               / torch.finfo(torch.float32).eps)
+            x = out
+    return flipped, layers, max_ulps
 
 
 def vision_engine(device, **engine_kw):
@@ -809,6 +964,7 @@ def engine_run(device, path: str, **engine_kw):
     from repro_torch.kernels import cuda_lib
     from repro_torch.serving import VisionEngine
 
+    backend = engine_kw.get("backend", "cuda")
     cfg, params, frames, engine = vision_engine(device, **engine_kw)
     cuda_lib.reset_launch_counts()
     out = engine.classify(frames[0])
@@ -820,15 +976,23 @@ def engine_run(device, path: str, **engine_kw):
         check(tuple(o["probs"].shape) == (16, 10), "probs shape")
         check(bool(torch.isfinite(o["probs"]).all()), "non-finite probs")
         check(abs(float(o["probs"].sum()) - 16.0) < 1e-3, "probs not normed")
-    check(engine.fused_step_count >= 1, "no fused stream step ran")
+    if backend == "cuda":
+        check(engine.fused_step_count >= 1, "no fused stream step ran")
+    else:   # off the cuda backend every stream step is exact
+        check(engine.fused_step_count == 0
+              and all("stream_fused" not in o for o in stream_outs),
+              f"a {backend} stream step ran fused")
     precision = "int8" if path == "engine_int8" else "f32"
-    vs_cpu = compare_with_cpu(cfg, params, frames[0], out, device, precision)
+    vs_cpu = compare_with_cpu(cfg, params, frames, out, stream_outs, device,
+                              precision, backend)
 
-    emit(path, model="vgg16", batch=16, precision=precision, launches=counts,
-         classify_wall_ms=out["wall_ms"],
+    emit(path, model="vgg16", batch=16, backend=backend,
+         precision=precision if backend == "cuda" else None,
+         launches=counts, classify_wall_ms=out["wall_ms"],
          classify_throughput_fps=out["throughput_fps"],
          stream_wall_ms=[o["wall_ms"] for o in stream_outs],
-         stream_fused=[float(o["stream_fused"]) for o in stream_outs],
+         stream_fused=[float(o.get("stream_fused", 0.0))
+                       for o in stream_outs],
          fused_step_count=engine.fused_step_count,
          fused_fallback_count=engine.fused_fallback_count,
          theta=float(out["theta"]), p2m_sparsity=float(out["p2m_sparsity"]),
@@ -840,11 +1004,13 @@ def engine_run(device, path: str, **engine_kw):
     engine_s = VisionEngine(cfg, params, seed=0, device=device, microbatch=16,
                             fused_theta_tol=1e9, **engine_kw)
     steps = list(engine_s.stream([frames[1]] * 21))[1:]
-    emit(f"{path}_steady", model="vgg16", batch=16, precision=precision,
+    step_key = ("fused_step_wall_ms_median" if backend == "cuda"
+                else "stream_step_wall_ms_median")
+    emit(f"{path}_steady", model="vgg16", batch=16, backend=backend,
+         precision=precision if backend == "cuda" else None,
          classify_wall_ms_median=statistics.median(walls),
          classify_fps_median=16 / (statistics.median(walls) / 1e3),
-         fused_step_wall_ms_median=statistics.median(
-             o["wall_ms"] for o in steps),
+         **{step_key: statistics.median(o["wall_ms"] for o in steps)},
          fused_steps=engine_s.fused_step_count)
     return counts, engine, frames
 
@@ -929,6 +1095,147 @@ def autotune_phase(device, smi: str):
         frames, wq, params["v_th"], prng.PRNGKey(2), repeats=30, store=False)
     emit("autotune", shape=list(SERVING_KEY), choice=choice.to_json(),
          report_ms=report, nvidia_smi=smi)
+
+
+def frontend_words(backend: str, key, acts_shape):
+    """The (key, shape) of every threefry draw ``backend`` makes."""
+    from repro_torch import prng
+    from repro_torch.core import mtj
+    if backend == "device":
+        return [(key, tuple(acts_shape) + (mtj.DEFAULT_MTJ.n_redundant,))]
+    if backend == "analog":
+        return [(k, tuple(acts_shape)) for k in prng.split(key)]
+    return []
+
+
+def frontend_vs_cpu(backend, fe, params, params_cpu, frames_cpu, key,
+                    acts, aux, device) -> dict:
+    """One backend on the card against the same call on the CPU: the
+    random words bit for bit, theta / Hoyer loss / V_CONV stats at their
+    tolerances, the binary map by the edge rule."""
+    import torch
+    from repro_torch import prng
+    acts_cpu, aux_cpu = fe(params_cpu, frames_cpu, key=key, mode=backend)
+    n_words = 0
+    for k, shape in frontend_words(backend, key, acts.shape):
+        check(torch.equal(prng.random_bits(k, shape, device).cpu(),
+                          prng.random_bits(k, shape)),
+              f"{backend}: card words differ from the CPU's")
+        check(torch.equal(prng.uniform(k, shape, device).cpu(),
+                          prng.uniform(k, shape)),
+              f"{backend}: card uniforms differ from the CPU's")
+        n_words += math.prod(shape)
+    rel = {k: abs(float(aux[k]) - float(aux_cpu[k]))
+           / max(abs(float(aux_cpu[k])), 1e-30)
+           for k in ("theta", "hoyer_loss") if float(aux_cpu[k]) != 0.0}
+    for k, r in rel.items():
+        check(r <= FRONTEND_RTOL, f"{backend}: {k} off the CPU's by {r}")
+    v_err = {k: abs(float(aux[k]) - float(aux_cpu[k]))
+             for k in ("v_conv_mean", "v_conv_min", "v_conv_max")}
+    check(max(v_err.values()) <= V_CONV_ATOL,
+          f"{backend}: V_CONV stats off the CPU's: {v_err}")
+    flips = assert_edge_mismatches(
+        acts, acts_cpu, frontend_edges(backend, fe.cfg.p2m, params_cpu,
+                                       frames_cpu, key))
+    return dict(words_equal=n_words, rel_err=rel, v_conv_abs_err=v_err,
+                mismatches=flips)
+
+
+def frontend_imagenet_checks(backend, fe, params, frames, key, acts,
+                             device) -> dict:
+    """At ImageNet, on the card alone: the device backend's words at the
+    first and last ``WORD_CHECK`` counters against the CPU's, and its
+    activation rate against the mean majority probability of its P_sw."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import mtj
+    from repro_torch.frontend import backends
+    if backend != "device":
+        return {}
+    pcfg = fe.cfg.p2m
+    ((k, shape),) = frontend_words(backend, key, acts.shape)
+    n = math.prod(shape)
+    words = prng.random_bits(k, shape, device).reshape(-1)
+    for start in (0, n - WORD_CHECK):
+        check(torch.equal(words[start:start + WORD_CHECK].cpu(),
+                          prng.counter_words(k, start, start + WORD_CHECK)),
+              f"device words at counters {start}.. differ from the CPU's")
+    del words
+    p_sw = backends._stages(backend, pcfg, params, frames)["p_sw"]
+    q = mtj.majority_activation_probability(
+        p_sw, pcfg.mtj.n_redundant, pcfg.mtj.majority).double()
+    expected = float(q.mean())
+    sigma = float(torch.sqrt(torch.sum(q * (1.0 - q)))) / q.numel()
+    rate = float(acts.double().mean())
+    z = (rate - expected) / sigma
+    check(abs(z) <= RATE_SIGMAS, f"device activation rate {rate} is {z} "
+          f"binomial sigma off the majority probability {expected}")
+    return dict(words_checked=2 * WORD_CHECK, words_total=n,
+                activation_rate=rate, majority_probability_mean=expected,
+                rate_sigma=sigma, rate_z=z)
+
+
+def frontends_phase(device, smi: str):
+    """The ``ideal``, ``analog`` (Fig. 8 flips on) and ``device`` backends
+    through ``SensorFrontend`` on the card: at the serving shape held
+    against the CPU from the same inputs and key, at ImageNet checked on
+    the card (words at both ends, the device rate); each timed (event pair,
+    median of ``REPS`` / ``IMAGENET_PLAIN_REPS``) beside the ``cuda``
+    backend's call at the same shape, with its peak memory. One
+    ``frontends`` line per backend and shape."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import p2m
+    from repro_torch.frontend import FrontendConfig, SensorFrontend
+
+    cpu = torch.device("cpu")
+    pcfg = p2m.P2MConfig(noise_p_fail=ANALOG_NOISE,
+                         noise_p_false=ANALOG_NOISE)
+    # the cuda backend's line of comparison runs the f32 kernels
+    fe = SensorFrontend(FrontendConfig(p2m=pcfg, precision="f32"))
+    params_cpu = fe.init(torch.Generator().manual_seed(0), device=cpu)
+    params = {k: v.to(device) for k, v in params_cpu.items()}
+    key = prng.fold_in(prng.PRNGKey(4), 2)
+    for name, geom, reps in (("serving", SERVING, REPS),
+                             ("imagenet", IMAGENET, IMAGENET_PLAIN_REPS)):
+        shape = (geom["batch"], geom["h"], geom["w"], 3)
+        frames_cpu = torch.rand(shape, generator=torch.Generator()
+                                .manual_seed(19))
+        frames = frames_cpu.to(device)
+        cuda_ms = device_ms(lambda: fe(params, frames, key=key, mode="cuda"),
+                            device, reps)
+        for backend in FRONTEND_BACKENDS:
+            def call():
+                return fe(params, frames, key=key, mode=backend)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            acts, aux = call()
+            torch.cuda.synchronize()
+            first_wall = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            check(acts.device.type == device.type, f"{backend} left the card")
+            check(tuple(acts.shape) == (geom["batch"], geom["h"] // 2,
+                                        geom["w"] // 2, geom["c"]),
+                  f"{backend}: activation shape {tuple(acts.shape)}")
+            check(bool(((acts == 0) | (acts == 1)).all()),
+                  f"{backend}: activations are not binary")
+            check(all(bool(torch.isfinite(torch.as_tensor(v)).all())
+                      for v in aux.values()), f"{backend}: non-finite aux")
+            if name == "serving":
+                checks = frontend_vs_cpu(backend, fe, params, params_cpu,
+                                         frames_cpu, key, acts, aux, device)
+            else:
+                checks = frontend_imagenet_checks(backend, fe, params,
+                                                  frames, key, acts, device)
+            emit("frontends", backend=backend, shape=list(shape),
+                 geometry=name, ms=device_ms(call, device, reps), reps=reps,
+                 cuda_backend_ms=cuda_ms, first_call_wall_ms=first_wall,
+                 peak_bytes=peak, allocated_before_bytes=before,
+                 sparsity=float(aux["sparsity"]), theta=float(aux["theta"]),
+                 nvidia_smi=smi, **checks)
+            del acts, aux
 
 
 def device_breakdown(prof, families, n_top: int = 0):
@@ -1374,6 +1681,9 @@ def main() -> int:
     counts_base = baseline_phase(device)
     counts_int8 = engine_int8_phase(device)
     autotune_phase(device, smi)
+    t_frontends = time.perf_counter()
+    frontends_phase(device, smi)
+    engine_run(device, "engine_device", backend="device")
     t_flash = time.perf_counter()
     flash_row = flash_phase(FLASH_SERVING, device)
     odd_rows = [flash_phase(geom, device) for geom in FLASH_ODD]
@@ -1392,8 +1702,8 @@ def main() -> int:
     t_end = time.perf_counter()
     # wall seconds of each group of phases, and from the build to here
     emit("seconds", build=build_s, kernels=t_vision - t_kernels,
-         vision=t_flash - t_vision, flash=t_lm - t_flash, lm=t_end - t_lm,
-         total=t_end - t0)
+         vision=t_frontends - t_vision, frontends=t_flash - t_frontends,
+         flash=t_lm - t_flash, lm=t_end - t_lm, total=t_end - t0)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},
                 **{n_: counts_int8 for n_ in PATH_KERNELS["engine_int8"]

@@ -1,13 +1,17 @@
-"""Energy / latency constants and the global-shutter frame time (paper §3.4).
+"""Energy / bandwidth / latency models (paper §3.2-3.4, Eq. 3, Fig. 9).
 
-Port of the serving subset of ``repro.core.energy``: ``EnergyConstants``
-(a copy of the reference's, held equal by a test), ``FrameSpec`` and
-``frame_latency_us``, which the shutter stage and ``VisionEngine``'s
-``sensor_latency_us`` telemetry need. Plain Python arithmetic.
+Port of ``repro.core.energy``: ``EnergyConstants`` (a copy of the
+reference's, held equal by a test), ``FrameSpec``, the bandwidth reduction
+(the consistent reading of Eq. 3, and Eq. 3 as printed), the front-end and
+communication energies with their report (the paper's 8.2x / 8.5x energy
+and 6x bandwidth ratios), one trim refresh's energy, and the
+global-shutter frame time. Plain Python arithmetic. The amortized
+maintenance energy comes with the lifetime slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +66,118 @@ class FrameSpec:
         """conv output positions x channels (pre-pool) = #MTJ neuron groups."""
         return (self.h_in // self.stride) * (self.w_in // self.stride) * self.c_out
 
+    @property
+    def bits_transmitted_out(self) -> int:
+        return self.h_out * self.w_out * self.c_out * self.bits_out
+
+    @property
+    def bits_transmitted_in(self) -> int:
+        return self.n_pixels * self.bits_in     # raw mosaic readout
+
 
 VGG16_IMAGENET = FrameSpec()
+
+
+# --- bandwidth (Eq. 3) -------------------------------------------------------
+
+def bandwidth_reduction(f: FrameSpec = VGG16_IMAGENET) -> float:
+    """Sensor bits out (baseline) over in-pixel bits out: 6.0 for VGG16."""
+    return f.bits_transmitted_in / f.bits_transmitted_out
+
+
+def paper_eq3(f: FrameSpec = VGG16_IMAGENET) -> float:
+    """Eq. 3 literally as printed (kept for reference)."""
+    ratio = (f.h_out * f.w_out * f.c_out) / (f.h_in * f.w_in * f.c_in)
+    return ratio * (f.bits_in / f.bits_out) * (4.0 / 3.0)
+
+
+def effective_bandwidth_with_sparsity(f: FrameSpec, sparsity: float,
+                                      coding: str = "entropy",
+                                      csr_index_bits: int = 18) -> float:
+    """The reduction with sparse coding of the spike map: ``"entropy"``
+    codes at H(p) bits a position, ``"csr"`` sends each nonzero's index."""
+    if coding == "csr":
+        nnz = (1.0 - sparsity) * f.bits_transmitted_out
+        coded = nnz * csr_index_bits
+    else:
+        p = min(max(1.0 - sparsity, 1e-9), 1 - 1e-9)
+        h = -p * math.log2(p) - (1 - p) * math.log2(1 - p)
+        coded = h * f.bits_transmitted_out
+    return f.bits_transmitted_in / max(coded, 1.0)
+
+
+# --- front-end energy (Fig. 9) ----------------------------------------------
+
+def frontend_energy_baseline(f: FrameSpec = VGG16_IMAGENET,
+                             c: EnergyConstants = DEFAULT_ENERGY) -> float:
+    """Conventional CIS: integrate + 12b ADC per pixel + column readout (pJ)."""
+    return f.n_pixels * (c.e_pixel_integration_pj + c.e_adc12_pj
+                         + c.e_col_readout_pj)
+
+
+def frontend_energy_insensor(f: FrameSpec = VGG16_IMAGENET,
+                             c: EnergyConstants = DEFAULT_ENERGY) -> float:
+    """In-sensor P2M [17]: analog MAC in pixels, multi-bit ADC per kernel."""
+    integrate = f.n_pixels * 2 * c.e_pixel_integration_pj
+    per_kernel = f.n_kernel_outputs * (c.e_subtractor_pj + c.e_adc4_pj)
+    return integrate + per_kernel
+
+
+def frontend_energy_ours(f: FrameSpec = VGG16_IMAGENET,
+                         c: EnergyConstants = DEFAULT_ENERGY) -> float:
+    """This work: two integrations + subtractor + buffered MTJ write +
+    burst read."""
+    integrate = f.n_pixels * 2 * c.e_pixel_integration_pj
+    per_kernel = f.n_kernel_outputs * (
+        c.e_subtractor_pj
+        + f.n_mtj * (c.e_buffer_pj + c.e_mtj_write_pj + c.e_mtj_read_pj))
+    return integrate + per_kernel
+
+
+def recalibration_energy_pj(f: FrameSpec = VGG16_IMAGENET,
+                            c: EnergyConstants = DEFAULT_ENERGY, *,
+                            n_cal_frames: int = 32,
+                            bisection_iters: int = 12) -> float:
+    """One per-channel trim refresh (pJ): ``n_cal_frames`` exposures per
+    bisection iteration through the frontend, then one trim DAC write per
+    channel."""
+    exposures = n_cal_frames * bisection_iters
+    return exposures * frontend_energy_ours(f, c) \
+        + f.c_out * c.e_trim_dac_write_pj
+
+
+# --- communication energy (Fig. 9) -------------------------------------------
+
+def comm_energy_baseline(f: FrameSpec = VGG16_IMAGENET,
+                         c: EnergyConstants = DEFAULT_ENERGY) -> float:
+    return f.bits_transmitted_in * c.e_lvds_pj_per_bit * c.activity_multibit
+
+
+def comm_energy_ours(f: FrameSpec = VGG16_IMAGENET,
+                     c: EnergyConstants = DEFAULT_ENERGY) -> float:
+    return f.bits_transmitted_out * c.e_lvds_pj_per_bit * c.activity_binary
+
+
+def energy_report(f: FrameSpec = VGG16_IMAGENET,
+                  c: EnergyConstants = DEFAULT_ENERGY) -> dict:
+    fe_base = frontend_energy_baseline(f, c)
+    fe_insensor = frontend_energy_insensor(f, c)
+    fe_ours = frontend_energy_ours(f, c)
+    cm_base = comm_energy_baseline(f, c)
+    cm_ours = comm_energy_ours(f, c)
+    return {
+        "frontend_pj": {"baseline": fe_base, "in_sensor": fe_insensor,
+                        "ours": fe_ours},
+        "frontend_improvement_vs_baseline": fe_base / fe_ours,
+        "frontend_improvement_vs_insensor": fe_insensor / fe_ours,
+        "comm_pj": {"baseline": cm_base, "ours": cm_ours},
+        "comm_improvement": cm_base / cm_ours,
+        "bandwidth_reduction": bandwidth_reduction(f),
+        "recalibration_pj": recalibration_energy_pj(f, c),
+    }
+
+
+# --- frame latency (§3.4) -----------------------------------------------------
 
 
 def frame_latency_us(f: FrameSpec = VGG16_IMAGENET,

@@ -1,8 +1,9 @@
 """Hoyer-regularized binary activation (paper §2.3, Eqs. 1-2).
 
 Port of ``repro.core.hoyer`` for inference: the clip, the Hoyer extremum
-(the dynamic spike threshold), the regularizer and the effective threshold.
-The spike with its straight-through gradient comes with training.
+(the dynamic spike threshold), the regularizer, the spike and the
+effective threshold. The spike is forward only: its straight-through
+gradient comes with training.
 """
 from __future__ import annotations
 
@@ -31,6 +32,23 @@ def hoyer_regularizer(z_clip: torch.Tensor) -> torch.Tensor:
     num = torch.square(torch.sum(torch.abs(z_clip)))
     den = torch.sum(torch.square(z_clip))
     return num / torch.clamp(den, min=1e-9)
+
+
+def spike(z: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    """o = 1[z >= threshold]. Forward only: the reference's straight-through
+    gradient on the clip window (a custom VJP) comes with training."""
+    return (z >= threshold).to(z.dtype)
+
+
+def hoyer_spike(u: torch.Tensor, v_th: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 1+2: ``(binary output, hoyer_loss term)`` at the global
+    threshold E(z_clip) (held constant, as the reference stops its
+    gradient)."""
+    z = u / torch.clamp(v_th, min=1e-6)
+    zc = clip01(z)
+    o = spike(z, hoyer_extremum(zc).detach())
+    return o, hoyer_regularizer(zc)
 
 
 def effective_threshold(u: torch.Tensor, v_th: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """VC-MTJ device model (paper §2.1, Figs. 1-2, 5).
 
-Port of the parts of ``repro.core.mtj`` the serving path runs: the measured
-switching fit (piecewise-linear in logit), the precession envelope, the
-folded n-device majority, the Bernoulli draw from uint16 words and the
-burst-read comparator. Expressions keep the reference's operation order;
-``majority_prob_poly`` raises to integer powers by the same
+Port of ``repro.core.mtj``: the measured switching fit (piecewise-linear
+in logit), the precession envelope, the reset probability, the n-device
+majority (folded polynomial, binomial tail, heterogeneous devices), the
+Bernoulli draw from uint16 words, the Monte-Carlo majority vote over
+threefry draws (``prng.bernoulli``, the reference's words bit for bit) and
+the burst-read comparator. Expressions keep the reference's operation
+order; ``majority_prob_poly`` raises to integer powers by the same
 square-and-multiply sequence as ``jax.lax.integer_pow``.
 """
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import prng
 
 # --- measured device points (paper §2.2.3 / Fig. 5 caption) -----------------
 MEASURED_VOLTAGES = (0.70, 0.80, 0.90)          # volts, 700 ps AP->P pulses
@@ -116,6 +120,13 @@ def switching_probability(voltage: torch.Tensor, pulse_ps: float = 700.0,
     return p_v * envelope_factor(pulse_ps, params)
 
 
+def reset_probability(params: MTJParams = DEFAULT_MTJ) -> torch.Tensor:
+    """P(P->AP reset) at the nominal 0.9 V / 500 ps reset pulse (the
+    envelope is at its peak there by construction)."""
+    return sigmoid(switching_logit(
+        torch.tensor(params.reset_voltage, dtype=torch.float32), params))
+
+
 # --- folded Bernoulli draw ---------------------------------------------------
 
 _DRAW_SCALE = 1.0 / 2 ** 16
@@ -152,14 +163,113 @@ def majority_prob_poly(p: torch.Tensor, n: int = 8, m: int = 4
     return out
 
 
+# --- multi-MTJ majority statistics (Fig. 5) ---------------------------------
+
+_EPS_F32 = float(np.finfo(np.float32).eps)
+
+
+def _binom_pmf(k: torch.Tensor, n: int, p: torch.Tensor) -> torch.Tensor:
+    """Binomial(n, p) pmf at ``k`` through log-gamma, ``p`` clipped to
+    [eps, 1 - eps] of float32 (no 0 * inf at the edges)."""
+    log_c = (torch.lgamma(torch.full((), n + 1.0, device=k.device))
+             - torch.lgamma(k + 1.0) - torch.lgamma(n - k + 1.0))
+    pc = torch.clamp(p, _EPS_F32, 1.0 - _EPS_F32)
+    return torch.exp(log_c + k * torch.log(pc) + (n - k) * torch.log1p(-pc))
+
+
+def majority_activation_probability(p_single, n: int = 8,
+                                    majority: int = 4) -> torch.Tensor:
+    """P(>= majority of n MTJs switch) given the per-device P_sw: the
+    activation probability of the redundant neuron."""
+    p = torch.as_tensor(p_single, dtype=torch.float32)
+    ks = torch.arange(majority, n + 1, dtype=torch.float32, device=p.device)
+    return torch.sum(_binom_pmf(ks, n, p[..., None]), dim=-1)
+
+
+def majority_prob_hetero(p_devices: torch.Tensor,
+                         majority: int) -> torch.Tensor:
+    """P(>= majority of n heterogeneous devices switch), the Poisson
+    binomial of the per-device probabilities on the LAST axis (..., n).
+
+    A pairwise tree of polynomial products (multiply/add only, exact at p
+    in {0, 1}): devices padded to a power of two with p = 0 phantoms (an
+    exact no-op for the tail), each level multiplying every pair at once.
+    """
+    n = p_devices.shape[-1]
+    p = p_devices.to(torch.float32)
+    n2 = 1 << max(n - 1, 0).bit_length()          # next power of two
+    if n2 > n:
+        p = torch.cat([p, p.new_zeros(p.shape[:-1] + (n2 - n,))], dim=-1)
+    pmf = torch.stack([1.0 - p, p], dim=-1)       # (..., n2, 2)
+    m = n2
+    while m > 1:
+        half = m // 2
+        a, b = pmf[..., :half, :], pmf[..., half:, :]
+        length = a.shape[-1]
+        out = a.new_zeros(a.shape[:-1] + (2 * length - 1,))
+        for i in range(length):
+            out[..., i:i + length] += a[..., i:i + 1] * b
+        pmf = out
+        m = half
+    return torch.sum(pmf[..., 0, majority:], dim=-1)
+
+
+def majority_prob_hetero_dp(p_devices: torch.Tensor,
+                            majority: int) -> torch.Tensor:
+    """The sequential DP over devices (n full-width multiply-adds), the
+    cross-check of ``majority_prob_hetero``."""
+    n = p_devices.shape[-1]
+    pmf = p_devices.new_zeros(p_devices.shape[:-1] + (n + 1,),
+                              dtype=torch.float32)
+    pmf[..., 0] = 1.0
+    for i in range(n):
+        p = p_devices[..., i:i + 1]
+        shifted = torch.cat([torch.zeros_like(pmf[..., :1]), pmf[..., :-1]],
+                            dim=-1)
+        pmf = pmf * (1.0 - p) + shifted * p
+    return torch.sum(pmf[..., majority:], dim=-1)
+
+
+def majority_error_rates(p_should_switch, p_should_not, n: int = 8,
+                         majority: int = 4
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(fail-to-activate, false-activate) rates of the majority neuron."""
+    fail = 1.0 - majority_activation_probability(p_should_switch, n,
+                                                 majority)
+    false = majority_activation_probability(p_should_not, n, majority)
+    return fail, false
+
+
+def sample_majority_activation(key, p_single: torch.Tensor, n: int = 8,
+                               majority: int = 4) -> torch.Tensor:
+    """Monte-Carlo hardware path: n Bernoulli switches per element, drawn
+    from ``key`` on ``p_single``'s device, then the majority vote. Returns
+    float {0,1} of ``p_single``'s shape."""
+    return sample_majority_activation_per_device(
+        key, p_single[..., None].expand(*p_single.shape, n), majority)
+
+
+def sample_majority_activation_per_device(key, p_devices: torch.Tensor,
+                                          majority: int = 4) -> torch.Tensor:
+    """The majority vote over heterogeneous devices, the per-device
+    switching probabilities on the last axis (..., n)."""
+    draws = prng.bernoulli(key, p_devices, p_devices.shape)
+    votes = torch.sum(draws.to(torch.int32), dim=-1)
+    return (votes >= majority).to(p_devices.dtype)
+
+
 # --- burst read (Fig. 6) -----------------------------------------------------
 
 def read_voltage_divider(state_parallel: torch.Tensor,
                          params: MTJParams = DEFAULT_MTJ,
-                         r_load: float = 6.0e3) -> torch.Tensor:
-    """V_MTJ seen by the comparator for P / AP states (resistive divider)."""
-    r = torch.where(state_parallel > 0.5, params.r_p, params.r_ap).to(
-        torch.float32)
+                         r_load: float = 6.0e3, *, r_p_scale=1.0,
+                         tmr_scale=1.0) -> torch.Tensor:
+    """V_MTJ seen by the comparator for P / AP states (resistive divider).
+    ``r_p_scale`` / ``tmr_scale`` (tensors broadcast against the states, or
+    floats) are the relative per-device R_P and TMR spreads."""
+    r_p = params.r_p * r_p_scale
+    r_ap = r_p * (1.0 + params.tmr * tmr_scale)
+    r = torch.where(state_parallel > 0.5, r_p, r_ap).to(torch.float32)
     return params.read_voltage * r_load / (r + r_load)
 
 

@@ -1,9 +1,11 @@
 """P2M first-layer physics: configuration, weight init and quantization.
 
-Port of the serving subset of ``repro.core.p2m``: ``P2MConfig``,
-``init_params``, the 4-bit symmetric fake-quant, the relu-split phase
-packing ``[w+, w-]`` that kernel A and the fused kernel consume, and the
-int8 operand helpers of the quantized kernels.
+Port of ``repro.core.p2m``: ``P2MConfig``, ``init_params``, the 4-bit
+symmetric fake-quant, the relu-split phase packing ``[w+, w-]`` that kernel
+A and the fused kernel consume, the int8 operand helpers of the quantized
+kernels, and the plain two-phase conv of the ``ideal`` / ``analog`` /
+``device`` backends (one packed cuDNN convolution, TF32 off, XLA's SAME
+padding), BatchNorm folding and the output sparsity.
 """
 from __future__ import annotations
 
@@ -11,8 +13,10 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import mtj, pixel
+from repro_torch.kernels import blocking
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +64,60 @@ def relu_split_pack(w: torch.Tensor) -> torch.Tensor:
     """(..., C) signed weights -> (..., 2C): ``[max(w, 0), max(-w, 0)]``."""
     return torch.cat([torch.clamp(w, min=0.0), torch.clamp(-w, min=0.0)],
                      dim=-1)
+
+
+def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """NHWC conv with HWIO weights (one analog integration phase), SAME
+    padding with the extra element on the high side, as XLA pads. cuDNN
+    runs it in IEEE float32: its TF32 default would move u by ~1e-3."""
+    (pt, pb), _ = blocking.same_pads(x.shape[1], x.shape[2], w.shape[0],
+                                     stride)
+    _, (pl, pr) = blocking.same_pads(x.shape[1], x.shape[2], w.shape[1],
+                                     stride)
+    xn = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def packed_phase_conv(x: torch.Tensor, wq: torch.Tensor, stride: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both integration phases in ONE 2C-channel convolution over the
+    ``relu_split_pack`` weights: ``(mac_pos, mac_neg)``."""
+    c = wq.shape[-1]
+    y = phase_conv(x, relu_split_pack(wq), stride)
+    return y[..., :c], y[..., c:]
+
+
+def hardware_conv(x: torch.Tensor, w: torch.Tensor, cfg: P2MConfig, *,
+                  curve_gain=None, out_offset=None) -> torch.Tensor:
+    """Two-phase signed MAC with the per-phase circuit curve, then the
+    subtractor. ``curve_gain`` scales the pixel curve (both phases, the
+    ``pixel.get_curve`` hook); ``out_offset`` is the subtractor's DC
+    offset, added after the difference."""
+    wq = quantize_weights(w, cfg.weight_bits)
+    mac_pos, mac_neg = packed_phase_conv(x, wq, cfg.stride)
+    if curve_gain is None and out_offset is None:
+        return pixel.hardware_conv_output(mac_pos, mac_neg, cfg.pixel)
+    g = pixel.get_curve(cfg.pixel.curve, cfg.pixel, gain=curve_gain)
+    u = g(mac_pos) - g(mac_neg)
+    return u if out_offset is None else u + out_offset
+
+
+def fuse_batchnorm(w: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold BN into ``(w_fused, threshold_shift)`` (paper §2.4.1): the scale
+    into the HWIO weights, the shift into the comparator threshold."""
+    s = gamma / torch.sqrt(var + eps)
+    w_fused = w * s[None, None, None, :]
+    b = beta - mean * s
+    return w_fused, b
+
+
+def output_sparsity(o: torch.Tensor) -> torch.Tensor:
+    """Fraction of zeros in the binary activation map (Table 1 'Sp.')."""
+    return 1.0 - torch.mean(o)
 
 
 # --- int8 packed-operand quantization ----------------------------------------

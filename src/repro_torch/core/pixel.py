@@ -1,7 +1,9 @@
 """Weight-augmented pixel circuit + passive analog subtractor (paper §2.2.1-2).
 
 Port of ``repro.core.pixel``: the circuit-curve registry (``ideal``,
-``gf22_tanh``), the threshold-matching offset and ``conv_voltage``. Every
+``gf22_tanh``) with its gain / offset mismatch hooks, the photodiode
+discharge, the two-phase MAC, the threshold-matching offset and
+``conv_voltage``. Every
 expression keeps the reference's operation order, so float32 results agree
 to the ulp wherever the transcendental functions agree.
 """
@@ -28,12 +30,22 @@ def register_curve(name: str, curve_id: int):
     return deco
 
 
-def get_curve(name: str, p: "PixelCircuitParams" = None) -> CurveFn:
-    """Resolve a registered transfer curve, bound to circuit params."""
+def get_curve(name: str, p: "PixelCircuitParams" = None, *,
+              gain=None, offset=None) -> CurveFn:
+    """Resolve a registered transfer curve, bound to circuit params.
+
+    ``gain`` / ``offset`` (tensors broadcast against the curve input, or
+    floats) return ``x -> gain * g(x) + offset``, the pixel-mismatch hook;
+    ``None`` for both keeps the registered curve itself."""
     if name not in _CURVES:
         raise KeyError(f"unknown pixel curve {name!r}; "
                        f"registered: {sorted(_CURVES)}")
-    return _CURVES[name](p if p is not None else DEFAULT_PIXEL)
+    g = _CURVES[name](p if p is not None else DEFAULT_PIXEL)
+    if gain is None and offset is None:
+        return g
+    gn = 1.0 if gain is None else gain
+    off = 0.0 if offset is None else offset
+    return lambda x: gn * g(x) + off
 
 
 def circuit_curve(x: torch.Tensor, saturation: float = 2.5) -> torch.Tensor:
@@ -73,6 +85,33 @@ class PixelCircuitParams:
 
 
 DEFAULT_PIXEL = PixelCircuitParams()
+
+
+def photodiode_discharge(intensity: torch.Tensor,
+                         p: PixelCircuitParams = DEFAULT_PIXEL
+                         ) -> torch.Tensor:
+    """Node-N voltage after integration (linear discharge): the M1 gate
+    voltage in volts for a normalized [0, 1] intensity."""
+    return p.vdd * (1.0 - torch.clamp(intensity, 0.0, 1.0))
+
+
+def two_phase_mac(x: torch.Tensor, w: torch.Tensor,
+                  p: PixelCircuitParams = DEFAULT_PIXEL) -> torch.Tensor:
+    """Signed MAC as two integration phases, each through the circuit
+    curve; contracts the trailing ``w.ndim`` axes of ``x`` against ``w``."""
+    g = get_curve(p.curve, p)
+    axes = tuple(range(x.ndim - w.ndim, x.ndim))
+    mac_pos = torch.sum(x * torch.clamp(w, min=0.0), dim=axes)
+    mac_neg = torch.sum(x * torch.clamp(-w, min=0.0), dim=axes)
+    return g(mac_pos) - g(mac_neg)
+
+
+def hardware_conv_output(mac_pos: torch.Tensor, mac_neg: torch.Tensor,
+                         p: PixelCircuitParams = DEFAULT_PIXEL
+                         ) -> torch.Tensor:
+    """Apply the per-phase circuit curve and subtract (normalized units)."""
+    g = get_curve(p.curve, p)
+    return g(mac_pos) - g(mac_neg)
 
 
 def threshold_matching_offset(v_th: torch.Tensor,

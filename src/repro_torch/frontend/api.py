@@ -3,13 +3,15 @@
 Port of ``repro.frontend.api``: a registry of backends behind one call,
 
     frontend = SensorFrontend(FrontendConfig(p2m=..., backend="cuda"))
-    params = frontend.init(torch.Generator().manual_seed(0), device=dev)
-    activations, aux = frontend(params, images, key=key)
+    params = frontend.init(torch.Generator().manual_seed(0))   # on the GPU
+    activations, aux = frontend(params, images, key=key, mode="device")
 
 returning ``(activations, aux)`` with the reference's aux keys. Stateful
 backends (their result is held in MTJ states) go through the global-shutter
-burst read. This slice registers the ``cuda`` backend (the hand-kernel
-counterpart of ``pallas``); ``ideal``, ``analog`` and ``device`` come later.
+burst read. The backends are ``ideal``, ``analog``, ``device`` and ``cuda``
+(the hand-kernel counterpart of the reference's ``pallas``); ``ideal`` and
+``analog`` are marked differentiable, as the reference marks them (their
+straight-through gradients come with training).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import p2m
+from repro_torch.devices import resolve_device
 from repro_torch.frontend import shutter
 
 # backend signature: (cfg, params, images, key) -> (activations, aux)
@@ -28,13 +31,18 @@ BackendFn = Callable[["FrontendConfig", dict, torch.Tensor, Optional[object]],
 _BACKENDS: Dict[str, BackendFn] = {}
 # backends whose result is held in MTJ states (global-shutter burst read)
 _STATEFUL: set = set()
+# backends that carry straight-through gradients (training runs through them)
+_DIFFERENTIABLE: set = set()
 
 
-def register_backend(name: str, stateful: bool = False):
+def register_backend(name: str, stateful: bool = False,
+                     differentiable: bool = False):
     def deco(fn: BackendFn) -> BackendFn:
         _BACKENDS[name] = fn
         if stateful:
             _STATEFUL.add(name)
+        if differentiable:
+            _DIFFERENTIABLE.add(name)
         return fn
     return deco
 
@@ -48,6 +56,14 @@ def get_backend(name: str) -> BackendFn:
 
 def list_backends() -> list:
     return sorted(_BACKENDS)
+
+
+def differentiable_backends() -> list:
+    """Backends the reference trains through (straight-through gradients).
+    In the port their spike is forward only for now: no gradient reaches
+    ``params["w"]`` through the activation map until the training slice
+    gives ``hoyer.spike`` its straight-through backward."""
+    return sorted(_DIFFERENTIABLE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +88,10 @@ class SensorFrontend:
         self.cfg = cfg
 
     def init(self, generator: torch.Generator, device=None) -> dict:
-        return p2m.init_params(generator, self.cfg.p2m, device=device)
+        """Seeded parameters on ``device``: the GPU unless asked otherwise
+        (``device="cpu"``); raises without one."""
+        return p2m.init_params(generator, self.cfg.p2m,
+                               device=resolve_device(device))
 
     def __call__(self, params: dict, images: torch.Tensor, *, key=None,
                  mode: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:

@@ -120,19 +120,32 @@ def _conv_same(x: torch.Tensor, w_hwio: torch.Tensor,
     return F.conv2d(x, w, stride=stride, padding=(pt, pl))
 
 
-def _conv_apply(params: Dict, x: torch.Tensor, stride: int, bits: int,
-                binary: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One quantized conv + BN (stored stats) + per-example Hoyer spike."""
+def _conv_bn(params: Dict, x: torch.Tensor, stride: int,
+             bits: int) -> torch.Tensor:
+    """One quantized conv + BN (stored stats)."""
     w = p2m.quantize_weights(params["w"], bits)
     y = _conv_same(x, w, stride)
     y = (y - _channel(params["bn_mean"])) / torch.sqrt(
         _channel(params["bn_var"]) + 1e-5)
-    y = y * _channel(params["bn_scale"]) + _channel(params["bn_bias"])
-    if not binary:
-        return F.relu(y), torch.zeros((), device=y.device)
+    return y * _channel(params["bn_scale"]) + _channel(params["bn_bias"])
+
+
+def _spike_terms(params: Dict, y: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(z, clip01(z), thr)``: the normalized map and its per-example
+    Hoyer threshold, the spike's operands."""
     z = y / torch.clamp(params["v_th"], min=1e-6)
     zc = hoyer.clip01(z)
-    thr = hoyer.hoyer_extremum(zc, axis=(1, 2, 3), keepdims=True)
+    return z, zc, hoyer.hoyer_extremum(zc, axis=(1, 2, 3), keepdims=True)
+
+
+def _conv_apply(params: Dict, x: torch.Tensor, stride: int, bits: int,
+                binary: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One quantized conv + BN (stored stats) + per-example Hoyer spike."""
+    y = _conv_bn(params, x, stride, bits)
+    if not binary:
+        return F.relu(y), torch.zeros((), device=y.device)
+    z, zc, thr = _spike_terms(params, y)
     return (z >= thr).to(y.dtype), hoyer.hoyer_regularizer(zc)
 
 

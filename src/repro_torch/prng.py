@@ -1,4 +1,4 @@
-"""Threefry-2x32 key derivation, bit-exact with ``jax.random``'s raw keys.
+"""Threefry-2x32 keys and random words, bit-exact with ``jax.random``.
 
 The engine folds one key per microbatch (``fold_in``) and the frontend
 kernels hash their draw words from the key's two 32-bit words. Keys are
@@ -6,16 +6,37 @@ tiny and live on the host: a key here is a ``(2,)`` numpy ``uint32`` array,
 the same words ``jax.random.key_data`` returns, and a kernel receives only
 those two words as scalar arguments.
 
-``fold_in`` hashes ``[0, data]`` under the key with 20 Threefry rounds;
-the ``jax_threefry_partitionable`` setting changes ``split`` and
-``random_bits``, not ``fold_in`` (the tests check against jax itself).
+With jax's ``jax_threefry_partitionable`` setting on, every word is the
+20-round Threefry-2x32 block of a counter pair under the key:
+
+* ``fold_in(key, d)`` is the block of ``(0, d)``, and ``split(key, n)[i]``
+  the block of ``(0, i)``;
+* ``random_bits(key, shape)`` at flat row-major index ``i`` is ``x0 ^ x1``
+  of the block of ``(i >> 32, i & 0xFFFFFFFF)``;
+* ``uniform`` keeps 23 bits of a word as a float32 mantissa in [1, 2) and
+  subtracts 1; ``bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``.
+
+The tests hold each against the installed jax. Random words are made in
+plain PyTorch on the device of the tensor they are compared with, in int64
+tensors masked to 32 bits after every add and shift (an int32 right shift
+is arithmetic and would break the rotation), in chunks of counters to
+bound memory: each word depends on its counter alone, so chunking changes
+no bit.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+# counters per chunk of the vectorised generator (a few int64 temporaries
+# of this length are live at once: ~200 MB)
+_CHUNK = 1 << 22
+_ONE_F32_BITS = 0x3F800000      # float32 1.0
+_MANTISSA_SHIFT = 32 - 23       # float32 keeps 23 mantissa bits
 
 
 def _rotl(x: int, r: int) -> int:
@@ -37,6 +58,21 @@ def threefry2x32(key, x0: int, x1: int):
     return x0, x1
 
 
+def _threefry2x32_tensor(key, x0: torch.Tensor, x1: torch.Tensor):
+    """``threefry2x32`` over int64 tensors of counter words in [0, 2^32)."""
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) & _MASK) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _MASK
+    return x0, x1
+
+
 def PRNGKey(seed: int) -> np.ndarray:
     """The raw ``(2,)`` uint32 key of ``jax.random.PRNGKey(seed)`` for a
     32-bit seed (jax's default mode): ``[0, seed mod 2^32]``."""
@@ -51,6 +87,58 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.asarray(threefry2x32(key, 0, int(data) & _MASK), np.uint32)
 
 
+def split(key, num: int = 2) -> np.ndarray:
+    """``jax.random.split``: ``(num, 2)`` uint32 keys, row ``i`` the block
+    of the counter ``(0, i)``."""
+    return np.asarray([threefry2x32(key, 0, i) for i in range(num)],
+                      np.uint32).reshape(num, 2)
+
+
 def key_data(key) -> np.ndarray:
     """The key's two uint32 words (a key already is its data here)."""
     return np.asarray(key, np.uint32).reshape(2)
+
+
+def counter_words(key, start: int, stop: int, device=None) -> torch.Tensor:
+    """The random words of the flat counters ``start`` .. ``stop - 1``
+    (int64 values in [0, 2^32)): that slice of the flattened
+    ``random_bits``, made without the words before it."""
+    i = torch.arange(start, stop, dtype=torch.int64, device=device)
+    x0, x1 = _threefry2x32_tensor(key, i >> 32, i & _MASK)
+    return x0 ^ x1
+
+
+def _word_chunks(key, n: int, device):
+    """Yield ``(start, words)`` over the counters 0 .. n - 1, ``_CHUNK`` at
+    a time."""
+    for start in range(0, n, _CHUNK):
+        yield start, counter_words(key, start, min(start + _CHUNK, n), device)
+
+
+def random_bits(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32 words) as an int64 tensor of
+    values in [0, 2^32) on ``device``."""
+    n = math.prod(shape)
+    out = torch.empty((n,), dtype=torch.int64, device=device)
+    for start, words in _word_chunks(key, n, device):
+        out[start:start + words.numel()] = words
+    return out.reshape(shape)
+
+
+def uniform(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1) on ``device``."""
+    n = math.prod(shape)
+    out = torch.empty((n,), dtype=torch.float32, device=device)
+    for start, words in _word_chunks(key, n, device):
+        mant = ((words >> _MANTISSA_SHIFT) | _ONE_F32_BITS).to(torch.int32)
+        out[start:start + words.numel()] = mant.view(torch.float32) - 1.0
+    return out.reshape(shape)
+
+
+def bernoulli(key, p, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: a bool tensor, drawn on the
+    device of ``p`` where ``p`` is a tensor (broadcast against ``shape``),
+    else on ``device``."""
+    if isinstance(p, torch.Tensor):
+        device = p.device
+    return uniform(key, tuple(shape), device) < p

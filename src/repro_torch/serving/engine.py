@@ -27,9 +27,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.devices import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.params import to_device
-from repro_torch.serving.vision import resolve_device
 
 
 def make_prefill_step(cfg: ArchConfig, mesh=None, rules=None):

@@ -12,7 +12,8 @@ key folded per microbatch. With the ``cuda`` backend the first microbatch
 of every stream runs the exact two-kernel step and seeds a carried Hoyer
 threshold; later microbatches run the single fused kernel at the carried
 EMA and fall back to the exact step whenever the fresh threshold drifts by
-more than ``fused_theta_tol`` (relative).
+more than ``fused_theta_tol`` (relative). On the ``ideal``, ``analog`` and
+``device`` backends every step is exact and carries no stream telemetry.
 
 ``tile_table=`` merges a table written by
 ``repro_torch.kernels.autotune.save_table`` into the process: the frontend's
@@ -34,21 +35,11 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import energy
+from repro_torch.devices import resolve_device
 from repro_torch.frontend.api import get_backend
 from repro_torch.kernels import autotune, blocking
 from repro_torch.models import vision
 from repro_torch.models.params import to_device
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the GPU, or a RuntimeError when there is none."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; the port's engines "
-                           "run on the GPU unless asked otherwise — pass "
-                           "device=\"cpu\" to run the plain PyTorch versions")
-    return torch.device("cuda")
 
 
 class VisionEngine:

@@ -1,6 +1,10 @@
 """The PyTorch port's physics against ``repro.core`` on identical numpy
-inputs: pixel curve and voltage map, MTJ switching fit, majority fold, draw,
-burst read, Hoyer threshold, weight quantization, frame latency and the
+inputs: pixel curve (and its gain / offset hooks) and voltage map, the
+photodiode and two-phase MAC, the packed phase conv and hardware conv, BN
+folding, MTJ switching fit, reset probability, majority fold, binomial tail
+and heterogeneous majority, the threefry-drawn majority vote, draw, burst
+read (and its R_P / TMR hooks), Hoyer threshold and spike, weight
+quantization, the bandwidth and energy functions, frame latency and the
 global-shutter stats — plus the anti-fork check that the port's copies of
 the physics dataclasses equal the reference's field for field."""
 import dataclasses
@@ -192,3 +196,224 @@ def test_shutter_stats_and_v_conv_stats():
     for k in s_j:
         np.testing.assert_allclose(float(s_t[k]), float(s_j[k]),
                                    rtol=SUM_RTOL, err_msg=k)
+
+
+# --- the ideal / analog / device backends' physics ----------------------------
+
+# float32 lgamma: XLA's Lanczos form and the C library's differ by up to
+# two ulps at log C(8, k) (|x| < 11), which exp carries into a pmf term of
+# up to ~0.3: the lgamma-based majority functions agree to 3e-6, and the
+# port alone lies within 1e-6 of the float64 binomial tail
+LGAMMA_ATOL = 3e-6
+# majority probabilities built of multiplies and adds
+MAJORITY_ATOL = 1e-6
+
+
+def test_spike_and_hoyer_spike():
+    u = _rng(11).normal(size=(2, 8, 8, 16)).astype(np.float32)
+    v_th = np.float32(0.9)
+    thr = np.float32(0.4)
+    np.testing.assert_array_equal(
+        t_hoyer.spike(_t(u), _t(thr)).numpy(),
+        np.asarray(j_hoyer.spike(jnp.asarray(u), jnp.asarray(thr))))
+    o_j, l_j = j_hoyer.hoyer_spike(jnp.asarray(u), jnp.asarray(v_th))
+    o_t, l_t = t_hoyer.hoyer_spike(_t(u), _t(v_th))
+    np.testing.assert_allclose(float(l_t), float(l_j), rtol=SUM_RTOL)
+    z = u / v_th
+    e = float(j_hoyer.hoyer_extremum(j_hoyer.clip01(jnp.asarray(z))))
+    diff = o_t.numpy() != np.asarray(o_j)
+    near = np.abs(z - e) <= 4 * np.finfo(np.float32).eps * max(abs(e), 1.0)
+    assert not (diff & ~near).any()
+
+
+def test_curve_hooks_and_pixel_mac():
+    rng = _rng(12)
+    x = rng.normal(size=(16, 32)).astype(np.float32) * 2
+    gain = rng.uniform(0.9, 1.1, size=(32,)).astype(np.float32)
+    off = rng.normal(size=(32,)).astype(np.float32) * 0.01
+    for kw_j, kw_t in (({"gain": jnp.asarray(gain)}, {"gain": _t(gain)}),
+                       ({"offset": jnp.asarray(off)}, {"offset": _t(off)}),
+                       ({"gain": 1.05, "offset": 0.02},
+                        {"gain": 1.05, "offset": 0.02})):
+        g_j = j_pixel.get_curve("gf22_tanh", **kw_j)(jnp.asarray(x))
+        g_t = t_pixel.get_curve("gf22_tanh", **kw_t)(_t(x))
+        np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=0,
+                                   atol=TRANSCENDENTAL_ATOL)
+    intensity = rng.uniform(-0.2, 1.2, size=(8, 8)).astype(np.float32)
+    np.testing.assert_array_equal(
+        t_pixel.photodiode_discharge(_t(intensity)).numpy(),
+        np.asarray(j_pixel.photodiode_discharge(jnp.asarray(intensity))))
+    patches = rng.uniform(size=(10, 3, 3, 3)).astype(np.float32)
+    w = rng.normal(size=(3, 3, 3)).astype(np.float32) * 0.3
+    np.testing.assert_allclose(
+        t_pixel.two_phase_mac(_t(patches), _t(w)).numpy(),
+        np.asarray(j_pixel.two_phase_mac(jnp.asarray(patches),
+                                         jnp.asarray(w))),
+        rtol=SUM_RTOL, atol=TRANSCENDENTAL_ATOL)
+    mp, mn = (rng.uniform(0, 3, size=(64, 32)).astype(np.float32)
+              for _ in range(2))
+    np.testing.assert_allclose(
+        t_pixel.hardware_conv_output(_t(mp), _t(mn)).numpy(),
+        np.asarray(j_pixel.hardware_conv_output(jnp.asarray(mp),
+                                                jnp.asarray(mn))),
+        rtol=0, atol=TRANSCENDENTAL_ATOL)
+
+
+@pytest.mark.parametrize("b,h,w,k,stride,cout", [
+    (2, 32, 32, 3, 2, 32), (1, 13, 11, 5, 3, 8), (2, 16, 16, 3, 1, 16),
+    (1, 7, 9, 1, 2, 4)])
+def test_phase_conv_and_hardware_conv(b, h, w, k, stride, cout):
+    rng = _rng(13)
+    x = rng.uniform(size=(b, h, w, 3)).astype(np.float32)
+    wt = (rng.normal(size=(k, k, 3, cout)) * 0.3).astype(np.float32)
+    y_j = np.asarray(j_p2m.phase_conv(jnp.asarray(x), jnp.asarray(wt),
+                                      stride))
+    y_t = t_p2m.phase_conv(_t(x), _t(wt), stride).numpy()
+    assert y_t.shape == y_j.shape
+    np.testing.assert_allclose(y_t, y_j, rtol=SUM_RTOL, atol=1e-6)
+    for a, bb in zip(t_p2m.packed_phase_conv(_t(x), _t(wt), stride),
+                     j_p2m.packed_phase_conv(jnp.asarray(x), jnp.asarray(wt),
+                                             stride)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(bb), rtol=SUM_RTOL,
+                                   atol=1e-6)
+    cfg_j = j_p2m.P2MConfig(out_channels=cout, kernel_size=k, stride=stride)
+    cfg_t = t_p2m.P2MConfig(out_channels=cout, kernel_size=k, stride=stride)
+    gain = rng.uniform(0.9, 1.1, size=(cout,)).astype(np.float32)
+    off = (rng.normal(size=(cout,)) * 0.01).astype(np.float32)
+    for hooks in ({}, {"curve_gain": gain}, {"out_offset": off},
+                  {"curve_gain": gain, "out_offset": off}):
+        u_j = j_p2m.hardware_conv(jnp.asarray(x), jnp.asarray(wt), cfg_j,
+                                  **{n: jnp.asarray(v)
+                                     for n, v in hooks.items()})
+        u_t = t_p2m.hardware_conv(_t(x), _t(wt), cfg_t,
+                                  **{n: _t(v) for n, v in hooks.items()})
+        np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j),
+                                   rtol=SUM_RTOL, atol=1e-5)
+
+
+def test_fuse_batchnorm_and_output_sparsity():
+    rng = _rng(14)
+    w = rng.normal(size=(3, 3, 3, 8)).astype(np.float32)
+    gamma, beta, mean = (rng.normal(size=(8,)).astype(np.float32)
+                         for _ in range(3))
+    var = rng.uniform(0.5, 2.0, size=(8,)).astype(np.float32)
+    got = t_p2m.fuse_batchnorm(*map(_t, (w, gamma, beta, mean, var)))
+    want = j_p2m.fuse_batchnorm(*map(jnp.asarray, (w, gamma, beta, mean,
+                                                   var)))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    o = (rng.uniform(size=(2, 8, 8, 8)) < 0.3).astype(np.float32)
+    np.testing.assert_allclose(float(t_p2m.output_sparsity(_t(o))),
+                               float(j_p2m.output_sparsity(jnp.asarray(o))),
+                               rtol=SUM_RTOL)
+
+
+def _binom_tail_f64(p, n, m):
+    import math
+    p = np.asarray(p, np.float64)
+    return sum(math.comb(n, k) * p ** k * (1 - p) ** (n - k)
+               for k in range(m, n + 1))
+
+
+def test_majority_activation_probability_and_error_rates():
+    p = _rng(15).uniform(size=(512,)).astype(np.float32)
+    p[:4] = (0.0, 1.0, 0.924, 0.062)
+    for n, m in ((8, 4), (5, 3), (12, 6)):
+        q_t = t_mtj.majority_activation_probability(_t(p), n, m).numpy()
+        q_j = np.asarray(j_mtj.majority_activation_probability(
+            jnp.asarray(p), n, m))
+        np.testing.assert_allclose(q_t, q_j, rtol=0, atol=LGAMMA_ATOL)
+        np.testing.assert_allclose(q_t, _binom_tail_f64(p, n, m), rtol=0,
+                                   atol=MAJORITY_ATOL)
+    ks = np.arange(0, 9, dtype=np.float32)
+    np.testing.assert_allclose(
+        t_mtj._binom_pmf(_t(ks), 8, _t(p[:, None])).numpy(),
+        np.asarray(j_mtj._binom_pmf(jnp.asarray(ks), 8,
+                                    jnp.asarray(p[:, None]))),
+        rtol=0, atol=LGAMMA_ATOL)
+    for args in ((0.924, 0.062), (_t(p[:8]), _t(p[8:16]))):
+        got = t_mtj.majority_error_rates(*args)
+        want = j_mtj.majority_error_rates(
+            *(jnp.asarray(a.numpy()) if isinstance(a, torch.Tensor) else a
+              for a in args))
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0,
+                                       atol=LGAMMA_ATOL)
+    np.testing.assert_allclose(float(t_mtj.reset_probability()),
+                               float(j_mtj.reset_probability()), rtol=0,
+                               atol=TRANSCENDENTAL_ATOL)
+
+
+@pytest.mark.parametrize("n,m", [(8, 4), (5, 3), (3, 2), (1, 1)])
+def test_majority_prob_hetero_and_dp(n, m):
+    p = _rng(16).uniform(size=(64, 4, n)).astype(np.float32)
+    p[0, 0, :] = 0.0
+    p[0, 1, :] = 1.0
+    for fn in ("majority_prob_hetero", "majority_prob_hetero_dp"):
+        q_t = getattr(t_mtj, fn)(_t(p), m).numpy()
+        q_j = np.asarray(getattr(j_mtj, fn)(jnp.asarray(p), m))
+        np.testing.assert_allclose(q_t, q_j, rtol=0, atol=MAJORITY_ATOL,
+                                   err_msg=fn)
+
+
+def test_sampled_majority_equals_reference_draws():
+    """The same key and the same probabilities: the threefry words are
+    bit-exact, so every vote agrees."""
+    import jax
+    rng = _rng(17)
+    p = rng.uniform(size=(2, 6, 6, 8)).astype(np.float32)
+    p_dev = rng.uniform(size=(3, 5, 8)).astype(np.float32)
+    for seed in (0, 9):
+        kj = jax.random.fold_in(jax.random.PRNGKey(seed), 4)
+        kt = np.asarray(jax.random.key_data(kj))
+        np.testing.assert_array_equal(
+            t_mtj.sample_majority_activation(kt, _t(p), 8, 4).numpy(),
+            np.asarray(j_mtj.sample_majority_activation(kj, jnp.asarray(p),
+                                                        8, 4)))
+        np.testing.assert_array_equal(
+            t_mtj.sample_majority_activation_per_device(kt, _t(p_dev),
+                                                        4).numpy(),
+            np.asarray(j_mtj.sample_majority_activation_per_device(
+                kj, jnp.asarray(p_dev), 4)))
+        # identical devices: the per-device vote is the shared one
+        np.testing.assert_array_equal(
+            t_mtj.sample_majority_activation_per_device(
+                kt, _t(p)[..., None].expand(*p.shape, 8), 4).numpy(),
+            t_mtj.sample_majority_activation(kt, _t(p), 8, 4).numpy())
+
+
+def test_read_voltage_divider_hooks():
+    rng = _rng(18)
+    states = (rng.uniform(size=(4, 8, 32)) < 0.4).astype(np.float32)
+    r_p = rng.uniform(0.9, 1.1, size=(32,)).astype(np.float32)
+    tmr = rng.uniform(0.8, 1.2, size=(32,)).astype(np.float32)
+    for kw in ({"r_p_scale": r_p}, {"tmr_scale": tmr},
+               {"r_p_scale": r_p, "tmr_scale": tmr}, {"r_p_scale": 1.1}):
+        got = t_mtj.read_voltage_divider(
+            _t(states), **{k: _t(v) if isinstance(v, np.ndarray) else v
+                           for k, v in kw.items()})
+        want = j_mtj.read_voltage_divider(
+            jnp.asarray(states), **{k: jnp.asarray(v) for k, v in kw.items()})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+CIFAR_SPEC = dict(h_in=32, w_in=32, h_out=8, w_out=8)
+
+
+@pytest.mark.parametrize("spec_kw", [{}, CIFAR_SPEC])
+def test_bandwidth_and_energy_functions(spec_kw):
+    f_t, f_j = t_energy.FrameSpec(**spec_kw), j_energy.FrameSpec(**spec_kw)
+    assert f_t.bits_transmitted_in == f_j.bits_transmitted_in
+    assert f_t.bits_transmitted_out == f_j.bits_transmitted_out
+    for name in ("bandwidth_reduction", "paper_eq3",
+                 "frontend_energy_baseline", "frontend_energy_insensor",
+                 "frontend_energy_ours", "recalibration_energy_pj",
+                 "comm_energy_baseline", "comm_energy_ours"):
+        assert getattr(t_energy, name)(f_t) == pytest.approx(
+            getattr(j_energy, name)(f_j), rel=1e-12), name
+    for sp in (0.0, 0.5, 0.8, 0.97, 1.0):
+        for coding in ("entropy", "csr"):
+            assert t_energy.effective_bandwidth_with_sparsity(
+                f_t, sp, coding) == pytest.approx(
+                j_energy.effective_bandwidth_with_sparsity(f_j, sp, coding),
+                rel=1e-12)
