@@ -96,10 +96,27 @@ line:
    the CPU engine on a (1, 128) prompt and 8 new tokens, with its flash
    launch count; ``lm_stablelm``: the same check for stablelm-3b (head dim
    80, the wgmma kernel) at full width, 2 layers;
-12. ``seconds``: the wall time of the build, the kernel lines, the vision
-   phases, the frontend backends' phases, the flash lines and the LM
-   phases;
-13. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+12. the variation phases, on a sampled chip (BENCH_variation.json's
+   profile at sigma 1.0, chip 3): ``calibrate`` (16 frames on the card and
+   on the CPU, the trims within 8 bisection steps, the rate errors and
+   walls); ``engine_variation`` / ``engine_variation_device`` (the vgg16
+   engine of phase 4 on that chip with ``VisionEngine(calibration=)``,
+   through ``cuda``, A / B / fused launched with the chip's (4, C) rows,
+   and through ``device``; each held against the CPU engine as in phase
+   4) and a ``variation`` line of their steady walls beside the nominal
+   engine's; ``variation_kernel`` lines: kernel B and both fused kernels
+   with random (4, C) rows, a random (4, N_pix, C) per-pixel map and a map
+   constant across pixels, at the serving shape and ImageNet (draws by the
+   word-boundary rule against the plain versions, V partials within 1e-5,
+   the constant map bit for bit the rows' outputs; event-pair and profiler
+   ms beside the bound of each layout); ``yield``: ``yield_sweep`` of 64
+   chips at sigma 0.1, 0.5 and 1.0 on the card against the CPU (yield
+   fractions equal, error figures at rtol 1e-5 above 4 ulps of 1, read
+   margin within 1e-6 V) and its walls;
+13. ``seconds``: the wall time of the build, the kernel lines, the vision
+   phases, the frontend backends' phases, the flash lines, the LM phases
+   and the variation phases;
+14. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run; one flash row per served
    head dim: D 128 with granite-8b's launches, D 80 with stablelm-3b's),
    and last the ``{"ok": true, "device": ...}`` line.
@@ -187,6 +204,11 @@ WARP_TILE_SYMBOLS = {
     "p2m_phase_a_implicit_q8": "phase_a_q8_warp_kernel",
     "p2m_conv": "legacy_warp_kernel",
 }
+# the kernels the three wrappers launch for the (4, N_pix, C) per-pixel chip
+# map (kernels of their own beside the (4, C) ones above)
+PIXEL_SYMBOLS = {name: KERNEL_SYMBOLS[name].replace("_kernel", "_pix_kernel")
+                 for name in ("p2m_phase_b", "p2m_fused_stream",
+                              "p2m_fused_stream_q8")}
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 # the kernels each main path launches; every other wrapper must launch 0
 # times on that path
@@ -198,6 +220,10 @@ PATH_KERNELS = {
     "lm": ("flash_attention",),
     # the device backend runs one cuDNN conv and plain PyTorch: no kernel
     "engine_device": (),
+    # a sampled, calibrated chip: its (4, C) rows in B and the fused kernel
+    "engine_variation": ("p2m_phase_a_implicit", "p2m_phase_b",
+                         "p2m_fused_stream"),
+    "engine_variation_device": (),
 }
 SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
 # the plain-PyTorch frontend backends; analog with its Fig. 8 flips on
@@ -217,6 +243,17 @@ MAX_EDGE_FRAC = 1e-3
 WORD_CHECK = 1 << 20
 # the device backend's activation rate against the analytic majority
 RATE_SIGMAS = 5.0
+# the variation phases: BENCH_variation.json's profile at sigma scale 1.0,
+# chip 3; the calibration bisection's steps and window (the trim is held
+# card vs CPU within 8 of its steps); the yield sweep's fleet and sigmas
+VARIATION_CHIP = 3
+CAL_ITERS, CAL_SPAN = 16, 2.0
+YIELD_CHIPS, YIELD_SIGMAS = 64, (0.1, 0.5, 1.0)
+# the error figures at rtol 1e-5 above a floor of 4 float32 ulps of 1: a
+# fail rate is 1 - q of a majority probability q near 1, so an ulp of q
+# (card and CPU transcendentals differ by ulps) is an ulp of 1 in it
+YIELD_RTOL, YIELD_ATOL = 1e-5, 4 * 2.0 ** -23
+YIELD_MARGIN_ATOL_V = 1e-6
 
 # flash attention: the LM serving geometry (granite-8b prefill of 4 x 2048
 # tokens), stablelm-3b's prefill at head dim 80 (the `lm` generate's batch
@@ -470,22 +507,23 @@ def assert_draws(acts, q, bits, max_frac: float = 1e-3) -> int:
     return n
 
 
-def frontend_edges(backend: str, pcfg, params, frames, key):
+def frontend_edges(backend: str, fcfg, params, frames, key):
     """Where a binary activation of ``backend`` may differ between two
     devices, from the CPU's stages of that backend (``backends._stages``):
     ideal / analog where z lies within 4 float32 ulps of the Hoyer
     threshold, device where one of a neuron's uniforms lies within
-    ``DRAW_EDGE`` of its switching probability."""
+    ``DRAW_EDGE`` of its switching probability (each MTJ's, at the chip's
+    corners where ``fcfg`` or ``params`` hold a chip). ``fcfg`` is the
+    ``FrontendConfig``."""
     import torch
     from repro_torch import prng
     from repro_torch.core import hoyer
     from repro_torch.frontend import backends
-    st = backends._stages(backend, pcfg, params, frames)
+    st = backends._stages(backend, fcfg, params, frames)
     if backend == "device":
-        p_sw = st["p_sw"]
-        unif = prng.uniform(key, tuple(p_sw.shape)
-                            + (pcfg.mtj.n_redundant,))
-        return ((unif - p_sw[..., None]).abs() < DRAW_EDGE).any(dim=-1)
+        p_dev = st["p_dev"]
+        unif = prng.uniform(key, tuple(p_dev.shape))
+        return ((unif - p_dev).abs() < DRAW_EDGE).any(dim=-1)
     v_th = params["v_th"]
     z = st["u"] / torch.clamp(v_th, min=1e-6)
     thr = float(hoyer.effective_threshold(st["u"], v_th))
@@ -821,7 +859,8 @@ def compare_with_cpu(cfg, params, frames, out, stream_outs, device,
     frontend draws by the word-boundary rule (``cuda``) or the edge rule
     (``ideal`` / ``analog`` / ``device``), then the probs on the frames
     where every frontend activation agrees and no backbone unit flipped
-    (``backbone_flips``). Returns the comparison."""
+    (``backbone_flips``). ``params`` are the engine's, a programmed trim
+    included. Returns the comparison."""
     import torch
     from repro_torch import prng
     from repro_torch.core import p2m
@@ -831,10 +870,15 @@ def compare_with_cpu(cfg, params, frames, out, stream_outs, device,
     from repro_torch.models import params as mparams
     from repro_torch.serving import VisionEngine
 
+    from repro_torch.frontend import backends
+
     cpu = torch.device("cpu")
     params_cpu = mparams.to_device(params, cpu)
     engine_cpu = VisionEngine(cfg, params_cpu, backend=backend, seed=0,
                               device=cpu)
+    # the chip rows the cuda backend serves (a CPU-sampled chip: ulps from
+    # the card's), None for the nominal chip
+    chan_cpu = backends._chip_rows(cfg.frontend, params_cpu["p2m"], cpu)
     steps = [(frames[0], out, engine_cpu.classify(frames[0]))]
     if backend != "cuda":
         batches = frames[1:1 + len(stream_outs)]
@@ -857,12 +901,12 @@ def compare_with_cpu(cfg, params, frames, out, stream_outs, device,
             else:
                 u_cpu, _ = pk.p2m_phase_a_implicit_plain(x, wm, v_th,
                                                          kernel=3, stride=2)
-            q_cpu = pk.device_chain_q(u_cpu, aux_cpu["theta"], None)[0]
+            q_cpu = pk.device_chain_q(u_cpu, aux_cpu["theta"], chan_cpu)[0]
             bits = pk.draw_bits(key, u_cpu.shape[0], 32)
             flips = assert_draws(acts_dev.cpu().reshape(-1, 32), q_cpu, bits)
         else:
             flips = assert_edge_mismatches(
-                acts_dev, acts_cpu, frontend_edges(backend, cfg.p2m,
+                acts_dev, acts_cpu, frontend_edges(backend, cfg.frontend,
                                                    params_cpu["p2m"], x, key))
         equal = (acts_dev.cpu() == acts_cpu).reshape(x.shape[0], -1).all(1)
         flipped, layers, max_ulps = backbone_flips(cfg, params, params_cpu,
@@ -938,15 +982,16 @@ def backbone_flips(cfg, params, params_cpu, acts_cpu, device):
     return flipped, layers, max_ulps
 
 
-def vision_engine(device, **engine_kw):
-    """Full-width vgg16 at CIFAR-10 geometry with seeded random weights,
-    five seeded batches of 16 frames, and an engine over them: returns
-    (cfg, params, frames, engine)."""
+def vision_engine(device, cfg=None, **engine_kw):
+    """Full-width vgg16 at CIFAR-10 geometry (``cfg``, by default the
+    nominal chip's) with seeded random weights, five seeded batches of 16
+    frames, and an engine over them: returns (cfg, params, frames,
+    engine)."""
     import torch
     from repro_torch.models import vision
     from repro_torch.serving import VisionEngine
 
-    cfg = vision.VisionConfig()          # vgg16, CIFAR-10 geometry
+    cfg = cfg or vision.VisionConfig()   # vgg16, CIFAR-10 geometry
     params = vision.init_params(0, cfg, device=device)
     gen = torch.Generator().manual_seed(11)
     frames = [torch.rand((16, 32, 32, 3), generator=gen) for _ in range(5)]
@@ -955,17 +1000,18 @@ def vision_engine(device, **engine_kw):
     return cfg, params, frames, engine
 
 
-def engine_run(device, path: str, **engine_kw):
-    """Full-width vgg16 through classify and a 4-batch stream, the launch
-    counts read from that run alone; then the CPU comparison and the
-    steady-state walls. Emits one ``path`` line and one ``<path>_steady``
-    line; returns (counts, engine, frames)."""
+def engine_run(device, path: str, cfg=None, **engine_kw):
+    """Full-width vgg16 (``vision_engine``'s ``cfg``) through classify and a
+    4-batch stream, the launch counts read from that run alone; then the
+    CPU comparison and the steady-state walls. Emits one ``path`` line and
+    one ``<path>_steady`` line; returns (counts, engine, frames), the
+    engine's ``steady_classify_ms`` set to its steady classify wall."""
     import torch
     from repro_torch.kernels import cuda_lib
     from repro_torch.serving import VisionEngine
 
     backend = engine_kw.get("backend", "cuda")
-    cfg, params, frames, engine = vision_engine(device, **engine_kw)
+    cfg, params, frames, engine = vision_engine(device, cfg, **engine_kw)
     cuda_lib.reset_launch_counts()
     out = engine.classify(frames[0])
     stream_outs = list(engine.stream(frames[1:]))
@@ -983,8 +1029,8 @@ def engine_run(device, path: str, **engine_kw):
               and all("stream_fused" not in o for o in stream_outs),
               f"a {backend} stream step ran fused")
     precision = "int8" if path == "engine_int8" else "f32"
-    vs_cpu = compare_with_cpu(cfg, params, frames, out, stream_outs, device,
-                              precision, backend)
+    vs_cpu = compare_with_cpu(cfg, engine.params, frames, out, stream_outs,
+                              device, precision, backend)
 
     emit(path, model="vgg16", batch=16, backend=backend,
          precision=precision if backend == "cuda" else None,
@@ -1003,15 +1049,17 @@ def engine_run(device, path: str, **engine_kw):
     walls = [engine.classify(frames[0])["wall_ms"] for _ in range(20)]
     engine_s = VisionEngine(cfg, params, seed=0, device=device, microbatch=16,
                             fused_theta_tol=1e9, **engine_kw)
+    steady_ms = statistics.median(walls)
     steps = list(engine_s.stream([frames[1]] * 21))[1:]
     step_key = ("fused_step_wall_ms_median" if backend == "cuda"
                 else "stream_step_wall_ms_median")
     emit(f"{path}_steady", model="vgg16", batch=16, backend=backend,
          precision=precision if backend == "cuda" else None,
-         classify_wall_ms_median=statistics.median(walls),
-         classify_fps_median=16 / (statistics.median(walls) / 1e3),
+         classify_wall_ms_median=steady_ms,
+         classify_fps_median=16 / (steady_ms / 1e3),
          **{step_key: statistics.median(o["wall_ms"] for o in steps)},
          fused_steps=engine_s.fused_step_count)
+    engine.steady_classify_ms = steady_ms
     return counts, engine, frames
 
 
@@ -1097,6 +1145,224 @@ def autotune_phase(device, smi: str):
          report_ms=report, nvidia_smi=smi)
 
 
+def variation_config():
+    """vgg16 at CIFAR-10 geometry on a sampled chip: the profile of
+    BENCH_variation.json ("profile") at sigma scale 1.0, chip
+    ``VARIATION_CHIP``."""
+    from repro_torch.models import vision
+    from repro_torch.variation import VariationConfig
+    with open(os.path.join(ROOT, "BENCH_variation.json")) as f:
+        profile = json.load(f)["profile"]
+    return vision.VisionConfig(variation=VariationConfig(**profile),
+                               chip_id=VARIATION_CHIP)
+
+
+def variation_phase(device, smi: str, nominal_steady_ms: float):
+    """A sampled chip calibrated and served on the card. ``calibrate`` on
+    16 frames on the card and on the CPU (trims within 8 bisection steps;
+    the card's walls); then ``VisionEngine(calibration=)`` with the
+    ``cuda`` backend (``engine_variation``: A, B and fused launch, the
+    steps held against the CPU engine) and with the ``device`` backend
+    (``engine_variation_device``), each through ``engine_run``; one
+    ``variation`` line with both steady classify walls beside the nominal
+    engine's of the same run."""
+    import torch
+    from repro_torch.models import params as mparams
+    from repro_torch.models import vision
+    from repro_torch.variation import calibrate
+
+    from repro_torch.kernels import autotune
+
+    # the int8 phase's table is still in force: serve the f32 path
+    autotune.clear()
+    cpu = torch.device("cpu")
+    cfg = variation_config()
+    params = vision.init_params(0, cfg, device=device)
+    frames = torch.rand((16, 32, 32, 3), generator=torch.Generator()
+                        .manual_seed(23))
+    kw = dict(chip_id=VARIATION_CHIP, iters=CAL_ITERS, span=CAL_SPAN)
+    walls = []
+    for _ in range(3):      # the first call samples the chip and warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art = calibrate(params["p2m"], cfg.p2m, cfg.variation, frames,
+                        device=device, **kw)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    art_cpu = calibrate(mparams.to_device(params["p2m"], cpu), cfg.p2m,
+                        cfg.variation, frames, device=cpu, **kw)
+    cpu_wall = (time.perf_counter() - t0) * 1e3
+    check(art.trim.device.type == device.type, "the trim left the card")
+    trim_err = max_abs(art.trim.cpu(), art_cpu.trim)
+    lsb = CAL_SPAN / 2 ** CAL_ITERS
+    check(trim_err <= 8 * lsb,
+          f"card trim off the CPU's by {trim_err / lsb} bisection steps")
+    err = {k: (float(getattr(art, k).max()), float(getattr(art_cpu, k).max()))
+           for k in ("rate_err_before", "rate_err_after")}
+    check(err["rate_err_after"][0] < err["rate_err_before"][0],
+          f"the trim did not reduce the rate error: {err}")
+    emit("calibrate", model="vgg16", chip_id=VARIATION_CHIP, frames=16,
+         iters=CAL_ITERS, span=CAL_SPAN, trim_max_abs_err_vs_cpu=trim_err,
+         trim_err_steps=trim_err / lsb,
+         rate_err_before_max=err["rate_err_before"][0],
+         rate_err_after_max=err["rate_err_after"][0],
+         rate_err_before_max_cpu=err["rate_err_before"][1],
+         rate_err_after_max_cpu=err["rate_err_after"][1],
+         calibrate_wall_ms=walls, calibrate_cpu_wall_ms=cpu_wall,
+         nvidia_smi=smi)
+    _, engine, _ = engine_run(device, "engine_variation", cfg=cfg,
+                              calibration=art)
+    check(engine.params["p2m"]["cal_trim"].device.type == device.type,
+          "the served trim is not on the card")
+    _, engine_d, _ = engine_run(device, "engine_variation_device", cfg=cfg,
+                                backend="device", calibration=art)
+    emit("variation", model="vgg16", chip_id=VARIATION_CHIP,
+         cuda_steady_classify_ms=engine.steady_classify_ms,
+         device_steady_classify_ms=engine_d.steady_classify_ms,
+         nominal_cuda_steady_classify_ms=nominal_steady_ms, nvidia_smi=smi)
+
+
+def variation_kernels_phase(geom: dict, device) -> None:
+    """Kernel B and both fused kernels with the chip operand in each layout
+    at one geometry: random (4, C) rows, a random (4, N_pix, C) per-pixel
+    map and that map constant across pixels (the rows at every pixel).
+    Draws against the plain versions by the word-boundary rule, V partials
+    within 1e-5 of the plain ones (kernel B) and of kernel B's on the same
+    u (fused), the constant map equal to the (4, C) rows bit for bit; each
+    kernel and layout timed (event pair and ``torch.profiler``) beside its
+    bound, the per-pixel bound with the map's bytes read once. One
+    ``variation_kernel`` line each."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import blocking, ops
+    from repro_torch.kernels import p2m_conv as pk
+
+    gen = torch.Generator().manual_seed(29)
+    b, h, w, k, s, c = (geom[x] for x in ("batch", "h", "w", "kernel",
+                                          "stride", "c"))
+    images = torch.rand((b, h, w, 3), generator=gen).to(device)
+    wt = torch.randn((k * k * 3, c), generator=gen) * (2.0 / (k * k * 3)) ** 0.5
+    wm = pk.pack_phase_weights(wt).to(device).contiguous()
+    w8, dq = ops.quantize_frontend_weights(wm)
+    v_th = torch.ones((), device=device)
+    key = prng.fold_in(prng.PRNGKey(31), 1)
+    kw = dict(kernel=k, stride=s)
+    n_pix = blocking.conv_out_hw(h, s) * blocking.conv_out_hw(w, s)
+    u, hp = pk.p2m_phase_a_implicit(images, wm, v_th, **kw)
+    u8, hp8 = pk.p2m_phase_a_implicit_q8(images, w8, dq, v_th, **kw)
+    theta = pk.combine_hoyer_partials(hp, v_th)
+    theta8 = pk.combine_hoyer_partials(hp8, v_th)
+    n = u.shape[0]
+    bits = pk.draw_bits(key, n, c, device=device)
+
+    def rows_of(*shape):
+        z = [torch.randn(shape, generator=gen) for _ in range(4)]
+        return torch.stack([1.0 + 0.1 * z[0], 0.05 * z[1], 1.0 + 0.1 * z[2],
+                            0.3 * z[3]]).to(device).contiguous()
+
+    rows = rows_of(c)
+    layouts = {"rows": rows, "pixel": rows_of(n_pix, c),
+               "const": rows[:, None, :].expand(4, n_pix, c).contiguous()}
+    f32 = 4
+    img_bytes, out_bytes = images.numel() * f32, n * c * f32
+    w_bytes, w8_bytes = wm.numel() * f32, w8.numel() + dq.numel() * f32
+    stats = (2 + 3 + c) * f32
+    macs = 2 * n * (k * k * 3) * 2 * c
+    epi_a, chain = EPILOGUE_A_OPS * n * c, DEVICE_CHAIN_OPS * n * c
+    kernels = {
+        "p2m_phase_b": (lambda ch: pk.p2m_phase_b(u, theta, key, chan=ch),
+                        u, theta, lambda cb: 2 * out_bytes + cb + 4 * f32,
+                        chain, 0),
+        "p2m_fused_stream": (
+            lambda ch: pk.p2m_fused_stream(images, wm, v_th, theta, key, ch,
+                                           **kw),
+            u, theta,
+            lambda cb: img_bytes + w_bytes + cb + 2 * f32 + out_bytes + stats,
+            macs + epi_a + chain, 0),
+        "p2m_fused_stream_q8": (
+            lambda ch: pk.p2m_fused_stream_q8(images, w8, dq, v_th, theta8,
+                                              key, ch, **kw),
+            u8, theta8,
+            lambda cb: img_bytes + w8_bytes + cb + 2 * f32 + out_bytes + stats,
+            epi_a + chain, macs)}
+    tag = f"{b}x{h}x{w}x3 k{k} s{s} -> ({n}, {c}), N_pix {n_pix}"
+    for name, (fn, uu, th, nbytes, ops_f32, ops_i8) in kernels.items():
+        outs = {}
+        for layout, chan in layouts.items():
+            out = outs[layout] = fn(chan)
+            acts = out[0]
+            q, v = pk.device_chain_q(uu, th, chan)
+            flips = assert_draws(acts, q, bits)
+            vp = out[1] if name == "p2m_phase_b" else out[2]
+            v_k = pk.combine_v_conv_partials(vp, n, c)
+            if name == "p2m_phase_b":
+                v_ref = pk.combine_v_conv_partials(pk._v_partials(v), n, c)
+            else:
+                # the fused kernel at A's theta is A -> B with the same chan
+                acts_b, vp_b = pk.p2m_phase_b(uu, th, key, chan=chan)
+                check(torch.equal(acts, acts_b),
+                      f"{name} {layout}: fused != A -> B at {tag}")
+                check(torch.equal(out[3].sum(0), acts.sum(0)),
+                      f"{name} {layout}: rates wrong at {tag}")
+                v_ref = pk.combine_v_conv_partials(vp_b, n, c)
+            v_err = max(abs(float(v_k[x]) - float(v_ref[x])) for x in v_k)
+            check(v_err <= 1e-5, f"{name} {layout}: V partials off by "
+                  f"{v_err} at {tag}")
+            row = {"geometry": tag, "kernel": name, "layout": layout,
+                   "draw_mismatches_vs_plain": flips,
+                   "v_conv_max_abs_err": v_err}
+            if layout == "const":
+                check(all(torch.equal(x, y)
+                          for x, y in zip(out, outs["rows"])),
+                      f"{name}: constant per-pixel map != (4, C) rows at "
+                      f"{tag}")
+                row["equals_rows_bit_for_bit"] = True
+            else:
+                moved = nbytes(chan.numel() * f32)
+                t_bound, by = bound(moved, ops_f32, ops_i8)
+                symbol = (PIXEL_SYMBOLS if layout == "pixel"
+                          else KERNEL_SYMBOLS)[name]
+                row.update(ms=device_ms(lambda: fn(chan), device),
+                           profiler_ms=profiled_ms(lambda: fn(chan), symbol),
+                           bound_ms=t_bound, bound_by=by, bytes=moved,
+                           kernel_symbol=symbol)
+            emit("variation_kernel", **row)
+
+
+def yield_phase(device, smi: str):
+    """``yield_sweep`` of YIELD_CHIPS chips at YIELD_SIGMAS on the card (the
+    chips drawn as one stack) against the CPU's: yield fractions equal, the
+    error figures at rtol 1e-5 (above 4 ulps of 1), the read margin within
+    1e-6 V."""
+    import torch
+    from repro_torch.variation import yield_sweep
+
+    vcfg = variation_config().variation
+    walls = []
+    for _ in range(2):          # the first call warms the allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = yield_sweep(vcfg, YIELD_SIGMAS, YIELD_CHIPS, 32, device=device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    rows_cpu = yield_sweep(vcfg, YIELD_SIGMAS, YIELD_CHIPS, 32,
+                           device=torch.device("cpu"))
+    cpu_wall = (time.perf_counter() - t0) * 1e3
+    for r, rc in zip(rows, rows_cpu):
+        for k in ("yield_fraction", "yield_fraction_calibrated"):
+            check(r[k] == rc[k], f"yield sigma {r['sigma_scale']}: {k} "
+                  f"{r[k]} on the card, {rc[k]} on the CPU")
+        check(abs(r["read_margin_min_mv"] - rc["read_margin_min_mv"]) * 1e-3
+              <= YIELD_MARGIN_ATOL_V, f"read margin: {r} vs {rc}")
+        for k in ("fail_worst", "fail_mean", "false_worst", "false_mean",
+                  "fail_worst_cal", "false_worst_cal"):
+            check(abs(r[k] - rc[k]) <= YIELD_RTOL * abs(rc[k]) + YIELD_ATOL,
+                  f"yield sigma {r['sigma_scale']}: {k} {r[k]} vs {rc[k]}")
+    emit("yield", chips=YIELD_CHIPS, sigmas=list(YIELD_SIGMAS), rows=rows,
+         sweep_wall_ms=walls, cpu_sweep_wall_ms=cpu_wall, nvidia_smi=smi)
+
+
 def frontend_words(backend: str, key, acts_shape):
     """The (key, shape) of every threefry draw ``backend`` makes."""
     from repro_torch import prng
@@ -1135,7 +1401,7 @@ def frontend_vs_cpu(backend, fe, params, params_cpu, frames_cpu, key,
     check(max(v_err.values()) <= V_CONV_ATOL,
           f"{backend}: V_CONV stats off the CPU's: {v_err}")
     flips = assert_edge_mismatches(
-        acts, acts_cpu, frontend_edges(backend, fe.cfg.p2m, params_cpu,
+        acts, acts_cpu, frontend_edges(backend, fe.cfg, params_cpu,
                                        frames_cpu, key))
     return dict(words_equal=n_words, rel_err=rel, v_conv_abs_err=v_err,
                 mismatches=flips)
@@ -1161,7 +1427,8 @@ def frontend_imagenet_checks(backend, fe, params, frames, key, acts,
                           prng.counter_words(k, start, start + WORD_CHECK)),
               f"device words at counters {start}.. differ from the CPU's")
     del words
-    p_sw = backends._stages(backend, pcfg, params, frames)["p_sw"]
+    # the nominal chip: each of a neuron's MTJs at its P_sw
+    p_sw = backends._stages(backend, fe.cfg, params, frames)["p_dev"][..., 0]
     q = mtj.majority_activation_probability(
         p_sw, pcfg.mtj.n_redundant, pcfg.mtj.majority).double()
     expected = float(q.mean())
@@ -1266,6 +1533,8 @@ def device_breakdown(prof, families, n_top: int = 0):
 
 VISION_FAMILIES = (("frontend_kernels", ("phase_a_kernel", "phase_b_kernel",
                                          "fused_stream_kernel",
+                                         "phase_b_pix_kernel",
+                                         "fused_stream_pix_kernel",
                                          "legacy_conv_kernel",
                                          "phase_a_warp_kernel",
                                          "phase_a_q8_warp_kernel",
@@ -1278,9 +1547,11 @@ LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel",
                            "nvjet")))
 
 
-# the kernels of a classify step (the exact path) at each precision
+# the kernels of a classify step (the exact path) at each precision, and
+# the fused kernel of a stream's later steps
 STEP_KERNELS = {"f32": ("p2m_phase_a_implicit", "p2m_phase_b"),
                 "int8": ("p2m_phase_a_implicit_q8", "p2m_phase_b")}
+FUSED_KERNEL = {"f32": "p2m_fused_stream", "int8": "p2m_fused_stream_q8"}
 
 
 def kernel_event_ms(prof, symbol: str):
@@ -1319,6 +1590,8 @@ def profile_phase(engine, frames, device, precision: str = "f32"):
              e["name"]: e["ms"] for e in events
              if any(x in e["name"].lower() for x in frontend)},
          classify_kernel_in_step_ms=step_kernel_ms(prof_c, precision),
+         stream_fused_kernel_in_step_ms=kernel_event_ms(
+             prof_s, KERNEL_SYMBOLS[FUSED_KERNEL[precision]]),
          stream_exact_plus_fused_device_ms=device_breakdown(
              prof_s, VISION_FAMILIES)[0])
 
@@ -1643,13 +1916,13 @@ def main() -> int:
         # so every wgmma waits for the one before (the overlap is lost)
         check(not serialized, f"{name}: ptxas serialized the wgmmas")
     # the int8 kernels' MAC (int8 A, block-shared and warp-owned, and int8
-    # fused) runs on the s8 tensor cores; no other P2M kernel runs IMMA, and
-    # none HMMA (the float32 MACs use no TF32)
+    # fused in both chip layouts) runs on the s8 tensor cores; no other P2M
+    # kernel runs IMMA, and none HMMA (the float32 MACs use no TF32)
     census = cuda_lib.tensor_core_census(built["p2m"][0])
     imma = {k: v for k, v in census.items() if v != (0, 0)}
-    check(len(imma) == 3 and all("MacQ8Mma" in k for k in imma)
-          and sorted("fused_stream_kernel" in k for k in imma)
-          == [False, False, True]
+    check(len(imma) == 4 and all("MacQ8Mma" in k for k in imma)
+          and sorted("fused_stream" in k for k in imma)
+          == [False, False, True, True]
           and all(i >= 1 and h_ == 0 for i, h_ in imma.values()),
           f"tensor-core instructions in the P2M library: {imma}")
     emit("tensor_cores", library="p2m", kernels=len(census),
@@ -1699,11 +1972,20 @@ def main() -> int:
     counts_d80 = lm_phase(device, smi, LM_D80_ARCH)
     lm_vs_cpu_phase(device)
     lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
+    # last: their 12 profiler sessions come after the flash lines', which
+    # fail if every session drops the kernel's events (the tracer drops
+    # more of them late in a long process); theirs return "not measured"
+    t_variation = time.perf_counter()
+    variation_phase(device, smi, engine.steady_classify_ms)
+    for geom in (SERVING, IMAGENET):
+        variation_kernels_phase(geom, device)
+    yield_phase(device, smi)
     t_end = time.perf_counter()
     # wall seconds of each group of phases, and from the build to here
     emit("seconds", build=build_s, kernels=t_vision - t_kernels,
          vision=t_frontends - t_vision, frontends=t_flash - t_frontends,
-         flash=t_lm - t_flash, lm=t_end - t_lm, total=t_end - t0)
+         flash=t_lm - t_flash, lm=t_variation - t_lm,
+         variation=t_end - t_variation, total=t_end - t0)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},
                 **{n_: counts_int8 for n_ in PATH_KERNELS["engine_int8"]

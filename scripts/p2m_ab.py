@@ -25,11 +25,11 @@ the first version's, and the card's ``nvidia-smi`` line. With
 the row-tile kernels out (``DIAGNOSTICS``) are timed beside it, unchecked:
 their outputs are wrong by design, and their times say what that stage
 costs; ``--unchecked`` adds hand-made copies timed the same way. With
-``--served``, each version serves ``SERVED_STEPS`` classify steps of
-``chip_smoke.py``'s full-width vgg16 engine at each precision in turns,
-and the device time of each frontend kernel inside those steps (where it
-starts cold between the backbone's kernels) is printed like the kernel
-times; without ``--geometry`` it times no kernel back to back. Needs a
+``--served``, each version serves ``SERVED_STEPS`` classify steps and a
+stream of as many fused steps of ``chip_smoke.py``'s full-width vgg16
+engine at each precision in turns, and the device time of each frontend
+kernel inside those steps (where it starts cold between the backbone's
+kernels) is printed like the kernel times; without ``--geometry`` it times no kernel back to back. Needs a
 CUDA card and exits non-zero without one. The building and
 the turns are ``ab_versions.py``'s, shared with ``flash_ab.py``.
 """
@@ -198,9 +198,10 @@ def calls(x: dict) -> dict:
 
 def served_turns(sources, rounds: int, load) -> dict:
     """``{source: [{"<precision>:<kernel>": in-step ms}, ...]}``, one dict
-    a round: each version serves SERVED_STEPS classify steps at f32 and at
-    int8 (the tile table's entry at the serving key) under the profiler,
-    in turns; the frontend kernels' device ms per launch inside them."""
+    a round: each version serves SERVED_STEPS classify steps, then a stream
+    of SERVED_STEPS fused steps, at f32 and at int8 (the tile table's entry
+    at the serving key) under the profiler, in turns; the frontend
+    kernels' device ms per launch inside them."""
     import chip_smoke as cs
     import torch
     from repro_torch.kernels import autotune
@@ -222,6 +223,13 @@ def served_turns(sources, rounds: int, load) -> dict:
                 expect=cs.KERNEL_SYMBOLS[cs.STEP_KERNELS[precision][0]])
             out.update({f"{precision}:{k}": v for k, v in
                         cs.step_kernel_ms(prof, precision).items()})
+            # a stream's steps after its first run the fused kernel
+            fused = cs.FUSED_KERNEL[precision]
+            prof, _ = cs.profile_session(
+                lambda: list(engine.stream([frames[1]] * (SERVED_STEPS + 1))),
+                expect=cs.KERNEL_SYMBOLS[fused])
+            out[f"{precision}:{fused}"] = cs.kernel_event_ms(
+                prof, cs.KERNEL_SYMBOLS[fused])
         autotune.clear()
         return out
     return ab_versions.in_turns(sources, rounds, load, measure)

@@ -23,6 +23,7 @@ import torch
 from repro_torch.core import p2m
 from repro_torch.devices import resolve_device
 from repro_torch.frontend import shutter
+from repro_torch.variation.chip import VariationConfig
 
 # backend signature: (cfg, params, images, key) -> (activations, aux)
 BackendFn = Callable[["FrontendConfig", dict, torch.Tensor, Optional[object]],
@@ -73,11 +74,16 @@ class FrontendConfig:
     quantizes both packed-matmul operands and runs the int8 kernel A / fused
     kernel; the device chain after the MAC is the same), ``None`` defers to
     the per-shape table of ``repro_torch.kernels.autotune`` (f32 when the
-    shape is untuned)."""
+    shape is untuned). ``variation`` / ``chip_id`` select the sampled chip
+    the ``analog``, ``device`` and ``cuda`` backends simulate (None: the
+    nominal chip); a ``ChipMaps`` in ``params["chip"]`` overrides it at
+    call time, and ``params["cal_trim"]`` carries a programmed trim."""
     p2m: p2m.P2MConfig = p2m.P2MConfig()
     backend: str = "cuda"
     global_shutter: bool = True   # run burst_read + reset accounting
     precision: Optional[str] = None
+    variation: Optional[VariationConfig] = None
+    chip_id: int = 0              # which chip of the population this is
 
 
 class SensorFrontend:

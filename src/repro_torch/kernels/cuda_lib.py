@@ -147,12 +147,21 @@ def _bind_p2m(lib: ctypes.CDLL) -> None:
                                      u32, phys, p]
     lib.p2m_fused_stream_q8.argtypes = [p, p, p, p, p, p, p, p, p, p, geom,
                                         u32, u32, phys, p]
+    # the per-pixel chip map's entries: its pixel count after the map
+    lib.p2m_phase_b_pix.argtypes = [p, p, p, i32, p, p, i32, i32, u32, u32,
+                                    phys, p]
+    lib.p2m_fused_stream_pix.argtypes = [p, p, p, p, p, i32, p, p, p, p,
+                                         geom, u32, u32, phys, p]
+    lib.p2m_fused_stream_q8_pix.argtypes = [p, p, p, p, p, p, i32, p, p, p,
+                                            p, geom, u32, u32, phys, p]
     lib.p2m_conv.argtypes = [p, p, p, p, p, i32, i32, i32, u32, u32, phys, p]
     for fn in (lib.p2m_partial_rows, lib.p2m_phase_b_partial_rows,
                lib.p2m_phase_a_warp_tiles, lib.p2m_conv_warp_tiles,
                lib.p2m_phase_a_implicit, lib.p2m_phase_a_implicit_q8,
                lib.p2m_phase_a, lib.p2m_phase_b, lib.p2m_fused_stream,
-               lib.p2m_fused_stream_q8, lib.p2m_conv):
+               lib.p2m_fused_stream_q8, lib.p2m_phase_b_pix,
+               lib.p2m_fused_stream_pix, lib.p2m_fused_stream_q8_pix,
+               lib.p2m_conv):
         fn.restype = ctypes.c_int
 
 

@@ -16,6 +16,8 @@ Port of every P2M kernel of ``repro.kernels.p2m_conv`` (csrc/p2m_kernels.cu):
   kernel B (``p2m_phase_b``) — u -> voltage -> switching probability ->
       folded majority -> Bernoulli draw, with the draw words hashed
       in-kernel from the key, plus per-tile (sum, min, max) of V_CONV.
+      Its chip operand is the (4, C) per-channel rows or the (4, N_pix, C)
+      per-pixel map, as is the fused kernels'.
   fused streaming kernel (``p2m_fused_stream``) and its int8 twin
       (``p2m_fused_stream_q8``, int8 kernel A's MAC) — A and B
       in one pass at a carried theta, plus fresh Hoyer partials, V partials
@@ -171,10 +173,19 @@ def device_chain_q(u: torch.Tensor, theta: torch.Tensor,
                    chan: Optional[torch.Tensor],
                    pixel_params=pixel_model.DEFAULT_PIXEL,
                    mtj_params=mtj_model.DEFAULT_MTJ):
-    """(u, theta, (4, C) rows) -> ``(q, v)``: the folded-majority activation
-    probability and the subtractor voltage, in the kernels' order."""
+    """(u, theta, chip rows) -> ``(q, v)``: the folded-majority activation
+    probability and the subtractor voltage, in the kernels' order. ``chan``
+    is the (4, C) per-channel rows or the (4, N_pix, C) per-pixel operand:
+    u's rows are frame-major and pixel-minor, so a reshape to
+    (frames, N_pix, C) lines each row up with its pixel's operand and the
+    same expressions broadcast (a per-pixel map constant across pixels
+    gives the (4, C) path's values bit for bit)."""
     if chan is None:
         chan = identity_operands(u.shape[1], device=u.device)
+    flat_shape = None
+    if chan.ndim == 3:
+        flat_shape = u.shape
+        u = u.reshape(-1, chan.shape[1], chan.shape[2])
     u = u * chan[CHAN_U_GAIN] + chan[CHAN_U_OFFSET]
     v = pixel_model.conv_voltage(u, theta.reshape(()), pixel_params)
     p_sw = mtj_model.switching_probability(
@@ -183,6 +194,8 @@ def device_chain_q(u: torch.Tensor, theta: torch.Tensor,
         logit_gain=chan[CHAN_LOGIT_GAIN])
     q = mtj_model.majority_prob_poly(p_sw, mtj_params.n_redundant,
                                      mtj_params.majority)
+    if flat_shape is not None:
+        q, v = q.reshape(flat_shape), v.reshape(flat_shape)
     return q, v
 
 
@@ -338,14 +351,32 @@ def _identity_chan(c: int, device: torch.device) -> torch.Tensor:
     return identity_operands(c, device=device)
 
 
-def _check_chan(chan: Optional[torch.Tensor], c: int, device) -> torch.Tensor:
+def _check_chan(chan: Optional[torch.Tensor], n: int, c: int,
+                device) -> torch.Tensor:
+    """The chip rows of a call with n rows of u: None (the identity rows),
+    the (4, C) per-channel rows or the (4, N_pix, C) per-pixel operand,
+    whose pixel count must divide n (whole frames)."""
     if chan is None:
         return _identity_chan(c, device)
-    if chan.ndim != 2 or tuple(chan.shape) != (CHAN_ROWS, c):
-        raise NotImplementedError(
-            f"chan must be the ({CHAN_ROWS}, {c}) per-channel rows; the "
-            "per-pixel operand comes with the variation slice")
-    return chan
+    if chan.ndim == 2 and tuple(chan.shape) == (CHAN_ROWS, c):
+        return chan
+    if chan.ndim == 3 and chan.shape[0] == CHAN_ROWS and chan.shape[2] == c:
+        n_pix = chan.shape[1]
+        if n_pix < 1 or n % n_pix:
+            raise ValueError(f"per-pixel chan of {n_pix} pixels does not "
+                             f"divide the {n} rows of u into whole frames")
+        return chan
+    raise ValueError(f"chan must be ({CHAN_ROWS}, {c}) or ({CHAN_ROWS}, "
+                     f"N_pix, {c}), got {tuple(chan.shape)}")
+
+
+def _chan_entry(lib, name: str, chan: torch.Tensor):
+    """The C entry point for chan's layout and its chip arguments: ``name``
+    with the (4, C) rows, ``name_pix`` with the per-pixel map and its
+    pixel count."""
+    if chan.ndim == 3:
+        return getattr(lib, f"{name}_pix"), (chan.data_ptr(), chan.shape[1])
+    return getattr(lib, name), (chan.data_ptr(),)
 
 
 def _key_words(key):
@@ -401,11 +432,13 @@ def p2m_phase_b(u: torch.Tensor, theta: torch.Tensor, key, *,
     """Kernel B. u (N, C) float32; theta one float32 value ON THE DEVICE
     (read by the kernel, so no host sync sits between A and B); key the
     host-side key whose two words seed the in-kernel draw hash; chan the
-    optional (4, C) rows. Returns ``(acts (N, C) {0,1}, v_partials (G, 3))``."""
+    optional (4, C) per-channel rows or (4, N_pix, C) per-pixel operand
+    (row r of u reads pixel ``r % N_pix``). Returns ``(acts (N, C) {0,1},
+    v_partials (G, 3))``."""
     if u.ndim != 2:
         raise ValueError(f"u must be (N, C), got {tuple(u.shape)}")
     n, c = u.shape
-    chan = _check_chan(chan, c, u.device)
+    chan = _check_chan(chan, n, c, u.device)
     if _on_cpu(u, theta, chan):
         return p2m_phase_b_plain(u, theta, key, chan=chan,
                                  pixel_params=pixel_params,
@@ -419,8 +452,9 @@ def p2m_phase_b(u: torch.Tensor, theta: torch.Tensor, key, *,
     partials = torch.empty((lib.p2m_phase_b_partial_rows(n, c), 3),
                            dtype=torch.float32, device=u.device)
     k0, k1 = _key_words(key)
-    _launch(lib.p2m_phase_b(
-        u.data_ptr(), theta.data_ptr(), chan.data_ptr(), acts.data_ptr(),
+    entry, chan_args = _chan_entry(lib, "p2m_phase_b", chan)
+    _launch(entry(
+        u.data_ptr(), theta.data_ptr(), *chan_args, acts.data_ptr(),
         partials.data_ptr(), n * c, c, k0, k1,
         ctypes.byref(physics_args(pixel_params, mtj_params)),
         _stream(u.device)), "p2m_phase_b")
@@ -438,9 +472,11 @@ def p2m_fused_stream(images: torch.Tensor, w_packed: torch.Tensor,
     Returns ``(acts (N, C), hoyer_partials (G, 2), v_partials (G, 3),
     rate_partials (G, C))`` — the fresh Hoyer partials feed the caller's
     drift guard; the rate rows sum to the per-channel draw counts. With
-    theta pinned to the exact path's theta the draws equal A -> B's."""
+    theta pinned to the exact path's theta the draws equal A -> B's. chan
+    as kernel B's."""
     geom = _conv_geom(images, w_packed, kernel, stride)
-    chan = _check_chan(chan, geom.c_out, images.device)
+    chan = _check_chan(chan, geom.batch * geom.ho * geom.wo, geom.c_out,
+                       images.device)
     if _on_cpu(images, w_packed, v_th, theta, chan):
         return p2m_fused_stream_plain(
             images, w_packed, v_th, theta, key, chan, kernel=kernel,
@@ -453,9 +489,10 @@ def p2m_fused_stream(images: torch.Tensor, w_packed: torch.Tensor,
     acts, hoyer, vpart, rates = _fused_outputs(
         lib, geom.batch * geom.ho * geom.wo, geom.c_out, dev)
     k0, k1 = _key_words(key)
-    _launch(lib.p2m_fused_stream(
+    entry, chan_args = _chan_entry(lib, "p2m_fused_stream", chan)
+    _launch(entry(
         images.data_ptr(), w_packed.data_ptr(), v_th.data_ptr(),
-        theta.data_ptr(), chan.data_ptr(), acts.data_ptr(), hoyer.data_ptr(),
+        theta.data_ptr(), *chan_args, acts.data_ptr(), hoyer.data_ptr(),
         vpart.data_ptr(), rates.data_ptr(), ctypes.byref(geom), k0, k1,
         ctypes.byref(physics_args(pixel_params, mtj_params)),
         _stream(dev)), "p2m_fused_stream")
@@ -526,10 +563,12 @@ def p2m_fused_stream_q8(images: torch.Tensor, wq_packed: torch.Tensor,
                         mtj_params=mtj_model.DEFAULT_MTJ):
     """The int8 fused streaming kernel: int8 kernel A's MAC, then B's chain
     at the CARRIED theta. Same outputs as ``p2m_fused_stream``; with theta
-    pinned to the exact int8 path's theta the draws equal int8 A -> B's."""
+    pinned to the exact int8 path's theta the draws equal int8 A -> B's.
+    chan as kernel B's."""
     geom = _conv_geom(images, wq_packed, kernel, stride)
     _check_dequant(dequant_row, 2 * geom.c_out)
-    chan = _check_chan(chan, geom.c_out, images.device)
+    chan = _check_chan(chan, geom.batch * geom.ho * geom.wo, geom.c_out,
+                       images.device)
     if _on_cpu(images, wq_packed, dequant_row, v_th, theta, chan):
         return p2m_fused_stream_q8_plain(
             images, wq_packed, dequant_row, v_th, theta, key, chan,
@@ -544,9 +583,10 @@ def p2m_fused_stream_q8(images: torch.Tensor, wq_packed: torch.Tensor,
     acts, hoyer, vpart, rates = _fused_outputs(
         lib, geom.batch * geom.ho * geom.wo, geom.c_out, dev)
     k0, k1 = _key_words(key)
-    _launch(lib.p2m_fused_stream_q8(
+    entry, chan_args = _chan_entry(lib, "p2m_fused_stream_q8", chan)
+    _launch(entry(
         images.data_ptr(), wq_packed.data_ptr(), dequant_row.data_ptr(),
-        v_th.data_ptr(), theta.data_ptr(), chan.data_ptr(), acts.data_ptr(),
+        v_th.data_ptr(), theta.data_ptr(), *chan_args, acts.data_ptr(),
         hoyer.data_ptr(), vpart.data_ptr(), rates.data_ptr(),
         ctypes.byref(geom), k0, k1,
         ctypes.byref(physics_args(pixel_params, mtj_params)),

@@ -96,7 +96,11 @@ def to_numpy(state):
 
 
 def to_device(tree, device: torch.device):
-    """Move every tensor of a parameter tree to ``device``."""
+    """Move every tensor of a parameter tree (dicts, and tuples such as a
+    ``ChipMaps`` in ``params["chip"]``) to ``device``."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        moved = [to_device(v, device) for v in tree]
+        return type(tree)(*moved) if hasattr(tree, "_fields") else tuple(moved)
     return tree.to(device)

@@ -23,6 +23,7 @@ from repro_torch import frontend
 from repro_torch.core import hoyer, p2m
 from repro_torch.kernels import blocking
 from repro_torch.models.params import ParamSpec, init_tree
+from repro_torch.variation.chip import VariationConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,11 +38,17 @@ class VisionConfig:
     remove_first_maxpool: bool = False   # paper's Model* variants
     hoyer_coeff: float = 1e-8
     bn_momentum: float = 0.9             # EMA decay of the BN running stats
+    # the sampled chip this model's sensor frontend simulates; None = the
+    # nominal chip
+    variation: Optional[VariationConfig] = None
+    chip_id: int = 0
 
     @property
     def frontend(self) -> frontend.FrontendConfig:
         return frontend.FrontendConfig(p2m=self.p2m,
-                                       backend=self.frontend_backend)
+                                       backend=self.frontend_backend,
+                                       variation=self.variation,
+                                       chip_id=self.chip_id)
 
 
 _VGG_PLANS = {

@@ -14,7 +14,11 @@ With jax's ``jax_threefry_partitionable`` setting on, every word is the
 * ``random_bits(key, shape)`` at flat row-major index ``i`` is ``x0 ^ x1``
   of the block of ``(i >> 32, i & 0xFFFFFFFF)``;
 * ``uniform`` keeps 23 bits of a word as a float32 mantissa in [1, 2) and
-  subtracts 1; ``bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``.
+  subtracts 1; ``bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``;
+* ``normal`` is ``sqrt(2) * erfinv(u)`` with u those uniforms moved onto
+  [nextafter(-1, 0), 1), bit for bit; ``erfinv`` is XLA's single-precision
+  polynomial (``torch.erfinv`` is up to 91 float32 ulps from it; this one
+  at most 3 over every u the words can give, ``tests/test_torch_prng.py``).
 
 The tests hold each against the installed jax. Random words are made in
 plain PyTorch on the device of the tensor they are compared with, in int64
@@ -58,9 +62,10 @@ def threefry2x32(key, x0: int, x1: int):
     return x0, x1
 
 
-def _threefry2x32_tensor(key, x0: torch.Tensor, x1: torch.Tensor):
-    """``threefry2x32`` over int64 tensors of counter words in [0, 2^32)."""
-    k0, k1 = int(key[0]), int(key[1])
+def _threefry2x32_tensor(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
+    """``threefry2x32`` over int64 tensors of counter words in [0, 2^32),
+    under the key words ``k0``, ``k1``: Python ints, or int64 tensors that
+    broadcast against the counters (one key a row)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -99,12 +104,31 @@ def key_data(key) -> np.ndarray:
     return np.asarray(key, np.uint32).reshape(2)
 
 
+def _key_words(key, device):
+    """The key's two words as ints, or for a ``(G, 2)`` stack of keys as
+    two (G, 1) int64 tensors on ``device``."""
+    k = np.asarray(key, np.uint32)
+    if k.ndim == 1:
+        return int(k[0]), int(k[1])
+    if k.ndim != 2 or k.shape[1] != 2:
+        raise ValueError(f"a key is (2,) or a (G, 2) stack, got {k.shape}")
+    kt = torch.as_tensor(k.astype(np.int64), device=device)
+    return kt[:, :1], kt[:, 1:]
+
+
+def _lead(key) -> tuple:
+    """``()`` for one key, ``(G,)`` for a stack of G keys."""
+    return np.shape(key)[:-1]
+
+
 def counter_words(key, start: int, stop: int, device=None) -> torch.Tensor:
     """The random words of the flat counters ``start`` .. ``stop - 1``
     (int64 values in [0, 2^32)): that slice of the flattened
-    ``random_bits``, made without the words before it."""
+    ``random_bits``, made without the words before it. A (G, 2) stack of
+    keys gives (G, stop - start) words, row g under key g."""
     i = torch.arange(start, stop, dtype=torch.int64, device=device)
-    x0, x1 = _threefry2x32_tensor(key, i >> 32, i & _MASK)
+    x0, x1 = _threefry2x32_tensor(*_key_words(key, device), i >> 32,
+                                  i & _MASK)
     return x0 ^ x1
 
 
@@ -117,22 +141,67 @@ def _word_chunks(key, n: int, device):
 
 def random_bits(key, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32 words) as an int64 tensor of
-    values in [0, 2^32) on ``device``."""
-    n = math.prod(shape)
-    out = torch.empty((n,), dtype=torch.int64, device=device)
+    values in [0, 2^32) on ``device``; a (G, 2) stack of keys gives
+    (G, *shape), each row ``random_bits`` of its key."""
+    n, lead = math.prod(shape), _lead(key)
+    out = torch.empty(lead + (n,), dtype=torch.int64, device=device)
     for start, words in _word_chunks(key, n, device):
-        out[start:start + words.numel()] = words
-    return out.reshape(shape)
+        out[..., start:start + words.shape[-1]] = words
+    return out.reshape(lead + tuple(shape))
 
 
 def uniform(key, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: float32 in [0, 1) on ``device``."""
-    n = math.prod(shape)
-    out = torch.empty((n,), dtype=torch.float32, device=device)
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1) on ``device``;
+    a (G, 2) stack of keys gives (G, *shape)."""
+    n, lead = math.prod(shape), _lead(key)
+    out = torch.empty(lead + (n,), dtype=torch.float32, device=device)
     for start, words in _word_chunks(key, n, device):
         mant = ((words >> _MANTISSA_SHIFT) | _ONE_F32_BITS).to(torch.int32)
-        out[start:start + words.numel()] = mant.view(torch.float32) - 1.0
-    return out.reshape(shape)
+        out[..., start:start + words.shape[-1]] = (
+            mant.view(torch.float32) - 1.0)
+    return out.reshape(lead + tuple(shape))
+
+
+# XLA's float32 erf_inv (Giles, "Approximating the erfinv function"): a
+# degree-8 polynomial in w - 2.5 where w = -log1p(-x^2) < 5, else in
+# sqrt(w) - 3, times x
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` on a float32 tensor. Each Horner step
+    ``c + p * w`` rounds once, as a fused multiply-add does (float64
+    holds the float32 product exactly); +-1 map to +-inf."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+
+    p = coef(0)
+    w64 = w.to(torch.float64)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = (coef(i).to(torch.float64) + p.to(torch.float64) * w64).to(
+            torch.float32)
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 on ``device``: the
+    words of ``uniform`` scaled onto [nextafter(-1, 0), 1) (bit for bit
+    jax's), then ``sqrt(2) * erfinv``; a (G, 2) stack of keys gives
+    (G, *shape)."""
+    u = uniform(key, shape, device) * (1.0 - _NORMAL_LO) + _NORMAL_LO
+    return _SQRT2_F32 * erfinv(torch.clamp(u, min=_NORMAL_LO))
 
 
 def bernoulli(key, p, shape, device=None) -> torch.Tensor:

@@ -21,6 +21,12 @@ precision (f32 or int8) and, with ``fused_stream=None``, whether a stream
 step runs fused, then come from the entry of the executed microbatch's
 (N, K, C) shape.
 
+``calibration=`` (a ``variation.CalibrationArtifact``) programs that chip's
+tester-solved per-channel trim into the frontend params
+(``params["p2m"]["cal_trim"]``, on the engine's device): the engine serves
+the one physical chip its config names (``VisionConfig(variation=,
+chip_id=)``).
+
 ``device=None`` means the GPU; without CUDA the engine raises rather than
 moving to the CPU on its own. ``device="cpu"`` runs the kernels' plain
 PyTorch versions. Timing is synchronous: the device is synchronized around
@@ -40,6 +46,7 @@ from repro_torch.frontend.api import get_backend
 from repro_torch.kernels import autotune, blocking
 from repro_torch.models import vision
 from repro_torch.models.params import to_device
+from repro_torch.variation.calibrate import apply_calibration
 
 
 class VisionEngine:
@@ -51,7 +58,8 @@ class VisionEngine:
                  fused_stream: Optional[bool] = None,
                  fused_theta_tol: float = 0.02,
                  fused_theta_ema: float = 0.9,
-                 tile_table: Optional[str] = None):
+                 tile_table: Optional[str] = None,
+                 calibration=None):
         self.device = resolve_device(device)
         get_backend(backend)   # fail fast on typos
         if fused_stream and backend != "cuda":
@@ -62,6 +70,9 @@ class VisionEngine:
         self.cfg = cfg
         self.backend = backend
         self.microbatch = microbatch
+        if calibration is not None:
+            params = {**params,
+                      "p2m": apply_calibration(params["p2m"], calibration)}
         self.params = to_device(params, self.device)
         self._key = prng.PRNGKey(seed)
         self._frame_count = 0

@@ -456,16 +456,17 @@ def test_legacy_kernel_on_both_sides_of_the_crossover(cuda_device, b, h, w,
 def test_int8_fused_kernel_runs_on_the_tensor_cores(cuda_device):
     """The int8 kernels' MAC (int8 kernel A, its block-shared and its
     warp-owned kernel, and the int8 fused kernel) is an s8 tensor-core
-    product (IMMA in their machine code), no other P2M
-    kernel runs IMMA and none runs HMMA (the f32 MACs use no TF32); the
-    int8 fused draws and Hoyer partials equal int8 kernel A -> B bit for
-    bit."""
+    product (IMMA in their machine code; the fused kernel in both chip
+    layouts' kernels), no other P2M kernel runs IMMA and none runs HMMA
+    (the f32 MACs use no TF32); the int8 fused draws and Hoyer partials
+    equal int8 kernel A -> B bit for bit."""
     mma = cuda_lib.tensor_core_census(cuda_lib.build())
     q8 = {k: v for k, v in mma.items() if "MacQ8Mma" in k}
-    assert sorted("fused_stream_kernel" in k for k in q8) == [False, False,
-                                                              True]
+    assert sorted("fused_stream" in k for k in q8) == [False, False, True,
+                                                       True]
     assert all("phase_a_kernel" in k or "phase_a_q8_warp_kernel" in k
-               or "fused_stream_kernel" in k for k in q8)
+               or "fused_stream_kernel" in k or "fused_stream_pix_kernel" in k
+               for k in q8)
     assert all(imma >= 1 for imma, _ in q8.values())
     assert all(hmma == 0 for _, hmma in mma.values())
     assert all(v == (0, 0) for k, v in mma.items() if k not in q8)
@@ -588,6 +589,147 @@ def test_int8_engine_launches_the_int8_kernels(cuda_device, monkeypatch,
     assert {k for k, v in counts.items() if v} == INT8_PATH
     assert counts["p2m_fused_stream_q8"] == engine.fused_step_count >= 1
 
+
+# --- the chip operand: non-identity (4, C) rows and the per-pixel map -----
+
+# (b, h, w, kernel, stride, c): the serving shape, odd widths (C 48, N not a
+# multiple of 16, a pixel count that is not a power of two) and ImageNet
+PIXEL_GEOMETRIES = [(16, 32, 32, 3, 2, 32), (4, 13, 11, 5, 3, 32),
+                    (3, 15, 15, 3, 1, 48), (16, 224, 224, 3, 2, 32)]
+
+
+def _chip_rows(rng, *shape):
+    """Random non-identity chip rows: (4, C) or (4, N_pix, C)."""
+    return np.stack([1.0 + 0.1 * rng.normal(size=shape),
+                     0.05 * rng.normal(size=shape),
+                     1.0 + 0.1 * rng.normal(size=shape),
+                     0.3 * rng.normal(size=shape)]).astype(np.float32)
+
+
+def _chan_layout_outputs(images, wp, v_th, key, chan, kw):
+    """Kernel B on kernel A's u, and both fused kernels at A's theta, all
+    with ``chan``: each kernel's draws and V partials (and the fused ones'
+    rates), with the plain versions' q of the same u."""
+    u, hp = tk.p2m_phase_a_implicit(images, wp, v_th, **kw)
+    theta = tk.combine_hoyer_partials(hp, v_th)
+    wq, dq = ops.quantize_frontend_weights(wp)
+    u8, hp8 = tk.p2m_phase_a_implicit_q8(images, wq, dq, v_th, **kw)
+    theta8 = tk.combine_hoyer_partials(hp8, v_th)
+    acts_b, vp_b = tk.p2m_phase_b(u, theta, key, chan=chan)
+    f32 = tk.p2m_fused_stream(images, wp, v_th, theta, key, chan, **kw)
+    q8 = tk.p2m_fused_stream_q8(images, wq, dq, v_th, theta8, key, chan, **kw)
+    b8 = tk.p2m_phase_b(u8, theta8, key, chan=chan)
+    return dict(u=u, theta=theta, b=(acts_b, vp_b), f32=f32, q8=q8, b8=b8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,kernel,stride,c", PIXEL_GEOMETRIES)
+def test_chip_rows_in_every_layout_on_card(cuda_device, b, h, w, kernel,
+                                           stride, c):
+    """Kernel B and both fused kernels with random (4, C) rows and with a
+    random (4, N_pix, C) per-pixel map: draws by the word-boundary rule
+    against the plain versions, V partials within 1e-5, the fused kernels
+    at A's theta equal to A -> B bit for bit with the same chan, and a
+    per-pixel map constant across pixels equal to the (4, C) path bit for
+    bit (draws, V partials and rates)."""
+    rng = np.random.default_rng(c + h)
+    dev = cuda_device
+    images = torch.tensor(rng.uniform(size=(b, h, w, 3)),
+                          dtype=torch.float32, device=dev)
+    wp = tk.pack_phase_weights(torch.tensor(
+        rng.normal(size=(kernel * kernel * 3, c)) * 0.3,
+        dtype=torch.float32)).to(dev)
+    v_th = torch.ones((), device=dev)
+    key = prng.PRNGKey(21)
+    kw = dict(kernel=kernel, stride=stride)
+    n_pix = ops.conv_out_hw(h, stride) * ops.conv_out_hw(w, stride)
+    rows = torch.tensor(_chip_rows(rng, c), device=dev)
+    layouts = {"rows": rows,
+               "pixel": torch.tensor(_chip_rows(rng, n_pix, c), device=dev),
+               "const": rows[:, None, :].expand(4, n_pix, c).contiguous()}
+    outs = {}
+    for name, chan in layouts.items():
+        o = outs[name] = _chan_layout_outputs(images, wp, v_th, key, chan, kw)
+        n = o["u"].shape[0]
+        bits = tk.draw_bits(key, n, c)
+        acts_b, vp_b = o["b"]
+        _draw_rule(acts_b, tk.device_chain_q(o["u"], o["theta"], chan)[0],
+                   bits)
+        v_k = tk.combine_v_conv_partials(vp_b, n, c)
+        v_p = tk.combine_v_conv_partials(tk.p2m_phase_b_plain(
+            o["u"], o["theta"], key, chan=chan)[1], n, c)
+        for stat, val in v_k.items():
+            torch.testing.assert_close(val, v_p[stat], rtol=0, atol=1e-5)
+        for fused, (acts_ab, vp_ab) in ((o["f32"], o["b"]),
+                                        (o["q8"], o["b8"])):
+            assert torch.equal(fused[0], acts_ab), name
+            assert torch.equal(fused[3].sum(0), fused[0].sum(0))
+            v_f = tk.combine_v_conv_partials(fused[2], n, c)
+            for stat, val in tk.combine_v_conv_partials(vp_ab, n, c).items():
+                torch.testing.assert_close(v_f[stat], val, rtol=0, atol=1e-5)
+    for part in ("b", "b8", "f32", "q8"):
+        for x, y in zip(outs["const"][part], outs["rows"][part]):
+            assert torch.equal(x, y), part
+    assert not torch.equal(outs["pixel"]["b"][0], outs["rows"]["b"][0])
+
+
+@pytest.mark.cuda
+def test_chan_layouts_refused_on_card(cuda_device):
+    """A per-pixel map whose pixel count does not divide the rows, or rows
+    of the wrong width, raise before any launch."""
+    dev = cuda_device
+    u = torch.rand((64, 8), device=dev)
+    theta = torch.ones((), device=dev)
+    cuda_lib.reset_launch_counts()
+    with pytest.raises(ValueError, match="whole frames"):
+        tk.p2m_phase_b(u, theta, prng.PRNGKey(0),
+                       chan=torch.ones((4, 48, 8), device=dev))
+    with pytest.raises(ValueError, match="chan must be"):
+        tk.p2m_phase_b(u, theta, prng.PRNGKey(0),
+                       chan=torch.ones((4, 16, 9), device=dev))
+    assert cuda_lib.launch_counts()["p2m_phase_b"] == 0
+
+
+@pytest.mark.cuda
+def test_calibrated_engine_launches_the_kernels_with_the_chip(cuda_device,
+                                                              monkeypatch):
+    """A sampled, calibrated chip served on the card: the calibration and
+    the sampled chip match the CPU's (trim within 8 * span / 2^iters), the
+    f32 path launches A, B and fused, and each step's draws follow the
+    chip's (4, C) rows by the word-boundary rule."""
+    from repro_torch.core import p2m as tp2m
+    from repro_torch.frontend import backends
+    from repro_torch.variation import VariationConfig, calibrate
+    from repro_torch.variation.chip import channel_operands
+    monkeypatch.setattr(autotune, "_TABLE", {})
+    vcfg = VariationConfig(sigma_logit_offset=0.4, sigma_pixel_offset=0.25,
+                           sigma_pixel_gain=0.05, sigma_column=0.15)
+    cfg = tv.VisionConfig(name="t", arch="vgg_tiny", variation=vcfg,
+                          chip_id=3)
+    params = tv.init_params(0, cfg)
+    frames = torch.rand((4, 32, 32, 3),
+                        generator=torch.Generator().manual_seed(5))
+    art = calibrate(params["p2m"], cfg.p2m, vcfg, frames, chip_id=3)
+    art_cpu = calibrate(tv.init_params(0, cfg, device="cpu")["p2m"],
+                        cfg.p2m, vcfg, frames, chip_id=3, device="cpu")
+    assert art.trim.device.type == "cuda"
+    torch.testing.assert_close(art.trim.cpu(), art_cpu.trim, rtol=0,
+                               atol=8 * 2.0 / 2 ** 16)
+    engine = VisionEngine(cfg, params, microbatch=4, calibration=art)
+    assert engine.params["p2m"]["cal_trim"].device.type == "cuda"
+    counts = _run_engine(engine)
+    assert {k for k, v in counts.items() if v} == F32_PATH
+    chip = backends._sampled_chip(cfg.frontend, frames.to(cuda_device).device)
+    chan = channel_operands(chip, engine.params["p2m"]["cal_trim"])
+    key = prng.PRNGKey(9)
+    x = frames.to(cuda_device)
+    o, aux = backends.cuda_backend(cfg.frontend, engine.params["p2m"], x, key)
+    wq = tp2m.quantize_weights(engine.params["p2m"]["w"], 4)
+    u, _ = tk.p2m_phase_a_implicit_plain(
+        x, tk.pack_phase_weights(wq.reshape(27, 32)),
+        engine.params["p2m"]["v_th"], kernel=3, stride=2)
+    _draw_rule(o.reshape(-1, 32), tk.device_chain_q(u, aux["theta"], chan)[0],
+               tk.draw_bits(key, u.shape[0], 32))
 
 # (batch, seq, heads, kv_heads, head_dim, dtype, causal): the LM serving
 # geometry and the odd ones chip_smoke.py also checks; then the wgmma

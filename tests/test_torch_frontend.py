@@ -47,6 +47,7 @@ from repro_torch.kernels import ops as t_ops
 from repro_torch.models import params as tp
 from repro_torch.models import vision as tv
 from repro_torch.serving import VisionEngine
+from repro_torch.variation import chip as t_chip
 
 ROOT = Path(__file__).resolve().parents[1]
 THETA_RTOL = 1e-5
@@ -176,13 +177,18 @@ def test_registry():
                         .manual_seed(1))
     with pytest.raises(ValueError, match="key="):
         fe(params, frames)
-    for mode in ("analog", "device"):
-        with pytest.raises(NotImplementedError):
-            fe({**params, "chip": torch.zeros(4)}, frames,
-               key=prng.PRNGKey(0), mode=mode)
-    with pytest.raises(NotImplementedError):
-        fe({**params, "cal_trim": torch.zeros(32)}, frames,
-           key=prng.PRNGKey(0), mode="device")
+    # every backend takes a chip (a ChipMaps, or its fields as a plain
+    # tuple) and a trim; ``ideal`` models no device and ignores both
+    chip = tuple(t_chip.sample_chip(t_chip.VariationConfig(
+        sigma_logit_offset=0.5), 32, 8, 1, device="cpu"))
+    for mode in ("ideal", "analog", "device", "cuda"):
+        acts, _ = fe({**params, "chip": chip, "cal_trim": torch.zeros(32)},
+                     frames, key=prng.PRNGKey(0), mode=mode)
+        assert acts.shape == (1, 4, 4, 32)
+    nominal, _ = fe(params, frames, key=prng.PRNGKey(0), mode="ideal")
+    with_chip, _ = fe({**params, "chip": chip}, frames, key=prng.PRNGKey(0),
+                      mode="ideal")
+    assert torch.equal(with_chip, nominal)
     with pytest.raises(KeyError):
         tf.SensorFrontend(tf.FrontendConfig(backend="pallas"))
 

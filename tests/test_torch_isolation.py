@@ -47,7 +47,9 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 def test_serving_import_loads_neither_jax_nor_reference():
     code = ("import sys, repro_torch.serving.vision, repro_torch.kernels.ops, "
             "repro_torch.serving.engine, repro_torch.kernels.flash_attention, "
-            "repro_torch.configs, repro_torch.frontend, repro_torch.quickstart; "
+            "repro_torch.configs, repro_torch.frontend, repro_torch.quickstart, "
+            "repro_torch.variation, repro_torch.variation.calibrate, "
+            "repro_torch.variation.yield_analysis; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

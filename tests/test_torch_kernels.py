@@ -202,6 +202,71 @@ def test_frontend_matches_reference_pipeline():
         float(auxt["theta"]), rel=1e-5)
 
 
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+def test_per_pixel_chan_matches_reference(precision):
+    """The (4, N_pix, C) per-pixel operand through the plain versions of
+    kernel B (the exact step) and of the fused kernels against the
+    reference's 3-D ``chan``: draws by the word-boundary rule against the
+    reference oracle's q, aux at rtol 1e-5; and a per-pixel map constant
+    across pixels gives the (4, C) rows' outputs bit for bit."""
+    rng = np.random.default_rng(14)
+    images = rng.uniform(size=(2, 16, 16, 3)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 3, 16)) * 0.3).astype(np.float32)
+    n_pix, c = 64, 16
+    chan3 = _chan(n_pix * c, False, seed=5).reshape(4, n_pix, c)
+    theta = np.float32(0.6)
+    kj, kt = jax.random.PRNGKey(17), prng.PRNGKey(17)
+    bits = j_ops.draw_bits(kj, 2 * n_pix, c)
+    wj = jnp.asarray(w)
+    if precision == "int8":
+        wq, dq = j_ops.quantize_frontend_weights(
+            jk.pack_phase_weights(wj.reshape(27, c)))
+        u_ref = jk.p2m_phase_a_implicit_q8_pallas(
+            jnp.asarray(images), wq, dq, jnp.ones((1, 1)), kernel=3,
+            stride=2)[0]
+    else:
+        u_ref = jk.p2m_phase_a_implicit_pallas(
+            jnp.asarray(images), jk.pack_phase_weights(wj.reshape(27, c)),
+            jnp.ones((1, 1)), kernel=3, stride=2)[0]
+    kw = dict(chan=_t(chan3), precision=precision)
+    for name, run_j, run_t in (
+            ("exact",
+             lambda: j_ops.p2m_frontend(jnp.asarray(images), wj,
+                                        jnp.asarray(1.0), kj,
+                                        chan=jnp.asarray(chan3),
+                                        precision=precision),
+             lambda **k: t_ops.p2m_frontend(_t(images), _t(w), torch.ones(()),
+                                            kt, **k)),
+            ("fused",
+             lambda: j_ops.p2m_frontend_fused(
+                 jnp.asarray(images), wj, jnp.asarray(1.0),
+                 jnp.asarray(theta), kj, chan=jnp.asarray(chan3),
+                 precision=precision),
+             lambda **k: t_ops.p2m_frontend_fused(
+                 _t(images), _t(w), torch.ones(()), _t(theta), kt, **k))):
+        oj, auxj = run_j()
+        ot, auxt = run_t(**kw)
+        th = auxj["theta"] if name == "exact" else jnp.asarray(theta)
+        q_ref, _ = j_ref._device_chain_q(u_ref, th, jnp.asarray(chan3),
+                                         jk.pixel_model.DEFAULT_PIXEL,
+                                         jk.mtj_model.DEFAULT_MTJ)
+        assert_draws_match_modulo_word_boundary(
+            ot.numpy().reshape(-1, c), q_ref, bits)
+        assert set(auxt) == set(auxj)
+        for k in auxj:
+            np.testing.assert_allclose(np.asarray(auxt[k]),
+                                       np.asarray(auxj[k]), rtol=1e-5,
+                                       atol=1e-6 if k == "channel_rates"
+                                       else 0, err_msg=f"{name} {k}")
+        rows = _t(chan3[:, 0])
+        const = rows[:, None, :].expand(4, n_pix, c).contiguous()
+        oc, auxc = run_t(chan=const, precision=precision)
+        orow, auxr = run_t(chan=rows, precision=precision)
+        assert torch.equal(oc, orow), name
+        for k in auxr:
+            assert torch.equal(auxc[k], auxr[k]), f"{name} {k}"
+
+
 @pytest.mark.parametrize("kernel,stride,h,w", [GEOMETRIES[0], GEOMETRIES[4],
                                                GEOMETRIES[6]])
 def test_explicit_phase_a_matches_pallas(kernel, stride, h, w):
@@ -289,9 +354,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="w_packed"):
         tk.p2m_phase_a_implicit(images, wm[:20], torch.ones(()), kernel=3,
                                 stride=2)
-    with pytest.raises(NotImplementedError):
+    # the per-pixel chip operand is taken when its pixels divide the rows
+    # of u into whole frames, and refused otherwise, as is any other shape
+    acts, _ = tk.p2m_phase_b(torch.rand(64, 8), torch.ones(()),
+                             prng.PRNGKey(0), chan=torch.ones(4, 16, 8))
+    assert acts.shape == (64, 8)
+    with pytest.raises(ValueError, match="whole frames"):
         tk.p2m_phase_b(torch.rand(64, 8), torch.ones(()), prng.PRNGKey(0),
-                       chan=torch.ones(4, 16, 8))
+                       chan=torch.ones(4, 48, 8))
+    for bad in ((4, 16, 9), (3, 8), (4, 9), (2, 4, 16, 8)):
+        with pytest.raises(ValueError, match="chan must be"):
+            tk.p2m_phase_b(torch.rand(64, 8), torch.ones(()),
+                           prng.PRNGKey(0), chan=torch.ones(bad))
+    with pytest.raises(ValueError, match="whole frames"):
+        tk.p2m_fused_stream(images, wm, torch.ones(()), torch.ones(()),
+                            prng.PRNGKey(0), torch.ones(4, 15, 8), kernel=3,
+                            stride=2)
     with pytest.raises(ValueError, match="no kernel for device"):
         tk.p2m_phase_b(torch.rand(64, 8, device="meta"),
                        torch.ones((), device="meta"), prng.PRNGKey(0))

@@ -21,6 +21,7 @@ from repro.core import p2m as j_p2m
 from repro.core import pixel as j_pixel
 from repro.frontend import backends as j_backends
 from repro.frontend import shutter as j_shutter
+from repro.variation import chip as j_chip
 from repro_torch.core import energy as t_energy
 from repro_torch.core import hoyer as t_hoyer
 from repro_torch.core import mtj as t_mtj
@@ -28,6 +29,7 @@ from repro_torch.core import p2m as t_p2m
 from repro_torch.core import pixel as t_pixel
 from repro_torch.frontend import backends as t_backends
 from repro_torch.frontend import shutter as t_shutter
+from repro_torch.variation import chip as t_chip
 
 # XLA:CPU and PyTorch evaluate tanh/exp with different polynomials: a few
 # ulps of float32 at values of order 1
@@ -49,6 +51,7 @@ def _t(x):
     (j_mtj.MTJParams, t_mtj.MTJParams),
     (j_p2m.P2MConfig, t_p2m.P2MConfig),
     (j_energy.EnergyConstants, t_energy.EnergyConstants),
+    (j_chip.VariationConfig, t_chip.VariationConfig),
 ])
 def test_dataclass_copies_equal_reference(ref_cls, port_cls):
     """The port keeps its own copies of the physics constants; a fork of
@@ -417,3 +420,18 @@ def test_bandwidth_and_energy_functions(spec_kw):
                 f_t, sp, coding) == pytest.approx(
                 j_energy.effective_bandwidth_with_sparsity(f_j, sp, coding),
                 rel=1e-12)
+
+
+def test_variation_config_properties_equal_reference():
+    """``enabled`` and ``scaled`` of the port's VariationConfig copy equal
+    the reference's, on the zero profile and on a full one."""
+    full = dict(sigma_logit_offset=0.4, sigma_logit_slope=0.05,
+                sigma_r_p=0.05, sigma_tmr=0.05, sigma_pixel_gain=0.05,
+                sigma_pixel_offset=0.25, sigma_column=0.15, column_corr=3.0,
+                chip_seed=7)
+    for kw in ({}, full, {"sigma_column": 0.1}):
+        ref, port = j_chip.VariationConfig(**kw), t_chip.VariationConfig(**kw)
+        assert port.enabled == ref.enabled
+        for s in (0.0, 0.5, 2.0):
+            assert (dataclasses.asdict(port.scaled(s))
+                    == dataclasses.asdict(ref.scaled(s)))

@@ -2,8 +2,11 @@
 ``PRNGKey`` / ``fold_in`` / ``key_data`` / ``split`` (threefry2x32 under the
 installed jax's settings), the vectorised ``random_bits`` / ``uniform`` /
 ``bernoulli`` over several keys and shapes (rank 5, and a size that spans
-more than one chunk of counters), and ``draw_bits`` (the murmur3 counter
-hash)."""
+more than one chunk of counters), ``draw_bits`` (the murmur3 counter hash),
+stacks of keys, and ``normal``: its uniforms on [nextafter(-1, 0), 1) bit
+for bit, its values within 3 float32 ulps of ``jax.random.normal`` (XLA's
+``erf_inv`` polynomial, each Horner step rounded as one FMA; the gap is the
+two libraries' ``log1p``), checked over every uniform the words can give."""
 import jax
 import numpy as np
 import pytest
@@ -122,3 +125,61 @@ def test_bernoulli_matches_jax(seed, data):
         np.testing.assert_array_equal(
             prng.bernoulli(kt, q, shape).numpy(),
             np.asarray(jax.random.bernoulli(kj, q, shape)))
+
+
+def _ulps(a, b):
+    """Distance in float32 ulps (a monotone integer map of the bits)."""
+    def key(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return np.abs(key(a) - key(b))
+
+
+# the largest gap of prng.normal from jax.random.normal, in float32 ulps
+NORMAL_ULPS = 3
+
+
+@pytest.mark.parametrize("seed,data", KEYS)
+def test_normal_matches_jax(seed, data):
+    kj, kt = _keys(seed, data)
+    for shape in ((7,), (32, 8), (3, 5, 41)):
+        got = prng.normal(kt, shape).numpy()
+        want = np.asarray(jax.random.normal(kj, shape))
+        assert got.dtype == np.float32 and got.shape == shape
+        assert _ulps(got, want).max() <= NORMAL_ULPS
+
+
+def test_erfinv_over_every_uniform_of_the_words():
+    """All 2^23 values ``normal`` can feed ``erfinv``: the uniform grid
+    moved onto [nextafter(-1, 0), 1) equals jax's bit for bit, and
+    ``sqrt(2) * erfinv`` stays within NORMAL_ULPS of jax's (torch.erfinv
+    does not: it is tens of ulps away near the tails)."""
+    import jax.numpy as jnp
+    import torch
+    mant = np.arange(2 ** 23, dtype=np.uint32) | np.uint32(0x3F800000)
+    unit = mant.view(np.float32) - np.float32(1.0)
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u_t = torch.clamp(torch.from_numpy(unit) * (1.0 - float(lo)) + float(lo),
+                      min=float(lo))
+    u_j = jax.jit(lambda x: jnp.maximum(lo, x * (np.float32(1.0) - lo) + lo))(
+        jnp.asarray(unit))
+    np.testing.assert_array_equal(u_t.numpy().view(np.uint32),
+                                  np.asarray(u_j).view(np.uint32))
+    sqrt2 = np.float32(np.sqrt(2.0))
+    want = np.asarray(jax.jit(lambda x: sqrt2 * jax.lax.erf_inv(x))(u_j))
+    got = (float(sqrt2) * prng.erfinv(u_t)).numpy()
+    assert _ulps(got, want).max() <= NORMAL_ULPS
+    assert _ulps((float(sqrt2) * torch.erfinv(u_t)).numpy(),
+                 want).max() > 4 * NORMAL_ULPS
+
+
+def test_stacked_keys_give_each_keys_words():
+    """A (G, 2) stack of keys gives (G, *shape): row g the words, uniforms
+    and normals of key g alone."""
+    keys = np.stack([prng.fold_in(prng.PRNGKey(3), d) for d in (0, 5, 9)])
+    shape = (4, 5)
+    for fn in (prng.random_bits, prng.uniform, prng.normal):
+        stacked = fn(keys, shape)
+        assert tuple(stacked.shape) == (3, *shape)
+        for g in range(3):
+            assert bool((stacked[g] == fn(keys[g], shape)).all()), fn

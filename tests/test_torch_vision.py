@@ -229,17 +229,20 @@ def test_engine_defaults_to_the_gpu():
 def test_engine_refuses_unported_options():
     cfg = tv.VisionConfig(name="t", arch="vgg_tiny")
     params = tv.init_params(0, cfg)
-    for kw in ({"mesh": None}, {"calibration": None}, {"drift": None},
-               {"obs": None}):
+    for kw in ({"mesh": None}, {"drift": None}, {"obs": None}):
         with pytest.raises(TypeError):
             VisionEngine(cfg, params, device="cpu", **kw)
     with pytest.raises(KeyError):
         VisionEngine(cfg, params, backend="pallas", device="cpu")
+    # a programmed trim is served (the variation slice): a zero trim is the
+    # nominal chip bit for bit
     trimmed = {**params, "p2m": {**params["p2m"],
                                  "cal_trim": torch.zeros(32)}}
-    with pytest.raises(NotImplementedError):
-        tv.forward(trimmed, torch.from_numpy(_frames(1, 0)), cfg,
-                   key=prng.PRNGKey(0))
+    frames = torch.from_numpy(_frames(1, 0))
+    with torch.no_grad():
+        nominal = tv.forward(params, frames, cfg, key=prng.PRNGKey(0))[0]
+        assert torch.equal(tv.forward(trimmed, frames, cfg,
+                                      key=prng.PRNGKey(0))[0], nominal)
 
 
 def test_port_init_is_seeded():
