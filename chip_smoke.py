@@ -96,7 +96,22 @@ line:
    the CPU engine on a (1, 128) prompt and 8 new tokens, with its flash
    launch count; ``lm_stablelm``: the same check for stablelm-3b (head dim
    80, the wgmma kernel) at full width, 2 layers;
-12. the variation phases, on a sampled chip (BENCH_variation.json's
+12. ``train``: full-width vgg16 (P2M 3x3 stride 2 to 32 channels, 13
+   binary convs) at CIFAR-10 geometry, seeded weights, trained through
+   the ``analog`` backend by ``repro_torch.train.vision.fit`` for 20 SGD
+   steps on batches of 64 ``ImageStream`` frames: finite losses, no P2M
+   kernel launched; the median step wall, the device ms of one step
+   (event pair behind a long sleep, and the kernels' own time by family
+   from ``torch.profiler``), the host's time to queue ten steps beside
+   the time the device takes to run them, peak memory; the trained
+   weights evaluated through ``analog``, ``device`` and ``cuda`` (kernels
+   A and B launched, and nothing else); ``train_vs_cpu``: one step with
+   the Fig. 8 flips on, card vs CPU stage by stage from the CPU's inputs
+   and cotangents (the flip words bit for bit, z within a propagated
+   rounding bound, maps by it, EMA stats and gradients held to the CPU's
+   float64 result, TF32 in the backward visibly off it), and the whole
+   step's loss;
+13. the variation phases, on a sampled chip (BENCH_variation.json's
    profile at sigma 1.0, chip 3): ``calibrate`` (16 frames on the card and
    on the CPU, the trims within 8 bisection steps, the rate errors and
    walls); ``engine_variation`` / ``engine_variation_device`` (the vgg16
@@ -113,10 +128,10 @@ line:
    chips at sigma 0.1, 0.5 and 1.0 on the card against the CPU (yield
    fractions equal, error figures at rtol 1e-5 above 4 ulps of 1, read
    margin within 1e-6 V) and its walls;
-13. ``seconds``: the wall time of the build, the kernel lines, the vision
-   phases, the frontend backends' phases, the flash lines, the LM phases
-   and the variation phases;
-14. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+14. ``seconds``: the wall time of the build, the kernel lines, the vision
+   phases, the frontend backends' phases, the flash lines, the LM phases,
+   the train phase and the variation phases;
+15. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run; one flash row per served
    head dim: D 128 with granite-8b's launches, D 80 with stablelm-3b's),
    and last the ``{"ok": true, "device": ...}`` line.
@@ -321,10 +336,11 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, device, reps: int = REPS) -> float:
+def device_ms(fn, device, reps: int = REPS,
+              sleep_cycles: int = 2_000_000) -> float:
     """Median device time of ``fn()`` in ms over ``reps`` runs. On a card
-    each run is queued behind a ~1 ms sleep kernel, so the event pair
-    brackets the device work and not Python's enqueue time."""
+    each run is queued behind a sleep kernel (~1 ms by default), so the
+    event pair brackets the device work and not Python's enqueue time."""
     import torch
     if device.type != "cuda":
         times = []
@@ -338,7 +354,7 @@ def device_ms(fn, device, reps: int = REPS) -> float:
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -950,24 +966,19 @@ def backbone_flips(cfg, params, params_cpu, acts_cpu, device):
     bits = cfg.weight_bits
     x = acts_cpu.permute(0, 3, 1, 2)
     flipped = torch.zeros(x.shape[0], dtype=torch.bool)
-    layers, max_ulps, i, first_pool = {}, 0.0, 0, True
+    layers, max_ulps = {}, 0.0
     with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
                                                      allow_tf32=False):
-        for item in vision._VGG_PLANS[cfg.arch]:
-            if item == "M":
-                if not (first_pool and cfg.remove_first_maxpool) \
-                        and x.shape[2] > 1:
-                    x = vision._maxpool(x)
-                first_pool = False
-                continue
-            name = f"conv{i}"
-            i += 1
+        for name, pools in vision.vgg_stages(cfg):
+            x = vision.pooled(x, pools)
+            if name == "head":
+                break
             lp_cpu = params_cpu["layers"][name]
             out = vision._conv_apply(lp_cpu, x, 1, bits)[0]
             out_dev = vision._conv_apply(params["layers"][name],
                                          x.to(device), 1, bits)[0].cpu()
             z, _, thr = vision._spike_terms(
-                lp_cpu, vision._conv_bn(lp_cpu, x, 1, bits))
+                lp_cpu, vision._conv_bn(lp_cpu, x, 1, bits)[0])
             diff = out_dev != out
             dist = (z - thr).abs() / thr.abs().clamp(min=1.0)
             check(not bool((diff & (dist > THRESHOLD_ULPS_REL)).any()),
@@ -1361,6 +1372,524 @@ def yield_phase(device, smi: str):
                   f"yield sigma {r['sigma_scale']}: {k} {r[k]} vs {rc[k]}")
     emit("yield", chips=YIELD_CHIPS, sigmas=list(YIELD_SIGMAS), rows=rows,
          sweep_wall_ms=walls, cpu_sweep_wall_ms=cpu_wall, nvidia_smi=smi)
+
+
+# --- training: the vision train step (``repro_torch.train.vision``) --------
+
+TRAIN_BATCH = 64          # the reference example's batch
+TRAIN_STEPS = 20
+TRAIN_LR = 3e-3
+TRAIN_EVAL_BATCHES = 4
+TRAIN_NOISE = 0.01        # the Fig. 8 flips of the card-vs-CPU step
+# card vs CPU, one step: the loss and the BN running stats relative; each
+# layer's gradient as max |card - exact| over the RMS of the exact one
+# (float32 convs and reductions that sum in another order; cuDNN's
+# backward algorithms are not deterministic)
+TRAIN_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+# TF32 in the backward moves a layer's gradient by ~1e-3 of its RMS off
+# the gated card gradient; the check asks for at least this much in some
+# layer
+TF32_VISIBLE = 1e-4
+# a sleep queued before a timed step, so that the event pair brackets the
+# device work of a host-bound step (~200 ms at 1.98 GHz; the host takes
+# ~60 ms to queue a step)
+TRAIN_SLEEP_CYCLES = 400_000_000
+# the kernels the cuda eval of the trained weights launches
+TRAIN_EVAL_KERNELS = ("p2m_phase_a_implicit", "p2m_phase_b")
+
+
+def train_stages(cfg):
+    """The vgg training forward as a chain of stages ``(name, params path,
+    pools)``: the frontend, then ``vision.vgg_stages`` (each binary conv,
+    the head). A stage's input is the previous stage's output (frames for
+    the frontend), max-pooled ``pools`` times (``train_stage``), so every
+    output is a map of units and its cotangent is theirs."""
+    from repro_torch.models import vision
+    check(cfg.arch.startswith("vgg"), f"train_stages: {cfg.arch}")
+    return [("p2m", ("p2m",), 0)] + [
+        (name, ("head",) if name == "head" else ("layers", name), pools)
+        for name, pools in vision.vgg_stages(cfg)]
+
+
+def train_stage(cfg, name: str, pools: int, p, x, key, frozen=None):
+    """One stage of ``train_stages``: ``(out, hoyer term or None, EMA
+    stats or None)``; chained with one key they are ``vision.forward(...,
+    train=True)``. A binary conv is ``vision._conv_apply(train=True)``'s
+    two steps, BN then ``hoyer_spike``; ``frozen`` (NCHW, bool) holds the
+    gradient of those units' BN output at zero."""
+    import torch
+    from repro_torch.core import hoyer
+    from repro_torch.frontend import SensorFrontend
+    from repro_torch.models import vision
+    x = vision.pooled(x, pools)
+    if name == "p2m":
+        acts, aux = SensorFrontend(cfg.frontend)(p, x, key=key)
+        return acts.permute(0, 3, 1, 2), aux["hoyer_loss"], None
+    if name == "head":
+        return x.mean(dim=(2, 3)) @ p["w"] + p["b"], None, None
+    y, stats = vision._conv_bn(p, x, 1, cfg.weight_bits, train=True,
+                               bn_momentum=cfg.bn_momentum)
+    if frozen is not None:
+        y = torch.where(frozen, y.detach(), y)
+    return (*hoyer.hoyer_spike(y, p["v_th"]), stats)
+
+
+def _sub(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def train_chain(cfg, params, batch, key):
+    """The stages chained from the batch, each stage's input a leaf, with
+    cuDNN's TF32 off: returns the stage inputs and ``(out, hoyer, stats)``
+    results, each output's cotangent in the training loss (the NLL plus
+    ``hoyer_coeff`` times every Hoyer term; None for the head's) and the
+    loss."""
+    import torch
+    from repro_torch.models import vision
+    xs, res = [], []
+    x = batch["image"]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for name, path, pools in train_stages(cfg):
+            leaf = x.detach().requires_grad_(name != "p2m")
+            res.append(train_stage(cfg, name, pools, _sub(params, path),
+                                   leaf, key))
+            xs.append(leaf)
+            x = res[-1][0]
+        loss = vision.nll(x, batch["label"]) + cfg.hoyer_coeff * sum(
+            r[1] for r in res if r[1] is not None)
+        cots = torch.autograd.grad(loss, xs[1:])
+    return xs, res, list(cots) + [None], loss.detach()
+
+
+def stage_pre(cfg, name: str, pools: int, p, x):
+    """A binary stage's pre-spike map from its input: ``(z, thr, bound)``,
+    z NCHW, its global Hoyer threshold, and per unit the distance within
+    which a device that sums in another order may put z. A conv of depth K
+    summed in another order (or through cuDNN's transforms) is off by ~
+    sqrt(K) float32 ulps of the sum of its |terms| S; BN (train mode, live
+    stats) scales that by a = |bn_scale| / sqrt(var + eps) / v_th, which
+    reaches 316 / v_th in a channel of near-constant conv values, and the
+    mean carries its own ulps: bound = 4 sqrt(K) eps a (S + |mu|) + 4 eps
+    max(|z|, 1). The frontend: a = 1 / v_th, mu = 0, K = k * k * C_in."""
+    import torch
+    from repro_torch.core import hoyer
+    from repro_torch.core import p2m as p2m_core
+    from repro_torch.frontend import backends
+    from repro_torch.models import vision
+    x = vision.pooled(x, pools)
+    v_th = torch.clamp(p["v_th"], min=1e-6)
+    if name == "p2m":
+        pc = cfg.p2m
+        wq = p2m_core.quantize_weights(p["w"], pc.weight_bits)
+        u = backends._stages("analog", cfg.frontend, p, x)["u"]
+        z = (u / v_th).permute(0, 3, 1, 2)
+        s = p2m_core.phase_conv(x, wq.abs(), pc.stride).permute(0, 3, 1, 2)
+        a, mu = 1.0 / v_th, 0.0
+    else:
+        wq = p2m_core.quantize_weights(p["w"], cfg.weight_bits)
+        conv = vision._conv_same(x, wq, 1)
+        s = vision._conv_same(x.abs(), wq.abs(), 1)
+        mu = vision._channel(torch.mean(conv, dim=(0, 2, 3)))
+        var = torch.mean(torch.square(conv - mu), dim=(0, 2, 3))
+        z = vision._conv_bn(p, x, 1, cfg.weight_bits, train=True)[0] / v_th
+        a = vision._channel(p["bn_scale"].abs() / torch.sqrt(var + 1e-5)
+                            / v_th)
+        mu = mu.abs()
+    depth = math.prod(wq.shape[:3])
+    eps = THRESHOLD_ULPS_REL / 4
+    bound = (4 * math.sqrt(depth) * eps * a * (s + mu)
+             + THRESHOLD_ULPS_REL * z.abs().clamp(min=1.0))
+    return z, float(hoyer.hoyer_extremum(hoyer.clip01(z))), bound
+
+
+def _rel_err(ref, got) -> float:
+    """max |got - ref| over the RMS of ref (float64)."""
+    ref, got = ref.detach().double().cpu(), got.detach().double().cpu()
+    rms = float(ref.pow(2).mean().sqrt())
+    err = float((got - ref).abs().max())
+    return err / rms if rms > 0 else err
+
+
+def _exact_params(p, bits: int):
+    """A stage's params in float64 for its exact result, the weights
+    quantized in float32 first: a weight on a rounding boundary of the
+    4-bit grid may round the other way in float64, which would make
+    another function, not a more exact one."""
+    from repro_torch.core import p2m as p2m_core
+    out = {k: v.double() for k, v in p.items()}
+    if bits:
+        out["w"] = p2m_core.quantize_weights(p["w"], bits).double()
+    return out
+
+
+def held(exact, cpu, dev, tol: float) -> dict:
+    """The card's float32 result against the exact one (the CPU's float64)
+    within ``tol``, beside the CPU's float32 one, each as ``_rel_err``."""
+    e_dev, e_cpu = _rel_err(exact, dev), _rel_err(exact, cpu)
+    return dict(dev=e_dev, cpu=e_cpu, ok=e_dev <= tol)
+
+
+def stage_vjp(cfg, name, pools, p, x, key, cot, coeff, tf32: bool,
+              frozen=None):
+    """One stage's parameter gradients from a given input and output
+    cotangent ``cot`` and ``coeff`` for its Hoyer term (the head: ``cot``
+    are the labels, and the NLL is differentiated), the forward with TF32
+    off and the backward with cuDNN's TF32 ``tf32``, ``frozen`` as in
+    ``train_stage``: ``(result, {leaf: gradient})``."""
+    import torch
+    from repro_torch.models import vision
+    live = {k: v.detach().requires_grad_(True) for k, v in p.items()
+            if isinstance(v, torch.Tensor) and v.is_floating_point()}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        res = train_stage(cfg, name, pools, {**p, **live}, x, key, frozen)
+    if name == "head":
+        outs, grads_out = [vision.nll(res[0], cot)], None
+    else:
+        outs, grads_out = [res[0], res[1]], [cot, torch.full_like(res[1],
+                                                                  coeff)]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+        grads = torch.autograd.grad(outs, list(live.values()),
+                                    grad_outputs=grads_out, allow_unused=True)
+    return res, {k: g for k, g in zip(live, grads) if g is not None}
+
+
+def train_vs_cpu(cfg, params, batch, key, device) -> dict:
+    """One training step of ``cfg`` (the Fig. 8 flips on) on the card
+    against the CPU, from the same params, batch and key:
+
+    * the flip words (``split(key)``'s two keys over the map) bit for bit;
+    * stage by stage, each fed the CPU's input: the pre-spike z within
+      ``stage_pre``'s bound of the CPU's and the threshold at
+      ``TRAIN_RTOL``; the binary maps (the frontend's flips are the same
+      words) may differ only at units whose z lies within that bound plus
+      the thresholds' distance of the threshold; the EMA stats and every
+      leaf's gradient from the CPU's cotangent, each held to the exact
+      result (the CPU's float64 stage) by ``held``: within
+      ``TRAIN_RTOL`` / ``TRAIN_GRAD_TOL`` of its RMS; at units within the
+      bound of the straight-through window's edges 0 and 1 the cotangent
+      is zeroed on every side and a binary conv's BN output passes no
+      gradient, the Hoyer term's neither (there the spike's window, the
+      clip's and |z|'s gradients jump, and two sums in another order, or
+      float64, may pass them differently: a channel whose batch mean is
+      one of its conv values puts a set of units at z = 0 in float64 and
+      +-1e-7 in float32, and live BN stats amplify a near-constant
+      channel's rounding up to 316x);
+    * TF32: the same stage gradients with cuDNN's TF32 on in the backward
+      must move away from the gated card gradients of the same leaves (by
+      ``TF32_VISIBLE`` in some leaf), and a whole step with it away from
+      ``value_and_grad``'s;
+    * the whole step (``make_step``): its loss, and each layer's new BN
+      stats over their RMS, at ``TRAIN_RTOL`` when the card's own chain
+      spiked every unit as the CPU's did (a flip moves everything
+      downstream of it)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.models import params as mparams
+    from repro_torch.models import vision
+    from repro_torch.train import vision as loop
+
+    cpu = torch.device("cpu")
+    params_cpu = mparams.to_device(params, cpu)
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    stages = train_stages(cfg)
+    xs, res_cpu, cots, loss_chain_cpu = train_chain(cfg, params_cpu,
+                                                    batch_cpu, key)
+    # the frontend's flip words, card vs CPU
+    shape = tuple(res_cpu[0][0].permute(0, 2, 3, 1).shape)
+    n_words = 0
+    for k, shp in frontend_words("analog", key, shape):
+        check(torch.equal(prng.random_bits(k, shp, device).cpu(),
+                          prng.random_bits(k, shp)),
+              "train: the card's flip words differ from the CPU's")
+        n_words += math.prod(shp)
+    rows, worst, worst_tf32, masked = {}, 0.0, 0.0, 0
+    for (name, path, pools), x, cot in zip(stages, xs, cots):
+        p_cpu, p_dev = _sub(params_cpu, path), _sub(params, path)
+        row = {}
+        x_dev = x.detach().to(device)
+        if name != "head":
+            # the pre-spike map on each side from the CPU's input: z
+            # within its bound, the thresholds at TRAIN_RTOL; a unit may
+            # spike differently only within z's bound plus the
+            # thresholds' distance of the CPU's threshold, and pass its
+            # gradient differently only within the bound of 0 or 1
+            with torch.no_grad(), torch.backends.cudnn.flags(
+                    enabled=True, allow_tf32=False):
+                z, thr, bound = stage_pre(cfg, name, pools, p_cpu,
+                                          x.detach())
+                z_dev, thr_dev, _ = stage_pre(cfg, name, pools, p_dev,
+                                              x_dev)
+            dz = float(((z_dev.cpu() - z).abs() / bound).max())
+            dthr = abs(thr_dev - thr)
+            check(dz <= 1.0, f"train {name}: z off the CPU's by {dz} of "
+                  "its bound")
+            check(dthr <= TRAIN_RTOL * abs(thr),
+                  f"train {name}: threshold off the CPU's by {dthr}")
+            at_thr = (z - thr).abs() <= bound + dthr
+            at_edge = (z.abs() <= bound) | ((z - 1.0).abs() <= bound)
+            row.update(z_err_over_bound=dz, threshold=thr,
+                       threshold_abs_err=dthr,
+                       window_edge_units=int(at_edge.sum()))
+            masked += int(at_edge.sum())
+            cot = torch.where(at_edge, 0.0, cot)
+        else:
+            cot = batch_cpu["label"]
+        # a binary conv's edge units pass no Hoyer gradient either: there
+        # the clip's and |z|'s gradients jump (0, 1/2, 1), and float64
+        # puts z = 0 where float32 rounds it to +-1e-7
+        frozen = at_edge if name not in ("p2m", "head") else None
+        cot_dev = cot.to(device)
+        fz_dev = None if frozen is None else frozen.to(device)
+        r_ref, g_ref = stage_vjp(cfg, name, pools, p_cpu, x.detach(), key,
+                                 cot, cfg.hoyer_coeff, False, frozen)
+        bits = {"p2m": cfg.p2m.weight_bits, "head": 0}.get(
+            name, cfg.weight_bits)
+        r_64, g_64 = stage_vjp(cfg, name, pools, _exact_params(p_cpu, bits),
+                               x.detach().double(), key, cot.double()
+                               if cot.is_floating_point() else cot,
+                               cfg.hoyer_coeff, False, frozen)
+        r_dev, g_dev = stage_vjp(cfg, name, pools, p_dev, x_dev, key,
+                                 cot_dev, cfg.hoyer_coeff, False, fz_dev)
+        _, g_tf32 = stage_vjp(cfg, name, pools, p_dev, x_dev, key, cot_dev,
+                              cfg.hoyer_coeff, True, fz_dev)
+        if name != "head":
+            row["map_mismatches"] = assert_edge_mismatches(
+                r_dev[0].detach(), r_ref[0].detach(), at_thr)
+        if name not in ("p2m", "head"):
+            for k in ("bn_mean", "bn_var"):
+                h = held(r_64[2][k], r_ref[2][k], r_dev[2][k], TRAIN_RTOL)
+                check(h["ok"], f"train {name}: {k} off the exact one by "
+                      f"{h['dev']} (the CPU's float32 {h['cpu']})")
+                row[f"{k}_rel_err"] = h
+        if name == "head":
+            h = held(vision.nll(r_64[0], cot), vision.nll(r_ref[0], cot),
+                     vision.nll(r_dev[0], cot_dev), TRAIN_RTOL)
+            check(h["ok"], f"train: the head's NLL is off by {h}")
+            row["nll_rel_err"] = h
+        check(g_ref.keys() == g_dev.keys() == g_tf32.keys() == g_64.keys(),
+              f"train {name}: gradient leaves {sorted(g_dev)}")
+        row["grad_rel_err"] = {k: held(g_64[k], g_ref[k], g_dev[k],
+                                       TRAIN_GRAD_TOL) for k in g_ref}
+        # TF32 against the gated card gradient of the same leaf
+        row["grad_rel_err_tf32"] = {k: _rel_err(g_dev[k], g_tf32[k])
+                                    for k in g_ref}
+        for k, h in row["grad_rel_err"].items():
+            check(h["ok"], f"train {name}: the {k} gradient is off the "
+                  f"exact one by {h['dev']} (the CPU's float32 {h['cpu']})")
+        worst = max([worst, *(h["dev"] for h in row["grad_rel_err"].values())])
+        worst_tf32 = max([worst_tf32, *row["grad_rel_err_tf32"].values()])
+        rows[name] = row
+    check(worst_tf32 >= TF32_VISIBLE,
+          f"train: TF32 in the backward moved no gradient ({worst_tf32}); "
+          "the check cannot tell the gated backward from it")
+
+    # the whole step on each side, and the card's step with TF32 on
+    new_dev, loss_dev, _ = loop.make_step(cfg, TRAIN_LR)(params, batch, key)
+    new_cpu, loss_cpu, _ = loop.make_step(cfg, TRAIN_LR)(params_cpu,
+                                                         batch_cpu, key)
+    _, _, g_gated = loop.value_and_grad(params, batch, cfg, key)
+    live = {path: t.detach().requires_grad_(True)
+            for path, t in loop._leaves(params)}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        loss_t, _ = vision.loss_fn(loop._replace(params, live), batch, cfg,
+                                   key)
+        g_t = torch.autograd.grad(loss_t, list(live.values()),
+                                  allow_unused=True)
+    step_tf32 = max(_rel_err(g_gated[k], g) for k, g in zip(live, g_t)
+                    if g is not None)
+    check(step_tf32 >= TF32_VISIBLE, "train: a step with TF32 in the "
+          f"backward is within {step_tf32} of the gated step")
+    # the card's own chain: did it spike every unit as the CPU's did?
+    _, res_own, _, _ = train_chain(cfg, params, batch, key)
+    own_flips = sum(int((a[0].detach().cpu() != b[0].detach()).sum())
+                    for a, b in zip(res_own[:-1], res_cpu[:-1]))
+    loss_rel = abs(float(loss_dev) - float(loss_cpu)) / abs(float(loss_cpu))
+    # the stages chained are the training forward: the CPU's chain gives
+    # the CPU step's loss
+    chain_rel = abs(float(loss_chain_cpu) - float(loss_cpu)) / abs(
+        float(loss_cpu))
+    check(chain_rel <= TRAIN_RTOL,
+          f"train: the stages' loss is off the step's by {chain_rel}")
+    stats_rel = max(_rel_err(_sub(new_cpu, ("layers", n))[k],
+                             _sub(new_dev, ("layers", n))[k])
+                    for n, _, _ in stages[1:-1]
+                    for k in ("bn_mean", "bn_var"))
+    if own_flips == 0:
+        check(loss_rel <= TRAIN_RTOL, f"train: step loss off by {loss_rel}")
+        check(stats_rel <= TRAIN_RTOL,
+              f"train: step BN stats off by {stats_rel}")
+    return dict(flip_words_equal=n_words, stages=rows,
+                max_grad_rel_err=worst, max_grad_rel_err_tf32=worst_tf32,
+                window_edge_units_masked=masked,
+                step_loss=float(loss_dev), step_loss_cpu=float(loss_cpu),
+                step_loss_rel_err=loss_rel, step_bn_stats_rel_err=stats_rel,
+                own_chain_unit_flips=own_flips,
+                whole_step_compared=own_flips == 0,
+                step_grad_rel_diff_tf32_vs_gated=step_tf32,
+                chain_loss_rel_err=chain_rel)
+
+
+def trained_kernel_checks(cfg, params, images, key, device) -> dict:
+    """Kernels A and B on the trained P2M weights at one eval batch's
+    shape, as the ``cuda`` eval calls them, against their plain versions on
+    the same inputs (``kernel_checks``' rules): u at 3e-6, theta at 1e-5
+    relative, B's draws by the word-boundary rule and its V_CONV stats at
+    1e-5. Names the kernel A symbol the library chose at that N."""
+    import torch
+    from repro_torch.core import p2m
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.kernels import p2m_conv as pk
+    pcfg = cfg.p2m
+    kw = dict(kernel=pcfg.kernel_size, stride=pcfg.stride)
+    wq = p2m.quantize_weights(params["p2m"]["w"], pcfg.weight_bits)
+    images, wm, (b, ho, wo, c), prec = ops._prepare(images, wq, **kw,
+                                                    precision=None)
+    check(prec == "f32", f"train eval: the cuda eval resolved {prec}")
+    v_th = params["p2m"]["v_th"].to(torch.float32).contiguous()
+    n = b * ho * wo
+    u, hp = pk.p2m_phase_a_implicit(images, wm, v_th, **kw)
+    u_p, hp_p = pk.p2m_phase_a_implicit_plain(images, wm, v_th, **kw)
+    err_u = max_abs(u, u_p)
+    theta = pk.combine_hoyer_partials(hp, v_th)
+    theta_p = pk.combine_hoyer_partials(hp_p, v_th)
+    rel_theta = abs(float(theta) - float(theta_p)) / abs(float(theta_p))
+    check(err_u <= 3e-6, f"train eval: kernel A u error {err_u} > 3e-6")
+    check(rel_theta <= 1e-5,
+          f"train eval: kernel A theta rel error {rel_theta}")
+    acts, vp = pk.p2m_phase_b(u, theta, key)
+    acts_p, vp_p = pk.p2m_phase_b_plain(u, theta, key)
+    q, _ = pk.device_chain_q(u, theta, None)
+    flips = assert_draws(acts, q, pk.draw_bits(key, n, c, device=device))
+    v_k = pk.combine_v_conv_partials(vp, n, c)
+    v_p = pk.combine_v_conv_partials(vp_p, n, c)
+    v_err = max(abs(float(v_k[k]) - float(v_p[k])) for k in v_k)
+    check(v_err <= 1e-5, f"train eval: kernel B V_CONV off by {v_err}")
+    warp = cuda_lib.load().p2m_phase_a_warp_tiles(n, 0)
+    name = "p2m_phase_a_implicit"
+    return dict(rows=n, channels=c,
+                a_symbol=(WARP_TILE_SYMBOLS if warp else KERNEL_SYMBOLS)[name],
+                a_max_abs_err_u=err_u, a_theta_rel_err=rel_theta,
+                b_draw_mismatches=flips, b_max_abs_err=max_abs(acts, acts_p),
+                b_v_conv_abs_err=v_err,
+                activation_rate=float(acts.float().mean()))
+
+
+def train_phase(device, smi: str):
+    """Full-width vgg16 (P2M 3x3 stride 2 to 32 channels, 13 binary
+    convs) at CIFAR-10 geometry, seeded weights, trained through the
+    ``analog`` backend: ``fit`` for ``TRAIN_STEPS`` steps of
+    ``ImageStream`` batches of ``TRAIN_BATCH``, with no P2M kernel
+    launched; one step card vs CPU with the Fig. 8 flips on
+    (``train_vs_cpu``); the trained weights evaluated through ``analog``,
+    ``device`` and ``cuda`` (kernels A and B launched, then held against
+    their plain versions on its first batch: ``trained_kernel_checks``).
+    Emits ``train`` and ``train_vs_cpu`` lines."""
+    import dataclasses as dc
+
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch import prng
+    from repro_torch.core import p2m
+    from repro_torch.data import ImageStream
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import vision
+    from repro_torch.train import vision as loop
+
+    cfg = vision.VisionConfig(frontend_backend="analog")   # vgg16
+    params = vision.init_params(0, cfg, device=device)
+    stream = ImageStream(global_batch=TRAIN_BATCH, seed=0, device=device)
+    marks, history = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = loop.fit(params, cfg, stream, TRAIN_STEPS, lr=TRAIN_LR,
+                       key=prng.PRNGKey(1), log_every=1,
+                       log_fn=lambda s: marks.append(time.perf_counter()),
+                       history=history)
+    counts_train = cuda_lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    walls = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+    check(len(history) == TRAIN_STEPS
+          and all(math.isfinite(h["loss"]) for h in history),
+          f"train: non-finite losses {history}")
+    check(all(n == 0 for n in counts_train.values()),
+          f"train: the train steps launched P2M kernels {counts_train}")
+    leaves = loop._leaves(trained)
+    check(all(bool(torch.isfinite(t).all()) and t.device.type == "cuda"
+              for _, t in leaves), "train: non-finite or moved weights")
+    batch = stream.next_batch()
+    step = loop.make_step(cfg, TRAIN_LR)
+    step_ms = device_ms(lambda: step(trained, batch, prng.PRNGKey(3)),
+                        device, reps=5, sleep_cycles=TRAIN_SLEEP_CYCLES)
+    # where one step's device time goes (the convs, forward and backward,
+    # and the rest), from torch.profiler
+    prof, _ = profile_session(lambda: step(trained, batch, prng.PRNGKey(3)))
+    step_fam, step_top = device_breakdown(prof, VISION_FAMILIES, n_top=8)
+    step_events = sum(1 for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not is_marker(e))
+    # ten steps queued back to back: the host's time to queue them against
+    # the time until the device has run them (equal: the host is the
+    # bottleneck, the device waits on it)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter()
+    for _ in range(10):
+        step(trained, batch, prng.PRNGKey(3))
+    queue_ms = (time.perf_counter() - t_q) * 1e3 / 10
+    torch.cuda.synchronize()
+    done_ms = (time.perf_counter() - t_q) * 1e3 / 10
+
+    evals = {}
+    for backend in ("analog", "device", "cuda"):
+        ev = ImageStream(global_batch=TRAIN_BATCH, seed=99, device=device)
+        cuda_lib.reset_launch_counts()
+        acc, n = loop.evaluate(trained, cfg, ev, TRAIN_EVAL_BATCHES,
+                               backend=backend,
+                               key=None if backend == "analog"
+                               else prng.PRNGKey(2))
+        counts = cuda_lib.launch_counts()
+        for name, cnt in counts.items():
+            if backend == "cuda" and name in TRAIN_EVAL_KERNELS:
+                check(cnt >= TRAIN_EVAL_BATCHES,
+                      f"train eval: {name} launched {cnt} times")
+            else:
+                check(cnt == 0, f"train eval {backend}: {name} launched "
+                      f"{cnt} times")
+        evals[backend] = dict(accuracy=acc, examples=n,
+                              launches={k: v for k, v in counts.items()
+                                        if v})
+    # the kernels of the cuda eval held against their plain versions on
+    # its first batch, with the trained weights (after the counts above)
+    ev = ImageStream(global_batch=TRAIN_BATCH, seed=99, device=device)
+    eval_kernels = trained_kernel_checks(
+        cfg, trained, ev.next_batch()["image"],
+        prng.fold_in(prng.PRNGKey(2), 0), device)
+    emit("train", model="vgg16", batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+         backend="analog", lr=TRAIN_LR,
+         first_step_wall_ms=walls[0],
+         step_wall_ms_median=statistics.median(walls[1:]),
+         step_wall_ms=walls, step_device_ms=step_ms,
+         step_device_ms_by_family=step_fam, step_top_device_events=step_top,
+         step_device_events=step_events,
+         step_host_queue_ms=queue_ms, step_queued_wall_ms=done_ms,
+         peak_bytes=peak, launches_train=counts_train,
+         loss_first=history[0]["loss"], loss_last=history[-1]["loss"],
+         acc_last=history[-1]["acc"],
+         p2m_sparsity_last=history[-1]["p2m_sparsity"],
+         eval=evals, eval_kernels=eval_kernels, nvidia_smi=smi)
+
+    # one step card vs CPU with the Fig. 8 flips on, from the trained
+    # weights (their BN stats are no longer the init's)
+    cfg_noise = dc.replace(cfg, p2m=p2m.P2MConfig(
+        noise_p_fail=TRAIN_NOISE, noise_p_false=TRAIN_NOISE))
+    emit("train_vs_cpu", model="vgg16", batch=TRAIN_BATCH,
+         noise=TRAIN_NOISE,
+         **train_vs_cpu(cfg_noise, trained, batch,
+                        prng.fold_in(prng.PRNGKey(1), TRAIN_STEPS), device))
 
 
 def frontend_words(backend: str, key, acts_shape):
@@ -1972,6 +2501,8 @@ def main() -> int:
     counts_d80 = lm_phase(device, smi, LM_D80_ARCH)
     lm_vs_cpu_phase(device)
     lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
+    t_train = time.perf_counter()
+    train_phase(device, smi)
     # last: their 12 profiler sessions come after the flash lines', which
     # fail if every session drops the kernel's events (the tracer drops
     # more of them late in a long process); theirs return "not measured"
@@ -1984,8 +2515,9 @@ def main() -> int:
     # wall seconds of each group of phases, and from the build to here
     emit("seconds", build=build_s, kernels=t_vision - t_kernels,
          vision=t_frontends - t_vision, frontends=t_flash - t_frontends,
-         flash=t_lm - t_flash, lm=t_variation - t_lm,
-         variation=t_end - t_variation, total=t_end - t0)
+         flash=t_lm - t_flash, lm=t_train - t_lm,
+         train=t_variation - t_train, variation=t_end - t_variation,
+         total=t_end - t0)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},
                 **{n_: counts_int8 for n_ in PATH_KERNELS["engine_int8"]

@@ -1,11 +1,12 @@
 """P2M first-layer physics: configuration, weight init and quantization.
 
 Port of ``repro.core.p2m``: ``P2MConfig``, ``init_params``, the 4-bit
-symmetric fake-quant, the relu-split phase packing ``[w+, w-]`` that kernel
-A and the fused kernel consume, the int8 operand helpers of the quantized
-kernels, and the plain two-phase conv of the ``ideal`` / ``analog`` /
-``device`` backends (one packed cuDNN convolution, TF32 off, XLA's SAME
-padding), BatchNorm folding and the output sparsity.
+symmetric fake-quant (straight-through gradient), the relu-split phase
+packing ``[w+, w-]`` that kernel A and the fused kernel consume, the int8
+operand helpers of the quantized kernels, and the plain two-phase conv of
+the ``ideal`` / ``analog`` / ``device`` backends (one packed cuDNN
+convolution, TF32 off, XLA's SAME padding), BatchNorm folding and the
+output sparsity.
 """
 from __future__ import annotations
 
@@ -48,28 +49,44 @@ def init_params(generator: torch.Generator, cfg: P2MConfig, *,
                                                   device=device)}
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded once, as XLA divides. On CUDA PyTorch applies a
+    Python-float divisor as a multiply by its reciprocal, up to an ulp off,
+    which moves a weight that sits on a rounding boundary of the
+    quantization grid to the next step; a tensor divisor divides."""
+    return x / x.new_full((), c)
+
+
 def quantize_weights(w: torch.Tensor, bits: int) -> torch.Tensor:
     """Symmetric per-tensor fake-quant (transistor-width discretization)."""
     if bits <= 0 or bits >= 16:
         return w
     qmax = 2.0 ** (bits - 1) - 1.0
-    scale = torch.clamp(torch.max(torch.abs(w)), min=1e-8) / qmax
+    scale = _div(torch.clamp(torch.max(torch.abs(w)), min=1e-8), qmax)
     wq = torch.round(w / scale) * scale
-    # w + (wq - w): the reference's straight-through form, kept for its
+    # w + stop_gradient(wq - w): the straight-through estimator (the
+    # gradient is the identity), in the reference's form, kept for its
     # rounding (it is not always wq bit for bit)
-    return w + (wq - w)
+    return w + (wq - w).detach()
 
 
 def relu_split_pack(w: torch.Tensor) -> torch.Tensor:
-    """(..., C) signed weights -> (..., 2C): ``[max(w, 0), max(-w, 0)]``."""
-    return torch.cat([torch.clamp(w, min=0.0), torch.clamp(-w, min=0.0)],
+    """(..., C) signed weights -> (..., 2C): ``[max(w, 0), max(-w, 0)]``,
+    each half a maximum against a zero tensor, as ``jnp.maximum``: a
+    gradient at a tie (a quantized weight is often exactly 0) goes half to
+    each phase."""
+    zero = w.new_zeros(())
+    return torch.cat([torch.maximum(w, zero), torch.maximum(-w, zero)],
                      dim=-1)
 
 
 def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     """NHWC conv with HWIO weights (one analog integration phase), SAME
     padding with the extra element on the high side, as XLA pads. cuDNN
-    runs it in IEEE float32: its TF32 default would move u by ~1e-3."""
+    runs it in IEEE float32: its TF32 default would move u by ~1e-3. The
+    flags hold for the forward only; the backward convs run when the
+    gradient is taken, which ``repro_torch.train.vision`` does under the
+    same flags."""
     (pt, pb), _ = blocking.same_pads(x.shape[1], x.shape[2], w.shape[0],
                                      stride)
     _, (pl, pr) = blocking.same_pads(x.shape[1], x.shape[2], w.shape[1],
@@ -139,7 +156,8 @@ def quantize_packed_weights(wm: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(K, 2C) packed weights -> ``(wq int8, scale float32 (2C,))`` with
     ``scale_j = max|wm[:, j]| / 127`` (guarded for all-zero columns)."""
-    scale = torch.clamp(torch.amax(torch.abs(wm), dim=0), min=1e-12) / QMAX_INT8
+    scale = _div(torch.clamp(torch.amax(torch.abs(wm), dim=0), min=1e-12),
+                 QMAX_INT8)
     wq = torch.clamp(torch.round(wm / scale), -QMAX_INT8, QMAX_INT8)
     return wq.to(torch.int8), scale.to(torch.float32)
 

@@ -10,8 +10,8 @@ returning ``(activations, aux)`` with the reference's aux keys. Stateful
 backends (their result is held in MTJ states) go through the global-shutter
 burst read. The backends are ``ideal``, ``analog``, ``device`` and ``cuda``
 (the hand-kernel counterpart of the reference's ``pallas``); ``ideal`` and
-``analog`` are marked differentiable, as the reference marks them (their
-straight-through gradients come with training).
+``analog`` are marked differentiable, as the reference marks them: training
+runs through them.
 """
 from __future__ import annotations
 
@@ -60,10 +60,11 @@ def list_backends() -> list:
 
 
 def differentiable_backends() -> list:
-    """Backends the reference trains through (straight-through gradients).
-    In the port their spike is forward only for now: no gradient reaches
-    ``params["w"]`` through the activation map until the training slice
-    gives ``hoyer.spike`` its straight-through backward."""
+    """Backends training runs through: their gradients reach
+    ``params["w"]`` and ``params["v_th"]`` through the straight-through
+    spike (``hoyer.spike``), the quantizer's straight-through estimator and
+    the Fig. 8 flips' straight-through form (``repro_torch.train.vision``
+    refuses any other backend)."""
     return sorted(_DIFFERENTIABLE)
 
 

@@ -15,6 +15,8 @@ With jax's ``jax_threefry_partitionable`` setting on, every word is the
   of the block of ``(i >> 32, i & 0xFFFFFFFF)``;
 * ``uniform`` keeps 23 bits of a word as a float32 mantissa in [1, 2) and
   subtracts 1; ``bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``;
+* ``randint`` takes two words a value (the bits of ``split(key)``'s two
+  keys) and reduces them modulo the span in wrapping uint32, as jax does;
 * ``normal`` is ``sqrt(2) * erfinv(u)`` with u those uniforms moved onto
   [nextafter(-1, 0), 1), bit for bit; ``erfinv`` is XLA's single-precision
   polynomial (``torch.erfinv`` is up to 91 float32 ulps from it; this one
@@ -202,6 +204,39 @@ def normal(key, shape, device=None) -> torch.Tensor:
     (G, *shape)."""
     u = uniform(key, shape, device) * (1.0 - _NORMAL_LO) + _NORMAL_LO
     return _SQRT2_F32 * erfinv(torch.clamp(u, min=_NORMAL_LO))
+
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _mul32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """``(a * m) mod 2^32`` for words a, m < 2^32, in int64 without
+    overflow: m in 16-bit halves."""
+    lo = a * (m & 0xFFFF)
+    hi = ((a * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def randint(key, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) on
+    ``device``, bit for bit: two words a value from the halves of
+    ``split(key)``, ``span = maxval - minval`` as uint32 (1 where ``maxval
+    <= minval``), then ``minval + ((hi % span) * m + lo % span) % span``
+    with ``m = (2^16 % span)^2 % span``, all in wrapping uint32. Bounds
+    outside int32 raise, as jax refuses them."""
+    minval, maxval = int(minval), int(maxval)
+    if not all(_I32_MIN <= b <= _I32_MAX for b in (minval, maxval)):
+        raise OverflowError(f"randint bounds ({minval}, {maxval}) do not fit "
+                            "int32")
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    span = 1 if maxval <= minval else (maxval - minval) & _MASK  # >= 1
+    mult = (((1 << 16) % span) ** 2 & _MASK) % span
+    offset = ((_mul32(higher % span, mult) + lower % span) & _MASK) % span
+    # minval + offset, wrapping in int32
+    return (((minval + offset + 2 ** 31) & _MASK) - 2 ** 31).to(torch.int32)
 
 
 def bernoulli(key, p, shape, device=None) -> torch.Tensor:

@@ -20,6 +20,9 @@ kernel A and the legacy kernel on both sides of the tile count where
 their warps start to own their tiles); the int8 kernels' MAC is checked
 to run on the s8 tensor cores (IMMA in the library's machine code), and
 the device chain at other MTJ counts.
+The vision train step is held against the CPU on the card (one step of
+vgg_tiny stage by stage, ``chip_smoke.train_vs_cpu``), with the TF32 flag
+of a conv's backward and the max-pool gradient's ties on binary maps.
 The engine tests show each main path launches its own kernels and no
 other: f32 A / B / f32 fused on the f32 engine, int8 A / B / int8 fused on
 an engine whose tile table picks int8, and one flash-attention launch per
@@ -730,6 +733,122 @@ def test_calibrated_engine_launches_the_kernels_with_the_chip(cuda_device,
         engine.params["p2m"]["v_th"], kernel=3, stride=2)
     _draw_rule(o.reshape(-1, 32), tk.device_chain_q(u, aux["theta"], chan)[0],
                tk.draw_bits(key, u.shape[0], 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantized_weights_on_the_card_equal_the_cpus(cuda_device, bits):
+    """On CUDA a Python-float divisor is applied as a multiply by its
+    reciprocal, up to an ulp off. At max|w| = 0.34280804, m * (1 / 7) and
+    m / 7 differ by an ulp, and weights at or next to a rounding boundary
+    of the 4-bit grid (12 of those below) would quantize to the next
+    step. The port divides by a tensor: the card's quantized weights, and
+    the int8 packed scales, equal the CPU's bit for bit."""
+    from repro_torch.core import p2m as tp2m
+    m = np.float32(0.34280804)
+    base = ((np.arange(-7, 7, dtype=np.float32) + np.float32(0.5))
+            * np.float32(m / np.float32(7))).astype(np.float32)
+    w = torch.tensor(np.concatenate([
+        base, np.nextafter(base, np.float32(np.inf)),
+        np.nextafter(base, np.float32(-np.inf)), [m]]))
+    recip = torch.tensor(m) * (torch.tensor(1.0) / 7.0)
+    assert int((torch.round(w / recip)
+                != torch.round(w / (torch.tensor(m) / 7.0))).sum()) == 12
+    rng = np.random.default_rng(bits)
+    big = torch.tensor(rng.normal(size=(3, 3, 512, 512)) * 0.02,
+                       dtype=torch.float32)
+    for x in (w, big):
+        assert torch.equal(tp2m.quantize_weights(x.to(cuda_device),
+                                                 bits).cpu(),
+                           tp2m.quantize_weights(x, bits))
+    wm = big.reshape(-1)[:27 * 64].reshape(27, 64).abs()
+    for a, b in zip(tp2m.quantize_packed_weights(wm.to(cuda_device)),
+                    tp2m.quantize_packed_weights(wm)):
+        assert torch.equal(a.cpu(), b)
+
+
+# --- the vision train step -------------------------------------------------
+
+def _chip_smoke():
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_train_step_matches_the_cpu(cuda_device, monkeypatch):
+    """One step of vgg_tiny (the Fig. 8 flips on) card vs CPU by
+    ``chip_smoke.train_vs_cpu``: the flip words bit for bit, every stage
+    from the CPU's input (maps by the 4-ulp threshold rule, EMA stats at
+    1e-5, each leaf's gradient from the CPU's cotangent at 1e-4 of its RMS,
+    held to the exact float64 one, and with cuDNN's TF32 on in the
+    backward visibly off the gated card gradient), the whole step's loss
+    where the card spiked every unit as the CPU did."""
+    from repro_torch.core import p2m as tp2m
+    from repro_torch.data import ImageStream
+    cs = _chip_smoke()
+    monkeypatch.setattr(autotune, "_TABLE", {})
+    cfg = tv.VisionConfig(name="t", arch="vgg_tiny", frontend_backend="analog",
+                          p2m=tp2m.P2MConfig(noise_p_fail=0.01,
+                                             noise_p_false=0.01))
+    params = tv.init_params(0, cfg, device=cuda_device)
+    batch = ImageStream(global_batch=16, device=cuda_device).next_batch()
+    out = cs.train_vs_cpu(cfg, params, batch, prng.PRNGKey(3), cuda_device)
+    assert out["flip_words_equal"] == 2 * 16 * 16 * 16 * 32
+    assert out["max_grad_rel_err_tf32"] >= cs.TF32_VISIBLE
+    for row in out["stages"].values():
+        assert all(h["ok"] for h in row["grad_rel_err"].values())
+
+
+@pytest.mark.cuda
+def test_tf32_in_the_backward_follows_the_flags_at_backward_time(
+        cuda_device):
+    """A conv's backward runs inside ``autograd.grad`` and reads cuDNN's
+    TF32 flag then, not at the forward: the forward under TF32 off, the
+    backward with TF32 on moves the weight gradient off the CPU's; the
+    backward under the same flags as the forward (``train.vision``) holds
+    it at 1e-4 of its RMS."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(0)
+    lp = {"w": torch.tensor(rng.normal(size=(3, 3, 64, 64)) * 0.06,
+                            dtype=torch.float32),
+          "bn_scale": torch.ones(64), "bn_bias": torch.zeros(64),
+          "bn_mean": torch.zeros(64), "bn_var": torch.ones(64),
+          "v_th": torch.tensor(1.0)}
+    x = torch.tensor(rng.uniform(size=(16, 64, 16, 16)) > 0.7,
+                     dtype=torch.float32)
+    cot = torch.tensor(rng.normal(size=(16, 64, 16, 16)),
+                       dtype=torch.float32)
+    cfg = tv.VisionConfig(name="t", arch="vgg_tiny")
+    _, g_cpu = cs.stage_vjp(cfg, "conv0", 0, lp, x, None, cot, 1e-8, False)
+    lp_dev = {k: v.to(cuda_device) for k, v in lp.items()}
+    args = (cfg, "conv0", 0, lp_dev, x.to(cuda_device), None,
+            cot.to(cuda_device), 1e-8)
+    _, g_off = cs.stage_vjp(*args, False)
+    _, g_on = cs.stage_vjp(*args, True)
+    assert cs._rel_err(g_cpu["w"], g_off["w"]) <= cs.TRAIN_GRAD_TOL
+    assert cs._rel_err(g_cpu["w"], g_on["w"]) >= cs.TF32_VISIBLE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(16, 16), (7, 7), (5, 8), (1, 3)])
+def test_max_pool_gradient_ties_go_where_the_cpu_sends_them(cuda_device, h,
+                                                            w):
+    """On binary maps every 2x2 window is a tie; the CPU (as XLA's
+    select-and-scatter) sends its gradient to the first maximum in
+    row-major order, and so must the card, ceil_mode's partial windows at
+    odd sizes included."""
+    rng = np.random.default_rng(h * 31 + w)
+    x = torch.tensor(rng.uniform(size=(4, 8, h, w)) > 0.5,
+                     dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=tv._maxpool(x).shape),
+                     dtype=torch.float32)
+    grads = []
+    for dev in (torch.device("cpu"), cuda_device):
+        xd = x.to(dev).requires_grad_(True)
+        (gx,) = torch.autograd.grad(tv._maxpool(xd), xd,
+                                    grad_outputs=g.to(dev))
+        grads.append(gx.cpu())
+    assert torch.equal(grads[0], grads[1])
 
 # (batch, seq, heads, kv_heads, head_dim, dtype, causal): the LM serving
 # geometry and the odd ones chip_smoke.py also checks; then the wgmma

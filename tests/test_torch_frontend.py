@@ -196,18 +196,24 @@ def test_registry():
 @pytest.mark.parametrize("backend", ["ideal", "analog"])
 def test_differentiable_backends_are_forward_only_for_now(backend):
     """``ideal`` and ``analog`` are registered differentiable, as in the
-    reference, but the port's spike has no straight-through backward yet:
-    the activation map carries no gradient, only the Hoyer loss does. The
-    training slice replaces this test when it adds the backward."""
+    reference. (The name dates from before the spike's straight-through
+    backward.) Now the activation map, Fig. 8 flips included, carries a
+    gradient to ``w`` and ``v_th``, as the Hoyer loss does; its values are
+    held to ``jax.grad`` in ``tests/test_torch_train.py``."""
     pcfg = t_p2m.P2MConfig(noise_p_fail=0.05, noise_p_false=0.05)
     fe = tf.SensorFrontend(tf.FrontendConfig(p2m=pcfg, backend=backend))
     params = fe.init(torch.Generator().manual_seed(0), device="cpu")
     params["w"].requires_grad_(True)
+    params["v_th"].requires_grad_(True)
     frames = torch.rand((2, 8, 8, 3), generator=torch.Generator()
                         .manual_seed(1))
     acts, aux = fe(params, frames, key=prng.PRNGKey(0))
-    assert acts.grad_fn is None
+    assert acts.grad_fn is not None
     assert aux["hoyer_loss"].grad_fn is not None
+    g_w, g_vth = torch.autograd.grad(acts.sum(), [params["w"],
+                                                 params["v_th"]])
+    assert bool(torch.isfinite(g_w).all()) and bool((g_w != 0).any())
+    assert bool(torch.isfinite(g_vth)) and float(g_vth) != 0.0
 
 
 @pytest.mark.parametrize("backend", ["ideal", "analog", "device"])

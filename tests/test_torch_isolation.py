@@ -49,7 +49,9 @@ def test_serving_import_loads_neither_jax_nor_reference():
             "repro_torch.serving.engine, repro_torch.kernels.flash_attention, "
             "repro_torch.configs, repro_torch.frontend, repro_torch.quickstart, "
             "repro_torch.variation, repro_torch.variation.calibrate, "
-            "repro_torch.variation.yield_analysis; "
+            "repro_torch.variation.yield_analysis, repro_torch.train.vision, "
+            "repro_torch.data.synthetic, repro_torch.launch.train, "
+            "repro_torch.train_p2m_vision; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

@@ -84,7 +84,7 @@ def _layer_pairs(arch, pj, pt, x_nhwc):
     def both(lp_j, lp_t, x, binary=True):
         oj, _, _ = jv._conv_apply(lp_j, jnp.asarray(x), 1, bits,
                                   binary=binary)
-        ot, _ = tv._conv_apply(lp_t, torch.tensor(x).permute(0, 3, 1, 2),
+        ot, _, _ = tv._conv_apply(lp_t, torch.tensor(x).permute(0, 3, 1, 2),
                                1, bits, binary=binary)
         return np.asarray(oj), _np(ot.permute(0, 2, 3, 1))
 
@@ -150,7 +150,7 @@ def test_backbone_eval_parity(arch):
         assert not (diff & ~near).any(), "binary unit differs off-threshold"
     # the port's whole backbone from the same frontend activations
     with torch.no_grad():
-        feat_t, _ = tv._backbone(pt, torch.from_numpy(acts).permute(
+        feat_t, _, _ = tv._backbone(pt, torch.from_numpy(acts).permute(
             0, 3, 1, 2), cfg_t)
     logits_t = _np(feat_t @ pt["head"]["w"] + pt["head"]["b"])
     logits_j = np.asarray(jnp.mean(jnp.asarray(feat_j), axis=(1, 2))
