@@ -111,7 +111,30 @@ line:
    rounding bound, maps by it, EMA stats and gradients held to the CPU's
    float64 result, TF32 in the backward visibly off it), and the whole
    step's loss;
-13. the variation phases, on a sampled chip (BENCH_variation.json's
+13. the lifetime phases, on the variation phases' calibrated chip aging
+   under BENCH_lifetime.json's drift profile: ``engine_lifetime`` (the
+   vgg16 engine with ``VisionEngine(drift=, schedule=SchedulePolicy(
+   period_frames=64, cal_iters=12), calibration_frames=)``, a classify and
+   a stream of 8 batches of 16 through ``cuda``: A, B and fused launch
+   with the aged (4, C) rows, no refresh launches a kernel, the age ends at
+   the frames served, the refreshes fire on the period, the merge rules
+   hold; the same engine on the CPU: ages and refresh frames equal, every
+   step's aged rows within 1e-6 relative to max(|row|, 1), each trim within
+   8 bisection steps, the classify and a replay at the final age by
+   phase 4's rules on the step's aged chip; the stale trim against a
+   refresh at 1e5 frames) and ``engine_lifetime_steady`` (the aging
+   classify's wall beside the plain calibrated engine's, in turns, and
+   what an aging step adds); ``lifetime_kernel`` lines (A, B and fused on
+   the aged rows at 3e2 and 1e5 frames against their plain versions: B's
+   and fused's draws and B's V_CONV min / max bit for bit, the fused kernel
+   at A's theta equal to A -> B);
+   ``fleet_lifetime`` (``rate_error_vs_age`` of 48 chips at 8 ages on the
+   card, its wall and peak memory, time to failure stale and refreshed;
+   a CPU twin of 4 chips at 3 ages: trims within 8 steps, errors within
+   2e-5 of the CPU's chain at the card's trims); ``accuracy_lifetime``
+   (``accuracy_vs_age`` of one chip at two ages through ``device``, card
+   vs CPU, and the maintenance energy per frame);
+14. the variation phases, on a sampled chip (BENCH_variation.json's
    profile at sigma 1.0, chip 3): ``calibrate`` (16 frames on the card and
    on the CPU, the trims within 8 bisection steps, the rate errors and
    walls); ``engine_variation`` / ``engine_variation_device`` (the vgg16
@@ -128,10 +151,10 @@ line:
    chips at sigma 0.1, 0.5 and 1.0 on the card against the CPU (yield
    fractions equal, error figures at rtol 1e-5 above 4 ulps of 1, read
    margin within 1e-6 V) and its walls;
-14. ``seconds``: the wall time of the build, the kernel lines, the vision
+15. ``seconds``: the wall time of the build, the kernel lines, the vision
    phases, the frontend backends' phases, the flash lines, the LM phases,
-   the train phase and the variation phases;
-15. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+   the train phase, the lifetime phases and the variation phases;
+16. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run; one flash row per served
    head dim: D 128 with granite-8b's launches, D 80 with stablelm-3b's),
    and last the ``{"ok": true, "device": ...}`` line.
@@ -239,6 +262,9 @@ PATH_KERNELS = {
     "engine_variation": ("p2m_phase_a_implicit", "p2m_phase_b",
                          "p2m_fused_stream"),
     "engine_variation_device": (),
+    # the calibrated chip aging: its rows, new every step, in B and fused
+    "engine_lifetime": ("p2m_phase_a_implicit", "p2m_phase_b",
+                        "p2m_fused_stream"),
 }
 SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
 # the plain-PyTorch frontend backends; analog with its Fig. 8 flips on
@@ -1374,6 +1400,528 @@ def yield_phase(device, smi: str):
          sweep_wall_ms=walls, cpu_sweep_wall_ms=cpu_wall, nvidia_smi=smi)
 
 
+# --- sensor lifetime: an aging chip served and refreshed on the card -------
+
+LIFETIME_BATCH = 16
+LIFETIME_STREAM = 8         # stream batches of LIFETIME_BATCH after classify
+LIFETIME_POLICY = dict(period_frames=64, cal_iters=12)
+LIFETIME_STEADY = 20        # steady classifies, aging and plain in turns
+# the aged kernel operands: two ages and the reference test's trim
+LIFETIME_KERNEL_AGES = (3e2, 1e5)
+LIFETIME_STALE_AGE = 10 ** 5
+# the fleet grid of BENCH_lifetime.json's bench: 48 chips, 32 calibration
+# frames, these ages; the CPU twin runs its first chips at three of them
+FLEET_CHIPS, FLEET_FRAMES = 48, 32
+FLEET_AGES = (0.0, 3e2, 1e3, 1e4, 3e4, 1e5, 3e5, 1e6)
+FLEET_CPU_CHIPS, FLEET_CPU_AGES = 4, (3e2, 1e4, 1e6)
+# card vs CPU: the (4, C) rows of an aged chip (the chips drawn on each
+# side, within ulps; the age's log1p / sin are the same float32 host
+# values on both) relative to max(|row|, 1); a rate error evaluated at the
+# same trim (means of 262,144 rows summed in another order, u and theta
+# from convs that sum in another order)
+LIFETIME_ROWS_TOL = 1e-6
+FLEET_ERR_ATOL = 2e-5
+ACCURACY_AGES = (0.0, 1e5)
+MAINTENANCE_PERIOD = 1e4
+
+
+def lifetime_config():
+    """BENCH_lifetime.json's drift profile (``drift_profile``) as the
+    port's ``DriftConfig``, and its rate-error budget."""
+    from repro_torch.lifetime import DriftConfig
+    with open(os.path.join(ROOT, "BENCH_lifetime.json")) as f:
+        bench = json.load(f)
+    return DriftConfig(**bench["drift_profile"]), bench["rate_err_budget"]
+
+
+def aged_rows(engine, age: int, trim):
+    """The (4, C) rows an aging engine serves at ``age`` with ``trim``."""
+    from repro_torch.variation.chip import channel_operands
+    st = engine.lifetime
+    return channel_operands(engine._evolve(st.chip0, st.maps, age), trim)
+
+
+def lifetime_run(engine, frames, device):
+    """One classify, then a stream of the other batches, one step each
+    (microbatch = batch). Before each step the engine's age and trim are
+    read; each refresh is timed and its launch counts read around it.
+    Returns (outputs, [(age, trim) before each step], the refreshes'
+    walls in ms, launches during refreshes, the steps' host-clock walls)."""
+    from repro_torch.kernels import cuda_lib
+    sched, st = engine._scheduler, engine.lifetime
+    solve = sched.recalibrate
+    refresh_ms, refresh_launches = [], []
+
+    def timed(chip):
+        before = sum(cuda_lib.launch_counts().values())
+        sync(device)
+        t0 = time.perf_counter()
+        trim = solve(chip)
+        sync(device)
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        refresh_launches.append(sum(cuda_lib.launch_counts().values())
+                                - before)
+        return trim
+
+    sched.recalibrate = timed
+    states, outs, walls = [], [], []
+    stream = engine.stream(frames[1:])
+    for j in range(len(frames)):
+        states.append((st.age_frames, st.trim.clone()))
+        sync(device)
+        t0 = time.perf_counter()
+        outs.append(engine.classify(frames[0]) if j == 0 else next(stream))
+        sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    check(next(stream, None) is None, "the stream yielded more batches")
+    sched.recalibrate = solve
+    return outs, states, refresh_ms, refresh_launches, walls
+
+
+def sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def lifetime_engine_phase(device, smi: str, cfg, params, art, cal_frames,
+                          dcfg):
+    """``engine_lifetime``: full-width vgg16 on the sampled, calibrated
+    chip, aging under ``dcfg`` and refreshed every
+    ``LIFETIME_POLICY["period_frames"]`` frames, served through ``cuda``:
+    one classify and a stream of ``LIFETIME_STREAM`` batches, counted (A,
+    B and fused launch; no refresh launches a P2M kernel). The age ends at
+    the frames served, the refreshes fire exactly on the period, the trim
+    stays on the card, the merge rules hold on the outputs. The same
+    engine on the CPU from the same seed: ages and refresh frames equal,
+    the aged rows of every step within ``LIFETIME_ROWS_TOL`` at the same
+    trim, each refreshed trim within 8 bisection steps; the classify (age
+    0) and a replay at the final age against the CPU by
+    ``compare_with_cpu``'s rules, fed the step's aged chip and the card's
+    trim. Then the steady walls (aging classify and the plain calibrated
+    engine's, in turns), what an aging step adds (``_aged_params`` and the
+    monitor's copy), and the stale trim against a refresh at 1e5 frames.
+    Returns the engine."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.lifetime import SchedulePolicy
+    from repro_torch.models import params as mparams
+    from repro_torch.serving import VisionEngine
+    from repro_torch.serving.vision import _merge_outputs
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(41)
+    frames = [torch.rand((LIFETIME_BATCH, 32, 32, 3), generator=gen)
+              for _ in range(1 + LIFETIME_STREAM)]
+    policy = SchedulePolicy(**LIFETIME_POLICY)
+    kw = dict(backend="cuda", seed=0, microbatch=LIFETIME_BATCH, drift=dcfg,
+              schedule=policy, calibration_frames=cal_frames)
+    engine = VisionEngine(cfg, params, device=device, calibration=art, **kw)
+    cuda_lib.reset_launch_counts()
+    outs, states, refresh_ms, refresh_launches, walls = lifetime_run(
+        engine, frames, device)
+    counts = cuda_lib.launch_counts()
+    if device.type == "cuda":
+        check_path_counts(counts, "engine_lifetime")
+    check(all(n == 0 for n in refresh_launches),
+          f"a refresh launched P2M kernels: {refresh_launches}")
+    st = engine.lifetime
+    served = LIFETIME_BATCH * len(frames)
+    check(st.age_frames == served == outs[-1]["lifetime_age_frames"],
+          f"age {st.age_frames} after {served} frames")
+    last, fired = 0, []
+    for j in range(len(frames)):       # the periodic policy, step by step
+        age = LIFETIME_BATCH * (j + 1)
+        if age - last >= policy.period_frames:
+            last = age
+            fired.append(j)
+    check(st.recal_count == len(fired) == len(refresh_ms)
+          and [j for j, o in enumerate(outs)
+               if o["lifetime_recal_fired"] == 1.0] == fired,
+          f"refreshes at steps {fired} expected, {st.recal_count} fired")
+    check(st.trim.device.type == device.type, "the trim left the card")
+    for o in outs:
+        check(tuple(o["probs"].shape) == (LIFETIME_BATCH, 10)
+              and bool(torch.isfinite(o["probs"]).all()), "probs")
+    merged = _merge_outputs(outs[1:], [LIFETIME_BATCH] * LIFETIME_STREAM)
+    for k in ("lifetime_age_frames", "lifetime_recal_count",
+              "lifetime_recal_energy_pj", "lifetime_rate_err"):
+        check(merged[k] == outs[-1][k], f"merged {k} is not the last value")
+    check(merged["lifetime_recal_fired"] == max(
+        o["lifetime_recal_fired"] for o in outs[1:]) == 1.0,
+        "merged refresh event")
+    check(engine.fused_step_count >= 1, "no fused stream step ran")
+    run = dict(recal_count=st.recal_count,
+               fused_step_count=engine.fused_step_count,
+               fused_fallback_count=engine.fused_fallback_count)
+
+    # the same engine on the CPU, the same seed and trim
+    params_cpu = mparams.to_device(engine.params, cpu)
+    engine_cpu = VisionEngine(cfg, params_cpu, device=cpu, **kw)
+    outs_cpu, states_cpu, _, _, _ = lifetime_run(engine_cpu, frames, cpu)
+    check([a for a, _ in states] == [a for a, _ in states_cpu]
+          and engine_cpu.lifetime.age_frames == st.age_frames,
+          "ages differ from the CPU engine's")
+    check([o["lifetime_recal_fired"] for o in outs]
+          == [o["lifetime_recal_fired"] for o in outs_cpu],
+          "refresh frames differ from the CPU engine's")
+    lsb = policy.cal_span / 2 ** policy.cal_iters
+    rows_err, trim_steps = 0.0, []
+    for (age, trim), (_, trim_cpu) in zip(states, states_cpu):
+        rows = aged_rows(engine, age, trim).cpu()
+        rows_cpu = aged_rows(engine_cpu, age, trim.cpu())
+        rows_err = max(rows_err, float(((rows - rows_cpu).abs()
+                                        / rows_cpu.abs().clamp(min=1.0))
+                                       .max()))
+        trim_steps.append(max_abs(trim.cpu(), trim_cpu) / lsb)
+    check(rows_err <= LIFETIME_ROWS_TOL,
+          f"aged rows off the CPU's by {rows_err}")
+    trim_steps.append(max_abs(st.trim.cpu(), engine_cpu.lifetime.trim) / lsb)
+    check(max(trim_steps) <= 8,
+          f"refreshed trims off the CPU's by {max(trim_steps)} steps")
+    for j, o in enumerate(outs):
+        check(o["lifetime_recal_count"] == outs_cpu[j]["lifetime_recal_count"]
+              and o["lifetime_recal_energy_pj"]
+              == outs_cpu[j]["lifetime_recal_energy_pj"],
+              f"step {j}: refresh count or energy differs from the CPU's")
+
+    # the classify at age 0 and a replay of its key at the final age, each
+    # by compare_with_cpu's rules on the step's aged chip and card trim
+    def step_params(age, trim):
+        return {**engine.params, "p2m": {
+            **engine.params["p2m"],
+            "chip": engine._evolve(st.chip0, st.maps, age), "cal_trim": trim}}
+
+    vs_cpu = compare_with_cpu(cfg, step_params(*states[0]), frames, outs[0],
+                              [], device, "f32")
+    replay = engine.classify(frames[0], key=prng.fold_in(prng.PRNGKey(0), 0))
+    check(st.age_frames == served and "lifetime_age_frames" not in replay,
+          "a replay aged the chip")
+    vs_cpu_replay = compare_with_cpu(cfg, step_params(st.age_frames, st.trim),
+                                     frames, replay, [], device, "f32")
+
+    # steady walls: the aging classify (its refreshes left out) and the
+    # plain calibrated engine of engine_variation, in turns
+    plain = VisionEngine(cfg, params, device=device, backend="cuda", seed=0,
+                         microbatch=LIFETIME_BATCH, calibration=art)
+    for e in (engine, plain):
+        e.classify(frames[1])
+    aging_ms, plain_ms, aging_step_ms = [], [], []
+    for _ in range(LIFETIME_STEADY):
+        sync(device)
+        t0 = time.perf_counter()
+        o = engine.classify(frames[1])
+        sync(device)
+        if o["lifetime_recal_fired"] == 0.0:
+            aging_ms.append((time.perf_counter() - t0) * 1e3)
+            aging_step_ms.append(o["wall_ms"])
+        sync(device)
+        t0 = time.perf_counter()
+        plain.classify(frames[1])
+        sync(device)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    aged_ms, observe_ms = [], []
+    rates = outs[-1]["channel_rates"]
+    for _ in range(LIFETIME_STEADY):
+        sync(device)
+        t0 = time.perf_counter()
+        engine._aged_params()
+        sync(device)
+        t1 = time.perf_counter()
+        engine._scheduler.observe(rates)
+        observe_ms.append((time.perf_counter() - t1) * 1e3)
+        aged_ms.append((t1 - t0) * 1e3)
+
+    # stale trim against a refresh, at 1e5 frames
+    st.age_frames = LIFETIME_STALE_AGE
+    aged = engine._evolve(st.chip0, st.maps, st.age_frames)
+    sched = engine._scheduler
+    err_stale = sched.rate_error(aged, st.trim)
+    err_fresh = sched.rate_error(aged, sched.recalibrate(aged))
+    check(err_stale > 2.0 * err_fresh,
+          f"at {LIFETIME_STALE_AGE} frames the refresh left rate error "
+          f"{err_fresh} against the stale trim's {err_stale}")
+
+    emit("engine_lifetime", model="vgg16", batch=LIFETIME_BATCH,
+         chip_id=VARIATION_CHIP, drift=dataclasses.asdict(dcfg),
+         policy=LIFETIME_POLICY, launches=counts,
+         refresh_launches=refresh_launches, ages=[a for a, _ in states],
+         refresh_steps=fired, **run,
+         recal_energy_pj=outs[-1]["lifetime_recal_energy_pj"],
+         energy_per_refresh_pj=sched.recal_energy_pj,
+         rate_err=[o["lifetime_rate_err"] for o in outs],
+         rows_max_rel_err_vs_cpu=rows_err, trim_steps_vs_cpu=trim_steps,
+         step_wall_ms=walls, step_engine_wall_ms=[o["wall_ms"] for o in outs],
+         refresh_wall_ms=refresh_ms,
+         refresh_wall_ms_median=statistics.median(refresh_ms),
+         vs_cpu=vs_cpu, vs_cpu_replay_at_final_age=vs_cpu_replay,
+         rate_error_stale=err_stale, rate_error_refreshed=err_fresh,
+         stale_age_frames=LIFETIME_STALE_AGE, nvidia_smi=smi)
+    emit("engine_lifetime_steady", model="vgg16", batch=LIFETIME_BATCH,
+         aging_classify_wall_ms_median=statistics.median(aging_ms),
+         aging_classify_step_wall_ms_median=statistics.median(aging_step_ms),
+         variation_classify_wall_ms_median=statistics.median(plain_ms),
+         aged_params_ms_median=statistics.median(aged_ms),
+         observe_ms_median=statistics.median(observe_ms),
+         steps_timed=len(aging_ms), nvidia_smi=smi)
+    return engine
+
+
+def lifetime_kernels_phase(device, engine, params) -> None:
+    """Kernels A, B and fused on the aging engine's chip at
+    ``LIFETIME_KERNEL_AGES`` with the trim ``linspace(-0.1, 0.1, C)``, at
+    the serving shape: A against its plain version (u at 3e-6, theta at
+    1e-5); B on A's u against its plain version, the draws and the V_CONV
+    min / max bit for bit, the mean within 1e-5 (summed in another
+    order); the fused kernel at A's theta equal to A -> B and to its plain
+    version's draws bit for bit. One ``lifetime_kernel`` line an age."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import p2m
+    from repro_torch.kernels import p2m_conv as pk
+
+    gen = torch.Generator().manual_seed(43)
+    images = torch.rand((LIFETIME_BATCH, 32, 32, 3), generator=gen).to(device)
+    wq = p2m.quantize_weights(params["p2m"]["w"], 4)
+    wm = pk.pack_phase_weights(wq.reshape(27, 32)).contiguous()
+    v_th = params["p2m"]["v_th"]
+    key = prng.fold_in(prng.PRNGKey(47), 1)
+    kw = dict(kernel=3, stride=2)
+    u, hp = pk.p2m_phase_a_implicit(images, wm, v_th, **kw)
+    u_p, hp_p = pk.p2m_phase_a_implicit_plain(images, wm, v_th, **kw)
+    theta = pk.combine_hoyer_partials(hp, v_th)
+    theta_p = pk.combine_hoyer_partials(hp_p, v_th)
+    err_u = max_abs(u, u_p)
+    rel_theta = abs(float(theta) - float(theta_p)) / abs(float(theta_p))
+    check(err_u <= 3e-6 and rel_theta <= 1e-5,
+          f"kernel A on the served weights: u {err_u}, theta {rel_theta}")
+    n, c = u.shape
+    trim = torch.linspace(-0.1, 0.1, c, device=device)
+    for age in LIFETIME_KERNEL_AGES:
+        chan = aged_rows(engine, age, trim).contiguous()
+        acts, vp = pk.p2m_phase_b(u, theta, key, chan=chan)
+        acts_p, vp_p = pk.p2m_phase_b_plain(u, theta, key, chan=chan)
+        check(torch.equal(acts, acts_p),
+              f"kernel B's draws != its plain version's at {age} frames")
+        v_k = pk.combine_v_conv_partials(vp, n, c)
+        v_p = pk.combine_v_conv_partials(vp_p, n, c)
+        check(all(torch.equal(v_k[x], v_p[x])
+                  for x in ("v_conv_min", "v_conv_max")),
+              f"kernel B's V_CONV min / max != the plain ones at {age}")
+        v_err = abs(float(v_k["v_conv_mean"]) - float(v_p["v_conv_mean"]))
+        check(v_err <= 1e-5, f"kernel B V mean off by {v_err} at {age}")
+        fused = pk.p2m_fused_stream(images, wm, v_th, theta, key, chan, **kw)
+        check(torch.equal(fused[0], acts),
+              f"fused at A's theta != A -> B with the aged rows at {age}")
+        check(torch.equal(fused[3].sum(0), acts.sum(0)), "fused rates")
+        fused_p = pk.p2m_fused_stream_plain(images, wm, v_th, theta, key,
+                                            chan, **kw)
+        check(torch.equal(fused[0], fused_p[0]),
+              f"fused draws != its plain version's at {age} frames")
+        emit("lifetime_kernel", age_frames=age, shape=[n, 27, c],
+             a_max_abs_err_u=err_u, a_theta_rel_err=rel_theta,
+             b_draws_equal_plain=True, b_v_min_max_equal_plain=True,
+             b_v_conv_mean_abs_err=v_err, fused_equals_a_then_b=True,
+             fused_draws_equal_plain=True,
+             activation_rate=float(acts.mean()))
+
+
+FLEET_KW = dict(iters=12, span=2.0)
+
+
+def fleet_frames():
+    import torch
+    return torch.rand((FLEET_FRAMES, 32, 32, 3),
+                      generator=torch.Generator().manual_seed(53))
+
+
+def fleet_cpu_twin(cfg, params, dcfg):
+    """The fleet surfaces of the first ``FLEET_CPU_CHIPS`` chips at
+    ``FLEET_CPU_AGES`` on the CPU, and their wall in ms."""
+    import torch
+    from repro_torch.lifetime import fleet
+    t0 = time.perf_counter()
+    twin = fleet.fleet_surfaces(params["p2m"], cfg.p2m, cfg.variation, dcfg,
+                                fleet_frames(), FLEET_CPU_AGES,
+                                FLEET_CPU_CHIPS, device=torch.device("cpu"),
+                                **FLEET_KW)
+    return twin, (time.perf_counter() - t0) * 1e3
+
+
+def fleet_lifetime_phase(device, smi: str, cfg, params, dcfg, budget: float,
+                         twin_future):
+    """``rate_error_vs_age``'s surfaces of ``FLEET_CHIPS`` chips at
+    ``FLEET_AGES`` (``iters`` 12, ``FLEET_FRAMES`` calibration frames,
+    vgg16's P2M weights) on the card, timed, with its peak memory;
+    ``time_to_failure`` stale and refreshed at the budget (the refreshed
+    survivors at least the stale ones). Against the CPU twin
+    (``fleet_cpu_twin``, run beside the card's phases): the birth and
+    refreshed trims within 8 bisection steps, and the card's errors within
+    ``FLEET_ERR_ATOL`` of the CPU's chain at the card's trims (the twin's
+    own errors where its trims equal the card's bit for bit)."""
+    import torch
+    from repro_torch.lifetime import (evolve_chip, fleet, sample_drift_maps,
+                                      time_to_failure)
+    from repro_torch.variation.calibrate import channel_rates
+    from repro_torch.variation.chip import sample_chips
+
+    cpu = torch.device("cpu")
+    vcfg, pcfg = cfg.variation, cfg.p2m
+    frames = fleet_frames()
+    kw = FLEET_KW
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    surf = fleet.fleet_surfaces(params["p2m"], pcfg, vcfg, dcfg, frames,
+                                FLEET_AGES, FLEET_CHIPS, device=device, **kw)
+    host = {k: surf[k].cpu().numpy() for k in fleet.SURFACES}
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    ttf = {tag: time_to_failure(host[f"err_{tag}_worst"], FLEET_AGES, budget)
+           for tag in ("stale", "recal")}
+    check(ttf["recal"]["survivor_fraction"]
+          >= ttf["stale"]["survivor_fraction"],
+          f"refreshing lost survivors: {ttf}")
+
+    t_cpu = time.perf_counter()
+    k_cpu = FLEET_CPU_CHIPS
+    twin, twin_ms = twin_future.result()
+    lsb = kw["span"] / 2 ** kw["iters"]
+    idx = [FLEET_AGES.index(a) for a in FLEET_CPU_AGES]
+    trim0 = surf["trim0"][:k_cpu].cpu()
+    trim_t = surf["trim_t"][idx, :k_cpu].cpu()
+    trim_steps = max(max_abs(trim0, twin["trim0"]),
+                     max_abs(trim_t, twin["trim_t"])) / lsb
+    check(trim_steps <= 8, f"fleet trims off the CPU's by {trim_steps} steps")
+    chain = {}
+
+    def cpu_errors(age, trim):
+        """|rate - target| of the CPU's chain at a card trim."""
+        if not chain:
+            chain["ops"] = fleet._calibration_operands(
+                params["p2m"]["w"].cpu(), params["p2m"]["v_th"].cpu(),
+                frames, pcfg)
+            ids = list(range(k_cpu))
+            c, n = pcfg.out_channels, pcfg.mtj.n_redundant
+            chain["chips"] = (sample_chips(vcfg, c, n, ids, device=cpu),
+                              sample_drift_maps(dcfg, c, n, ids, device=cpu))
+        u, theta, ref = chain["ops"]
+        aged = evolve_chip(*chain["chips"], age, dcfg=dcfg)
+        return (channel_rates(u, theta, aged, trim, pcfg) - ref).abs()
+
+    err_gap, evaluated = 0.0, 0
+    for j, (i, a) in enumerate(zip(idx, FLEET_CPU_AGES)):
+        for tag, card_trim, cpu_trim in (("stale", trim0, twin["trim0"]),
+                                         ("recal", trim_t[j],
+                                          twin["trim_t"][j])):
+            if torch.equal(card_trim, cpu_trim):
+                cpu_err = {s_: twin[f"err_{tag}_{s_}"][:, j]
+                           for s_ in ("mean", "worst")}
+            else:
+                err = cpu_errors(a, card_trim)
+                cpu_err = {"mean": err.mean(-1), "worst": err.amax(-1)}
+                evaluated += 1
+            for stat, val in cpu_err.items():
+                card = torch.from_numpy(host[f"err_{tag}_{stat}"][:k_cpu, i])
+                err_gap = max(err_gap, max_abs(card, val))
+    cpu_ms = (time.perf_counter() - t_cpu) * 1e3
+    check(err_gap <= FLEET_ERR_ATOL,
+          f"fleet rate errors off the CPU's chain by {err_gap}")
+    emit("fleet_lifetime", chips=FLEET_CHIPS, frames=FLEET_FRAMES,
+         ages=list(FLEET_AGES), iters=kw["iters"], budget=budget,
+         rows=[{"age_frames": a, **{k: float(host[k][:, i].mean())
+                                    for k in fleet.SURFACES}}
+               for i, a in enumerate(FLEET_AGES)],
+         time_to_failure=ttf, wall_ms=wall, peak_bytes=peak,
+         cpu_chips=k_cpu, cpu_ages=list(FLEET_CPU_AGES),
+         cpu_twin_wall_ms=twin_ms, cpu_wait_and_check_ms=cpu_ms,
+         trim_steps_vs_cpu=trim_steps, err_max_abs_vs_cpu=err_gap,
+         cpu_chain_evaluations_at_card_trims=evaluated, nvidia_smi=smi)
+
+
+def accuracy_lifetime_phase(device, smi: str, cfg, params, dcfg,
+                            cal_frames, engine) -> None:
+    """``accuracy_vs_age``: one chip at ``ACCURACY_AGES``, one batch of 16,
+    through ``device`` on the card and on the CPU. The threefry words are
+    the same on both, so a frame's label may differ only where a draw's
+    uniform or a backbone unit sits on an edge: at most one frame of the
+    16 an eval. Then the maintenance energy per frame at
+    ``MAINTENANCE_PERIOD`` beside the frontend energy of a frame."""
+    import dataclasses as dc
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import energy
+    from repro_torch.lifetime import accuracy_vs_age
+
+    gen = torch.Generator().manual_seed(59)
+    batch = {"image": torch.rand((LIFETIME_BATCH, 32, 32, 3), generator=gen),
+             "label": torch.arange(LIFETIME_BATCH) % 10}
+    cfg0 = dc.replace(cfg, variation=None)
+    kw = dict(vcfg=cfg.variation, dcfg=dcfg, ages=ACCURACY_AGES, n_chips=1,
+              calibration_frames=cal_frames, key=prng.PRNGKey(61),
+              cal_iters=12)
+    sync(device)
+    t0 = time.perf_counter()
+    rows = accuracy_vs_age(params, cfg0, [batch], device=device, **kw)
+    sync(device)
+    wall = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    rows_cpu = accuracy_vs_age(params, cfg0, [batch],
+                               device=torch.device("cpu"), **kw)
+    cpu_wall = (time.perf_counter() - t0) * 1e3
+    worst = max(abs(r[k] - rc[k]) * LIFETIME_BATCH for r, rc in
+                zip(rows, rows_cpu) for k in ("acc_stale", "acc_recal"))
+    check([r["age_frames"] for r in rows] == list(ACCURACY_AGES)
+          and worst <= 1.0, f"accuracy_vs_age: {rows} vs {rows_cpu}")
+    spec = engine._frame_spec()
+    fe = energy.frontend_energy_ours(spec)
+    maint = energy.maintenance_energy_per_frame_pj(
+        spec, recal_period_frames=MAINTENANCE_PERIOD,
+        n_cal_frames=FLEET_FRAMES, bisection_iters=12)
+    emit("accuracy_lifetime", model="vgg16", rows=rows, rows_cpu=rows_cpu,
+         frames_differing_max=worst, wall_ms=wall, cpu_wall_ms=cpu_wall,
+         frontend_energy_ours_pj=fe, maintenance_per_frame_pj=maint,
+         maintenance_period_frames=MAINTENANCE_PERIOD,
+         maintenance_overhead_fraction=maint / fe, nvidia_smi=smi)
+
+
+def lifetime_phase(device, smi: str):
+    """The lifetime phases on ``variation_config()``'s calibrated chip
+    aging under ``lifetime_config()``: ``engine_lifetime`` (and
+    ``_steady``), ``lifetime_kernel`` lines, ``fleet_lifetime`` and
+    ``accuracy_lifetime``."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.models import params as mparams
+    from repro_torch.models import vision
+    from repro_torch.variation import calibrate
+
+    autotune.clear()          # the f32 path
+    cfg = variation_config()
+    dcfg, budget = lifetime_config()
+    params = vision.init_params(0, cfg, device=device)
+    cal_frames = torch.rand((LIFETIME_BATCH, 32, 32, 3),
+                            generator=torch.Generator().manual_seed(37))
+    art = calibrate(params["p2m"], cfg.p2m, cfg.variation, cal_frames,
+                    chip_id=VARIATION_CHIP, iters=CAL_ITERS, span=CAL_SPAN,
+                    device=device)
+    # the fleet's CPU twin runs beside the card's phases (its ops release
+    # the interpreter lock); its result is read in fleet_lifetime_phase
+    with ThreadPoolExecutor(1) as pool:
+        twin = pool.submit(fleet_cpu_twin, cfg,
+                           mparams.to_device(params, torch.device("cpu")),
+                           dcfg)
+        engine = lifetime_engine_phase(device, smi, cfg, params, art,
+                                       cal_frames, dcfg)
+        lifetime_kernels_phase(device, engine, params)
+        fleet_lifetime_phase(device, smi, cfg, params, dcfg, budget, twin)
+    accuracy_lifetime_phase(device, smi, cfg, params, dcfg, cal_frames,
+                            engine)
+
+
 # --- training: the vision train step (``repro_torch.train.vision``) --------
 
 TRAIN_BATCH = 64          # the reference example's batch
@@ -2503,6 +3051,8 @@ def main() -> int:
     lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
     t_train = time.perf_counter()
     train_phase(device, smi)
+    t_lifetime = time.perf_counter()
+    lifetime_phase(device, smi)
     # last: their 12 profiler sessions come after the flash lines', which
     # fail if every session drops the kernel's events (the tracer drops
     # more of them late in a long process); theirs return "not measured"
@@ -2516,7 +3066,8 @@ def main() -> int:
     emit("seconds", build=build_s, kernels=t_vision - t_kernels,
          vision=t_frontends - t_vision, frontends=t_flash - t_frontends,
          flash=t_lm - t_flash, lm=t_train - t_lm,
-         train=t_variation - t_train, variation=t_end - t_variation,
+         train=t_lifetime - t_train, lifetime=t_variation - t_lifetime,
+         variation=t_end - t_variation,
          total=t_end - t0)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},

@@ -4,9 +4,9 @@ Port of ``repro.core.energy``: ``EnergyConstants`` (a copy of the
 reference's, held equal by a test), ``FrameSpec``, the bandwidth reduction
 (the consistent reading of Eq. 3, and Eq. 3 as printed), the front-end and
 communication energies with their report (the paper's 8.2x / 8.5x energy
-and 6x bandwidth ratios), one trim refresh's energy, and the
-global-shutter frame time. Plain Python arithmetic. The amortized
-maintenance energy comes with the lifetime slice.
+and 6x bandwidth ratios), one trim refresh's energy and its amortized
+maintenance energy per frame, and the global-shutter frame time. Plain
+Python arithmetic.
 """
 from __future__ import annotations
 
@@ -144,6 +144,17 @@ def recalibration_energy_pj(f: FrameSpec = VGG16_IMAGENET,
     exposures = n_cal_frames * bisection_iters
     return exposures * frontend_energy_ours(f, c) \
         + f.c_out * c.e_trim_dac_write_pj
+
+
+def maintenance_energy_per_frame_pj(f: FrameSpec = VGG16_IMAGENET,
+                                    c: EnergyConstants = DEFAULT_ENERGY, *,
+                                    recal_period_frames: float,
+                                    n_cal_frames: int = 32,
+                                    bisection_iters: int = 12) -> float:
+    """One refresh's energy amortized over its period of served frames."""
+    return recalibration_energy_pj(
+        f, c, n_cal_frames=n_cal_frames,
+        bisection_iters=bisection_iters) / max(recal_period_frames, 1.0)
 
 
 # --- communication energy (Fig. 9) -------------------------------------------

@@ -7,7 +7,8 @@ scan. Parameters are nested dicts of tensors in the reference's layouts
 (HWIO conv weights, NHWC data, (d, heads, head_dim) projections, the stacked
 ``body`` axis first); any layout change happens inside a forward.
 ``from_numpy`` / ``to_numpy`` carry a JAX parameter tree across (as
-``jax.tree.map(np.asarray, params)``) and back. The logical sharding axes of
+``jax.tree.map(np.asarray, params)``, NamedTuples such as ``ChipMaps``
+field by field) and back. The logical sharding axes of
 the reference's specs have no counterpart: one card has no mesh.
 """
 from __future__ import annotations
@@ -76,11 +77,21 @@ def init_tree(generator: torch.Generator, spec_tree, *, device=None,
             for k in sorted(spec_tree)}
 
 
+def _tuple_like(tree, items):
+    """``items`` as ``tree``'s tuple type: a NamedTuple (``ChipMaps``,
+    ``DriftMaps``) keeps its type and fields."""
+    items = list(items)
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
 def from_numpy(tree, device: Optional[torch.device] = None):
-    """Nested dicts of numpy arrays -> the same tree of tensors on
-    ``device`` (copies; the layouts are the reference's)."""
+    """Nested dicts (and tuples, a NamedTuple keeping its type) of numpy
+    arrays -> the same tree of tensors on ``device`` (copies; the layouts
+    are the reference's)."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return _tuple_like(tree, (from_numpy(v, device) for v in tree))
     arr = np.asarray(tree)
     if arr.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: same bits
         return torch.from_numpy(arr.view(np.int16).copy()).view(
@@ -92,6 +103,8 @@ def to_numpy(state):
     """Inverse of ``from_numpy``: tensors -> numpy arrays on the host."""
     if isinstance(state, dict):
         return {k: to_numpy(v) for k, v in state.items()}
+    if isinstance(state, tuple):
+        return _tuple_like(state, (to_numpy(v) for v in state))
     return state.detach().cpu().numpy()
 
 
@@ -101,6 +114,5 @@ def to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        moved = [to_device(v, device) for v in tree]
-        return type(tree)(*moved) if hasattr(tree, "_fields") else tuple(moved)
+        return _tuple_like(tree, (to_device(v, device) for v in tree))
     return tree.to(device)

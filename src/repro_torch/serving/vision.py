@@ -27,6 +27,23 @@ tester-solved per-channel trim into the frontend params
 the one physical chip its config names (``VisionConfig(variation=,
 chip_id=)``).
 
+``drift=`` (a ``lifetime.DriftConfig``) makes the chip age: a frame clock
+counts the served frames, and before every step the chip (the config's
+sampled chip, or the nominal one) is re-evolved to that age
+(``lifetime.evolve_chip``) and served as ``params["p2m"]["chip"]`` with the
+trim in force, so the ``cuda`` backend's kernels B and fused take its (4, C)
+rows. With ``schedule=`` (a ``lifetime.SchedulePolicy``) and
+``calibration_frames=`` a ``RecalibrationScheduler`` watches the streamed
+``channel_rates`` and re-solves the trim against the aged chip when the
+policy fires, charging each refresh's tester energy. Every output of an
+aging engine carries ``lifetime_age_frames``, ``lifetime_recal_count``,
+``lifetime_recal_fired``, ``lifetime_rate_err`` and
+``lifetime_recal_energy_pj``. ``classify`` with an explicit key replays a
+draw and does not age the chip; ``stream`` ages it per microbatch. The
+refresh is key-free, so the draws' key sequence is the same with or without
+a scheduler. ``drift=None`` or an all-zero profile leaves every path as it
+is without one, a scheduler armed or not.
+
 ``device=None`` means the GPU; without CUDA the engine raises rather than
 moving to the CPU on its own. ``device="cpu"`` runs the kernels' plain
 PyTorch versions. Timing is synchronous: the device is synchronized around
@@ -34,6 +51,7 @@ every step, so ``wall_ms`` is the honest end-to-end time of the step.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, Iterable, Iterator, List, Optional
 
@@ -44,9 +62,12 @@ from repro_torch.core import energy
 from repro_torch.devices import resolve_device
 from repro_torch.frontend.api import get_backend
 from repro_torch.kernels import autotune, blocking
+from repro_torch.lifetime import (LifetimeState, RecalibrationScheduler,
+                                  evolve_chip, sample_drift_maps)
 from repro_torch.models import vision
 from repro_torch.models.params import to_device
 from repro_torch.variation.calibrate import apply_calibration
+from repro_torch.variation.chip import identity_chip, sample_chip
 
 
 class VisionEngine:
@@ -59,7 +80,8 @@ class VisionEngine:
                  fused_theta_tol: float = 0.02,
                  fused_theta_ema: float = 0.9,
                  tile_table: Optional[str] = None,
-                 calibration=None):
+                 calibration=None, drift=None, schedule=None,
+                 calibration_frames=None):
         self.device = resolve_device(device)
         get_backend(backend)   # fail fast on typos
         if fused_stream and backend != "cuda":
@@ -86,6 +108,10 @@ class VisionEngine:
         lat = energy.frame_latency_us(self._frame_spec())
         self._sensor_latency_us = float(lat["total_us"])
         self._sensor_fps = float(lat["fps"])
+        self.lifetime: Optional[LifetimeState] = None
+        self._scheduler: Optional[RecalibrationScheduler] = None
+        if drift is not None and drift.enabled:
+            self._init_lifetime(drift, schedule, calibration_frames)
 
     def _frame_spec(self) -> energy.FrameSpec:
         cfg, pcfg = self.cfg, self.cfg.p2m
@@ -95,6 +121,59 @@ class VisionEngine:
             h_out=max(conv // 2, 1), w_out=max(conv // 2, 1),
             c_out=pcfg.out_channels, kernel=pcfg.kernel_size,
             stride=pcfg.stride, n_mtj=pcfg.mtj.n_redundant)
+
+    # --- the aging chip -----------------------------------------------------
+
+    def _init_lifetime(self, drift, schedule, calibration_frames) -> None:
+        pcfg = self.cfg.p2m
+        c, n = pcfg.out_channels, pcfg.mtj.n_redundant
+        vcfg = self.cfg.variation
+        chip0 = (sample_chip(vcfg, c, n, self.cfg.chip_id, device=self.device)
+                 if vcfg is not None and vcfg.enabled
+                 else identity_chip(c, n, device=self.device))
+        trim0 = self.params["p2m"].get("cal_trim")
+        if trim0 is None:     # a zero trim changes no bit
+            trim0 = torch.zeros((c,), dtype=torch.float32,
+                                device=self.device)
+        self.lifetime = LifetimeState(
+            chip0=chip0, trim=trim0,
+            maps=sample_drift_maps(drift, c, n, self.cfg.chip_id,
+                                   device=self.device))
+        self._evolve = functools.partial(evolve_chip, dcfg=drift)
+        if schedule is not None:
+            self._scheduler = RecalibrationScheduler(
+                schedule, pcfg, calibration_frames, self.params["p2m"],
+                frame_spec=self._frame_spec(), device=self.device)
+
+    def _aged_params(self) -> Dict:
+        """The params at the frame clock's age: the aged chip and the trim
+        in force in ``params["p2m"]``."""
+        st = self.lifetime
+        chip = self._evolve(st.chip0, st.maps, st.age_frames)
+        return {**self.params, "p2m": {**self.params["p2m"],
+                                       "chip": chip, "cal_trim": st.trim}}
+
+    def _advance_lifetime(self, out: Dict, n_frames: int) -> Dict:
+        """Tick the frame clock, run the scheduler, return the telemetry."""
+        st = self.lifetime
+        st.age_frames += n_frames
+        fired = 0.0
+        if self._scheduler is not None:
+            st.rate_err = self._scheduler.observe(out.get("channel_rates"))
+            st.rate_err_history.append(st.rate_err)
+            if self._scheduler.should_fire(st.age_frames,
+                                           st.last_recal_frame):
+                st.trim = self._scheduler.recalibrate(
+                    self._evolve(st.chip0, st.maps, st.age_frames))
+                st.recal_count += 1
+                st.last_recal_frame = st.age_frames
+                st.recal_energy_pj += self._scheduler.recal_energy_pj
+                fired = 1.0
+        return {"lifetime_age_frames": float(st.age_frames),
+                "lifetime_recal_count": float(st.recal_count),
+                "lifetime_recal_fired": fired,
+                "lifetime_rate_err": float(st.rate_err),
+                "lifetime_recal_energy_pj": float(st.recal_energy_pj)}
 
     def _stream_fused_enabled(self, n_frames: int, h: int, w: int) -> bool:
         """Whether a stream step of ``n_frames`` (h, w) frames runs the
@@ -126,25 +205,28 @@ class VisionEngine:
         """frames (B, H, W, C) in [0, 1]. Returns labels/probs/frontend aux
         plus serving telemetry (wall_ms, throughput_fps, sensor_latency_us,
         sensor_fps). Without ``key`` the engine folds its frame counter into
-        the seed key and advances it; an explicit key replays a draw."""
-        return self._classify(self._frames(frames), key)
+        the seed key and advances it; an explicit key replays a draw and, on
+        an aging engine, does not advance the frame clock."""
+        return self._classify(self._frames(frames), key, advance=key is None)
 
-    def _classify(self, frames: torch.Tensor, key,
+    def _classify(self, frames: torch.Tensor, key, advance: bool,
                   fused: Optional[bool] = None) -> Dict:
         """``fused`` is tri-state: None = not a cuda-stream step (no
         streaming telemetry keys); False = a stream step kept on the exact
-        path; True = attempt the fused carried-theta step."""
+        path; True = attempt the fused carried-theta step. ``advance``
+        ticks an aging engine's frame clock after the step."""
         if key is None:
             key = prng.fold_in(self._key, self._frame_count)
             self._frame_count += 1
+        params = self.params if self.lifetime is None else self._aged_params()
         n = frames.shape[0]
         self._sync()
         t0 = time.perf_counter()
         if fused:
-            out, drift, ran_fused = self._fused_classify(frames, key)
+            out, drift, ran_fused = self._fused_classify(params, frames, key)
         else:
             drift, ran_fused = 0.0, False
-            out = self._forward(self.params, frames, key)
+            out = self._forward(params, frames, key)
         self._sync()
         wall = time.perf_counter() - t0
         out = dict(out)
@@ -157,9 +239,11 @@ class VisionEngine:
         out["throughput_fps"] = n / wall
         out["sensor_latency_us"] = self._sensor_latency_us
         out["sensor_fps"] = self._sensor_fps
+        if self.lifetime is not None and advance:
+            out.update(self._advance_lifetime(out, n))
         return out
 
-    def _fused_classify(self, frames: torch.Tensor, key):
+    def _fused_classify(self, params, frames: torch.Tensor, key):
         """One stream microbatch on the fused path with the theta-EMA drift
         guard. Returns ``(out, rel_drift, ran_fused)``: the first microbatch
         runs exact and seeds the carry; a fused step whose fresh theta moved
@@ -167,21 +251,21 @@ class VisionEngine:
         the same key and re-seeds it; otherwise the carry advances as
         ``ema * carry + (1 - ema) * fresh``."""
         if self._theta_carry is None:
-            out = self._forward(self.params, frames, key)
+            out = self._forward(params, frames, key)
             out["theta_used"] = out["theta"]
             self._theta_carry = float(out["theta"])
             return out, 0.0, False
         carry = self._theta_carry
-        params = {**self.params, "p2m": {
-            **self.params["p2m"],
+        fused_params = {**params, "p2m": {
+            **params["p2m"],
             "theta_carry": torch.tensor(carry, dtype=torch.float32,
                                         device=self.device)}}
-        out = self._forward(params, frames, key)
+        out = self._forward(fused_params, frames, key)
         self.fused_step_count += 1
         fresh = float(out["theta"])
         drift = abs(fresh - carry) / max(abs(carry), 1e-9)
         if drift > self._fused_theta_tol:
-            out = self._forward(self.params, frames, key)
+            out = self._forward(params, frames, key)
             out["theta_used"] = out["theta"]
             self._theta_carry = float(out["theta"])
             self.fused_fallback_count += 1
@@ -193,7 +277,9 @@ class VisionEngine:
     def stream(self, frame_batches: Iterable) -> Iterator[Dict]:
         """Classify a stream of frame batches; yields one merged output per
         incoming batch regardless of microbatching. Each stream starts a new
-        scene: the carried threshold is dropped."""
+        scene: the carried threshold is dropped. An aging engine's frame
+        clock advances per microbatch, and the scheduler may refresh the
+        trim between microbatches."""
         self._theta_carry = None
         for frames in frame_batches:
             frames = self._frames(frames)
@@ -207,7 +293,8 @@ class VisionEngine:
                 return self._stream_fused_enabled(n_frames, h, w)
 
             if not mb or b <= mb:
-                outs = [self._classify(frames, None, fused=fused_arg(b))]
+                outs = [self._classify(frames, None, advance=True,
+                                       fused=fused_arg(b))]
                 sizes = [b]
             else:
                 base = prng.fold_in(self._key, self._frame_count)
@@ -215,7 +302,7 @@ class VisionEngine:
                 starts = list(range(0, b, mb))
                 sizes = [min(mb, b - i) for i in starts]
                 outs = [self._classify(frames[i:i + sz],
-                                       prng.fold_in(base, j),
+                                       prng.fold_in(base, j), advance=True,
                                        fused=fused_arg(sz))
                         for j, (i, sz) in enumerate(zip(starts, sizes))]
             yield _merge_outputs(outs, sizes) if len(outs) > 1 else outs[0]
@@ -223,6 +310,12 @@ class VisionEngine:
 
 # aux keys that are per-CHANNEL vectors: merged by frame-weighted mean
 _CHANNEL_KEYS = ("channel_rates",)
+# running counters of an aging engine: the last microbatch's value (the
+# engine's state after the batch, never an average)
+_CUMULATIVE_KEYS = ("lifetime_age_frames", "lifetime_recal_count",
+                    "lifetime_recal_energy_pj", "lifetime_rate_err")
+# events: 1.0 when any microbatch of the batch fired
+_EVENT_KEYS = ("lifetime_recal_fired",)
 # additive costs: the batch's total
 _SUM_KEYS = ("wall_ms",)
 # engine constants: passed through verbatim from the first microbatch
@@ -239,7 +332,8 @@ def _stack(vals) -> torch.Tensor:
 def _merge_outputs(outs: List[Dict], sizes: List[int]) -> Dict:
     """Merge per-microbatch outputs into one batch-level dict: per-example
     rows concatenated, per-channel vectors and scalar stats by frame-weighted
-    mean (min/max keys by min/max), wall time summed and throughput
+    mean (min/max keys by min/max), lifetime counters by their last value
+    and refresh events by any-fired, wall time summed and throughput
     recomputed from it, engine constants passed through."""
     w = torch.tensor(sizes, dtype=torch.float32)
     w = w / torch.sum(w)
@@ -250,6 +344,10 @@ def _merge_outputs(outs: List[Dict], sizes: List[int]) -> Dict:
             merged[k] = sum(float(v) for v in vals)
         elif k in _CONSTANT_KEYS:
             merged[k] = vals[0]
+        elif k in _CUMULATIVE_KEYS:
+            merged[k] = vals[-1]
+        elif k in _EVENT_KEYS:
+            merged[k] = max(float(v) for v in vals)
         elif k in _CHANNEL_KEYS:
             stacked = _stack(vals)
             merged[k] = torch.sum(stacked * w.to(stacked.device)[:, None],

@@ -14,6 +14,11 @@ rate is monotone increasing in an additive u-domain offset, so ``iters``
 steps pin each trim to ``span / 2**iters``. The reference solves eagerly
 (a jitted bisection rounds one LSB differently); this one is an eager loop
 of tensor ops with no host sync inside (``torch.where``, never ``.item()``).
+
+A stack of K chips (maps with a leading (K,) axis, ``sample_chips``) goes
+through ``channel_rates`` and ``solve_trim`` in one pass: (K, C) rates and
+trims, the maps lifted to (K, 1, ..., 1, C[, n]) against the frames' u, the
+means taken over the frame axes only.
 """
 from __future__ import annotations
 
@@ -38,8 +43,16 @@ class CalibrationArtifact:
     chip_id: int = 0
 
 
-def _channel_mean(q: torch.Tensor) -> torch.Tensor:
-    return torch.mean(q, dim=tuple(range(q.ndim - 1)))
+def _channel_mean(q: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The mean over the frame axes of ``u`` (all of u's axes but the last
+    channel axis); a leading chip axis of ``q`` stays."""
+    return torch.mean(q, dim=tuple(range(q.ndim - u.ndim, q.ndim - 1)))
+
+
+def _lift(x: torch.Tensor, lead: int, u: torch.Tensor) -> torch.Tensor:
+    """A stacked map (its first ``lead`` axes the chips') with one unit
+    axis per frame axis of ``u`` after the chip axes."""
+    return x.reshape(x.shape[:lead] + (1,) * (u.ndim - 1) + x.shape[lead:])
 
 
 def channel_rates(u: torch.Tensor, theta: torch.Tensor, chip: ChipMaps,
@@ -47,9 +60,16 @@ def channel_rates(u: torch.Tensor, theta: torch.Tensor, chip: ChipMaps,
                   pcfg: p2m.P2MConfig) -> torch.Tensor:
     """Expected per-channel (C,) activation rate of the chip at a trim:
     the ``device`` backend's chain (``chip.device_chain``) in expectation,
-    through the heterogeneous majority."""
+    through the heterogeneous majority. A stack of K chips (and a (C,) or
+    (K, C) trim) gives (K, C)."""
+    lead = chip.pixel_gain.ndim - 1
+    if lead:
+        chip = ChipMaps(*(_lift(m, lead, u) for m in chip))
+        if trim is not None and trim.ndim > 1:
+            trim = _lift(trim, lead, u)
     _, p_dev = device_chain(u, theta, chip, trim, pcfg.pixel, pcfg.mtj)
-    return _channel_mean(mtj.majority_prob_hetero(p_dev, pcfg.mtj.majority))
+    return _channel_mean(mtj.majority_prob_hetero(p_dev, pcfg.mtj.majority),
+                         u)
 
 
 def target_rates(u: torch.Tensor, theta: torch.Tensor,
@@ -58,7 +78,7 @@ def target_rates(u: torch.Tensor, theta: torch.Tensor,
     v = pixel.conv_voltage(u, theta, pcfg.pixel)
     p_sw = mtj.switching_probability(v, pcfg.mtj.write_pulse_ps, pcfg.mtj)
     return _channel_mean(mtj.majority_prob_poly(
-        p_sw, pcfg.mtj.n_redundant, pcfg.mtj.majority))
+        p_sw, pcfg.mtj.n_redundant, pcfg.mtj.majority), u)
 
 
 def solve_trim(u: torch.Tensor, theta: torch.Tensor, chip: ChipMaps,
@@ -66,10 +86,11 @@ def solve_trim(u: torch.Tensor, theta: torch.Tensor, chip: ChipMaps,
                iters: int = 16, span: float = 2.0) -> torch.Tensor:
     """Bisection for the per-channel trim of one chip: ``iters`` steps over
     ``[-span, span]`` on float32 endpoints, every channel at once, on the
-    operands' device. ``ref`` holds the (C,) target rates."""
-    c = ref.shape[-1]
-    lo = torch.full((c,), -span, dtype=torch.float32, device=ref.device)
-    hi = torch.full((c,), span, dtype=torch.float32, device=ref.device)
+    operands' device. ``ref`` holds the (C,) target rates. A stack of K
+    chips gives their (K, C) trims in the same loop."""
+    shape = chip.pixel_gain.shape
+    lo = torch.full(shape, -span, dtype=torch.float32, device=ref.device)
+    hi = torch.full(shape, span, dtype=torch.float32, device=ref.device)
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
         under = channel_rates(u, theta, chip, mid, pcfg) < ref

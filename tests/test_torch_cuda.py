@@ -20,6 +20,10 @@ kernel A and the legacy kernel on both sides of the tile count where
 their warps start to own their tiles); the int8 kernels' MAC is checked
 to run on the s8 tensor cores (IMMA in the library's machine code), and
 the device chain at other MTJ counts.
+An aging chip (``repro_torch.lifetime``): kernel B and the fused kernel
+on its (4, C) rows at two ages, bit for bit against their plain versions;
+an aging, calibrated vgg_tiny engine card vs CPU by ``chip_smoke.py``'s
+rules; a refresh launches no kernel.
 The vision train step is held against the CPU on the card (one step of
 vgg_tiny stage by stage, ``chip_smoke.train_vs_cpu``), with the TF32 flag
 of a conv's backward and the max-pool gradient's ties on binary maps.
@@ -733,6 +737,147 @@ def test_calibrated_engine_launches_the_kernels_with_the_chip(cuda_device,
         engine.params["p2m"]["v_th"], kernel=3, stride=2)
     _draw_rule(o.reshape(-1, 32), tk.device_chain_q(u, aux["theta"], chan)[0],
                tk.draw_bits(key, u.shape[0], 32))
+
+
+# --- an aging chip ----------------------------------------------------------
+
+LIFETIME_VPROFILE = dict(sigma_logit_offset=0.4, sigma_pixel_offset=0.25,
+                         sigma_pixel_gain=0.05, sigma_column=0.15)
+LIFETIME_DPROFILE = dict(sigma_logit_offset=0.2, sigma_logit_gain=0.05,
+                         sigma_r_p=0.03, sigma_tmr=0.03, tmr_retention=0.01,
+                         sigma_pixel_gain=0.03, pixel_gain_aging=0.01,
+                         sigma_pixel_offset=0.15, tau_frames=100.0,
+                         temp_amplitude_c=10.0, temp_period_frames=512.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("age", [3e2, 1e5])
+def test_aged_rows_in_kernels_b_and_fused_on_card(cuda_device, age):
+    """A sampled chip aged to ``age`` with the trim linspace(-0.1, 0.1, C),
+    folded into the (4, C) rows, at the serving shape: kernel B's draws
+    equal its plain version's bit for bit and its V_CONV min / max too
+    (the mean within 1e-5: another summation order); the fused kernel at
+    A's theta equals A -> B bit for bit and its plain version's draws."""
+    from repro_torch import lifetime as tlt
+    from repro_torch.variation import VariationConfig, sample_chip
+    from repro_torch.variation.chip import channel_operands
+    dev = cuda_device
+    chip = sample_chip(VariationConfig(**LIFETIME_VPROFILE), 32, 8, 5,
+                       device=dev)
+    dcfg = tlt.DriftConfig(**LIFETIME_DPROFILE)
+    maps = tlt.sample_drift_maps(dcfg, 32, 8, 5, device=dev)
+    chan = channel_operands(tlt.evolve_chip(chip, maps, age, dcfg=dcfg),
+                            torch.linspace(-0.1, 0.1, 32, device=dev))
+    rng = np.random.default_rng(int(age))
+    images = torch.tensor(rng.uniform(size=(16, 32, 32, 3)),
+                          dtype=torch.float32, device=dev)
+    wp = tk.pack_phase_weights(torch.tensor(
+        rng.normal(size=(27, 32)) * 0.3, dtype=torch.float32)).to(dev)
+    v_th = torch.ones((), device=dev)
+    key = prng.PRNGKey(23)
+    kw = dict(kernel=3, stride=2)
+    u, hp = tk.p2m_phase_a_implicit(images, wp, v_th, **kw)
+    theta = tk.combine_hoyer_partials(hp, v_th)
+    acts, vp = tk.p2m_phase_b(u, theta, key, chan=chan)
+    acts_p, vp_p = tk.p2m_phase_b_plain(u, theta, key, chan=chan)
+    assert torch.equal(acts, acts_p)
+    n = u.shape[0]
+    v_k = tk.combine_v_conv_partials(vp, n, 32)
+    v_p = tk.combine_v_conv_partials(vp_p, n, 32)
+    assert torch.equal(v_k["v_conv_min"], v_p["v_conv_min"])
+    assert torch.equal(v_k["v_conv_max"], v_p["v_conv_max"])
+    torch.testing.assert_close(v_k["v_conv_mean"], v_p["v_conv_mean"],
+                               rtol=0, atol=1e-5)
+    fused = tk.p2m_fused_stream(images, wp, v_th, theta, key, chan, **kw)
+    assert torch.equal(fused[0], acts)
+    fused_p = tk.p2m_fused_stream_plain(images, wp, v_th, theta, key, chan,
+                                        **kw)
+    assert torch.equal(fused[0], fused_p[0])
+
+
+def _aging_engines(cuda_device, policy):
+    from repro_torch import lifetime as tlt
+    from repro_torch.variation import VariationConfig, calibrate
+    vcfg = VariationConfig(**LIFETIME_VPROFILE)
+    cfg = tv.VisionConfig(name="t", arch="vgg_tiny", variation=vcfg,
+                          chip_id=3)
+    params = tv.init_params(0, cfg, device=cuda_device)
+    cal = torch.rand((8, 32, 32, 3),
+                     generator=torch.Generator().manual_seed(7))
+    art = calibrate(params["p2m"], cfg.p2m, vcfg, cal, chip_id=3, iters=12,
+                    device=cuda_device)
+    kw = dict(microbatch=16, drift=tlt.DriftConfig(**LIFETIME_DPROFILE),
+              schedule=policy, calibration_frames=cal)
+    engine = VisionEngine(cfg, params, device=cuda_device, calibration=art,
+                          **kw)
+    from repro_torch.models import params as tp
+    cpu = torch.device("cpu")
+    engine_cpu = VisionEngine(cfg, tp.to_device(engine.params, cpu),
+                              device=cpu, **kw)
+    return cfg, engine, engine_cpu
+
+
+@pytest.mark.cuda
+def test_aging_engine_on_card_matches_the_cpu(cuda_device, monkeypatch):
+    """An aging, calibrated vgg_tiny engine refreshed every 32 frames,
+    card vs CPU by ``chip_smoke.py``'s rules: the card launches A, B and
+    fused and no refresh launches a P2M kernel; ages and refresh steps
+    equal; every step's aged (4, C) rows within 1e-6 relative to max(|row|,
+    1) at the card's trim; every trim within 8 bisection steps; the
+    classify by ``compare_with_cpu`` on the step's aged chip."""
+    from repro_torch.lifetime import SchedulePolicy
+    cs = _chip_smoke()
+    monkeypatch.setattr(autotune, "_TABLE", {})
+    policy = SchedulePolicy(period_frames=32, cal_iters=12)
+    cfg, engine, engine_cpu = _aging_engines(cuda_device, policy)
+    gen = torch.Generator().manual_seed(8)
+    frames = [torch.rand((16, 32, 32, 3), generator=gen) for _ in range(5)]
+    cuda_lib.reset_launch_counts()
+    outs, states, _, refresh_launches, _ = cs.lifetime_run(engine, frames,
+                                                          cuda_device)
+    counts = cuda_lib.launch_counts()
+    assert {k for k, v in counts.items() if v} == F32_PATH
+    assert refresh_launches == [0, 0]
+    outs_cpu, states_cpu, _, _, _ = cs.lifetime_run(
+        engine_cpu, frames, torch.device("cpu"))
+    assert [a for a, _ in states] == [a for a, _ in states_cpu]
+    assert ([o["lifetime_recal_fired"] for o in outs]
+            == [o["lifetime_recal_fired"] for o in outs_cpu]
+            == [0.0, 1.0, 0.0, 1.0, 0.0])
+    for (age, trim), (_, trim_cpu) in zip(states, states_cpu):
+        rows = cs.aged_rows(engine, age, trim).cpu()
+        rows_cpu = cs.aged_rows(engine_cpu, age, trim.cpu())
+        assert float(((rows - rows_cpu).abs()
+                      / rows_cpu.abs().clamp(min=1.0)).max()) <= 1e-6
+        torch.testing.assert_close(trim.cpu(), trim_cpu, rtol=0,
+                                   atol=8 * 2.0 / 2 ** 12)
+    st = engine.lifetime
+    assert st.trim.device.type == cuda_device.type and st.age_frames == 80
+    params0 = {**engine.params, "p2m": {
+        **engine.params["p2m"], "cal_trim": states[0][1],
+        "chip": engine._evolve(st.chip0, st.maps, 0)}}
+    cs.compare_with_cpu(cfg, params0, frames, outs[0], [], cuda_device,
+                        "f32")
+
+
+@pytest.mark.cuda
+def test_refresh_launches_no_p2m_kernel(cuda_device, monkeypatch):
+    """A refresh runs the plain chain on the stored u: no P2M kernel
+    launches, and the trim it solves lies on the card."""
+    from repro_torch.lifetime import SchedulePolicy
+    monkeypatch.setattr(autotune, "_TABLE", {})
+    _, engine, _ = _aging_engines(cuda_device,
+                                  SchedulePolicy(period_frames=8, cal_iters=6))
+    st = engine.lifetime
+    aged = engine._evolve(st.chip0, st.maps, 10 ** 4)
+    cuda_lib.reset_launch_counts()
+    trim = engine._scheduler.recalibrate(aged)
+    fleet = engine._scheduler.recalibrate_fleet(
+        type(aged)(*(torch.stack([m, m]) for m in aged)))
+    assert all(v == 0 for v in cuda_lib.launch_counts().values())
+    assert trim.device.type == cuda_device.type
+    assert tuple(fleet.shape) == (2, 32)
+    assert torch.equal(fleet[0], fleet[1])
 
 
 @pytest.mark.cuda

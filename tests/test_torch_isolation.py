@@ -50,6 +50,8 @@ def test_serving_import_loads_neither_jax_nor_reference():
             "repro_torch.configs, repro_torch.frontend, repro_torch.quickstart, "
             "repro_torch.variation, repro_torch.variation.calibrate, "
             "repro_torch.variation.yield_analysis, repro_torch.train.vision, "
+            "repro_torch.lifetime, repro_torch.lifetime.drift, "
+            "repro_torch.lifetime.schedule, repro_torch.lifetime.fleet, "
             "repro_torch.data.synthetic, repro_torch.launch.train, "
             "repro_torch.train_p2m_vision; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -21,6 +21,8 @@ from repro.core import p2m as j_p2m
 from repro.core import pixel as j_pixel
 from repro.frontend import backends as j_backends
 from repro.frontend import shutter as j_shutter
+from repro.lifetime import drift as j_drift
+from repro.lifetime import schedule as j_schedule
 from repro.variation import chip as j_chip
 from repro_torch.core import energy as t_energy
 from repro_torch.core import hoyer as t_hoyer
@@ -29,6 +31,8 @@ from repro_torch.core import p2m as t_p2m
 from repro_torch.core import pixel as t_pixel
 from repro_torch.frontend import backends as t_backends
 from repro_torch.frontend import shutter as t_shutter
+from repro_torch.lifetime import drift as t_drift
+from repro_torch.lifetime import schedule as t_schedule
 from repro_torch.variation import chip as t_chip
 
 # XLA:CPU and PyTorch evaluate tanh/exp with different polynomials: a few
@@ -52,6 +56,8 @@ def _t(x):
     (j_p2m.P2MConfig, t_p2m.P2MConfig),
     (j_energy.EnergyConstants, t_energy.EnergyConstants),
     (j_chip.VariationConfig, t_chip.VariationConfig),
+    (j_drift.DriftConfig, t_drift.DriftConfig),
+    (j_schedule.SchedulePolicy, t_schedule.SchedulePolicy),
 ])
 def test_dataclass_copies_equal_reference(ref_cls, port_cls):
     """The port keeps its own copies of the physics constants; a fork of
@@ -435,3 +441,28 @@ def test_variation_config_properties_equal_reference():
         for s in (0.0, 0.5, 2.0):
             assert (dataclasses.asdict(port.scaled(s))
                     == dataclasses.asdict(ref.scaled(s)))
+
+
+def test_drift_and_schedule_properties_equal_reference():
+    """``enabled`` and ``scaled`` of the port's DriftConfig copy, and
+    ``enabled`` of its SchedulePolicy copy, equal the reference's."""
+    full = dict(sigma_logit_offset=0.2, sigma_logit_gain=0.05,
+                sigma_r_p=0.03, sigma_tmr=0.03, tmr_retention=0.01,
+                sigma_pixel_gain=0.03, pixel_gain_aging=0.01,
+                sigma_pixel_offset=0.15, tau_frames=100.0,
+                temp_amplitude_c=10.0, temp_period_frames=512.0,
+                temp_logit_per_c=-0.03, drift_seed=4)
+    for kw in ({}, full, {"temp_amplitude_c": 2.0}, {"tau_frames": 5.0}):
+        ref, port = j_drift.DriftConfig(**kw), t_drift.DriftConfig(**kw)
+        assert port.enabled == ref.enabled
+        for s in (0.0, 0.5, 2.0):
+            assert (dataclasses.asdict(port.scaled(s))
+                    == dataclasses.asdict(ref.scaled(s)))
+    for kw in ({}, {"period_frames": 64}, {"rate_err_threshold": 0.02},
+               {"period_frames": 8, "rate_err_threshold": 0.1,
+                "min_interval_frames": 4, "ema": 0.7, "cal_iters": 6,
+                "cal_span": 1.0}):
+        ref = j_schedule.SchedulePolicy(**kw)
+        port = t_schedule.SchedulePolicy(**kw)
+        assert port.enabled == ref.enabled
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)

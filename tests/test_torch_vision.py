@@ -229,9 +229,12 @@ def test_engine_defaults_to_the_gpu():
 def test_engine_refuses_unported_options():
     cfg = tv.VisionConfig(name="t", arch="vgg_tiny")
     params = tv.init_params(0, cfg)
-    for kw in ({"mesh": None}, {"drift": None}, {"obs": None}):
+    for kw in ({"mesh": None}, {"obs": None}):
         with pytest.raises(TypeError):
             VisionEngine(cfg, params, device="cpu", **kw)
+    # drift= is served (the lifetime slice): None is no aging at all
+    assert VisionEngine(cfg, params, device="cpu", drift=None).lifetime \
+        is None
     with pytest.raises(KeyError):
         VisionEngine(cfg, params, backend="pallas", device="cpu")
     # a programmed trim is served (the variation slice): a zero trim is the
