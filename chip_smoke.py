@@ -12,8 +12,9 @@ line:
 2. ``build``: seconds for each library's nvcc build and the compiler's
    register report (a wgmma serialization warning fails the run);
    ``tensor_cores``: the tensor-core instructions of each kernel, from
-   the libraries' machine code (the three int8 P2M kernels, A's two and
-   fused, must run s8 IMMA, no other P2M kernel IMMA, and none HMMA: the
+   the libraries' machine code (the int8 P2M kernels, A's two and fused,
+   single-chip and with the chip axis, must run s8 IMMA, no other P2M
+   kernel IMMA, and none HMMA: the
    float32 MACs use no TF32; every ``flash_wgmma_kernel`` instance runs
    HGMMA and no HMMA, the float32 flash kernel neither);
 3. one ``kernel`` line per kernel and geometry: the serving shape
@@ -134,7 +135,37 @@ line:
    2e-5 of the CPU's chain at the card's trims); ``accuracy_lifetime``
    (``accuracy_vs_age`` of one chip at two ages through ``device``, card
    vs CPU, and the maintenance energy per frame);
-14. the variation phases, on a sampled chip (BENCH_variation.json's
+14. the fleet phases (``repro_torch.serving.FleetEngine``): ``fleet_kernel``
+   lines, the five fleet instances (kernels A f32 and int8, B, fused f32
+   and int8 with the chip axis as a grid dimension) at G 4 at the serving
+   shape and (``fleet_kernel_odd``) at a per-chip N of 126, each (a)
+   against its plain version (the single-chip plain version a chip at a
+   time: u at 3e-6, theta at rtol 1e-5, draws by the word-boundary rule,
+   fused at A's theta equal to A -> B) and (b) every chip row against the
+   single-chip kernel on that chip bit for bit, timed beside the plain
+   version, four single-chip launches of the same work, the bound and
+   (kernel A) cuDNN / ``torch._int_mm`` over all G * B frames, with the
+   kernel's own ``torch.profiler`` duration (the keys' copy left out);
+   ``fleet_step_kernels``: a G 4 step's kernels beside four single-chip
+   launches of each; ``fleet``:
+   vgg16 on 8 chips of BENCH_fleet.json's variation and drift profiles
+   (birth calibration on 16 frames, sweeps of 2 chips every 64 frames, 4
+   chips a step, 6 stream rounds of one 16-frame request a chip), its
+   launches from that run alone, the int8 fleet path the same way; (c) a
+   G 4 step launches one A and one B (exact) or one fused kernel, as a G 1
+   step does; (d) a one-chip fleet equals ``VisionEngine`` bit for bit
+   (labels, probs, ``theta_used``, ``stream_fused``), nominal and on a
+   sampled, calibrated, aging chip; (e) a G 4 step's frontend draws equal
+   four single-chip engines' and their labels and probs (1e-3) where no
+   backbone unit flips between the batchings; (f) a 2-chip fleet card vs
+   CPU over 5 rounds and their sweeps (trims within 8 bisection steps, the
+   same chips refreshed, ages and counters equal); (g) ``save`` then
+   ``load`` into a fresh engine resumes bit for bit; a deferred exact
+   step's dispatch returns with the step still in flight behind a long
+   sleep kernel (no host sync); with the step wall
+   and frames/s at ``chips_per_step`` 1, 2, 4 and 8, a sweep's wall and
+   peak memory;
+15. the variation phases, on a sampled chip (BENCH_variation.json's
    profile at sigma 1.0, chip 3): ``calibrate`` (16 frames on the card and
    on the CPU, the trims within 8 bisection steps, the rate errors and
    walls); ``engine_variation`` / ``engine_variation_device`` (the vgg16
@@ -151,13 +182,15 @@ line:
    chips at sigma 0.1, 0.5 and 1.0 on the card against the CPU (yield
    fractions equal, error figures at rtol 1e-5 above 4 ulps of 1, read
    margin within 1e-6 V) and its walls;
-15. ``seconds``: the wall time of the build, the kernel lines, the vision
+16. ``seconds``: the wall time of the build, the kernel lines, the vision
    phases, the frontend backends' phases, the flash lines, the LM phases,
-   the train phase, the lifetime phases and the variation phases;
-16. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
-   kernel's launches from its own path's run; one flash row per served
-   head dim: D 128 with granite-8b's launches, D 80 with stablelm-3b's),
-   and last the ``{"ok": true, "device": ...}`` line.
+   the train phase, the lifetime phases, the fleet phases and the
+   variation phases;
+17. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+   kernel's launches from its own path's run, the fleet rows' from the
+   ``fleet`` and int8 fleet paths; one flash row per served head dim: D
+   128 with granite-8b's launches, D 80 with stablelm-3b's), and last the
+   ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises, so the exit code is non-zero.
 """
@@ -167,6 +200,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -265,6 +299,11 @@ PATH_KERNELS = {
     # the calibrated chip aging: its rows, new every step, in B and fused
     "engine_lifetime": ("p2m_phase_a_implicit", "p2m_phase_b",
                         "p2m_fused_stream"),
+    # a fleet of chips, G a step: the chip axis's kernels, f32 and int8
+    "fleet": ("p2m_phase_a_implicit_fleet", "p2m_phase_b_fleet",
+              "p2m_fused_stream_fleet"),
+    "fleet_int8": ("p2m_phase_a_implicit_q8_fleet", "p2m_phase_b_fleet",
+                   "p2m_fused_stream_q8_fleet"),
 }
 SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
 # the plain-PyTorch frontend backends; analog with its Fig. 8 flips on
@@ -445,12 +484,13 @@ def event_us(evt) -> float:
     return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
 
 
-def profiled_ms(fn, symbol: str, n: int = 20):
+def profiled_ms(fn, symbol: str, n: int = 20, copies: bool = False):
     """The kernel's own device duration per launch, from torch.profiler:
     ``fn()`` n times; every device event must be a kernel whose name holds
-    ``symbol`` (so the time is that kernel's and nothing else's). The time
-    is over the events the profiler kept; None (not measured) if every
-    session of ``profile_session`` kept none."""
+    ``symbol`` (so the time is that kernel's and nothing else's), or with
+    ``copies`` a host-to-device copy of the call's operands, left out. The
+    time is over the events the profiler kept; None (not measured) if
+    every session of ``profile_session`` kept none."""
     import torch
     from torch.autograd import DeviceType
     fn()
@@ -458,7 +498,8 @@ def profiled_ms(fn, symbol: str, n: int = 20):
     prof, _ = profile_session(lambda: [fn() for _ in range(n)], cpu=False)
     total, count = 0.0, 0
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or is_marker(evt):
+        if evt.device_type != DeviceType.CUDA or is_marker(evt) or (
+                copies and evt.key.startswith("Memcpy HtoD")):
             continue
         check(symbol in evt.key, f"{evt.key[:80]} ran beside {symbol}")
         total += event_us(evt)
@@ -1859,7 +1900,7 @@ def accuracy_lifetime_phase(device, smi: str, cfg, params, dcfg,
     gen = torch.Generator().manual_seed(59)
     batch = {"image": torch.rand((LIFETIME_BATCH, 32, 32, 3), generator=gen),
              "label": torch.arange(LIFETIME_BATCH) % 10}
-    cfg0 = dc.replace(cfg, variation=None)
+    cfg0 = dataclasses.replace(cfg, variation=None)
     kw = dict(vcfg=cfg.variation, dcfg=dcfg, ages=ACCURACY_AGES, n_chips=1,
               calibration_frames=cal_frames, key=prng.PRNGKey(61),
               cal_iters=12)
@@ -1920,6 +1961,686 @@ def lifetime_phase(device, smi: str):
         fleet_lifetime_phase(device, smi, cfg, params, dcfg, budget, twin)
     accuracy_lifetime_phase(device, smi, cfg, params, dcfg, cal_frames,
                             engine)
+
+
+# --- fleet serving (``repro_torch.serving.FleetEngine``) -------------------
+
+FLEET_G = 4                # chips of a fleet kernel call and of a step
+FLEET_SIZE = 8             # chips of the served fleet
+FLEET_BATCH = 16           # frames of a request, one microbatch
+FLEET_ROUNDS = 6           # stream rounds of the fleet's main path
+FLEET_POLICY = dict(period_frames=64)
+FLEET_REFRESH = 2          # refresh_per_sweep
+FLEET_CURVE = (1, 2, 4, 8)  # chips_per_step of the throughput curve
+FLEET_CURVE_ROUNDS = 8
+FLEET_CPU_ROUNDS = 5       # rounds of the 2-chip card vs CPU fleet
+# a sleep kernel (~0.1 s) queued before a deferred step: a host sync in
+# the step's dispatch would wait it out
+FLEET_SLEEP_CYCLES = 200_000_000
+# kernel checks at the serving shape and at a per-chip N that is not a
+# multiple of the 16-row tile (3 x 7 x 6 = 126 rows)
+FLEET_ODD = dict(batch=3, h=13, w=11, kernel=3, stride=2, c=32)
+# the five fleet wrappers and the single-chip wrapper each is held to
+FLEET_WRAPPERS = {
+    "p2m_phase_a_implicit_fleet": "p2m_phase_a_implicit",
+    "p2m_phase_a_implicit_q8_fleet": "p2m_phase_a_implicit_q8",
+    "p2m_phase_b_fleet": "p2m_phase_b",
+    "p2m_fused_stream_fleet": "p2m_fused_stream",
+    "p2m_fused_stream_q8_fleet": "p2m_fused_stream_q8",
+}
+# birth calibration's bisection steps and a sweep's (SchedulePolicy's
+# default cal_iters), the window of both
+FLEET_BIRTH_ITERS, FLEET_REFRESH_ITERS = 16, 12
+
+
+def fleet_config():
+    """vgg16 at CIFAR-10 geometry with BENCH_fleet.json's
+    ``variation_profile`` armed, and its ``drift_profile``."""
+    from repro_torch.lifetime import DriftConfig
+    from repro_torch.models import vision
+    from repro_torch.variation import VariationConfig
+    with open(os.path.join(ROOT, "BENCH_fleet.json")) as f:
+        bench = json.load(f)
+    return (vision.VisionConfig(
+        variation=VariationConfig(**bench["variation_profile"])),
+        DriftConfig(**bench["drift_profile"]))
+
+
+def fleet_kernel_checks(geom: dict, g: int, device) -> dict:
+    """The five fleet instances on G chips' operands drawn from a fixed
+    seed (each chip its own random (4, C) rows and key): (a) against their
+    plain versions (u at 3e-6, theta at rtol 1e-5, draws by the
+    word-boundary rule, V stats within 1e-5; the fused kernels at A's theta
+    equal to A -> B, their fresh theta A's, their rates the draw counts);
+    (b) each chip row against the single-chip kernel on that chip's
+    operands, bit for bit (u, Hoyer partials, theta, acts, V, rate
+    partials). Returns the operands and the errors."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import p2m
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import p2m_conv as pk
+
+    gen = torch.Generator().manual_seed(61)
+    b, h, w, k, s, c = (geom[x] for x in ("batch", "h", "w", "kernel",
+                                          "stride", "c"))
+    images = torch.rand((g, b, h, w, 3), generator=gen).to(device)
+    wt = torch.randn((k, k, 3, c), generator=gen) * (2.0 / (k * k * 3)) ** 0.5
+    wq = p2m.quantize_weights(wt, 4).to(device)
+    wm = pk.pack_phase_weights(wq.reshape(k * k * 3, c)).contiguous()
+    w8, dq = ops.quantize_frontend_weights(wm)
+    v_th = torch.ones((), device=device)
+    chan = torch.stack([torch.stack([
+        1.0 + 0.1 * torch.randn(c, generator=gen),
+        0.05 * torch.randn(c, generator=gen),
+        1.0 + 0.1 * torch.randn(c, generator=gen),
+        0.3 * torch.randn(c, generator=gen)]) for _ in range(g)]).to(device)
+    keys = [prng.fold_in(prng.PRNGKey(3), 100 + i) for i in range(g)]
+    kw = dict(kernel=k, stride=s)
+    tag = f"G {g} x {b}x{h}x{w}x3 k{k} s{s} -> ({g}, ?, {c})"
+
+    u, hp = pk.p2m_phase_a_implicit_fleet(images, wm, v_th, **kw)
+    u8, hp8 = pk.p2m_phase_a_implicit_q8_fleet(images, w8, dq, v_th, **kw)
+    theta = pk.combine_fleet_hoyer_partials(hp, v_th)
+    theta8 = pk.combine_fleet_hoyer_partials(hp8, v_th)
+    acts_b, vp = pk.p2m_phase_b_fleet(u, theta, keys, chan=chan)
+    acts_b8, _ = pk.p2m_phase_b_fleet(u8, theta8, keys, chan=chan)
+    f32 = pk.p2m_fused_stream_fleet(images, wm, v_th, theta, keys, chan, **kw)
+    q8 = pk.p2m_fused_stream_q8_fleet(images, w8, dq, v_th, theta8, keys,
+                                      chan, **kw)
+    n = u.shape[1]
+    tag = tag.replace("?", str(n))
+
+    # (a) against the plain versions
+    u_p, hp_p = pk.p2m_phase_a_implicit_fleet_plain(images, wm, v_th, **kw)
+    u8_p, hp8_p = pk.p2m_phase_a_implicit_q8_fleet_plain(images, w8, dq,
+                                                         v_th, **kw)
+    err_u, err_u8 = max_abs(u, u_p), max_abs(u8, u8_p)
+    check(err_u <= 3e-6 and err_u8 <= 3e-6,
+          f"fleet kernel A u errors {err_u}, {err_u8} at {tag}")
+    rel = lambda t, t_p: float(((t - t_p).abs() / t_p.abs()).max())
+    rel_theta = rel(theta, pk.combine_fleet_hoyer_partials(hp_p, v_th))
+    rel_theta8 = rel(theta8, pk.combine_fleet_hoyer_partials(hp8_p, v_th))
+    check(rel_theta <= 1e-5 and rel_theta8 <= 1e-5,
+          f"fleet theta rel errors {rel_theta}, {rel_theta8} at {tag}")
+    b_p = pk.p2m_phase_b_fleet_plain(u, theta, keys, chan=chan)
+    f32_p = pk.p2m_fused_stream_fleet_plain(images, wm, v_th, theta, keys,
+                                            chan, **kw)
+    q8_p = pk.p2m_fused_stream_q8_fleet_plain(images, w8, dq, v_th, theta8,
+                                              keys, chan, **kw)
+    flips = {"b": 0, "f32": 0, "q8": 0}
+    v_k = pk.combine_fleet_v_conv_partials(vp, n, c)
+    v_p = pk.combine_fleet_v_conv_partials(b_p[1], n, c)
+    for stat in v_k:
+        check(float((v_k[stat] - v_p[stat]).abs().max()) <= 1e-5,
+              f"fleet kernel B {stat} differs from the plain at {tag}")
+    for i in range(g):
+        bits = pk.draw_bits(keys[i], n, c, device=device)
+        q = pk.device_chain_q(u_p[i], theta[i], chan[i])[0]
+        q_8 = pk.device_chain_q(u8_p[i], theta8[i], chan[i])[0]
+        flips["b"] += assert_draws(acts_b[i], q, bits)
+        flips["f32"] += assert_draws(f32[0][i], q, bits)
+        flips["q8"] += assert_draws(q8[0][i], q_8, bits)
+    check(torch.equal(f32[0], acts_b) and torch.equal(q8[0], acts_b8),
+          f"pinned-theta fleet fused != fleet A -> B at {tag}")
+    check(torch.equal(pk.combine_fleet_hoyer_partials(f32[1], v_th), theta)
+          and torch.equal(pk.combine_fleet_hoyer_partials(q8[1], v_th),
+                          theta8), f"fleet fused fresh theta != A's at {tag}")
+    check(torch.equal(f32[3].sum(1), f32[0].sum(1))
+          and torch.equal(q8[3].sum(1), q8[0].sum(1)),
+          f"fleet fused rates wrong at {tag}")
+
+    # (b) each chip row against the single-chip call on that chip
+    for i in range(g):
+        ui, hpi = pk.p2m_phase_a_implicit(images[i], wm, v_th, **kw)
+        u8i, hp8i = pk.p2m_phase_a_implicit_q8(images[i], w8, dq, v_th, **kw)
+        thi = pk.combine_hoyer_partials(hpi, v_th)
+        th8i = pk.combine_hoyer_partials(hp8i, v_th)
+        same = [torch.equal(u[i], ui), torch.equal(hp[i], hpi),
+                torch.equal(u8[i], u8i), torch.equal(hp8[i], hp8i),
+                torch.equal(theta[i], thi), torch.equal(theta8[i], th8i)]
+        same += [torch.equal(x, y) for x, y in zip(
+            (acts_b[i], vp[i]), pk.p2m_phase_b(ui, thi, keys[i],
+                                               chan=chan[i]))]
+        same += [torch.equal(x[i], y) for x, y in zip(f32, pk.p2m_fused_stream(
+            images[i], wm, v_th, thi, keys[i], chan[i], **kw))]
+        same += [torch.equal(x[i], y) for x, y in zip(
+            q8, pk.p2m_fused_stream_q8(images[i], w8, dq, v_th, th8i,
+                                       keys[i], chan[i], **kw))]
+        check(all(same), f"fleet chip row {i} != its single-chip call at "
+              f"{tag}: {same}")
+    errors = {"p2m_phase_a_implicit_fleet": err_u,
+              "p2m_phase_a_implicit_q8_fleet": err_u8,
+              "p2m_phase_b_fleet": max_abs(acts_b, b_p[0]),
+              "p2m_fused_stream_fleet": max_abs(f32[0], f32_p[0]),
+              "p2m_fused_stream_q8_fleet": max_abs(q8[0], q8_p[0])}
+    return dict(tag=tag, images=images, wm=wm, w8=w8, dq=dq, v_th=v_th,
+                chan=chan, keys=keys, kw=kw, u=u, u8=u8, theta=theta,
+                theta8=theta8, n=n, errors=errors,
+                checks=dict(theta_rel_err=rel_theta,
+                            theta_rel_err_int8=rel_theta8,
+                            draw_mismatches=flips,
+                            chip_rows_equal_single_chip_calls=True))
+
+
+def fleet_kernel_phase(device) -> list:
+    """``fleet_kernel`` lines: the five fleet instances checked at G 4 at
+    the serving shape and at a per-chip N that is not a multiple of 16
+    (``fleet_kernel_checks``), then timed at the serving shape beside
+    their plain versions, four single-chip launches of the same work, the
+    bound (each input read once: the weights once, every chip's frames,
+    rows, theta and key; every output written once; G times the
+    single-chip operations) and, for kernel A, the library's call over all
+    G * B frames. Returns the summary rows (launches filled in later)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import p2m
+    from repro_torch.kernels import blocking, cuda_lib
+    from repro_torch.kernels import p2m_conv as pk
+
+    odd = fleet_kernel_checks(FLEET_ODD, FLEET_G, device)
+    emit("fleet_kernel_odd", geometry=odd["tag"], errors=odd["errors"],
+         **odd["checks"])
+    x = fleet_kernel_checks(SERVING, FLEET_G, device)
+    g, n = FLEET_G, x["n"]
+    images, wm, w8, dq, v_th, chan, keys, kw, u, u8, theta, theta8 = (
+        x[k_] for k_ in ("images", "wm", "w8", "dq", "v_th", "chan", "keys",
+                         "kw", "u", "u8", "theta", "theta8"))
+    b, h, w, k, s, c = (SERVING[k_] for k_ in ("batch", "h", "w", "kernel",
+                                               "stride", "c"))
+    kk = k * k * 3
+    f32 = 4
+    img_bytes = images.numel() * f32
+    w_bytes, w8_bytes = wm.numel() * f32, w8.numel() + dq.numel() * f32
+    out_bytes = g * n * c * f32
+    chan_bytes, key_bytes = chan.numel() * f32, g * 8
+    macs = 2 * g * n * kk * 2 * c
+    epi_a, chain = EPILOGUE_A_OPS * g * n * c, DEVICE_CHAIN_OPS * g * n * c
+    stats = g * (2 + 3 + c) * f32
+    work = {
+        "p2m_phase_a_implicit_fleet": (img_bytes + w_bytes + f32 + out_bytes
+                                       + g * 2 * f32, macs + epi_a, 0),
+        "p2m_phase_a_implicit_q8_fleet": (img_bytes + w8_bytes + f32
+                                          + out_bytes + g * 2 * f32, epi_a,
+                                          macs),
+        "p2m_phase_b_fleet": (2 * out_bytes + chan_bytes + g * f32
+                              + key_bytes + g * 3 * f32, chain, 0),
+        "p2m_fused_stream_fleet": (img_bytes + w_bytes + chan_bytes
+                                   + g * f32 + f32 + key_bytes + out_bytes
+                                   + stats, macs + epi_a + chain, 0),
+        "p2m_fused_stream_q8_fleet": (img_bytes + w8_bytes + chan_bytes
+                                      + g * f32 + f32 + key_bytes + out_bytes
+                                      + stats, epi_a + chain, macs),
+    }
+    calls = {
+        "p2m_phase_a_implicit_fleet": (
+            lambda: pk.p2m_phase_a_implicit_fleet(images, wm, v_th, **kw),
+            lambda: pk.p2m_phase_a_implicit_fleet_plain(images, wm, v_th,
+                                                        **kw),
+            lambda i: pk.p2m_phase_a_implicit(images[i], wm, v_th, **kw)),
+        "p2m_phase_a_implicit_q8_fleet": (
+            lambda: pk.p2m_phase_a_implicit_q8_fleet(images, w8, dq, v_th,
+                                                     **kw),
+            lambda: pk.p2m_phase_a_implicit_q8_fleet_plain(images, w8, dq,
+                                                           v_th, **kw),
+            lambda i: pk.p2m_phase_a_implicit_q8(images[i], w8, dq, v_th,
+                                                 **kw)),
+        "p2m_phase_b_fleet": (
+            lambda: pk.p2m_phase_b_fleet(u, theta, keys, chan=chan),
+            lambda: pk.p2m_phase_b_fleet_plain(u, theta, keys, chan=chan),
+            lambda i: pk.p2m_phase_b(u[i], theta[i], keys[i], chan=chan[i])),
+        "p2m_fused_stream_fleet": (
+            lambda: pk.p2m_fused_stream_fleet(images, wm, v_th, theta, keys,
+                                              chan, **kw),
+            lambda: pk.p2m_fused_stream_fleet_plain(images, wm, v_th, theta,
+                                                    keys, chan, **kw),
+            lambda i: pk.p2m_fused_stream(images[i], wm, v_th, theta[i],
+                                          keys[i], chan[i], **kw)),
+        "p2m_fused_stream_q8_fleet": (
+            lambda: pk.p2m_fused_stream_q8_fleet(images, w8, dq, v_th,
+                                                 theta8, keys, chan, **kw),
+            lambda: pk.p2m_fused_stream_q8_fleet_plain(
+                images, w8, dq, v_th, theta8, keys, chan, **kw),
+            lambda i: pk.p2m_fused_stream_q8(images[i], w8, dq, v_th,
+                                             theta8[i], keys[i], chan[i],
+                                             **kw)),
+    }
+    # the library yardsticks of kernel A over all G * B frames: one cuDNN
+    # conv (TF32 off) and torch._int_mm of the quantized patch rows
+    (pt, pb), (pl, pr) = blocking.same_pads(h, w, k, s)
+    frames_all = images.reshape(g * b, h, w, 3)
+    img_nchw = F.pad(frames_all.permute(0, 3, 1, 2),
+                     (pl, pr, pt, pb)).contiguous()
+    w_oihw = wm.reshape(k, k, 3, 2 * c).permute(3, 2, 0, 1).contiguous()
+
+    def conv_library():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            F.conv2d(img_nchw, w_oihw, stride=s)
+
+    kpad = -(-kk // 32) * 32
+    xq_pad = torch.zeros((g * n, kpad), dtype=torch.int8, device=device)
+    xq_pad[:, :kk] = p2m.quantize_acts_q8(
+        pk._gather_patches(frames_all, k, s))
+    w8_pad = torch.zeros((kpad, 2 * c), dtype=torch.int8, device=device)
+    w8_pad[:kk] = w8
+    libraries = {"p2m_phase_a_implicit_fleet": conv_library,
+                 "p2m_phase_a_implicit_q8_fleet":
+                     lambda: torch._int_mm(xq_pad, w8_pad)}
+    # the kernel each launches: kernel A's warp-owned tiles from the
+    # library's crossover over all G * n rows (n a multiple of 16 here)
+    p2m_lib = cuda_lib.load()
+    fleet_rows = "(anonymous namespace)::FleetRows"
+    symbols = {
+        "p2m_phase_a_implicit_fleet":
+            f"phase_a_warp_kernel<{fleet_rows}>"
+            if p2m_lib.p2m_phase_a_warp_tiles(g * n, 0)
+            else f"phase_a_kernel<{fleet_rows}",
+        "p2m_phase_a_implicit_q8_fleet":
+            "phase_a_q8_fleet_warp_kernel"
+            if p2m_lib.p2m_phase_a_warp_tiles(g * n, 1)
+            else f"phase_a_kernel<{fleet_rows}",
+        "p2m_phase_b_fleet": "phase_b_fleet_kernel",
+        "p2m_fused_stream_fleet": f"fused_stream_kernel<{fleet_rows}, "
+                                  "(anonymous namespace)::MacF32>",
+        "p2m_fused_stream_q8_fleet": f"fused_stream_kernel<{fleet_rows}, "
+                                     "(anonymous namespace)::MacQ8Mma>"}
+    rows, single_x4 = [], {}
+    for name, (fn, plain, single) in calls.items():
+        nbytes, ops_f32, ops_i8 = work[name]
+        t_bound, by = bound(nbytes, ops_f32, ops_i8)
+        lib = libraries.get(name)
+        row = {"name": name, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[FLEET_WRAPPERS[name]], "launches": 0,
+               "max_abs_err": x["errors"][name], "ms": device_ms(fn, device),
+               "plain_ms": device_ms(plain, device),
+               "bound_ms": t_bound, "bound_by": by,
+               "library_ms": device_ms(lib, device) if lib else None}
+        rows.append(row)
+        single_x4[name] = device_ms(lambda: [single(i) for i in range(g)],
+                                    device)
+        emit("fleet_kernel", geometry=x["tag"],
+             **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
+             profiler_ms=profiled_ms(fn, symbols[name], copies=True),
+             kernel=symbols[name],
+             single_chip_x4_ms=single_x4[name], bound_us=t_bound * 1e3,
+             bytes=nbytes, fp32_ops=ops_f32, int8_ops=ops_i8, **x["checks"])
+    # a G 4 step's P2M kernels (exact: A then B; fused) beside four
+    # single-chip launches of each
+    ms = {r["name"]: r["ms"] for r in rows}
+    steps = {"exact_f32": ("p2m_phase_a_implicit_fleet", "p2m_phase_b_fleet"),
+             "exact_int8": ("p2m_phase_a_implicit_q8_fleet",
+                            "p2m_phase_b_fleet"),
+             "fused_f32": ("p2m_fused_stream_fleet",),
+             "fused_int8": ("p2m_fused_stream_q8_fleet",)}
+    emit("fleet_step_kernels", chips=g, **{
+        step: dict(fleet_ms=sum(ms[n_] for n_ in names),
+                   single_chip_x4_ms=sum(single_x4[n_] for n_ in names))
+        for step, names in steps.items()})
+    return rows
+
+
+def fleet_engine(cfg, params, dcfg, cal, device, sweep: bool = True,
+                 **engine_kw):
+    """``FleetEngine`` on ``cfg``'s chips aging under ``dcfg``, birth
+    calibration on ``cal``, one request of ``FLEET_BATCH`` frames a
+    microbatch, and (``sweep``) a sweep of ``FLEET_REFRESH`` chips after
+    every ``FLEET_POLICY`` period."""
+    from repro_torch.lifetime import SchedulePolicy
+    from repro_torch.serving import FleetEngine, FleetSweepPolicy
+    policy = (FleetSweepPolicy(policy=SchedulePolicy(**FLEET_POLICY),
+                               refresh_per_sweep=FLEET_REFRESH,
+                               auto=engine_kw.pop("auto", True))
+              if sweep else None)
+    return FleetEngine(cfg, params, seed=0, device=device,
+                       microbatch=FLEET_BATCH, drift=dcfg, sweep=policy,
+                       calibration_frames=cal, **engine_kw)
+
+
+def fleet_rounds(n_rounds: int, chips, seed: int):
+    """``n_rounds`` request batches: one ``FLEET_BATCH``-frame request a
+    chip each."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return [[(cid, torch.rand((FLEET_BATCH, 32, 32, 3), generator=gen))
+             for cid in chips] for _ in range(n_rounds)]
+
+
+def step_launches(engine, batch) -> tuple:
+    """The P2M launches of serving one batch: (exact-step counts of a new
+    stream's first batch, fused-step counts of its second)."""
+    from repro_torch.kernels import cuda_lib
+    counts = []
+    stream = engine.stream([batch, batch])
+    for _ in range(2):
+        cuda_lib.reset_launch_counts()
+        next(stream)
+        counts.append({k: v for k, v in cuda_lib.launch_counts().items()
+                       if v})
+    return tuple(counts)
+
+
+def backbone_batch_flips(cfg, params, acts, device):
+    """The vgg backbone layer by layer over all G * B frames of ``acts``
+    (G, B, H', W', C) and a chip's B frames at a time, every layer fed the
+    batched run's input: a binary unit may differ only where its z lies
+    within 4 float32 ulps of its per-example threshold (convs of another
+    batch sum in another order). Returns a bool per frame (G * B): a unit
+    flipped."""
+    import torch
+    from repro_torch.models import vision
+    g, b = acts.shape[:2]
+    bits = cfg.weight_bits
+    x = acts.reshape(g * b, *acts.shape[2:]).permute(0, 3, 1, 2)
+    flipped = torch.zeros(g * b, dtype=torch.bool, device=device)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        for name, pools in vision.vgg_stages(cfg):
+            x = vision.pooled(x, pools)
+            if name == "head":
+                break
+            lp = params["layers"][name]
+            out = vision._conv_apply(lp, x, 1, bits)[0]
+            per_chip = torch.cat([vision._conv_apply(lp, x[i * b:(i + 1) * b],
+                                                     1, bits)[0]
+                                  for i in range(g)])
+            z, _, thr = vision._spike_terms(lp, vision._conv_bn(lp, x, 1,
+                                                                bits)[0])
+            diff = per_chip != out
+            dist = (z - thr).abs() / thr.abs().clamp(min=1.0)
+            check(not bool((diff & (dist > THRESHOLD_ULPS_REL)).any()),
+                  f"backbone {name}: a unit differs between batchings away "
+                  "from its threshold")
+            flipped |= diff.reshape(g * b, -1).any(dim=1)
+            x = out
+    return flipped
+
+
+def fleet_phase(device, smi: str) -> tuple:
+    """``fleet``: ``FleetEngine`` serving ``FLEET_SIZE`` vgg16 chips of
+    BENCH_fleet.json's profiles (birth calibration on 16 frames, sweeps of
+    ``FLEET_REFRESH`` every ``FLEET_POLICY`` frames, ``FLEET_G`` chips a
+    step) through ``FLEET_ROUNDS`` stream rounds of one 16-frame request a
+    chip, its launches read from that run; the int8 fleet path the same
+    way; then the checks (c) to (g) of the module docstring and the walls.
+    Returns (f32 path counts, int8 path counts)."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.frontend import SensorFrontend
+    from repro_torch.kernels import autotune, cuda_lib
+    from repro_torch.models import params as mparams
+    from repro_torch.models import vision
+    from repro_torch.serving import VisionEngine
+    from repro_torch.variation import calibrate
+
+    autotune.clear()             # the f32 path
+    cfg, dcfg = fleet_config()
+    params = vision.init_params(0, cfg, device=device)
+    cal = torch.rand((16, 32, 32, 3),
+                     generator=torch.Generator().manual_seed(67))
+    chips = list(range(FLEET_SIZE))
+    rounds = fleet_rounds(FLEET_ROUNDS, chips, 71)
+
+    # the main path: launch counts from the stream alone
+    engine = fleet_engine(cfg, params, dcfg, cal, device,
+                          chips_per_step=FLEET_G)
+    for cid in chips:
+        engine.add_chip(cid)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    outs = list(engine.stream(rounds))
+    sync(device)
+    main_ms = (time.perf_counter() - t0) * 1e3
+    counts = cuda_lib.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_path_counts(counts, "fleet")
+    check(engine.fused_step_count >= 1, "no fused fleet step ran")
+    check(engine.sweep_count >= 1 and int(engine.state.recal_count.sum())
+          >= FLEET_REFRESH, "no sweep refreshed a chip")
+    for outs_r in outs:
+        for o in outs_r:
+            check(tuple(o["probs"].shape) == (FLEET_BATCH, 10)
+                  and bool(torch.isfinite(o["probs"]).all())
+                  and abs(float(o["probs"].sum()) - FLEET_BATCH) < 1e-3,
+                  "fleet probs malformed")
+    check([int(a) for a in engine.state.age_frames]
+          == [FLEET_ROUNDS * FLEET_BATCH] * FLEET_SIZE, "fleet ages")
+
+    # the int8 fleet path: a table picking int8 at the per-chip key
+    autotune.put(*SERVING_KEY, autotune.TileChoice(precision="int8"))
+    engine8 = fleet_engine(cfg, params, dcfg, cal, device, sweep=False,
+                           chips_per_step=FLEET_G)
+    for cid in chips[:FLEET_G]:
+        engine8.add_chip(cid)
+    cuda_lib.reset_launch_counts()
+    list(engine8.stream(fleet_rounds(2, chips[:FLEET_G], 73)))
+    counts8 = cuda_lib.launch_counts()
+    check_path_counts(counts8, "fleet_int8")
+    autotune.clear()
+
+    # (c) launches per step: a G 4 step and a G 1 step alike
+    per_step = {}
+    for g in (FLEET_G, 1):
+        fe = fleet_engine(cfg, params, dcfg, cal, device, sweep=False,
+                          chips_per_step=g)
+        per_step[g] = step_launches(fe, fleet_rounds(1, chips[:g], 79)[0])
+    want = ({"p2m_phase_a_implicit_fleet": 1, "p2m_phase_b_fleet": 1},
+            {"p2m_fused_stream_fleet": 1})
+    check(per_step[FLEET_G] == per_step[1] == want,
+          f"launches per fleet step: {per_step}")
+
+    # an exact step dispatches without a host sync: behind a long sleep
+    # kernel the deferred step is still in flight when its dispatch returns
+    fe = fleet_engine(cfg, params, dcfg, cal, device, sweep=False,
+                      chips_per_step=FLEET_G, fused_stream=False)
+    (group,) = fe._group(fe._plan(fleet_rounds(1, chips[:FLEET_G], 81)[0]))
+    fe._run_step(group, defer=True)[1].wait()   # the allocator's blocks
+    sync(device)
+    torch.cuda._sleep(FLEET_SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    _, probe = fe._run_step(group, defer=True)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    in_flight = probe is not None and not probe.event.query()
+    drained_ms = probe.wait() * 1e3 if probe is not None else None
+    check(in_flight, "a deferred exact fleet step waited for the device "
+          f"(dispatch {dispatch_ms} ms)")
+
+    # (d) a one-chip fleet against VisionEngine, bit for bit: the nominal
+    # chip, and a sampled, calibrated, aging one
+    stream = [torch.cat([r[0][1], r[1][1]]) for r in rounds[:3]]
+    one_chip = {}
+    cfg_nom = vision.VisionConfig()
+    chip_cfg = dataclasses.replace(cfg, chip_id=3)
+    art = calibrate(params["p2m"], cfg.p2m, cfg.variation, cal, chip_id=3,
+                    device=device)
+    for name, ve, fe in (
+            ("nominal",
+             VisionEngine(cfg_nom, params, seed=0, device=device,
+                          microbatch=FLEET_BATCH),
+             fleet_engine(cfg_nom, params, None, None, device, sweep=False)),
+            ("sampled_calibrated_aging",
+             VisionEngine(chip_cfg, params, seed=0, device=device,
+                          microbatch=FLEET_BATCH, calibration=art,
+                          drift=dcfg),
+             fleet_engine(cfg, params, dcfg, cal, device, sweep=False))):
+        cid = 3
+        fe.add_chip(cid)
+        if name != "nominal":
+            check(torch.equal(fe.state.trim[0], art.trim),
+                  "birth trim != calibrate's on the card")
+        equal = []
+        for ov, (of,) in zip(ve.stream(stream),
+                             fe.stream([[(cid, x)] for x in stream])):
+            equal.append(all(torch.equal(torch.as_tensor(ov[k_]),
+                                         torch.as_tensor(of[k_]))
+                             for k_ in ("labels", "probs", "theta_used",
+                                        "stream_fused")))
+        check(all(equal), f"one-chip fleet != VisionEngine ({name}): {equal}")
+        one_chip[name] = dict(steps=len(equal),
+                              fused_steps=fe.fused_step_count)
+
+    # (e) a G 4 step against four single-chip engines on the same chips
+    fe = fleet_engine(cfg, params, dcfg, cal, device, sweep=False,
+                      chips_per_step=FLEET_G)
+    batch = fleet_rounds(1, chips[:FLEET_G], 83)[0]
+    for cid, _ in batch:
+        fe.add_chip(cid)
+    chips_g, trims_g = fe._gather_operands(list(range(FLEET_G)),
+                                           np.zeros(FLEET_G))
+    key0 = prng.fold_in(prng.PRNGKey(0), 0)
+    frames_g = torch.stack([x for _, x in batch]).to(device)
+    pp = {**params["p2m"], "chip": chips_g, "cal_trim": trims_g}
+    acts_g, aux_g = SensorFrontend(cfg.frontend).fleet(
+        pp, frames_g, keys=[key0] * FLEET_G)
+    outs_g = fe.serve(batch)
+    flipped = backbone_batch_flips(cfg, params, acts_g, device).reshape(
+        FLEET_G, FLEET_BATCH)
+    vs_single = []
+    for i, (cid, x) in enumerate(batch):
+        art_i = calibrate(params["p2m"], cfg.p2m, cfg.variation, cal,
+                          chip_id=cid, device=device)
+        ve = VisionEngine(dataclasses.replace(cfg, chip_id=cid), params,
+                          seed=0, device=device, microbatch=FLEET_BATCH,
+                          calibration=art_i, drift=dcfg)
+        acts_s, aux_s = SensorFrontend(ve.cfg.frontend)(
+            ve._aged_params()["p2m"], x.to(device), key=key0)
+        (o_s,) = list(ve.stream([x]))
+        check(torch.equal(acts_g[i], acts_s)
+              and torch.equal(aux_g["theta"][i], aux_s["theta"]),
+              f"fleet chip {cid}: frontend draws != its own engine's")
+        keep = ~flipped[i]
+        err = float((outs_g[i]["probs"] - o_s["probs"])[keep].abs().max()
+                    ) if bool(keep.any()) else None
+        check(err is None or err <= 1e-3,
+              f"fleet chip {cid}: probs differ from its engine by {err}")
+        check(torch.equal(outs_g[i]["labels"][keep], o_s["labels"][keep]),
+              f"fleet chip {cid}: labels differ from its engine's")
+        vs_single.append(dict(chip=cid, frames_with_backbone_flips=int(
+            flipped[i].sum()), max_probs_err=err))
+
+    # (f) a 2-chip fleet on the card against the CPU, sweeps between rounds
+    cpu = torch.device("cpu")
+    twins = [fleet_engine(cfg, p_, dcfg, cal, dev, auto=False,
+                          chips_per_step=2)
+             for p_, dev in ((params, device),
+                             (mparams.to_device(params, cpu), cpu))]
+    reports = [[], []]
+    for batch in fleet_rounds(FLEET_CPU_ROUNDS, chips[:2], 89):
+        for side, fe_ in enumerate(twins):
+            fe_.serve(batch)
+            reports[side].append(fe_.run_sweep())
+    st_d, st_c = (fe_.state for fe_ in twins)
+    check([r["refreshed"] for r in reports[0]]
+          == [r["refreshed"] for r in reports[1]]
+          and any(r["refreshed"] for r in reports[0]),
+          f"card vs CPU sweeps: {reports}")
+    for leaf in ("age_frames", "frame_count", "recal_count",
+                 "last_recal_frame"):
+        check(np.array_equal(getattr(st_d, leaf), getattr(st_c, leaf)),
+              f"card vs CPU fleet {leaf}")
+    # each trim within 8 steps of its last solve (birth or a sweep's)
+    lsb = np.array([CAL_SPAN / 2 ** (FLEET_REFRESH_ITERS if r
+                                     else FLEET_BIRTH_ITERS)
+                    for r in st_d.recal_count])[:, None]
+    trim_err = (st_d.trim.cpu() - st_c.trim).abs().numpy()
+    far = trim_err > 8 * lsb
+    flat = 0
+    if bool(far.any()):
+        # a channel whose rate is flat at its target: the two trims' rates
+        # on the CPU's chain
+        from repro_torch.core import hoyer
+        from repro_torch.core import p2m as p2m_core
+        from repro_torch.variation.calibrate import channel_rates
+        pc = twins[1].params["p2m"]
+        u = p2m_core.hardware_conv(cal, pc["w"], cfg.p2m)
+        th = hoyer.effective_threshold(u, pc["v_th"]) * pc["v_th"]
+        for slot in np.nonzero(far.any(axis=1))[0]:
+            chip_c, _ = twins[1]._gather_operands(
+                [slot], np.array([st_c.last_recal_frame[slot]], np.float64))
+            r_d, r_c = (channel_rates(u, th, chip_c, t_[slot][None].cpu(),
+                                      cfg.p2m)[0]
+                        for t_ in (st_d.trim, st_c.trim))
+            gap = (r_d - r_c).abs().numpy()[far[slot]]
+            check(bool((gap <= 2e-5).all()),
+                  f"card vs CPU trim of chip {slot} off by "
+                  f"{trim_err[slot].max()} where its rate is not flat")
+            flat += int(far[slot].sum())
+
+    # (g) a warm restart on the card: save, load into a fresh engine, both
+    # serve the same continuation bit for bit
+    ckpt = os.path.join(ROOT, "build", "fleet_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    engine.save(ckpt)
+    restarted = fleet_engine(cfg, params, dcfg, cal, device,
+                             chips_per_step=FLEET_G)
+    restarted.load(ckpt)
+    cont = fleet_rounds(2, chips, 97)
+    resumed = []
+    for batch in cont:
+        for a, b in zip(engine.serve(batch), restarted.serve(batch)):
+            resumed.append(all(torch.equal(torch.as_tensor(a[k_]),
+                                           torch.as_tensor(b[k_]))
+                               for k_ in ("labels", "probs",
+                                          "lifetime_age_frames",
+                                          "lifetime_recal_count")))
+    check(all(resumed) and torch.equal(engine.state.trim,
+                                       restarted.state.trim),
+          f"restarted fleet diverged: {resumed}")
+
+    # walls: a step at each chips_per_step over the same 8 chips (sweeps
+    # off), and a forced sweep of FLEET_REFRESH chips
+    curve = []
+    for cps in FLEET_CURVE:
+        fe = fleet_engine(cfg, params, dcfg, cal, device, sweep=False,
+                          chips_per_step=cps)
+        for cid in chips:
+            fe.add_chip(cid)
+        walls = []
+        for j, batch in enumerate(fleet_rounds(FLEET_CURVE_ROUNDS + 1, chips,
+                                               101)):
+            sync(device)
+            t0 = time.perf_counter()
+            fe.serve(batch) if j else list(fe.stream([batch]))
+            sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        steps = -(-FLEET_SIZE // cps)
+        round_ms = statistics.median(walls[1:])
+        curve.append(dict(chips_per_step=cps, steps_per_round=steps,
+                          round_wall_ms=round_ms,
+                          step_wall_ms=round_ms / steps,
+                          frames_per_s=FLEET_SIZE * FLEET_BATCH
+                          / (round_ms / 1e3),
+                          fused_steps=fe.fused_step_count))
+    sweep_walls = []
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        engine.run_sweep(force=True)
+        sync(device)
+        sweep_walls.append((time.perf_counter() - t0) * 1e3)
+    emit("fleet", model="vgg16", chips=FLEET_SIZE, chips_per_step=FLEET_G,
+         microbatch=FLEET_BATCH, rounds=FLEET_ROUNDS, nvidia_smi=smi,
+         launches=counts, launches_int8=counts8,
+         launches_per_step={str(g): [dict(c_) for c_ in per_step[g]]
+                            for g in per_step},
+         main_path_wall_ms=main_ms,
+         fused_step_count=engine.fused_step_count,
+         fused_fallback_count=engine.fused_fallback_count,
+         sweeps=engine.sweep_count,
+         refreshes=[int(r) for r in engine.state.recal_count],
+         one_chip_vs_vision_engine=one_chip, vs_single_engines=vs_single,
+         card_vs_cpu=dict(rounds=FLEET_CPU_ROUNDS,
+                          refreshed=[r["refreshed"] for r in reports[0]],
+                          max_trim_err=float(trim_err.max()),
+                          flat_channels_beyond_8_steps=flat),
+         restart_bit_identical=True,
+         deferred_step=dict(dispatch_ms=dispatch_ms, drained_ms=drained_ms,
+                            in_flight_at_return=in_flight),
+         throughput=curve,
+         sweep_wall_ms=sweep_walls, peak_memory_gb=peak_gb)
+    return counts, counts8
 
 
 # --- training: the vision train step (``repro_torch.train.vision``) --------
@@ -2432,7 +3153,7 @@ def train_phase(device, smi: str):
 
     # one step card vs CPU with the Fig. 8 flips on, from the trained
     # weights (their BN stats are no longer the init's)
-    cfg_noise = dc.replace(cfg, p2m=p2m.P2MConfig(
+    cfg_noise = dataclasses.replace(cfg, p2m=p2m.P2MConfig(
         noise_p_fail=TRAIN_NOISE, noise_p_false=TRAIN_NOISE))
     emit("train_vs_cpu", model="vgg16", batch=TRAIN_BATCH,
          noise=TRAIN_NOISE,
@@ -2997,9 +3718,11 @@ def main() -> int:
     # kernel runs IMMA, and none HMMA (the float32 MACs use no TF32)
     census = cuda_lib.tensor_core_census(built["p2m"][0])
     imma = {k: v for k, v in census.items() if v != (0, 0)}
-    check(len(imma) == 4 and all("MacQ8Mma" in k for k in imma)
+    # four single-chip int8 kernels and three of the chip axis
+    check(len(imma) == 7 and all("MacQ8Mma" in k for k in imma)
           and sorted("fused_stream" in k for k in imma)
-          == [False, False, True, True]
+          == [False] * 4 + [True] * 3
+          and sum("FleetRows" in k for k in imma) == 3
           and all(i >= 1 and h_ == 0 for i, h_ in imma.values()),
           f"tensor-core instructions in the P2M library: {imma}")
     emit("tensor_cores", library="p2m", kernels=len(census),
@@ -3053,6 +3776,9 @@ def main() -> int:
     train_phase(device, smi)
     t_lifetime = time.perf_counter()
     lifetime_phase(device, smi)
+    t_fleet = time.perf_counter()
+    fleet_rows = fleet_kernel_phase(device)
+    counts_fleet, counts_fleet8 = fleet_phase(device, smi)
     # last: their 12 profiler sessions come after the flash lines', which
     # fail if every session drops the kernel's events (the tracer drops
     # more of them late in a long process); theirs return "not measured"
@@ -3066,7 +3792,8 @@ def main() -> int:
     emit("seconds", build=build_s, kernels=t_vision - t_kernels,
          vision=t_frontends - t_vision, frontends=t_flash - t_frontends,
          flash=t_lm - t_flash, lm=t_train - t_lm,
-         train=t_lifetime - t_train, lifetime=t_variation - t_lifetime,
+         train=t_lifetime - t_train, lifetime=t_fleet - t_lifetime,
+         fleet=t_variation - t_fleet,
          variation=t_end - t_variation,
          total=t_end - t0)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
@@ -3075,6 +3802,12 @@ def main() -> int:
                    if n_ != "p2m_phase_b"}}
     for row in rows:
         row["launches"] = own_path[row["name"]][row["name"]]
+    # the fleet rows: the f32 path's (kernel B's too) and the int8 path's
+    for row in fleet_rows:
+        name = row["name"]
+        row["launches"] = (counts_fleet if name in PATH_KERNELS["fleet"]
+                           else counts_fleet8)[name]
+    rows += fleet_rows
     # one flash row per served head dim, its launches from its own model's
     # generate (the wrapper's count is one for every head dim)
     for row, n_launch, d in ((flash_row, counts_lm, 128),

@@ -109,9 +109,9 @@ DIAGNOSTICS = {
                         " : 0.0f;\n",
                         "          x[r] = ok ? 0.25f : 0.0f;\n"),
     # int8 kernel A's u left unstored
-    "q8_no_store": ("            u_out[static_cast<int64_t>(row0 + r) * c + ch]"
-                    " = u;\n",
-                    "            if (u == 1234.5f) u_out[static_cast<int64_t>("
+    "q8_no_store": ("            u_chip[static_cast<int64_t>(row0 + r) * c"
+                    " + ch] = u;\n",
+                    "            if (u == 1234.5f) u_chip[static_cast<int64_t>("
                     "row0 + r) * c + ch] = u;\n"),
     # f32 kernel A's warp-owned tiles (f32_phase_a_loop): no warp sums, each
     # warp sum is its lane 0's rows

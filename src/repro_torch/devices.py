@@ -14,3 +14,14 @@ def resolve_device(device=None) -> torch.device:
                            "run on the GPU unless asked otherwise — pass "
                            "device=\"cpu\" to run the plain PyTorch versions")
     return torch.device("cuda")
+
+
+def to_device_async(x, device: torch.device) -> torch.Tensor:
+    """A host array or tensor on ``device`` without waiting for the device:
+    to a CUDA device through a pinned staging copy and a non-blocking copy
+    (a copy from pageable memory first waits for every queued kernel of
+    the stream, a host sync on each call)."""
+    t = torch.as_tensor(x)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -6,7 +6,9 @@ Port of ``repro.frontend.api``: a registry of backends behind one call,
     params = frontend.init(torch.Generator().manual_seed(0))   # on the GPU
     activations, aux = frontend(params, images, key=key, mode="device")
 
-returning ``(activations, aux)`` with the reference's aux keys. Stateful
+returning ``(activations, aux)`` with the reference's aux keys, and
+``frontend.fleet(params, frames (G, B, H, W, C), keys=...)`` serves G
+chips at once, every aux value with a leading chip axis. Stateful
 backends (their result is held in MTJ states) go through the global-shutter
 burst read. The backends are ``ideal``, ``analog``, ``device`` and ``cuda``
 (the hand-kernel counterpart of the reference's ``pallas``); ``ideal`` and
@@ -30,6 +32,9 @@ BackendFn = Callable[["FrontendConfig", dict, torch.Tensor, Optional[object]],
                      Tuple[torch.Tensor, Dict]]
 
 _BACKENDS: Dict[str, BackendFn] = {}
+# backends with a call over a leading chip axis (one launch for G chips);
+# the others serve a fleet a chip at a time
+_FLEET_BACKENDS: Dict[str, Callable] = {}
 # backends whose result is held in MTJ states (global-shutter burst read)
 _STATEFUL: set = set()
 # backends that carry straight-through gradients (training runs through them)
@@ -46,6 +51,28 @@ def register_backend(name: str, stateful: bool = False,
             _DIFFERENTIABLE.add(name)
         return fn
     return deco
+
+
+def register_fleet_backend(name: str):
+    """Register ``name``'s call over a leading chip axis:
+    ``(cfg, params, images (G, ...), keys) -> (acts, aux)``, every aux
+    value with a leading G."""
+    def deco(fn: Callable) -> Callable:
+        _FLEET_BACKENDS[name] = fn
+        return fn
+    return deco
+
+
+def _chip_params(params: dict, i: int) -> dict:
+    """Chip i's frontend params out of a fleet's: its rows of the stacked
+    chip, trim and carried theta."""
+    out = dict(params)
+    if params.get("chip") is not None:
+        out["chip"] = type(params["chip"])(*(m[i] for m in params["chip"]))
+    for name in ("cal_trim", "theta_carry"):
+        if params.get(name) is not None:
+            out[name] = params[name][i]
+    return out
 
 
 def get_backend(name: str) -> BackendFn:
@@ -117,4 +144,36 @@ class SensorFrontend:
             aux["channel_rates"] = torch.mean(
                 acts, dim=tuple(range(acts.ndim - 1)))
         aux["sparsity"] = 1.0 - torch.mean(aux["channel_rates"])
+        return acts, aux
+
+    def fleet(self, params: dict, images: torch.Tensor, *, keys=None,
+              mode: Optional[str] = None) -> Tuple[torch.Tensor, Dict]:
+        """G chips' frames (G, B, H, W, C) -> ``(acts (G, B, H', W', C),
+        aux)`` with a leading G on every aux value, chip g's those of the
+        single-chip call on its frames with ``keys[g]`` and its rows of
+        ``params["chip"]`` (a stacked ``ChipMaps``), ``params["cal_trim"]``
+        (G, C) and ``params["theta_carry"]`` (G,), each where present. The
+        ``cuda`` backend runs each kernel once for all G chips; the other
+        backends run one single-chip call a chip (their draws are the
+        chip's own key's, as the reference's vmap of threefry gives)."""
+        name = mode or self.cfg.backend
+        g = images.shape[0]
+        fleet_fn = _FLEET_BACKENDS.get(name)
+        if fleet_fn is None:
+            get_backend(name)
+            outs = [self(_chip_params(params, i), images[i],
+                         key=None if keys is None else keys[i], mode=name)
+                    for i in range(g)]
+            return (torch.stack([o[0] for o in outs]),
+                    {k: torch.stack([o[1][k] for o in outs])
+                     for k in outs[0][1]})
+        acts, aux = fleet_fn(self.cfg, params, images, keys)
+        if self.cfg.global_shutter and name in _STATEFUL:
+            acts, shutter_aux = shutter.global_shutter_readout(
+                acts, self.cfg.p2m.mtj, frames=acts.shape[1], chips=True)
+            aux = {**aux, **shutter_aux}
+        if "channel_rates" not in aux:
+            aux["channel_rates"] = torch.mean(
+                acts, dim=tuple(range(1, acts.ndim - 1)))
+        aux["sparsity"] = 1.0 - torch.mean(aux["channel_rates"], dim=-1)
         return acts, aux

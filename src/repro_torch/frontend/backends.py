@@ -14,6 +14,10 @@ the reference's aux keys; they differ in which physical effects they model:
   cuda     the hand-written CUDA kernel pipeline, the counterpart of the
            reference's ``pallas``: the majority folded into one draw.
 
+A fleet call (``SensorFrontend.fleet``) serves G chips: ``cuda`` through
+``cuda_fleet_backend`` (each kernel launched once for all G, the chips'
+(G, 4, C) rows), every other backend a chip at a time.
+
 ``ideal``, ``analog`` and ``device`` run one packed cuDNN convolution and
 plain PyTorch; ``cuda`` runs the kernels of ``kernels/ops.py``. For
 ``cuda`` the patch matmul runs once, in kernel A, which also emits the
@@ -43,7 +47,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import hoyer, mtj, p2m, pixel
-from repro_torch.frontend.api import FrontendConfig, register_backend
+from repro_torch.frontend.api import (FrontendConfig, register_backend,
+                                      register_fleet_backend)
 from repro_torch.kernels import ops
 from repro_torch.variation import chip as chip_mod
 
@@ -226,4 +231,53 @@ def cuda_backend(cfg: FrontendConfig, params: dict, images: torch.Tensor,
     else:
         o, kernel_aux = ops.p2m_frontend(images, wq, params["v_th"], key, **kw)
     return o, {"hoyer_loss": torch.zeros((), device=images.device),
+               **kernel_aux}
+
+
+def _fleet_chip_rows(cfg: FrontendConfig, params: dict, g: int,
+                     device: torch.device) -> Optional[torch.Tensor]:
+    """The kernels' (G, 4, C) rows of a fleet call's chips and trims (a
+    stacked ``ChipMaps`` in ``params["chip"]``, (G, C) trims), or None
+    (every chip nominal, no trim); without a stacked chip every row holds
+    the config's sampled chip, or the nominal one under a trim."""
+    chip = params.get("chip")
+    trim = params.get("cal_trim")
+    if chip is None:
+        chip = _sampled_chip(cfg, device)
+        if chip is None and trim is None:
+            return None
+        if chip is None:
+            chip = chip_mod.identity_chip(cfg.p2m.out_channels,
+                                          cfg.p2m.mtj.n_redundant,
+                                          device=device)
+        chip = chip_mod.ChipMaps(*(m.expand(g, *m.shape) for m in chip))
+    elif not isinstance(chip, chip_mod.ChipMaps):
+        chip = chip_mod.ChipMaps(*chip)
+    return chip_mod.channel_operands(chip, trim)
+
+
+@register_fleet_backend("cuda")
+def cuda_fleet_backend(cfg: FrontendConfig, params: dict,
+                       images: torch.Tensor, keys) -> Tuple[torch.Tensor,
+                                                            Dict]:
+    """The kernel pipeline over G chips: one launch of kernel A and one of
+    kernel B (or one fused launch at the chips' carried thetas) whatever G
+    is, each chip with its own key and (4, C) rows."""
+    if keys is None:
+        raise ValueError("the 'cuda' backend is stochastic — pass keys=")
+    pcfg = cfg.p2m
+    g = images.shape[0]
+    wq = p2m.quantize_weights(params["w"], pcfg.weight_bits)
+    kw = dict(kernel=pcfg.kernel_size, stride=pcfg.stride,
+              chan=_fleet_chip_rows(cfg, params, g, images.device),
+              pixel_params=pcfg.pixel, mtj_params=pcfg.mtj,
+              precision=cfg.precision)
+    carry = params.get("theta_carry")
+    if carry is not None:
+        o, kernel_aux = ops.p2m_frontend_fused_fleet(
+            images, wq, params["v_th"], carry, keys, **kw)
+    else:
+        o, kernel_aux = ops.p2m_frontend_fleet(images, wq, params["v_th"],
+                                               keys, **kw)
+    return o, {"hoyer_loss": torch.zeros((g,), device=images.device),
                **kernel_aux}

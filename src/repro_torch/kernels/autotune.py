@@ -16,6 +16,9 @@ geometry, one serving batch — so the choice is a per-shape table keyed by
     the card; nothing on the serving path triggers it.
   * ``save_table`` / ``load_table`` — JSON persistence with a ``"_meta"``
     stamp of the torch version, the card and its power limit.
+  * ``fleet_key`` / ``get_fleet`` / ``resolve_fleet`` /
+    ``resolve_fleet_fused`` — a fleet step of G chips resolves at the
+    per-chip (N, K, C) key: the chip axis never enters the table.
 
 The table is process-global, as the reference's is (``VisionEngine``'s
 ``tile_table=`` merges a file into it).
@@ -88,6 +91,40 @@ def resolve_precision(n: int, k_eff: int, c_out: int,
                              "(expected 'f32' or 'int8')")
         return precision
     return get(n, k_eff, c_out).precision
+
+
+def fleet_key(chips_in_batch: int, n: int, k_eff: int, c_out: int
+              ) -> TuneKey:
+    """The table key of a fleet step: the per-chip (N, K, C). The chip axis
+    is not part of it: each chip row runs the single-chip kernel's tiling
+    (the chip axis is an outer grid dimension), so one per-chip row serves
+    every fleet size and the table never grows with G."""
+    del chips_in_batch
+    return shape_key(n, k_eff, c_out)
+
+
+def get_fleet(chips_in_batch: int, n: int, k_eff: int,
+              c_out: int) -> TileChoice:
+    """The choice a (G, N, K, C) fleet step runs with: the per-chip
+    entry."""
+    return get(*fleet_key(chips_in_batch, n, k_eff, c_out))
+
+
+def resolve_fleet(chips_in_batch: int, n: int, k_eff: int, c_out: int,
+                  precision: Optional[str] = None) -> str:
+    """The matmul precision of a fleet step, resolved at the per-chip key
+    (an explicit value wins)."""
+    return resolve_precision(*fleet_key(chips_in_batch, n, k_eff, c_out),
+                             precision)
+
+
+def resolve_fleet_fused(chips_in_batch: int, n: int, k_eff: int, c_out: int,
+                        fused: Optional[bool] = None) -> bool:
+    """Whether a fleet stream step runs the fused kernel: an explicit value
+    wins, otherwise the per-chip entry's choice."""
+    if fused is not None:
+        return bool(fused)
+    return get_fleet(chips_in_batch, n, k_eff, c_out).fused
 
 
 def _card_meta() -> Dict:

@@ -2,7 +2,8 @@
 
 The sources under ``repro_torch/csrc`` have a plain C interface, so one
 ``nvcc`` call per library builds it in seconds without PyTorch's headers.
-Two libraries: ``p2m`` (the sensor frontend's seven kernels) and
+Two libraries: ``p2m`` (the sensor frontend's seven kernels, five of
+them also with a chip grid dimension) and
 ``flash_attention``. A build runs at first use, into ``build/repro_torch/``
 at the root of the checkout, under a name keyed by a hash of the library's
 sources and flags: an edited source never loads a stale library. Nothing
@@ -155,13 +156,27 @@ def _bind_p2m(lib: ctypes.CDLL) -> None:
     lib.p2m_fused_stream_q8_pix.argtypes = [p, p, p, p, p, p, i32, p, p, p,
                                             p, geom, u32, u32, phys, p]
     lib.p2m_conv.argtypes = [p, p, p, p, p, i32, i32, i32, u32, u32, phys, p]
+    # the chip axis's entries: the chip count after the geometry (kernel B:
+    # after n and C), the (G, 2) key words on the device beside chan
+    lib.p2m_phase_a_implicit_fleet.argtypes = [p, p, p, p, p, geom, i32,
+                                               phys, p]
+    lib.p2m_phase_a_implicit_q8_fleet.argtypes = [p, p, p, p, p, p, geom,
+                                                  i32, phys, p]
+    lib.p2m_phase_b_fleet.argtypes = [p, p, p, p, p, p, i32, i32, i32, phys,
+                                      p]
+    lib.p2m_fused_stream_fleet.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                           geom, i32, phys, p]
+    lib.p2m_fused_stream_q8_fleet.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                              p, geom, i32, phys, p]
     for fn in (lib.p2m_partial_rows, lib.p2m_phase_b_partial_rows,
                lib.p2m_phase_a_warp_tiles, lib.p2m_conv_warp_tiles,
                lib.p2m_phase_a_implicit, lib.p2m_phase_a_implicit_q8,
                lib.p2m_phase_a, lib.p2m_phase_b, lib.p2m_fused_stream,
                lib.p2m_fused_stream_q8, lib.p2m_phase_b_pix,
                lib.p2m_fused_stream_pix, lib.p2m_fused_stream_q8_pix,
-               lib.p2m_conv):
+               lib.p2m_conv, lib.p2m_phase_a_implicit_fleet,
+               lib.p2m_phase_a_implicit_q8_fleet, lib.p2m_phase_b_fleet,
+               lib.p2m_fused_stream_fleet, lib.p2m_fused_stream_q8_fleet):
         fn.restype = ctypes.c_int
 
 

@@ -12,6 +12,12 @@ otherwise the per-shape table (``kernels/autotune.py``; f32 when untuned).
 (``quantize_frontend_weights``) and runs the int8 kernels; kernel B and the
 device chain are the same either way.
 
+``p2m_frontend_fleet`` / ``p2m_frontend_fused_fleet`` are the same two
+steps for G chips at once (frames (G, B, H, W, C), one key a chip, the
+chips' (G, 4, C) rows, the fused step's (G,) carried thetas): one launch
+of each kernel whatever G is, each chip's outputs its single-chip call's,
+the precision resolved at the per-chip key (``autotune.resolve_fleet``).
+
 ``p2m_conv`` is the legacy entry kept as the baseline: a materialised
 ``im2col`` patch matrix, then the legacy fused kernel at a given theta.
 
@@ -134,6 +140,87 @@ def p2m_frontend_fused(images: torch.Tensor, w: torch.Tensor,
            "channel_rates": torch.sum(rate_partials, dim=0) / n,
            **combine_v_conv_partials(v_partials, n, cout)}
     return out.reshape(b, ho, wo, cout), aux
+
+
+def _prepare_fleet(images: torch.Tensor, w: torch.Tensor, kernel: int,
+                   stride: int, precision: Optional[str]):
+    """``_prepare`` of a (G, B, H, W, C) fleet call: the precision resolves
+    at the per-chip (N, K, C) key."""
+    g, b, h, wd, cin = images.shape
+    cout = w.shape[-1]
+    ho, wo = conv_out_hw(h, stride), conv_out_hw(wd, stride)
+    kk = kernel * kernel * cin
+    prec = autotune.resolve_fleet(g, b * ho * wo, kk, cout, precision)
+    wm = pack_phase_weights(w.reshape(kk, cout))
+    return (images.to(torch.float32).contiguous(), wm.contiguous(),
+            (g, b, ho, wo, cout), prec)
+
+
+def p2m_frontend_fleet(images: torch.Tensor, w: torch.Tensor,
+                       v_th: torch.Tensor, keys, *, kernel: int = 3,
+                       stride: int = 2, chan: Optional[torch.Tensor] = None,
+                       pixel_params=pixel_model.DEFAULT_PIXEL,
+                       mtj_params=mtj_model.DEFAULT_MTJ,
+                       precision: Optional[str] = None):
+    """The exact step over a leading chip axis: images (G, B, H, W, C),
+    ``keys`` one host key a chip, ``chan`` the chips' (G, 4, C) rows or
+    None (every chip nominal); the weights are the fleet's. One kernel A
+    and one kernel B launch whatever G is; each chip's theta is combined on
+    the device between them. Returns ``(acts (G, B, H', W', C), aux)`` with
+    a leading G on every aux value, chip g's the single-chip call's."""
+    images, wm, (g, b, ho, wo, cout), prec = _prepare_fleet(
+        images, w, kernel, stride, precision)
+    v_th = v_th.to(torch.float32).contiguous()
+    if prec == "int8":
+        wq, dq = quantize_frontend_weights(wm)
+        u, hoyer_partials = pk.p2m_phase_a_implicit_q8_fleet(
+            images, wq, dq, v_th, kernel=kernel, stride=stride,
+            pixel_params=pixel_params)
+    else:
+        u, hoyer_partials = pk.p2m_phase_a_implicit_fleet(
+            images, wm, v_th, kernel=kernel, stride=stride,
+            pixel_params=pixel_params)
+    theta = pk.combine_fleet_hoyer_partials(hoyer_partials, v_th)
+    out, v_partials = pk.p2m_phase_b_fleet(u, theta, keys, chan=chan,
+                                           pixel_params=pixel_params,
+                                           mtj_params=mtj_params)
+    n = b * ho * wo
+    aux = {"theta": theta,
+           **pk.combine_fleet_v_conv_partials(v_partials, n, cout)}
+    return out.reshape(g, b, ho, wo, cout), aux
+
+
+def p2m_frontend_fused_fleet(images: torch.Tensor, w: torch.Tensor,
+                             v_th: torch.Tensor, theta: torch.Tensor, keys,
+                             *, kernel: int = 3, stride: int = 2,
+                             chan: Optional[torch.Tensor] = None,
+                             pixel_params=pixel_model.DEFAULT_PIXEL,
+                             mtj_params=mtj_model.DEFAULT_MTJ,
+                             precision: Optional[str] = None):
+    """The fused streaming step over a leading chip axis: each chip draws
+    at its own carried ``theta`` (G,) in one fused launch. aux as
+    ``p2m_frontend_fused``'s with a leading G."""
+    images, wm, (g, b, ho, wo, cout), prec = _prepare_fleet(
+        images, w, kernel, stride, precision)
+    v_th = v_th.to(torch.float32).contiguous()
+    theta = theta.to(torch.float32).reshape(g).contiguous()
+    kw = dict(kernel=kernel, stride=stride, pixel_params=pixel_params,
+              mtj_params=mtj_params)
+    if prec == "int8":
+        wq, dq = quantize_frontend_weights(wm)
+        out, hoyer_partials, v_partials, rate_partials = \
+            pk.p2m_fused_stream_q8_fleet(images, wq, dq, v_th, theta, keys,
+                                         chan, **kw)
+    else:
+        out, hoyer_partials, v_partials, rate_partials = \
+            pk.p2m_fused_stream_fleet(images, wm, v_th, theta, keys, chan,
+                                      **kw)
+    n = b * ho * wo
+    aux = {"theta": pk.combine_fleet_hoyer_partials(hoyer_partials, v_th),
+           "theta_used": theta,
+           "channel_rates": torch.sum(rate_partials, dim=1) / n,
+           **pk.combine_fleet_v_conv_partials(v_partials, n, cout)}
+    return out.reshape(g, b, ho, wo, cout), aux
 
 
 def p2m_conv(images: torch.Tensor, w: torch.Tensor, theta, key, *,

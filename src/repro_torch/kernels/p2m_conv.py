@@ -41,6 +41,13 @@ TPU layout choice), so ``combine_hoyer_partials`` /
 ``combine_v_conv_partials`` and the rate-row sum serve both precisions and
 ``combine_q8_stream_stats`` has no counterpart here.
 
+The ``*_fleet`` wrappers run kernels A (f32, int8), B and fused (f32, int8)
+for G chips in one launch, the chip axis a grid dimension of the kernel
+(frames (G, B, H, W, Cin), theta (G,), chan (G, 4, C), a draw key a chip);
+chip g's rows of each output are the single-chip call's on its operands bit
+for bit, and each plain version (``*_fleet_plain``) is the single-chip plain
+version a chip at a time. ``combine_fleet_*`` give each chip's statistics.
+
 The plain versions are the port's counterparts of ``repro.kernels.ref``'s
 P2M oracles: the same function in plain tensor ops. Their int8 MAC
 accumulates in float64, which is exact for these operands as int32 is.
@@ -52,12 +59,14 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import prng
 from repro_torch.core import mtj as mtj_model
 from repro_torch.core import p2m as p2m_core
 from repro_torch.core import pixel as pixel_model
+from repro_torch.devices import to_device_async
 from repro_torch.kernels import blocking, cuda_lib
 from repro_torch.kernels.cuda_lib import check_launch as _launch
 from repro_torch.kernels.cuda_lib import on_cpu as _on_cpu
@@ -276,6 +285,27 @@ def combine_v_conv_partials(partials: torch.Tensor, n_valid: int,
     return {"v_conv_mean": torch.sum(partials[:, 0]) / (n_valid * c_valid),
             "v_conv_min": torch.min(partials[:, 1]),
             "v_conv_max": torch.max(partials[:, 2])}
+
+
+def combine_fleet_hoyer_partials(partials: torch.Tensor,
+                                 v_th: torch.Tensor) -> torch.Tensor:
+    """(G, tiles, 2) partials -> each chip's theta (G,), a chip at a time
+    by ``combine_hoyer_partials``: a sum over the tile axis of the (G,
+    tiles) stack takes another order than one chip's (PyTorch sizes its
+    reduction blocks by the output count), and kernel B's draws compare
+    against theta, so it must be the single-chip call's bit for bit."""
+    return torch.stack([combine_hoyer_partials(p, v_th) for p in partials])
+
+
+def combine_fleet_v_conv_partials(partials: torch.Tensor, n_valid: int,
+                                  c_valid: int) -> dict:
+    """(G, tiles, 3) partials -> each chip's ``v_conv_*`` stats (G,); the
+    mean's sum in the stack's order (within float32 rounding of the
+    single-chip call's), min and max exactly."""
+    return {"v_conv_mean": (torch.sum(partials[..., 0], dim=-1)
+                            / (n_valid * c_valid)),
+            "v_conv_min": torch.amin(partials[..., 1], dim=-1),
+            "v_conv_max": torch.amax(partials[..., 2], dim=-1)}
 
 
 # ---------------------------------------------------------------------------
@@ -649,6 +679,305 @@ def p2m_conv(patches: torch.Tensor, w_packed: torch.Tensor,
     return acts
 
 
+# ---------------------------------------------------------------------------
+# the chip axis: G chips' calls in one launch
+# ---------------------------------------------------------------------------
+#
+# Each fleet wrapper takes its single-chip wrapper's operands with a leading
+# chip axis (frames (G, B, H, W, Cin), u (G, N, C), theta (G,), chan
+# (G, 4, C), one draw key a chip) and returns its outputs with one: the
+# partials (G, tiles of one chip, 2 | 3 | C). Row g of every output is the
+# single-chip call on chip g's operands bit for bit. The plain version is
+# that definition: the single-chip plain version a chip at a time.
+
+def _plain_fleet(fn, per_chip):
+    """Stack the outputs of ``fn(*args)`` over the chips' argument tuples."""
+    outs = [fn(*args) for args in per_chip]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def _chip_rows_of(chan: Optional[torch.Tensor], g: int, c: int, device):
+    """Chip i's (4, C) rows of a fleet's (G, 4, C) ``chan``, or the
+    identity rows (None: every chip nominal)."""
+    if chan is None:
+        return [identity_operands(c, device=device)] * g
+    return list(chan)
+
+
+def p2m_phase_a_implicit_fleet_plain(images, w_packed, v_th, *, kernel: int,
+                                     stride: int,
+                                     pixel_params=pixel_model.DEFAULT_PIXEL):
+    """Fleet kernel A's function: kernel A's plain version a chip at a
+    time, stacked."""
+    return _plain_fleet(functools.partial(
+        p2m_phase_a_implicit_plain, kernel=kernel, stride=stride,
+        pixel_params=pixel_params), [(x, w_packed, v_th) for x in images])
+
+
+def p2m_phase_a_implicit_q8_fleet_plain(
+        images, wq_packed, dequant_row, v_th, *, kernel: int, stride: int,
+        pixel_params=pixel_model.DEFAULT_PIXEL):
+    """Fleet int8 kernel A's function, a chip at a time."""
+    return _plain_fleet(functools.partial(
+        p2m_phase_a_implicit_q8_plain, kernel=kernel, stride=stride,
+        pixel_params=pixel_params),
+        [(x, wq_packed, dequant_row, v_th) for x in images])
+
+
+def p2m_phase_b_fleet_plain(u, theta, keys, *, chan=None,
+                            pixel_params=pixel_model.DEFAULT_PIXEL,
+                            mtj_params=mtj_model.DEFAULT_MTJ):
+    """Fleet kernel B's function: kernel B's plain version on chip i's u,
+    theta, key and rows, stacked."""
+    g, _, c = u.shape
+    rows = _chip_rows_of(chan, g, c, u.device)
+    return _plain_fleet(
+        lambda ui, th, k, ch: p2m_phase_b_plain(
+            ui, th, k, chan=ch, pixel_params=pixel_params,
+            mtj_params=mtj_params),
+        [(u[i], theta.reshape(g)[i], keys[i], rows[i]) for i in range(g)])
+
+
+def p2m_fused_stream_fleet_plain(images, w_packed, v_th, theta, keys,
+                                 chan=None, *, kernel: int, stride: int,
+                                 pixel_params=pixel_model.DEFAULT_PIXEL,
+                                 mtj_params=mtj_model.DEFAULT_MTJ):
+    """The fleet fused kernel's function, a chip at a time."""
+    g, c = images.shape[0], w_packed.shape[1] // 2
+    rows = _chip_rows_of(chan, g, c, images.device)
+    return _plain_fleet(
+        lambda x, th, k, ch: p2m_fused_stream_plain(
+            x, w_packed, v_th, th, k, ch, kernel=kernel, stride=stride,
+            pixel_params=pixel_params, mtj_params=mtj_params),
+        [(images[i], theta.reshape(g)[i], keys[i], rows[i])
+         for i in range(g)])
+
+
+def p2m_fused_stream_q8_fleet_plain(images, wq_packed, dequant_row, v_th,
+                                    theta, keys, chan=None, *, kernel: int,
+                                    stride: int,
+                                    pixel_params=pixel_model.DEFAULT_PIXEL,
+                                    mtj_params=mtj_model.DEFAULT_MTJ):
+    """The fleet int8 fused kernel's function, a chip at a time."""
+    g, c = images.shape[0], wq_packed.shape[1] // 2
+    rows = _chip_rows_of(chan, g, c, images.device)
+    return _plain_fleet(
+        lambda x, th, k, ch: p2m_fused_stream_q8_plain(
+            x, wq_packed, dequant_row, v_th, th, k, ch, kernel=kernel,
+            stride=stride, pixel_params=pixel_params,
+            mtj_params=mtj_params),
+        [(images[i], theta.reshape(g)[i], keys[i], rows[i])
+         for i in range(g)])
+
+
+def fleet_key_words(keys, device) -> torch.Tensor:
+    """The (G, 2) words of G host draw keys on ``device``, one copy that
+    does not wait for the device (int32 bit patterns, read by the kernels
+    as uint32)."""
+    words = np.stack([prng.key_data(k) for k in keys]).astype(np.uint32)
+    return to_device_async(words.view(np.int32), device)
+
+
+def _fleet_geom(images: torch.Tensor, w_packed: torch.Tensor, kernel: int,
+                stride: int):
+    """(G, one chip's ConvGeom) of a (G, B, H, W, Cin) fleet call."""
+    if images.ndim != 5:
+        raise ValueError(f"fleet frames must be (G, B, H, W, Cin), got "
+                         f"{tuple(images.shape)}")
+    return images.shape[0], _conv_geom(images[0], w_packed, kernel, stride)
+
+
+@functools.lru_cache(maxsize=16)
+def _identity_fleet_chan(g: int, c: int, device: torch.device):
+    return identity_operands(c, device=device).expand(
+        g, CHAN_ROWS, c).contiguous()
+
+
+def _check_fleet_chan(chan: Optional[torch.Tensor], g: int, c: int,
+                      device) -> torch.Tensor:
+    """The chips' rows: None (every chip nominal) or (G, 4, C)."""
+    if chan is None:
+        return _identity_fleet_chan(g, c, device)
+    if tuple(chan.shape) != (g, CHAN_ROWS, c):
+        raise ValueError(f"fleet chan must be ({g}, {CHAN_ROWS}, {c}), got "
+                         f"{tuple(chan.shape)}")
+    return chan
+
+
+def _check_fleet(g: int, keys=None, **tensors: torch.Tensor) -> None:
+    """Per-chip operands hold one value (theta) or key a chip."""
+    for name, t in tensors.items():
+        if t.numel() != g:
+            raise ValueError(f"{name} must hold {g} values, got "
+                             f"{tuple(t.shape)}")
+    if keys is not None and len(keys) != g:
+        raise ValueError(f"{len(keys)} keys for {g} chips")
+
+
+def _fleet_outputs(lib, g: int, n: int, c: int, device, stats=(2,)):
+    """(G, N, C) and, per chip, one row a tile of each width in ``stats``."""
+    tiles = lib.p2m_partial_rows(n)
+    return (torch.empty((g, n, c), dtype=torch.float32, device=device),
+            *(torch.empty((g, tiles, k), dtype=torch.float32, device=device)
+              for k in stats))
+
+
+def p2m_phase_a_implicit_fleet(images: torch.Tensor, w_packed: torch.Tensor,
+                               v_th: torch.Tensor, *, kernel: int,
+                               stride: int,
+                               pixel_params=pixel_model.DEFAULT_PIXEL):
+    """Kernel A over G chips' frames (G, B, H, W, Cin) in one launch.
+    Returns ``(u (G, B*H'*W', C), hoyer_partials (G, tiles, 2))``."""
+    g, geom = _fleet_geom(images, w_packed, kernel, stride)
+    if _on_cpu(images, w_packed, v_th):
+        return p2m_phase_a_implicit_fleet_plain(
+            images, w_packed, v_th, kernel=kernel, stride=stride,
+            pixel_params=pixel_params)
+    _check_f32(images=images, w_packed=w_packed, v_th=v_th)
+    _check_scalar(v_th=v_th)
+    lib = cuda_lib.load()
+    u, partials = _fleet_outputs(lib, g, geom.batch * geom.ho * geom.wo,
+                                 geom.c_out, images.device)
+    _launch(lib.p2m_phase_a_implicit_fleet(
+        images.data_ptr(), w_packed.data_ptr(), v_th.data_ptr(),
+        u.data_ptr(), partials.data_ptr(), ctypes.byref(geom), g,
+        ctypes.byref(physics_args(pixel_params, mtj_model.DEFAULT_MTJ)),
+        _stream(images.device)), "p2m_phase_a_implicit_fleet")
+    p2m_phase_a_implicit_fleet.launches += 1
+    return u, partials
+
+
+def p2m_phase_a_implicit_q8_fleet(images: torch.Tensor,
+                                  wq_packed: torch.Tensor,
+                                  dequant_row: torch.Tensor,
+                                  v_th: torch.Tensor, *, kernel: int,
+                                  stride: int,
+                                  pixel_params=pixel_model.DEFAULT_PIXEL):
+    """int8 kernel A over G chips' frames in one launch: the outputs of
+    ``p2m_phase_a_implicit_fleet``."""
+    g, geom = _fleet_geom(images, wq_packed, kernel, stride)
+    _check_dequant(dequant_row, 2 * geom.c_out)
+    if _on_cpu(images, wq_packed, dequant_row, v_th):
+        return p2m_phase_a_implicit_q8_fleet_plain(
+            images, wq_packed, dequant_row, v_th, kernel=kernel,
+            stride=stride, pixel_params=pixel_params)
+    _check_f32(images=images, dequant_row=dequant_row, v_th=v_th)
+    _check_int8(wq_packed=wq_packed)
+    _check_scalar(v_th=v_th)
+    lib = cuda_lib.load()
+    u, partials = _fleet_outputs(lib, g, geom.batch * geom.ho * geom.wo,
+                                 geom.c_out, images.device)
+    _launch(lib.p2m_phase_a_implicit_q8_fleet(
+        images.data_ptr(), wq_packed.data_ptr(), dequant_row.data_ptr(),
+        v_th.data_ptr(), u.data_ptr(), partials.data_ptr(),
+        ctypes.byref(geom), g,
+        ctypes.byref(physics_args(pixel_params, mtj_model.DEFAULT_MTJ)),
+        _stream(images.device)), "p2m_phase_a_implicit_q8_fleet")
+    p2m_phase_a_implicit_q8_fleet.launches += 1
+    return u, partials
+
+
+def p2m_phase_b_fleet(u: torch.Tensor, theta: torch.Tensor, keys, *,
+                      chan: Optional[torch.Tensor] = None,
+                      pixel_params=pixel_model.DEFAULT_PIXEL,
+                      mtj_params=mtj_model.DEFAULT_MTJ):
+    """Kernel B over G chips in one launch: u (G, N, C), theta (G,) on the
+    device, ``keys`` G host keys (their words go to the device in one
+    copy), chan the chips' (G, 4, C) rows or None (every chip nominal).
+    Returns ``(acts (G, N, C), v_partials (G, tiles, 3))``."""
+    if u.ndim != 3:
+        raise ValueError(f"fleet u must be (G, N, C), got {tuple(u.shape)}")
+    g, n, c = u.shape
+    chan = _check_fleet_chan(chan, g, c, u.device)
+    _check_fleet(g, keys, theta=theta)
+    if _on_cpu(u, theta, chan):
+        return p2m_phase_b_fleet_plain(u, theta, keys, chan=chan,
+                                       pixel_params=pixel_params,
+                                       mtj_params=mtj_params)
+    _check_f32(u=u, theta=theta, chan=chan)
+    lib = cuda_lib.load()
+    acts = torch.empty((g, n, c), dtype=torch.float32, device=u.device)
+    partials = torch.empty((g, lib.p2m_phase_b_partial_rows(n, c), 3),
+                           dtype=torch.float32, device=u.device)
+    words = fleet_key_words(keys, u.device)
+    _launch(lib.p2m_phase_b_fleet(
+        u.data_ptr(), theta.data_ptr(), chan.data_ptr(), words.data_ptr(),
+        acts.data_ptr(), partials.data_ptr(), n, c, g,
+        ctypes.byref(physics_args(pixel_params, mtj_params)),
+        _stream(u.device)), "p2m_phase_b_fleet")
+    p2m_phase_b_fleet.launches += 1
+    return acts, partials
+
+
+def _fused_fleet(wrapper, images, weights, v_th, theta, keys, chan, kernel,
+                 stride, pixel_params, mtj_params, plain):
+    """The two fused fleet wrappers' shared body: ``weights`` the packed f32
+    weights, or the int8 weights and their dequant row; ``wrapper`` the
+    calling wrapper, whose C entry of the same name it launches."""
+    name = wrapper.__name__
+    g, geom = _fleet_geom(images, weights[0], kernel, stride)
+    chan = _check_fleet_chan(chan, g, geom.c_out, images.device)
+    _check_fleet(g, keys, theta=theta)
+    if _on_cpu(images, *weights, v_th, theta, chan):
+        return plain(images, *weights, v_th, theta, keys, chan,
+                     kernel=kernel, stride=stride, pixel_params=pixel_params,
+                     mtj_params=mtj_params)
+    _check_f32(images=images, v_th=v_th, theta=theta, chan=chan,
+               **({"w_packed": weights[0]} if len(weights) == 1
+                  else {"dequant_row": weights[1]}))
+    if len(weights) == 2:
+        _check_int8(wq_packed=weights[0])
+    _check_scalar(v_th=v_th)
+    lib = cuda_lib.load()
+    dev = images.device
+    acts, hoyer, vpart, rates = _fleet_outputs(
+        lib, g, geom.batch * geom.ho * geom.wo, geom.c_out, dev,
+        stats=(2, 3, geom.c_out))
+    words = fleet_key_words(keys, dev)
+    _launch(getattr(lib, name)(
+        images.data_ptr(), *(t.data_ptr() for t in weights), v_th.data_ptr(),
+        theta.data_ptr(), chan.data_ptr(), words.data_ptr(), acts.data_ptr(),
+        hoyer.data_ptr(), vpart.data_ptr(), rates.data_ptr(),
+        ctypes.byref(geom), g,
+        ctypes.byref(physics_args(pixel_params, mtj_params)),
+        _stream(dev)), name)
+    wrapper.launches += 1
+    return acts, hoyer, vpart, rates
+
+
+def p2m_fused_stream_fleet(images: torch.Tensor, w_packed: torch.Tensor,
+                           v_th: torch.Tensor, theta: torch.Tensor, keys,
+                           chan: Optional[torch.Tensor] = None, *,
+                           kernel: int, stride: int,
+                           pixel_params=pixel_model.DEFAULT_PIXEL,
+                           mtj_params=mtj_model.DEFAULT_MTJ):
+    """The fused streaming kernel over G chips in one launch, each chip at
+    its own carried theta (G,) with its own key and (4, C) rows. Returns
+    ``(acts (G, N, C), hoyer (G, tiles, 2), v (G, tiles, 3), rates (G,
+    tiles, C))``."""
+    return _fused_fleet(p2m_fused_stream_fleet, images, (w_packed,), v_th,
+                        theta, keys, chan, kernel, stride, pixel_params,
+                        mtj_params, p2m_fused_stream_fleet_plain)
+
+
+def p2m_fused_stream_q8_fleet(images: torch.Tensor, wq_packed: torch.Tensor,
+                              dequant_row: torch.Tensor, v_th: torch.Tensor,
+                              theta: torch.Tensor, keys,
+                              chan: Optional[torch.Tensor] = None, *,
+                              kernel: int, stride: int,
+                              pixel_params=pixel_model.DEFAULT_PIXEL,
+                              mtj_params=mtj_model.DEFAULT_MTJ):
+    """The int8 fused streaming kernel over G chips in one launch: the
+    outputs of ``p2m_fused_stream_fleet``."""
+    _check_dequant(dequant_row, wq_packed.shape[-1])
+    return _fused_fleet(p2m_fused_stream_q8_fleet, images,
+                        (wq_packed, dequant_row), v_th, theta, keys, chan,
+                        kernel, stride, pixel_params, mtj_params,
+                        p2m_fused_stream_q8_fleet_plain)
+
+
 cuda_lib.register(p2m_phase_a_implicit, p2m_phase_b, p2m_fused_stream,
                   p2m_phase_a_implicit_q8, p2m_fused_stream_q8, p2m_phase_a,
-                  p2m_conv)
+                  p2m_conv, p2m_phase_a_implicit_fleet,
+                  p2m_phase_a_implicit_q8_fleet, p2m_phase_b_fleet,
+                  p2m_fused_stream_fleet, p2m_fused_stream_q8_fleet)

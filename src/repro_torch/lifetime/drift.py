@@ -30,7 +30,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.p2m import _div
-from repro_torch.devices import resolve_device
+from repro_torch.devices import resolve_device, to_device_async
 from repro_torch.variation.chip import ChipMaps
 
 
@@ -139,27 +139,50 @@ def temp_excursion_c(t, dcfg: DriftConfig) -> torch.Tensor:
         _div(2.0 * math.pi * _age(t), dcfg.temp_period_frames))
 
 
+def _fleet_factors(t, dcfg: DriftConfig, device: torch.device):
+    """The aging and temperature-logit factors of a (G,) age vector: each
+    age's 0-d float32 factors as a single chip's age forms them (the same
+    host ``log1p`` / ``sin``), then one copy to ``device`` that does not
+    wait for it, shaped (G, 1, 1) for the (G, C, n) leaves and (G, 1) for
+    the (G, C) ones."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+    ages = [torch.as_tensor(x, dtype=torch.float32) for x in t]
+    a = torch.stack([aging(x, dcfg.tau_frames) for x in ages])
+    d = torch.stack([dcfg.temp_logit_per_c * temp_excursion_c(x, dcfg)
+                     for x in ages])
+    a, d = to_device_async(torch.stack([a, d]), device)
+    return a[:, None, None], a[:, None], d[:, None, None]
+
+
 def evolve_chip(chip: ChipMaps, maps: DriftMaps, t, *,
                 dcfg: DriftConfig) -> ChipMaps:
     """The chip at frame-clock age ``t``: ``chip`` is the t = 0 instance
     (sampled, or ``identity_chip``), ``maps`` its drift directions (a stack
-    of chips and their maps works too). Aged gains and resistances keep
-    ``sample_chip``'s floor of 0.05 (a forward clamp; chips carry no
-    gradient). ``dcfg.enabled == False`` returns ``chip`` itself."""
+    of chips and their maps works too, at one age, or at a (G,) vector of
+    ages (a sequence, array or 1-d tensor), row g at age g: row g is
+    ``evolve_chip`` of chip g at its own age bit for bit). Aged gains and
+    resistances keep ``sample_chip``'s floor of 0.05 (a forward clamp;
+    chips carry no gradient). ``dcfg.enabled == False`` returns ``chip``
+    itself."""
     if not dcfg.enabled:
         return chip
-    a = aging(t, dcfg.tau_frames)
-    d_logit_t = dcfg.temp_logit_per_c * temp_excursion_c(t, dcfg)
+    if (t.ndim if isinstance(t, torch.Tensor) else np.ndim(t)) == 1:
+        a3, a2, d_logit_t = _fleet_factors(t, dcfg,
+                                           chip.pixel_gain.device)
+    else:
+        a3 = a2 = aging(t, dcfg.tau_frames)
+        d_logit_t = dcfg.temp_logit_per_c * temp_excursion_c(t, dcfg)
     off = (chip.mtj_logit_offset
-           + dcfg.sigma_logit_offset * a * maps.d_logit_offset + d_logit_t)
-    gain = chip.mtj_logit_gain * (1.0 + dcfg.sigma_logit_gain * a
+           + dcfg.sigma_logit_offset * a3 * maps.d_logit_offset + d_logit_t)
+    gain = chip.mtj_logit_gain * (1.0 + dcfg.sigma_logit_gain * a3
                                   * maps.d_logit_gain)
-    r_p = chip.r_p_scale * (1.0 + dcfg.sigma_r_p * a * maps.d_r_p)
-    tmr = chip.tmr_scale * (1.0 - dcfg.tmr_retention * a) \
-        * (1.0 + dcfg.sigma_tmr * a * maps.d_tmr)
-    pg = chip.pixel_gain * (1.0 - dcfg.pixel_gain_aging * a) \
-        * (1.0 + dcfg.sigma_pixel_gain * a * maps.d_pixel_gain)
-    po = chip.pixel_offset + dcfg.sigma_pixel_offset * a * maps.d_pixel_offset
+    r_p = chip.r_p_scale * (1.0 + dcfg.sigma_r_p * a3 * maps.d_r_p)
+    tmr = chip.tmr_scale * (1.0 - dcfg.tmr_retention * a3) \
+        * (1.0 + dcfg.sigma_tmr * a3 * maps.d_tmr)
+    pg = chip.pixel_gain * (1.0 - dcfg.pixel_gain_aging * a2) \
+        * (1.0 + dcfg.sigma_pixel_gain * a2 * maps.d_pixel_gain)
+    po = chip.pixel_offset + dcfg.sigma_pixel_offset * a2 * maps.d_pixel_offset
     return ChipMaps(mtj_logit_offset=off,
                     mtj_logit_gain=torch.clamp(gain, min=0.05),
                     r_p_scale=torch.clamp(r_p, min=0.05),

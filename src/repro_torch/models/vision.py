@@ -6,7 +6,8 @@ Hoyer binary spike. Eval (serving) uses the stored running stats and a
 per-example threshold, so a frame's prediction does not depend on its
 batchmates; training (``forward(train=True)``, ``loss_fn``) uses live batch
 stats, returns their EMA, and spikes at the layer's global threshold with
-the straight-through gradient.
+the straight-through gradient. ``forward_fleet`` serves G chips' frames
+with the frontend per chip and the backbone once over all of them.
 
 The backbone convs are ``F.conv2d`` (the reference leaves them to XLA).
 Frames and frontend activations are NHWC and weights HWIO at the public
@@ -272,6 +273,29 @@ def forward(params: Dict, images: torch.Tensor, cfg: VisionConfig, *,
     if train:
         aux["bn_state"] = bn_state
     return logits, cfg.hoyer_coeff * (fe_aux["hoyer_loss"] + hoyer_total), aux
+
+
+def forward_fleet(params: Dict, images: torch.Tensor, cfg: VisionConfig,
+                  *, keys=None, backend: Optional[str] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """The eval forward of G chips' frames (G, B, H, W, C): the frontend
+    per chip (``SensorFrontend.fleet``: ``params["p2m"]`` may hold the
+    chips' stacked ``chip``, ``cal_trim`` and ``theta_carry``; ``keys``
+    one host key a chip), then the backbone once over the G * B frames
+    (its eval threshold is per example, so a frame's logits do not depend
+    on its batch-mates). Returns ``(logits (G, B, classes), aux)``, aux as
+    ``forward``'s with a leading G on every value."""
+    fe = frontend.SensorFrontend(cfg.frontend)
+    x, fe_aux = fe.fleet(params["p2m"], images, keys=keys, mode=backend)
+    g, b = x.shape[:2]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        feat, _, _ = _backbone(
+            params, x.reshape(g * b, *x.shape[2:]).permute(0, 3, 1, 2), cfg)
+    logits = feat @ params["head"]["w"] + params["head"]["b"]
+    aux = {"p2m_sparsity": fe_aux["sparsity"],
+           **{k: v for k, v in fe_aux.items()
+              if k not in ("hoyer_loss", "sparsity")}}
+    return logits.reshape(g, b, -1), aux
 
 
 def apply_bn_state(params: Dict, bn_state: Optional[Dict]) -> Dict:

@@ -188,14 +188,16 @@ def channel_operands(chip: ChipMaps,
     """Fold a chip (+ the programmed trim, (C,)) into the (4, C) rows of
     kernel B and the fused kernels, on the chip's device. The folded
     majority needs one effective device a channel, so the per-MTJ logit
-    maps enter as their channel mean."""
+    maps enter as their mean over the n devices (the last axis). A stack
+    of G chips (leaves (G, C, n) and (G, C), trims (G, C)) folds into
+    (G, 4, C), row g chip g's rows."""
     u_off = chip.pixel_offset
     if cal_trim is not None:
         u_off = u_off + cal_trim
     return torch.stack([chip.pixel_gain, u_off,
-                        torch.mean(chip.mtj_logit_gain, dim=1),
-                        torch.mean(chip.mtj_logit_offset, dim=1)]).to(
-                            torch.float32)
+                        torch.mean(chip.mtj_logit_gain, dim=-1),
+                        torch.mean(chip.mtj_logit_offset, dim=-1)],
+                       dim=-2).to(torch.float32)
 
 
 def identity_operands(n_channels: int, device=None) -> torch.Tensor:

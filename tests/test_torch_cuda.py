@@ -20,6 +20,10 @@ kernel A and the legacy kernel on both sides of the tile count where
 their warps start to own their tiles); the int8 kernels' MAC is checked
 to run on the s8 tensor cores (IMMA in the library's machine code), and
 the device chain at other MTJ counts.
+The chip axis: each of the five fleet instances (kernels A f32 and int8,
+B, fused f32 and int8 over G chips in one launch) equals the single-chip
+call on each chip's operands bit for bit (N not a multiple of 16 too), and
+the fleet frontend launches as many kernels at G 4 as at G 1.
 An aging chip (``repro_torch.lifetime``): kernel B and the fused kernel
 on its (4, C) rows at two ages, bit for bit against their plain versions;
 an aging, calibrated vgg_tiny engine card vs CPU by ``chip_smoke.py``'s
@@ -464,14 +468,18 @@ def test_int8_fused_kernel_runs_on_the_tensor_cores(cuda_device):
     """The int8 kernels' MAC (int8 kernel A, its block-shared and its
     warp-owned kernel, and the int8 fused kernel) is an s8 tensor-core
     product (IMMA in their machine code; the fused kernel in both chip
-    layouts' kernels), no other P2M kernel runs IMMA and none runs HMMA
+    layouts' kernels, and the chip axis's three int8 instances), no other
+    P2M kernel runs IMMA and none runs HMMA
     (the f32 MACs use no TF32); the int8 fused draws and Hoyer partials
     equal int8 kernel A -> B bit for bit."""
     mma = cuda_lib.tensor_core_census(cuda_lib.build())
     q8 = {k: v for k, v in mma.items() if "MacQ8Mma" in k}
-    assert sorted("fused_stream" in k for k in q8) == [False, False, True,
-                                                       True]
+    # the single-chip kernels (fused in both chip layouts) and the chip
+    # axis's (block-shared A, warp-owned A and fused over FleetRows)
+    assert sorted("fused_stream" in k for k in q8) == [False] * 4 + [True] * 3
+    assert sum("FleetRows" in k for k in q8) == 3
     assert all("phase_a_kernel" in k or "phase_a_q8_warp_kernel" in k
+               or "phase_a_q8_fleet_warp_kernel" in k
                or "fused_stream_kernel" in k or "fused_stream_pix_kernel" in k
                for k in q8)
     assert all(imma >= 1 for imma, _ in q8.values())
@@ -1182,3 +1190,112 @@ def test_model_attention_refuses_what_the_kernel_does_not_compute(
     cuda_lib.reset_launch_counts()
     blocks.flash_attention(q, k, k, causal=True)
     assert cuda_lib.launch_counts()["flash_attention"] == 1
+
+
+# --- the chip axis: G chips in one launch ----------------------------------
+
+# (G, b, h, w, kernel, stride, c): the serving shape at G 4 (kernel A's
+# warp-owned tiles over the four chips' 1,024 tiles; one chip's 256 run
+# block-shared) and G 1, a per-chip N not a multiple of the 16-row tile
+# (3 x 7 x 6 = 126 rows), C 48 at K 75, and ImageNet at G 2 (kernel B's
+# 16-row warp tiles)
+FLEET_GEOMETRIES = [(4, 16, 32, 32, 3, 2, 32), (1, 16, 32, 32, 3, 2, 32),
+                    (4, 3, 13, 11, 3, 2, 32), (3, 2, 13, 11, 5, 3, 48),
+                    (2, 16, 224, 224, 3, 2, 32)]
+
+
+def fleet_operands(rng, g, b, h, w, kernel, c, dev):
+    """Frames (G, B, H, W, 3), packed weights, the chips' random (G, 4, C)
+    rows and G keys."""
+    images = torch.tensor(rng.uniform(size=(g, b, h, w, 3)),
+                          dtype=torch.float32, device=dev)
+    wp = tk.pack_phase_weights(torch.tensor(
+        rng.normal(size=(kernel * kernel * 3, c)) * 0.3,
+        dtype=torch.float32)).to(dev)
+    chan = torch.tensor(np.stack([_chip_rows(rng, c) for _ in range(g)]),
+                        device=dev)
+    keys = [prng.fold_in(prng.PRNGKey(40), i) for i in range(g)]
+    return images, wp, chan, keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,b,h,w,kernel,stride,c", FLEET_GEOMETRIES)
+def test_fleet_kernels_equal_single_chip_calls(cuda_device, g, b, h, w,
+                                               kernel, stride, c):
+    """Each of the five fleet instances: chip row g of every output (u and
+    the Hoyer partials, theta, kernel B's acts and V partials, the fused
+    kernels' acts, Hoyer, V and rate partials at a pinned theta, at both
+    precisions) equals the single-chip call on chip g's operands bit for
+    bit, and one launch serves all G chips."""
+    rng = np.random.default_rng(g * 100 + c + h)
+    dev = cuda_device
+    images, wp, chan, keys = fleet_operands(rng, g, b, h, w, kernel, c, dev)
+    wq, dq = ops.quantize_frontend_weights(wp)
+    v_th = torch.tensor(0.8, device=dev)
+    kw = dict(kernel=kernel, stride=stride)
+    cuda_lib.reset_launch_counts()
+    u_f, hp_f = tk.p2m_phase_a_implicit_fleet(images, wp, v_th, **kw)
+    u8_f, hp8_f = tk.p2m_phase_a_implicit_q8_fleet(images, wq, dq, v_th, **kw)
+    theta_f = tk.combine_fleet_hoyer_partials(hp_f, v_th)
+    theta8_f = tk.combine_fleet_hoyer_partials(hp8_f, v_th)
+    b_f = tk.p2m_phase_b_fleet(u_f, theta_f, keys, chan=chan)
+    f32_f = tk.p2m_fused_stream_fleet(images, wp, v_th, theta_f, keys, chan,
+                                      **kw)
+    q8_f = tk.p2m_fused_stream_q8_fleet(images, wq, dq, v_th, theta8_f, keys,
+                                        chan, **kw)
+    counts = cuda_lib.launch_counts()
+    assert all(counts[name] == 1 for name in (
+        "p2m_phase_a_implicit_fleet", "p2m_phase_a_implicit_q8_fleet",
+        "p2m_phase_b_fleet", "p2m_fused_stream_fleet",
+        "p2m_fused_stream_q8_fleet"))
+    for i in range(g):
+        u, hp = tk.p2m_phase_a_implicit(images[i], wp, v_th, **kw)
+        u8, hp8 = tk.p2m_phase_a_implicit_q8(images[i], wq, dq, v_th, **kw)
+        theta = tk.combine_hoyer_partials(hp, v_th)
+        theta8 = tk.combine_hoyer_partials(hp8, v_th)
+        assert torch.equal(u_f[i], u) and torch.equal(hp_f[i], hp)
+        assert torch.equal(u8_f[i], u8) and torch.equal(hp8_f[i], hp8)
+        assert torch.equal(theta_f[i], theta)
+        assert torch.equal(theta8_f[i], theta8)
+        for x, y in zip((b_f[0][i], b_f[1][i]),
+                        tk.p2m_phase_b(u, theta, keys[i], chan=chan[i])):
+            assert torch.equal(x, y)
+        for x, y in zip((t[i] for t in f32_f), tk.p2m_fused_stream(
+                images[i], wp, v_th, theta, keys[i], chan[i], **kw)):
+            assert torch.equal(x, y)
+        for x, y in zip((t[i] for t in q8_f), tk.p2m_fused_stream_q8(
+                images[i], wq, dq, v_th, theta8, keys[i], chan[i], **kw)):
+            assert torch.equal(x, y)
+    # the plain versions (the single-chip plain a chip at a time)
+    u_p, hp_p = tk.p2m_phase_a_implicit_fleet(images.cpu(), wp.cpu(),
+                                              v_th.cpu(), **kw)
+    assert float((u_f.cpu() - u_p).abs().max()) <= 3e-6
+
+
+@pytest.mark.cuda
+def test_fleet_frontend_launches_as_one_chip(cuda_device, monkeypatch):
+    """The fleet frontend's exact step launches one kernel A and one kernel
+    B, its fused step one fused kernel, at G 1 and G 4 alike, at either
+    precision; aux carries a leading G."""
+    monkeypatch.setattr(autotune, "_TABLE", {})
+    rng = np.random.default_rng(9)
+    dev = cuda_device
+    w = torch.tensor(rng.normal(size=(3, 3, 3, 32)) * 0.3,
+                     dtype=torch.float32, device=dev)
+    v_th = torch.ones((), device=dev)
+    for precision, a_name, f_name in (
+            ("f32", "p2m_phase_a_implicit_fleet", "p2m_fused_stream_fleet"),
+            ("int8", "p2m_phase_a_implicit_q8_fleet",
+             "p2m_fused_stream_q8_fleet")):
+        for g in (1, 4):
+            images, _, chan, keys = fleet_operands(rng, g, 16, 32, 32, 3, 32,
+                                                   dev)
+            cuda_lib.reset_launch_counts()
+            acts, aux = ops.p2m_frontend_fleet(images, w, v_th, keys,
+                                               chan=chan, precision=precision)
+            ops.p2m_frontend_fused_fleet(images, w, v_th, aux["theta"], keys,
+                                         chan=chan, precision=precision)
+            counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
+            assert counts == {a_name: 1, "p2m_phase_b_fleet": 1, f_name: 1}
+            assert acts.shape == (g, 16, 16, 16, 32)
+            assert all(v.shape == (g,) for v in aux.values())

@@ -333,6 +333,15 @@ def test_cpu_tensors_never_launch():
                                     prng.PRNGKey(0), precision=prec)
         t_ops.p2m_frontend_fused(images, w, torch.ones(()), aux["theta"],
                                  prng.PRNGKey(0), precision=prec)
+        keys = [prng.PRNGKey(0), prng.PRNGKey(1)]
+        o, aux_f = t_ops.p2m_frontend_fleet(images[None].expand(2, -1, -1,
+                                                                -1, -1),
+                                            w, torch.ones(()), keys,
+                                            precision=prec)
+        t_ops.p2m_frontend_fused_fleet(images[None].expand(2, -1, -1, -1,
+                                                           -1),
+                                       w, torch.ones(()), aux_f["theta"],
+                                       keys, precision=prec)
     t_ops.p2m_conv(images, w, aux["theta"], prng.PRNGKey(0))
     tk.p2m_phase_a(t_ops.im2col(images, 3, 2),
                    tk.pack_phase_weights(w.reshape(27, 8)), torch.ones(()))
@@ -341,7 +350,9 @@ def test_cpu_tensors_never_launch():
     assert set(cuda_lib.launch_counts()) == {
         "p2m_phase_a_implicit", "p2m_phase_b", "p2m_fused_stream",
         "p2m_phase_a_implicit_q8", "p2m_fused_stream_q8", "p2m_phase_a",
-        "p2m_conv", "flash_attention"}
+        "p2m_conv", "flash_attention", "p2m_phase_a_implicit_fleet",
+        "p2m_phase_a_implicit_q8_fleet", "p2m_phase_b_fleet",
+        "p2m_fused_stream_fleet", "p2m_fused_stream_q8_fleet"}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
