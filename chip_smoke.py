@@ -182,11 +182,33 @@ line:
    chips at sigma 0.1, 0.5 and 1.0 on the card against the CPU (yield
    fractions equal, error figures at rtol 1e-5 above 4 ulps of 1, read
    margin within 1e-6 V) and its walls;
-16. ``seconds``: the wall time of the build, the kernel lines, the vision
+16. ``obs`` (``repro_torch.obs``, run last, in a process of its own:
+   ``python3 chip_smoke.py --obs-phase``):
+   the vgg16 engine of phase 4 streaming 8 batches of 16 at microbatch 8,
+   on the cuda path's fused stream and pinned to the deferred exact path,
+   once with ``obs=None`` and once with an ``Obs``: the same launches (each
+   path's kernels launched), labels, probs, ``theta_used`` and
+   ``stream_fused`` bit for bit, the spans counted, the same device
+   kernels and copies, name by name, in a ``torch.profiler`` profile of
+   a 2-batch stream of each (the spans' device-side annotations left out;
+   up to 3 pairs of profiles, as the tracer now and then drops an event)
+   and the ``stream`` / ``microbatch`` span names in the instrumented one;
+   a deferred exact microbatch queued behind a ~0.1 s sleep kernel returns
+   from its dispatch with its event not done and in under half the sleep,
+   and its probe latches a latency that covers the rest of the sleep; an
+   obs-enabled ``FleetEngine`` of 4 chips (BENCH_fleet.json's profiles,
+   pinned exact and on the fused stream): its events, drain gauges,
+   counters and spans; ``python -m repro_torch.obs smoke`` in a
+   subprocess, exit 0. Recorded, with no limit: the merged batch walls of
+   an async stream with obs, a ``sync_timing=True`` one with obs and an
+   async one without obs, in turns; the p50 / p95 / p99 of the async
+   engine's ``serving_microbatch_wall_ms``; the host's dispatch time of a
+   deferred exact step with and without obs (behind a sleep, in turns);
+17. ``seconds``: the wall time of the build, the kernel lines, the vision
    phases, the frontend backends' phases, the flash lines, the LM phases,
-   the train phase, the lifetime phases, the fleet phases and the
-   variation phases;
-17. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+   the train phase, the lifetime phases, the fleet phases, the variation
+   phases and the obs phase;
+18. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run, the fleet rows' from the
    ``fleet`` and int8 fleet paths; one flash row per served head dim: D
    128 with granite-8b's launches, D 80 with stablelm-3b's), and last the
@@ -304,6 +326,10 @@ PATH_KERNELS = {
               "p2m_fused_stream_fleet"),
     "fleet_int8": ("p2m_phase_a_implicit_q8_fleet", "p2m_phase_b_fleet",
                    "p2m_fused_stream_q8_fleet"),
+    # the phase 4 engine with obs: the fused stream, and pinned exact
+    "engine_obs": ("p2m_phase_a_implicit", "p2m_phase_b",
+                   "p2m_fused_stream"),
+    "engine_obs_exact": ("p2m_phase_a_implicit", "p2m_phase_b"),
 }
 SERVING_KEY = (4096, 27, 32)    # (N, K, C) of 16 frames 32x32x3, k3 s2
 # the plain-PyTorch frontend backends; analog with its Fig. 8 flips on
@@ -2442,7 +2468,7 @@ def fleet_phase(device, smi: str) -> tuple:
     t0 = time.perf_counter()
     _, probe = fe._run_step(group, defer=True)
     dispatch_ms = (time.perf_counter() - t0) * 1e3
-    in_flight = probe is not None and not probe.event.query()
+    in_flight = probe is not None and not probe.poll()
     drained_ms = probe.wait() * 1e3 if probe is not None else None
     check(in_flight, "a deferred exact fleet step waited for the device "
           f"(dispatch {dispatch_ms} ms)")
@@ -3664,6 +3690,341 @@ def _forced_decode_logits(cfg, params, prompts, tokens, device):
     return torch.stack(out, dim=1)
 
 
+# the obs phase: the phase 4 engine streaming OBS_BATCHES batches of 16 at
+# microbatch OBS_MICROBATCH; the sleep kernel ahead of the deferred step
+# (about 0.1 s at the H100's SM clock) and ahead of each timed dispatch
+OBS_BATCHES, OBS_MICROBATCH = 8, 8
+OBS_SLEEP_CYCLES = 200_000_000
+OBS_HOST_SLEEP_CYCLES = 20_000_000
+OBS_HOST_REPS = 10
+OBS_WALL_TURNS = 3
+OBS_FLEET_ROUNDS = 3
+
+
+# the spans a VisionEngine stream opens: in a profile each is also a
+# device-side user annotation over the kernels it launched
+OBS_SPANS = ("stream", "microbatch")
+
+
+# profiles of the two streams taken until their device events agree: the
+# tracer now and then drops an event of a long session (profile_session),
+# while a kernel obs added would show in every pair
+OBS_PROFILE_PAIRS = 3
+# batches of the profiled stream: a shorter session than the counted one
+# (a session of ~9,600 device events lost one or two of them)
+OBS_PROFILED_BATCHES = 2
+
+
+def profiled_kernels(prof) -> dict:
+    """{name: count} of a profile's device events that are kernels or
+    copies (the markers and the spans' device-side annotations left
+    out)."""
+    from torch.autograd import DeviceType
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not is_marker(e)
+            and e.key not in OBS_SPANS}
+
+
+def profiled_pair(plain, instr, batches) -> tuple:
+    """Profiles of one more stream of each engine, taken in pairs until
+    their kernels and copies agree: (plain counts, instrumented counts,
+    the instrumented profile's event names, each pair's differing
+    events)."""
+    diffs = []
+    for _ in range(OBS_PROFILE_PAIRS):
+        prof_p, _ = profile_session(lambda: list(plain.stream(batches)))
+        prof_o, _ = profile_session(lambda: list(instr.stream(batches)))
+        k_p, k_o = profiled_kernels(prof_p), profiled_kernels(prof_o)
+        diffs.append({k[:60]: (k_p.get(k, 0), k_o.get(k, 0))
+                      for k in set(k_p) | set(k_o)
+                      if k_p.get(k, 0) != k_o.get(k, 0)})
+        if k_p == k_o:
+            break
+    return k_p, k_o, {e.key for e in prof_o.key_averages()}, diffs
+
+
+def obs_stream_pair(cfg, params, batches, device, fused_stream):
+    """The same stream through ``VisionEngine`` with ``obs=None`` and with
+    an ``Obs``, each engine's launches read from its run alone; returns
+    ((engine, outs, counts) without obs, the same with obs, the Obs)."""
+    import repro_torch.obs as obs_mod
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serving import VisionEngine
+    obs = obs_mod.Obs()
+    runs = []
+    for o in (None, obs):
+        eng = VisionEngine(cfg, params, seed=0, device=device,
+                           microbatch=OBS_MICROBATCH,
+                           fused_stream=fused_stream, obs=o)
+        cuda_lib.reset_launch_counts()
+        outs = list(eng.stream(batches))
+        runs.append((eng, outs, cuda_lib.launch_counts()))
+    return runs[0], runs[1], obs
+
+
+def obs_phase(device, smi: str) -> None:
+    """``obs``: the telemetry slice on the card (module docstring, phase
+    16). Checks that obs adds no launch, no kernel and no changed bit to
+    the stream, that a deferred exact step leaves the host free behind a
+    long sleep kernel, the obs-enabled fleet's instruments and the CLI
+    smoke; records the walls of async, synchronous and uninstrumented
+    streams, the microbatch latency quantiles and obs's host cost."""
+    import torch
+    import repro_torch.obs as obs_mod
+    from repro_torch.models import vision
+    from repro_torch.serving import VisionEngine
+
+    cfg = vision.VisionConfig()          # phase 4's vgg16
+    params = vision.init_params(0, cfg, device=device)
+    gen = torch.Generator().manual_seed(13)
+    batches = [torch.rand((16, 32, 32, 3), generator=gen).to(device)
+               for _ in range(OBS_BATCHES)]
+    keys = ("labels", "probs", "theta_used", "stream_fused")
+
+    # (a) obs=None against obs, on the cuda path's fused stream and pinned
+    # to the deferred exact path: the same launches, the same outputs bit
+    # for bit, the same device kernels in a profile of one more stream,
+    # and the spans' names in that profile
+    paths = {}
+    for path, fused in (("engine_obs", None), ("engine_obs_exact", False)):
+        (plain, outs_p, n_p), (instr, outs_o, n_o), obs = obs_stream_pair(
+            cfg, params, batches, device, fused)
+        check_path_counts(n_o, path)
+        check(n_o == n_p, f"{path}: launches with obs {n_o}, without {n_p}")
+        same = [all(torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
+                    for k in keys) for a, b in zip(outs_p, outs_o)]
+        check(len(same) == OBS_BATCHES and all(same),
+              f"{path}: obs changed an output: {same}")
+        spans = obs.summary()["spans"]
+        n_micro = OBS_BATCHES * (16 // OBS_MICROBATCH)
+        check(spans.get("microbatch") == n_micro
+              and spans.get("stream") == OBS_BATCHES
+              and spans.get("microbatch_ready", 0)
+              == (n_micro if fused is False else 0),
+              f"{path}: spans {spans}")
+        k_p, k_o, names, diffs = profiled_pair(
+            plain, instr, batches[:OBS_PROFILED_BATCHES])
+        check(k_p == k_o and sum(k_p.values()) > 0,
+              f"{path}: device events (without obs, with obs) {diffs}")
+        check(set(OBS_SPANS) <= names,
+              f"{path}: span names missing from the profile")
+        paths[path] = dict(launches=n_o,
+                           profiled_device_events=sum(k_o.values()),
+                           profile_pair_diffs=diffs,
+                           fused_steps=instr.fused_step_count,
+                           fallbacks=instr.fused_fallback_count,
+                           spans=spans)
+
+    # (b) a deferred exact microbatch queued behind a long sleep kernel:
+    # its dispatch returns with the step in flight, and the probe latches
+    # a latency that covers the rest of the sleep
+    eng = VisionEngine(cfg, params, seed=0, device=device,
+                       microbatch=OBS_MICROBATCH, fused_stream=False,
+                       obs=obs_mod.Obs())
+    x = batches[0][:OBS_MICROBATCH]
+    list(eng.stream([batches[0]]))               # the allocator's blocks
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(OBS_SLEEP_CYCLES)
+    end.record()
+    torch.cuda.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    t_enq = time.perf_counter()
+    torch.cuda._sleep(OBS_SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    eng._classify(x, None, advance=True, fused=False, defer=True)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    probe = eng._batch_probes[-1]
+    in_flight = not probe.poll()
+    latency_ms = probe.wait() * 1e3
+    gap_ms = (probe.t0 - t_enq) * 1e3
+    eng._pending.drain()
+    eng._batch_probes.clear()
+    check(in_flight and dispatch_ms < sleep_ms / 2,
+          f"a deferred exact step waited for the device (dispatch "
+          f"{dispatch_ms} ms behind a {sleep_ms} ms sleep)")
+    check(latency_ms >= sleep_ms - gap_ms,
+          f"the probe latched {latency_ms} ms, before the {sleep_ms} ms "
+          f"sleep ({gap_ms} ms of it before dispatch) was over")
+
+    # (c) the host time obs adds to a deferred exact step: its dispatch
+    # timed behind a sleep (the host never waits), obs=None and obs in
+    # turns
+    host = {"none": [], "obs": []}
+    engines = {"none": VisionEngine(cfg, params, seed=0, device=device,
+                                    microbatch=OBS_MICROBATCH,
+                                    fused_stream=False),
+               "obs": VisionEngine(cfg, params, seed=0, device=device,
+                                   microbatch=OBS_MICROBATCH,
+                                   fused_stream=False, obs=obs_mod.Obs())}
+    for e in engines.values():
+        list(e.stream([batches[0]]))
+    for _ in range(OBS_HOST_REPS):
+        for name in ("none", "obs", "obs", "none"):
+            e = engines[name]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(OBS_HOST_SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            e._classify(x, None, advance=True, fused=False, defer=True)
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            e._pending.drain()
+            e._batch_probes.clear()
+    host_ms = {k: statistics.median(v) for k, v in host.items()}
+
+    # (d) the merged batch walls: async with obs, sync_timing with obs and
+    # async without obs, on the exact path, in turns
+    obs_async = obs_mod.Obs()
+    modes = {"async_obs": dict(obs=obs_async),
+             "sync_timing_obs": dict(obs=obs_mod.Obs(), sync_timing=True),
+             "async_no_obs": {}}
+    wall_engines = {m: VisionEngine(cfg, params, seed=0, device=device,
+                                    microbatch=OBS_MICROBATCH,
+                                    fused_stream=False, **kw)
+                    for m, kw in modes.items()}
+    for e in wall_engines.values():
+        list(e.stream(batches[:2]))
+    obs_async.registry = obs_mod.MetricsRegistry()   # steady walls only
+    walls = {m: [] for m in modes}
+    order = list(modes)
+    for turn in range(OBS_WALL_TURNS):
+        for m in (order if turn % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            walls[m] += [o["wall_ms"]
+                         for o in wall_engines[m].stream(batches)]
+    hist = obs_async.registry.histogram("serving_microbatch_wall_ms")
+    check(hist.count == OBS_WALL_TURNS * OBS_BATCHES * 2,
+          f"{hist.count} microbatch latencies recorded")
+
+    # (e) the obs-enabled fleet at FLEET_G chips: join, serve (pinned to
+    # the deferred exact path, and on the default fused stream), a forced
+    # sweep, a leave, save and load
+    fleet = obs_fleet_checks(device)
+
+    # (f) the CLI smoke in its own process, on this card
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.obs", "smoke",
+                          "--out", os.path.join(ROOT, "build", "obs_smoke")],
+                         env=env, capture_output=True, text=True,
+                         timeout=600, cwd=ROOT)
+    smoke_s = time.perf_counter() - t0
+    check(res.returncode == 0,
+          f"python -m repro_torch.obs smoke: {res.stdout[-2000:]}"
+          f"{res.stderr[-2000:]}")
+
+    med = {m: statistics.median(v) for m, v in walls.items()}
+    emit("obs", model="vgg16", batch=16, microbatch=OBS_MICROBATCH,
+         batches=OBS_BATCHES, nvidia_smi=smi, paths=paths,
+         deferred_step=dict(sleep_ms=sleep_ms, dispatch_ms=dispatch_ms,
+                            in_flight_at_return=in_flight,
+                            latency_ms=latency_ms,
+                            sleep_before_dispatch_ms=gap_ms),
+         host_dispatch_ms_median=host_ms,
+         host_ms_added_by_obs=host_ms["obs"] - host_ms["none"],
+         batch_wall_ms_median=med,
+         batch_wall_ms=walls,
+         microbatch_wall_ms=dict(count=hist.count, p50=hist.quantile(0.5),
+                                 p95=hist.quantile(0.95),
+                                 p99=hist.quantile(0.99)),
+         fleet=fleet, cli_smoke_seconds=smoke_s,
+         cli_smoke_last_line=res.stdout.strip().splitlines()[-1])
+
+
+def obs_fleet_checks(device) -> dict:
+    """An obs-enabled ``FleetEngine`` of ``FLEET_G`` chips on
+    BENCH_fleet.json's profiles (see ``obs_phase`` (e)); returns its
+    instruments."""
+    import torch
+    import repro_torch.obs as obs_mod
+    from repro_torch.models import vision
+
+    cfg, dcfg = fleet_config()
+    params = vision.init_params(0, cfg, device=device)
+    cal = torch.rand((16, 32, 32, 3),
+                     generator=torch.Generator().manual_seed(67))
+    chips = list(range(FLEET_G))
+    rounds = fleet_rounds(OBS_FLEET_ROUNDS, chips, 97)
+    out = {}
+    for name, fused in (("exact", False), ("auto", None)):
+        obs = obs_mod.Obs()
+        fe = fleet_engine(cfg, params, dcfg, cal, device, auto=False,
+                          chips_per_step=FLEET_G, fused_stream=fused,
+                          obs=obs)
+        for cid in chips:
+            fe.add_chip(cid)
+        for batch in rounds:
+            fe.serve(batch)
+        fe.run_sweep(force=True)
+        fe.remove_chip(chips[-1])
+        ckpt = os.path.join(ROOT, "build", f"obs_fleet_{name}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        fe.save(ckpt)
+        fleet_engine(cfg, params, dcfg, cal, device, auto=False,
+                     chips_per_step=FLEET_G, obs=obs).load(ckpt)
+        summ = obs.summary()
+        ev, m = summ["events"], summ["metrics"]
+        val = lambda k: m[k]["value"]
+        # the load re-registers the chips left
+        check(ev.get("fleet_join") == 2 * FLEET_G - 1
+              and ev.get("fleet_leave") == ev.get("fleet_sweep")
+              == ev.get("checkpoint_save") == ev.get("checkpoint_load") == 1,
+              f"fleet events ({name}): {ev}")
+        check(val("fleet_drains_total") == OBS_FLEET_ROUNDS
+              and val("fleet_steps_total") == OBS_FLEET_ROUNDS
+              and m["fleet_step_wall_ms"]["count"] == OBS_FLEET_ROUNDS
+              and val("serving_frames_total")
+              == OBS_FLEET_ROUNDS * FLEET_G * FLEET_BATCH
+              and val("fleet_sweeps_total") == 1
+              and val("fleet_chips_refreshed_total") == FLEET_REFRESH
+              and val("fleet_size") == FLEET_G - 1
+              and val("fleet_drain_wall_ms") >= 0.0,
+              f"fleet instruments ({name}): {m}")
+        probed = OBS_FLEET_ROUNDS if fused is False else 0
+        check(val("fleet_probes_drained_total") == probed
+              and val("fleet_probe_high_water") == min(probed, 1)
+              and summ["spans"].get("step_ready", 0) == probed,
+              f"fleet probes ({name}): {m}")
+        if fused is None:
+            check(m.get("serving_fused_steps_total", {}).get("value", 0)
+                  >= 1, "no fused fleet step recorded")
+        check(summ["spans"].get("recal_solve_fleet") == 1,
+              f"fleet sweep span ({name}): {summ['spans']}")
+        out[name] = dict(events=ev, spans=summ["spans"], metrics={
+            k: (v["value"] if v["type"] != "histogram"
+                else {q: v[q] for q in ("count", "p50", "p95", "p99")})
+            for k, v in m.items()})
+    return out
+
+
+def obs_subprocess() -> None:
+    """The ``obs`` phase in a process of its own (``--obs-phase``), after
+    every profiler session of this one: a session late in a long process
+    drops more device events, and with the ``obs`` phase before them (in
+    this process, or in a child) the flash lines' sessions dropped every
+    flash kernel event. Its lines are printed here; a failure there fails
+    here."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--obs-phase"], capture_output=True, text=True,
+                         timeout=900, cwd=ROOT)
+    sys.stdout.write(res.stdout)
+    sys.stdout.flush()
+    check(res.returncode == 0, f"the obs phase failed:\n{res.stderr[-4000:]}")
+
+
+def obs_main() -> int:
+    """``python3 chip_smoke.py --obs-phase``: the ``obs`` phase alone, on
+    the libraries ``main`` built."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_libraries()
+    obs_phase(torch.device("cuda"), nvidia_smi_line())
+    return 0
+
+
 def build_libraries() -> dict:
     """Build every kernel library at once (one nvcc each); returns
     ``{name: (path, seconds)}``."""
@@ -3787,6 +4148,10 @@ def main() -> int:
     for geom in (SERVING, IMAGENET):
         variation_kernels_phase(geom, device)
     yield_phase(device, smi)
+    # last, and in a process of its own: no profiler session of this
+    # process follows it
+    t_obs = time.perf_counter()
+    obs_subprocess()
     t_end = time.perf_counter()
     # wall seconds of each group of phases, and from the build to here
     emit("seconds", build=build_s, kernels=t_vision - t_kernels,
@@ -3794,7 +4159,7 @@ def main() -> int:
          flash=t_lm - t_flash, lm=t_train - t_lm,
          train=t_lifetime - t_train, lifetime=t_fleet - t_lifetime,
          fleet=t_variation - t_fleet,
-         variation=t_end - t_variation,
+         variation=t_obs - t_variation, obs=t_end - t_obs,
          total=t_end - t0)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},
@@ -3826,4 +4191,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(obs_main() if sys.argv[1:] == ["--obs-phase"] else main())

@@ -39,13 +39,12 @@ def global_shutter_readout(states: torch.Tensor,
     stats = {
         "activated_fraction": activated / n_neurons,
         "reset_pulses": reset_pulses,
-        # a chip stack's is a fill on the device: a copy from the host
-        # would wait for the stream (a host sync in a deferred fleet step)
-        "read_energy_pj": (
-            torch.full(activated.shape, n_dev * consts.e_mtj_read_pj,
-                       dtype=torch.float32, device=states.device) if chips
-            else torch.tensor(n_dev * consts.e_mtj_read_pj,
-                              dtype=torch.float32, device=states.device)),
+        # a fill on the device: a copy from the host would wait for the
+        # stream (a host sync in every deferred step)
+        "read_energy_pj": torch.full(activated.shape,
+                                     n_dev * consts.e_mtj_read_pj,
+                                     dtype=torch.float32,
+                                     device=states.device),
         "reset_energy_pj": reset_pulses * consts.e_mtj_write_pj,
     }
     return read_bits, stats

@@ -28,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import statistics
-import subprocess
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -127,28 +126,14 @@ def resolve_fleet_fused(chips_in_batch: int, n: int, k_eff: int, c_out: int,
     return get_fleet(chips_in_batch, n, k_eff, c_out).fused
 
 
-def _card_meta() -> Dict:
-    meta = {"torch": torch.__version__, "cuda": torch.version.cuda,
-            "device": None, "nvidia_smi": None}
-    if torch.cuda.is_available():
-        meta["device"] = torch.cuda.get_device_name(0)
-        try:
-            res = subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"], capture_output=True, text=True,
-                timeout=60, check=True)
-            meta["nvidia_smi"] = res.stdout.strip().splitlines()[0]
-        except (OSError, subprocess.SubprocessError, IndexError):
-            pass
-    return meta
-
-
 def save_table(path: str) -> None:
     """Persist the in-process table as JSON (``{"n,k,c": {...}}``) with a
-    ``"_meta"`` stamp of where it was written."""
+    ``"_meta"`` stamp of where it was written (``obs.export.bench_meta``:
+    the torch and CUDA versions, the card and its power limit)."""
+    from repro_torch.obs.export import bench_meta
     table = {",".join(map(str, k)): v.to_json()
              for k, v in sorted(_TABLE.items())}
-    table["_meta"] = {**_card_meta(), "entries": len(_TABLE)}
+    table["_meta"] = bench_meta("autotune", entries=len(_TABLE))
     with open(path, "w") as f:
         json.dump(table, f, indent=2)
 

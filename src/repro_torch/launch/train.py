@@ -14,7 +14,6 @@ not ported: an LM arch exits non-zero.
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
@@ -22,6 +21,7 @@ from repro_torch import frontend, prng
 from repro_torch.data import ImageStream
 from repro_torch.devices import resolve_device
 from repro_torch.models import vision
+from repro_torch.obs.clock import now
 from repro_torch.train import vision as vision_loop
 
 VISION_ARCHS = ("vgg16", "vgg_tiny", "resnet18", "resnet20")
@@ -51,12 +51,12 @@ def train_vision(args) -> None:
     stream = ImageStream(hw=32, num_classes=10, global_batch=args.batch,
                          device=device)
 
-    t0 = time.perf_counter()
+    t0 = now()
     params = vision_loop.fit(params, cfg, stream, args.steps, lr=args.lr,
                              key=prng.PRNGKey(1),
                              log_every=max(args.steps // 10, 1))
     _sync(device)
-    dt = time.perf_counter() - t0
+    dt = now() - t0
     print(f"{args.steps} steps in {dt:.1f}s "
           f"({1e3 * dt / max(args.steps, 1):.0f} ms/step)")
 

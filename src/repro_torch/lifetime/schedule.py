@@ -37,6 +37,7 @@ from repro_torch.core import energy, hoyer, p2m
 from repro_torch.devices import resolve_device
 from repro_torch.lifetime.drift import DriftMaps
 from repro_torch.models.params import to_device
+from repro_torch.obs.clock import WallProbe
 from repro_torch.variation.calibrate import (channel_rates, solve_trim,
                                              target_rates)
 from repro_torch.variation.chip import ChipMaps
@@ -81,13 +82,18 @@ class RecalibrationScheduler:
     ``params_p2m`` holds the deployed ``{"w", "v_th"}`` frontend weights,
     ``cal_frames`` a (B, H, W, C) calibration batch that every refresh
     re-exposes; both move to ``device`` (the GPU unless asked otherwise).
+    ``obs`` (a ``repro_torch.obs.Obs``) records each solve as a
+    ``recal_solve`` / ``recal_solve_fleet`` span that closes when the solve
+    is done on the device; without it a solve is queued and not waited
+    for.
     """
 
     def __init__(self, policy: SchedulePolicy, pcfg: p2m.P2MConfig,
                  cal_frames, params_p2m: dict, *,
                  frame_spec: Optional[energy.FrameSpec] = None,
                  consts: energy.EnergyConstants = energy.DEFAULT_ENERGY,
-                 device=None):
+                 device=None, obs=None):
+        self._obs = obs
         if not policy.enabled:
             raise ValueError("SchedulePolicy needs period_frames and/or "
                              "rate_err_threshold set")
@@ -122,6 +128,14 @@ class RecalibrationScheduler:
         self._ema: Optional[np.ndarray] = None
         self._baseline: Optional[np.ndarray] = None
         self._last_err = 0.0
+
+    def _spanned_solve(self, chip: ChipMaps, span: str) -> torch.Tensor:
+        if self._obs is None:
+            return self._solve(chip)
+        with self._obs.span(span, iters=self.policy.cal_iters):
+            trim = self._solve(chip)
+            WallProbe.record(self.device).wait()
+        return trim
 
     def _solve(self, chip: ChipMaps) -> torch.Tensor:
         return solve_trim(self._u, self._theta, chip, self._ref, self.pcfg,
@@ -160,7 +174,7 @@ class RecalibrationScheduler:
     def recalibrate(self, chip: ChipMaps) -> torch.Tensor:
         """The trim re-solved against the aged chip; re-arms the monitor's
         baseline. Key-free: the tester measures expected rates."""
-        trim = self._solve(chip)
+        trim = self._spanned_solve(chip, "recal_solve")
         self._ema = None
         self._baseline = None
         self._last_err = 0.0
@@ -169,7 +183,7 @@ class RecalibrationScheduler:
     def recalibrate_fleet(self, chips: ChipMaps) -> torch.Tensor:
         """The (K, C) trims of a stack of K chips in one bisection. Unlike
         ``recalibrate`` it leaves the single-chip monitor as it is."""
-        return self._solve(chips)
+        return self._spanned_solve(chips, "recal_solve_fleet")
 
     def rate_error(self, chip: ChipMaps,
                    trim: Optional[torch.Tensor]) -> float:

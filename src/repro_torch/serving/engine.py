@@ -21,7 +21,6 @@ the recorded times are honest end-to-end times.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional
 
 import torch
@@ -30,6 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.params import to_device
+from repro_torch.obs.clock import now
 
 
 def make_prefill_step(cfg: ArchConfig, mesh=None, rules=None):
@@ -108,18 +108,18 @@ class ServingEngine:
         b = prompts.shape[0]
         with torch.inference_mode():
             self._sync()
-            t0 = time.perf_counter()
+            t0 = now()
             last_logits, cache = self.prefill(self.params, prompts)
             cache = pad_prefill_cache(self.cfg, cache, b, self.max_len)
             tok = torch.argmax(last_logits.to(torch.float32), dim=-1)
             out = [tok[:, None].to(torch.int32)]
             self._sync()
-            t1 = time.perf_counter()
+            t1 = now()
             for _ in range(max_new_tokens - 1):
                 nxt, cache = self.decode(self.params, cache, out[-1])
                 out.append(nxt)
             self._sync()
-            t2 = time.perf_counter()
+            t2 = now()
         self.prefill_logits = last_logits
         self.stats = {
             "prefill_ms": (t1 - t0) * 1e3,

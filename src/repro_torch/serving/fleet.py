@@ -45,11 +45,24 @@ moves. Birth calibration solves each joining chip's trim eagerly, as
 
 Dispatch. An exact step is queued without a host sync (its host operands,
 the gather rows, the ages' factors and the draw keys, go up through pinned
-staging copies that do not wait for the device) and a
-``torch.cuda.Event`` recorded behind it; a batch drains once, at its end,
-reading each step's readiness from its event. Fused steps read their fresh
-thetas on the host and so are synchronous; ``sync_timing=True``
-synchronizes every step.
+staging copies that do not wait for the device) and an
+``obs.clock.WallProbe`` (a ``torch.cuda.Event``) recorded behind it; a
+batch drains once, at its end, reading each step's readiness from its
+event. Fused steps read their fresh thetas on the host and so are
+synchronous; ``sync_timing=True`` synchronizes every step.
+
+Telemetry: ``obs=`` (a ``repro_torch.obs.Obs``) records the
+``fleet_step_wall_ms`` histogram; the ``fleet_drain_wall_ms``,
+``fleet_probe_high_water`` and ``fleet_size`` gauges; the
+``serving_frames_total``, ``fleet_steps_total``,
+``serving_fused_steps_total`` / ``serving_fused_fallback_total``,
+``fleet_probes_drained_total``, ``fleet_drains_total``,
+``fleet_sweeps_total`` and ``fleet_chips_refreshed_total`` counters; the
+``serve``, ``step`` and ``sweep`` spans and each deferred step's
+``step_ready`` complete span; and the ``fleet_join``, ``fleet_leave``,
+``fleet_sweep``, ``drift_guard_fallback``, ``checkpoint_save`` and
+``checkpoint_load`` events. It also reaches the sweep's scheduler.
+``obs=None`` costs one ``is None`` check a hook.
 
 Warm restarts: ``save()`` persists the full fleet (stacked chips, trims,
 ages, telemetry, rng frame clocks and theta carries) through
@@ -59,14 +72,14 @@ reads a checkpoint the reference's engine wrote.
 
 ``device=None`` means the GPU (the engine raises without one);
 ``device="cpu"`` runs the kernels' plain versions. Not ported yet: the
-reference's ``mesh=`` / ``rules=`` (sharded fleets) and ``obs=``
-(telemetry spans, gauges and events, and its readiness probe).
+reference's ``mesh=`` / ``rules=`` (sharded fleets).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import (ContextManager, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -80,6 +93,7 @@ from repro_torch.lifetime import (DriftMaps, RecalibrationScheduler,
                                   evolve_chip, sample_drift_maps)
 from repro_torch.models import vision
 from repro_torch.models.params import to_device
+from repro_torch.obs.clock import WallProbe, now
 from repro_torch.serving.vision import _merge_outputs
 from repro_torch.variation.calibrate import solve_trim, target_rates
 from repro_torch.variation.chip import ChipMaps, identity_chip, sample_chip
@@ -144,24 +158,6 @@ class _WorkItem:
     advance: bool = True         # False: pinned-key replay (ages nothing)
 
 
-class _StepProbe:
-    """A dispatched step's readiness: a CUDA event recorded behind it (none
-    on the CPU, where the step has already run)."""
-
-    def __init__(self, device: torch.device, t0: float, frames: int):
-        self.t0, self.frames = t0, frames
-        self.event = None
-        if device.type == "cuda":
-            self.event = torch.cuda.Event()
-            self.event.record()
-
-    def wait(self) -> float:
-        """Seconds from dispatch to the step's completion, as seen now."""
-        if self.event is not None:
-            self.event.synchronize()
-        return time.perf_counter() - self.t0
-
-
 class FleetEngine:
     """Multi-chip frame-classification engine on one device."""
 
@@ -178,12 +174,13 @@ class FleetEngine:
                  fused_theta_tol: float = 0.02,
                  fused_theta_ema: float = 0.9,
                  tile_table: Optional[str] = None,
-                 sync_timing: bool = False):
+                 obs=None, sync_timing: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.backend = backend or cfg.frontend_backend
         get_backend(self.backend)   # fail fast on typos
         self.microbatch = microbatch
+        self._obs = obs
         self._sync_timing = bool(sync_timing)
         self.chips_per_step = int(chips_per_step)
         if self.chips_per_step < 1:
@@ -254,7 +251,8 @@ class FleetEngine:
                                  "(the tester re-exposes them per refresh)")
             self._scheduler = RecalibrationScheduler(
                 sweep.policy, pcfg, calibration_frames, self.params["p2m"],
-                frame_spec=self._frame_spec(), device=self.device)
+                frame_spec=self._frame_spec(), device=self.device,
+                obs=self._obs)
 
         self.state = self._empty_state()
 
@@ -330,6 +328,10 @@ class FleetEngine:
             a = getattr(st, name)
             setattr(st, name, np.concatenate(
                 [a, np.zeros((1,) + a.shape[1:], a.dtype)]))
+        self._event("fleet_join", chip_id=chip_id, fleet_size=st.size,
+                    calibrated=bool(do_cal))
+        if self._obs is not None:
+            self._obs.gauge("fleet_size").set(st.size)
         return st.size - 1
 
     def remove_chip(self, chip_id: int) -> None:
@@ -345,6 +347,9 @@ class FleetEngine:
         for name in _HOST_LEAVES:
             setattr(st, name, np.delete(getattr(st, name), i, axis=0))
         self._theta_carry.pop(int(chip_id), None)
+        self._event("fleet_leave", chip_id=int(chip_id), fleet_size=st.size)
+        if self._obs is not None:
+            self._obs.gauge("fleet_size").set(st.size)
 
     def _ensure_chip(self, chip_id: int) -> int:
         """Row of ``chip_id``, registering an unknown id (a chip joining
@@ -368,6 +373,23 @@ class FleetEngine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # --- telemetry -----------------------------------------------------------
+
+    def _span(self, name: str, **args) -> ContextManager[None]:
+        return (self._obs.span(name, **args) if self._obs is not None
+                else contextlib.nullcontext())
+
+    def _event(self, name: str, **args) -> None:
+        if self._obs is not None:
+            self._obs.event(name, **args)
+
+    def _record_step(self, wall_s: float, n_frames: int) -> None:
+        if self._obs is not None:
+            self._obs.histogram("fleet_step_wall_ms").record(wall_s * 1e3)
+            self._obs.counter("serving_frames_total").inc(n_frames)
+            self._obs.counter("fleet_steps_total").inc()
+            self._obs.gauge("fleet_size").set(self.state.size)
 
     # --- the fleet step ------------------------------------------------------
 
@@ -472,7 +494,7 @@ class FleetEngine:
 
     def _run_step(self, group: List[_WorkItem], stream: bool = True,
                   defer: bool = False
-                  ) -> Tuple[List[Dict], Optional[_StepProbe]]:
+                  ) -> Tuple[List[Dict], Optional[WallProbe]]:
         """Run one packed step; returns one output dict per item and the
         step's probe (None where the step was synchronized).
 
@@ -497,19 +519,29 @@ class FleetEngine:
         probe = None
         if self._sync_timing or not defer or fused:
             self._sync()
-        t0 = time.perf_counter()
+        t0 = now()
         if run_fused:
             theta = to_device_async(np.asarray(carries, np.float32),
                                     self.device)
-            out = self._forward(chips, trims, frames, keys, theta)
+            with self._span("step", chips=g, frames=total_frames,
+                            path="fused"):
+                out = self._forward(chips, trims, frames, keys, theta)
+                fresh = out["theta"].detach().cpu().numpy().astype(
+                    np.float64)
             self.fused_step_count += 1
-            fresh = out["theta"].detach().cpu().numpy().astype(np.float64)
+            if self._obs is not None:
+                self._obs.counter("serving_fused_steps_total").inc()
             drifts = np.abs(fresh - np.asarray(carries)) / np.maximum(
                 np.abs(np.asarray(carries)), 1e-9)
             if float(np.max(drifts)) > self._fused_theta_tol:
                 # some chip's carried threshold went stale: re-serve the
                 # whole step exact (same keys: the draws' sequence is the
                 # same either way) and re-seed every carry
+                self._event("drift_guard_fallback",
+                            chip_ids=[it.chip_id for it in group],
+                            drift=float(np.max(drifts)))
+                if self._obs is not None:
+                    self._obs.counter("serving_fused_fallback_total").inc()
                 out = self._forward(chips, trims, frames, keys)
                 self.fused_fallback_count += 1
                 seeds = out["theta"].detach().cpu().tolist()
@@ -524,10 +556,13 @@ class FleetEngine:
                 ran_fused = True
             drift_vals = [float(d) for d in drifts]
             self._sync()
-            wall = time.perf_counter() - t0
+            wall = now() - t0
+            self._record_step(wall, total_frames)
         else:
             sync = self._sync_timing or not defer or bool(fused)
-            out = self._forward(chips, trims, frames, keys)
+            with self._span("step", chips=g, frames=total_frames,
+                            path="exact"):
+                out = self._forward(chips, trims, frames, keys)
             if fused:
                 # the step wanted fused but some chip had no carry yet (its
                 # stream's first microbatch): the exact run seeds them all,
@@ -539,9 +574,13 @@ class FleetEngine:
             drift_vals = [0.0] * g
             if sync:
                 self._sync()
+                wall = now() - t0
+                self._record_step(wall, total_frames)
             else:
-                probe = _StepProbe(self.device, t0, total_frames)
-            wall = time.perf_counter() - t0
+                # the drain replaces this dispatch-side wall
+                probe = WallProbe.record(self.device, t0=t0,
+                                         frames=total_frames, chips=g)
+                wall = now() - t0
 
         outs: List[Dict] = []
         for i, it in enumerate(group):
@@ -619,18 +658,37 @@ class FleetEngine:
         items = self._plan(requests)
         defer = not self._sync_timing
         steps = []
-        # dispatch every packed step (exact ones without a host sync) ...
-        for group in self._group(items):
-            outs, probe = self._run_step(group, defer=defer)
-            steps.append((group, outs, probe))
-        # ... then drain once: each deferred step's wall as its event saw it
-        for group, outs, probe in steps:
-            if probe is None:
-                continue
-            wall = probe.wait()
-            for it, o in zip(group, outs):
-                o["wall_ms"] = wall * 1e3 * it.frames.shape[0] / probe.frames
-                o["throughput_fps"] = probe.frames / wall
+        with self._span("serve", requests=len(requests)):
+            # dispatch every packed step (exact ones without a host sync) ..
+            for group in self._group(items):
+                outs, probe = self._run_step(group, defer=defer)
+                steps.append((group, outs, probe))
+            # ... then drain once: each deferred step's wall as its event
+            # saw it. Every probed step is still pending when the drain
+            # starts (dispatch never harvests), so their count is the
+            # batch's probe high-water mark.
+            outstanding = (sum(1 for _, _, p in steps if p is not None)
+                           if self._obs is not None else 0)
+            drain_t0 = now() if self._obs is not None else 0.0
+            for group, outs, probe in steps:
+                if probe is None:
+                    continue
+                wall = probe.wait()
+                total = probe.tags["frames"]
+                self._record_step(wall, total)
+                if self._obs is not None:
+                    self._obs.complete_span("step_ready", probe.t0,
+                                            probe.t0 + wall, **probe.tags)
+                for it, o in zip(group, outs):
+                    o["wall_ms"] = wall * 1e3 * it.frames.shape[0] / total
+                    o["throughput_fps"] = total / wall
+            if self._obs is not None:
+                self._obs.gauge("fleet_drain_wall_ms").set(
+                    (now() - drain_t0) * 1e3)
+                self._obs.gauge("fleet_probe_high_water").set(outstanding)
+                self._obs.counter("fleet_probes_drained_total").inc(
+                    outstanding)
+                self._obs.counter("fleet_drains_total").inc()
         per_req: Dict[int, List[Tuple[_WorkItem, Dict]]] = {}
         for group, outs, _ in steps:
             # commits run in plan order: the groups keep it
@@ -725,9 +783,10 @@ class FleetEngine:
         padded = np.concatenate([chosen, np.full((width - k,), chosen[0])])
         chips, _ = self._gather_operands(
             padded, st.age_frames[padded].astype(np.float64))
-        trims = self._scheduler.recalibrate_fleet(chips)
-        rows = to_device_async(chosen.astype(np.int64), self.device)
-        st.trim = st.trim.index_copy(0, rows, trims[:k])
+        with self._span("sweep", refreshing=int(k)):
+            trims = self._scheduler.recalibrate_fleet(chips)
+            rows = to_device_async(chosen.astype(np.int64), self.device)
+            st.trim = st.trim.index_copy(0, rows, trims[:k])
         for s in chosen:
             st.recal_count[s] += 1
             st.last_recal_frame[s] = st.age_frames[s]
@@ -742,6 +801,12 @@ class FleetEngine:
         self.sweep_count += 1
         report["refreshed"] = [int(st.chip_ids[s]) for s in chosen]
         report["energy_credit_pj"] = float(self._energy_credit_pj)
+        self._event("fleet_sweep", eligible=report["eligible"],
+                    refreshed=report["refreshed"],
+                    energy_credit_pj=report["energy_credit_pj"])
+        if self._obs is not None:
+            self._obs.counter("fleet_sweeps_total").inc()
+            self._obs.counter("fleet_chips_refreshed_total").inc(k)
         return report
 
     # --- warm restarts -------------------------------------------------------
@@ -775,6 +840,8 @@ class FleetEngine:
                             for cid, v in self._theta_carry.items()},
         }
         m.save(step, {"fleet": self._ckpt_tree()}, extra=extra)
+        self._event("checkpoint_save", step=int(step),
+                    fleet_size=self.state.size)
         return step
 
     def load(self, directory: str, step: Optional[int] = None) -> int:
@@ -811,4 +878,6 @@ class FleetEngine:
         self._energy_credit_pj = float(extra["energy_credit_pj"])
         self._theta_carry = {int(k): float(v)
                              for k, v in extra["theta_carry"].items()}
+        self._event("checkpoint_load", step=int(step),
+                    fleet_size=self.state.size)
         return step

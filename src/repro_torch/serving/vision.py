@@ -46,14 +46,35 @@ is without one, a scheduler armed or not.
 
 ``device=None`` means the GPU; without CUDA the engine raises rather than
 moving to the CPU on its own. ``device="cpu"`` runs the kernels' plain
-PyTorch versions. Timing is synchronous: the device is synchronized around
-every step, so ``wall_ms`` is the honest end-to-end time of the step.
+PyTorch versions.
+
+Timing. ``classify`` is synchronous: the device is synchronized around the
+step, so its ``wall_ms`` is the honest end-to-end time of the step. A
+stream's exact microbatch is dispatched without a host sync: a
+``obs.clock.WallProbe`` (a CUDA event recorded behind the step) latches its
+latency at the next non-blocking poll or at the batch's one drain, and the
+merged ``wall_ms`` / ``throughput_fps`` of the batch are the span from the
+first dispatch to the last step's completion. Fused steps (the drift guard
+reads the fresh theta on the host) and aging steps (the frame clock's
+scheduler reads the channel rates) stay synchronous and add their measured
+interval to that span. ``sync_timing=True`` synchronizes every step, and
+each batch's ``wall_ms`` is then the sum of its microbatch walls.
+
+Telemetry. ``obs=`` (a ``repro_torch.obs.Obs``) records the
+``serving_microbatch_wall_ms`` histogram, the ``serving_frames_total``,
+``serving_fused_steps_total`` and ``serving_fused_fallback_total``
+counters, the ``stream`` / ``microbatch`` spans (with ``frames`` and
+``path``) and each deferred step's ``microbatch_ready`` complete span, the
+``drift_guard_fallback`` and ``recalibration`` events (each with the
+config's ``chip_id``) and the ``lifetime_rate_err`` gauge, and hands
+itself to the engine's ``RecalibrationScheduler``. ``obs=None`` costs one
+``is None`` check a hook and changes no output and no kernel launch.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-import time
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import ContextManager, Dict, Iterable, Iterator, List, Optional
 
 import torch
 
@@ -66,12 +87,13 @@ from repro_torch.lifetime import (LifetimeState, RecalibrationScheduler,
                                   evolve_chip, sample_drift_maps)
 from repro_torch.models import vision
 from repro_torch.models.params import to_device
+from repro_torch.obs.clock import ProbeSet, WallProbe, now, span_bounds
 from repro_torch.variation.calibrate import apply_calibration
 from repro_torch.variation.chip import identity_chip, sample_chip
 
 
 class VisionEngine:
-    """Synchronous batched frame-classification engine on one device."""
+    """Batched frame-classification engine on one device."""
 
     def __init__(self, cfg: vision.VisionConfig, params,
                  backend: str = "cuda", seed: int = 0, device=None,
@@ -81,7 +103,8 @@ class VisionEngine:
                  fused_theta_ema: float = 0.9,
                  tile_table: Optional[str] = None,
                  calibration=None, drift=None, schedule=None,
-                 calibration_frames=None):
+                 calibration_frames=None, obs=None,
+                 sync_timing: bool = False):
         self.device = resolve_device(device)
         get_backend(backend)   # fail fast on typos
         if fused_stream and backend != "cuda":
@@ -98,6 +121,11 @@ class VisionEngine:
         self.params = to_device(params, self.device)
         self._key = prng.PRNGKey(seed)
         self._frame_count = 0
+        # telemetry: every hook sits behind one `is None` check
+        self._obs = obs
+        self._sync_timing = bool(sync_timing)
+        self._pending = ProbeSet()
+        self._batch_probes: List[WallProbe] = []
         # None = the table's choice for the executed microbatch's shape
         self._fused_stream = fused_stream
         self._fused_theta_tol = fused_theta_tol
@@ -122,6 +150,48 @@ class VisionEngine:
             c_out=pcfg.out_channels, kernel=pcfg.kernel_size,
             stride=pcfg.stride, n_mtj=pcfg.mtj.n_redundant)
 
+    # --- telemetry ----------------------------------------------------------
+
+    def _span(self, name: str, **args) -> ContextManager[None]:
+        return (self._obs.span(name, **args) if self._obs is not None
+                else contextlib.nullcontext())
+
+    def _event(self, name: str, **args) -> None:
+        if self._obs is not None:
+            self._obs.event(name, chip_id=self.cfg.chip_id, **args)
+
+    def _record_latency(self, wall_s: float, n_frames: int) -> None:
+        if self._obs is not None:
+            self._obs.histogram("serving_microbatch_wall_ms").record(
+                wall_s * 1e3)
+            self._obs.counter("serving_frames_total").inc(n_frames)
+
+    def _record_probe(self, p: WallProbe) -> None:
+        self._record_latency(p.latency, p.tags.get("frames", 0))
+        if self._obs is not None:
+            self._obs.complete_span("microbatch_ready", p.t0,
+                                    p.t0 + p.latency, **p.tags)
+
+    def _finish_batch(self, outs: List[Dict], sizes: List[int]) -> Dict:
+        """Merge one incoming batch's microbatch outputs. In async mode the
+        in-flight probes are drained first (the one blocking wait of the
+        batch; the merge reads values on the host) and the merged wall is
+        the span from the first dispatch to the last step's completion.
+        With ``sync_timing`` a one-microbatch batch's output is returned as
+        it is."""
+        probes, self._batch_probes = self._batch_probes, []
+        for p in self._pending.drain():
+            self._record_probe(p)
+        merged = (_merge_outputs(outs, sizes) if len(outs) > 1
+                  else outs[0])
+        if probes:
+            t0, t1 = span_bounds(probes)
+            wall = max(t1 - t0, 1e-9)
+            merged = dict(merged)
+            merged["wall_ms"] = wall * 1e3
+            merged["throughput_fps"] = sum(sizes) / wall
+        return merged
+
     # --- the aging chip -----------------------------------------------------
 
     def _init_lifetime(self, drift, schedule, calibration_frames) -> None:
@@ -143,7 +213,8 @@ class VisionEngine:
         if schedule is not None:
             self._scheduler = RecalibrationScheduler(
                 schedule, pcfg, calibration_frames, self.params["p2m"],
-                frame_spec=self._frame_spec(), device=self.device)
+                frame_spec=self._frame_spec(), device=self.device,
+                obs=self._obs)
 
     def _aged_params(self) -> Dict:
         """The params at the frame clock's age: the aged chip and the trim
@@ -169,6 +240,12 @@ class VisionEngine:
                 st.last_recal_frame = st.age_frames
                 st.recal_energy_pj += self._scheduler.recal_energy_pj
                 fired = 1.0
+                self._event("recalibration", age_frames=st.age_frames,
+                            recal_count=st.recal_count,
+                            rate_err=float(st.rate_err),
+                            energy_pj=float(st.recal_energy_pj))
+        if self._obs is not None and self._scheduler is not None:
+            self._obs.gauge("lifetime_rate_err").set(float(st.rate_err))
         return {"lifetime_age_frames": float(st.age_frames),
                 "lifetime_recal_count": float(st.recal_count),
                 "lifetime_recal_fired": fired,
@@ -210,25 +287,57 @@ class VisionEngine:
         return self._classify(self._frames(frames), key, advance=key is None)
 
     def _classify(self, frames: torch.Tensor, key, advance: bool,
-                  fused: Optional[bool] = None) -> Dict:
+                  fused: Optional[bool] = None, defer: bool = False) -> Dict:
         """``fused`` is tri-state: None = not a cuda-stream step (no
         streaming telemetry keys); False = a stream step kept on the exact
         path; True = attempt the fused carried-theta step. ``advance``
-        ticks an aging engine's frame clock after the step."""
+        ticks an aging engine's frame clock after the step.
+
+        ``defer=True`` (a stream step) without ``sync_timing`` dispatches an
+        exact step of a non-aging engine without a host sync: its probe
+        latches the latency later, and this output's ``wall_ms`` is the
+        dispatch-side time only. Fused and aging steps are synchronized
+        and join the batch's span as measured probes."""
         if key is None:
             key = prng.fold_in(self._key, self._frame_count)
             self._frame_count += 1
         params = self.params if self.lifetime is None else self._aged_params()
         n = frames.shape[0]
-        self._sync()
-        t0 = time.perf_counter()
-        if fused:
-            out, drift, ran_fused = self._fused_classify(params, frames, key)
-        else:
+        # harvest the in-flight steps already done: each latency latches at
+        # the first moment it is seen, not at the drain
+        for p in self._pending.poll():
+            self._record_probe(p)
+        in_batch = defer and not self._sync_timing
+        probe = None
+        if in_batch and not fused and self.lifetime is None:
+            t0 = now()
+            with self._span("microbatch", frames=n, path="exact"):
+                out = self._forward(params, frames, key)
+            probe = self._pending.add(
+                WallProbe.record(self.device, t0=t0, frames=n))
+            self._batch_probes.append(probe)
+            wall = now() - t0
             drift, ran_fused = 0.0, False
-            out = self._forward(params, frames, key)
-        self._sync()
-        wall = time.perf_counter() - t0
+        else:
+            self._sync()
+            t0 = now()
+            with self._span("microbatch", frames=n,
+                            path="fused" if fused else "exact"):
+                if fused:
+                    out, drift, ran_fused = self._fused_classify(
+                        params, frames, key)
+                else:
+                    drift, ran_fused = 0.0, False
+                    out = self._forward(params, frames, key)
+                self._sync()
+            wall = now() - t0
+            if in_batch:
+                done = WallProbe.completed(t0, wall, frames=n)
+                self._batch_probes.append(done)
+                if not fused:
+                    # an aging exact step: the reference probes it too
+                    probe = done
+                    self._record_probe(done)
         out = dict(out)
         if fused is not None:
             out["stream_fused"] = 1.0 if ran_fused else 0.0
@@ -239,6 +348,9 @@ class VisionEngine:
         out["throughput_fps"] = n / wall
         out["sensor_latency_us"] = self._sensor_latency_us
         out["sensor_fps"] = self._sensor_fps
+        if probe is None:
+            # synchronized steps record now, probed ones when they latch
+            self._record_latency(wall, n)
         if self.lifetime is not None and advance:
             out.update(self._advance_lifetime(out, n))
         return out
@@ -262,9 +374,15 @@ class VisionEngine:
                                         device=self.device)}}
         out = self._forward(fused_params, frames, key)
         self.fused_step_count += 1
+        if self._obs is not None:
+            self._obs.counter("serving_fused_steps_total").inc()
         fresh = float(out["theta"])
         drift = abs(fresh - carry) / max(abs(carry), 1e-9)
         if drift > self._fused_theta_tol:
+            self._event("drift_guard_fallback", drift=drift,
+                        theta_carry=carry, theta_fresh=fresh)
+            if self._obs is not None:
+                self._obs.counter("serving_fused_fallback_total").inc()
             out = self._forward(params, frames, key)
             out["theta_used"] = out["theta"]
             self._theta_carry = float(out["theta"])
@@ -279,7 +397,8 @@ class VisionEngine:
         incoming batch regardless of microbatching. Each stream starts a new
         scene: the carried threshold is dropped. An aging engine's frame
         clock advances per microbatch, and the scheduler may refresh the
-        trim between microbatches."""
+        trim between microbatches. Each batch's exact steps are dispatched
+        without a host sync and drained once, when the batch is merged."""
         self._theta_carry = None
         for frames in frame_batches:
             frames = self._frames(frames)
@@ -292,20 +411,23 @@ class VisionEngine:
                     return None
                 return self._stream_fused_enabled(n_frames, h, w)
 
-            if not mb or b <= mb:
-                outs = [self._classify(frames, None, advance=True,
-                                       fused=fused_arg(b))]
-                sizes = [b]
-            else:
-                base = prng.fold_in(self._key, self._frame_count)
-                self._frame_count += 1
-                starts = list(range(0, b, mb))
-                sizes = [min(mb, b - i) for i in starts]
-                outs = [self._classify(frames[i:i + sz],
-                                       prng.fold_in(base, j), advance=True,
-                                       fused=fused_arg(sz))
-                        for j, (i, sz) in enumerate(zip(starts, sizes))]
-            yield _merge_outputs(outs, sizes) if len(outs) > 1 else outs[0]
+            with self._span("stream", frames=b):
+                if not mb or b <= mb:
+                    outs = [self._classify(frames, None, advance=True,
+                                           fused=fused_arg(b), defer=True)]
+                    sizes = [b]
+                else:
+                    base = prng.fold_in(self._key, self._frame_count)
+                    self._frame_count += 1
+                    starts = list(range(0, b, mb))
+                    sizes = [min(mb, b - i) for i in starts]
+                    outs = [self._classify(frames[i:i + sz],
+                                           prng.fold_in(base, j),
+                                           advance=True, fused=fused_arg(sz),
+                                           defer=True)
+                            for j, (i, sz) in enumerate(zip(starts, sizes))]
+                merged = self._finish_batch(outs, sizes)
+            yield merged
 
 
 # aux keys that are per-CHANNEL vectors: merged by frame-weighted mean

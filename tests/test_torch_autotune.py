@@ -32,7 +32,9 @@ def test_save_load_round_trip(tmp_path):
     path = tmp_path / "tiles.json"
     autotune.save_table(str(path))
     raw = json.loads(path.read_text())
-    assert raw["_meta"]["torch"] == torch.__version__
+    # the stamp is obs.export.bench_meta's block
+    assert raw["_meta"]["torch_version"] == torch.__version__
+    assert raw["_meta"]["bench"] == "autotune"
     assert {"device", "nvidia_smi", "entries"} <= set(raw["_meta"])
     autotune.clear()
     assert autotune.lookup(4096, 27, 32) is None

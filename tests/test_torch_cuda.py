@@ -34,7 +34,8 @@ of a conv's backward and the max-pool gradient's ties on binary maps.
 The engine tests show each main path launches its own kernels and no
 other: f32 A / B / f32 fused on the f32 engine, int8 A / B / int8 fused on
 an engine whose tile table picks int8, and one flash-attention launch per
-layer (no P2M kernel) on the LM engine.
+layer (no P2M kernel) on the LM engine; ``obs`` adds no launch, and a
+deferred exact stream step dispatches without a host sync.
 
 The flash-attention kernels are held against their plain version at
 max-abs 2e-2 for bf16 outputs (bf16 output rounding plus another kv-tile
@@ -587,6 +588,39 @@ def test_engine_main_path_launches_every_kernel(cuda_device, monkeypatch):
     counts = _run_engine(engine)
     assert {k for k, v in counts.items() if v} == F32_PATH
     assert counts["p2m_fused_stream"] == engine.fused_step_count >= 1
+
+
+@pytest.mark.cuda
+def test_obs_adds_no_launch_and_defers_the_exact_step(cuda_device,
+                                                      monkeypatch):
+    """``obs`` changes no output and adds no launch on the card; a deferred
+    exact microbatch queued behind a long sleep kernel returns from its
+    dispatch with its probe's event not done (no host sync)."""
+    import repro_torch.obs as obs_mod
+    monkeypatch.setattr(autotune, "_TABLE", {})
+    cfg = tv.VisionConfig(name="t", arch="vgg_tiny")
+    params = tv.init_params(0, cfg)
+    frames = torch.rand(8, 32, 32, 3, generator=torch.Generator()
+                        .manual_seed(2)).to(cuda_device)
+    runs = []
+    for obs in (None, obs_mod.Obs()):
+        eng = VisionEngine(cfg, params, microbatch=4, fused_stream=False,
+                           obs=obs)
+        cuda_lib.reset_launch_counts()
+        outs = list(eng.stream([frames, frames]))
+        runs.append((eng, outs, cuda_lib.launch_counts()))
+    (_, outs_a, counts_a), (eng, outs_b, counts_b) = runs
+    assert counts_a == counts_b and counts_a["p2m_phase_b"] == 4
+    for a, b in zip(outs_a, outs_b):
+        for k in ("labels", "probs", "theta_used", "stream_fused"):
+            assert torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    eng._classify(frames[:4], None, advance=True, fused=False, defer=True)
+    probe = eng._batch_probes[-1]
+    assert not probe.poll()
+    assert probe.wait() > 0 and probe.token is None
+    eng._pending.drain()
 
 
 @pytest.mark.cuda

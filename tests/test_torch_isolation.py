@@ -54,7 +54,8 @@ def test_serving_import_loads_neither_jax_nor_reference():
             "repro_torch.lifetime.schedule, repro_torch.lifetime.fleet, "
             "repro_torch.data.synthetic, repro_torch.launch.train, "
             "repro_torch.train_p2m_vision, repro_torch.serving.fleet, "
-            "repro_torch.checkpoint.manager; "
+            "repro_torch.checkpoint.manager, repro_torch.obs, "
+            "repro_torch.obs.__main__, repro_torch.serving.loadgen; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

@@ -229,9 +229,11 @@ def test_engine_defaults_to_the_gpu():
 def test_engine_refuses_unported_options():
     cfg = tv.VisionConfig(name="t", arch="vgg_tiny")
     params = tv.init_params(0, cfg)
-    for kw in ({"mesh": None}, {"obs": None}):
-        with pytest.raises(TypeError):
-            VisionEngine(cfg, params, device="cpu", **kw)
+    with pytest.raises(TypeError):
+        VisionEngine(cfg, params, device="cpu", mesh=None)
+    # obs= and sync_timing= are served (the telemetry slice)
+    assert VisionEngine(cfg, params, device="cpu", obs=None,
+                        sync_timing=True)._obs is None
     # drift= is served (the lifetime slice): None is no aging at all
     assert VisionEngine(cfg, params, device="cpu", drift=None).lifetime \
         is None
