@@ -204,11 +204,27 @@ line:
    async one without obs, in turns; the p50 / p95 / p99 of the async
    engine's ``serving_microbatch_wall_ms``; the host's dispatch time of a
    deferred exact step with and without obs (behind a sleep, in turns);
-17. ``seconds``: the wall time of the build, the kernel lines, the vision
+17. ``census`` lines (``repro_torch.analysis.census``; after ``obs``, in
+   a process of its own: ``python3 chip_smoke.py --census-phase``), one an
+   entry: the ten entry points of the op census at their census shapes
+   (the four
+   frontend backends, the exact and fused stream steps, the fleet step at
+   G 1 and 2, the int8 fused step, the vgg_tiny train step) and the
+   full-width vgg16 ``classify`` of 16 frames at f32 and at int8, each
+   run once on the CPU under the dispatch census and once on the card
+   under ``torch.profiler``: the port's launches (the wrappers' counts
+   and the port's kernels in the profile, by symbol) equal the CPU
+   census's kernel calls, ``fleet.g2`` launches what ``fleet.g1`` does,
+   ``frontend.cuda`` launches no cuDNN kernel and no GEMM, every
+   device-to-host copy of a call is a host read the CPU census counts,
+   an undeferred fleet step makes its two host syncs, the structural
+   rules hold; with each line the cuDNN / GEMM kernels, all device events
+   and the host syncs (reported, not pinned);
+18. ``seconds``: the wall time of the build, the kernel lines, the vision
    phases, the frontend backends' phases, the flash lines, the LM phases,
    the train phase, the lifetime phases, the fleet phases, the variation
-   phases and the obs phase;
-18. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+   phases, the obs phase and the census phase;
+19. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run, the fleet rows' from the
    ``fleet`` and int8 fleet paths; one flash row per served head dim: D
    128 with granite-8b's launches, D 80 with stablelm-3b's), and last the
@@ -3996,24 +4012,25 @@ def obs_fleet_checks(device) -> dict:
     return out
 
 
-def obs_subprocess() -> None:
-    """The ``obs`` phase in a process of its own (``--obs-phase``), after
-    every profiler session of this one: a session late in a long process
-    drops more device events, and with the ``obs`` phase before them (in
-    this process, or in a child) the flash lines' sessions dropped every
-    flash kernel event. Its lines are printed here; a failure there fails
-    here."""
-    res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--obs-phase"], capture_output=True, text=True,
-                         timeout=900, cwd=ROOT)
+def phase_subprocess(flag: str) -> None:
+    """A profiling phase in a process of its own (``--obs-phase``,
+    ``--census-phase``), after every profiler session of this one: a
+    session late in a long process drops more device events, and with the
+    ``obs`` or the ``census`` phase before them (in this process, or in a
+    child) the flash lines' sessions dropped every flash kernel event. Its
+    lines are printed here; a failure there fails here."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                         capture_output=True, text=True, timeout=900,
+                         cwd=ROOT)
     sys.stdout.write(res.stdout)
     sys.stdout.flush()
-    check(res.returncode == 0, f"the obs phase failed:\n{res.stderr[-4000:]}")
+    check(res.returncode == 0,
+          f"the {flag} phase failed:\n{res.stderr[-4000:]}")
 
 
-def obs_main() -> int:
-    """``python3 chip_smoke.py --obs-phase``: the ``obs`` phase alone, on
-    the libraries ``main`` built."""
+def phase_main(flag: str) -> int:
+    """``python3 chip_smoke.py --obs-phase`` / ``--census-phase``: that
+    phase alone, on the libraries ``main`` built."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4021,8 +4038,96 @@ def obs_main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     build_libraries()
-    obs_phase(torch.device("cuda"), nvidia_smi_line())
+    PHASES[flag](torch.device("cuda"), nvidia_smi_line())
     return 0
+
+
+# the served vgg16 classify of the census lines: the engine lines' batch,
+# at each precision of the serving path
+CENSUS_CLASSIFY = {"classify.vgg16_f32": "f32", "classify.vgg16_int8": "int8"}
+# host syncs of an undeferred fleet step: before its dispatch and after it
+FLEET_STEP_SYNCS = 2
+
+
+def census_classify_entry(precision: str, device):
+    """``classify`` of the full-width vgg16 engine (seeded weights, 16
+    frames, a fixed key) at ``precision`` (the tile table's choice at the
+    serving key), on ``device``."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import autotune
+    from repro_torch.models import vision
+    from repro_torch.serving import VisionEngine
+
+    cfg = vision.VisionConfig()
+    params = vision.init_params(0, cfg, device=device)
+    frames = torch.rand((16, 32, 32, 3), generator=torch.Generator()
+                        .manual_seed(11)).to(device)
+    engine = VisionEngine(cfg, params, seed=0, device=device, microbatch=16)
+    key = prng.PRNGKey(2)
+
+    def run():
+        autotune.clear()
+        autotune.put(*SERVING_KEY, autotune.TileChoice(precision=precision))
+        return engine.classify(frames, key=key)
+
+    return run
+
+
+def census_phase(device, smi: str) -> None:
+    """The analysis layer's census on the card: every entry point of
+    ``repro_torch.analysis.census`` at its census shape, and the served
+    vgg16 ``classify`` at f32 and int8, each once on the CPU under the
+    dispatch census and once on the card under ``torch.profiler``. One
+    ``census`` line an entry; the port's launches (the wrappers' counts and
+    the port's kernels in the profile) must equal the CPU census's kernel
+    calls, ``fleet.g2`` must launch what ``fleet.g1`` does, the ADC-less
+    ``frontend.cuda`` step no cuDNN convolution and no product, and every
+    device-to-host copy of a step must be a host read the CPU census
+    counts (``host_sync``). The fleet step's two host syncs (a step that is
+    not deferred synchronizes before its dispatch and after it,
+    ``serving/fleet.py``) and the fused step's read of its fresh theta are
+    pinned, not hidden. The tile table is cleared for the census and
+    restored after it."""
+    import torch
+    from repro_torch.analysis import census
+    from repro_torch.kernels import autotune
+
+    saved = dict(autotune._TABLE)
+    try:
+        autotune.clear()
+        cpu = census.collect()
+        card = census.collect(device=device)
+        for name, precision in CENSUS_CLASSIFY.items():
+            cpu[name] = census.op_census(
+                census_classify_entry(precision, torch.device("cpu")))
+            card[name] = census.card_census(
+                census_classify_entry(precision, device))
+    finally:
+        autotune._TABLE.clear()
+        autotune._TABLE.update(saved)
+    # the structural rules; the budget file pins the CPU census under the
+    # torch version it was written with, which this machine may not run
+    fails = census.card_failures(cpu, card) + census.structural_failures(cpu)
+    for name in sorted(card):
+        emit("census", entry=name, kernel_calls=cpu[name]["kernels"],
+             cpu_ops=cpu[name]["ops"], cpu_flops=cpu[name]["flops"],
+             card=card[name], nvidia_smi=smi)
+        if card[name]["dtoh_copies"] != cpu[name]["ops"]["host_sync"]:
+            fails.append(f"{name}: {card[name]['dtoh_copies']} device-to-host"
+                         " copies on the card, "
+                         f"{cpu[name]['ops']['host_sync']} host reads in the "
+                         "CPU census")
+    for g in ("fleet.g1", "fleet.g2"):
+        if card[g]["host_syncs"] != FLEET_STEP_SYNCS:
+            fails.append(f"{g}: {card[g]['host_syncs']} host syncs, the "
+                         f"undeferred fleet step makes {FLEET_STEP_SYNCS}")
+    for name, precision in CENSUS_CLASSIFY.items():
+        want = {n: 1 for n in STEP_KERNELS[precision]}
+        if card[name]["launches"] != want:
+            fails.append(f"{name}: launched {card[name]['launches']}, the "
+                         f"{precision} classify launches {want}")
+    check(not fails, "census: " + "; ".join(fails))
 
 
 def build_libraries() -> dict:
@@ -4151,7 +4256,9 @@ def main() -> int:
     # last, and in a process of its own: no profiler session of this
     # process follows it
     t_obs = time.perf_counter()
-    obs_subprocess()
+    phase_subprocess("--obs-phase")
+    t_census = time.perf_counter()
+    phase_subprocess("--census-phase")
     t_end = time.perf_counter()
     # wall seconds of each group of phases, and from the build to here
     emit("seconds", build=build_s, kernels=t_vision - t_kernels,
@@ -4159,7 +4266,8 @@ def main() -> int:
          flash=t_lm - t_flash, lm=t_train - t_lm,
          train=t_lifetime - t_train, lifetime=t_fleet - t_lifetime,
          fleet=t_variation - t_fleet,
-         variation=t_obs - t_variation, obs=t_end - t_obs,
+         variation=t_obs - t_variation, obs=t_census - t_obs,
+         census=t_end - t_census,
          total=t_end - t0)
     own_path = {**{n_: counts for n_ in PATH_KERNELS["engine"]},
                 **{n_: counts_base for n_ in PATH_KERNELS["baseline"]},
@@ -4190,5 +4298,9 @@ def main() -> int:
     return 0
 
 
+PHASES = {"--obs-phase": obs_phase, "--census-phase": census_phase}
+
+
 if __name__ == "__main__":
-    sys.exit(obs_main() if sys.argv[1:] == ["--obs-phase"] else main())
+    flag = sys.argv[1] if len(sys.argv) > 1 else None
+    sys.exit(phase_main(flag) if flag in PHASES else main())

@@ -133,9 +133,14 @@ def conv_voltage(conv_norm: torch.Tensor, theta: torch.Tensor,
     """Voltage applied to the VC-MTJ for a normalized conv output.
 
     ``conv_norm >= theta`` iff ``V_CONV >= V_SW``; the buffer rails clip
-    V_CONV to [0, 1.2*VDD].
+    V_CONV to [0, ``v_conv_max(p)``].
     """
     v_th = algorithmic_threshold_to_volts(theta, p)
     v_ofs = threshold_matching_offset(v_th, p)
     v = v_ofs + p.volts_per_unit * conv_norm
-    return torch.clamp(v, 0.0, 1.2 * p.vdd)
+    return torch.clamp(v, 0.0, v_conv_max(p))
+
+
+def v_conv_max(p: PixelCircuitParams = DEFAULT_PIXEL) -> float:
+    """The buffer's upper rail on V_CONV: 1.2 VDD."""
+    return 1.2 * p.vdd

@@ -10,17 +10,24 @@ sources and flags: an edited source never loads a stale library. Nothing
 here runs at import time. The launch helpers shared by the kernel wrappers
 (device dispatch, stream, launch check) live here too, and so does the
 port-wide launch count: each wrapper module registers its wrappers, and
-``launch_counts()`` reads them all.
+``launch_counts()`` reads them all. Each wrapper is marked with
+``kernel_wrapper`` and declares the ``Dot`` products its kernel computes
+(``declare_dots``), so the op census (``repro_torch.analysis.census``)
+counts a wrapper call as one kernel call with those dots, in place of the
+tensor ops of its plain version.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import importlib
+import math
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, Dict, List, Tuple
 
@@ -243,13 +250,73 @@ def stream_of(device: torch.device) -> ctypes.c_void_p:
 
 
 # ---------------------------------------------------------------------------
-# launch counts over every kernel wrapper of the port
+# launch counts and the census's view of every kernel wrapper of the port
 # ---------------------------------------------------------------------------
 
 # the modules whose wrappers register below: one for each library
 _WRAPPER_MODULES = ("repro_torch.kernels.p2m_conv",
                     "repro_torch.kernels.flash_attention")
 _WRAPPERS: List[Callable] = []
+# observers of wrapper calls (``repro_torch.analysis.census``), and how deep
+# the current thread is inside a wrapper's body
+_OBSERVERS: List[Callable] = []
+_INSIDE = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class Dot:
+    """Matrix products a kernel computes: lhs (..., M, K), its leading
+    axes (chips; batch and heads) each a product of the same shape, rhs
+    (K, N), both operands of ``dtype``, summed in ``acc``."""
+    lhs: Tuple[int, ...]
+    rhs: Tuple[int, int]
+    dtype: str
+    acc: str
+
+    @property
+    def flops(self) -> int:
+        return 2 * math.prod(self.lhs) * self.rhs[1]
+
+    @property
+    def signature(self) -> str:
+        """``4096x27:int8x27x64:int8->int32``, as the reference's census
+        writes an int8 dot."""
+        return (f"{'x'.join(map(str, self.lhs))}:{self.dtype}x"
+                f"{'x'.join(map(str, self.rhs))}:{self.dtype}->{self.acc}")
+
+
+def kernel_wrapper(fn: Callable) -> Callable:
+    """Mark ``fn`` as a kernel wrapper: a census sees each call as one
+    kernel call (an observer gets the wrapper and its arguments) and none
+    of the tensor ops inside it, kernel launch or plain version
+    (``inside_kernel_wrapper()`` is true for the body)."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if not _OBSERVERS:
+            return fn(*args, **kwargs)
+        depth = getattr(_INSIDE, "depth", 0)
+        if depth == 0:
+            for observe in _OBSERVERS:
+                observe(call, args, kwargs)
+        _INSIDE.depth = depth + 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _INSIDE.depth = depth
+
+    return call
+
+
+def inside_kernel_wrapper() -> bool:
+    return getattr(_INSIDE, "depth", 0) > 0
+
+
+def observe_wrappers(observer: Callable) -> Callable[[], None]:
+    """Call ``observer(wrapper, args, kwargs)`` at every outermost wrapper
+    call until the returned function is called."""
+    _OBSERVERS.append(observer)
+    return lambda: _OBSERVERS.remove(observer)
 
 
 def register(*wrappers: Callable) -> None:
@@ -258,7 +325,16 @@ def register(*wrappers: Callable) -> None:
     nowhere else."""
     for fn in wrappers:
         fn.launches = 0
+        fn.dots = lambda *args, **kwargs: ()
         _WRAPPERS.append(fn)
+
+
+def declare_dots(declarations: Dict[Callable, Callable]) -> None:
+    """``{wrapper: dots}``: ``dots(*args, **kwargs)``, called with a
+    wrapper call's arguments, gives the ``Dot`` products its kernel
+    computes (a kernel without a declaration computes none)."""
+    for fn, dots in declarations.items():
+        fn.dots = dots
 
 
 def kernel_wrappers() -> Tuple[Callable, ...]:

@@ -131,6 +131,7 @@ def _check_card_operands(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("batch * heads exceeds the kernel's grid (65535)")
 
 
+@cuda_lib.kernel_wrapper
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Attention of q (B, S, H, D) over k, v (B, S, Hkv, D), H % Hkv == 0.
@@ -166,3 +167,16 @@ def kernel_symbol(dtype: torch.dtype, head_dim: int) -> str:
 
 
 cuda_lib.register(flash_attention)
+
+
+def _attention_dots(q, k, v, *, causal: bool = True):
+    """The two products of each (batch, head), for the op census: scores
+    Q K^T (S, D) x (D, S) and the output P V (S, S) x (S, D), at their full
+    shapes (a causal kernel skips the key tiles above the diagonal)."""
+    b, s, h, d = q.shape
+    dtype = str(q.dtype).removeprefix("torch.")
+    return (cuda_lib.Dot((b, h, s, d), (d, s), dtype, "float32"),
+            cuda_lib.Dot((b, h, s, s), (s, d), dtype, "float32"))
+
+
+cuda_lib.declare_dots({flash_attention: _attention_dots})

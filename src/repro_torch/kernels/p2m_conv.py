@@ -50,7 +50,7 @@ version a chip at a time. ``combine_fleet_*`` give each chip's statistics.
 
 The plain versions are the port's counterparts of ``repro.kernels.ref``'s
 P2M oracles: the same function in plain tensor ops. Their int8 MAC
-accumulates in float64, which is exact for these operands as int32 is.
+accumulates in int32, as the kernels' does.
 """
 from __future__ import annotations
 
@@ -154,11 +154,17 @@ def p2m_phase_a_implicit_plain(images, w_packed, v_th, *, kernel: int,
 
 def _q8_mac(x: torch.Tensor, wq_packed: torch.Tensor,
             dequant_row: torch.Tensor) -> torch.Tensor:
-    """The int8 packed MAC: quantize the rows, an exact integer-valued dot
-    (float64 here; int32 in the kernels), then the per-column dequant."""
-    xq = p2m_core.quantize_acts_q8(x)
-    acc = (xq.to(torch.float64) @ wq_packed.to(torch.float64)).to(torch.float32)
-    return acc * dequant_row.reshape(1, -1)
+    """The int8 packed MAC: quantize the rows, an exact int32 sum over the
+    K taps (as the kernels' MAC sums; PyTorch has no integer matmul on the
+    card), then the per-column dequant. The sums stay below 2^24, so the
+    float32 they convert to is exact."""
+    xq = p2m_core.quantize_acts_q8(x).to(torch.int32)
+    wq = wq_packed.to(torch.int32)
+    acc = torch.zeros((xq.shape[0], wq.shape[1]), dtype=torch.int32,
+                      device=x.device)
+    for k in range(wq.shape[0]):
+        acc += xq[:, k:k + 1] * wq[k]
+    return acc.to(torch.float32) * dequant_row.reshape(1, -1)
 
 
 def p2m_phase_a_implicit_q8_plain(images, wq_packed, dequant_row, v_th, *,
@@ -330,7 +336,7 @@ def physics_args(pixel_params: pixel_model.PixelCircuitParams,
         n_redundant=mtj_params.n_redundant, majority=mtj_params.majority,
         saturation=pixel_params.saturation, half_vdd=0.5 * pixel_params.vdd,
         v_sw=pixel_params.v_sw, volts_per_unit=pixel_params.volts_per_unit,
-        v_max=1.2 * pixel_params.vdd, v0=v0, v1=v1, l0=l0, l1=l1,
+        v_max=pixel_model.v_conv_max(pixel_params), v0=v0, v1=v1, l0=l0, l1=l1,
         slope_lo=slope_lo, slope_hi=slope_hi,
         env_factor=mtj_model.envelope_factor(mtj_params.write_pulse_ps,
                                              mtj_params),
@@ -430,6 +436,7 @@ def _fused_outputs(lib, n: int, c: int, device):
                  for shape in ((n, c), (tiles, 2), (tiles, 3), (tiles, c)))
 
 
+@cuda_lib.kernel_wrapper
 def p2m_phase_a_implicit(images: torch.Tensor, w_packed: torch.Tensor,
                          v_th: torch.Tensor, *, kernel: int, stride: int,
                          pixel_params=pixel_model.DEFAULT_PIXEL):
@@ -455,6 +462,7 @@ def p2m_phase_a_implicit(images: torch.Tensor, w_packed: torch.Tensor,
     return u, partials
 
 
+@cuda_lib.kernel_wrapper
 def p2m_phase_b(u: torch.Tensor, theta: torch.Tensor, key, *,
                 chan: Optional[torch.Tensor] = None,
                 pixel_params=pixel_model.DEFAULT_PIXEL,
@@ -492,6 +500,7 @@ def p2m_phase_b(u: torch.Tensor, theta: torch.Tensor, key, *,
     return acts, partials
 
 
+@cuda_lib.kernel_wrapper
 def p2m_fused_stream(images: torch.Tensor, w_packed: torch.Tensor,
                      v_th: torch.Tensor, theta: torch.Tensor, key,
                      chan: Optional[torch.Tensor] = None, *, kernel: int,
@@ -555,6 +564,7 @@ def _rows_shape(patches: torch.Tensor, w_packed: torch.Tensor):
     return n, kk, w_packed.shape[1] // 2
 
 
+@cuda_lib.kernel_wrapper
 def p2m_phase_a_implicit_q8(images: torch.Tensor, wq_packed: torch.Tensor,
                             dequant_row: torch.Tensor, v_th: torch.Tensor, *,
                             kernel: int, stride: int,
@@ -585,6 +595,7 @@ def p2m_phase_a_implicit_q8(images: torch.Tensor, wq_packed: torch.Tensor,
     return u, partials
 
 
+@cuda_lib.kernel_wrapper
 def p2m_fused_stream_q8(images: torch.Tensor, wq_packed: torch.Tensor,
                         dequant_row: torch.Tensor, v_th: torch.Tensor,
                         theta: torch.Tensor, key,
@@ -625,6 +636,7 @@ def p2m_fused_stream_q8(images: torch.Tensor, wq_packed: torch.Tensor,
     return acts, hoyer, vpart, rates
 
 
+@cuda_lib.kernel_wrapper
 def p2m_phase_a(patches: torch.Tensor, w_packed: torch.Tensor,
                 v_th: torch.Tensor, *,
                 pixel_params=pixel_model.DEFAULT_PIXEL):
@@ -648,6 +660,7 @@ def p2m_phase_a(patches: torch.Tensor, w_packed: torch.Tensor,
     return u, partials
 
 
+@cuda_lib.kernel_wrapper
 def p2m_conv(patches: torch.Tensor, w_packed: torch.Tensor,
              theta: torch.Tensor, key, *,
              pixel_params=pixel_model.DEFAULT_PIXEL,
@@ -822,6 +835,7 @@ def _fleet_outputs(lib, g: int, n: int, c: int, device, stats=(2,)):
               for k in stats))
 
 
+@cuda_lib.kernel_wrapper
 def p2m_phase_a_implicit_fleet(images: torch.Tensor, w_packed: torch.Tensor,
                                v_th: torch.Tensor, *, kernel: int,
                                stride: int,
@@ -847,6 +861,7 @@ def p2m_phase_a_implicit_fleet(images: torch.Tensor, w_packed: torch.Tensor,
     return u, partials
 
 
+@cuda_lib.kernel_wrapper
 def p2m_phase_a_implicit_q8_fleet(images: torch.Tensor,
                                   wq_packed: torch.Tensor,
                                   dequant_row: torch.Tensor,
@@ -877,6 +892,7 @@ def p2m_phase_a_implicit_q8_fleet(images: torch.Tensor,
     return u, partials
 
 
+@cuda_lib.kernel_wrapper
 def p2m_phase_b_fleet(u: torch.Tensor, theta: torch.Tensor, keys, *,
                       chan: Optional[torch.Tensor] = None,
                       pixel_params=pixel_model.DEFAULT_PIXEL,
@@ -945,6 +961,7 @@ def _fused_fleet(wrapper, images, weights, v_th, theta, keys, chan, kernel,
     return acts, hoyer, vpart, rates
 
 
+@cuda_lib.kernel_wrapper
 def p2m_fused_stream_fleet(images: torch.Tensor, w_packed: torch.Tensor,
                            v_th: torch.Tensor, theta: torch.Tensor, keys,
                            chan: Optional[torch.Tensor] = None, *,
@@ -960,6 +977,7 @@ def p2m_fused_stream_fleet(images: torch.Tensor, w_packed: torch.Tensor,
                         mtj_params, p2m_fused_stream_fleet_plain)
 
 
+@cuda_lib.kernel_wrapper
 def p2m_fused_stream_q8_fleet(images: torch.Tensor, wq_packed: torch.Tensor,
                               dequant_row: torch.Tensor, v_th: torch.Tensor,
                               theta: torch.Tensor, keys,
@@ -981,3 +999,39 @@ cuda_lib.register(p2m_phase_a_implicit, p2m_phase_b, p2m_fused_stream,
                   p2m_conv, p2m_phase_a_implicit_fleet,
                   p2m_phase_a_implicit_q8_fleet, p2m_phase_b_fleet,
                   p2m_fused_stream_fleet, p2m_fused_stream_q8_fleet)
+
+
+# the patch-row MAC each kernel computes, for the op census: implicit
+# kernels (A, fused, their int8 twins, each also over a chip axis) one
+# (N, K) x (K, 2C) product of the frames' patch rows (G, N, K with a chip
+# axis), the explicit-patch kernels (explicit A, legacy) one of their
+# patch matrix; int8 operands sum in int32 (MacQ8Mma), float32 ones in
+# float32. Kernel B computes no product.
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _mac_dot(rows, weights: torch.Tensor) -> cuda_lib.Dot:
+    return cuda_lib.Dot(tuple(rows), tuple(weights.shape),
+                        _dtype_name(weights),
+                        "int32" if weights.dtype == torch.int8 else "float32")
+
+
+def _implicit_dots(images, weights, *args, kernel: int, stride: int, **kw):
+    *chips, b, h, w, _ = images.shape
+    n = b * blocking.conv_out_hw(h, stride) * blocking.conv_out_hw(w, stride)
+    return (_mac_dot((*chips, n, weights.shape[0]), weights),)
+
+
+def _explicit_dots(patches, weights, *args, **kw):
+    return (_mac_dot(patches.shape, weights),)
+
+
+cuda_lib.declare_dots({
+    **dict.fromkeys((p2m_phase_a_implicit, p2m_fused_stream,
+                     p2m_phase_a_implicit_q8, p2m_fused_stream_q8,
+                     p2m_phase_a_implicit_fleet,
+                     p2m_phase_a_implicit_q8_fleet, p2m_fused_stream_fleet,
+                     p2m_fused_stream_q8_fleet), _implicit_dots),
+    p2m_phase_a: _explicit_dots, p2m_conv: _explicit_dots})

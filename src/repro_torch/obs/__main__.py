@@ -22,13 +22,16 @@ a serve and a leave, on the GPU unless ``--device cpu``. Its gates:
 * the ``stream`` / ``microbatch`` spans and the ``fleet_join`` /
   ``fleet_leave`` events are there;
 * instrumentation adds no work: the same streams with ``obs=None`` give
-  the same ``cuda_lib.launch_counts()`` and the same outputs bit for bit.
+  the same ``cuda_lib.launch_counts()`` and the same outputs bit for bit;
+* the reference's zero-op gate, as the port's op census
+  (``repro_torch.analysis.census``, on the CPU whatever ``--device``): a
+  stream step with an ``Obs`` holds the same ops, kernel calls, products,
+  host syncs and draws as the same step without one, and the step's
+  convolutions, products, kernel calls and host syncs are the pinned
+  ``stream.exact`` budget's.
 
-The reference's two other gates have no counterpart here. Its retrace gate
-(one compile of the step across a two-round stream) does not apply: the
-port runs eagerly and traces nothing. Its jaxpr census of the step waits
-for the port's analysis tools (ROADMAP queue 1 item 8); the launch-count
-gate above stands in for it.
+The reference's retrace gate (one compile of the step across a two-round
+stream) has no counterpart: the port runs eagerly and traces nothing.
 
 Exit code 0 only if every gate holds.
 """
@@ -188,6 +191,37 @@ def _same_outputs(a: List[Dict[str, Any]], b: List[Dict[str, Any]]) -> bool:
     return True
 
 
+def _census_gate(obs) -> List[str]:
+    """The op census of one stream step (vgg_tiny, the census's stream
+    batch, pinned exact) on the CPU with ``obs`` and without: failures, each
+    naming its field."""
+    from repro_torch import prng
+    from repro_torch.analysis import census
+    from repro_torch.models import vision
+    from repro_torch.serving import VisionEngine
+
+    cfg = vision.VisionConfig(name="census", arch="vgg_tiny", num_classes=10)
+    params = vision.init_params(0, cfg, device="cpu")
+    frames = prng.uniform(prng.PRNGKey(1), (census.STREAM_BATCH, 32, 32, 3))
+    got = {}
+    for name, o in (("without obs", None), ("with obs", obs)):
+        eng = VisionEngine(cfg, params, seed=0, device="cpu",
+                           fused_stream=False, obs=o)
+        got[name] = census.op_census(lambda: list(eng.stream([frames])))
+    fails = [f"op-overhead gate: stream step {block}.{k} = {v} with obs, "
+             f"{got['without obs'][block][k]} without"
+             for block in ("ops", "flops", "kernels")
+             for k, v in got["with obs"][block].items()
+             if got["without obs"][block].get(k) != v]
+    budget = census.load_budgets()["census"]["stream.exact"]["ops"]
+    fails += [f"op-overhead gate: stream step ops.{k} = "
+              f"{got['with obs']['ops'][k]} with obs, the stream.exact "
+              f"budget pins {budget[k]}"
+              for k in ("conv", "dot", "kernel_calls", "host_sync")
+              if got["with obs"]["ops"][k] != budget[k]]
+    return fails
+
+
 def cmd_smoke(args: argparse.Namespace) -> int:
     import torch
 
@@ -263,6 +297,11 @@ def cmd_smoke(args: argparse.Namespace) -> int:
         failed = True
     if "serving_frames_total" not in expo or "quantile=" not in expo:
         _fail("Prometheus exposition incomplete")
+        failed = True
+
+    # 4. zero-op gate: obs adds no tensor op to a stream step
+    for f in _census_gate(obs_mod.Obs()):
+        _fail(f)
         failed = True
 
     print(_summarize(obs_mod.export.read_jsonl(jsonl_path)))

@@ -183,7 +183,8 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     holds the float32 product exactly); +-1 map to +-inf."""
     w = -torch.log1p(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # 2.5 is XLA's erf_inv shift, not the pixel's 2.5 saturation
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)  # analysis: waive=physics-constants
 
     def coef(i):
         return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),

@@ -38,7 +38,8 @@ def main(argv=None) -> None:
         print(f"   P_sw({v:.1f} V, 700 ps) = {float(p):.4f}")
 
     print("\n2. multi-MTJ majority (8 devices, >=4 votes)  [Fig. 5]")
-    fail, false = mtj.majority_error_rates(0.924, 0.062, n=8, majority=4)
+    p_low, p_high = mtj.MEASURED_P_SW[0], mtj.MEASURED_P_SW[1]
+    fail, false = mtj.majority_error_rates(p_high, p_low, n=8, majority=4)
     print(f"   fail-to-activate: {float(fail) * 100:.4f}%   "
           f"false-activate: {float(false) * 100:.4f}%   "
           "(paper: both < 0.1%)")

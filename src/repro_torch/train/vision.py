@@ -86,7 +86,7 @@ def fit(params, cfg: vision.VisionConfig, stream, steps: int,
     the Fig. 8 flips when ``cfg.p2m.noise_p_*`` are set. Every
     ``log_every`` steps the loss, accuracy and P2M sparsity are read on the
     host, logged, and appended to ``history`` when one is given."""
-    key = key if key is not None else prng.PRNGKey(42)
+    key = key if key is not None else prng.PRNGKey(42)  # analysis: waive=no-host-rng
     step = make_step(cfg, lr)
     for i in range(steps):
         params, loss, aux = step(params, stream.next_batch(),

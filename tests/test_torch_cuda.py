@@ -1333,3 +1333,24 @@ def test_fleet_frontend_launches_as_one_chip(cuda_device, monkeypatch):
             assert counts == {a_name: 1, "p2m_phase_b_fleet": 1, f_name: 1}
             assert acts.shape == (g, 16, 16, 16, 32)
             assert all(v.shape == (g,) for v in aux.values())
+
+
+@pytest.mark.cuda
+def test_card_census_launches_what_the_cpu_census_calls(cuda_device,
+                                                        monkeypatch):
+    """The analysis layer's card census: every entry point's kernel
+    launches on the card (the wrappers' counts, and the port's kernels in a
+    ``torch.profiler`` profile of one call) equal the CPU census's kernel
+    calls; ``fleet.g2`` launches what ``fleet.g1`` does (one kernel A and
+    one B); the ADC-less ``frontend.cuda`` step launches no cuDNN
+    convolution and no product."""
+    from repro_torch.analysis import census
+    monkeypatch.setattr(autotune, "_TABLE", {})
+    cpu = census.collect()
+    card = census.collect(device=cuda_device)
+    assert sorted(card) == sorted(cpu)
+    assert census.card_failures(cpu, card) == []
+    one_a_one_b = {"p2m_phase_a_implicit_fleet": 1, "p2m_phase_b_fleet": 1}
+    assert card["fleet.g1"]["launches"] == one_a_one_b
+    assert card["fleet.g2"]["launches"] == one_a_one_b
+    assert card["quant.fused_q8"]["launches"] == {"p2m_fused_stream_q8": 1}

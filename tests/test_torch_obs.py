@@ -27,6 +27,7 @@ What is compared, and how exactly:
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -403,6 +404,27 @@ def test_cli_failures_equal_reference(tmp_path, capsys):
                  ["compare", str(nometric), str(nometric)]):
         assert _run(t_cli, argv, capsys) == _run(j_cli, argv, capsys)
         assert _run(t_cli, argv, capsys)[0] == 1
+
+
+def test_smoke_census_gate_sees_a_tensor_op_of_obs():
+    """The smoke's zero-op gate: a stream step's op census with an
+    ``Obs`` equals the one without (and the pinned stream.exact budget's
+    structure); an ``Obs`` whose span runs a tensor op fails it by field."""
+    from repro_torch.obs.__main__ import _census_gate
+
+    assert _census_gate(t_obs.Obs()) == []
+
+    class Noisy(t_obs.Obs):
+        def span(self, name, **args):
+            torch.zeros(1)
+            return super().span(name, **args)
+
+    fails = _census_gate(Noisy())
+    assert len(fails) == 1, fails
+    (with_obs, without), = re.findall(
+        r"^op-overhead gate: stream step ops\.op_count = (\d+) with obs, "
+        r"(\d+) without$", fails[0])
+    assert int(with_obs) == int(without) + 2   # the stream, microbatch spans
 
 
 def test_smoke_cli_exits_zero_on_the_cpu(tmp_path):

@@ -526,55 +526,34 @@ def test_evaluate_matches_jax(backend, monkeypatch):
                                   np.asarray(sj.next_batch()["label"]))
 
 
-def test_train_step_census_matches_the_reference_budget(monkeypatch):
+def test_train_step_census_matches_the_reference_budget():
     """``ANALYSIS_BUDGETS.json`` pins the reference's ``train.step``
     (vgg_tiny, batch ``census.TRAIN_BATCH``) at 11 convs, 3 dots and no
-    ``pallas_call``. The port's step: 11 convolutions (4 forward; each
+    ``pallas_call``. The port's step, in the port's op census
+    (``repro_torch.analysis.census``): 11 convolutions (4 forward; each
     ``convolution_backward`` counted by the gradients it computes, input
-    and weight), 3 matmuls, and no ``kernels.ops`` wrapper called."""
-    import inspect
+    and weight), 3 matmuls, and no kernel wrapper called."""
     import json
     from pathlib import Path
 
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from repro.analysis import census
-    from repro_torch.kernels import ops as t_ops
+    from repro_torch.analysis import census as t_census
 
     budget = json.loads((Path(__file__).resolve().parents[1]
                          / "ANALYSIS_BUDGETS.json").read_text())
     budget = budget["census"]["train.step"]["jaxpr"]
-
-    class Census(TorchDispatchMode):
-        convs = dots = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func is torch.ops.aten.convolution.default:
-                self.convs += 1
-            elif func is torch.ops.aten.convolution_backward.default:
-                self.convs += sum(bool(m) for m in args[10][:2])
-            elif func in (torch.ops.aten.mm.default,
-                          torch.ops.aten.addmm.default):
-                self.dots += 1
-            return func(*args, **(kwargs or {}))
-
-    def refuse(*a, **k):
-        raise AssertionError("a kernels.ops wrapper was called")
-
-    for name, obj in vars(t_ops).items():
-        if inspect.isfunction(obj):
-            monkeypatch.setattr(t_ops, name, refuse)
     cfg = tv.VisionConfig(name="census", arch="vgg_tiny", num_classes=10,
                           frontend_backend="analog")
     params = tv.init_params(0, cfg, device="cpu")
     batch = {"image": torch.rand((census.TRAIN_BATCH, 32, 32, 3),
                                  generator=torch.Generator().manual_seed(1)),
              "label": torch.zeros((census.TRAIN_BATCH,), dtype=torch.int32)}
-    with Census() as counted:
-        tloop.make_step(cfg, LR)(params, batch, prng.PRNGKey(2))
-    assert budget["pallas_call"] == 0
-    assert counted.convs == budget["conv"] == 11
-    assert counted.dots == budget["dot_general"] == 3
+    key = prng.PRNGKey(2)
+    step = tloop.make_step(cfg, LR)
+    counted = t_census.op_census(lambda: step(params, batch, key))["ops"]
+    assert counted["kernel_calls"] == budget["pallas_call"] == 0
+    assert counted["conv"] == budget["conv"] == 11
+    assert counted["dot"] == budget["dot_general"] == 3
 
 
 # --- entry points ----------------------------------------------------------
