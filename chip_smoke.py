@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and exits non-zero without one. It builds the port's
-two kernel libraries from ``src/repro_torch/csrc`` (one nvcc each, started
+three kernel libraries from ``src/repro_torch/csrc`` (one nvcc each, started
 together, into ``build/repro_torch/``), then, printing one JSON object per
 line:
 
@@ -15,8 +15,10 @@ line:
    the libraries' machine code (the int8 P2M kernels, A's two and fused,
    single-chip and with the chip axis, must run s8 IMMA, no other P2M
    kernel IMMA, and none HMMA: the
-   float32 MACs use no TF32; every ``flash_wgmma_kernel`` instance runs
-   HGMMA and no HMMA, the float32 flash kernel neither);
+   float32 MACs use no TF32; every ``flash_wgmma_kernel`` instance, each
+   head dim with and without a window (``flash_wgmma_kernel<256, true>``
+   among them), runs HGMMA and no HMMA, the float32 flash kernel and the
+   RG-LRU scan neither);
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32), three odd geometries (one at C 48) and
    the paper's ImageNet frame size (16, 224, 224, 3) -> (200704, 32). Each
@@ -82,21 +84,41 @@ line:
    for float32, and the row gate below), timed beside its plain version,
    its bound (bytes, the products and one exponential a visible pair on
    the special-function units) and ``scaled_dot_product_attention``, and
-   naming the kernel symbol a profiled call shows ran;
+   naming the kernel symbol a profiled call shows ran; three windowed
+   lines: recurrentgemma-2b's prefill (B 4, S 2048, H 10, Hkv 1, D 256,
+   bf16, causal, window 2048, which masks nothing there), the same at B 1,
+   S 8192 (where it masks) and S 1000 D 64 GQA with a window of 300 (a
+   ragged tail through an instance that existed before the window), the
+   yardstick SDPA with the window's boolean mask (and, where the window
+   masks nothing, causal SDPA without it: ``causal_library_ms``), and
+   beside each the kernel without the window (``unwindowed_ms``);
+   ``rglru_scan``: the
+   RG-LRU scan kernel at recurrentgemma-2b's prefill (B 4, S 2048, R
+   2560, a near 1) against its plain version (an associative scan) at
+   1e-5, timed beside it and its bound (bytes: a and b read, h written);
 10. ``lm``: full-width, full-depth granite-8b, then stablelm-3b (head dim
-   80), with seeded bf16 weights drawn on the card (granite's freed
-   first), each ``ServingEngine.generate`` of a (4, 2048) prompt for 32
-   new tokens, with its launch counts (one flash launch per layer, every
-   one ``flash_wgmma_kernel``, no P2M kernel), finite logits, token ids in
+   80), then recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention at
+   head dim 256 with a 2048-key window, 3.55 B parameters), with seeded
+   bf16 weights drawn on the card (each model's freed before the next),
+   each ``ServingEngine.generate`` of a (4, 2048) prompt for 32
+   new tokens, with its launch counts (one flash launch an attention
+   layer, every one the model's one ``flash_wgmma_kernel`` instance, one
+   ``rglru_scan`` an RG-LRU layer, no P2M kernel), finite logits, token ids in
    range, and the prefill logits held against a ``forward(mode="train")``
    of the prompt (teacher forcing); then the steady generate times, peak
-   memory and the flash kernel's share of prefill device time
+   memory and the flash and scan kernels' shares of prefill device time
    (``lm_profile``);
 11. ``lm_vs_cpu``: granite-8b at full width but 2 layers (a depth cut: the
    CPU engine at 36 layers would take minutes), the card's engine against
    the CPU engine on a (1, 128) prompt and 8 new tokens, with its flash
    launch count; ``lm_stablelm``: the same check for stablelm-3b (head dim
-   80, the wgmma kernel) at full width, 2 layers;
+   80, the wgmma kernel) at full width, 2 layers; ``lm_rg_vs_cpu``: the
+   same for recurrentgemma-2b at full width, 3 layers (one period of its
+   pattern: rglru, rglru, local_attn); ``lm_rg_ring``: recurrentgemma-2b
+   at full width, 3 layers, a (2, 3072) prompt past its window and 8 new
+   tokens: each decode step's logits (the ring cache) against a card
+   ``forward(mode="train")`` over the prompt and the tokens so far, at
+   the teacher-forcing tolerance;
 12. ``train``: full-width vgg16 (P2M 3x3 stride 2 to 32 channels, 13
    binary convs) at CIFAR-10 geometry, seeded weights, trained through
    the ``analog`` backend by ``repro_torch.train.vision.fit`` for 20 SGD
@@ -227,7 +249,9 @@ line:
 19. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run, the fleet rows' from the
    ``fleet`` and int8 fleet paths; one flash row per served head dim: D
-   128 with granite-8b's launches, D 80 with stablelm-3b's), and last the
+   128 with granite-8b's launches, D 80 with stablelm-3b's, D 256 with
+   recurrentgemma-2b's; the ``rglru_scan`` row with recurrentgemma-2b's),
+   and last the
    ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises, so the exit code is non-zero.
@@ -328,6 +352,8 @@ PATH_KERNELS = {
                     "p2m_fused_stream_q8"),
     "baseline": ("p2m_phase_a", "p2m_conv"),
     "lm": ("flash_attention",),
+    # the hybrid: local attention through flash, RG-LRU through the scan
+    "lm_rg": ("flash_attention", "rglru_scan"),
     # the device backend runs one cuDNN conv and plain PyTorch: no kernel
     "engine_device": (),
     # a sampled, calibrated chip: its (4, C) rows in B and the fused kernel
@@ -405,6 +431,17 @@ FLASH_ODD = (FLASH_D80_SERVING,
              dict(batch=1, seq=1000, heads=32, kv_heads=8, head_dim=128,
                   dtype="bfloat16", causal=True),
              FLASH_NARROW_TOY, *FLASH_B4.values())
+# recurrentgemma-2b's prefill at D 256 (10 heads over 1 kv head) with its
+# 2048-key window, which masks nothing at S 2048; the same where the window
+# masks (B 1, S 8192: a quarter of the causal pairs); and a ragged tail
+# through an instance that existed before the window (D 64, window 300)
+FLASH_RG_SERVING = dict(batch=4, seq=2048, heads=10, kv_heads=1,
+                        head_dim=256, dtype="bfloat16", causal=True,
+                        window=2048)
+FLASH_WINDOWED = (FLASH_RG_SERVING, {**FLASH_RG_SERVING, "batch": 1,
+                                     "seq": 8192},
+                  dict(batch=1, seq=1000, heads=32, kv_heads=8, head_dim=64,
+                       dtype="bfloat16", causal=True, window=300))
 # kernel vs plain: bf16 output rounding (one ulp is 2^-8 relative) plus a
 # different summation order; float32: the summation order alone
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -415,7 +452,20 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the last rows lies 10x above it (tests/test_torch_flash.py).
 FLASH_ROW_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
 LM_ARCH = "granite-8b"
-LM_D80_ARCH = "stablelm-3b"     # head dim 80: flash_wgmma_kernel<80>
+LM_D80_ARCH = "stablelm-3b"     # head dim 80: flash_wgmma_kernel<80, false>
+# the hybrid: RG-LRU layers (the scan kernel) and local attention at head
+# dim 256 with a 2048-key window (flash_wgmma_kernel<256, true>)
+LM_RG_ARCH = "recurrentgemma-2b"
+LM_RG_LAYERS = 3                # one period of its pattern: the depth cut
+LM_RG_RING_PROMPT = 3072        # of lm_rg_ring: past the window
+# the RG-LRU scan at recurrentgemma-2b's prefill, against its plain version
+# (an associative scan): two float32 summation orders of h up to ~5 differ
+# by ~2.3e-6 (the CPU, in float64, at S 2048 with a up to 1 - 6e-8)
+RGLRU_SERVING = dict(batch=4, seq=2048, width=2560)
+RGLRU_TOL = 1e-5
+RGLRU_SOURCE = "src/repro_torch/csrc/rglru_scan.cu"
+RGLRU_REPLACES = ("none (no TPU kernel): src/repro/models/recurrent.py:97 "
+                  "(jax.lax.associative_scan in rglru_apply)")
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 # prefill logits vs a train-mode forward of the same prompt: the same
 # kernels on the same inputs, so equal up to bf16 rounding of the logits
@@ -577,13 +627,26 @@ def bound(bytes_moved: float, ops: float, int8_ops: float = 0.0,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def visible_pairs(s: int, causal: bool, window: int = 0) -> int:
+    """(q, kv) pairs one head of length s attends to: row i sees the keys
+    j <= i (causal) with i - j < window (a window > 0)."""
+    if not causal:
+        if window <= 0:
+            return s * s
+        # row i sees j in (i - window, s): min(s, s - i + window - 1) keys
+        return sum(min(s, s - i + window - 1) for i in range(s))
+    w = s if window <= 0 else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
 def flash_work(geom: dict) -> dict:
     """What one flash call at ``geom`` must do: every visible (q, kv) pair
-    takes two products of D multiply-adds and one exponential; each input
-    is read once and the output written once. With the bound (``bound``)."""
+    (inside the window, where the geometry has one) takes two products of D
+    multiply-adds and one exponential; each input is read once and the
+    output written once. With the bound (``bound``)."""
     b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
                                          "kv_heads", "head_dim"))
-    pairs = b * h * (s * (s + 1) // 2 if geom["causal"] else s * s)
+    pairs = b * h * visible_pairs(s, geom["causal"], geom.get("window", 0))
     size = 2 if geom["dtype"] == "bfloat16" else 4
     work = dict(flops=4 * pairs * d, exps=pairs,
                 bytes=(2 * b * s * h + 2 * b * s * hkv) * d * size)
@@ -3383,6 +3446,7 @@ VISION_FAMILIES = (("frontend_kernels", ("phase_a_kernel", "phase_b_kernel",
                                       "cudnn")))
 LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel",
                                      "flash_ffma_kernel")),
+               ("rglru_scan", ("rglru_scan_kernel",)),
                ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
                            "nvjet")))
 
@@ -3447,20 +3511,24 @@ def flash_phase(geom: dict, device):
     b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
                                          "kv_heads", "head_dim"))
     dtype, causal = getattr(torch, geom["dtype"]), geom["causal"]
+    window = geom.get("window", 0)
     gen = torch.Generator().manual_seed(23)
     q, k, v = (torch.randn(shape, generator=gen).to(device=device,
                                                     dtype=dtype)
                for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
     tag = (f"B{b} S{s} H{h}/{hkv} D{d} {geom['dtype']} "
-           f"{'causal' if causal else 'full'}")
-    symbol = fa.kernel_symbol(dtype, d)
-    prof, out = profile_session(
-        lambda: fa.flash_attention(q, k, v, causal=causal), cpu=False,
-        expect="flash")
+           f"{'causal' if causal else 'full'}"
+           + (f" window {window}" if window else ""))
+    symbol = fa.kernel_symbol(dtype, d, window)
+
+    def kernel(causal=causal, window=window):
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+    prof, out = profile_session(kernel, cpu=False, expect="flash")
     ran = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
     check(len(ran) == 1 and symbol in ran[0],
           f"flash kernels {ran} ran at {tag}, want {symbol} alone")
-    plain = fa.flash_attention_plain(q, k, v, causal=causal)
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     err = max_abs(out.float(), plain.float())
     row_err = row_rel_err(out, plain)
     check(bool(torch.isfinite(out).all()), f"non-finite flash output at {tag}")
@@ -3473,11 +3541,19 @@ def flash_phase(geom: dict, device):
 
     work = flash_work(geom)
     flops, t_bound, by = work["flops"], work["bound_ms"], work["bound_by"]
+    # SDPA's yardstick of a window: a boolean mask of the visible pairs
+    mask = None
+    if window:
+        i = torch.arange(s, device=device)
+        mask = (i[:, None] - i[None, :]) < window
+        if causal:
+            mask &= i[:, None] >= i[None, :]
 
     def sdpa():
         F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=h != hkv)
+            attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=h != hkv)
 
     lib_ms, lib_error = None, None
     try:
@@ -3487,14 +3563,23 @@ def flash_phase(geom: dict, device):
     row = {"name": "flash_attention", "route": "cuda",
            "source": FLASH_SOURCE, "replaces": REPLACES["flash_attention"],
            "launches": 0, "max_abs_err": err,
-           "ms": device_ms(lambda: fa.flash_attention(q, k, v,
-                                                      causal=causal), device),
+           "ms": device_ms(kernel, device),
            "plain_ms": device_ms(lambda: fa.flash_attention_plain(
-               q, k, v, causal=causal), device),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms}
-    # the causal skip, seen in time: the same inputs without the mask
-    full_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=False),
+               q, k, v, causal=causal, window=window), device),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms,
+           "profiler_ms": profiled_ms(kernel, symbol)}
+    # the causal skip, seen in time: the same inputs without the mask; and
+    # the window's skip: the same inputs causal without the window
+    full_ms = device_ms(lambda: kernel(causal=False, window=0),
                         device) if causal else None
+    unwindowed_ms = device_ms(lambda: kernel(window=0),
+                              device) if window else None
+    # a window no shorter than S masks nothing: causal SDPA without the
+    # mask then computes the same function, on its fused path
+    causal_library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=h != hkv),
+        device) if causal and window >= s else None
     emit("flash", geometry=tag, kernel=symbol,
          tolerance=FLASH_TOL[geom["dtype"]],
          row_rel_err=row_err, row_tolerance=FLASH_ROW_TOL[geom["dtype"]],
@@ -3502,7 +3587,48 @@ def flash_phase(geom: dict, device):
          flops=flops, bytes=work["bytes"], exps=work["exps"],
          library_error=lib_error,
          achieved_tflops=flops / (row["ms"] * 1e-3) / 1e12,
-         noncausal_ms=full_ms)
+         noncausal_ms=full_ms, unwindowed_ms=unwindowed_ms,
+         causal_library_ms=causal_library_ms)
+    return row
+
+
+def rglru_phase(device):
+    """The RG-LRU scan kernel at recurrentgemma-2b's prefill (B 4, S 2048, R
+    2560; a near 1, so the carry is most of h), held against its plain
+    version on the same card tensors and timed beside it and its bound.
+    Returns the summary row."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rs
+
+    b, s, r = (RGLRU_SERVING[x] for x in ("batch", "seq", "width"))
+    gen = torch.Generator().manual_seed(37)
+    sp = torch.rand(r, generator=gen) * 0.099 + 0.001    # softplus(lam)
+    a = torch.exp(-8 * sp * torch.rand(b, s, r, generator=gen))
+    x = torch.sqrt(1 - a * a) * torch.randn(b, s, r, generator=gen)
+    a, x = a.to(device), x.to(device)
+    out = rs.rglru_scan(a, x)
+    plain = rs.rglru_scan_plain(a, x)
+    err = max_abs(out, plain)
+    carry = max_abs(x, plain)      # what a scan without its carry misses
+    check(bool(torch.isfinite(out).all()), "non-finite rglru_scan output")
+    check(err <= RGLRU_TOL, f"rglru_scan vs plain max-abs {err} > "
+          f"{RGLRU_TOL}")
+    check(carry > 100 * RGLRU_TOL, f"the carry is {carry}: a is not near 1")
+    moved = 3 * b * s * r * 4            # a and b read, h written, float32
+    t_bound, by = bound(moved, 2 * b * s * r)
+    row = {"name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
+           "replaces": RGLRU_REPLACES, "launches": 0, "max_abs_err": err,
+           "ms": device_ms(lambda: rs.rglru_scan(a, x), device),
+           "plain_ms": device_ms(lambda: rs.rglru_scan_plain(a, x), device),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+           "profiler_ms": profiled_ms(lambda: rs.rglru_scan(a, x),
+                                      "rglru_scan_kernel")}
+    emit("rglru_scan", geometry=f"B{b} S{s} R{r} float32",
+         kernel="rglru_scan_kernel", tolerance=RGLRU_TOL,
+         carry_max_abs=carry, bytes=moved,
+         library_note="no single PyTorch call computes a linear recurrence",
+         achieved_tb_per_s=moved / (row["ms"] * 1e-3) / 1e12,
+         **{k_: v_ for k_, v_ in row.items() if k_ != "launches"})
     return row
 
 
@@ -3513,9 +3639,31 @@ def _lm_prompts(cfg, batch: int, length: int, seed: int):
                          dtype=torch.int32)
 
 
-def lm_phase(device, smi: str, arch: str = LM_ARCH):
+def lm_launches(cfg) -> dict:
+    """The kernel launches of one prefill of ``cfg``: one flash launch an
+    attention layer (global or local), one scan an RG-LRU layer; decode
+    launches none."""
+    mixers = [mx for mx, _ in cfg.layer_kinds()]
+    want = {"flash_attention": sum(mx in ("attn", "local_attn")
+                                   for mx in mixers),
+            "rglru_scan": mixers.count("rglru")}
+    return {k: v for k, v in want.items() if v}
+
+
+def lm_symbol(cfg) -> str:
+    """The flash instance every attention layer of ``cfg`` launches (a
+    local layer's with the config's window)."""
+    from repro_torch.kernels import flash_attention as fa
+    if "local_attn" in cfg.block_pattern:
+        return fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim, cfg.window)
+    # (no window argument: scripts/lm_ab.py runs this on older versions)
+    return fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim)
+
+
+def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm"):
     """``arch`` at full width and depth through ``ServingEngine.generate``,
-    the launch counts read from that run alone; returns them."""
+    the launch counts read from that run alone (checked against
+    ``path``'s kernels and ``lm_launches``); returns them."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cuda_lib
@@ -3539,10 +3687,11 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH):
     counts = cuda_lib.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     first = dict(engine.stats)
-    check_path_counts(counts, "lm")
-    check(counts["flash_attention"] == cfg.num_layers,
-          f"flash_attention launched {counts['flash_attention']} times, "
-          f"want one per layer ({cfg.num_layers})")
+    check_path_counts(counts, path)
+    want = lm_launches(cfg)
+    check({k_: v_ for k_, v_ in counts.items() if v_} == want,
+          f"{arch} launched {counts}, want {want} (one flash launch an "
+          "attention layer, one scan an RG-LRU layer)")
     logits = engine.prefill_logits.float()
     check(tuple(tokens.shape) == (LM_BATCH, LM_NEW), "generated shape")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
@@ -3567,7 +3716,11 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH):
         engine.generate(prompts, LM_NEW)
         steady.append(dict(engine.stats))
     emit("lm", model=arch, layers=cfg.num_layers, d_model=cfg.d_model,
-         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+         mixers={mx: [k_ for k_, _ in cfg.layer_kinds()].count(mx)
+                 for mx in cfg.block_pattern},
+         window=cfg.window if "local_attn" in cfg.block_pattern else None,
          vocab=cfg.vocab_size, dtype=cfg.param_dtype, params=n_params,
          init_s=init_s, batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
          launches=counts, first_run=first, steady_runs=steady,
@@ -3583,15 +3736,20 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH):
     fam, top = device_breakdown(prof, LM_FAMILIES, 12)
     total = sum(fam.values())
     # every flash launch of the prefill is the serving width's one kernel
+    # instance, and every scan the scan kernel
     from torch.autograd import DeviceType
-    from repro_torch.kernels import flash_attention as fa
-    symbol = fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim)
+    symbol = lm_symbol(cfg)
     flash_ran = {e.key: e.count for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and "flash" in e.key}
+    n_flash = want["flash_attention"]
     check(len(flash_ran) == 1 and symbol in next(iter(flash_ran))
-          and next(iter(flash_ran.values())) == cfg.num_layers,
-          f"prefill flash launches {flash_ran}, want {cfg.num_layers} of "
-          f"{symbol}")
+          and next(iter(flash_ran.values())) == n_flash,
+          f"prefill flash launches {flash_ran}, want {n_flash} of {symbol}")
+    scans = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and "rglru_scan_kernel" in e.key)
+    check(scans == want.get("rglru_scan", 0),
+          f"prefill scan launches {scans}, want {want.get('rglru_scan', 0)}")
     with torch.inference_mode():
         cache = pad_prefill_cache(cfg, cache, LM_BATCH, LM_PROMPT + LM_NEW)
         tok = tokens[:, :1]
@@ -3602,9 +3760,10 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH):
     decode_device = sum(fam_d.values())
     decode_wall = statistics.median(r["decode_ms_per_token"] for r in steady)
     emit("lm_profile", model=arch, flash_kernel=symbol,
-         flash_launches_in_prefill=cfg.num_layers,
+         flash_launches_in_prefill=n_flash, scan_launches_in_prefill=scans,
          prefill_device_ms=fam, prefill_device_ms_total=total,
          flash_share=fam["flash_attention"] / total if total else None,
+         scan_share=fam["rglru_scan"] / total if total else None,
          prefill_top_kernels=top, decode_step_device_ms=fam_d,
          decode_step_device_ms_total=decode_device,
          decode_step_wall_ms_median=decode_wall,
@@ -3623,22 +3782,23 @@ def _leaves(tree):
         yield tree
 
 
-def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu"):
-    """``arch`` at full width, 2 layers: the card's engine against the CPU
-    engine on one prompt, with its launch counts (one flash launch per
-    layer, nothing else). Prefill logits, and the logits of every decode
-    step fed the CPU's tokens, within LM_CPU_TOL; greedy tokens equal up to
-    the first step whose CPU top-1/top-2 margin is within twice the
-    tolerance (after a divergence the contexts differ)."""
+def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
+                    layers: int = 2):
+    """``arch`` at full width, ``layers`` layers: the card's engine against
+    the CPU engine on one prompt, with its launch counts (one flash launch
+    an attention layer, one scan an RG-LRU layer, nothing else). Prefill
+    logits, and the logits of every decode step fed the CPU's tokens,
+    within LM_CPU_TOL; greedy tokens equal up to the first step whose CPU
+    top-1/top-2 margin is within twice the tolerance (after a divergence
+    the contexts differ)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cuda_lib
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm
     from repro_torch.models.params import to_device
     from repro_torch.serving import ServingEngine
 
-    cfg = dataclasses.replace(get_arch(arch), num_layers=2)
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
     params = lm.init_params(1, cfg, device=device)
     prompts = _lm_prompts(cfg, 1, 128, 31)
     n_new = 8
@@ -3646,9 +3806,8 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu"):
     cuda_lib.reset_launch_counts()
     tok_gpu = gpu.generate(prompts, n_new).cpu()
     counts = cuda_lib.launch_counts()
-    check({k_: v_ for k_, v_ in counts.items() if v_}
-          == {"flash_attention": cfg.num_layers},
-          f"{arch} launches {counts}, want one flash launch per layer")
+    check({k_: v_ for k_, v_ in counts.items() if v_} == lm_launches(cfg),
+          f"{arch} launches {counts}, want {lm_launches(cfg)}")
     params_cpu = to_device(params, torch.device("cpu"))
     cpu = ServingEngine(cfg, params_cpu, max_len=128 + n_new, device="cpu")
     tok_cpu = cpu.generate(prompts, n_new)
@@ -3672,10 +3831,9 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu"):
                   f"token {i} differs at a CPU margin {margins[i]}")
             break
         equal += 1
-    emit(phase, model=arch, layers=2,
-         cut=f"depth {get_arch(arch).num_layers} -> 2",
-         head_dim=cfg.resolved_head_dim,
-         flash_kernel=fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim),
+    emit(phase, model=arch, layers=layers,
+         cut=f"depth {get_arch(arch).num_layers} -> {layers}",
+         head_dim=cfg.resolved_head_dim, flash_kernel=lm_symbol(cfg),
          launches=counts, prompt=128, new_tokens=n_new,
          prefill_logits_max_abs=err,
          tolerance=LM_CPU_TOL, decode_logits_max_abs_per_step=step_err,
@@ -3683,6 +3841,60 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu"):
          tokens_gpu=tok_gpu[0].tolist(), tokens_cpu=tok_cpu[0].tolist(),
          cpu_margins=margins, gpu_stats=gpu.stats, cpu_stats=cpu.stats)
     del gpu, params
+    torch.cuda.empty_cache()
+
+
+def lm_ring_phase(device):
+    """recurrentgemma-2b at full width, LM_RG_LAYERS layers (one period of
+    its pattern), a prompt of LM_RG_RING_PROMPT tokens, past its 2048-key
+    window: each decode step's logits (the engine's ring cache holding
+    position p at slot p % 2048) against a card ``forward(mode="train")``
+    over the prompt and the tokens so far, at LM_TEACHER_TOL; greedy
+    tokens equal to the train forward's argmax where its top-2 margin
+    exceeds twice that."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_arch(LM_RG_ARCH), num_layers=LM_RG_LAYERS)
+    params = lm.init_params(2, cfg, device=device)
+    batch, n_new, s = 2, 8, LM_RG_RING_PROMPT
+    prompts = _lm_prompts(cfg, batch, s, 41).to(device)
+    engine = ServingEngine(cfg, params, max_len=s + n_new, device=device)
+    cuda_lib.reset_launch_counts()
+    tokens = engine.generate(prompts, n_new)
+    counts = cuda_lib.launch_counts()
+    check({k_: v_ for k_, v_ in counts.items() if v_} == lm_launches(cfg),
+          f"ring launches {counts}, want {lm_launches(cfg)}")
+    ring = engine.prefill(params, prompts)[1]["decoder"]["body"]["l2"]
+    check(ring["mixer"]["k"].shape[1] == cfg.window,
+          f"the local layer's prefill cache holds "
+          f"{ring['mixer']['k'].shape[1]} rows, want the {cfg.window} slots")
+    decoded = _forced_decode_logits(cfg, params, prompts, tokens, device)
+    errs, sure_ok = [], 0
+    with torch.inference_mode():
+        for i in range(n_new):
+            seq = torch.cat([prompts, tokens[:, :i].to(prompts.dtype)], 1)
+            ref = lm.forward(params, seq, cfg, mode="train")[0][:, -1]
+            ref = ref.float().cpu()
+            errs.append(max_abs(decoded[:, i], ref))
+            top2 = torch.topk(ref, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_TEACHER_TOL
+            check(bool((ref.argmax(-1) == tokens[:, i].long().cpu())[sure]
+                       .all()), f"ring token {i} != the train forward's")
+            sure_ok += int(sure.sum())
+    check(max(errs) <= LM_TEACHER_TOL,
+          f"ring decode logits vs train forward max-abs {max(errs)} > "
+          f"{LM_TEACHER_TOL}")
+    emit("lm_rg_ring", model=LM_RG_ARCH, layers=LM_RG_LAYERS,
+         cut=f"depth {get_arch(LM_RG_ARCH).num_layers} -> {LM_RG_LAYERS}",
+         window=cfg.window, prompt=s, batch=batch, new_tokens=n_new,
+         flash_kernel=lm_symbol(cfg), launches=counts,
+         logits_max_abs_per_step=errs, tolerance=LM_TEACHER_TOL,
+         checked_tokens=sure_ok, stats=engine.stats)
+    del engine, params
     torch.cuda.empty_cache()
 
 
@@ -4193,20 +4405,31 @@ def main() -> int:
           f"tensor-core instructions in the P2M library: {imma}")
     emit("tensor_cores", library="p2m", kernels=len(census),
          imma_hmma={k: list(v) for k, v in imma.items()})
-    # every flash_wgmma_kernel instance runs wgmma (HGMMA) and no mma.sync
-    # (HMMA); the float32 kernel runs neither (IEEE FFMA, no TF32)
+    # every flash_wgmma_kernel instance (each head dim, with and without a
+    # window: flash_wgmma_kernel<256, true> among them) runs wgmma (HGMMA)
+    # and no mma.sync (HMMA); the float32 kernel runs neither (IEEE FFMA,
+    # no TF32); the RG-LRU scan neither
     from repro_torch.kernels import flash_attention as fa
     flash = cuda_lib.tensor_core_census(built["flash_attention"][0],
                                         ("HMMA", "HGMMA"))
     wgmma = {k: v for k, v in flash.items() if "flash_wgmma_kernel" in k}
     ffma = {k: v for k, v in flash.items() if "flash_ffma_kernel" in k}
-    check(len(wgmma) == len(ffma) == len(fa.HEAD_DIMS)
-          and len(flash) == 2 * len(fa.HEAD_DIMS)
+    d256 = [k for k in wgmma if "ILi256ELb1E" in k]
+    check(len(wgmma) == 2 * len(fa.HEAD_DIMS[torch.bfloat16])
+          and len(ffma) == 2 * len(fa.HEAD_DIMS[torch.float32])
+          and len(flash) == len(wgmma) + len(ffma) and len(d256) == 1
           and all(h_ == 0 and g_ >= 1 for h_, g_ in wgmma.values())
           and all(v == (0, 0) for v in ffma.values()),
           f"tensor-core instructions in the flash library: {flash}")
     emit("tensor_cores", library="flash_attention", kernels=len(flash),
-         hmma_hgmma={k: list(v) for k, v in flash.items()})
+         d256_window_instance=d256[0], hmma_hgmma={
+             k: list(v) for k, v in flash.items()})
+    scan = cuda_lib.tensor_core_census(built["rglru_scan"][0],
+                                       ("HMMA", "HGMMA"))
+    check(len(scan) == 1 and all(v == (0, 0) for v in scan.values()),
+          f"tensor-core instructions in the scan library: {scan}")
+    emit("tensor_cores", library="rglru_scan", kernels=len(scan),
+         hmma_hgmma={k: list(v) for k, v in scan.items()})
 
     t_kernels = time.perf_counter()
     rows = kernel_phase(SERVING, device)
@@ -4227,17 +4450,24 @@ def main() -> int:
     flash_row = flash_phase(FLASH_SERVING, device)
     odd_rows = [flash_phase(geom, device) for geom in FLASH_ODD]
     flash_d80_row = odd_rows[FLASH_ODD.index(FLASH_D80_SERVING)]
-    # both served head dims run the Hopper kernel; lm_phase checks that
-    # every prefill launch was the kernel named here
-    for arch in (LM_ARCH, LM_D80_ARCH):
+    window_rows = [flash_phase(geom, device) for geom in FLASH_WINDOWED]
+    flash_d256_row = window_rows[FLASH_WINDOWED.index(FLASH_RG_SERVING)]
+    scan_row = rglru_phase(device)
+    # every served head dim runs the Hopper kernel; lm_phase checks that
+    # every prefill launch was the instance named here
+    for arch in (LM_ARCH, LM_D80_ARCH, LM_RG_ARCH):
         d = get_arch(arch).resolved_head_dim
-        check(fa.kernel_symbol(torch.bfloat16, d) == "flash_wgmma_kernel",
+        check(lm_symbol(get_arch(arch)).startswith(
+            f"flash_wgmma_kernel<{d}, "),
               f"{arch} (head dim {d}) is not served by flash_wgmma_kernel")
     t_lm = time.perf_counter()
     counts_lm = lm_phase(device, smi)
     counts_d80 = lm_phase(device, smi, LM_D80_ARCH)
+    counts_rg = lm_phase(device, smi, LM_RG_ARCH, "lm_rg")
     lm_vs_cpu_phase(device)
     lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
+    lm_vs_cpu_phase(device, LM_RG_ARCH, "lm_rg_vs_cpu", LM_RG_LAYERS)
+    lm_ring_phase(device)
     t_train = time.perf_counter()
     train_phase(device, smi)
     t_lifetime = time.perf_counter()
@@ -4282,11 +4512,14 @@ def main() -> int:
                            else counts_fleet8)[name]
     rows += fleet_rows
     # one flash row per served head dim, its launches from its own model's
-    # generate (the wrapper's count is one for every head dim)
+    # generate (the wrapper's count is one for every head dim); the scan's
+    # from recurrentgemma-2b's
     for row, n_launch, d in ((flash_row, counts_lm, 128),
-                             (flash_d80_row, counts_d80, 80)):
+                             (flash_d80_row, counts_d80, 80),
+                             (flash_d256_row, counts_rg, 256)):
         rows.append({**row, "name": f"flash_attention_bf16_d{d}",
                      "launches": n_launch["flash_attention"]})
+    rows.append({**scan_row, "launches": counts_rg["rglru_scan"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

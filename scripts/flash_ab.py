@@ -21,7 +21,11 @@ wgmmas were serialized) and one per geometry with the bound
 (``chip_smoke.flash_work``) and ``scaled_dot_product_attention`` on the
 same inputs in the same mode, after one line per checked version naming
 the kernels whose machine code (``cuobjdump -sass``) equals the first
-version's. With ``--diagnose``, copies of the first source that each
+version's (an instance without the window flag, ``flash_wgmma_kernel<D,
+false>``, is held to a first version's ``flash_wgmma_kernel<D>`` where that
+version predates the flag). The windowed geometries (recurrentgemma-2b's
+D 256 prefill at S 2048 and 8192, ``rg_*``) time the window's instances
+and so need versions that have them. With ``--diagnose``, copies of the first source that each
 leave one stage of the per-tile work out (``DIAGNOSTICS``) are timed
 beside it, unchecked: their outputs are wrong by design, and their times
 say what that stage costs. Needs a CUDA card and exits non-zero without
@@ -86,7 +90,16 @@ def geometries() -> dict:
             "mha_d128_b4": {**d80, "head_dim": 128},
             "narrow_d32_toy": cs.FLASH_NARROW_TOY,
             "f32_d128_toy": cs.FLASH_F32_TOY,
-            **cs.FLASH_B4}
+            **cs.FLASH_B4,
+            "rg_d256_b4": cs.FLASH_RG_SERVING,
+            "rg_d256_s8192": cs.FLASH_WINDOWED[1]}
+
+
+def first_name(kernel: str, first: dict) -> str:
+    """The first version's name of ``kernel``: its own, or, for an instance
+    without the window flag (``...ILi128ELb0EE...``) where the first
+    version predates the flag, the flagless one (``...ILi128EE...``)."""
+    return kernel if kernel in first else kernel.replace("Lb0E", "", 1)
 
 
 def checked_tolerance(geom: dict) -> float:
@@ -133,10 +146,12 @@ def main(argv) -> int:
     # which kernels of each version have the first version's machine code
     sass = {src: ab_versions.sass_by_kernel(lib._name)
             for src, lib in libs.items() if src not in unchecked}
+    first = sass[sources[0]]
     for src in sass:
         print(json.dumps({"source": src, "sass_equal_to_first": {
-            k: code == sass[sources[0]][k] for k, code in sass[src].items()
-            if k in sass[sources[0]]}}), flush=True)
+            k: code == first[first_name(k, first)]
+            for k, code in sass[src].items()
+            if first_name(k, first) in first}}), flush=True)
 
     dev = torch.device("cuda")
     smi = cs.nvidia_smi_line()
@@ -146,11 +161,13 @@ def main(argv) -> int:
         b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
                                              "kv_heads", "head_dim"))
         dtype, causal = getattr(torch, geom["dtype"]), geom["causal"]
+        window = geom.get("window", 0)
         tol = checked_tolerance(geom)
         q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
                    for shape in ((b, s, h, d), (b, s, hkv, d),
                                  (b, s, hkv, d)))
-        plain = fa.flash_attention_plain(q, k, v, causal=causal).float()
+        plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window).float()
         modes = (("causal", True), ("noncausal", False)) if causal else (
             ("noncausal", False),)
         current = {}
@@ -161,13 +178,15 @@ def main(argv) -> int:
 
         def measure():
             src = current["src"]
-            err = float((fa.flash_attention(q, k, v, causal=causal).float()
+            err = float((fa.flash_attention(q, k, v, causal=causal,
+                                            window=window).float()
                          - plain).abs().max())
             cs.check(src in unchecked or err <= tol,
                      f"{src}: max-abs {err} against the plain version at "
                      f"{name}")
             return {key: cs.device_ms(
-                lambda: fa.flash_attention(q, k, v, causal=c), dev)
+                lambda: fa.flash_attention(q, k, v, causal=c,
+                                           window=window if c else 0), dev)
                     for key, c in modes}
 
         turns = ab_versions.in_turns(sources, ROUNDS, load, measure)

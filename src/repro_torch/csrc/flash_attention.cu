@@ -12,16 +12,23 @@
 // float32 scores after the dot; masked scores are NEG_INF = -1e30 with the
 // reference's m_safe / alpha guards; the row sum l adds the float32 p, while
 // the P.V product takes p rounded to v's type (p.astype(v.dtype)); the
-// output is acc / max(l, 1e-30) in q's type.
+// output is acc / max(l, 1e-30) in q's type. With a sliding window W (the
+// local attention of repro/models/blocks.py::flash_attention, `window`),
+// key col is visible to query row only where row - col < W as well.
 //
 // Common to every kernel: the TPU's sequential kv grid axis becomes a loop
 // over kv tiles inside the block, with m, l and the accumulator carried in
 // registers. With `causal`, the loop ends at the last kv tile that is not
 // wholly in the future of the q tile, so the causal half of the work is
-// skipped, not masked. Query head h reads kv head h / (H / Hkv) directly:
+// skipped, not masked; with a window it starts at the kv tile of the q
+// tile's first row's oldest visible key, so the tiles wholly behind the
+// window are skipped too. Query head h reads kv head h / (H / Hkv) directly:
 // no repeated K/V. A ragged tail is masked: kv columns past S score NEG_INF,
 // q rows past S are not stored. q tiles are issued last-first so the long
-// causal rows start early. One kernel serves each (dtype, D):
+// causal rows start early. One kernel serves each (dtype, D, window or
+// not): the window is a template flag (kWindow), so each kernel has an
+// instance without it, whose code is the one it had before the window
+// existed, and one with it (its bounds, its mask):
 //
 //  * bf16, D = 16, 32, 64, 80, 128: flash_wgmma_kernel<D>, the Hopper
 //    design, one instance per head dim (D 128: every dense serving config
@@ -73,6 +80,17 @@
 //       runs tile j + 1's softmax while that product is in flight, and the
 //       two consumers take turns to issue (ping-pong on named barriers), so
 //       one's softmax runs under the other's wgmmas.
+//  * bf16, D = 256: flash_wgmma_kernel<256> (recurrentgemma-2b: 10 heads
+//    over 1 kv head, a 2048-key window). The same design with a layout of
+//    its own: a 128 x 256 Q tile is 64 KB, and a consumer's 64 x 256 float32
+//    accumulator is 128 registers a thread. So the kv tiles have 64 rows
+//    (32 KB K and V tiles, in 2 stages: 192 KB with Q), S is m64n64k16 over
+//    16 k-steps (32 registers), P.V m64n256k16 over 4, and S, P and O fit
+//    the consumers' 240 registers under setmaxnreg; the consumers issue
+//    without taking turns. With kv tiles half the q tile's height, the
+//    causal diagonal spans the last two kv tiles, both masked. Bound at recurrentgemma-2b's prefill (B 4, S 2048, H 10,
+//    Hkv 1, causal, the window masking nothing there): 85.9 GFLOP, 0.087
+//    ms at the tensor-core peak, against 0.028 ms for its 92 MB.
 //    At D 16 and 32 one score costs 4 D = 64-128 tensor-core FLOP but one
 //    exponential, so the special-function unit (16 a clock an SM), not the
 //    tensor cores, sets the floor: at granite-8b's prefill traffic 0.064
@@ -106,6 +124,7 @@
 //       that reach past a warp's first row or past S, the row sum l kept
 //       per lane and reduced once at the end.
 #include <cstdint>
+#include <cstdio>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,21 +136,23 @@ constexpr float kNegInf = -1e30f;
 }  // namespace
 
 // Mirror: FlashGeom in repro_torch/kernels/cuda_lib.py. Strides in elements.
+// `window` comes last, so the other fields keep their offsets
 struct FlashGeom {
   int32_t batch, seq, heads, kv_heads, causal;
   float scale;
   int64_t q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
+  int32_t window;   // > 0: the sliding window (read by kWindow instances)
 };
 
 namespace {
 
 struct Tile {
-  int q0, b, h, hk, n_kv;
+  int q0, b, h, hk, kv0, n_kv;   // kv tiles kv0 .. kv0 + n_kv - 1
 };
 
 // q tile qi (counted from the last, so the long causal rows come first) of
 // batch * head bh, for BM-row q tiles and BN-row kv tiles
-template <int BM, int BN>
+template <int BM, int BN, bool kWindow>
 __device__ Tile tile_of(const FlashGeom& g, int qi, int bh) {
   Tile t;
   const int n_qb = (g.seq + BM - 1) / BM;
@@ -140,13 +161,17 @@ __device__ Tile tile_of(const FlashGeom& g, int qi, int bh) {
   t.h = bh % g.heads;
   t.hk = t.h / (g.heads / g.kv_heads);
   const int last_row = min(t.q0 + BM, g.seq) - 1;
-  // causal: kv tiles wholly in the future of the q tile are never visited
-  t.n_kv = g.causal ? last_row / BN + 1 : (g.seq + BN - 1) / BN;
+  // causal: kv tiles wholly in the future of the q tile are never visited;
+  // a window: nor those wholly behind its first row's oldest visible key
+  t.kv0 = kWindow ? max(t.q0 - g.window + 1, 0) / BN : 0;
+  t.n_kv = (g.causal ? last_row / BN + 1 : (g.seq + BN - 1) / BN) - t.kv0;
   return t;
 }
 
+template <bool kWindow>
 __device__ __forceinline__ bool visible(const FlashGeom& g, int row, int col) {
-  return col < g.seq && (!g.causal || row >= col);
+  return col < g.seq && (!g.causal || row >= col) &&
+         (!kWindow || row - col < g.window);
 }
 
 // ---------------------------------------------------------------------------
@@ -155,33 +180,58 @@ __device__ __forceinline__ bool visible(const FlashGeom& g, int row, int col) {
 // ---------------------------------------------------------------------------
 
 constexpr int kHopperBM = 128;        // q rows per block: 2 consumers x 64
-constexpr int kHopperBN = 128;        // kv rows per tile
 constexpr int kHopperThreads = 384;   // producer + 2 consumer warpgroups
 constexpr int kBoxCols = 64;          // 128 bytes of bf16: one swizzle row
-constexpr int kBoxBytes = 128 * kBoxCols * 2;     // 128 rows x 64 columns
 
 // shared-memory layout of flash_wgmma_kernel<D>: the Q tile at 0, then
 // stage s's K tile at kKOff + 2 s kTileBytes and its V tile after it, then
-// the mbarriers
+// the mbarriers. A tile row is kBoxes boxes of 64 columns; a box holds the
+// tile's rows at 128 bytes a row (kQBoxBytes, kBoxBytes apart)
 template <int D>
 struct HopperLayout {
+  // kv rows per tile: 128, and 64 at D 256, where a consumer's 64 x 256
+  // accumulator takes 128 registers and 128-row S (64) and P (32) would not
+  // fit beside it under setmaxnreg's 240
+  static constexpr int kBN = D == 256 ? 64 : 128;
   // K/V ring depth: 32 KB tiles (D 80, 128) fill a block's shared memory at
   // 3 stages. 16 KB tiles (D 16 to 64) would leave room for 5 or 6, but
-  // those ran no faster than 3 (scripts/flash_ab.py), so every D has 3
-  static constexpr int kStages = 3;
+  // those ran no faster than 3 (scripts/flash_ab.py), so those have 3. At D
+  // 256 the 64 KB Q tile leaves room for 2 stages of 32 KB K and V tiles
+  static constexpr int kStages = D == 256 ? 2 : 3;
   // The consumers take turns to issue their products (ping-pong), so one's
   // softmax runs under the other's wgmmas. At D 16 and 32 the products are
   // too short to cover a softmax, and the turns only delay the issue:
-  // without them D 32 and 16 ran 7% and 10% faster (scripts/flash_ab.py)
-  static constexpr bool kPingPong = D > 32;
+  // without them D 32 and 16 ran 7% and 10% faster (scripts/flash_ab.py).
+  // At D 256 without the turns it ran 1.8% faster at S 2048 and 8192
+  // (scripts/flash_ab.py, H100)
+  static constexpr bool kPingPong = D > 32 && D < 256;
   static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;  // per row
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;
-  static constexpr int kKOff = kTileBytes;
-  static constexpr int kBarOff = kTileBytes * (1 + 2 * kStages);
+  static constexpr int kQBoxBytes = kHopperBM * kBoxCols * 2;
+  static constexpr int kBoxBytes = kBN * kBoxCols * 2;     // a K or V box
+  static constexpr int kQTileBytes = kBoxes * kQBoxBytes;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;    // a K or V tile
+  static constexpr int kScores = kBN / 2;   // S registers of a consumer thread
+  static constexpr int kKOff = kQTileBytes;
+  static constexpr int kBarOff = kQTileBytes + 2 * kStages * kTileBytes;
   // + 2 Q and 4 per stage K/V barriers + the 1024-byte alignment
   static constexpr int kSmem = kBarOff + 8 * (2 + 4 * kStages) + 1024;
   static_assert(D % 16 == 0 && kSmem <= 232448, "shared memory");
 };
+
+// whether a consumer masks the scores of kv tile [k0, k0 + BN) of the q
+// tile at q0: the last tile (the causal diagonal, the ragged tail) where kv
+// tiles are as tall as q tiles; else also the diagonal's other tiles and,
+// with a window, the tiles that reach behind some row's window
+template <int BN, bool kWindow>
+__device__ __forceinline__ bool masked_tile(const FlashGeom& g, int q0,
+                                            int k0, bool last) {
+  if constexpr (!kWindow && BN == kHopperBM) {
+    return last;
+  } else {
+    return last || (g.causal && k0 + BN - 1 > q0) ||
+           (kWindow && k0 <= q0 + kHopperBM - 1 - g.window);
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -243,12 +293,15 @@ __device__ __forceinline__ int item_of(int k) {
 
 // item -> tile: items run head-major (b * H + h) and, within a head, zigzag
 // over its n_qb q tiles: the longest causal tile, the shortest, the second
-// longest, ... (tile_of counts q tiles from the last)
+// longest, ... (tile_of counts q tiles from the last). The map is one to one
+// whatever the tiles' lengths: past a window they flatten out (every tile
+// ~W / BN kv tiles), and the pairs are then merely equal already
+template <int BN, bool kWindow>
 __device__ __forceinline__ Tile hopper_tile(const FlashGeom& g, int item,
                                             int n_qb) {
   const int z = item % n_qb;
   const int qi = (z & 1) ? n_qb - 1 - z / 2 : z / 2;
-  return tile_of<kHopperBM, kHopperBN>(g, qi, item / n_qb);
+  return tile_of<kHopperBM, BN, kWindow>(g, qi, item / n_qb);
 }
 
 // named barriers over the 256 consumer threads
@@ -288,16 +341,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[kHopperBN / 16][4]) {
+template <int NK>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[NK][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kHopperBN / 16; ++kk)
+  for (int kk = 0; kk < NK; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[kk][e]) :: "memory");
 }
 
 // the accumulator operands of a wgmma: registers %0 .. %(n - 1), in
-// pieces of 8, 8, 16, 8 and 24 for n = 8 (N 16), 16 (N 32), 32 (N 64), 40
-// (N 80) and 64 (N 128)
+// pieces of 8, 8, 16, 8, 24 and 64 for n = 8 (N 16), 16 (N 32), 32 (N 64),
+// 40 (N 80), 64 (N 128) and 128 (N 256)
 #define WG_R0_7 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define WG_R0_15 WG_R0_7 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define WG_R0_31                                                            \
@@ -307,11 +361,18 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[kHopperBN / 16][4]) {
 #define WG_R40_63                                                           \
   ", %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
   "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_R64_127                                                          \
+  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, " \
+  "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "   \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "   \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, " \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 #define WG_D8 "{" WG_R0_7 "}"
 #define WG_D16 "{" WG_R0_15 "}"
 #define WG_D32 "{" WG_R0_31 "}"
 #define WG_D40 "{" WG_R0_31 WG_R32_39 "}"
 #define WG_D64 "{" WG_R0_31 WG_R32_39 WG_R40_63 "}"
+#define WG_D128 "{" WG_R0_31 WG_R32_39 WG_R40_63 WG_R64_127 "}"
 #define WG_OUT0_7(d)                                                        \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
   "+f"(d[6]), "+f"(d[7])
@@ -333,20 +394,47 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[kHopperBN / 16][4]) {
   "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),          \
   "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),          \
   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define WG_OUT64_127(d)                                                     \
+  , "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]),        \
+  "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),          \
+  "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),          \
+  "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),          \
+  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]),          \
+  "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]),          \
+  "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]),          \
+  "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),      \
+  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),     \
+  "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),     \
+  "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),     \
+  "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),     \
+  "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 #define WG_OUT32(d) WG_OUT0_31(d)
 #define WG_OUT40(d) WG_OUT0_31(d) WG_OUT32_39(d)
 #define WG_OUT64(d) WG_OUT0_31(d) WG_OUT32_39(d) WG_OUT40_63(d)
+#define WG_OUT128(d) WG_OUT64(d) WG_OUT64_127(d)
 
-// d (64 x 128, f32) = [d +] A B^T: A (64 x 16) and B (128 x 16) K-major in
-// shared memory; scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+// d (64 x N, f32) = [d +] A B^T: A (64 x 16) and B (N x 16) K-major in
+// shared memory; scale_d = 0 overwrites d. N is the kv tile's height: 128,
+// and 64 at D 256
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_OUT64(d)
-      : "l"(da), "l"(db), "r"(scale_d));
+  static_assert(N == 64 || N == 128, "wgmma_ss: N 64, 128");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_OUT64(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_OUT32(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
 }
 
 // d (64 x N, f32) += A B: A (64 x 16) bf16 fragments in registers, B
@@ -356,8 +444,8 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 128,
-                "wgmma_rs: N 16, 32, 64, 80, 128");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 128 ||
+                N == 256, "wgmma_rs: N 16, 32, 64, 80, 128, 256");
   if constexpr (N == 16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
@@ -386,12 +474,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
         ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
         : WG_OUT40(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else {
+  } else if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
         ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
         : WG_OUT64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_D128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : WG_OUT128(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 }
@@ -407,15 +502,18 @@ __device__ __forceinline__ void wgmma_wait() {
 // q_rows / k_tile are the shared addresses of the consumer's 64 Q rows and
 // of the K tile
 template <int D>
-__device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t q_rows,
-                                             uint32_t k_tile) {
+__device__ __forceinline__ void issue_scores(
+    float (&s)[HopperLayout<D>::kScores], uint32_t q_rows, uint32_t k_tile) {
+  using L = HopperLayout<D>;
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss(s, smem_desc(q_rows + off, 16, 1024),
-             smem_desc(k_tile + off, 16, 1024), kk > 0);
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<L::kBN>(s, smem_desc(q_rows + (kk / 4) * L::kQBoxBytes + off,
+                                  16, 1024),
+                     smem_desc(k_tile + (kk / 4) * L::kBoxBytes + off, 16,
+                               1024), kk > 0);
   }
 }
 
@@ -425,36 +523,39 @@ __device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t q_rows,
 // 16 columns of the second), 8-row groups 1024 bytes (the stride byte
 // offset)
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[kHopperBN / 16][4],
-                                         uint32_t v_tile) {
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[D / 2], const uint32_t (&pa)[HopperLayout<D>::kBN / 16][4],
+    uint32_t v_tile) {
+  constexpr int kBoxBytes = HopperLayout<D>::kBoxBytes;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kHopperBN / 16; ++kk)
+  for (int kk = 0; kk < HopperLayout<D>::kBN / 16; ++kk)
     wgmma_rs<D>(acc, pa[kk], smem_desc(v_tile + kk * 2048, kBoxBytes, 1024));
 }
 
-// online softmax of one tile of raw scores s, in place in registers: mask
-// (the last kv tile only: the diagonal and the ragged tail), the running max
+// online softmax of one tile of raw scores s (NS registers: a 2 NS-column
+// kv tile), in place in registers: mask (where masked_tile says: the
+// diagonal, the ragged tail, the window's back edge), the running max
 // m_r of the raw scores (the scale is positive, so it commutes with the
 // max), p = e^(scale (s - m)), the running sum l_r (from the float32 p) and
 // the accumulator's factor alpha. Register i holds row rows[(i >> 1) & 1],
 // column k0 + 8 (i / 4) + 2 tig + (i & 1).
+template <int NS, bool kWindow>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[64], float (&alpha)[2], float (&m_r)[2], float (&l_r)[2],
+    float (&s)[NS], float (&alpha)[2], float (&m_r)[2], float (&l_r)[2],
     const FlashGeom& g, const int (&rows)[2], int k0, int tig, bool edge) {
   const float c = g.scale * kLog2e;
   float mx[2] = {kNegInf, kNegInf};
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int col = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
-      s[i] = visible(g, rows[(i >> 1) & 1], col) ? s[i] : kNegInf;
+      s[i] = visible<kWindow>(g, rows[(i >> 1) & 1], col) ? s[i] : kNegInf;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 64; ++i)
+    for (int i = 0; i < NS; ++i)
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
   float mc[2], rs[2] = {0.f, 0.f};
@@ -470,16 +571,16 @@ __device__ __forceinline__ void softmax_tile(
   }
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int r = (i >> 1) & 1;
       const int col = k0 + 8 * (i / 4) + 2 * tig + (i & 1);
       const float p = exp_diff(s[i], c, mc[r]);   // no branch around the asm
-      s[i] = visible(g, rows[r], col) ? p : 0.f;
+      s[i] = visible<kWindow>(g, rows[r], col) ? p : 0.f;
       rs[r] += s[i];
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int r = (i >> 1) & 1;
       s[i] = exp_diff(s[i], c, mc[r]);
       rs[r] += s[i];
@@ -501,10 +602,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // bf16(P) as the A fragments of the second product: the accumulator layout
 // of the first is the A layout of the second, k-step kk being columns
 // 16 kk .. 16 kk + 15, i.e. registers 8 kk .. 8 kk + 7
-__device__ __forceinline__ void pack_p(const float (&p)[64],
-                                       uint32_t (&pa)[kHopperBN / 16][4]) {
+template <int NK>
+__device__ __forceinline__ void pack_p(const float (&p)[8 * NK],
+                                       uint32_t (&pa)[NK][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kHopperBN / 16; ++kk) {
+  for (int kk = 0; kk < NK; ++kk) {
     pa[kk][0] = pack_bf16(p[8 * kk + 0], p[8 * kk + 1]);
     pa[kk][1] = pack_bf16(p[8 * kk + 2], p[8 * kk + 3]);
     pa[kk][2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
@@ -516,12 +618,13 @@ struct HopperMaps {
   CUtensorMap q, k, v;
 };
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
                    __nv_bfloat16* __restrict__ o, const FlashGeom g) {
   using L = HopperLayout<D>;
   constexpr int kTileBytes = L::kTileBytes, kStages = L::kStages;
+  constexpr int BN = L::kBN, kBoxBytes = L::kBoxBytes;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled TMA boxes want 1024-byte aligned destinations
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -563,19 +666,20 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
     if (threadIdx.x == 0) {
       int it = 0;
       for (int k = 0, item = item_of(0); item < n_items; item = item_of(++k)) {
-        const Tile t = hopper_tile(g, item, n_qb);
+        const Tile t = hopper_tile<BN, kWindow>(g, item, n_qb);
+        const int kv0 = kWindow ? t.kv0 : 0;
         if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
         // the transaction count is the whole boxes': TMA counts the
         // zero-filled columns past D and rows past S too
-        mbar_expect_tx(q_full, kTileBytes);
+        mbar_expect_tx(q_full, L::kQTileBytes);
         for (int x = 0; x < L::kBoxes; ++x)
-          tma_load(base + x * kBoxBytes, &maps.q, q_full, x * kBoxCols, t.q0,
+          tma_load(base + x * L::kQBoxBytes, &maps.q, q_full, x * kBoxCols, t.q0,
                    t.h, t.b);
         for (int j = 0; j < t.n_kv; ++j, ++it) {
           const int s = it % kStages, round = it / kStages;
           const uint32_t ks = base + L::kKOff + s * 2 * kTileBytes;
           const uint32_t vs = ks + kTileBytes;
-          const int k0 = j * kHopperBN;
+          const int k0 = (kv0 + j) * BN;
           if (round > 0) mbar_wait(empty_k + 8 * s, (round - 1) & 1);
           mbar_expect_tx(full_k + 8 * s, kTileBytes);
           for (int x = 0; x < L::kBoxes; ++x)
@@ -605,13 +709,14 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
     const int my_turn = 1 + c, next_turn = 2 - c;
     if (L::kPingPong && c == 1) bar_arrive(1);
 
-    float s[64], acc[D / 2];
+    float s[L::kScores], acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
-    uint32_t pa[kHopperBN / 16][4];
+    for (int i = 0; i < L::kScores; ++i) s[i] = 0.f;
+    uint32_t pa[BN / 16][4];
     int it = 0;
     for (int k = 0, item = item_of(0); item < n_items; item = item_of(++k)) {
-      const Tile t = hopper_tile(g, item, n_qb);
+      const Tile t = hopper_tile<BN, kWindow>(g, item, n_qb);
+      const int kv0 = kWindow ? t.kv0 : 0;
       const int rows[2] = {t.q0 + row0, t.q0 + row0 + 8};
       float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
@@ -631,7 +736,9 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         fence_regs(s);
         mbar_arrive(empty_k + 8 * st);
         if (t.n_kv == 1) mbar_arrive(q_empty);
-        softmax_tile(s, alpha, m_r, l_r, g, rows, 0, tig, t.n_kv == 1);
+        softmax_tile<L::kScores, kWindow>(
+            s, alpha, m_r, l_r, g, rows, kv0 * BN, tig,
+            masked_tile<BN, kWindow>(g, t.q0, kv0 * BN, t.n_kv == 1));
         pack_p(s, pa);
         fence_frags(pa);
       }
@@ -655,8 +762,10 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         fence_regs(s);
         mbar_arrive(empty_k + 8 * st1);
         if (j + 2 == t.n_kv) mbar_arrive(q_empty);   // Q's last read is done
-        softmax_tile(s, alpha, m_r, l_r, g, rows, (j + 1) * kHopperBN, tig,
-                     j + 2 == t.n_kv);
+        const int k0 = (kv0 + j + 1) * BN;
+        softmax_tile<L::kScores, kWindow>(
+            s, alpha, m_r, l_r, g, rows, k0, tig,
+            masked_tile<BN, kWindow>(g, t.q0, k0, j + 2 == t.n_kv));
         wgmma_wait<0>();
         // pa is read by the product just waited for: kept live to here, it
         // cannot share registers with the next P
@@ -780,7 +889,7 @@ __device__ __forceinline__ void load_rows_f32(uint32_t dst, int stride,
   }
 }
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kFfmaThreads, FfmaLayout<D>::kBlocksPerSM)
 flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
@@ -796,7 +905,8 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ps = smem_f + L::kPOff + warp * 16 * L::kP;   // the warp's P rows
   float* rs_f = smem_f + L::kROff + warp * 16;         // its row factors
 
-  const Tile t = tile_of<kFfmaBM, BN>(g, blockIdx.x, blockIdx.y);
+  const Tile t = tile_of<kFfmaBM, BN, kWindow>(g, blockIdx.x, blockIdx.y);
+  const int kv0 = kWindow ? t.kv0 : 0;
   const float* qp = q + t.b * g.q_b + t.h * g.q_h;
   const float* kp = k + t.b * g.k_b + t.hk * g.k_h;
   const float* vp = v + t.b * g.v_b + t.hk * g.v_h;
@@ -806,9 +916,9 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // (issued once every warp's P_j V_j is in): each load runs under the
   // other product
   load_rows_f32<D>(smem_u32(qs), L::kQK, qp, g.q_s, t.q0, kFfmaBM, g.seq);
-  load_rows_f32<D>(k_sh, L::kQK, kp, g.k_s, 0, BN, g.seq);
+  load_rows_f32<D>(k_sh, L::kQK, kp, g.k_s, kv0 * BN, BN, g.seq);
   cp_async_commit();
-  load_rows_f32<D>(v_sh, D, vp, g.v_s, 0, BN, g.seq);
+  load_rows_f32<D>(v_sh, D, vp, g.v_s, kv0 * BN, BN, g.seq);
   cp_async_commit();
 
   const int rg = lane / 16, cg = lane % 16;      // score lanes
@@ -829,13 +939,15 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < 4 * kChunks; ++e) acc[r][e] = 0.f;
 
   for (int j = 0; j < t.n_kv; ++j) {
-    const int k0 = j * BN;
+    const int k0 = (kv0 + j) * BN;
     const bool more = j + 1 < t.n_kv;
     cp_async_wait<1>();   // Q and K_j are in (V_j may not be)
     __syncthreads();
     // causal: a kv tile wholly in the future of the warp's 16 rows leaves
-    // them as they are; the warp only keeps to the block's barriers
-    const bool active = !g.causal || k0 <= last_row;
+    // them as they are, and so does one wholly behind their window; the
+    // warp only keeps to the block's barriers
+    const bool active = (!g.causal || k0 <= last_row) &&
+                        (!kWindow || k0 + BN - 1 > first_row - g.window);
     float s[8][kCols];
     if (active) {
       // S = Q K^T: each 16-byte Q load feeds 4 kCols FFMA, each K load 32
@@ -872,16 +984,19 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (active) {
       // online softmax on the raw scores (the scale is positive, so it
       // commutes with the max), e^(scale (s - m)) as exp_diff; the mask
-      // only where the tile reaches past the warp's first row or past S
+      // only where the tile reaches past the warp's first row or past S,
+      // or behind its last row's window
       const bool edge = (g.causal && k0 + BN - 1 > first_row) ||
-                        k0 + BN > g.seq;
+                        k0 + BN > g.seq ||
+                        (kWindow && k0 <= last_row - g.window);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int row = first_row + score_row(rg, i);
         float mx = kNegInf;
 #pragma unroll
         for (int cc = 0; cc < kCols; ++cc) {
-          if (edge && !visible(g, row, k0 + cg + 16 * cc)) s[i][cc] = kNegInf;
+          if (edge && !visible<kWindow>(g, row, k0 + cg + 16 * cc))
+            s[i][cc] = kNegInf;
           mx = fmaxf(mx, s[i][cc]);
         }
 #pragma unroll
@@ -896,7 +1011,7 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int cc = 0; cc < kCols; ++cc) {
           float p = exp_diff(s[i][cc], c, mc);
-          if (edge && !visible(g, row, k0 + cg + 16 * cc)) p = 0.f;
+          if (edge && !visible<kWindow>(g, row, k0 + cg + 16 * cc)) p = 0.f;
           ps[score_row(rg, i) * L::kP + cg + 16 * cc] = p;
           sum += p;
         }
@@ -974,17 +1089,17 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // launches
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, bool kWindow>
 int launch_ffma(const void* q, const void* k, const void* v, void* o,
                 const FlashGeom& g, void* stream) {
   constexpr int kSmem = FfmaLayout<D>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_ffma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      flash_ffma_kernel<D, kWindow>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((g.seq + kFfmaBM - 1) / kFfmaBM, g.batch * g.heads);
-  flash_ffma_kernel<D><<<grid, kFfmaThreads, kSmem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  flash_ffma_kernel<D, kWindow><<<grid, kFfmaThreads, kSmem,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), g);
   return static_cast<int>(cudaGetLastError());
@@ -1019,14 +1134,14 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// a rank-4 (D, S, heads, B) bf16 map read in (64 columns, 128 rows) boxes;
-// strides in elements. The map ends at column D, so a box reaching past it
-// (D 80's second, the only one of D 16 and 32) reads zeros there, never the
-// next head's columns
+// a rank-4 (D, S, heads, B) bf16 map read in (64 columns, `rows` rows)
+// boxes; strides in elements. The map ends at column D, so a box reaching
+// past it (D 80's second, the only one of D 16 and 32) reads zeros there,
+// never the next head's columns
 template <int D>
 int encode_map(CUtensorMap* map, const void* ptr, const FlashGeom& g,
                int heads, int64_t s_stride, int64_t h_stride,
-               int64_t b_stride) {
+               int64_t b_stride, int rows) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(g.seq),
@@ -1035,7 +1150,7 @@ int encode_map(CUtensorMap* map, const void* ptr, const FlashGeom& g,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_stride) * 2,
                                  static_cast<cuuint64_t>(h_stride) * 2,
                                  static_cast<cuuint64_t>(b_stride) * 2};
-  const cuuint32_t box[4] = {kBoxCols, kHopperBN, 1, 1};
+  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -1046,20 +1161,23 @@ int encode_map(CUtensorMap* map, const void* ptr, const FlashGeom& g,
 }
 
 // no fallback: a map the driver refuses is returned as an error
-template <int D>
+template <int D, bool kWindow>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  const FlashGeom& g, void* stream) {
+  using L = HopperLayout<D>;
   HopperMaps maps;
-  int err = encode_map<D>(&maps.q, q, g, g.heads, g.q_s, g.q_h, g.q_b);
+  int err = encode_map<D>(&maps.q, q, g, g.heads, g.q_s, g.q_h, g.q_b,
+                          kHopperBM);
   if (err == 0)
-    err = encode_map<D>(&maps.k, k, g, g.kv_heads, g.k_s, g.k_h, g.k_b);
+    err = encode_map<D>(&maps.k, k, g, g.kv_heads, g.k_s, g.k_h, g.k_b,
+                        L::kBN);
   if (err == 0)
-    err = encode_map<D>(&maps.v, v, g, g.kv_heads, g.v_s, g.v_h, g.v_b);
+    err = encode_map<D>(&maps.v, v, g, g.kv_heads, g.v_s, g.v_h, g.v_b,
+                        L::kBN);
   if (err != 0) return err;
-  constexpr int kSmem = HopperLayout<D>::kSmem;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      flash_wgmma_kernel<D, kWindow>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   int device = 0, sms = 0;
   cudaError_t dev = cudaGetDevice(&device);
@@ -1071,51 +1189,44 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const int items = (g.seq + kHopperBM - 1) / kHopperBM * g.batch * g.heads;
   const int pairs = (items + 1) / 2;
   const int grid = pairs < sms ? pairs : sms;
-  flash_wgmma_kernel<D><<<grid, kHopperThreads, kSmem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  flash_wgmma_kernel<D, kWindow><<<grid, kHopperThreads, L::kSmem,
+                                   static_cast<cudaStream_t>(stream)>>>(
       maps, static_cast<__nv_bfloat16*>(o), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the one kernel of each (dtype, D)
+// the one kernel of each (dtype, D, window or not): bf16 D 16, 32, 64, 80,
+// 128 and 256 the wgmma kernel, float32 D 16 to 128 the FFMA kernel
 enum Route { kNoKernel, kWgmma, kFfma };
 
 Route route_of(int dtype, int head_dim) {
   const bool built = head_dim == 16 || head_dim == 32 || head_dim == 64 ||
                      head_dim == 80 || head_dim == 128;
-  if (!built) return kNoKernel;
-  return dtype == 1 ? kWgmma : dtype == 0 ? kFfma : kNoKernel;
+  if (dtype == 1) return built || head_dim == 256 ? kWgmma : kNoKernel;
+  return dtype == 0 && built ? kFfma : kNoKernel;
 }
 
-}  // namespace
-
-extern "C" {
-
-// dtype 0: float32, 1: bfloat16; head_dim 16, 32, 64, 80 or 128. Returns
-// the cudaError_t of the launch (0 = success), kErrNoEncoder or kErrEncode
-// + CUresult when a tensor map cannot be made.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int head_dim, const FlashGeom* g,
-                        void* stream) {
-  if (g->seq <= 0 || g->kv_heads <= 0 || g->heads % g->kv_heads != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <bool kWindow>
+int launch(const void* q, const void* k, const void* v, void* o, int dtype,
+           int head_dim, const FlashGeom& g, void* stream) {
   switch (route_of(dtype, head_dim)) {
     case kWgmma:
       switch (head_dim) {
-        case 16: return launch_wgmma<16>(q, k, v, o, *g, stream);
-        case 32: return launch_wgmma<32>(q, k, v, o, *g, stream);
-        case 64: return launch_wgmma<64>(q, k, v, o, *g, stream);
-        case 80: return launch_wgmma<80>(q, k, v, o, *g, stream);
-        case 128: return launch_wgmma<128>(q, k, v, o, *g, stream);
+        case 16: return launch_wgmma<16, kWindow>(q, k, v, o, g, stream);
+        case 32: return launch_wgmma<32, kWindow>(q, k, v, o, g, stream);
+        case 64: return launch_wgmma<64, kWindow>(q, k, v, o, g, stream);
+        case 80: return launch_wgmma<80, kWindow>(q, k, v, o, g, stream);
+        case 128: return launch_wgmma<128, kWindow>(q, k, v, o, g, stream);
+        case 256: return launch_wgmma<256, kWindow>(q, k, v, o, g, stream);
       }
       break;
     case kFfma:
       switch (head_dim) {
-        case 16: return launch_ffma<16>(q, k, v, o, *g, stream);
-        case 32: return launch_ffma<32>(q, k, v, o, *g, stream);
-        case 64: return launch_ffma<64>(q, k, v, o, *g, stream);
-        case 80: return launch_ffma<80>(q, k, v, o, *g, stream);
-        case 128: return launch_ffma<128>(q, k, v, o, *g, stream);
+        case 16: return launch_ffma<16, kWindow>(q, k, v, o, g, stream);
+        case 32: return launch_ffma<32, kWindow>(q, k, v, o, g, stream);
+        case 64: return launch_ffma<64, kWindow>(q, k, v, o, g, stream);
+        case 80: return launch_ffma<80, kWindow>(q, k, v, o, g, stream);
+        case 128: return launch_ffma<128, kWindow>(q, k, v, o, g, stream);
       }
       break;
     case kNoKernel: break;
@@ -1123,15 +1234,36 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the symbol of the kernel flash_attention_fwd launches for (dtype, D), or
-// null where it launches none
-const char* flash_attention_kernel(int dtype, int head_dim) {
-  switch (route_of(dtype, head_dim)) {
-    case kWgmma: return "flash_wgmma_kernel";
-    case kFfma: return "flash_ffma_kernel";
-    case kNoKernel: break;
-  }
-  return nullptr;
+}  // namespace
+
+extern "C" {
+
+// dtype 0: float32, 1: bfloat16; head_dim 16, 32, 64, 80 or 128 (and 256
+// in bfloat16); g->window 0 (none) or the sliding window. Returns the
+// cudaError_t of the launch (0 = success), kErrNoEncoder or kErrEncode +
+// CUresult when a tensor map cannot be made.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                        int dtype, int head_dim, const FlashGeom* g,
+                        void* stream) {
+  if (g->seq <= 0 || g->kv_heads <= 0 || g->heads % g->kv_heads != 0 ||
+      g->window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return g->window > 0
+             ? launch<true>(q, k, v, o, dtype, head_dim, *g, stream)
+             : launch<false>(q, k, v, o, dtype, head_dim, *g, stream);
+}
+
+// the demangled name of the kernel flash_attention_fwd launches for (dtype,
+// D, window), e.g. "flash_wgmma_kernel<256, true>", or null where it
+// launches none
+const char* flash_attention_kernel(int dtype, int head_dim, int window) {
+  static char name[48];
+  const Route route = route_of(dtype, head_dim);
+  if (route == kNoKernel) return nullptr;
+  snprintf(name, sizeof(name), "%s<%d, %s>",
+           route == kWgmma ? "flash_wgmma_kernel" : "flash_ffma_kernel",
+           head_dim, window > 0 ? "true" : "false");
+  return name;
 }
 
 }  // extern "C"

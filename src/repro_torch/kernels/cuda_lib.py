@@ -2,9 +2,9 @@
 
 The sources under ``repro_torch/csrc`` have a plain C interface, so one
 ``nvcc`` call per library builds it in seconds without PyTorch's headers.
-Two libraries: ``p2m`` (the sensor frontend's seven kernels, five of
-them also with a chip grid dimension) and
-``flash_attention``. A build runs at first use, into ``build/repro_torch/``
+Three libraries: ``p2m`` (the sensor frontend's seven kernels, five of
+them also with a chip grid dimension), ``flash_attention`` and
+``rglru_scan``. A build runs at first use, into ``build/repro_torch/``
 at the root of the checkout, under a name keyed by a hash of the library's
 sources and flags: an edited source never loads a stale library. Nothing
 here runs at import time. The launch helpers shared by the kernel wrappers
@@ -53,7 +53,8 @@ class Library:
 P2M = Library("p2m", ("p2m_kernels.cu", "p2m_physics.cuh"),
               _COMMON_FLAGS + ("--fmad=false",))
 FLASH = Library("flash_attention", ("flash_attention.cu",), _COMMON_FLAGS)
-LIBRARIES = (P2M, FLASH)
+RGLRU = Library("rglru_scan", ("rglru_scan.cu",), _COMMON_FLAGS)
+LIBRARIES = (P2M, FLASH, RGLRU)
 
 
 class P2MPhysics(ctypes.Structure):
@@ -78,11 +79,13 @@ class ConvGeom(ctypes.Structure):
 
 class FlashGeom(ctypes.Structure):
     """Mirror of ``struct FlashGeom`` in csrc/flash_attention.cu (strides in
-    elements)."""
+    elements; ``window`` 0 for none, last so the other fields keep their
+    offsets)."""
     _fields_ = ([(name, ctypes.c_int32) for name in (
         "batch", "seq", "heads", "kv_heads", "causal")]
         + [("scale", ctypes.c_float)]
-        + [(f"{t}_{a}", ctypes.c_int64) for t in "qkvo" for a in "bsh"])
+        + [(f"{t}_{a}", ctypes.c_int64) for t in "qkvo" for a in "bsh"]
+        + [("window", ctypes.c_int32)])
 
 
 def _nvcc() -> str:
@@ -192,8 +195,14 @@ def _bind_flash(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32,
                                         ctypes.POINTER(FlashGeom), p]
     lib.flash_attention_fwd.restype = ctypes.c_int
-    lib.flash_attention_kernel.argtypes = [i32, i32]
+    lib.flash_attention_kernel.argtypes = [i32, i32, i32]
     lib.flash_attention_kernel.restype = ctypes.c_char_p
+
+
+def _bind_rglru(lib: ctypes.CDLL) -> None:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_scan.argtypes = [p, p, p, i32, i32, i32, p]
+    lib.rglru_scan.restype = ctypes.c_int
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -215,6 +224,11 @@ def load() -> ctypes.CDLL:
 def load_flash() -> ctypes.CDLL:
     """The flash-attention library (built on first use), entries typed."""
     return _load(FLASH, _bind_flash)
+
+
+def load_rglru() -> ctypes.CDLL:
+    """The RG-LRU scan library (built on first use), its entry typed."""
+    return _load(RGLRU, _bind_rglru)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +269,8 @@ def stream_of(device: torch.device) -> ctypes.c_void_p:
 
 # the modules whose wrappers register below: one for each library
 _WRAPPER_MODULES = ("repro_torch.kernels.p2m_conv",
-                    "repro_torch.kernels.flash_attention")
+                    "repro_torch.kernels.flash_attention",
+                    "repro_torch.kernels.rglru_scan")
 _WRAPPERS: List[Callable] = []
 # observers of wrapper calls (``repro_torch.analysis.census``), and how deep
 # the current thread is inside a wrapper's body

@@ -7,24 +7,30 @@ applied to the float32 scores, ``NEG_INF`` masking with the reference's
 ``m_safe`` / ``alpha`` guards, p rounded to v's type for the P.V product (the
 row sum takes the float32 p), and the output ``acc / max(l, 1e-30)`` in q's
 type. With ``causal`` the kernel never visits a kv tile that lies wholly in
-the future of its q tile.
+the future of its q tile, and with a sliding ``window`` (key j visible to
+query i only where i - j < window, ``repro.models.blocks.flash_attention``'s
+local attention) none that lies wholly behind its window.
 
 The reference wrapper (``repro.kernels.ops.flash_attention``) repeats the kv
 heads and pads D to 128 lanes: both are TPU layout choices. Here the kernel
 reads q (B, S, H, D) and k, v (B, S, Hkv, D) in place through their strides
 and indexes kv head ``h // (H / Hkv)`` itself; any S works (a ragged tail is
-masked). One kernel serves each (dtype, D), with no switch:
-- bfloat16, D 16, 32, 64, 80, 128: ``flash_wgmma_kernel<D>`` (TMA, an
-  mbarrier ring, wgmma; 128-row q and kv tiles; a tile row is ceil(D / 64)
-  boxes of 64 columns whose tensor map ends at column D, so D 80's second
-  box and D 16's and 32's only one read zeros past the head, never the
-  next head of a packed projection; D / 16 k-steps of the first product,
-  an N = D second product). A tensor map the CUDA driver refuses raises
-  through ``check_launch``: there is no fallback to another kernel;
-- float32, D 16, 32, 64, 80, 128: ``flash_ffma_kernel<D>`` (IEEE FFMA,
+masked). One kernel serves each (dtype, D, window or not), with no switch:
+- bfloat16, D 16, 32, 64, 80, 128, 256: ``flash_wgmma_kernel<D, W>`` (TMA,
+  an mbarrier ring, wgmma; 128-row q tiles and 128-row kv tiles, 64-row at
+  D 256; a tile row is ceil(D / 64) boxes of 64 columns whose tensor map
+  ends at column D, so D 80's second box and D 16's and 32's only one
+  read zeros past the head, never the next head of a packed projection;
+  D / 16 k-steps of the first product, an N = D second product). A tensor
+  map the CUDA driver refuses raises through ``check_launch``: there is no
+  fallback to another kernel;
+- float32, D 16, 32, 64, 80, 128: ``flash_ffma_kernel<D, W>`` (IEEE FFMA,
   never TF32; 8 warps each own 16 of a block's 128 q rows, K and V come
-  by cp.async under the other product in tiles of 64 kv rows).
-``kernel_symbol`` asks the library which one a call launches.
+  by cp.async under the other product in tiles of 64 kv rows). Float32 at
+  D 256 has no kernel (no served config needs it) and raises.
+W is ``true`` for a call with a window and ``false`` without: the window
+is a template flag, so the instances without it keep the code they had
+before it. ``kernel_symbol`` asks the library which one a call launches.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; any other device raises, and
@@ -50,7 +56,9 @@ from repro_torch.kernels.cuda_lib import check_launch, on_cpu, stream_of
 
 NEG_INF = -1e30
 BLOCK_KV = 64                     # the plain version's kv chunk
-HEAD_DIMS = (16, 32, 64, 80, 128)  # the head dims the kernels are built for
+# the head dims the kernels are built for, by dtype
+HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 80, 128, 256),
+             torch.float32: (16, 32, 64, 80, 128)}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -115,12 +123,15 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _check_card_operands(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> None:
+                         v: torch.Tensor, window: int = 0) -> None:
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if q.shape[3] not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS[q.dtype]}:"
+                         f" no {q.dtype} flash kernel is built for it")
+    if not 0 <= window < 2 ** 31:
+        raise ValueError(f"window {window} is not 0 (none) or a length")
     vec = 16 // q.element_size()      # elements in one 16-byte load
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or any(t.stride(i) % vec for i in range(3)) \
@@ -133,20 +144,21 @@ def _check_card_operands(q: torch.Tensor, k: torch.Tensor,
 
 @cuda_lib.kernel_wrapper
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Attention of q (B, S, H, D) over k, v (B, S, Hkv, D), H % Hkv == 0.
-    Returns (B, S, H, D) in q's dtype: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Attention of q (B, S, H, D) over k, v (B, S, Hkv, D), H % Hkv == 0;
+    ``window > 0`` also hides keys ``window`` or more positions behind a
+    query. Returns (B, S, H, D) in q's dtype: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     _check_shapes(q, k, v)
     if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal)
-    _check_card_operands(q, k, v)
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    _check_card_operands(q, k, v, window)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     geom = cuda_lib.FlashGeom(
         b, s, h, k.shape[2], int(causal), d ** -0.5,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3])
+        *out.stride()[:3], window)
     lib = cuda_lib.load_flash()
     check_launch(lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -156,11 +168,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def kernel_symbol(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel ``flash_attention`` launches for CUDA operands of this
-    dtype and head dim, as the library dispatches (builds the library)."""
+def kernel_symbol(dtype: torch.dtype, head_dim: int, window: int = 0) -> str:
+    """The kernel instance ``flash_attention`` launches for CUDA operands
+    of this dtype and head dim, with or without a window, as the library
+    dispatches and the profiler names it, e.g. ``flash_wgmma_kernel<256,
+    true>`` (builds the library)."""
     name = cuda_lib.load_flash().flash_attention_kernel(
-        _DTYPE_CODES.get(dtype, -1), head_dim)
+        _DTYPE_CODES.get(dtype, -1), head_dim, window)
     if name is None:
         raise ValueError(f"no flash kernel for {dtype}, head dim {head_dim}")
     return name.decode()
@@ -169,10 +183,11 @@ def kernel_symbol(dtype: torch.dtype, head_dim: int) -> str:
 cuda_lib.register(flash_attention)
 
 
-def _attention_dots(q, k, v, *, causal: bool = True):
+def _attention_dots(q, k, v, *, causal: bool = True, window: int = 0):
     """The two products of each (batch, head), for the op census: scores
     Q K^T (S, D) x (D, S) and the output P V (S, S) x (S, D), at their full
-    shapes (a causal kernel skips the key tiles above the diagonal)."""
+    shapes (a causal kernel skips the key tiles above the diagonal, a
+    windowed one those behind the window too)."""
     b, s, h, d = q.shape
     dtype = str(q.dtype).removeprefix("torch.")
     return (cuda_lib.Dot((b, h, s, d), (d, s), dtype, "float32"),

@@ -1,6 +1,7 @@
 """Transformer building blocks, the dense subset: norms, RoPE, attention
 (prefill through the flash-attention kernel, decode against the KV cache),
-the GQA attention block and the dense MLP.
+the GQA attention block (global, or local with a sliding window and a
+ring-buffer cache) and the dense MLP.
 
 Port of ``repro.models.blocks``. Parameters are the reference's dict trees
 (``attn_spec`` / ``mlp_spec``); layouts are the reference's ((B, S, H, D)
@@ -74,16 +75,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On CUDA tensors it launches the flash-attention kernel
     (``ops.flash_attention``); the kernel computes equal-length self
-    attention with D == Dv and no window, and other cases raise. On CPU
-    tensors it runs the reference's chunked scan in PyTorch ops, over kv
-    chunks of the reference's size (the reference's q chunking does not
-    change the result, so the scan takes every query row at once)."""
+    attention with D == Dv, with or without a window, and other cases
+    raise. On CPU tensors it runs the reference's chunked scan in PyTorch
+    ops, over kv chunks of the reference's size (the reference's q chunking
+    does not change the result, so the scan takes every query row at
+    once)."""
     sq, sk = q.shape[1], k.shape[1]
     if q.device.type == "cuda":
-        if window > 0:
-            raise NotImplementedError(
-                "sliding-window attention on the card comes with the "
-                "local-attention (recurrentgemma) slice")
         if v.shape[-1] != q.shape[-1]:
             raise NotImplementedError(
                 "attention with value dim != query dim on the card comes "
@@ -92,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise NotImplementedError(
                 "attention with unequal or offset q / kv lengths on the "
                 "card comes with the encoder-decoder slice")
-        return ops.flash_attention(q, k, v, causal=causal)
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset,
                                  kv_chunk=_pick(sk, kv_chunk))
@@ -151,21 +149,29 @@ def attn_apply(params: Dict, x: torch.Tensor, positions: torch.Tensor,
 
     Decode writes this token's K/V row into ``cache["k"]`` / ``cache["v"]``
     IN PLACE at slot ``cache["pos"]`` (the reference returns updated copies)
-    and returns those same tensors with ``pos + 1``."""
+    and returns those same tensors with ``pos + 1``. With ``window > 0`` the
+    cache is a ring of ``cache_len`` slots: position p lives at slot
+    ``p % cache_len``, and decode attends to the ``min(pos + 1, cache_len)``
+    slots written, every one inside the window by construction.
+
+    A prefill longer than the window returns its last ``window`` positions'
+    K/V already in their ring slots (position p at ``p % window``), where
+    the reference returns all of them and its ``pad_prefill_cache`` then
+    keeps the first ``window``, so that its decode attends to stale keys
+    (ROADMAP §3). Up to the window the prefill cache is the reference's."""
     q = rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = rope(_project(x, params["wk"]), positions, cfg.rope_theta)
     v = _project(x, params["wv"])
 
     new_cache = None
     if mode == "decode":
-        if window > 0:
-            raise NotImplementedError("the ring-buffer cache comes with the "
-                                      "local-attention slice")
         kc, vc = cache["k"], cache["v"]
-        # the reference's dynamic_update_slice clamps the slot into range
-        slot = torch.clamp(cache["pos"], max=kc.shape[1] - 1).reshape(1).long()
-        kc.index_copy_(1, slot, k)
-        vc.index_copy_(1, slot, v)
+        if window > 0:   # the ring buffer's slot, on the device: no sync
+            slot = torch.remainder(cache["pos"], kc.shape[1]).reshape(1)
+        else:   # the reference's dynamic_update_slice clamps it into range
+            slot = torch.clamp(cache["pos"], max=kc.shape[1] - 1).reshape(1)
+        kc.index_copy_(1, slot.long(), k)
+        vc.index_copy_(1, slot.long(), v)
         cur = cache["pos"] + 1
         new_cache = {"k": kc, "v": vc, "pos": cur}
         out = decode_attention(q, kc, vc, torch.clamp(cur, max=kc.shape[1]))
@@ -173,13 +179,24 @@ def attn_apply(params: Dict, x: torch.Tensor, positions: torch.Tensor,
         out = flash_attention(q, k, v, causal=causal, window=window,
                               kv_chunk=cfg.kv_chunk)
         if mode == "prefill":
-            new_cache = {"k": k, "v": v,
-                         "pos": torch.tensor(k.shape[1], dtype=torch.int32,
-                                             device=k.device)}
+            s = k.shape[1]
+            pos = torch.tensor(s, dtype=torch.int32, device=k.device)
+            if 0 < window < s:
+                new_cache = {"k": _ring(k, window), "v": _ring(v, window),
+                             "pos": pos}
+            else:
+                new_cache = {"k": k, "v": v, "pos": pos}
     b, s, h, dh = out.shape
     wo = params["wo"].to(x.dtype)
     y = out.reshape(b, s, h * dh) @ wo.reshape(h * dh, wo.shape[-1])
     return y, new_cache
+
+
+def _ring(t: torch.Tensor, window: int) -> torch.Tensor:
+    """The last ``window`` rows (axis 1) of a sequence of S rows, position p
+    at slot ``p % window``."""
+    s = t.shape[1]
+    return torch.roll(t[:, s - window:], shifts=(s - window) % window, dims=1)
 
 
 def attn_cache_spec(cfg: ArchConfig, batch: int, max_len: int,

@@ -1,4 +1,4 @@
-"""Causal decoder-only LM, the dense GQA subset: port of ``repro.models.lm``.
+"""Causal decoder-only LM, dense GQA and hybrid: port of ``repro.models.lm``.
 
 The per-layer kinds come from ``ArchConfig.layer_kinds()`` and the layers
 are grouped by ``segment_plan`` as in the reference, so the parameter and
@@ -10,15 +10,19 @@ the port loops in Python over per-layer views of the stacked tensors (no
 copies).
 
 Modes: "train" (logits), "prefill" (logits + cache), "decode" (one token).
-Prefill attention runs through the flash-attention kernel on the card.
+Prefill attention runs through the flash-attention kernel on the card, a
+``local_attn`` layer's with the config's sliding window, and an ``rglru``
+layer's recurrence through the RG-LRU scan kernel.
 
-The KV cache: the reference updates it functionally. Here a decode step
+The cache: the reference updates it functionally. Here a decode step
 writes the new K/V row IN PLACE into the cache it is given (at slot
-``pos``) and returns a cache whose K/V are those same tensors, so a cache
-must not be reused after a decode step.
+``pos``, or ``pos % window`` in a local layer's ring), and an RG-LRU
+layer's state too, and returns a cache whose leaves are those same
+tensors, so a cache must not be reused after a decode step.
 
-Ported: configs whose every mixer is ``attn`` with dense MLPs. Local
-attention, RG-LRU, MLA, mLSTM/sLSTM, MoE and encoder-decoder configs raise
+Ported: configs whose mixers are ``attn``, ``local_attn`` and ``rglru``
+with dense MLPs (the dense GQA models and recurrentgemma-2b). MLA,
+mLSTM/sLSTM, MoE and encoder-decoder configs raise
 ``NotImplementedError``, and so do a ``mesh`` and ``rules``: one card has
 no mesh.
 """
@@ -30,17 +34,20 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import blocks
+from repro_torch.models import blocks, recurrent
 from repro_torch.models.params import ParamSpec, init_tree, stack_specs
+
+# the mixers this port runs
+MIXERS = ("attn", "local_attn", "rglru")
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for a config this slice does not run."""
-    mixers = sorted({mx for mx, _ in cfg.layer_kinds()} - {"attn"})
+    mixers = sorted({mx for mx, _ in cfg.layer_kinds()} - set(MIXERS))
     if mixers:
         raise NotImplementedError(
-            f"{cfg.name}: mixers {mixers} are not ported yet (local "
-            "attention and RG-LRU, MLA, mLSTM/sLSTM come with later slices)")
+            f"{cfg.name}: mixers {mixers} are not ported yet (MLA and "
+            "mLSTM/sLSTM come with later slices)")
     if cfg.num_experts > 0:
         raise NotImplementedError(f"{cfg.name}: MoE is not ported yet")
     if cfg.is_encdec:
@@ -83,10 +90,18 @@ def segment_plan(cfg: ArchConfig) -> Tuple[Segment, ...]:
 # specs, init, cache
 # ----------------------------------------------------------------------------
 
-def _layer_spec(cfg: ArchConfig, mlp: str) -> Dict[str, Any]:
+def _mixer_spec(cfg: ArchConfig, mixer: str) -> Dict[str, Any]:
+    if mixer in ("attn", "local_attn"):
+        return blocks.attn_spec(cfg)
+    if mixer == "rglru":
+        return recurrent.rglru_spec(cfg)
+    raise ValueError(mixer)
+
+
+def _layer_spec(cfg: ArchConfig, mixer: str, mlp: str) -> Dict[str, Any]:
     d = cfg.d_model
     spec: Dict[str, Any] = {"ln1": blocks.rmsnorm_spec(d),
-                            "mixer": blocks.attn_spec(cfg)}
+                            "mixer": _mixer_spec(cfg, mixer)}
     if mlp == "dense":
         spec["ln2"] = blocks.rmsnorm_spec(d)
         spec["mlp"] = blocks.mlp_spec(cfg)
@@ -104,8 +119,8 @@ def model_spec(cfg: ArchConfig) -> Dict[str, Any]:
         spec["lm_head"] = {"w": ParamSpec((d, v))}
     spec["decoder"] = {}
     for seg in segment_plan(cfg):
-        unit = {f"l{j}": _layer_spec(cfg, mlp)
-                for j, (_, mlp) in enumerate(seg.kinds)}
+        unit = {f"l{j}": _layer_spec(cfg, mx, mlp)
+                for j, (mx, mlp) in enumerate(seg.kinds)}
         spec["decoder"][seg.name] = (stack_specs(unit, seg.repeats)
                                      if seg.repeats > 1 else unit)
     return spec
@@ -120,13 +135,24 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Dict:
     return init_tree(gen, model_spec(cfg), device=dev, dtype=cfg.pdtype)
 
 
+def _mixer_cache_spec(cfg: ArchConfig, mixer: str, batch: int,
+                      max_len: int) -> Dict[str, Any]:
+    if mixer == "attn":
+        return blocks.attn_cache_spec(cfg, batch, max_len)
+    if mixer == "local_attn":   # a ring of min(window, max_len) slots
+        return blocks.attn_cache_spec(cfg, batch, max_len, window=cfg.window)
+    if mixer == "rglru":
+        return recurrent.rglru_cache_spec(cfg, batch)
+    raise ValueError(mixer)
+
+
 def cache_spec(cfg: ArchConfig, batch: int, max_len: int) -> Dict[str, Any]:
     check_supported(cfg)
     spec: Dict[str, Any] = {"decoder": {}}
     for seg in segment_plan(cfg):
-        unit = {f"l{j}": {"mixer": blocks.attn_cache_spec(cfg, batch,
-                                                          max_len)}
-                for j in range(len(seg.kinds))}
+        unit = {f"l{j}": {"mixer": _mixer_cache_spec(cfg, mx, batch,
+                                                     max_len)}
+                for j, (mx, _) in enumerate(seg.kinds)}
         spec["decoder"][seg.name] = (stack_specs(unit, seg.repeats)
                                      if seg.repeats > 1 else unit)
     spec["pos"] = ParamSpec((), init="zeros", dtype="int32")
@@ -144,12 +170,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
 # ----------------------------------------------------------------------------
 
 def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ArchConfig, *, mode: str, cache: Optional[Dict]
+                 cfg: ArchConfig, mixer: str, *, mode: str,
+                 cache: Optional[Dict]
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    out, nm = blocks.attn_apply(lp["mixer"], h, positions, cfg, causal=True,
-                                mode=mode,
-                                cache=cache["mixer"] if cache else None)
+    mc = cache["mixer"] if cache else None
+    if mixer in ("attn", "local_attn"):
+        out, nm = blocks.attn_apply(
+            lp["mixer"], h, positions, cfg, causal=True,
+            window=cfg.window if mixer == "local_attn" else 0, mode=mode,
+            cache=mc)
+    elif mixer == "rglru":
+        out, nm = recurrent.rglru_apply(lp["mixer"], h, cfg, mode=mode,
+                                        cache=mc)
+    else:
+        raise ValueError(mixer)
     x = x + out
     if "mlp" in lp:
         x = x + blocks.mlp_apply(lp["mlp"],
@@ -161,9 +196,9 @@ def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
 def _apply_unit(up: Dict, x, positions, cfg, seg: Segment, *, mode, cache):
     """Apply one period (len(seg.kinds) layers)."""
     new_cache = {}
-    for j in range(len(seg.kinds)):
+    for j, (mx, _) in enumerate(seg.kinds):
         lc = cache.get(f"l{j}") if cache else None
-        x, nc = _apply_layer(up[f"l{j}"], x, positions, cfg, mode=mode,
+        x, nc = _apply_layer(up[f"l{j}"], x, positions, cfg, mx, mode=mode,
                              cache=lc)
         if nc is not None:
             new_cache[f"l{j}"] = nc

@@ -1,15 +1,17 @@
 """Batched LM serving engine: prefill -> KV cache -> greedy decode.
 
-Port of ``repro.serving.engine`` for one device and the dense GQA models
-(``models/lm.py``):
+Port of ``repro.serving.engine`` for one device, the dense GQA models and
+recurrentgemma-2b (``models/lm.py``):
 
     engine = ServingEngine(cfg, params, max_len=2080)      # runs on the GPU
     tokens = engine.generate(prompts, max_new_tokens=32)   # (B, 32) int32
     engine.stats     # prefill_ms, decode_ms_per_token, tokens_per_s
 
-Prefill runs every layer's attention through the flash-attention kernel,
-fills a (B, max_len) KV cache, and decode then attends to that cache one
-token at a time, writing each new K/V row in place. This slice decodes
+Prefill runs every layer's attention through the flash-attention kernel
+and every RG-LRU layer's recurrence through the scan kernel, fills a
+(B, max_len) KV cache (a ring of ``window`` slots for local attention, the
+float32 state for an RG-LRU layer), and decode then attends to that cache
+one token at a time, writing each new K/V row and state in place. This slice decodes
 greedily: ``temperature > 0`` (sampling, which needs key splitting) and a
 ``mesh`` raise. ``device=None`` means the GPU; without CUDA the engine
 raises rather than moving to the CPU on its own. ``device="cpu"`` runs the
@@ -60,7 +62,12 @@ def make_decode_step(cfg: ArchConfig, mesh=None, rules=None,
 
 def pad_prefill_cache(cfg: ArchConfig, prefill_cache, batch: int,
                       max_len: int):
-    """Grow a seq-sized prefill cache into a max_len decode cache."""
+    """Grow a seq-sized prefill cache into a max_len decode cache. A
+    local-attention ring takes the prefill's rows as they are: up to the
+    window they fill slots 0 .. S - 1, as the reference's; past it the
+    prefill already holds the last ``window`` positions in their ring
+    slots (``blocks.attn_apply``), where the reference copies the first
+    ``window`` (ROADMAP §3). RG-LRU states are copied leaf for leaf."""
     target = lm.init_cache(cfg, batch, max_len,
                            device=prefill_cache["pos"].device)
 

@@ -42,7 +42,11 @@ max-abs 2e-2 for bf16 outputs (bf16 output rounding plus another kv-tile
 summation order) and 2e-5 for float32 (the summation order alone): the
 wgmma kernel (bf16, D 64, 80 and 128) at S 1 to 2048, MHA and GQA 4:1, 7:1
 and 16:1, the mma.sync kernel at D 16 and 32 and the FFMA kernel at D 16
-to 128, D 80 included.
+to 128, D 80 included; with a sliding window every instance, and D 256
+(recurrentgemma-2b, 10 heads over 1) with and without one. The RG-LRU scan
+kernel is held against its plain version (an associative scan) at 1e-5
+with a near 1, and reduced recurrentgemma-2b's engine on the card against
+the CPU engine inside and past its window.
 """
 import dataclasses
 import itertools
@@ -58,6 +62,7 @@ from repro_torch.kernels import autotune, cuda_lib
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import p2m_conv as tk
+from repro_torch.kernels import rglru_scan as rs
 from repro_torch.models import lm as tlm
 from repro_torch.models import vision as tv
 from repro_torch.serving import ServingEngine, VisionEngine
@@ -1103,7 +1108,7 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, hkv, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,dtype", [
-    *((d, torch.bfloat16) for d in (16, 32, 64, 80, 128)),
+    *((d, torch.bfloat16) for d in (16, 32, 64, 80, 128, 256)),
     *((d, torch.float32) for d in (16, 80, 128))])
 def test_flash_kernel_reads_strided_operands(cuda_device, d, dtype):
     """q, k, v sliced out of one packed projection (no copies) give the
@@ -1133,30 +1138,39 @@ def test_flash_dispatch_has_one_kernel_per_dtype_and_head_dim(cuda_device):
     bf16, f32 = torch.bfloat16, torch.float32
     want = {bf16: "flash_wgmma_kernel", f32: "flash_ffma_kernel"}
     for dtype, symbol in want.items():
-        for d in fa.HEAD_DIMS:
-            assert fa.kernel_symbol(dtype, d) == symbol
+        for d in fa.HEAD_DIMS[dtype]:
+            for window, flag in ((0, "false"), (300, "true")):
+                assert fa.kernel_symbol(dtype, d, window) == \
+                    f"{symbol}<{d}, {flag}>"
     with pytest.raises(ValueError, match="no flash kernel"):
         fa.kernel_symbol(bf16, 48)
-    for dtype, d in itertools.product(want, fa.HEAD_DIMS):
-        q = torch.randn((1, 256, 8, d), device=cuda_device, dtype=dtype)
-        k = torch.randn((1, 256, 2, d), device=cuda_device, dtype=dtype)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fa.flash_attention(q, k, k, causal=True)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages() if "flash" in e.key]
-        assert len(names) == 1 and want[dtype] in names[0], (dtype, d, names)
+    with pytest.raises(ValueError, match="no flash kernel"):
+        fa.kernel_symbol(f32, 256)
+    for dtype in want:
+        for d, window in itertools.product(fa.HEAD_DIMS[dtype], (0, 100)):
+            q = torch.randn((1, 256, 8, d), device=cuda_device, dtype=dtype)
+            k = torch.randn((1, 256, 2, d), device=cuda_device, dtype=dtype)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fa.flash_attention(q, k, k, causal=True, window=window)
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages() if "flash" in e.key]
+            assert len(names) == 1 and fa.kernel_symbol(dtype, d, window) \
+                in names[0], (dtype, d, window, names)
 
 
 @pytest.mark.cuda
 def test_flash_library_tensor_cores(cuda_device):
-    """Every flash_wgmma_kernel instance runs wgmma (HGMMA) and no
-    mma.sync (HMMA); the float32 kernel runs neither (IEEE FFMA, no
-    TF32)."""
+    """Every flash_wgmma_kernel instance (each head dim, with and without
+    a window) runs wgmma (HGMMA) and no mma.sync (HMMA); the float32
+    kernel runs neither (IEEE FFMA, no TF32)."""
     census = cuda_lib.tensor_core_census(cuda_lib.build(cuda_lib.FLASH),
                                          ("HMMA", "HGMMA"))
     wgmma = {k: v for k, v in census.items() if "flash_wgmma_kernel" in k}
     ffma = {k: v for k, v in census.items() if "flash_ffma_kernel" in k}
-    assert len(wgmma) == len(ffma) == len(fa.HEAD_DIMS) == len(census) // 2
+    assert len(wgmma) == 2 * len(fa.HEAD_DIMS[torch.bfloat16])
+    assert len(ffma) == 2 * len(fa.HEAD_DIMS[torch.float32])
+    assert len(census) == len(wgmma) + len(ffma)
+    assert sum("ILi256E" in k for k in wgmma) == 2
     assert all(hmma == 0 and hgmma >= 1 for hmma, hgmma in wgmma.values())
     assert all(v == (0, 0) for v in ffma.values())
 
@@ -1171,6 +1185,12 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         fa.flash_attention(q, k.float(), k)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q[..., :48], k[..., :48], k[..., :48])
+    q256 = torch.zeros((1, 64, 4, 256), device=cuda_device)
+    k256 = torch.zeros((1, 64, 2, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 256"):   # float32
+        fa.flash_attention(q256, k256, k256, window=16)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, k, k, window=-1)
     with pytest.raises(ValueError, match="unit-stride"):
         fa.flash_attention(q[..., ::2], k[..., ::2], k[..., ::2])
     with pytest.raises(ValueError, match="multiple"):
@@ -1208,13 +1228,15 @@ def test_lm_engine_launches_flash_once_per_layer(cuda_device, monkeypatch):
 @pytest.mark.cuda
 def test_model_attention_refuses_what_the_kernel_does_not_compute(
         cuda_device):
-    """No silent plain fallback on the card: a window, Dv != D and unequal
-    or offset lengths raise, naming the slice that brings them."""
+    """No silent plain fallback on the card: Dv != D and unequal or offset
+    lengths raise, naming the slice that brings them; a window launches
+    the kernel (its windowed instance)."""
     from repro_torch.models import blocks
     q = torch.zeros((1, 32, 4, 16), device=cuda_device)
     k = torch.zeros((1, 32, 2, 16), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="local-attention"):
-        blocks.flash_attention(q, k, k, causal=True, window=8)
+    cuda_lib.reset_launch_counts()
+    blocks.flash_attention(q, k, k, causal=True, window=8)
+    assert cuda_lib.launch_counts()["flash_attention"] == 1
     with pytest.raises(NotImplementedError, match="MLA"):
         blocks.flash_attention(q, k, k[..., :8], causal=True)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
@@ -1224,6 +1246,130 @@ def test_model_attention_refuses_what_the_kernel_does_not_compute(
     cuda_lib.reset_launch_counts()
     blocks.flash_attention(q, k, k, causal=True)
     assert cuda_lib.launch_counts()["flash_attention"] == 1
+
+
+# --- recurrentgemma-2b: the windowed and D 256 flash kernels, the RG-LRU
+# scan, the hybrid engine ---------------------------------------------------
+
+# (batch, seq, heads, kv_heads, head_dim, dtype, causal, window):
+# recurrentgemma-2b's prefill (D 256, 10 heads over 1, the 2048 window
+# masking nothing at S 2048) and where the window masks (S 8192); D 256 at
+# a ragged length, without a window, at S 1 and non-causal; every other
+# instance with a window: a row that sees only itself, windows one short of
+# and equal to a 64-row kv tile, windows across several 128-row tiles,
+# ragged tails, MHA and GQA
+FLASH_WINDOW_GEOMETRIES = [
+    (4, 2048, 10, 1, 256, torch.bfloat16, True, 2048),
+    (1, 8192, 10, 1, 256, torch.bfloat16, True, 2048),
+    (2, 1000, 10, 1, 256, torch.bfloat16, True, 300),
+    (2, 300, 10, 1, 256, torch.bfloat16, True, 0),
+    (3, 1, 4, 2, 256, torch.bfloat16, True, 16),
+    (1, 200, 4, 1, 256, torch.bfloat16, False, 63),
+    (1, 1000, 32, 8, 64, torch.bfloat16, True, 300),
+    (2, 77, 4, 4, 64, torch.bfloat16, True, 1),
+    (1, 129, 4, 2, 128, torch.bfloat16, True, 64),
+    (1, 2048, 8, 8, 80, torch.bfloat16, True, 100),
+    (2, 500, 4, 2, 16, torch.bfloat16, True, 63),
+    (1, 300, 8, 2, 32, torch.bfloat16, False, 200),
+    (1, 1000, 4, 1, 16, torch.float32, True, 16),
+    (2, 300, 4, 1, 16, torch.float32, True, 63),
+    (1, 1000, 8, 2, 80, torch.float32, True, 300),
+    (1, 130, 4, 4, 128, torch.float32, True, 1),
+    (1, 257, 4, 2, 64, torch.float32, False, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,dtype,causal,window",
+                         FLASH_WINDOW_GEOMETRIES)
+def test_windowed_and_d256_flash_kernels_match_plain_on_card(
+        cuda_device, b, s, h, hkv, d, dtype, causal, window):
+    gen = torch.Generator().manual_seed(s + window)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda_device, dtype)
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    fa.flash_attention.launches = 0
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.flash_attention.launches == 1
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+    row_err = (out.float() - plain.float()).abs().amax(dim=-1) / \
+        plain.float().square().mean(dim=-1).sqrt()
+    assert float(row_err.max()) <= FLASH_ROW_TOL[dtype]
+
+
+# the kernel's sequential float32 FMAs against the plain version's
+# associative scan: two summation orders of h up to ~5 differ by ~2.3e-6
+# (measured on the CPU in float64 at S 2048 with a up to 1 - 6e-8)
+RGLRU_TOL = 1e-5
+
+
+def rglru_operands(b, s, r, device, seed=0):
+    """a = exp(-8 softplus(lam) r) with softplus(lam) in [0.001, 0.1] (a
+    near 1: the carry is most of h) and b = sqrt(1 - a^2) x, so h stays
+    O(1) over any length."""
+    gen = torch.Generator().manual_seed(seed)
+    sp = torch.rand(r, generator=gen) * 0.099 + 0.001
+    a = torch.exp(-8 * sp * torch.rand(b, s, r, generator=gen))
+    x = torch.randn(b, s, r, generator=gen)
+    return a.to(device), (torch.sqrt(1 - a * a) * x).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,r", [(4, 2048, 2560), (3, 1000, 300),
+                                   (1, 1, 64), (2, 17, 1)])
+def test_rglru_scan_matches_plain_on_card(cuda_device, b, s, r):
+    a, x = rglru_operands(b, s, r, cuda_device)
+    rs.rglru_scan.launches = 0
+    out = rs.rglru_scan(a, x)
+    assert rs.rglru_scan.launches == 1
+    plain = rs.rglru_scan_plain(a, x)
+    torch.testing.assert_close(out, plain, rtol=0, atol=RGLRU_TOL)
+    if s > 1:   # the carry matters at these gates: h = b misses by far more
+        assert float((x - plain).abs().max()) > 100 * RGLRU_TOL
+
+
+@pytest.mark.cuda
+def test_rglru_scan_refuses_what_it_does_not_take(cuda_device):
+    a = torch.rand(1, 8, 4, device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        rs.rglru_scan(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="one shape"):
+        rs.rglru_scan(a, a[:, :4])
+    with pytest.raises(ValueError, match="several devices"):
+        rs.rglru_scan(a, a.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prompt", [12, 24])
+def test_hybrid_engine_on_card_matches_the_cpu(cuda_device, monkeypatch,
+                                               prompt):
+    """Reduced recurrentgemma-2b (float32: the FFMA kernel's windowed D 16
+    instance, window 16) on the card against the CPU engine, inside the
+    window and past it: the scan and the flash kernel launch on every
+    prefill and the plain versions never run; greedy tokens equal, prefill
+    logits within 1e-4."""
+    from repro_torch.models import blocks
+    cfg = reduced(get_arch("recurrentgemma-2b"))
+    params = tlm.init_params(0, cfg)              # float32, on the CPU
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt),
+                            generator=torch.Generator().manual_seed(prompt))
+    engine = ServingEngine(cfg, params, max_len=40)
+    cuda_lib.reset_launch_counts()
+    with monkeypatch.context() as m:
+        def refuse(*args, **kwargs):
+            raise AssertionError("a plain version ran on the card path")
+        m.setattr(fa, "flash_attention_plain", refuse)
+        m.setattr(blocks, "flash_attention_plain", refuse)
+        m.setattr(rs, "rglru_scan_plain", refuse)
+        out = engine.generate(prompts, 6)
+    counts = cuda_lib.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {"flash_attention": 1,
+                                                      "rglru_scan": 2}
+    cpu = ServingEngine(cfg, params, max_len=40, device="cpu")
+    assert torch.equal(out.cpu(), cpu.generate(prompts, 6))
+    torch.testing.assert_close(engine.prefill_logits.cpu(),
+                               cpu.prefill_logits, rtol=0, atol=1e-4)
 
 
 # --- the chip axis: G chips in one launch ----------------------------------

@@ -91,6 +91,40 @@ def test_ragged_length(s):
                                         q_chunk=16, kv_chunk=16), 2e-5)
 
 
+@pytest.mark.parametrize("window", [1, 63, 64, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_across_every_kernel_tile_boundary(window, dtype):
+    """The plain version with a sliding window against the JAX model
+    layer's scan: windows of 1 (a row sees itself), one short of the FFMA
+    kernel's 64-row kv tile and the D 256 wgmma kernel's, exactly one
+    tile, and several tiles, at S 1000 (a ragged tail past 128-row tiles);
+    the port's ``ops`` wrapper and model layer pass the window on."""
+    (qj, kj, vj), (q, k, v) = _inputs(window, 1, 1000, 4, 1, 16, dtype)
+    ref = jblocks.flash_attention(qj, kj, vj, causal=True, window=window,
+                                  q_chunk=200, kv_chunk=200)
+    plain = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    _close(plain, ref, TOL[dtype])
+    assert torch.equal(tops.flash_attention(q, k, v, causal=True,
+                                            window=window), plain)
+    _close(tblocks.flash_attention(q, k, v, causal=True, window=window,
+                                   kv_chunk=200), ref, TOL[dtype])
+
+
+def test_card_operands_by_dtype_and_head_dim():
+    """bf16 takes head dim 256 (recurrentgemma-2b), float32 does not; a
+    negative window is refused (CPU tensors: the check reads dtype, shape,
+    strides and alignment only)."""
+    assert fa.HEAD_DIMS[torch.bfloat16] == (16, 32, 64, 80, 128, 256)
+    assert fa.HEAD_DIMS[torch.float32] == (16, 32, 64, 80, 128)
+    q = torch.zeros((1, 8, 10, 256), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 1, 256), dtype=torch.bfloat16)
+    fa._check_card_operands(q, k, k, window=2048)
+    with pytest.raises(ValueError, match="head dim 256"):
+        fa._check_card_operands(q.float(), k.float(), k.float())
+    with pytest.raises(ValueError, match="window"):
+        fa._check_card_operands(q, k, k, window=-1)
+
+
 @pytest.mark.parametrize("window", [0, 16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_model_layer_matches_jax_scan(window, causal):
@@ -174,8 +208,9 @@ def test_row_error_limit_passes_tile_order_and_fails_a_dropped_tile(dtype):
     assert _row_rel_err(dropped, ref) > 10 * ROW_TOL[dtype]
 
 
-# the configs the LM path serves (the dense GQA ones)
-SERVED = {"granite-8b", "yi-34b", "stablelm-3b", "glm4-9b", "chameleon-34b"}
+# the configs the LM path serves (the dense GQA ones and the hybrid)
+SERVED = {"granite-8b", "yi-34b", "stablelm-3b", "glm4-9b", "chameleon-34b",
+          "recurrentgemma-2b"}
 
 
 @pytest.mark.parametrize("name", sorted(tconfigs.ARCHS))

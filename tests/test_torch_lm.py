@@ -9,7 +9,8 @@ JAX ``lm.init_params(PRNGKey(0))`` tree carried over by ``from_numpy``:
 within 1e-6), three decode steps (logits within 1e-5), ``pad_prefill_cache``
 and ``ServingEngine.generate`` (greedy tokens equal). Float32 tolerances
 cover summation order; the bfloat16 case is looser (see its test). The
-refusals of what this slice does not port raise.
+refusals of what this slice does not port raise. recurrentgemma-2b's trees
+are held here at full width; its model is tests/test_torch_recurrent.py's.
 """
 import dataclasses
 
@@ -34,6 +35,8 @@ from repro_torch.serving import ServingEngine
 from repro_torch.serving import engine as tengine
 
 DENSE = ["granite-8b", "yi-34b", "stablelm-3b", "glm4-9b", "chameleon-34b"]
+# every config the port serves: the dense ones and the hybrid
+SERVED = DENSE + ["recurrentgemma-2b"]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -64,7 +67,7 @@ def test_config_fields_equal_reference(name):
     assert port.dtype == getattr(torch, ref.compute_dtype)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", SERVED)
 def test_model_and_cache_specs_match_reference(name):
     """Same tree, shapes and leaf dtypes, full width (no arrays made)."""
     cfg, jcfg = tconfigs.get_arch(name), jconfigs.get_arch(name)
@@ -321,7 +324,7 @@ def test_from_numpy_carries_bf16_bits():
 # ----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,what", [
-    ("recurrentgemma-2b", "mixers"), ("xlstm-350m", "mixers"),
+    ("xlstm-350m", "mixers"),
     ("deepseek-v2-236b", "mixers"), ("kimi-k2-1t-a32b", "MoE"),
     ("whisper-base", "encoder-decoder")])
 def test_unported_configs_raise(name, what):

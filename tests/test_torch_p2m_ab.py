@@ -91,15 +91,16 @@ def test_geometries_are_chip_smokes(scripts):
 @pytest.mark.parametrize("name", [
     "granite_d128_b4", "stablelm_d80_b4", "stablelm_d80_b1", "mha_d64_b4",
     "mha_d128_b4", "narrow_d32_toy", "f32_d128_toy", "narrow_d32_b4",
-    "narrow_d16_b4", "f32_d128_b4", "f32_d16_b4"])
+    "narrow_d16_b4", "f32_d128_b4", "f32_d16_b4", "rg_d256_b4",
+    "rg_d256_s8192"])
 def test_flash_geometries_name_their_dtype(scripts, name):
     """Each flash_ab.py geometry names its dtype and mode, is checked
-    against chip_smoke.py's limit for that dtype, and the toy and _b4 ones
-    are chip_smoke.py's own flash lines."""
+    against chip_smoke.py's limit for that dtype, and the toy, _b4 and
+    windowed (rg_) ones are chip_smoke.py's own flash lines."""
     ab = scripts("flash_ab")
     geoms = ab.geometries()          # puts the checkout's root on the path
     import chip_smoke as cs
-    assert len(geoms) == 11
+    assert len(geoms) == 13
     geom = geoms[name]
     assert geom["dtype"] in ("bfloat16", "float32")
     assert isinstance(geom["causal"], bool)
@@ -119,6 +120,23 @@ def test_flash_geometries_name_their_dtype(scripts, name):
                 geom["causal"]) == (4, 2048, 32, 8, True)
         assert geom["dtype"] == ("float32" if name.startswith("f32")
                                  else "bfloat16")
+    if name.startswith("rg_"):
+        assert geom in cs.FLASH_WINDOWED and geom["head_dim"] == 256
+        assert (geom["window"], geom["dtype"]) == (2048, "bfloat16")
+
+
+def test_flagless_instances_compare_with_a_first_version_before_the_flag(
+        scripts):
+    """SASS is compared by kernel name: an instance without the window flag
+    is held to the flagless name where the first version predates it, and
+    to its own name otherwise."""
+    ab = scripts("flash_ab")
+    new = "_ZN5_anon_18flash_wgmma_kernelILi128ELb0EEEvNS_10HopperMapsE"
+    old = "_ZN5_anon_18flash_wgmma_kernelILi128EEEvNS_10HopperMapsE"
+    assert ab.first_name(new, {old: ""}) == old
+    assert ab.first_name(new, {new: ""}) == new
+    windowed = new.replace("Lb0E", "Lb1E")
+    assert ab.first_name(windowed, {old: ""}) not in {old: ""}
 
 
 @pytest.mark.parametrize("script", ["p2m_ab", "flash_ab"])
