@@ -18,7 +18,7 @@ line:
    float32 MACs use no TF32; every ``flash_wgmma_kernel`` instance, each
    head dim with and without a window (``flash_wgmma_kernel<256, true>``
    among them), runs HGMMA and no HMMA, the float32 flash kernel and the
-   RG-LRU scan neither);
+   RG-LRU scan's three instances neither);
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32), three odd geometries (one at C 48) and
    the paper's ImageNet frame size (16, 224, 224, 3) -> (200704, 32). Each
@@ -89,13 +89,21 @@ line:
    bf16, causal, window 2048, which masks nothing there), the same at B 1,
    S 8192 (where it masks) and S 1000 D 64 GQA with a window of 300 (a
    ragged tail through an instance that existed before the window), the
-   yardstick SDPA with the window's boolean mask (and, where the window
-   masks nothing, causal SDPA without it: ``causal_library_ms``), and
-   beside each the kernel without the window (``unwindowed_ms``);
+   yardstick SDPA with the window's boolean mask (``masked_library_ms``;
+   where the window masks nothing the yardstick is causal SDPA without it,
+   which computes the same function: ``causal_library_ms``), and
+   beside each the kernel without the window (``unwindowed_ms``; a call
+   whose window hides no key runs that instance itself);
    ``rglru_scan``: the
    RG-LRU scan kernel at recurrentgemma-2b's prefill (B 4, S 2048, R
    2560, a near 1) against its plain version (an associative scan) at
    1e-5, timed beside it and its bound (bytes: a and b read, h written);
+   ``rglru_scan_gated``: its gated instance at the same shape in bf16 (the
+   gates' float32 tail fused in front, h written in bf16 and the last h
+   in float32) bit for bit against the unfused chain (tail, ``rglru_scan``,
+   cast) on the same card tensors and against its plain version (h_last at
+   1e-5, hs within one bf16 ulp), timed beside its plain version, its
+   bound and the unfused chain (``unfused_chain_ms``);
 10. ``lm``: full-width, full-depth granite-8b, then stablelm-3b (head dim
    80), then recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention at
    head dim 256 with a 2048-key window, 3.55 B parameters), with seeded
@@ -103,7 +111,8 @@ line:
    each ``ServingEngine.generate`` of a (4, 2048) prompt for 32
    new tokens, with its launch counts (one flash launch an attention
    layer, every one the model's one ``flash_wgmma_kernel`` instance, one
-   ``rglru_scan`` an RG-LRU layer, no P2M kernel), finite logits, token ids in
+   ``rglru_scan_gated`` an RG-LRU layer and no ``rglru_scan``, no P2M
+   kernel), finite logits, token ids in
    range, and the prefill logits held against a ``forward(mode="train")``
    of the prompt (teacher forcing); then the steady generate times, peak
    memory and the flash and scan kernels' shares of prefill device time
@@ -250,7 +259,9 @@ line:
    kernel's launches from its own path's run, the fleet rows' from the
    ``fleet`` and int8 fleet paths; one flash row per served head dim: D
    128 with granite-8b's launches, D 80 with stablelm-3b's, D 256 with
-   recurrentgemma-2b's; the ``rglru_scan`` row with recurrentgemma-2b's),
+   recurrentgemma-2b's; the ``rglru_scan`` and ``rglru_scan_gated`` rows
+   with recurrentgemma-2b's: 0 for the ungated instance, which its
+   prefill never launches, and one an RG-LRU layer for the gated one),
    and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -353,7 +364,8 @@ PATH_KERNELS = {
     "baseline": ("p2m_phase_a", "p2m_conv"),
     "lm": ("flash_attention",),
     # the hybrid: local attention through flash, RG-LRU through the scan
-    "lm_rg": ("flash_attention", "rglru_scan"),
+    # with its gates fused (never the ungated instance)
+    "lm_rg": ("flash_attention", "rglru_scan_gated"),
     # the device backend runs one cuDNN conv and plain PyTorch: no kernel
     "engine_device": (),
     # a sampled, calibrated chip: its (4, C) rows in B and the fused kernel
@@ -466,6 +478,17 @@ RGLRU_TOL = 1e-5
 RGLRU_SOURCE = "src/repro_torch/csrc/rglru_scan.cu"
 RGLRU_REPLACES = ("none (no TPU kernel): src/repro/models/recurrent.py:97 "
                   "(jax.lax.associative_scan in rglru_apply)")
+# the gated instance at the same shape in recurrentgemma-2b's compute dtype:
+# r and i sigmoids, u normal, c = -8 softplus(lam) in [-0.8, -0.008] (a in
+# (0.45, 1): the carry matters); equal to the unfused chain (the tail,
+# rglru_scan, the cast) bit for bit, and against its plain version h_last
+# at RGLRU_TOL and hs within one bf16 ulp (or RGLRU_TOL where that is
+# larger: the two scans' h differ by up to ~3e-6 before the rounding)
+RGLRU_GATED_DTYPE = "bfloat16"
+RGLRU_GATED_REPLACES = (
+    "none (no TPU kernel): src/repro/models/recurrent.py:62-71 and 102 "
+    "(_rglru_gates' float32 tail as XLA elementwise ops, then "
+    "jax.lax.associative_scan in rglru_apply)")
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 # prefill logits vs a train-mode forward of the same prompt: the same
 # kernels on the same inputs, so equal up to bf16 rounding of the logits
@@ -658,10 +681,11 @@ def flash_work(geom: dict) -> dict:
     return {**work, "bound_ms": t, "bound_by": by}
 
 
-def check_path_counts(counts: dict, path: str) -> None:
-    """The kernels of ``path`` launched, and no other wrapper did."""
+def check_path_counts(counts: dict, path: str, kernels=None) -> None:
+    """The kernels of ``path`` (or ``kernels``) launched, and no other
+    wrapper did."""
     for name, cnt in counts.items():
-        if name in PATH_KERNELS[path]:
+        if name in (kernels or PATH_KERNELS[path]):
             check(cnt >= 1, f"{name} was not launched on the {path} path")
         else:
             check(cnt == 0, f"{name} launched {cnt} times on the {path} path")
@@ -3519,7 +3543,7 @@ def flash_phase(geom: dict, device):
     tag = (f"B{b} S{s} H{h}/{hkv} D{d} {geom['dtype']} "
            f"{'causal' if causal else 'full'}"
            + (f" window {window}" if window else ""))
-    symbol = fa.kernel_symbol(dtype, d, window)
+    symbol = fa.kernel_symbol(dtype, d, window, s)
 
     def kernel(causal=causal, window=window):
         return fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -3560,13 +3584,22 @@ def flash_phase(geom: dict, device):
         lib_ms = device_ms(sdpa, device)
     except (RuntimeError, TypeError) as exc:   # a yardstick only
         lib_error = str(exc).splitlines()[0]
+    # a window no shorter than S masks nothing: causal SDPA without the
+    # mask then computes the same function, on its fused path, and is the
+    # row's yardstick (the masked call's time stays beside it)
+    causal_library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=h != hkv),
+        device) if causal and window >= s else None
     row = {"name": "flash_attention", "route": "cuda",
            "source": FLASH_SOURCE, "replaces": REPLACES["flash_attention"],
            "launches": 0, "max_abs_err": err,
            "ms": device_ms(kernel, device),
            "plain_ms": device_ms(lambda: fa.flash_attention_plain(
                q, k, v, causal=causal, window=window), device),
-           "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms,
+           "bound_ms": t_bound, "bound_by": by,
+           "library_ms": (lib_ms if causal_library_ms is None
+                          else causal_library_ms),
            "profiler_ms": profiled_ms(kernel, symbol)}
     # the causal skip, seen in time: the same inputs without the mask; and
     # the window's skip: the same inputs causal without the window
@@ -3574,12 +3607,6 @@ def flash_phase(geom: dict, device):
                         device) if causal else None
     unwindowed_ms = device_ms(lambda: kernel(window=0),
                               device) if window else None
-    # a window no shorter than S masks nothing: causal SDPA without the
-    # mask then computes the same function, on its fused path
-    causal_library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=h != hkv),
-        device) if causal and window >= s else None
     emit("flash", geometry=tag, kernel=symbol,
          tolerance=FLASH_TOL[geom["dtype"]],
          row_rel_err=row_err, row_tolerance=FLASH_ROW_TOL[geom["dtype"]],
@@ -3588,7 +3615,8 @@ def flash_phase(geom: dict, device):
          library_error=lib_error,
          achieved_tflops=flops / (row["ms"] * 1e-3) / 1e12,
          noncausal_ms=full_ms, unwindowed_ms=unwindowed_ms,
-         causal_library_ms=causal_library_ms)
+         causal_library_ms=causal_library_ms,
+         masked_library_ms=lib_ms if window else None)
     return row
 
 
@@ -3622,10 +3650,80 @@ def rglru_phase(device):
            "plain_ms": device_ms(lambda: rs.rglru_scan_plain(a, x), device),
            "bound_ms": t_bound, "bound_by": by, "library_ms": None,
            "profiler_ms": profiled_ms(lambda: rs.rglru_scan(a, x),
-                                      "rglru_scan_kernel")}
+                                      rs.kernel_symbol())}
     emit("rglru_scan", geometry=f"B{b} S{s} R{r} float32",
-         kernel="rglru_scan_kernel", tolerance=RGLRU_TOL,
+         kernel=rs.kernel_symbol(), tolerance=RGLRU_TOL,
          carry_max_abs=carry, bytes=moved,
+         library_note="no single PyTorch call computes a linear recurrence",
+         achieved_tb_per_s=moved / (row["ms"] * 1e-3) / 1e12,
+         **{k_: v_ for k_, v_ in row.items() if k_ != "launches"})
+    return row
+
+
+def rglru_gated_phase(device):
+    """The gated scan instance at recurrentgemma-2b's prefill (B 4, S 2048,
+    R 2560, bf16): held bit for bit against the unfused chain it replaces
+    (``rglru_ab``, ``rglru_scan``, the cast) on the same card tensors and
+    against its plain version, timed beside both and its bound. Returns the
+    summary row."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rs
+
+    b, s, r = (RGLRU_SERVING[x] for x in ("batch", "seq", "width"))
+    dtype = getattr(torch, RGLRU_GATED_DTYPE)
+    gen = torch.Generator().manual_seed(43)
+    rg, ig = (torch.sigmoid(torch.randn(b, s, r, generator=gen)).to(
+        device=device, dtype=dtype) for _ in range(2))
+    u = torch.randn(b, s, r, generator=gen).to(device=device, dtype=dtype)
+    c = (-0.008 - 0.792 * torch.rand(r, generator=gen)).to(device)
+
+    def chain():
+        h = rs.rglru_scan(*rs.rglru_ab(rg, ig, u, c))
+        return h.to(dtype), h[:, -1]
+
+    hs, h_last = rs.rglru_scan_gated(rg, ig, u, c)
+    hs_c, last_c = chain()
+    check(torch.equal(hs, hs_c) and torch.equal(h_last, last_c),
+          "rglru_scan_gated != the unfused chain (tail, rglru_scan, cast)")
+    hs_p, last_p = rs.rglru_scan_gated_plain(rg, ig, u, c)
+    err_last = max_abs(h_last, last_p)
+    # one ulp of the bf16 value (8 significant bits), or RGLRU_TOL
+    _, exp2 = torch.frexp(torch.maximum(hs.float().abs(),
+                                        hs_p.float().abs()))
+    ulp = torch.ldexp(torch.ones_like(hs_p.float()), exp2 - 8)
+    err_hs = max_abs(hs.float(), hs_p.float())
+    over = (hs.float() - hs_p.float()).abs() - torch.clamp(ulp,
+                                                           min=RGLRU_TOL)
+    check(bool(torch.isfinite(hs).all() and torch.isfinite(h_last).all()),
+          "non-finite rglru_scan_gated output")
+    check(err_last <= RGLRU_TOL, f"rglru_scan_gated h_last vs plain max-abs "
+          f"{err_last} > {RGLRU_TOL}")
+    check(float(over.max()) <= 0, f"rglru_scan_gated hs vs plain: "
+          f"{float(over.max())} past one {RGLRU_GATED_DTYPE} ulp")
+    a_c, b_c = rs.rglru_ab(rg, ig, u, c)
+    carry = max_abs(b_c, rs.rglru_scan_plain(a_c, b_c))
+    check(carry > 100 * RGLRU_TOL, f"the carry is {carry}: a is not near 1")
+    n = b * s * r
+    # r, i, u read and hs written in bf16, c read, h_last written
+    moved = 4 * n * hs.element_size() + 4 * r + 4 * b * r
+    # per element 2 exponentials and ~10 float32 operations (the gates'
+    # 7, the scan's FMA)
+    t_bound, by = bound(moved, 10 * n, exps=2 * n)
+    symbol = rs.kernel_symbol(dtype)
+    row = {"name": "rglru_scan_gated", "route": "cuda",
+           "source": RGLRU_SOURCE, "replaces": RGLRU_GATED_REPLACES,
+           "launches": 0, "max_abs_err": err_last,
+           "ms": device_ms(lambda: rs.rglru_scan_gated(rg, ig, u, c),
+                           device),
+           "plain_ms": device_ms(lambda: rs.rglru_scan_gated_plain(
+               rg, ig, u, c), device),
+           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+           "profiler_ms": profiled_ms(
+               lambda: rs.rglru_scan_gated(rg, ig, u, c), symbol)}
+    emit("rglru_scan_gated", geometry=f"B{b} S{s} R{r} {RGLRU_GATED_DTYPE}",
+         kernel=symbol, tolerance=RGLRU_TOL, equal_to_unfused_chain=True,
+         hs_max_abs_vs_plain=err_hs, carry_max_abs=carry, bytes=moved,
+         unfused_chain_ms=device_ms(chain, device),
          library_note="no single PyTorch call computes a linear recurrence",
          achieved_tb_per_s=moved / (row["ms"] * 1e-3) / 1e12,
          **{k_: v_ for k_, v_ in row.items() if k_ != "launches"})
@@ -3639,22 +3737,38 @@ def _lm_prompts(cfg, batch: int, length: int, seed: int):
                          dtype=torch.int32)
 
 
+def scan_wrapper() -> str:
+    """The scan wrapper an RG-LRU layer's prefill launches: the gated
+    instance, or, in a port from before it (scripts/lm_ab.py runs the LM
+    phase on older versions), the ungated one."""
+    from repro_torch.kernels import rglru_scan as rs
+    return ("rglru_scan_gated" if hasattr(rs, "rglru_scan_gated")
+            else "rglru_scan")
+
+
 def lm_launches(cfg) -> dict:
     """The kernel launches of one prefill of ``cfg``: one flash launch an
-    attention layer (global or local), one scan an RG-LRU layer; decode
-    launches none."""
+    attention layer (global or local), one gated scan an RG-LRU layer;
+    decode launches none."""
     mixers = [mx for mx, _ in cfg.layer_kinds()]
     want = {"flash_attention": sum(mx in ("attn", "local_attn")
                                    for mx in mixers),
-            "rglru_scan": mixers.count("rglru")}
+            scan_wrapper(): mixers.count("rglru")}
     return {k: v for k, v in want.items() if v}
 
 
-def lm_symbol(cfg) -> str:
-    """The flash instance every attention layer of ``cfg`` launches (a
-    local layer's with the config's window)."""
+def lm_symbol(cfg, seq: int = LM_PROMPT) -> str:
+    """The flash instance every attention layer of ``cfg`` launches at a
+    prompt of ``seq`` tokens (a local layer's with the config's window,
+    where that hides a key)."""
+    import inspect
     from repro_torch.kernels import flash_attention as fa
     if "local_attn" in cfg.block_pattern:
+        # (scripts/lm_ab.py runs this on older versions, whose window
+        # picked the instance whatever the length)
+        if "seq" in inspect.signature(fa.kernel_symbol).parameters:
+            return fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim,
+                                    cfg.window, seq)
         return fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim, cfg.window)
     # (no window argument: scripts/lm_ab.py runs this on older versions)
     return fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim)
@@ -3687,7 +3801,10 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm"):
     counts = cuda_lib.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     first = dict(engine.stats)
-    check_path_counts(counts, path)
+    # (a port from before the gated scan launches the ungated one)
+    check_path_counts(counts, path, tuple(
+        scan_wrapper() if k_ == "rglru_scan_gated" else k_
+        for k_ in PATH_KERNELS[path]))
     want = lm_launches(cfg)
     check({k_: v_ for k_, v_ in counts.items() if v_} == want,
           f"{arch} launched {counts}, want {want} (one flash launch an "
@@ -3745,11 +3862,20 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm"):
     check(len(flash_ran) == 1 and symbol in next(iter(flash_ran))
           and next(iter(flash_ran.values())) == n_flash,
           f"prefill flash launches {flash_ran}, want {n_flash} of {symbol}")
-    scans = sum(e.count for e in prof.key_averages()
+    # every scan of the prefill is the gated instance of the compute dtype
+    # (in a port from before it, the one scan kernel)
+    from repro_torch.kernels import rglru_scan as rs
+    scan_name = scan_wrapper()
+    scan_symbol = (rs.kernel_symbol(cfg.dtype)
+                   if scan_name == "rglru_scan_gated" else "rglru_scan_kernel")
+    scan_ran = {e.key: e.count for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
-                and "rglru_scan_kernel" in e.key)
-    check(scans == want.get("rglru_scan", 0),
-          f"prefill scan launches {scans}, want {want.get('rglru_scan', 0)}")
+                and "rglru_scan_kernel" in e.key}
+    scans = sum(scan_ran.values())
+    check(scans == want.get(scan_name, 0)
+          and all(scan_symbol in key for key in scan_ran),
+          f"prefill scan launches {scan_ran}, want {want.get(scan_name, 0)} "
+          f"of {scan_symbol}")
     with torch.inference_mode():
         cache = pad_prefill_cache(cfg, cache, LM_BATCH, LM_PROMPT + LM_NEW)
         tok = tokens[:, :1]
@@ -3761,6 +3887,7 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm"):
     decode_wall = statistics.median(r["decode_ms_per_token"] for r in steady)
     emit("lm_profile", model=arch, flash_kernel=symbol,
          flash_launches_in_prefill=n_flash, scan_launches_in_prefill=scans,
+         scan_kernels_in_prefill=scan_ran,
          prefill_device_ms=fam, prefill_device_ms_total=total,
          flash_share=fam["flash_attention"] / total if total else None,
          scan_share=fam["rglru_scan"] / total if total else None,
@@ -3833,7 +3960,7 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
         equal += 1
     emit(phase, model=arch, layers=layers,
          cut=f"depth {get_arch(arch).num_layers} -> {layers}",
-         head_dim=cfg.resolved_head_dim, flash_kernel=lm_symbol(cfg),
+         head_dim=cfg.resolved_head_dim, flash_kernel=lm_symbol(cfg, 128),
          launches=counts, prompt=128, new_tokens=n_new,
          prefill_logits_max_abs=err,
          tolerance=LM_CPU_TOL, decode_logits_max_abs_per_step=step_err,
@@ -3891,7 +4018,7 @@ def lm_ring_phase(device):
     emit("lm_rg_ring", model=LM_RG_ARCH, layers=LM_RG_LAYERS,
          cut=f"depth {get_arch(LM_RG_ARCH).num_layers} -> {LM_RG_LAYERS}",
          window=cfg.window, prompt=s, batch=batch, new_tokens=n_new,
-         flash_kernel=lm_symbol(cfg), launches=counts,
+         flash_kernel=lm_symbol(cfg, s), launches=counts,
          logits_max_abs_per_step=errs, tolerance=LM_TEACHER_TOL,
          checked_tokens=sure_ok, stats=engine.stats)
     del engine, params
@@ -4424,9 +4551,10 @@ def main() -> int:
     emit("tensor_cores", library="flash_attention", kernels=len(flash),
          d256_window_instance=d256[0], hmma_hgmma={
              k: list(v) for k, v in flash.items()})
+    # the scan's three instances: ungated float32, gated float32 and bf16
     scan = cuda_lib.tensor_core_census(built["rglru_scan"][0],
                                        ("HMMA", "HGMMA"))
-    check(len(scan) == 1 and all(v == (0, 0) for v in scan.values()),
+    check(len(scan) == 3 and all(v == (0, 0) for v in scan.values()),
           f"tensor-core instructions in the scan library: {scan}")
     emit("tensor_cores", library="rglru_scan", kernels=len(scan),
          hmma_hgmma={k: list(v) for k, v in scan.items()})
@@ -4453,6 +4581,7 @@ def main() -> int:
     window_rows = [flash_phase(geom, device) for geom in FLASH_WINDOWED]
     flash_d256_row = window_rows[FLASH_WINDOWED.index(FLASH_RG_SERVING)]
     scan_row = rglru_phase(device)
+    gated_row = rglru_gated_phase(device)
     # every served head dim runs the Hopper kernel; lm_phase checks that
     # every prefill launch was the instance named here
     for arch in (LM_ARCH, LM_D80_ARCH, LM_RG_ARCH):
@@ -4519,7 +4648,10 @@ def main() -> int:
                              (flash_d256_row, counts_rg, 256)):
         rows.append({**row, "name": f"flash_attention_bf16_d{d}",
                      "launches": n_launch["flash_attention"]})
+    # the scans': the gated instance's from recurrentgemma-2b's, which
+    # never launches the ungated one (0 there)
     rows.append({**scan_row, "launches": counts_rg["rglru_scan"]})
+    rows.append({**gated_row, "launches": counts_rg["rglru_scan_gated"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -13,8 +13,10 @@ prompts of 2048 tokens for 32 new tokens, its launch and teacher-forcing
 checks, then the ``lm`` and ``lm_profile`` lines. The sources run in
 order, then in reverse (A B B A for two), so that versions are compared on
 one card within one call. Prints every run's lines tagged with its source
-and round, then the card's ``nvidia-smi`` line. Needs a CUDA card and exits
-non-zero without one.
+and round, then the card's ``nvidia-smi`` line. recurrentgemma-2b runs
+with the hybrid's launch counts (``chip_smoke.PATH_KERNELS["lm_rg"]``:
+its scan is the gated instance, or in a port from before it the ungated
+one). Needs a CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ def child(src: str, arch: str) -> int:
     import torch
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
-    cs.lm_phase(torch.device("cuda"), cs.nvidia_smi_line(), arch)
+    cs.lm_phase(torch.device("cuda"), cs.nvidia_smi_line(), arch,
+                "lm_rg" if arch == cs.LM_RG_ARCH else "lm")
     return 0
 
 

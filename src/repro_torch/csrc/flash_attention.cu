@@ -83,14 +83,21 @@
 //  * bf16, D = 256: flash_wgmma_kernel<256> (recurrentgemma-2b: 10 heads
 //    over 1 kv head, a 2048-key window). The same design with a layout of
 //    its own: a 128 x 256 Q tile is 64 KB, and a consumer's 64 x 256 float32
-//    accumulator is 128 registers a thread. So the kv tiles have 64 rows
-//    (32 KB K and V tiles, in 2 stages: 192 KB with Q), S is m64n64k16 over
-//    16 k-steps (32 registers), P.V m64n256k16 over 4, and S, P and O fit
+//    accumulator is 128 registers a thread. So the kv tiles have 80 rows
+//    (40 KB K and V tiles, in 2 stages: 224 KB with Q), S is m64n80k16 over
+//    16 k-steps (40 registers), P.V m64n256k16 over 5, and S, P and O fit
 //    the consumers' 240 registers under setmaxnreg; the consumers issue
-//    without taking turns. With kv tiles half the q tile's height, the
-//    causal diagonal spans the last two kv tiles, both masked. Bound at recurrentgemma-2b's prefill (B 4, S 2048, H 10,
-//    Hkv 1, causal, the window masking nothing there): 85.9 GFLOP, 0.087
-//    ms at the tensor-core peak, against 0.028 ms for its 92 MB.
+//    without taking turns. With kv tiles shorter than the q tile and not
+//    aligned to it, the causal diagonal spans the last two or three kv
+//    tiles, each masked. The work items are not paired: a block takes the
+//    next from a counter in global memory, every head's longest q tile
+//    first (its 640 items at recurrentgemma-2b's prefill are 2.42 rounds
+//    of the static pairs on 132 SMs, done in 3). A call whose window hides
+//    no key (S 2048 at recurrentgemma-2b's 2048-key window) runs the
+//    instance without it. Bound at recurrentgemma-2b's prefill (B 4, S
+//    2048, H 10, Hkv 1, causal, the window masking nothing there): 85.9
+//    GFLOP, 0.087 ms at the tensor-core peak, against 0.028 ms for its 92
+//    MB.
 //    At D 16 and 32 one score costs 4 D = 64-128 tensor-core FLOP but one
 //    exponential, so the special-function unit (16 a clock an SM), not the
 //    tensor cores, sets the floor: at granite-8b's prefill traffic 0.064
@@ -187,17 +194,29 @@ constexpr int kBoxCols = 64;          // 128 bytes of bf16: one swizzle row
 // stage s's K tile at kKOff + 2 s kTileBytes and its V tile after it, then
 // the mbarriers. A tile row is kBoxes boxes of 64 columns; a box holds the
 // tile's rows at 128 bytes a row (kQBoxBytes, kBoxBytes apart)
+// kv rows per tile at D 256 (see HopperLayout::kBN)
+constexpr int kD256KvRows = 80;
+
 template <int D>
 struct HopperLayout {
-  // kv rows per tile: 128, and 64 at D 256, where a consumer's 64 x 256
-  // accumulator takes 128 registers and 128-row S (64) and P (32) would not
-  // fit beside it under setmaxnreg's 240
-  static constexpr int kBN = D == 256 ? 64 : 128;
+  // kv rows per tile: 128, and kD256KvRows (80) at D 256, where a
+  // consumer's 64 x 256 accumulator takes 128 registers and 128-row S (64)
+  // and P (32) would not fit beside it under setmaxnreg's 240; 80-row S
+  // (40) and P (20) do, and each 80-row tile pays one barrier round, one
+  // softmax and one rescale of the accumulator for 80 keys where a 64-row
+  // tile paid them for 64
+  static constexpr int kBN = D == 256 ? kD256KvRows : 128;
   // K/V ring depth: 32 KB tiles (D 80, 128) fill a block's shared memory at
   // 3 stages. 16 KB tiles (D 16 to 64) would leave room for 5 or 6, but
   // those ran no faster than 3 (scripts/flash_ab.py), so those have 3. At D
-  // 256 the 64 KB Q tile leaves room for 2 stages of 32 KB K and V tiles
+  // 256 the 64 KB Q tile leaves room for 2 stages of 40 KB K and V tiles
   static constexpr int kStages = D == 256 ? 2 : 3;
+  // Work items handed out at run time, longest first, from a counter in
+  // global memory (flash_wgmma_kernel), in place of the static pairs. At D
+  // 256 recurrentgemma-2b's prefill has 640 items, 320 pairs on 132 SMs:
+  // 2.42 rounds of pairs done in 3, some 81% of the card busy; handed out
+  // longest first, the short items fill the last round's gaps
+  static constexpr bool kDynamic = D == 256;
   // The consumers take turns to issue their products (ping-pong), so one's
   // softmax runs under the other's wgmmas. At D 16 and 32 the products are
   // too short to cover a softmax, and the turns only delay the issue:
@@ -213,8 +232,11 @@ struct HopperLayout {
   static constexpr int kScores = kBN / 2;   // S registers of a consumer thread
   static constexpr int kKOff = kQTileBytes;
   static constexpr int kBarOff = kQTileBytes + 2 * kStages * kTileBytes;
-  // + 2 Q and 4 per stage K/V barriers + the 1024-byte alignment
-  static constexpr int kSmem = kBarOff + 8 * (2 + 4 * kStages) + 1024;
+  // the slot through which the producer names each work item it hands out
+  static constexpr int kSlotOff = kBarOff + 8 * (2 + 4 * kStages);
+  // + 2 Q and 4 per stage K/V barriers (+ the slot) + the 1024-byte
+  // alignment
+  static constexpr int kSmem = kSlotOff + (kDynamic ? 8 : 0) + 1024;
   static_assert(D % 16 == 0 && kSmem <= 232448, "shared memory");
 };
 
@@ -302,6 +324,68 @@ __device__ __forceinline__ Tile hopper_tile(const FlashGeom& g, int item,
   const int z = item % n_qb;
   const int qi = (z & 1) ? n_qb - 1 - z / 2 : z / 2;
   return tile_of<kHopperBM, BN, kWindow>(g, qi, item / n_qb);
+}
+
+// The dynamic schedule (HopperLayout::kDynamic): block b's first item is b,
+// each later one comes from g_next_item (items gridDim.x + n), handed out
+// in rank order over the heads (dynamic_tile): every head's longest q tile
+// first, then every head's second longest, and so on, so the shortest come
+// last and fill the gaps. The producer takes an item as soon as the last
+// one's Q loads are issued, and names it to the consumers through a slot in
+// shared memory (written before the Q barrier's arrival, read after its
+// wait); n_items in the slot ends the block. The last block to finish sets
+// both counters back to 0, so each launch starts from 0 with no memset of
+// its own (two launches of the library must not run at once on one card)
+__device__ int g_next_item = 0;
+__device__ int g_blocks_done = 0;
+
+template <int BN, bool kWindow>
+__device__ __forceinline__ Tile dynamic_tile(const FlashGeom& g, int item) {
+  const int bh = g.batch * g.heads;
+  return tile_of<kHopperBM, BN, kWindow>(g, item / bh, item % bh);
+}
+
+template <int D, bool kWindow>
+__device__ __forceinline__ Tile work_tile(const FlashGeom& g, int item,
+                                          int n_qb) {
+  using L = HopperLayout<D>;
+  if constexpr (L::kDynamic)
+    return dynamic_tile<L::kBN, kWindow>(g, item);
+  else
+    return hopper_tile<L::kBN, kWindow>(g, item, n_qb);
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, int v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_shared(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// the producer's k-th item: the static pairs' (item_of) or `next`, the one
+// it took from the counter
+template <bool kDynamic>
+__device__ __forceinline__ int producer_item(int k, int next) {
+  if constexpr (kDynamic)
+    return k == 0 ? static_cast<int>(blockIdx.x) : next;
+  else
+    return item_of(k);
+}
+
+// the consumers' k-th item: the static pairs', or the slot's once Q's
+// barrier for it has completed (their later wait on it returns at once)
+template <bool kDynamic>
+__device__ __forceinline__ int consumer_item(int k, uint32_t slot,
+                                             uint32_t q_full) {
+  if constexpr (kDynamic) {
+    mbar_wait(q_full, k & 1);
+    return ld_shared(slot);
+  } else {
+    return item_of(k);
+  }
 }
 
 // named barriers over the 256 consumer threads
@@ -415,17 +499,24 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[NK][4]) {
 
 // d (64 x N, f32) = [d +] A B^T: A (64 x 16) and B (N x 16) K-major in
 // shared memory; scale_d = 0 overwrites d. N is the kv tile's height: 128,
-// and 64 at D 256
+// and 80 at D 256 (64 timed against it)
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N 64, 128");
+  static_assert(N == 64 || N == 80 || N == 128, "wgmma_ss: N 64, 80, 128");
   if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
         ", %64, %65, p, 1, 1, 0, 0;\n}\n"
         : WG_OUT64(d)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " WG_D40
+        ", %40, %41, p, 1, 1, 0, 0;\n}\n"
+        : WG_OUT40(d)
         : "l"(da), "l"(db), "r"(scale_d));
   } else {
     asm volatile(
@@ -634,6 +725,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
   const uint32_t full_v = full_k + 8 * kStages;
   const uint32_t empty_k = full_v + 8 * kStages;
   const uint32_t empty_v = empty_k + 8 * kStages;
+  const uint32_t slot = base + L::kSlotOff;           // kDynamic only
 
   // persistent: block b takes the pairs of work items b, b + G, b + 2 G, ...
   // (item_of), a pair being two q tiles of one head, the i-th longest and
@@ -641,7 +733,9 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
   // tiles, so the blocks' sums match, and the pairs in flight at once
   // cover some 17 heads, whose K and V stay in L2 (MHA at S 2048 has 84 MB
   // of K and V, more than the 50 MB of L2). One tile's tail overlaps the
-  // next one's loads
+  // next one's loads. At D 256 the items come longest first from a counter
+  // instead (kDynamic; recurrentgemma-2b's one kv head a batch row keeps
+  // all its K and V, 2 MB a row at S 2048, in L2)
   const int n_qb = (g.seq + kHopperBM - 1) / kHopperBM;
   const int n_items = n_qb * g.batch * g.heads;
   const int warpgroup = threadIdx.x / 128;
@@ -664,17 +758,21 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
     // ahead of the consumers' need. `it` counts the block's kv tiles.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      int it = 0;
-      for (int k = 0, item = item_of(0); item < n_items; item = item_of(++k)) {
-        const Tile t = hopper_tile<BN, kWindow>(g, item, n_qb);
+      int it = 0, k = 0, next = 0;
+      for (int item = producer_item<L::kDynamic>(0, next); item < n_items;
+           item = producer_item<L::kDynamic>(++k, next)) {
+        const Tile t = work_tile<D, kWindow>(g, item, n_qb);
         const int kv0 = kWindow ? t.kv0 : 0;
         if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
+        if constexpr (L::kDynamic) st_shared(slot, item);
         // the transaction count is the whole boxes': TMA counts the
         // zero-filled columns past D and rows past S too
         mbar_expect_tx(q_full, L::kQTileBytes);
         for (int x = 0; x < L::kBoxes; ++x)
           tma_load(base + x * L::kQBoxBytes, &maps.q, q_full, x * kBoxCols, t.q0,
                    t.h, t.b);
+        if constexpr (L::kDynamic)
+          next = static_cast<int>(gridDim.x) + atomicAdd(&g_next_item, 1);
         for (int j = 0; j < t.n_kv; ++j, ++it) {
           const int s = it % kStages, round = it / kStages;
           const uint32_t ks = base + L::kKOff + s * 2 * kTileBytes;
@@ -690,6 +788,19 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
           for (int x = 0; x < L::kBoxes; ++x)
             tma_load(vs + x * kBoxBytes, &maps.v, full_v + 8 * s,
                      x * kBoxCols, k0, t.hk, t.b);
+        }
+      }
+      if constexpr (L::kDynamic) {
+        // no item left: once the consumers have read the last one's slot,
+        // it says so, and the consumers' wait on Q ends without a load
+        if (k > 0) mbar_wait(q_empty, (k - 1) & 1);
+        st_shared(slot, n_items);
+        mbar_arrive(q_full);
+        // every block's last take from the counter precedes its count here
+        __threadfence();
+        if (atomicAdd(&g_blocks_done, 1) == static_cast<int>(gridDim.x) - 1) {
+          g_next_item = 0;
+          g_blocks_done = 0;
         }
       }
     }
@@ -714,8 +825,10 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
     for (int i = 0; i < L::kScores; ++i) s[i] = 0.f;
     uint32_t pa[BN / 16][4];
     int it = 0;
-    for (int k = 0, item = item_of(0); item < n_items; item = item_of(++k)) {
-      const Tile t = hopper_tile<BN, kWindow>(g, item, n_qb);
+    for (int k = 0, item = consumer_item<L::kDynamic>(0, slot, q_full);
+         item < n_items;
+         item = consumer_item<L::kDynamic>(++k, slot, q_full)) {
+      const Tile t = work_tile<D, kWindow>(g, item, n_qb);
       const int kv0 = kWindow ? t.kv0 : 0;
       const int rows[2] = {t.q0 + row0, t.q0 + row0 + 8};
       float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, alpha[2];
@@ -1184,11 +1297,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (dev == cudaSuccess)
     dev = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (dev != cudaSuccess) return static_cast<int>(dev);
-  // one persistent block per SM, or one per pair of work items where there
-  // are fewer
+  // one persistent block per SM, or one per pair of work items (per item
+  // where they are handed out at run time) where there are fewer
   const int items = (g.seq + kHopperBM - 1) / kHopperBM * g.batch * g.heads;
-  const int pairs = (items + 1) / 2;
-  const int grid = pairs < sms ? pairs : sms;
+  const int work = L::kDynamic ? items : (items + 1) / 2;
+  const int grid = work < sms ? work : sms;
   flash_wgmma_kernel<D, kWindow><<<grid, kHopperThreads, L::kSmem,
                                    static_cast<cudaStream_t>(stream)>>>(
       maps, static_cast<__nv_bfloat16*>(o), g);
@@ -1205,6 +1318,11 @@ Route route_of(int dtype, int head_dim) {
   if (dtype == 1) return built || head_dim == 256 ? kWgmma : kNoKernel;
   return dtype == 0 && built ? kFfma : kNoKernel;
 }
+
+// whether a window hides any key: one of S or more keys hides none (row -
+// col < S), so such a call computes what the instance without it computes,
+// and runs that instance, free of the window's bounds and tests
+bool masks(int window, int seq) { return window > 0 && window < seq; }
 
 template <bool kWindow>
 int launch(const void* q, const void* k, const void* v, void* o, int dtype,
@@ -1239,7 +1357,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int dtype,
 extern "C" {
 
 // dtype 0: float32, 1: bfloat16; head_dim 16, 32, 64, 80 or 128 (and 256
-// in bfloat16); g->window 0 (none) or the sliding window. Returns the
+// in bfloat16); g->window 0 (none) or the sliding window (one of g->seq
+// keys or more hides none: the instance without it runs). Returns the
 // cudaError_t of the launch (0 = success), kErrNoEncoder or kErrEncode +
 // CUresult when a tensor map cannot be made.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1248,21 +1367,22 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (g->seq <= 0 || g->kv_heads <= 0 || g->heads % g->kv_heads != 0 ||
       g->window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return g->window > 0
+  return masks(g->window, g->seq)
              ? launch<true>(q, k, v, o, dtype, head_dim, *g, stream)
              : launch<false>(q, k, v, o, dtype, head_dim, *g, stream);
 }
 
 // the demangled name of the kernel flash_attention_fwd launches for (dtype,
-// D, window), e.g. "flash_wgmma_kernel<256, true>", or null where it
+// D, window, seq), e.g. "flash_wgmma_kernel<256, true>", or null where it
 // launches none
-const char* flash_attention_kernel(int dtype, int head_dim, int window) {
+const char* flash_attention_kernel(int dtype, int head_dim, int window,
+                                   int seq) {
   static char name[48];
   const Route route = route_of(dtype, head_dim);
   if (route == kNoKernel) return nullptr;
   snprintf(name, sizeof(name), "%s<%d, %s>",
            route == kWgmma ? "flash_wgmma_kernel" : "flash_ffma_kernel",
-           head_dim, window > 0 ? "true" : "false");
+           head_dim, masks(window, seq) ? "true" : "false");
   return name;
 }
 

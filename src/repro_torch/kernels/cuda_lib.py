@@ -49,11 +49,14 @@ class Library:
 
 # --fmad=false: no contracted multiply-add anywhere, so the device chain
 # rounds exactly where the plain PyTorch version does (the dot in kernel A
-# asks for its FMAs explicitly). No --use_fast_math in either library.
+# and the scan ask for their FMAs explicitly; the RG-LRU's fused gates
+# round where the eager chain's kernels do). No --use_fast_math in any
+# library.
 P2M = Library("p2m", ("p2m_kernels.cu", "p2m_physics.cuh"),
               _COMMON_FLAGS + ("--fmad=false",))
 FLASH = Library("flash_attention", ("flash_attention.cu",), _COMMON_FLAGS)
-RGLRU = Library("rglru_scan", ("rglru_scan.cu",), _COMMON_FLAGS)
+RGLRU = Library("rglru_scan", ("rglru_scan.cu",),
+                _COMMON_FLAGS + ("--fmad=false",))
 LIBRARIES = (P2M, FLASH, RGLRU)
 
 
@@ -195,14 +198,17 @@ def _bind_flash(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32,
                                         ctypes.POINTER(FlashGeom), p]
     lib.flash_attention_fwd.restype = ctypes.c_int
-    lib.flash_attention_kernel.argtypes = [i32, i32, i32]
+    lib.flash_attention_kernel.argtypes = [i32, i32, i32, i32]
     lib.flash_attention_kernel.restype = ctypes.c_char_p
 
 
 def _bind_rglru(lib: ctypes.CDLL) -> None:
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rglru_scan.argtypes = [p, p, p, i32, i32, i32, p]
-    lib.rglru_scan.restype = ctypes.c_int
+    lib.rglru_scan_gated.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
+                                     p]
+    for fn in (lib.rglru_scan, lib.rglru_scan_gated):
+        fn.restype = ctypes.c_int
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -227,7 +233,7 @@ def load_flash() -> ctypes.CDLL:
 
 
 def load_rglru() -> ctypes.CDLL:
-    """The RG-LRU scan library (built on first use), its entry typed."""
+    """The RG-LRU scan library (built on first use), its entries typed."""
     return _load(RGLRU, _bind_rglru)
 
 

@@ -17,9 +17,10 @@ reads q (B, S, H, D) and k, v (B, S, Hkv, D) in place through their strides
 and indexes kv head ``h // (H / Hkv)`` itself; any S works (a ragged tail is
 masked). One kernel serves each (dtype, D, window or not), with no switch:
 - bfloat16, D 16, 32, 64, 80, 128, 256: ``flash_wgmma_kernel<D, W>`` (TMA,
-  an mbarrier ring, wgmma; 128-row q tiles and 128-row kv tiles, 64-row at
-  D 256; a tile row is ceil(D / 64) boxes of 64 columns whose tensor map
-  ends at column D, so D 80's second box and D 16's and 32's only one
+  an mbarrier ring, wgmma; 128-row q tiles and 128-row kv tiles, 80-row at
+  D 256, where the work items come longest first from a counter; a tile
+  row is ceil(D / 64) boxes of 64 columns whose tensor map ends at column
+  D, so D 80's second box and D 16's and 32's only one
   read zeros past the head, never the next head of a packed projection;
   D / 16 k-steps of the first product, an N = D second product). A tensor
   map the CUDA driver refuses raises through ``check_launch``: there is no
@@ -28,9 +29,11 @@ masked). One kernel serves each (dtype, D, window or not), with no switch:
   never TF32; 8 warps each own 16 of a block's 128 q rows, K and V come
   by cp.async under the other product in tiles of 64 kv rows). Float32 at
   D 256 has no kernel (no served config needs it) and raises.
-W is ``true`` for a call with a window and ``false`` without: the window
-is a template flag, so the instances without it keep the code they had
-before it. ``kernel_symbol`` asks the library which one a call launches.
+W is ``true`` for a call whose window hides some key and ``false``
+otherwise (no window, or one of S keys or more, which computes the same
+function): the window is a template flag, so the instances without it keep
+the code they had before it. ``kernel_symbol`` asks the library which one
+a call launches.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``flash_attention_plain`` for CPU tensors; any other device raises, and
@@ -168,13 +171,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def kernel_symbol(dtype: torch.dtype, head_dim: int, window: int = 0) -> str:
+def kernel_symbol(dtype: torch.dtype, head_dim: int, window: int = 0,
+                  seq: int = 2 ** 31 - 1) -> str:
     """The kernel instance ``flash_attention`` launches for CUDA operands
-    of this dtype and head dim, with or without a window, as the library
-    dispatches and the profiler names it, e.g. ``flash_wgmma_kernel<256,
-    true>`` (builds the library)."""
+    of this dtype and head dim, with or without a window, at length ``seq``
+    (a window of ``seq`` keys or more hides none, and the instance without
+    it runs), as the library dispatches and the profiler names it, e.g.
+    ``flash_wgmma_kernel<256, true>`` (builds the library)."""
     name = cuda_lib.load_flash().flash_attention_kernel(
-        _DTYPE_CODES.get(dtype, -1), head_dim, window)
+        _DTYPE_CODES.get(dtype, -1), head_dim, window, seq)
     if name is None:
         raise ValueError(f"no flash kernel for {dtype}, head dim {head_dim}")
     return name.decode()

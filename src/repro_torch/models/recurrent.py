@@ -6,10 +6,15 @@ and inits; ``rglru_apply`` runs train, prefill and decode as the reference
 does, in its precision: the projections and the depthwise causal conv in
 the compute dtype (the conv's four taps summed in the reference's order,
 so bf16 rounds where it does), the gates' ``a`` and ``b`` and the state in
-float32. Train and prefill run the recurrence over the sequence through
-``kernels.rglru_scan`` (a hand-written kernel on the card; on the CPU the
-reference's associative scan in PyTorch ops); decode advances it one token
-in plain ops, as the reference computes it.
+float32. The gates come in two parts: ``_rglru_gate_inputs`` (the two
+gate projections and sigmoids in the compute dtype, and c = -8
+softplus(lam)) and ``_rglru_ab`` (their float32 tail, a and b);
+``_rglru_gates`` is both, the reference's function. Train and prefill run
+the tail and the recurrence over the sequence through
+``kernels.rglru_scan.rglru_scan_gated`` (one hand-written kernel on the
+card that writes h in the compute dtype and the last step's h; on the CPU
+the tail, the reference's associative scan in PyTorch ops and the cast);
+decode advances it one token in plain ops, as the reference computes it.
 
 The cache: a decode step writes the new state ``h`` and conv window IN
 PLACE into the cache it is given (the reference returns new ones), as the
@@ -24,7 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import rglru_ab as _rglru_ab
+from repro_torch.kernels.rglru_scan import rglru_scan_gated
 from repro_torch.models.params import ParamSpec
 
 _RGLRU_C = 8.0
@@ -91,18 +97,22 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
+def _rglru_gate_inputs(params: Dict, u: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gates r and i (the two gate projections in u's dtype) and c =
+    -8 softplus(lam) (R,) float32, the coefficient of log a = c r."""
+    r = _sigmoid(u @ params["w_a"].to(u.dtype) + params["b_a"].to(u.dtype))
+    i = _sigmoid(u @ params["w_i"].to(u.dtype) + params["b_i"].to(u.dtype))
+    return r, i, -_RGLRU_C * _softplus(params["lam"].to(torch.float32))
+
+
 def _rglru_gates(params: Dict, u: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence's a and b, float32: the two gate projections in u's
     dtype, log a = -8 softplus(lam) r, b = sqrt(1 - a^2) (i u) with i u
     formed in u's dtype."""
-    f32 = torch.float32
-    r = _sigmoid(u @ params["w_a"].to(u.dtype) + params["b_a"].to(u.dtype))
-    i = _sigmoid(u @ params["w_i"].to(u.dtype) + params["b_i"].to(u.dtype))
-    log_a = -_RGLRU_C * _softplus(params["lam"].to(f32)) * r.to(f32)
-    a = torch.exp(log_a)
-    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12, 1.0))
-    return a, beta * (i * u).to(f32)
+    r, i, c = _rglru_gate_inputs(params, u)
+    return _rglru_ab(r, i, u, c)
 
 
 def rglru_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -127,9 +137,10 @@ def rglru_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
         hs = h[:, None]
     else:
         u, conv_state = _causal_conv1d(u0, conv_w)
-        a, b = _rglru_gates(params, u)
-        hs = rglru_scan(a, b)                     # h_t for h_{-1} = 0
-        if mode == "prefill":   # copies: no view keeps hs or the conv alive
-            new_cache = {"h": hs[:, -1].clone(), "conv": conv_state.clone()}
+        r, i, c = _rglru_gate_inputs(params, u)
+        # h_t for h_{-1} = 0 in u's dtype, and the last step's h in float32
+        hs, h_last = rglru_scan_gated(r, i, u, c)
+        if mode == "prefill":   # a copy: no view keeps the conv alive
+            new_cache = {"h": h_last, "conv": conv_state.clone()}
     y = (hs.to(x.dtype) * gate) @ params["w_out"].to(x.dtype)
     return y, new_cache

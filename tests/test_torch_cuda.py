@@ -43,10 +43,14 @@ summation order) and 2e-5 for float32 (the summation order alone): the
 wgmma kernel (bf16, D 64, 80 and 128) at S 1 to 2048, MHA and GQA 4:1, 7:1
 and 16:1, the mma.sync kernel at D 16 and 32 and the FFMA kernel at D 16
 to 128, D 80 included; with a sliding window every instance, and D 256
-(recurrentgemma-2b, 10 heads over 1) with and without one. The RG-LRU scan
-kernel is held against its plain version (an associative scan) at 1e-5
-with a near 1, and reduced recurrentgemma-2b's engine on the card against
-the CPU engine inside and past its window.
+(recurrentgemma-2b, 10 heads over 1) with and without one, its run-time
+schedule with fewer work items than SMs and over several rounds (two
+launches in a row equal bit for bit), and a window that hides no key
+running the instance without it. The RG-LRU scan kernel is held against
+its plain version (an associative scan) at 1e-5 with a near 1, its gated
+instance bit for bit against the unfused chain it replaces (bf16 and
+float32, ragged widths and lengths), and reduced recurrentgemma-2b's
+engine on the card against the CPU engine inside and past its window.
 """
 import dataclasses
 import itertools
@@ -1298,9 +1302,62 @@ def test_windowed_and_d256_flash_kernels_match_plain_on_card(
     assert float(row_err.max()) <= FLASH_ROW_TOL[dtype]
 
 
-# the kernel's sequential float32 FMAs against the plain version's
-# associative scan: two summation orders of h up to ~5 differ by ~2.3e-6
-# (measured on the CPU in float64 at S 2048 with a up to 1 - 6e-8)
+# D 256's schedule (work items from a counter, longest first) where there
+# are fewer items than SMs (B 1, S 256: 20), and where the items make 2
+# and 3 rounds of the static pairs on 132 SMs (528 and 792 items), each
+# launched twice in a row: the counter is back at 0 after a launch, so the
+# second equals the first bit for bit
+FLASH_D256_SCHEDULES = [(1, 256, 10, 1), (4, 1536, 11, 1), (6, 1536, 11, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv", FLASH_D256_SCHEDULES)
+def test_d256_flash_schedule_matches_plain_on_card(cuda_device, b, s, h,
+                                                   hkv):
+    gen = torch.Generator().manual_seed(b * s + h)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda_device,
+                                                    torch.bfloat16)
+               for shape in ((b, s, h, 256), (b, s, hkv, 256),
+                             (b, s, hkv, 256)))
+    out = fa.flash_attention(q, k, v, causal=True, window=100)
+    again = fa.flash_attention(q, k, v, causal=True, window=100)
+    assert torch.equal(out, again)
+    plain = fa.flash_attention_plain(q, k, v, causal=True, window=100)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0,
+                               atol=FLASH_TOL[torch.bfloat16])
+    row_err = (out.float() - plain.float()).abs().amax(dim=-1) / \
+        plain.float().square().mean(dim=-1).sqrt()
+    assert float(row_err.max()) <= FLASH_ROW_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [2048, 4096])
+def test_a_window_that_hides_no_key_runs_the_unwindowed_instance(
+        cuda_device, window):
+    """recurrentgemma-2b's prefill at S 2048: a window of S keys or more
+    hides none, so the library names ``flash_wgmma_kernel<256, false>`` as
+    the call's kernel (``chip_smoke.py``'s ``flash`` line at this geometry
+    checks that a profiled call ran it), and the call equals the one
+    without a window bit for bit and the plain version."""
+    bf16 = torch.bfloat16
+    assert fa.kernel_symbol(bf16, 256, window, 2048) == \
+        "flash_wgmma_kernel<256, false>"
+    assert fa.kernel_symbol(bf16, 256, window, window + 1) == \
+        "flash_wgmma_kernel<256, true>"
+    gen = torch.Generator().manual_seed(window)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda_device, bf16)
+               for shape in ((4, 2048, 10, 256), (4, 2048, 1, 256),
+                             (4, 2048, 1, 256)))
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal=True))
+    plain = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0,
+                               atol=FLASH_TOL[bf16])
+
+
+# the kernel's float32 FMAs against the plain version's associative scan:
+# two summation orders of h up to ~5 differ by ~2.3e-6 (measured on the CPU
+# in float64 at S 2048 with a up to 1 - 6e-8)
 RGLRU_TOL = 1e-5
 
 
@@ -1329,6 +1386,68 @@ def test_rglru_scan_matches_plain_on_card(cuda_device, b, s, r):
         assert float((x - plain).abs().max()) > 100 * RGLRU_TOL
 
 
+def gated_operands(b, s, r, dtype, device, seed=0):
+    """r and i sigmoids, u normal in ``dtype``; c = -8 softplus(lam) in
+    [-0.8, -0.008], so a = e^(c r) lies in (0.45, 1) and the carry
+    matters."""
+    gen = torch.Generator().manual_seed(seed)
+    rg, ig = (torch.sigmoid(torch.randn(b, s, r, generator=gen)).to(
+        device=device, dtype=dtype) for _ in range(2))
+    u = torch.randn(b, s, r, generator=gen).to(device=device, dtype=dtype)
+    c = (-0.008 - 0.792 * torch.rand(r, generator=gen)).to(device)
+    return rg, ig, u, c
+
+
+# the serving shape, ragged widths and lengths (S 1000 and 130 are not
+# multiples of the kernel's 64-step chunk), one step, one channel
+GATED_SHAPES = [(4, 2048, 2560), (3, 1000, 300), (1, 1, 64), (2, 17, 1),
+                (2, 130, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,r", GATED_SHAPES)
+def test_rglru_scan_gated_equals_the_unfused_chain_on_card(cuda_device, b,
+                                                           s, r, dtype):
+    """Bit for bit the chain it replaces on the same card tensors (the
+    gates' tail, ``rglru_scan``, the cast, h of the last step), and against
+    its plain version h_last at RGLRU_TOL and hs within one ulp of the
+    dtype (or RGLRU_TOL where that is larger)."""
+    rg, ig, u, c = gated_operands(b, s, r, dtype, cuda_device, seed=s + r)
+    cuda_lib.reset_launch_counts()
+    hs, h_last = rs.rglru_scan_gated(rg, ig, u, c)
+    assert {k: v for k, v in cuda_lib.launch_counts().items() if v} == {
+        "rglru_scan_gated": 1}
+    assert hs.dtype == dtype and hs.shape == u.shape
+    assert h_last.dtype == torch.float32 and h_last.shape == (b, r)
+    h = rs.rglru_scan(*rs.rglru_ab(rg, ig, u, c))
+    assert torch.equal(hs, h.to(dtype)) and torch.equal(h_last, h[:, -1])
+    hs_p, last_p = rs.rglru_scan_gated_plain(rg, ig, u, c)
+    torch.testing.assert_close(h_last, last_p, rtol=0, atol=RGLRU_TOL)
+    _, e = torch.frexp(torch.maximum(hs.float().abs(), hs_p.float().abs()))
+    bits = 8 if dtype == torch.bfloat16 else 24
+    ulp = torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - bits)
+    assert bool(((hs.float() - hs_p.float()).abs()
+                 <= torch.clamp(ulp, min=RGLRU_TOL)).all())
+
+
+@pytest.mark.cuda
+def test_rglru_scan_gated_refuses_what_it_does_not_take(cuda_device):
+    rg, ig, u, c = gated_operands(1, 8, 4, torch.bfloat16, cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rs.rglru_scan_gated(rg.half(), ig.half(), u.half(), c)
+    with pytest.raises(TypeError, match="float32"):
+        rs.rglru_scan_gated(rg, ig, u, c.double())
+    with pytest.raises(TypeError, match="share"):
+        rs.rglru_scan_gated(rg, ig.float(), u, c)
+    with pytest.raises(ValueError, match="one shape"):
+        rs.rglru_scan_gated(rg, ig[:, :4], u, c)
+    with pytest.raises(ValueError, match="one shape"):
+        rs.rglru_scan_gated(rg, ig, u, c[:3])
+    with pytest.raises(ValueError, match="several devices"):
+        rs.rglru_scan_gated(rg, ig, u, c.cpu())
+
+
 @pytest.mark.cuda
 def test_rglru_scan_refuses_what_it_does_not_take(cuda_device):
     a = torch.rand(1, 8, 4, device=cuda_device)
@@ -1344,9 +1463,9 @@ def test_rglru_scan_refuses_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("prompt", [12, 24])
 def test_hybrid_engine_on_card_matches_the_cpu(cuda_device, monkeypatch,
                                                prompt):
-    """Reduced recurrentgemma-2b (float32: the FFMA kernel's windowed D 16
-    instance, window 16) on the card against the CPU engine, inside the
-    window and past it: the scan and the flash kernel launch on every
+    """Reduced recurrentgemma-2b (float32: the FFMA kernel's D 16
+    instances, window 16) on the card against the CPU engine, inside the
+    window and past it: the gated scan and the flash kernel launch on every
     prefill and the plain versions never run; greedy tokens equal, prefill
     logits within 1e-4."""
     from repro_torch.models import blocks
@@ -1362,10 +1481,11 @@ def test_hybrid_engine_on_card_matches_the_cpu(cuda_device, monkeypatch,
         m.setattr(fa, "flash_attention_plain", refuse)
         m.setattr(blocks, "flash_attention_plain", refuse)
         m.setattr(rs, "rglru_scan_plain", refuse)
+        m.setattr(rs, "rglru_scan_gated_plain", refuse)
         out = engine.generate(prompts, 6)
     counts = cuda_lib.launch_counts()
-    assert {k: v for k, v in counts.items() if v} == {"flash_attention": 1,
-                                                      "rglru_scan": 2}
+    assert {k: v for k, v in counts.items() if v} == {
+        "flash_attention": 1, "rglru_scan_gated": 2}
     cpu = ServingEngine(cfg, params, max_len=40, device="cpu")
     assert torch.equal(out.cpu(), cpu.generate(prompts, 6))
     torch.testing.assert_close(engine.prefill_logits.cpu(),

@@ -1,5 +1,6 @@
-"""The A/B scripts (scripts/p2m_ab.py, scripts/flash_ab.py and their shared
-scripts/ab_versions.py) on the CPU: what they can be asked without a card.
+"""The A/B scripts (scripts/p2m_ab.py, scripts/flash_ab.py,
+scripts/rglru_ab.py and their shared scripts/ab_versions.py) on the CPU:
+what they can be asked without a card.
 
 Every diagnostic copy must apply to the kernel source in this tree (a
 renamed line would otherwise drop a stage from ``--diagnose`` unseen), the
@@ -143,3 +144,17 @@ def test_flagless_instances_compare_with_a_first_version_before_the_flag(
 def test_without_sources_it_prints_usage_and_fails(capsys, scripts, script):
     assert scripts(script).main([]) == 1
     assert "usage" in capsys.readouterr().err
+
+
+def test_rglru_ab_binds_versions_with_and_without_the_gated_entry(scripts):
+    """A version from before the gated instance binds ``rglru_scan`` alone;
+    a newer one both entries; without a card the script exits 1."""
+    import types
+    ab = scripts("rglru_ab")
+    old = types.SimpleNamespace(rglru_scan=types.SimpleNamespace())
+    new = types.SimpleNamespace(rglru_scan=types.SimpleNamespace(),
+                                rglru_scan_gated=types.SimpleNamespace())
+    assert ab.bind(old) is False and len(old.rglru_scan.argtypes) == 7
+    assert ab.bind(new) is True
+    assert len(new.rglru_scan_gated.argtypes) == 11
+    assert ab.main(["a.cu"]) == 1

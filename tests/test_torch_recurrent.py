@@ -17,7 +17,10 @@ Modules: ``_causal_conv1d`` (with and without a state), ``_rglru_gates``,
 reference's function at 1e-6 of the output's largest magnitude (float32
 rounding: the matmuls sum in another order); the scan's plain version
 against ``jax.lax.associative_scan`` (the same products in the same
-order: equal bit for bit), and a scan that drops the carry lies far off.
+order: equal bit for bit), and a scan that drops the carry lies far off;
+the gates split in two (``_rglru_gate_inputs``, ``_rglru_ab``) equal to
+the unsplit function bit for bit, and the gated scan's plain version
+against the reference's chain in float32 and bfloat16.
 The model: ``forward`` train, then prefill and three decode steps, at
 1e-5 (logits up to ~5), the prefill and padded caches leaf for leaf at
 1e-6 of each leaf's largest magnitude (1e-5 after three steps);
@@ -246,6 +249,94 @@ def test_cpu_tensors_never_launch_the_scan():
         rs.rglru_scan(a, a[:, :4])
     with pytest.raises(ValueError, match="no kernel"):
         rs.rglru_scan(a.to("meta"), a.to("meta"))
+
+
+def _gate_params(rng, r):
+    """Float32 mixer gate parameters, both sides, whose projections are the
+    identity (exact in any dtype, so both sides' r and i are the sigmoid of
+    the same sums), with drawn biases and lam as ``_set_lam`` draws it."""
+    p = {"w_a": np.eye(r, dtype=np.float32),
+         "w_i": np.eye(r, dtype=np.float32),
+         "b_a": rng.normal(size=r).astype(np.float32),
+         "b_i": rng.normal(size=r).astype(np.float32),
+         "lam": np.log(np.expm1(rng.uniform(0.001, 0.1, r))).astype(
+             np.float32)}
+    return ({k: torch.from_numpy(v) for k, v in p.items()},
+            {k: jnp.asarray(v) for k, v in p.items()})
+
+
+def _old_rglru_gates(params, u):
+    """``_rglru_gates`` as one function, before it was split in two."""
+    f32 = torch.float32
+    r = trec._sigmoid(u @ params["w_a"].to(u.dtype)
+                      + params["b_a"].to(u.dtype))
+    i = trec._sigmoid(u @ params["w_i"].to(u.dtype)
+                      + params["b_i"].to(u.dtype))
+    log_a = -8.0 * trec._softplus(params["lam"].to(f32)) * r.to(f32)
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12, 1.0))
+    return a, beta * (i * u).to(f32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_gates_equal_the_old_gates(mixer, dtype):
+    """``_rglru_ab`` on ``_rglru_gate_inputs`` (and ``_rglru_gates``, the
+    two together) equals the unsplit function bit for bit."""
+    _, tm = mixer
+    u = torch.from_numpy(_x(7, 2, 11)).to(getattr(torch, dtype))
+    a0, b0 = _old_rglru_gates(tm, u)
+    r, i, c = trec._rglru_gate_inputs(tm, u)
+    assert r.dtype == i.dtype == u.dtype and c.dtype == torch.float32
+    for a, b in (trec._rglru_ab(r, i, u, c), trec._rglru_gates(tm, u)):
+        assert torch.equal(a, a0) and torch.equal(b, b0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_scan_plain_matches_the_reference_chain(dtype):
+    """``rglru_scan_gated_plain`` against the reference's chain
+    (``_rglru_gates``, ``jax.lax.associative_scan``, ``astype``) on the
+    same gates: h_last at MODULE_RTOL of its largest magnitude, hs there
+    in float32 and within one bf16 ulp in bfloat16 (h, equal to float32
+    rounding on both sides, may round to either neighbour); h_last is the
+    float32 chain's last step bit for bit."""
+    rng = np.random.default_rng(8)
+    tp, jp = _gate_params(rng, 24)
+    x = rng.normal(size=(2, 37, 24)).astype(np.float32)
+    u = torch.from_numpy(x).to(getattr(torch, dtype))
+    ju = jnp.asarray(x).astype(dtype)
+    r, i, c = trec._rglru_gate_inputs(tp, u)
+    hs, h_last = rs.rglru_scan_gated_plain(r, i, u, c)
+    _, ref = jax.lax.associative_scan(
+        lambda c1, c2: (c1[0] * c2[0], c2[0] * c1[1] + c2[1]),
+        jrec._rglru_gates(jp, ju), axis=1)
+    assert hs.dtype == u.dtype and h_last.dtype == torch.float32
+    _close_rel(h_last, np.asarray(ref)[:, -1])
+    ref_hs = np.asarray(ref.astype(dtype), np.float32)
+    if dtype == "float32":
+        _close_rel(hs, ref_hs)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref_hs), 1e-30)))
+                      - 7)
+        assert (np.abs(_np(hs) - ref_hs) <= ulp).all()
+    h = rs.rglru_scan_plain(*trec._rglru_ab(r, i, u, c))
+    assert torch.equal(h_last, h[:, -1]) and torch.equal(hs, h.to(u.dtype))
+
+
+def test_cpu_tensors_never_launch_either_scan_instance():
+    cuda_lib.reset_launch_counts()
+    a = torch.rand(1, 5, 3)
+    rs.rglru_scan(a, a)
+    rs.rglru_scan_gated(a, a, a, torch.full((3,), -0.1))
+    rs.rglru_scan_gated(*(a.bfloat16(),) * 3, torch.full((3,), -0.1))
+    counts = cuda_lib.launch_counts()
+    assert counts["rglru_scan"] == counts["rglru_scan_gated"] == 0
+    with pytest.raises(TypeError, match="bfloat16"):
+        rs.rglru_scan_gated(a.double(), a.double(), a.double(),
+                            torch.zeros(3))
+    with pytest.raises(ValueError, match="one shape"):
+        rs.rglru_scan_gated(a, a, a, torch.zeros(4))
+    with pytest.raises(ValueError, match="no kernel"):
+        rs.rglru_scan_gated(*(a.to("meta"),) * 3, torch.zeros(3).to("meta"))
 
 
 # ----------------------------------------------------------------------------
