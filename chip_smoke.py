@@ -16,9 +16,10 @@ line:
    single-chip and with the chip axis, must run s8 IMMA, no other P2M
    kernel IMMA, and none HMMA: the
    float32 MACs use no TF32; every ``flash_wgmma_kernel`` instance, each
-   head dim with and without a window (``flash_wgmma_kernel<256, true>``
-   among them), runs HGMMA and no HMMA, the float32 flash kernel and the
-   RG-LRU scan's three instances neither);
+   (D, Dv) pair with and without a window (``flash_wgmma_kernel<256,
+   true>`` and MLA's ``flash_wgmma_kernel<192, false>`` among them), runs
+   HGMMA and no HMMA, the float32 flash kernel and the RG-LRU scan's three
+   instances neither);
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32), three odd geometries (one at C 48) and
    the paper's ImageNet frame size (16, 224, 224, 3) -> (200704, 32). Each
@@ -93,7 +94,11 @@ line:
    where the window masks nothing the yardstick is causal SDPA without it,
    which computes the same function: ``causal_library_ms``), and
    beside each the kernel without the window (``unwindowed_ms``; a call
-   whose window hides no key runs that instance itself);
+   whose window hides no key runs that instance itself); two lines at the
+   MoE models' prefills: deepseek-v2's MLA (B 4, S 2048, H 128, qk 192
+   over v 128, ``flash_wgmma_kernel<192, false>``; its yardstick the first
+   SDPA backend that takes Dv != D, named in ``library_backend``) and
+   kimi-k2's (H 64 over 8, D 112), each with its instance's HGMMA count;
    ``rglru_scan``: the
    RG-LRU scan kernel at recurrentgemma-2b's prefill (B 4, S 2048, R
    2560, a near 1) against its plain version (an associative scan) at
@@ -116,7 +121,15 @@ line:
    range, and the prefill logits held against a ``forward(mode="train")``
    of the prompt (teacher forcing); then the steady generate times, peak
    memory and the flash and scan kernels' shares of prefill device time
-   (``lm_profile``);
+   (``lm_profile``); then deepseek-v2 at 6 layers (its dense first layer +
+   5 MoE layers of 160 experts, top-6, 2 shared, MLA: every width, expert
+   and the capacity factor kept, depth cut: ``cut``) and kimi-k2 at 2
+   layers (dense + 1 MoE layer of 384 experts, top-8), the same way (one
+   flash launch a layer: ``flash_wgmma_kernel<192, false>`` /
+   ``<112, false>``), with the peak memory of the weights' draw
+   (``init_peak_memory_gb``), the prefill's MoE stages by device time
+   (route, dispatch, expert products, combine: profiler ranges around the
+   port's functions) and the LM head over every prompt position alone;
 11. ``lm_vs_cpu``: granite-8b at full width but 2 layers (a depth cut: the
    CPU engine at 36 layers would take minutes), the card's engine against
    the CPU engine on a (1, 128) prompt and 8 new tokens, with its flash
@@ -127,7 +140,17 @@ line:
    at full width, 3 layers, a (2, 3072) prompt past its window and 8 new
    tokens: each decode step's logits (the ring cache) against a card
    ``forward(mode="train")`` over the prompt and the tokens so far, at
-   the teacher-forcing tolerance;
+   the teacher-forcing tolerance; ``lm_mla_vs_cpu`` / ``lm_kimi_vs_cpu``:
+   deepseek-v2 and kimi-k2 at full width, 2 layers (dense + MoE; kimi-k2's
+   experts cut to 64 on both sides so that the host holds the layer),
+   card against CPU as above, where a token whose top-k set differs must
+   sit at a near tie (2 bf16 ulps) and a compared position routed
+   differently leaves the comparison (counted); ``lm_moe_routing``: one
+   deepseek-v2 MoE layer at full width on a seeded 4 x 2048 bf16 input,
+   card against CPU: the share of tokens whose top-k sets differ, each
+   such token's CPU gap at the k-th logit (within 2 bf16 ulps), the
+   output's max-abs on the tokens routed alike (LM_CPU_TOL), and each
+   stage's event-pair ms on the card;
 12. ``train``: full-width vgg16 (P2M 3x3 stride 2 to 32 channels, 13
    binary convs) at CIFAR-10 geometry, seeded weights, trained through
    the ``analog`` backend by ``repro_torch.train.vision.fit`` for 20 SGD
@@ -259,7 +282,8 @@ line:
    kernel's launches from its own path's run, the fleet rows' from the
    ``fleet`` and int8 fleet paths; one flash row per served head dim: D
    128 with granite-8b's launches, D 80 with stablelm-3b's, D 256 with
-   recurrentgemma-2b's; the ``rglru_scan`` and ``rglru_scan_gated`` rows
+   recurrentgemma-2b's, (192, 128) with deepseek-v2's and D 112 with
+   kimi-k2's; the ``rglru_scan`` and ``rglru_scan_gated`` rows
    with recurrentgemma-2b's: 0 for the ungated instance, which its
    prefill never launches, and one an RG-LRU layer for the gated one),
    and last the
@@ -269,6 +293,7 @@ Any failed check raises, so the exit code is non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -454,6 +479,15 @@ FLASH_WINDOWED = (FLASH_RG_SERVING, {**FLASH_RG_SERVING, "batch": 1,
                                      "seq": 8192},
                   dict(batch=1, seq=1000, heads=32, kv_heads=8, head_dim=64,
                        dtype="bfloat16", causal=True, window=300))
+# deepseek-v2's MLA prefill (B 4, S 2048, 128 heads after the latent's
+# expansion, qk 192 = 128 nope + 64 rope over v 128: flash_wgmma_kernel<192,
+# false>) and kimi-k2's (64 heads over 8 at D 112)
+FLASH_MLA_SERVING = dict(batch=4, seq=2048, heads=128, kv_heads=128,
+                         head_dim=192, v_dim=128, dtype="bfloat16",
+                         causal=True)
+FLASH_KIMI_SERVING = dict(batch=4, seq=2048, heads=64, kv_heads=8,
+                          head_dim=112, dtype="bfloat16", causal=True)
+FLASH_MOE = (FLASH_MLA_SERVING, FLASH_KIMI_SERVING)
 # kernel vs plain: bf16 output rounding (one ulp is 2^-8 relative) plus a
 # different summation order; float32: the summation order alone
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -489,6 +523,19 @@ RGLRU_GATED_REPLACES = (
     "none (no TPU kernel): src/repro/models/recurrent.py:62-71 and 102 "
     "(_rglru_gates' float32 tail as XLA elementwise ops, then "
     "jax.lax.associative_scan in rglru_apply)")
+# the MoE models at full width, every expert, top-k and capacity factor,
+# cut in depth only (neither fits one 80 GB card whole): deepseek-v2 at its
+# dense first layer + 5 MoE layers (about 42.5 GB of bf16 weights), kimi-k2
+# at its dense first layer + 1 MoE layer (about 40 GB); their card-vs-CPU
+# phases at 2 layers, kimi-k2's experts cut to 64 on both sides so that the
+# host holds the layer
+LM_MLA_ARCH, LM_MLA_LAYERS = "deepseek-v2-236b", 6
+LM_KIMI_ARCH, LM_KIMI_LAYERS = "kimi-k2-1t-a32b", 2
+LM_KIMI_CPU_EXPERTS = 64
+# the MoE stages of a prefill, each timed on the device as a profiler range
+# (the expert products are cuBLAS kernels like every other matmul)
+MOE_STAGES = {"route": "moe_route", "dispatch": "_moe_dispatch",
+              "experts": "_expert_ffn", "combine": "_moe_combine"}
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 # prefill logits vs a train-mode forward of the same prompt: the same
 # kernels on the same inputs, so equal up to bf16 rounding of the logits
@@ -664,15 +711,18 @@ def visible_pairs(s: int, causal: bool, window: int = 0) -> int:
 
 def flash_work(geom: dict) -> dict:
     """What one flash call at ``geom`` must do: every visible (q, kv) pair
-    (inside the window, where the geometry has one) takes two products of D
-    multiply-adds and one exponential; each input is read once and the
-    output written once. With the bound (``bound``)."""
+    (inside the window, where the geometry has one) takes a product of D
+    multiply-adds (the score) and one of Dv (the output; Dv is
+    ``v_dim``, D where the geometry has none) and one exponential; each
+    input is read once and the output written once. With the bound
+    (``bound``)."""
     b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
                                          "kv_heads", "head_dim"))
+    dv = geom.get("v_dim", d)
     pairs = b * h * visible_pairs(s, geom["causal"], geom.get("window", 0))
     size = 2 if geom["dtype"] == "bfloat16" else 4
-    work = dict(flops=4 * pairs * d, exps=pairs,
-                bytes=(2 * b * s * h + 2 * b * s * hkv) * d * size)
+    work = dict(flops=2 * pairs * (d + dv), exps=pairs,
+                bytes=(b * s * h + b * s * hkv) * (d + dv) * size)
     if geom["dtype"] == "bfloat16":
         t, by = bound(work["bytes"], 0.0, bf16_ops=work["flops"],
                       exps=pairs)
@@ -3435,7 +3485,8 @@ def frontends_phase(device, smi: str):
 def device_breakdown(prof, families, n_top: int = 0):
     """Device ms of a profile by family, and the ``n_top`` device events
     with the most time. Only device-side events (kernels, copies) count:
-    the CPU ops that launched them carry the same time and are skipped.
+    the CPU ops that launched them carry the same time and are skipped, and
+    so are the device-side copies of ``moe_spans``' ranges.
     ``families``: (name, substrings of the lower-case event name) pairs,
     the first match wins; the rest is ``other``."""
     from torch.autograd import DeviceType
@@ -3443,7 +3494,8 @@ def device_breakdown(prof, families, n_top: int = 0):
     fam["other"] = 0.0
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or is_marker(evt):
+        if evt.device_type != DeviceType.CUDA or is_marker(evt) \
+                or evt.key.startswith("moe:"):
             continue
         us = event_us(evt)
         if not us:
@@ -3524,26 +3576,52 @@ def profile_phase(engine, frames, device, precision: str = "f32"):
              prof_s, VISION_FAMILIES)[0])
 
 
-def flash_phase(geom: dict, device):
+def sdpa_backend_ms(q, k, v, causal: bool, device):
+    """Where q's and v's widths differ (MLA): the first of SDPA's fused
+    backends that takes the call (flash, cuDNN, memory-efficient), else
+    the math one, and its event-pair ms; ("none", None) where no backend
+    takes it. q, k, v in SDPA's (B, H, S, D) layout, MHA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call():
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+        try:
+            call()
+        except RuntimeError:   # this backend does not take the call
+            continue
+        return backend.name.lower(), device_ms(call, device)
+    return "none", None
+
+
+def flash_phase(geom: dict, device, hgmma=None):
     """The flash-attention kernel at one geometry: held against its plain
     version on the same card tensors and timed beside it, its bound and
-    ``scaled_dot_product_attention``. Returns the summary row."""
+    ``scaled_dot_product_attention`` (at a value dim ``v_dim`` other than
+    the head dim, the backend that takes it, named). ``hgmma``: the
+    instance's HGMMA count from the library's machine code, to report.
+    Returns the summary row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
                                          "kv_heads", "head_dim"))
+    dv = geom.get("v_dim", d)
     dtype, causal = getattr(torch, geom["dtype"]), geom["causal"]
     window = geom.get("window", 0)
     gen = torch.Generator().manual_seed(23)
     q, k, v = (torch.randn(shape, generator=gen).to(device=device,
                                                     dtype=dtype)
-               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
-    tag = (f"B{b} S{s} H{h}/{hkv} D{d} {geom['dtype']} "
-           f"{'causal' if causal else 'full'}"
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
+    tag = (f"B{b} S{s} H{h}/{hkv} D{d}" + (f"/{dv}" if dv != d else "")
+           + f" {geom['dtype']} {'causal' if causal else 'full'}"
            + (f" window {window}" if window else ""))
-    symbol = fa.kernel_symbol(dtype, d, window, s)
+    symbol = (fa.kernel_symbol(dtype, d, window, s, v_dim=dv) if dv != d
+              else fa.kernel_symbol(dtype, d, window, s))
 
     def kernel(causal=causal, window=window):
         return fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -3579,11 +3657,16 @@ def flash_phase(geom: dict, device):
             attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=h != hkv)
 
-    lib_ms, lib_error = None, None
-    try:
-        lib_ms = device_ms(sdpa, device)
-    except (RuntimeError, TypeError) as exc:   # a yardstick only
-        lib_error = str(exc).splitlines()[0]
+    lib_ms, lib_error, backend = None, None, "default"
+    if dv != d:
+        backend, lib_ms = sdpa_backend_ms(q.transpose(1, 2),
+                                          k.transpose(1, 2),
+                                          v.transpose(1, 2), causal, device)
+    else:
+        try:
+            lib_ms = device_ms(sdpa, device)
+        except (RuntimeError, TypeError) as exc:   # a yardstick only
+            lib_error = str(exc).splitlines()[0]
     # a window no shorter than S masks nothing: causal SDPA without the
     # mask then computes the same function, on its fused path, and is the
     # row's yardstick (the masked call's time stays beside it)
@@ -3607,8 +3690,8 @@ def flash_phase(geom: dict, device):
                         device) if causal else None
     unwindowed_ms = device_ms(lambda: kernel(window=0),
                               device) if window else None
-    emit("flash", geometry=tag, kernel=symbol,
-         tolerance=FLASH_TOL[geom["dtype"]],
+    emit("flash", geometry=tag, kernel=symbol, hgmma=hgmma,
+         library_backend=backend, tolerance=FLASH_TOL[geom["dtype"]],
          row_rel_err=row_err, row_tolerance=FLASH_ROW_TOL[geom["dtype"]],
          **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
          flops=flops, bytes=work["bytes"], exps=work["exps"],
@@ -3748,10 +3831,10 @@ def scan_wrapper() -> str:
 
 def lm_launches(cfg) -> dict:
     """The kernel launches of one prefill of ``cfg``: one flash launch an
-    attention layer (global or local), one gated scan an RG-LRU layer;
-    decode launches none."""
+    attention layer (global, local or MLA), one gated scan an RG-LRU layer;
+    decode launches none, and the MoE none (plain products)."""
     mixers = [mx for mx, _ in cfg.layer_kinds()]
-    want = {"flash_attention": sum(mx in ("attn", "local_attn")
+    want = {"flash_attention": sum(mx in ("attn", "local_attn", "mla")
                                    for mx in mixers),
             scan_wrapper(): mixers.count("rglru")}
     return {k: v for k, v in want.items() if v}
@@ -3763,6 +3846,9 @@ def lm_symbol(cfg, seq: int = LM_PROMPT) -> str:
     where that hides a key)."""
     import inspect
     from repro_torch.kernels import flash_attention as fa
+    if "mla" in cfg.block_pattern:     # qk: nope + rope columns; v: nope
+        dh = cfg.resolved_head_dim
+        return fa.kernel_symbol(cfg.dtype, dh + cfg.rope_head_dim, v_dim=dh)
     if "local_attn" in cfg.block_pattern:
         # (scripts/lm_ab.py runs this on older versions, whose window
         # picked the instance whatever the length)
@@ -3774,10 +3860,47 @@ def lm_symbol(cfg, seq: int = LM_PROMPT) -> str:
     return fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim)
 
 
-def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm"):
-    """``arch`` at full width and depth through ``ServingEngine.generate``,
-    the launch counts read from that run alone (checked against
-    ``path``'s kernels and ``lm_launches``); returns them."""
+@contextlib.contextmanager
+def moe_spans():
+    """For the length of the block, each MoE stage of the port
+    (``MOE_STAGES``) runs inside a profiler range ``moe:<stage>``, whose
+    device time (``moe_stage_ms``) is that of the kernels it launched."""
+    import torch
+    from repro_torch.models import blocks
+    saved = {name: getattr(blocks, fn) for name, fn in MOE_STAGES.items()}
+
+    def spanned(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(f"moe:{name}"):
+                return fn(*args, **kwargs)
+        return call
+
+    for name, fn in MOE_STAGES.items():
+        setattr(blocks, fn, spanned(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name, fn in MOE_STAGES.items():
+            setattr(blocks, fn, saved[name])
+
+
+def moe_stage_ms(prof) -> dict:
+    """Device ms of the kernels launched inside each ``moe:<stage>`` range
+    of a profile taken under ``moe_spans``."""
+    from torch.autograd import DeviceType
+    out = {name: 0.0 for name in MOE_STAGES}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CPU and evt.key.startswith("moe:"):
+            out[evt.key[4:]] += evt.device_time_total / 1e3
+    return out
+
+
+def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
+             layers: int = 0):
+    """``arch`` at full width and depth (or ``layers`` layers: a depth
+    cut) through ``ServingEngine.generate``, the launch counts read from
+    that run alone (checked against ``path``'s kernels and
+    ``lm_launches``); returns them."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cuda_lib
@@ -3786,10 +3909,16 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm"):
     from repro_torch.serving.engine import pad_prefill_cache
 
     cfg = get_arch(arch)
+    cut = None
+    if layers:
+        cut = f"depth {cfg.num_layers} -> {layers}"
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(0, cfg, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in _leaves(params))
     prompts = _lm_prompts(cfg, LM_BATCH, LM_PROMPT, 29).to(device)
     engine = ServingEngine(cfg, params, max_len=LM_PROMPT + LM_NEW,
@@ -3832,26 +3961,49 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm"):
     for _ in range(2):
         engine.generate(prompts, LM_NEW)
         steady.append(dict(engine.stats))
-    emit("lm", model=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+    emit("lm", model=arch, layers=cfg.num_layers, cut=cut,
+         d_model=cfg.d_model,
          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
          head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+         moe=dict(experts=cfg.num_experts, top_k=cfg.top_k,
+                  shared=cfg.num_shared_experts,
+                  capacity_factor=cfg.capacity_factor,
+                  dense_d_ff=cfg.dense_d_ff,
+                  mlps=[m for _, m in cfg.layer_kinds()])
+         if cfg.num_experts else None,
+         mla=dict(kv_lora_rank=cfg.kv_lora_rank, q_lora_rank=cfg.q_lora_rank,
+                  rope_head_dim=cfg.rope_head_dim)
+         if "mla" in cfg.block_pattern else None,
          mixers={mx: [k_ for k_, _ in cfg.layer_kinds()].count(mx)
                  for mx in cfg.block_pattern},
          window=cfg.window if "local_attn" in cfg.block_pattern else None,
          vocab=cfg.vocab_size, dtype=cfg.param_dtype, params=n_params,
-         init_s=init_s, batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
+         init_s=init_s, init_peak_memory_gb=init_peak_gb, batch=LM_BATCH,
+         prompt=LM_PROMPT, new_tokens=LM_NEW,
          launches=counts, first_run=first, steady_runs=steady,
          peak_memory_gb=peak_gb, teacher_forcing_max_abs=tf_err,
          teacher_forcing_tol=LM_TEACHER_TOL,
          teacher_forcing_checked_rows=int(sure.sum()), nvidia_smi=smi)
 
-    # device time of one prefill by family and by kernel, and of one decode
-    # step against its wall time (the device's idle share while decoding)
-    with torch.inference_mode():
+    # device time of one prefill by family and by kernel (and, with experts,
+    # by MoE stage), and of one decode step against its wall time (the
+    # device's idle share while decoding)
+    with torch.inference_mode(), (moe_spans() if cfg.num_experts
+                                  else contextlib.nullcontext()):
         prof, (_, cache) = profile_session(
             lambda: engine.prefill(engine.params, prompts), expect="flash")
     fam, top = device_breakdown(prof, LM_FAMILIES, 12)
     total = sum(fam.values())
+    moe_ms = moe_stage_ms(prof) if cfg.num_experts else None
+    # the LM head over every prompt position, alone
+    head = (params["embed"]["w"].T if cfg.tie_embeddings
+            else params["lm_head"]["w"])
+    hidden = torch.randn((LM_BATCH * LM_PROMPT, cfg.d_model),
+                         generator=torch.Generator(device).manual_seed(3),
+                         device=device, dtype=cfg.dtype)
+    lm_head_ms = device_ms(lambda: hidden @ head.to(cfg.dtype), device,
+                           reps=5)
+    del hidden
     # every flash launch of the prefill is the serving width's one kernel
     # instance, and every scan the scan kernel
     from torch.autograd import DeviceType
@@ -3885,18 +4037,23 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm"):
     fam_d, top_d = device_breakdown(prof_d, LM_FAMILIES, 12)
     decode_device = sum(fam_d.values())
     decode_wall = statistics.median(r["decode_ms_per_token"] for r in steady)
-    emit("lm_profile", model=arch, flash_kernel=symbol,
+    emit("lm_profile", model=arch, layers=cfg.num_layers,
+         flash_kernel=symbol,
          flash_launches_in_prefill=n_flash, scan_launches_in_prefill=scans,
          scan_kernels_in_prefill=scan_ran,
          prefill_device_ms=fam, prefill_device_ms_total=total,
          flash_share=fam["flash_attention"] / total if total else None,
          scan_share=fam["rglru_scan"] / total if total else None,
+         prefill_moe_device_ms=moe_ms,
+         moe_share=(sum(moe_ms.values()) / total
+                    if moe_ms and total else None),
+         lm_head_ms=lm_head_ms,
          prefill_top_kernels=top, decode_step_device_ms=fam_d,
          decode_step_device_ms_total=decode_device,
          decode_step_wall_ms_median=decode_wall,
          decode_device_idle_share=1.0 - decode_device / decode_wall,
          decode_top_kernels=top_d)
-    del engine, params, ref, cache
+    del engine, params, ref, cache, head
     torch.cuda.empty_cache()
     return counts
 
@@ -3909,15 +4066,77 @@ def _leaves(tree):
         yield tree
 
 
+def bf16_ulp(x):
+    """One bf16 ulp at each value of x (a float tensor): 2^(e - 8) for |x|
+    in [2^(e - 1), 2^e)."""
+    import torch
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """For the length of the block, every call of the port's MoE routing
+    (``blocks.moe_route``) is logged: its router logits (float32), the
+    top-k indices and the keep flags, on the host."""
+    from repro_torch.models import blocks
+    route = blocks.moe_route
+    log = []
+
+    def recording(logits, k, capacity):
+        out = route(logits, k, capacity)
+        log.append(dict(logits=logits.float().cpu(), idx=out[1].cpu(),
+                        keeps=out[3].cpu(), k=k))
+        return out
+
+    blocks.moe_route = recording
+    try:
+        yield log
+    finally:
+        blocks.moe_route = route
+
+
+def route_diffs(card: dict, cpu: dict) -> dict:
+    """Card against CPU for one routing call: the rows whose top-k sets
+    differ (``flips``), each with its gap between the k-th and the (k+1)-th
+    CPU router logit and whether that lies within 2 bf16 ulps of the k-th
+    logit (``near_tie``), and the rows served by another set of experts
+    (``differ``: a flip, or a keep flag, since a flip moves other rows'
+    places in an expert's queue, so a row may drop on one side alone; an
+    order alone within the top k changes only the combine's rounding)."""
+    import torch
+    k = cpu["k"]
+    flips = ((card["idx"].sort(-1).values != cpu["idx"].sort(-1).values)
+             .any(-1).nonzero()[:, 0].tolist())
+    top = cpu["logits"].sort(-1, descending=True).values
+    kth = top[:, k - 1]
+    gap, ulp = kth - top[:, k], bf16_ulp(kth)
+
+    def served(log):   # (T, E): the experts that serve each row
+        mask = torch.zeros(log["logits"].shape, dtype=torch.bool)
+        return mask.scatter_(1, log["idx"], log["keeps"].T)
+
+    differ = (served(card) != served(cpu)).any(-1)
+    return dict(flips=[dict(row=r, gap=float(gap[r]), ulp=float(ulp[r]),
+                            near_tie=bool(gap[r] <= 2 * ulp[r]))
+                       for r in flips],
+                differ=differ.nonzero()[:, 0].tolist(), rows=len(kth))
+
+
 def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
-                    layers: int = 2):
-    """``arch`` at full width, ``layers`` layers: the card's engine against
-    the CPU engine on one prompt, with its launch counts (one flash launch
-    an attention layer, one scan an RG-LRU layer, nothing else). Prefill
-    logits, and the logits of every decode step fed the CPU's tokens,
-    within LM_CPU_TOL; greedy tokens equal up to the first step whose CPU
-    top-1/top-2 margin is within twice the tolerance (after a divergence
-    the contexts differ)."""
+                    layers: int = 2, experts: int = 0):
+    """``arch`` at full width, ``layers`` layers (and ``experts`` experts,
+    where given: a cut of an MoE config on both sides): the card's engine
+    against the CPU engine on one prompt, with its launch counts (one flash
+    launch an attention or MLA layer, one scan an RG-LRU layer, nothing
+    else). Prefill logits, and the logits of every decode step fed the
+    CPU's tokens, within LM_CPU_TOL; greedy tokens equal up to the first
+    step whose CPU top-1/top-2 margin is within twice the tolerance (after
+    a divergence the contexts differ). With experts (the one MoE layer
+    last, so that a routing reaches no other position), a token whose
+    top-k set differs between card and CPU must sit at a near tie (2 bf16
+    ulps), and a compared position whose own routing differs leaves the
+    logits comparison (counted)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cuda_lib
@@ -3925,7 +4144,17 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
     from repro_torch.models.params import to_device
     from repro_torch.serving import ServingEngine
 
-    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    full = get_arch(arch)
+    over = dict(num_layers=layers)
+    cut = f"depth {full.num_layers} -> {layers}"
+    if experts:
+        over["num_experts"] = experts
+        cut += f", experts {full.num_experts} -> {experts}"
+    cfg = dataclasses.replace(full, **over)
+    moe = cfg.num_experts > 0
+    if moe:
+        check(all(m != "moe" for _, m in cfg.layer_kinds()[:-1]),
+              f"{arch} at {layers} layers has an MoE layer before the last")
     params = lm.init_params(1, cfg, device=device)
     prompts = _lm_prompts(cfg, 1, 128, 31)
     n_new = 8
@@ -3938,36 +4167,136 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
     params_cpu = to_device(params, torch.device("cpu"))
     cpu = ServingEngine(cfg, params_cpu, max_len=128 + n_new, device="cpu")
     tok_cpu = cpu.generate(prompts, n_new)
-    err = max_abs(gpu.prefill_logits.float().cpu(),
-                  cpu.prefill_logits.float())
-    check(err <= LM_CPU_TOL,
-          f"card vs CPU prefill logits max-abs {err} > {LM_CPU_TOL}")
     # both devices decode the CPU's tokens: the logits of every step, so the
     # decode path is compared too, and the CPU's margins
-    forced = [_forced_decode_logits(cfg, p_, prompts, tok_cpu, dev_)
-              for p_, dev_ in ((params, device), (params_cpu, cpu.device))]
+    forced, logs = [], []
+    for p_, dev_ in ((params, device), (params_cpu, cpu.device)):
+        with recording_routes() as log:
+            forced.append(_forced_decode_logits(cfg, p_, prompts, tok_cpu,
+                                                dev_))
+        logs.append(log)
+    # per compared position (the prefill's last, then each decode step's
+    # token): whether its own routing differs; every set flip a near tie
+    diffs = [route_diffs(a, b) for a, b in zip(*logs)] if moe else []
+    flips = [f for d_ in diffs for f in d_["flips"]]
+    check(all(f["near_tie"] for f in flips),
+          f"{arch}: card and CPU route a token differently away from a "
+          f"near tie: {flips}")
+    n_moe = sum(m == "moe" for _, m in cfg.layer_kinds())
+    moved = [False] * n_new
+    for c, d_ in enumerate(diffs):     # per layer: the prefill, then steps
+        step = c // n_moe
+        last = d_["rows"] - 1
+        moved[step] |= last in d_["differ"]
+    err = max_abs(gpu.prefill_logits.float().cpu(),
+                  cpu.prefill_logits.float())
+    check(moved[0] or err <= LM_CPU_TOL,
+          f"card vs CPU prefill logits max-abs {err} > {LM_CPU_TOL}")
     step_err = (forced[0] - forced[1]).abs().amax(dim=-1)[0].tolist()
-    check(max(step_err) <= LM_CPU_TOL,
-          f"card vs CPU decode logits max-abs {max(step_err)}")
+    held = [e_ for e_, m_ in zip(step_err, moved) if not m_]
+    check(max(held, default=0.0) <= LM_CPU_TOL,
+          f"card vs CPU decode logits max-abs {max(held, default=0.0)}")
     top2 = torch.topk(forced[1][0], 2, dim=-1).values
     margins = (top2[:, 0] - top2[:, 1]).tolist()
     equal = 0
     for i in range(n_new):
         if int(tok_gpu[0, i]) != int(tok_cpu[0, i]):
-            check(margins[i] <= 2 * LM_CPU_TOL,
+            check(moved[i] or margins[i] <= 2 * LM_CPU_TOL,
                   f"token {i} differs at a CPU margin {margins[i]}")
             break
         equal += 1
-    emit(phase, model=arch, layers=layers,
-         cut=f"depth {get_arch(arch).num_layers} -> {layers}",
+    emit(phase, model=arch, layers=layers, cut=cut,
          head_dim=cfg.resolved_head_dim, flash_kernel=lm_symbol(cfg, 128),
          launches=counts, prompt=128, new_tokens=n_new,
          prefill_logits_max_abs=err,
          tolerance=LM_CPU_TOL, decode_logits_max_abs_per_step=step_err,
+         positions_routed_differently=[i for i, m_ in enumerate(moved)
+                                       if m_],
+         route_flips=flips,
          tokens_equal_before_divergence=equal,
          tokens_gpu=tok_gpu[0].tolist(), tokens_cpu=tok_cpu[0].tolist(),
          cpu_margins=margins, gpu_stats=gpu.stats, cpu_stats=cpu.stats)
     del gpu, params
+    torch.cuda.empty_cache()
+
+
+def moe_routing_phase(device, arch: str = LM_MLA_ARCH):
+    """One MoE layer of ``arch`` at full width (every expert, top-k and the
+    capacity factor; seeded bf16 weights drawn on the card) on a seeded
+    (4, 2048) bf16 input, card against CPU: the share of tokens whose top-k
+    sets differ, each such token's gap between its k-th and (k+1)-th CPU
+    router logit, which must lie within 2 bf16 ulps of that logit, and the
+    layer's output max-abs on the tokens routed alike (indices and keep
+    flags), within LM_CPU_TOL; with the card's stage times."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import blocks
+    from repro_torch.models.params import init_tree, to_device
+
+    cfg = get_arch(arch)
+    gen = torch.Generator(device).manual_seed(5)
+    params = init_tree(gen, blocks.moe_spec(cfg), device=device,
+                       dtype=cfg.pdtype)
+    x = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), device=device,
+                    generator=gen, dtype=torch.float32).to(cfg.dtype)
+    cuda_lib.reset_launch_counts()
+    with torch.inference_mode(), recording_routes() as log_card:
+        out = blocks.moe_apply(params, x, cfg)
+        torch.cuda.synchronize()
+    check(not any(cuda_lib.launch_counts().values()),
+          "the MoE layer launched a kernel of the port")
+    wall_card = device_ms(lambda: blocks.moe_apply(params, x, cfg), device,
+                          reps=5)
+    params_cpu = to_device(params, torch.device("cpu"))
+    t0 = time.perf_counter()
+    with torch.inference_mode(), recording_routes() as log_cpu:
+        ref = blocks.moe_apply(params_cpu, x.cpu(), cfg)
+    cpu_s = time.perf_counter() - t0
+    d_ = route_diffs(log_card[0], log_cpu[0])
+    check(all(f["near_tie"] for f in d_["flips"]),
+          f"card and CPU route tokens differently away from a near tie: "
+          f"{[f for f in d_['flips'] if not f['near_tie']]}")
+    alike = torch.ones(d_["rows"], dtype=torch.bool)
+    alike[d_["differ"]] = False
+    err = max_abs(out.float().cpu().reshape(-1, cfg.d_model)[alike],
+                  ref.float().reshape(-1, cfg.d_model)[alike])
+    check(err <= LM_CPU_TOL,
+          f"MoE layer card vs CPU max-abs {err} on tokens routed alike")
+    t, k = d_["rows"], cfg.top_k
+    cap = int(math.ceil(t * k / cfg.num_experts * cfg.capacity_factor))
+    # the stages alone on the card, event pairs
+    with torch.inference_mode():
+        logits = x.reshape(-1, cfg.d_model) @ params["router"]
+        gates, _, slots, keeps = blocks.moe_route(logits, k, cap)
+        buf = blocks._moe_dispatch(x.reshape(-1, cfg.d_model), slots,
+                                   cfg.num_experts * cap)
+        e_in = buf.reshape(cfg.num_experts, cap, -1)
+        e_out = blocks._expert_ffn(params["w1"], params["w2"],
+                                   params["w3"], e_in).reshape(buf.shape)
+        stage_ms = {
+            "router": device_ms(lambda: x.reshape(-1, cfg.d_model)
+                                @ params["router"], device, reps=5),
+            "route": device_ms(lambda: blocks.moe_route(logits, k, cap),
+                               device, reps=5),
+            "dispatch": device_ms(lambda: blocks._moe_dispatch(
+                x.reshape(-1, cfg.d_model), slots, cfg.num_experts * cap),
+                device, reps=5),
+            "experts": device_ms(lambda: blocks._expert_ffn(
+                params["w1"], params["w2"], params["w3"], e_in), device,
+                reps=5),
+            "combine": device_ms(lambda: blocks._moe_combine(
+                e_out, slots, keeps, gates), device, reps=5)}
+    emit("lm_moe_routing", model=arch, d_model=cfg.d_model,
+         experts=cfg.num_experts, top_k=k, capacity=cap,
+         capacity_factor=cfg.capacity_factor, tokens=t,
+         dropped_assignments=int((~log_card[0]["keeps"]).sum()),
+         flipped_share=len(d_["flips"]) / t, flips=d_["flips"][:50],
+         routed_differently=len(d_["differ"]),
+         max_abs_alike=err, tolerance=LM_CPU_TOL,
+         moe_layer_device_ms=wall_card, stage_device_ms=stage_ms,
+         cpu_seconds=cpu_s)
+    del params, params_cpu, out, ref, buf, e_in, e_out
     torch.cuda.empty_cache()
 
 
@@ -4532,18 +4861,18 @@ def main() -> int:
           f"tensor-core instructions in the P2M library: {imma}")
     emit("tensor_cores", library="p2m", kernels=len(census),
          imma_hmma={k: list(v) for k, v in imma.items()})
-    # every flash_wgmma_kernel instance (each head dim, with and without a
-    # window: flash_wgmma_kernel<256, true> among them) runs wgmma (HGMMA)
-    # and no mma.sync (HMMA); the float32 kernel runs neither (IEEE FFMA,
-    # no TF32); the RG-LRU scan neither
+    # every flash_wgmma_kernel instance (each (D, Dv) pair, with and
+    # without a window: flash_wgmma_kernel<256, true> among them) runs wgmma
+    # (HGMMA) and no mma.sync (HMMA); the float32 kernel runs neither (IEEE
+    # FFMA, no TF32); the RG-LRU scan neither
     from repro_torch.kernels import flash_attention as fa
     flash = cuda_lib.tensor_core_census(built["flash_attention"][0],
                                         ("HMMA", "HGMMA"))
     wgmma = {k: v for k, v in flash.items() if "flash_wgmma_kernel" in k}
     ffma = {k: v for k, v in flash.items() if "flash_ffma_kernel" in k}
     d256 = [k for k in wgmma if "ILi256ELb1E" in k]
-    check(len(wgmma) == 2 * len(fa.HEAD_DIMS[torch.bfloat16])
-          and len(ffma) == 2 * len(fa.HEAD_DIMS[torch.float32])
+    check(len(wgmma) == 2 * len(fa.HEAD_DIM_PAIRS[torch.bfloat16])
+          and len(ffma) == 2 * len(fa.HEAD_DIM_PAIRS[torch.float32])
           and len(flash) == len(wgmma) + len(ffma) and len(d256) == 1
           and all(h_ == 0 and g_ >= 1 for h_, g_ in wgmma.values())
           and all(v == (0, 0) for v in ffma.values()),
@@ -4580,22 +4909,35 @@ def main() -> int:
     flash_d80_row = odd_rows[FLASH_ODD.index(FLASH_D80_SERVING)]
     window_rows = [flash_phase(geom, device) for geom in FLASH_WINDOWED]
     flash_d256_row = window_rows[FLASH_WINDOWED.index(FLASH_RG_SERVING)]
+    # deepseek-v2's (192, 128) and kimi-k2's 112, each with its instance's
+    # HGMMA count from the machine code
+    moe_rows = [flash_phase(geom, device, hgmma=next(
+        g_ for k_, (_, g_) in wgmma.items()
+        if f"ILi{geom['head_dim']}ELb0E" in k_)) for geom in FLASH_MOE]
     scan_row = rglru_phase(device)
     gated_row = rglru_gated_phase(device)
     # every served head dim runs the Hopper kernel; lm_phase checks that
-    # every prefill launch was the instance named here
-    for arch in (LM_ARCH, LM_D80_ARCH, LM_RG_ARCH):
-        d = get_arch(arch).resolved_head_dim
-        check(lm_symbol(get_arch(arch)).startswith(
-            f"flash_wgmma_kernel<{d}, "),
+    # every prefill launch was the instance named here (MLA's qk width)
+    for arch in (LM_ARCH, LM_D80_ARCH, LM_RG_ARCH, LM_MLA_ARCH,
+                 LM_KIMI_ARCH):
+        cfg_ = get_arch(arch)
+        d = cfg_.resolved_head_dim + (cfg_.rope_head_dim
+                                      if "mla" in cfg_.block_pattern else 0)
+        check(lm_symbol(cfg_).startswith(f"flash_wgmma_kernel<{d}, "),
               f"{arch} (head dim {d}) is not served by flash_wgmma_kernel")
     t_lm = time.perf_counter()
     counts_lm = lm_phase(device, smi)
     counts_d80 = lm_phase(device, smi, LM_D80_ARCH)
     counts_rg = lm_phase(device, smi, LM_RG_ARCH, "lm_rg")
+    counts_mla = lm_phase(device, smi, LM_MLA_ARCH, layers=LM_MLA_LAYERS)
+    counts_kimi = lm_phase(device, smi, LM_KIMI_ARCH, layers=LM_KIMI_LAYERS)
     lm_vs_cpu_phase(device)
     lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
     lm_vs_cpu_phase(device, LM_RG_ARCH, "lm_rg_vs_cpu", LM_RG_LAYERS)
+    lm_vs_cpu_phase(device, LM_MLA_ARCH, "lm_mla_vs_cpu")
+    lm_vs_cpu_phase(device, LM_KIMI_ARCH, "lm_kimi_vs_cpu",
+                    experts=LM_KIMI_CPU_EXPERTS)
+    moe_routing_phase(device)
     lm_ring_phase(device)
     t_train = time.perf_counter()
     train_phase(device, smi)
@@ -4645,7 +4987,9 @@ def main() -> int:
     # from recurrentgemma-2b's
     for row, n_launch, d in ((flash_row, counts_lm, 128),
                              (flash_d80_row, counts_d80, 80),
-                             (flash_d256_row, counts_rg, 256)):
+                             (flash_d256_row, counts_rg, 256),
+                             (moe_rows[0], counts_mla, "192_v128"),
+                             (moe_rows[1], counts_kimi, 112)):
         rows.append({**row, "name": f"flash_attention_bf16_d{d}",
                      "launches": n_launch["flash_attention"]})
     # the scans': the gated instance's from recurrentgemma-2b's, which

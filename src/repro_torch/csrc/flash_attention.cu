@@ -7,7 +7,10 @@
 //                      repro/kernels/ops.py::flash_attention adds around it
 //
 // What it computes, as _kernel does: online-softmax attention over q (B, S,
-// H, D) and k, v (B, S, Hkv, D), read in place through their strides. The
+// H, D), k (B, S, Hkv, D) and v (B, S, Hkv, Dv), read in place through
+// their strides, into o (B, S, H, Dv) (Dv = D but for MLA's (192, 128), as
+// the reference's repro/models/blocks.py::flash_attention takes v's width;
+// the Pallas kernel assumes Dv = D). The
 // scores and the accumulator are float32; the scale D^-0.5 is applied to the
 // float32 scores after the dot; masked scores are NEG_INF = -1e30 with the
 // reference's m_safe / alpha guards; the row sum l adds the float32 p, while
@@ -98,6 +101,25 @@
 //    2048, H 10, Hkv 1, causal, the window masking nothing there): 85.9
 //    GFLOP, 0.087 ms at the tensor-core peak, against 0.028 ms for its 92
 //    MB.
+//  * bf16, D = 112: flash_wgmma_kernel<112> (kimi-k2: 64 heads over 8 kv
+//    heads). The D 128 design as it is: a tile row is two 64-column boxes,
+//    the second read 48 columns wide (its map ends at column 112, so the
+//    rest arrive as zeros), 7 k-steps of m64n128k16 scores and m64n112k16
+//    for P.V (56 accumulator registers a consumer thread), 3 stages of 32
+//    KB tiles. Bound at kimi-k2's prefill (B 4, S 2048, H 64, Hkv 8,
+//    causal): 2 products of 112 multiply-adds a visible pair, 240 GFLOP,
+//    0.243 ms at the tensor-core peak, against 0.079 ms for its bytes.
+//  * bf16, D = 192 with Dv = 128: flash_wgmma_kernel<192> (deepseek-v2's
+//    MLA prefill: q and k carry 128 nope and 64 rope columns, v 128; 128
+//    heads, MHA after the latent's expansion). The only D 192 instance:
+//    HopperLayout<192>::kDv is 128, the width of V, of the second product
+//    and of the output, and every other instance has Dv = D. Scores over
+//    12 k-steps in 3 boxes, P.V m64n128k16; a 48 KB Q tile, and stages of
+//    a 48 KB K and a 32 KB V tile, 2 of them (208 KB): 3 would need 288.
+//    The scale is 192^-0.5, q's width, as the reference's. Bound at its
+//    prefill (B 4, S 2048, H 128, causal): 2 (192 + 128) multiply-adds a
+//    visible pair, 687 GFLOP, 0.695 ms, against 0.401 ms for its bytes and
+//    0.257 ms for its exponentials.
 //    At D 16 and 32 one score costs 4 D = 64-128 tensor-core FLOP but one
 //    exponential, so the special-function unit (16 a clock an SM), not the
 //    tensor cores, sets the floor: at granite-8b's prefill traffic 0.064
@@ -191,14 +213,22 @@ constexpr int kHopperThreads = 384;   // producer + 2 consumer warpgroups
 constexpr int kBoxCols = 64;          // 128 bytes of bf16: one swizzle row
 
 // shared-memory layout of flash_wgmma_kernel<D>: the Q tile at 0, then
-// stage s's K tile at kKOff + 2 s kTileBytes and its V tile after it, then
+// stage s's K tile at kKOff + s kStageBytes and its V tile after it, then
 // the mbarriers. A tile row is kBoxes boxes of 64 columns; a box holds the
 // tile's rows at 128 bytes a row (kQBoxBytes, kBoxBytes apart)
 // kv rows per tile at D 256 (see HopperLayout::kBN)
 constexpr int kD256KvRows = 80;
+// the value width of head dim 192, deepseek-v2's MLA: q and k carry 128
+// nope and 64 rope columns, v 128 (see HopperLayout::kDv)
+constexpr int kMlaValueDim = 128;
 
 template <int D>
 struct HopperLayout {
+  // the width of V and of the output: D, but at D 192 MLA's 128. D 192 is
+  // built only as that pair, so the instance keeps the one-number name
+  // flash_wgmma_kernel<192, W>; every other instance has Dv == D, and all
+  // that follows equals what it was before the value width existed
+  static constexpr int kDv = D == 192 ? kMlaValueDim : D;
   // kv rows per tile: 128, and kD256KvRows (80) at D 256, where a
   // consumer's 64 x 256 accumulator takes 128 registers and 128-row S (64)
   // and P (32) would not fit beside it under setmaxnreg's 240; 80-row S
@@ -206,11 +236,12 @@ struct HopperLayout {
   // softmax and one rescale of the accumulator for 80 keys where a 64-row
   // tile paid them for 64
   static constexpr int kBN = D == 256 ? kD256KvRows : 128;
-  // K/V ring depth: 32 KB tiles (D 80, 128) fill a block's shared memory at
-  // 3 stages. 16 KB tiles (D 16 to 64) would leave room for 5 or 6, but
-  // those ran no faster than 3 (scripts/flash_ab.py), so those have 3. At D
-  // 256 the 64 KB Q tile leaves room for 2 stages of 40 KB K and V tiles
-  static constexpr int kStages = D == 256 ? 2 : 3;
+  // K/V ring depth: 32 KB tiles (D 80, 112, 128) fill a block's shared
+  // memory at 3 stages. 16 KB tiles (D 16 to 64) would leave room for 5 or
+  // 6, but those ran no faster than 3 (scripts/flash_ab.py), so those have
+  // 3. At D 256 the 64 KB Q tile leaves room for 2 stages of 40 KB K and V
+  // tiles; at D 192 the 48 KB Q tile for 2 of a 48 KB K and a 32 KB V tile
+  static constexpr int kStages = D == 256 || D == 192 ? 2 : 3;
   // Work items handed out at run time, longest first, from a counter in
   // global memory (flash_wgmma_kernel), in place of the static pairs. At D
   // 256 recurrentgemma-2b's prefill has 640 items, 320 pairs on 132 SMs:
@@ -225,13 +256,16 @@ struct HopperLayout {
   // (scripts/flash_ab.py, H100)
   static constexpr bool kPingPong = D > 32 && D < 256;
   static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;  // per row
+  static constexpr int kVBoxes = (kDv + kBoxCols - 1) / kBoxCols;  // of V
   static constexpr int kQBoxBytes = kHopperBM * kBoxCols * 2;
   static constexpr int kBoxBytes = kBN * kBoxCols * 2;     // a K or V box
   static constexpr int kQTileBytes = kBoxes * kQBoxBytes;
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;    // a K or V tile
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;    // a K tile
+  static constexpr int kVTileBytes = kVBoxes * kBoxBytes;  // a V tile
+  static constexpr int kStageBytes = kTileBytes + kVTileBytes;
   static constexpr int kScores = kBN / 2;   // S registers of a consumer thread
   static constexpr int kKOff = kQTileBytes;
-  static constexpr int kBarOff = kQTileBytes + 2 * kStages * kTileBytes;
+  static constexpr int kBarOff = kQTileBytes + kStages * kStageBytes;
   // the slot through which the producer names each work item it hands out
   static constexpr int kSlotOff = kBarOff + 8 * (2 + 4 * kStages);
   // + 2 Q and 4 per stage K/V barriers (+ the slot) + the 1024-byte
@@ -434,17 +468,18 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[NK][4]) {
 }
 
 // the accumulator operands of a wgmma: registers %0 .. %(n - 1), in
-// pieces of 8, 8, 16, 8, 24 and 64 for n = 8 (N 16), 16 (N 32), 32 (N 64),
-// 40 (N 80), 64 (N 128) and 128 (N 256)
+// pieces of 8, 8, 16, 8, 16, 8 and 64 for n = 8 (N 16), 16 (N 32), 32 (N
+// 64), 40 (N 80), 56 (N 112), 64 (N 128) and 128 (N 256)
 #define WG_R0_7 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define WG_R0_15 WG_R0_7 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define WG_R0_31                                                            \
   WG_R0_15 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
   "%28, %29, %30, %31"
 #define WG_R32_39 ", %32, %33, %34, %35, %36, %37, %38, %39"
-#define WG_R40_63                                                           \
+#define WG_R40_55                                                           \
   ", %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
-  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+  "%54, %55"
+#define WG_R40_63 WG_R40_55 ", %56, %57, %58, %59, %60, %61, %62, %63"
 #define WG_R64_127                                                          \
   ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, " \
   "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "   \
@@ -455,6 +490,7 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[NK][4]) {
 #define WG_D16 "{" WG_R0_15 "}"
 #define WG_D32 "{" WG_R0_31 "}"
 #define WG_D40 "{" WG_R0_31 WG_R32_39 "}"
+#define WG_D56 "{" WG_R0_31 WG_R32_39 WG_R40_55 "}"
 #define WG_D64 "{" WG_R0_31 WG_R32_39 WG_R40_63 "}"
 #define WG_D128 "{" WG_R0_31 WG_R32_39 WG_R40_63 WG_R64_127 "}"
 #define WG_OUT0_7(d)                                                        \
@@ -472,11 +508,13 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[NK][4]) {
 #define WG_OUT32_39(d)                                                      \
   , "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),        \
   "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-#define WG_OUT40_63(d)                                                      \
+#define WG_OUT40_55(d)                                                      \
   , "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),        \
   "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
   "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),          \
-  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),          \
+  "+f"(d[55])
+#define WG_OUT40_63(d)                                                      \
+  WG_OUT40_55(d), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 #define WG_OUT64_127(d)                                                     \
   , "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]),        \
@@ -494,6 +532,7 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[NK][4]) {
   "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 #define WG_OUT32(d) WG_OUT0_31(d)
 #define WG_OUT40(d) WG_OUT0_31(d) WG_OUT32_39(d)
+#define WG_OUT56(d) WG_OUT0_31(d) WG_OUT32_39(d) WG_OUT40_55(d)
 #define WG_OUT64(d) WG_OUT0_31(d) WG_OUT32_39(d) WG_OUT40_63(d)
 #define WG_OUT128(d) WG_OUT64(d) WG_OUT64_127(d)
 
@@ -529,14 +568,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
 }
 
 // d (64 x N, f32) += A B: A (64 x 16) bf16 fragments in registers, B
-// (16 x N) MN-major in shared memory (the transpose bit); N = D. At N 16
-// and 32 the product reads the first N columns of a 64-column swizzled box
+// (16 x N) MN-major in shared memory (the transpose bit); N = Dv. At N 16
+// and 32 the product reads the first N columns of a 64-column swizzled
+// box, at N 80 and 112 16 and 48 of the second
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 128 ||
-                N == 256, "wgmma_rs: N 16, 32, 64, 80, 128, 256");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 112 ||
+                N == 128 || N == 256,
+                "wgmma_rs: N 16, 32, 64, 80, 112, 128, 256");
   if constexpr (N == 16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
@@ -565,6 +606,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
         ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
         : WG_OUT40(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 112) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 " WG_D56
+        ", {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : WG_OUT56(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   } else if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -588,8 +636,8 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // issue S = Q K^T for one kv tile: D / 16 k-steps of 16 columns, 4 in each
-// 64-column box (1 and 2 at D 16 and 32, 5 at D 80: the zero columns past
-// D are never read);
+// 64-column box (1 and 2 at D 16 and 32, 5 at D 80, 7 at D 112: the zero
+// columns past D are never read; 12 over 3 boxes at D 192);
 // q_rows / k_tile are the shared addresses of the consumer's 64 Q rows and
 // of the K tile
 template <int D>
@@ -608,20 +656,21 @@ __device__ __forceinline__ void issue_scores(
   }
 }
 
-// issue O += bf16(P) V for one kv tile: V (kv rows x D) is MN-major for
+// issue O += bf16(P) V for one kv tile: V (kv rows x Dv) is MN-major for
 // this product; a k-step is 16 kv rows (2048 bytes), the 64-column boxes
-// lie kBoxBytes apart (the leading byte offset; at D 80 the product reads
-// 16 columns of the second), 8-row groups 1024 bytes (the stride byte
-// offset)
+// lie kBoxBytes apart (the leading byte offset; at D 80 and 112 the product
+// reads 16 and 48 columns of the second), 8-row groups 1024 bytes (the
+// stride byte offset)
 template <int D>
 __device__ __forceinline__ void issue_pv(
-    float (&acc)[D / 2], const uint32_t (&pa)[HopperLayout<D>::kBN / 16][4],
-    uint32_t v_tile) {
+    float (&acc)[HopperLayout<D>::kDv / 2],
+    const uint32_t (&pa)[HopperLayout<D>::kBN / 16][4], uint32_t v_tile) {
   constexpr int kBoxBytes = HopperLayout<D>::kBoxBytes;
+  constexpr int Dv = HopperLayout<D>::kDv;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HopperLayout<D>::kBN / 16; ++kk)
-    wgmma_rs<D>(acc, pa[kk], smem_desc(v_tile + kk * 2048, kBoxBytes, 1024));
+    wgmma_rs<Dv>(acc, pa[kk], smem_desc(v_tile + kk * 2048, kBoxBytes, 1024));
 }
 
 // online softmax of one tile of raw scores s (NS registers: a 2 NS-column
@@ -715,6 +764,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
                    __nv_bfloat16* __restrict__ o, const FlashGeom g) {
   using L = HopperLayout<D>;
   constexpr int kTileBytes = L::kTileBytes, kStages = L::kStages;
+  constexpr int kStageBytes = L::kStageBytes, Dv = L::kDv;
   constexpr int BN = L::kBN, kBoxBytes = L::kBoxBytes;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled TMA boxes want 1024-byte aligned destinations
@@ -775,7 +825,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
           next = static_cast<int>(gridDim.x) + atomicAdd(&g_next_item, 1);
         for (int j = 0; j < t.n_kv; ++j, ++it) {
           const int s = it % kStages, round = it / kStages;
-          const uint32_t ks = base + L::kKOff + s * 2 * kTileBytes;
+          const uint32_t ks = base + L::kKOff + s * kStageBytes;
           const uint32_t vs = ks + kTileBytes;
           const int k0 = (kv0 + j) * BN;
           if (round > 0) mbar_wait(empty_k + 8 * s, (round - 1) & 1);
@@ -784,8 +834,8 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
             tma_load(ks + x * kBoxBytes, &maps.k, full_k + 8 * s,
                      x * kBoxCols, k0, t.hk, t.b);
           if (round > 0) mbar_wait(empty_v + 8 * s, (round - 1) & 1);
-          mbar_expect_tx(full_v + 8 * s, kTileBytes);
-          for (int x = 0; x < L::kBoxes; ++x)
+          mbar_expect_tx(full_v + 8 * s, L::kVTileBytes);
+          for (int x = 0; x < L::kVBoxes; ++x)
             tma_load(vs + x * kBoxBytes, &maps.v, full_v + 8 * s,
                      x * kBoxCols, k0, t.hk, t.b);
         }
@@ -813,14 +863,14 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
     const int row0 = c * 64 + warp * 16 + lane / 4;   // rows row0, row0 + 8
     // Q: rows of this consumer in each 64-column box, K-major
     const uint32_t q_rows = base + c * 64 * 128;
-    const uint32_t kv_base = base + L::kKOff;   // + 2 st kTileBytes
+    const uint32_t kv_base = base + L::kKOff;   // + st kStageBytes
     // ping-pong: the consumers take turns to issue their products (named
     // barrier 1 + c is consumer c's turn), so one's softmax runs under the
     // other's wgmmas; consumer 0 goes first
     const int my_turn = 1 + c, next_turn = 2 - c;
     if (L::kPingPong && c == 1) bar_arrive(1);
 
-    float s[L::kScores], acc[D / 2];
+    float s[L::kScores], acc[Dv / 2];
 #pragma unroll
     for (int i = 0; i < L::kScores; ++i) s[i] = 0.f;
     uint32_t pa[BN / 16][4];
@@ -833,7 +883,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
       const int rows[2] = {t.q0 + row0, t.q0 + row0 + 8};
       float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < Dv / 2; ++i) acc[i] = 0.f;
       fence_regs(acc);
       mbar_wait(q_full, k & 1);
 
@@ -842,7 +892,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         const int st = it % kStages;
         mbar_wait(full_k + 8 * st, (it / kStages) & 1);
         if (L::kPingPong) bar_sync(my_turn);
-        issue_scores<D>(s, q_rows, kv_base + st * 2 * kTileBytes);
+        issue_scores<D>(s, q_rows, kv_base + st * kStageBytes);
         wgmma_commit();
         if (L::kPingPong) bar_arrive(next_turn);
         wgmma_wait<0>();
@@ -866,9 +916,9 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         mbar_wait(full_k + 8 * st1, (nxt / kStages) & 1);
         mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
         if (L::kPingPong) bar_sync(my_turn);
-        issue_scores<D>(s, q_rows, kv_base + st1 * 2 * kTileBytes);
+        issue_scores<D>(s, q_rows, kv_base + st1 * kStageBytes);
         wgmma_commit();
-        issue_pv<D>(acc, pa, kv_base + st * 2 * kTileBytes + kTileBytes);
+        issue_pv<D>(acc, pa, kv_base + st * kStageBytes + kTileBytes);
         wgmma_commit();
         if (L::kPingPong) bar_arrive(next_turn);
         wgmma_wait<1>();   // the scores of tile j + 1 are in
@@ -886,7 +936,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         fence_frags(pa);
         mbar_arrive(empty_v + 8 * st);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < Dv / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
         pack_p(s, pa);
         // pinned here: sunk below the next S issue, these writes to the next
         // second product's inputs would serialize the wgmmas
@@ -898,7 +948,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         const int cur = it + t.n_kv - 1, st = cur % kStages;
         mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
         if (L::kPingPong) bar_sync(my_turn);
-        issue_pv<D>(acc, pa, kv_base + st * 2 * kTileBytes + kTileBytes);
+        issue_pv<D>(acc, pa, kv_base + st * kStageBytes + kTileBytes);
         wgmma_commit();
         // consumer 1's very last turn has no successor
         if (L::kPingPong && (c == 0 || item_of(k + 1) < n_items))
@@ -917,7 +967,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         __nv_bfloat16* op = o + t.b * g.o_b + rows[r] * g.o_s +
                             t.h * g.o_h + tig * 2;
 #pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
+        for (int dt = 0; dt < Dv / 8; ++dt) {
           const uint32_t w = pack_bf16(acc[4 * dt + 2 * r] / l,
                                        acc[4 * dt + 2 * r + 1] / l);
           *reinterpret_cast<uint32_t*>(op + dt * 8) = w;
@@ -1284,9 +1334,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err == 0)
     err = encode_map<D>(&maps.k, k, g, g.kv_heads, g.k_s, g.k_h, g.k_b,
                         L::kBN);
-  if (err == 0)
-    err = encode_map<D>(&maps.v, v, g, g.kv_heads, g.v_s, g.v_h, g.v_b,
-                        L::kBN);
+  if (err == 0)   // V's map ends at its own width, Dv
+    err = encode_map<L::kDv>(&maps.v, v, g, g.kv_heads, g.v_s, g.v_h, g.v_b,
+                             L::kBN);
   if (err != 0) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_wgmma_kernel<D, kWindow>,
@@ -1308,14 +1358,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the one kernel of each (dtype, D, window or not): bf16 D 16, 32, 64, 80,
-// 128 and 256 the wgmma kernel, float32 D 16 to 128 the FFMA kernel
+// the one kernel of each (dtype, D, Dv, window or not): bf16 D == Dv at 16,
+// 32, 64, 80, 112, 128 and 256 and the MLA pair (192, 128) the wgmma
+// kernel, float32 D == Dv at 16 to 128 the FFMA kernel
 enum Route { kNoKernel, kWgmma, kFfma };
 
-Route route_of(int dtype, int head_dim) {
+Route route_of(int dtype, int head_dim, int v_dim) {
   const bool built = head_dim == 16 || head_dim == 32 || head_dim == 64 ||
                      head_dim == 80 || head_dim == 128;
-  if (dtype == 1) return built || head_dim == 256 ? kWgmma : kNoKernel;
+  if (dtype == 1 && head_dim == 192)
+    return v_dim == kMlaValueDim ? kWgmma : kNoKernel;
+  if (v_dim != head_dim) return kNoKernel;
+  if (dtype == 1)
+    return built || head_dim == 112 || head_dim == 256 ? kWgmma : kNoKernel;
   return dtype == 0 && built ? kFfma : kNoKernel;
 }
 
@@ -1326,15 +1381,17 @@ bool masks(int window, int seq) { return window > 0 && window < seq; }
 
 template <bool kWindow>
 int launch(const void* q, const void* k, const void* v, void* o, int dtype,
-           int head_dim, const FlashGeom& g, void* stream) {
-  switch (route_of(dtype, head_dim)) {
+           int head_dim, int v_dim, const FlashGeom& g, void* stream) {
+  switch (route_of(dtype, head_dim, v_dim)) {
     case kWgmma:
       switch (head_dim) {
         case 16: return launch_wgmma<16, kWindow>(q, k, v, o, g, stream);
         case 32: return launch_wgmma<32, kWindow>(q, k, v, o, g, stream);
         case 64: return launch_wgmma<64, kWindow>(q, k, v, o, g, stream);
         case 80: return launch_wgmma<80, kWindow>(q, k, v, o, g, stream);
+        case 112: return launch_wgmma<112, kWindow>(q, k, v, o, g, stream);
         case 128: return launch_wgmma<128, kWindow>(q, k, v, o, g, stream);
+        case 192: return launch_wgmma<192, kWindow>(q, k, v, o, g, stream);
         case 256: return launch_wgmma<256, kWindow>(q, k, v, o, g, stream);
       }
       break;
@@ -1356,29 +1413,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int dtype,
 
 extern "C" {
 
-// dtype 0: float32, 1: bfloat16; head_dim 16, 32, 64, 80 or 128 (and 256
-// in bfloat16); g->window 0 (none) or the sliding window (one of g->seq
-// keys or more hides none: the instance without it runs). Returns the
-// cudaError_t of the launch (0 = success), kErrNoEncoder or kErrEncode +
-// CUresult when a tensor map cannot be made.
+// dtype 0: float32, 1: bfloat16; (head_dim, v_dim) q's and k's width and
+// v's and o's: equal at 16, 32, 64, 80 or 128 (and 112 and 256 in
+// bfloat16), or (192, 128) in bfloat16; g->window 0 (none) or the sliding
+// window (one of g->seq keys or more hides none: the instance without it
+// runs). Returns the cudaError_t of the launch (0 = success), kErrNoEncoder
+// or kErrEncode + CUresult when a tensor map cannot be made.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int head_dim, const FlashGeom* g,
+                        int dtype, int head_dim, int v_dim, const FlashGeom* g,
                         void* stream) {
   if (g->seq <= 0 || g->kv_heads <= 0 || g->heads % g->kv_heads != 0 ||
       g->window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return masks(g->window, g->seq)
-             ? launch<true>(q, k, v, o, dtype, head_dim, *g, stream)
-             : launch<false>(q, k, v, o, dtype, head_dim, *g, stream);
+             ? launch<true>(q, k, v, o, dtype, head_dim, v_dim, *g, stream)
+             : launch<false>(q, k, v, o, dtype, head_dim, v_dim, *g, stream);
 }
 
 // the demangled name of the kernel flash_attention_fwd launches for (dtype,
-// D, window, seq), e.g. "flash_wgmma_kernel<256, true>", or null where it
-// launches none
-const char* flash_attention_kernel(int dtype, int head_dim, int window,
-                                   int seq) {
+// D, Dv, window, seq), e.g. "flash_wgmma_kernel<256, true>" (the MLA pair's
+// "flash_wgmma_kernel<192, false>"), or null where it launches none
+const char* flash_attention_kernel(int dtype, int head_dim, int v_dim,
+                                   int window, int seq) {
   static char name[48];
-  const Route route = route_of(dtype, head_dim);
+  const Route route = route_of(dtype, head_dim, v_dim);
   if (route == kNoKernel) return nullptr;
   snprintf(name, sizeof(name), "%s<%d, %s>",
            route == kWgmma ? "flash_wgmma_kernel" : "flash_ffma_kernel",

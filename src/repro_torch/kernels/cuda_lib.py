@@ -195,10 +195,12 @@ def _bind_p2m(lib: ctypes.CDLL) -> None:
 
 def _bind_flash(lib: ctypes.CDLL) -> None:
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32,
+    # (q, k, v, o, dtype, head dim, value dim, geometry, stream)
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32, i32,
                                         ctypes.POINTER(FlashGeom), p]
     lib.flash_attention_fwd.restype = ctypes.c_int
-    lib.flash_attention_kernel.argtypes = [i32, i32, i32, i32]
+    # (dtype, head dim, value dim, window, seq)
+    lib.flash_attention_kernel.argtypes = [i32, i32, i32, i32, i32]
     lib.flash_attention_kernel.restype = ctypes.c_char_p
 
 

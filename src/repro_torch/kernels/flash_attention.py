@@ -13,22 +13,27 @@ local attention) none that lies wholly behind its window.
 
 The reference wrapper (``repro.kernels.ops.flash_attention``) repeats the kv
 heads and pads D to 128 lanes: both are TPU layout choices. Here the kernel
-reads q (B, S, H, D) and k, v (B, S, Hkv, D) in place through their strides
-and indexes kv head ``h // (H / Hkv)`` itself; any S works (a ragged tail is
-masked). One kernel serves each (dtype, D, window or not), with no switch:
-- bfloat16, D 16, 32, 64, 80, 128, 256: ``flash_wgmma_kernel<D, W>`` (TMA,
-  an mbarrier ring, wgmma; 128-row q tiles and 128-row kv tiles, 80-row at
-  D 256, where the work items come longest first from a counter; a tile
-  row is ceil(D / 64) boxes of 64 columns whose tensor map ends at column
-  D, so D 80's second box and D 16's and 32's only one
-  read zeros past the head, never the next head of a packed projection;
-  D / 16 k-steps of the first product, an N = D second product). A tensor
-  map the CUDA driver refuses raises through ``check_launch``: there is no
-  fallback to another kernel;
-- float32, D 16, 32, 64, 80, 128: ``flash_ffma_kernel<D, W>`` (IEEE FFMA,
-  never TF32; 8 warps each own 16 of a block's 128 q rows, K and V come
-  by cp.async under the other product in tiles of 64 kv rows). Float32 at
-  D 256 has no kernel (no served config needs it) and raises.
+reads q (B, S, H, D), k (B, S, Hkv, D) and v (B, S, Hkv, Dv) in place
+through their strides and indexes kv head ``h // (H / Hkv)`` itself; any S
+works (a ragged tail is masked). The scale is D^-0.5 over q's width, as the
+reference's ``blocks.flash_attention`` takes it. One kernel serves each
+(dtype, D, Dv, window or not), with no switch:
+- bfloat16, D == Dv at 16, 32, 64, 80, 112, 128, 256, and (D 192, Dv 128),
+  deepseek-v2's MLA pair: ``flash_wgmma_kernel<D, W>`` (TMA, an mbarrier
+  ring, wgmma; 128-row q tiles and 128-row kv tiles, 80-row at D 256,
+  where the work items come longest first from a counter; a tile row is
+  ceil(D / 64) boxes of 64 columns whose tensor map ends at column D, so
+  D 80's and 112's second box and D 16's and 32's only one read zeros
+  past the head, never the next head of a packed projection; D / 16
+  k-steps of the first product, an N = Dv second product; D 192 is built
+  only with Dv 128, its K and V tiles of their own widths in 2 stages). A
+  tensor map the CUDA driver refuses raises through ``check_launch``:
+  there is no fallback to another kernel;
+- float32, D == Dv at 16, 32, 64, 80, 128: ``flash_ffma_kernel<D, W>``
+  (IEEE FFMA, never TF32; 8 warps each own 16 of a block's 128 q rows, K
+  and V come by cp.async under the other product in tiles of 64 kv rows).
+  Float32 at D 112 or 256 and any other (D, Dv) pair have no kernel (no
+  served config needs them) and raise.
 W is ``true`` for a call whose window hides some key and ``false``
 otherwise (no window, or one of S keys or more, which computes the same
 function): the window is a template flag, so the instances without it keep
@@ -59,9 +64,14 @@ from repro_torch.kernels.cuda_lib import check_launch, on_cpu, stream_of
 
 NEG_INF = -1e30
 BLOCK_KV = 64                     # the plain version's kv chunk
-# the head dims the kernels are built for, by dtype
-HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 80, 128, 256),
-             torch.float32: (16, 32, 64, 80, 128)}
+# the (head dim, value dim) pairs the kernels are built for, by dtype: q
+# and k of width D, v and the output of width Dv; Dv == D but for
+# deepseek-v2's MLA (128 nope + 64 rope columns of q and k over a 128-wide
+# v); D 112 is kimi-k2's head
+HEAD_DIM_PAIRS = {
+    torch.bfloat16: ((16, 16), (32, 32), (64, 64), (80, 80), (112, 112),
+                     (128, 128), (192, 128), (256, 256)),
+    torch.float32: ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128))}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -112,8 +122,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"want q (B, S, H, D) and k, v (B, S, Hkv, D), got "
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"want q (B, S, H, D), k (B, S, Hkv, D) and v (B, "
+                         f"S, Hkv, Dv), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, s, h, d = q.shape
@@ -130,9 +142,11 @@ def _check_card_operands(q: torch.Tensor, k: torch.Tensor,
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[3] not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS[q.dtype]}:"
-                         f" no {q.dtype} flash kernel is built for it")
+    pairs = HEAD_DIM_PAIRS[q.dtype]
+    if (q.shape[3], v.shape[3]) not in pairs:
+        raise ValueError(f"head dim {q.shape[3]} with value dim {v.shape[3]}"
+                         f": no {q.dtype} flash kernel is built for it (the "
+                         f"(D, Dv) pairs built: {pairs})")
     if not 0 <= window < 2 ** 31:
         raise ValueError(f"window {window} is not 0 (none) or a length")
     vec = 16 // q.element_size()      # elements in one 16-byte load
@@ -148,16 +162,18 @@ def _check_card_operands(q: torch.Tensor, k: torch.Tensor,
 @cuda_lib.kernel_wrapper
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Attention of q (B, S, H, D) over k, v (B, S, Hkv, D), H % Hkv == 0;
-    ``window > 0`` also hides keys ``window`` or more positions behind a
-    query. Returns (B, S, H, D) in q's dtype: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """Attention of q (B, S, H, D) over k (B, S, Hkv, D) and v (B, S, Hkv,
+    Dv), H % Hkv == 0, scaled by D^-0.5; ``window > 0`` also hides keys
+    ``window`` or more positions behind a query. Returns (B, S, H, Dv) in
+    q's dtype: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
     _check_shapes(q, k, v)
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check_card_operands(q, k, v, window)
     b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dv = v.shape[3]
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     geom = cuda_lib.FlashGeom(
         b, s, h, k.shape[2], int(causal), d ** -0.5,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -165,23 +181,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = cuda_lib.load_flash()
     check_launch(lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], d, ctypes.byref(geom), stream_of(q.device)),
+        _DTYPE_CODES[q.dtype], d, dv, ctypes.byref(geom),
+        stream_of(q.device)),
         "flash_attention")
     flash_attention.launches += 1
     return out
 
 
 def kernel_symbol(dtype: torch.dtype, head_dim: int, window: int = 0,
-                  seq: int = 2 ** 31 - 1) -> str:
+                  seq: int = 2 ** 31 - 1, v_dim: int = 0) -> str:
     """The kernel instance ``flash_attention`` launches for CUDA operands
-    of this dtype and head dim, with or without a window, at length ``seq``
-    (a window of ``seq`` keys or more hides none, and the instance without
-    it runs), as the library dispatches and the profiler names it, e.g.
-    ``flash_wgmma_kernel<256, true>`` (builds the library)."""
+    of this dtype, head dim and value dim (0: the head dim), with or
+    without a window, at length ``seq`` (a window of ``seq`` keys or more
+    hides none, and the instance without it runs), as the library
+    dispatches and the profiler names it, e.g. ``flash_wgmma_kernel<256,
+    true>``, or ``flash_wgmma_kernel<192, false>`` for MLA's (192, 128)
+    (builds the library)."""
+    dv = v_dim or head_dim
     name = cuda_lib.load_flash().flash_attention_kernel(
-        _DTYPE_CODES.get(dtype, -1), head_dim, window, seq)
+        _DTYPE_CODES.get(dtype, -1), head_dim, dv, window, seq)
     if name is None:
-        raise ValueError(f"no flash kernel for {dtype}, head dim {head_dim}")
+        raise ValueError(f"no flash kernel for {dtype}, head dim {head_dim}"
+                         f", value dim {dv}")
     return name.decode()
 
 
@@ -190,13 +211,13 @@ cuda_lib.register(flash_attention)
 
 def _attention_dots(q, k, v, *, causal: bool = True, window: int = 0):
     """The two products of each (batch, head), for the op census: scores
-    Q K^T (S, D) x (D, S) and the output P V (S, S) x (S, D), at their full
-    shapes (a causal kernel skips the key tiles above the diagonal, a
+    Q K^T (S, D) x (D, S) and the output P V (S, S) x (S, Dv), at their
+    full shapes (a causal kernel skips the key tiles above the diagonal, a
     windowed one those behind the window too)."""
     b, s, h, d = q.shape
     dtype = str(q.dtype).removeprefix("torch.")
     return (cuda_lib.Dot((b, h, s, d), (d, s), dtype, "float32"),
-            cuda_lib.Dot((b, h, s, s), (s, d), dtype, "float32"))
+            cuda_lib.Dot((b, h, s, s), (s, v.shape[3]), dtype, "float32"))
 
 
 cuda_lib.declare_dots({flash_attention: _attention_dots})

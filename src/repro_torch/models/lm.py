@@ -1,4 +1,4 @@
-"""Causal decoder-only LM, dense GQA and hybrid: port of ``repro.models.lm``.
+"""Causal decoder-only LM: port of ``repro.models.lm``.
 
 The per-layer kinds come from ``ArchConfig.layer_kinds()`` and the layers
 are grouped by ``segment_plan`` as in the reference, so the parameter and
@@ -11,18 +11,22 @@ copies).
 
 Modes: "train" (logits), "prefill" (logits + cache), "decode" (one token).
 Prefill attention runs through the flash-attention kernel on the card, a
-``local_attn`` layer's with the config's sliding window, and an ``rglru``
-layer's recurrence through the RG-LRU scan kernel.
+``local_attn`` layer's with the config's sliding window, an ``mla`` layer's
+at its (qk, v) widths (192, 128), and an ``rglru`` layer's recurrence
+through the RG-LRU scan kernel. A ``moe`` layer's MLP is the reference's
+single-shard mixture of experts (``blocks.moe_apply``); the leading dense
+layers of an MoE config take ``dense_d_ff``.
 
 The cache: the reference updates it functionally. Here a decode step
 writes the new K/V row IN PLACE into the cache it is given (at slot
-``pos``, or ``pos % window`` in a local layer's ring), and an RG-LRU
-layer's state too, and returns a cache whose leaves are those same
-tensors, so a cache must not be reused after a decode step.
+``pos``, or ``pos % window`` in a local layer's ring; an MLA layer's
+latent row at ``pos``), and an RG-LRU layer's state too, and returns a
+cache whose leaves are those same tensors, so a cache must not be reused
+after a decode step.
 
-Ported: configs whose mixers are ``attn``, ``local_attn`` and ``rglru``
-with dense MLPs (the dense GQA models and recurrentgemma-2b). MLA,
-mLSTM/sLSTM, MoE and encoder-decoder configs raise
+Ported: configs whose mixers are ``attn``, ``local_attn``, ``mla`` and
+``rglru``, with dense or MoE MLPs (the dense GQA models, recurrentgemma-2b,
+deepseek-v2 and kimi-k2). mLSTM/sLSTM and encoder-decoder configs raise
 ``NotImplementedError``, and so do a ``mesh`` and ``rules``: one card has
 no mesh.
 """
@@ -38,7 +42,7 @@ from repro_torch.models import blocks, recurrent
 from repro_torch.models.params import ParamSpec, init_tree, stack_specs
 
 # the mixers this port runs
-MIXERS = ("attn", "local_attn", "rglru")
+MIXERS = ("attn", "local_attn", "mla", "rglru")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -46,10 +50,8 @@ def check_supported(cfg: ArchConfig) -> None:
     mixers = sorted({mx for mx, _ in cfg.layer_kinds()} - set(MIXERS))
     if mixers:
         raise NotImplementedError(
-            f"{cfg.name}: mixers {mixers} are not ported yet (MLA and "
-            "mLSTM/sLSTM come with later slices)")
-    if cfg.num_experts > 0:
-        raise NotImplementedError(f"{cfg.name}: MoE is not ported yet")
+            f"{cfg.name}: mixers {mixers} are not ported yet (mLSTM/sLSTM "
+            "come with a later slice)")
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet")
@@ -93,6 +95,8 @@ def segment_plan(cfg: ArchConfig) -> Tuple[Segment, ...]:
 def _mixer_spec(cfg: ArchConfig, mixer: str) -> Dict[str, Any]:
     if mixer in ("attn", "local_attn"):
         return blocks.attn_spec(cfg)
+    if mixer == "mla":
+        return blocks.mla_spec(cfg)
     if mixer == "rglru":
         return recurrent.rglru_spec(cfg)
     raise ValueError(mixer)
@@ -104,7 +108,12 @@ def _layer_spec(cfg: ArchConfig, mixer: str, mlp: str) -> Dict[str, Any]:
                             "mixer": _mixer_spec(cfg, mixer)}
     if mlp == "dense":
         spec["ln2"] = blocks.rmsnorm_spec(d)
-        spec["mlp"] = blocks.mlp_spec(cfg)
+        # an MoE config's leading dense layers are dense_d_ff wide
+        ff = (cfg.dense_d_ff or cfg.d_ff) if cfg.num_experts > 0 else cfg.d_ff
+        spec["mlp"] = blocks.mlp_spec(cfg, d_ff=ff)
+    elif mlp == "moe":
+        spec["ln2"] = blocks.rmsnorm_spec(d)
+        spec["mlp"] = blocks.moe_spec(cfg)
     return spec
 
 
@@ -141,6 +150,8 @@ def _mixer_cache_spec(cfg: ArchConfig, mixer: str, batch: int,
         return blocks.attn_cache_spec(cfg, batch, max_len)
     if mixer == "local_attn":   # a ring of min(window, max_len) slots
         return blocks.attn_cache_spec(cfg, batch, max_len, window=cfg.window)
+    if mixer == "mla":          # the latent: c_kv and the shared rope key
+        return blocks.mla_cache_spec(cfg, batch, max_len)
     if mixer == "rglru":
         return recurrent.rglru_cache_spec(cfg, batch)
     raise ValueError(mixer)
@@ -170,7 +181,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
 # ----------------------------------------------------------------------------
 
 def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ArchConfig, mixer: str, *, mode: str,
+                 cfg: ArchConfig, mixer: str, mlp: str, *, mode: str,
                  cache: Optional[Dict]
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
@@ -180,6 +191,9 @@ def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
             lp["mixer"], h, positions, cfg, causal=True,
             window=cfg.window if mixer == "local_attn" else 0, mode=mode,
             cache=mc)
+    elif mixer == "mla":
+        out, nm = blocks.mla_apply(lp["mixer"], h, positions, cfg, mode=mode,
+                                   cache=mc)
     elif mixer == "rglru":
         out, nm = recurrent.rglru_apply(lp["mixer"], h, cfg, mode=mode,
                                         cache=mc)
@@ -187,19 +201,21 @@ def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
         raise ValueError(mixer)
     x = x + out
     if "mlp" in lp:
-        x = x + blocks.mlp_apply(lp["mlp"],
-                                 blocks.rmsnorm(lp["ln2"], x, cfg.norm_eps),
-                                 cfg)
+        h2 = blocks.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        if mlp == "moe":
+            x = x + blocks.moe_apply(lp["mlp"], h2, cfg)
+        else:
+            x = x + blocks.mlp_apply(lp["mlp"], h2, cfg)
     return x, ({"mixer": nm} if nm is not None else None)
 
 
 def _apply_unit(up: Dict, x, positions, cfg, seg: Segment, *, mode, cache):
     """Apply one period (len(seg.kinds) layers)."""
     new_cache = {}
-    for j, (mx, _) in enumerate(seg.kinds):
+    for j, (mx, mlp) in enumerate(seg.kinds):
         lc = cache.get(f"l{j}") if cache else None
-        x, nc = _apply_layer(up[f"l{j}"], x, positions, cfg, mx, mode=mode,
-                             cache=lc)
+        x, nc = _apply_layer(up[f"l{j}"], x, positions, cfg, mx, mlp,
+                             mode=mode, cache=lc)
         if nc is not None:
             new_cache[f"l{j}"] = nc
     return x, (new_cache if new_cache else None)

@@ -28,6 +28,7 @@ class ParamSpec:
     scale: float = 1.0        # multiplier on 1/sqrt(fan_in) for "normal"
     dtype: Optional[str] = None   # override the tree-wide dtype (e.g. "int32")
     stacked: bool = False     # leading axis is a layer stack (stack_specs)
+    experts: bool = False     # an expert axis leads, after any layer stack
 
 
 def stack_specs(spec_tree, n: int):
@@ -50,16 +51,20 @@ def _init_leaf(generator: torch.Generator, s: ParamSpec, device, dtype):
     if s.init == "ones":
         return torch.ones(s.shape, dtype=dt, device=device)
     std = s.scale / _fan_in(s.shape) ** 0.5
-    if not s.stacked:
+    lead = int(s.stacked) + int(s.experts)   # axes drawn slice by slice
+    if not lead:
         w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
         return (w * std).to(device=device, dtype=dt)
-    # one layer slice at a time: the float32 draw never exceeds one layer
+    # one layer (and one expert) slice at a time: the float32 draw never
+    # exceeds one slice (kimi-k2's (384, 7168, 2048) expert leaf at once
+    # would take 22.5 GB of float32 beside the model)
     out = torch.empty(s.shape, dtype=dt, device=device)
-    for i in range(s.shape[0]):
-        w = torch.randn(s.shape[1:], generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        out[i].copy_(w * std)
+    slices = out.view(-1, *s.shape[lead:])
+    for i in range(slices.shape[0]):
+        w = torch.randn(s.shape[lead:], generator=generator,
+                        dtype=torch.float32, device=generator.device)
+        slices[i].copy_(w * std)
     return out
 
 
@@ -67,7 +72,8 @@ def init_tree(generator: torch.Generator, spec_tree, *, device=None,
               dtype=torch.float32):
     """Materialize a spec tree. Leaves are drawn in float32 from
     ``generator``, on the generator's device, in sorted-key order, one leaf
-    (and one layer of a stacked leaf) at a time, cast to the leaf's dtype
+    (and one layer, and one expert, of a stacked or expert leaf) at a time,
+    cast to the leaf's dtype
     and placed on ``device``. A CPU generator gives the same weights on
     every device; a CUDA generator draws billions of parameters on the card
     without a host copy (different numbers from the same seed)."""

@@ -51,6 +51,12 @@ its plain version (an associative scan) at 1e-5 with a near 1, its gated
 instance bit for bit against the unfused chain it replaces (bf16 and
 float32, ragged widths and lengths), and reduced recurrentgemma-2b's
 engine on the card against the CPU engine inside and past its window.
+deepseek-v2's and kimi-k2's instances, (D 192, Dv 128) and D 112, are held
+against the plain version at their served prefills, ragged and strided;
+an unbuilt (D, Dv) pair raises; reduced deepseek-v2 and kimi-k2 in bf16 at
+the full models' attention widths launch one flash kernel a layer in a
+generate and match a card train-mode forward, and the MoE routing of tied
+bf16 logits on the card equals the CPU's without a host sync.
 """
 import dataclasses
 import itertools
@@ -1112,16 +1118,16 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, s, h, hkv, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,dtype", [
-    *((d, torch.bfloat16) for d in (16, 32, 64, 80, 128, 256)),
+    *((d, torch.bfloat16) for d in (16, 32, 64, 80, 112, 128, 256)),
     *((d, torch.float32) for d in (16, 80, 128))])
 def test_flash_kernel_reads_strided_operands(cuda_device, d, dtype):
     """q, k, v sliced out of one packed projection (no copies) give the
     same result as contiguous copies, bit for bit, through the wgmma
-    kernel's tensor maps and the FFMA kernel's row loads. At D 80 a tile
-    row's second 64-column box reaches 48 columns past the head, and at D
-    16 and 32 the one box 48 and 32, into the next heads of the
-    projection: the map ends at column D, so those columns arrive as
-    zeros."""
+    kernel's tensor maps and the FFMA kernel's row loads. At D 80 and 112
+    a tile row's second 64-column box reaches 48 and 16 columns past the
+    head, and at D 16 and 32 the one box 48 and 32, into the next heads
+    of the projection: the map ends at column D, so those columns arrive
+    as zeros."""
     gen = torch.Generator().manual_seed(3)
     qkv = torch.randn((2, 96, 4 + 2 * 2, d), generator=gen).to(
         cuda_device, dtype)
@@ -1135,46 +1141,53 @@ def test_flash_kernel_reads_strided_operands(cuda_device, d, dtype):
 
 @pytest.mark.cuda
 def test_flash_dispatch_has_one_kernel_per_dtype_and_head_dim(cuda_device):
-    """bf16 goes to the wgmma kernel at every head dim, float32 to the FFMA
-    kernel; a profiled call at each (dtype, D) shows that kernel ran (and no
-    other flash kernel)."""
+    """bf16 goes to the wgmma kernel at every (D, Dv) pair, float32 to the
+    FFMA kernel; the MLA pair (192, 128) is ``flash_wgmma_kernel<192, W>``,
+    the only D 192 instance; a profiled call at each (dtype, D, Dv) shows
+    that kernel ran (and no other flash kernel)."""
     from torch.profiler import ProfilerActivity, profile
     bf16, f32 = torch.bfloat16, torch.float32
     want = {bf16: "flash_wgmma_kernel", f32: "flash_ffma_kernel"}
     for dtype, symbol in want.items():
-        for d in fa.HEAD_DIMS[dtype]:
+        for d, dv in fa.HEAD_DIM_PAIRS[dtype]:
             for window, flag in ((0, "false"), (300, "true")):
-                assert fa.kernel_symbol(dtype, d, window) == \
+                assert fa.kernel_symbol(dtype, d, window, v_dim=dv) == \
                     f"{symbol}<{d}, {flag}>"
-    with pytest.raises(ValueError, match="no flash kernel"):
-        fa.kernel_symbol(bf16, 48)
-    with pytest.raises(ValueError, match="no flash kernel"):
-        fa.kernel_symbol(f32, 256)
+    assert fa.kernel_symbol(bf16, 112) == "flash_wgmma_kernel<112, false>"
+    for dtype, d, dv in ((bf16, 48, 48), (f32, 256, 256), (f32, 112, 112),
+                         (bf16, 192, 192), (bf16, 128, 64),
+                         (f32, 192, 128)):
+        with pytest.raises(ValueError, match="no flash kernel"):
+            fa.kernel_symbol(dtype, d, v_dim=dv)
     for dtype in want:
-        for d, window in itertools.product(fa.HEAD_DIMS[dtype], (0, 100)):
+        for (d, dv), window in itertools.product(fa.HEAD_DIM_PAIRS[dtype],
+                                                 (0, 100)):
             q = torch.randn((1, 256, 8, d), device=cuda_device, dtype=dtype)
             k = torch.randn((1, 256, 2, d), device=cuda_device, dtype=dtype)
+            v = torch.randn((1, 256, 2, dv), device=cuda_device, dtype=dtype)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fa.flash_attention(q, k, k, causal=True, window=window)
+                fa.flash_attention(q, k, v, causal=True, window=window)
                 torch.cuda.synchronize()
             names = [e.key for e in prof.key_averages() if "flash" in e.key]
-            assert len(names) == 1 and fa.kernel_symbol(dtype, d, window) \
-                in names[0], (dtype, d, window, names)
+            assert len(names) == 1 and fa.kernel_symbol(
+                dtype, d, window, v_dim=dv) in names[0], (dtype, d, window,
+                                                          names)
 
 
 @pytest.mark.cuda
 def test_flash_library_tensor_cores(cuda_device):
-    """Every flash_wgmma_kernel instance (each head dim, with and without
-    a window) runs wgmma (HGMMA) and no mma.sync (HMMA); the float32
-    kernel runs neither (IEEE FFMA, no TF32)."""
+    """Every flash_wgmma_kernel instance (each (D, Dv) pair, with and
+    without a window) runs wgmma (HGMMA) and no mma.sync (HMMA); the
+    float32 kernel runs neither (IEEE FFMA, no TF32)."""
     census = cuda_lib.tensor_core_census(cuda_lib.build(cuda_lib.FLASH),
                                          ("HMMA", "HGMMA"))
     wgmma = {k: v for k, v in census.items() if "flash_wgmma_kernel" in k}
     ffma = {k: v for k, v in census.items() if "flash_ffma_kernel" in k}
-    assert len(wgmma) == 2 * len(fa.HEAD_DIMS[torch.bfloat16])
-    assert len(ffma) == 2 * len(fa.HEAD_DIMS[torch.float32])
+    assert len(wgmma) == 2 * len(fa.HEAD_DIM_PAIRS[torch.bfloat16])
+    assert len(ffma) == 2 * len(fa.HEAD_DIM_PAIRS[torch.float32])
     assert len(census) == len(wgmma) + len(ffma)
-    assert sum("ILi256E" in k for k in wgmma) == 2
+    for d in (112, 192, 256):
+        assert sum(f"ILi{d}E" in k for k in wgmma) == 2
     assert all(hmma == 0 and hgmma >= 1 for hmma, hgmma in wgmma.values())
     assert all(v == (0, 0) for v in ffma.values())
 
@@ -1189,6 +1202,19 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         fa.flash_attention(q, k.float(), k)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q[..., :48], k[..., :48], k[..., :48])
+    # an unbuilt (D, Dv) pair raises, naming the pairs; MLA's launches
+    with pytest.raises(ValueError, match=r"value dim 32.*\(192, 128\)"):
+        fa.flash_attention(q, k, k[..., :32].contiguous())
+    q192 = torch.zeros((1, 64, 4, 192), device=cuda_device,
+                       dtype=torch.bfloat16)
+    k192 = torch.zeros((1, 64, 2, 192), device=cuda_device,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="value dim 192"):
+        fa.flash_attention(q192, k192, k192)
+    fa.flash_attention.launches = 0
+    out = fa.flash_attention(q192, k192, k192[..., :128].contiguous())
+    assert fa.flash_attention.launches == 1
+    assert tuple(out.shape) == (1, 64, 4, 128)
     q256 = torch.zeros((1, 64, 4, 256), device=cuda_device)
     k256 = torch.zeros((1, 64, 2, 256), device=cuda_device)
     with pytest.raises(ValueError, match="head dim 256"):   # float32
@@ -1232,17 +1258,27 @@ def test_lm_engine_launches_flash_once_per_layer(cuda_device, monkeypatch):
 @pytest.mark.cuda
 def test_model_attention_refuses_what_the_kernel_does_not_compute(
         cuda_device):
-    """No silent plain fallback on the card: Dv != D and unequal or offset
-    lengths raise, naming the slice that brings them; a window launches
-    the kernel (its windowed instance)."""
+    """No silent plain fallback on the card: a (D, Dv) pair no kernel is
+    built for raises, and unequal or offset lengths raise, naming the
+    slice that brings them; a window launches the kernel (its windowed
+    instance), and so does MLA's (192, 128)."""
     from repro_torch.models import blocks
     q = torch.zeros((1, 32, 4, 16), device=cuda_device)
     k = torch.zeros((1, 32, 2, 16), device=cuda_device)
     cuda_lib.reset_launch_counts()
     blocks.flash_attention(q, k, k, causal=True, window=8)
     assert cuda_lib.launch_counts()["flash_attention"] == 1
-    with pytest.raises(NotImplementedError, match="MLA"):
-        blocks.flash_attention(q, k, k[..., :8], causal=True)
+    with pytest.raises(ValueError, match="value dim 8"):
+        blocks.flash_attention(q, k, k[..., :8].contiguous(), causal=True)
+    bf16 = torch.bfloat16
+    cuda_lib.reset_launch_counts()
+    out = blocks.flash_attention(
+        torch.zeros((1, 32, 4, 192), device=cuda_device, dtype=bf16),
+        torch.zeros((1, 32, 4, 192), device=cuda_device, dtype=bf16),
+        torch.zeros((1, 32, 4, 128), device=cuda_device, dtype=bf16),
+        causal=True)
+    assert cuda_lib.launch_counts()["flash_attention"] == 1
+    assert tuple(out.shape) == (1, 32, 4, 128)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         blocks.flash_attention(q[:, :16], k, k, causal=True)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
@@ -1250,6 +1286,154 @@ def test_model_attention_refuses_what_the_kernel_does_not_compute(
     cuda_lib.reset_launch_counts()
     blocks.flash_attention(q, k, k, causal=True)
     assert cuda_lib.launch_counts()["flash_attention"] == 1
+
+
+# --- deepseek-v2 and kimi-k2: the (192, 128) and D 112 flash instances, MLA
+# and MoE on the card ------------------------------------------------------
+
+# (batch, seq, heads, kv_heads, head_dim, value_dim, causal, window):
+# deepseek-v2's MLA prefill (B 4, S 2048, 128 heads, qk 192 over v 128) and
+# kimi-k2's (64 heads over 8, D 112), then small and ragged lengths, S 1,
+# one row past a tile, GQA, non-causal, and each with a window
+FLASH_PAIR_GEOMETRIES = [
+    (4, 2048, 128, 128, 192, 128, True, 0),
+    (4, 2048, 64, 8, 112, 112, True, 0),
+    (2, 77, 4, 4, 192, 128, True, 0),
+    (1, 1000, 8, 8, 192, 128, True, 0),
+    (2, 129, 8, 2, 192, 128, False, 0),
+    (3, 1, 4, 4, 192, 128, True, 0),
+    (1, 2048, 16, 16, 192, 128, False, 0),
+    (1, 500, 4, 4, 192, 128, True, 100),
+    (2, 77, 8, 8, 112, 112, True, 0),
+    (1, 1000, 14, 2, 112, 112, True, 0),
+    (2, 129, 8, 2, 112, 112, False, 0),
+    (3, 1, 4, 2, 112, 112, True, 0),
+    (1, 2048, 16, 2, 112, 112, False, 0),
+    (1, 1000, 8, 2, 112, 112, True, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,hkv,d,dv,causal,window",
+                         FLASH_PAIR_GEOMETRIES)
+def test_mla_and_d112_flash_kernels_match_plain_on_card(
+        cuda_device, b, s, h, hkv, d, dv, causal, window):
+    gen = torch.Generator().manual_seed(s + d + window)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda_device,
+                                                    torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
+    fa.flash_attention.launches = 0
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.flash_attention.launches == 1
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (b, s, h, dv)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0,
+                               atol=FLASH_TOL[torch.bfloat16])
+    row_err = (out.float() - plain.float()).abs().amax(dim=-1) / \
+        plain.float().square().mean(dim=-1).sqrt()
+    assert float(row_err.max()) <= FLASH_ROW_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_mla_flash_reads_strided_operands(cuda_device):
+    """MLA's k and v sliced out of one packed (192 + 128)-wide projection
+    and q out of a wider one (no copies) give the contiguous copies'
+    result bit for bit: V's tensor map ends at its own 128 columns."""
+    gen = torch.Generator().manual_seed(4)
+    bf16 = torch.bfloat16
+    kv = torch.randn((2, 96, 4, 320), generator=gen).to(cuda_device, bf16)
+    qp = torch.randn((2, 96, 4, 256), generator=gen).to(cuda_device, bf16)
+    q, k, v = qp[..., :192], kv[..., :192], kv[..., 192:]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    out = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=True)
+    assert torch.equal(out, ref)
+
+
+def _served_reduced(name: str):
+    """reduced deepseek-v2 / kimi-k2 in bf16 at the full models' attention
+    widths (MLA qk 192 over v 128; head dim 112), so the card runs the
+    instances the full models launch."""
+    cfg = reduced(get_arch(name))
+    over = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    if cfg.kv_lora_rank:
+        over.update(head_dim=128, rope_head_dim=64)
+    else:
+        over.update(head_dim=112)
+    return dataclasses.replace(cfg, **over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_moe_engines_launch_flash_once_per_layer(cuda_device, monkeypatch,
+                                                 name):
+    """The card's engine runs every MLA or attention layer's prefill through
+    the kernel (one launch a layer, nothing else of the port, never the
+    plain version); the prefill logits and every decode step's equal a
+    card train-mode forward over the tokens so far (teacher forcing, the
+    same kernels) within 0.0625."""
+    from repro_torch.models import blocks
+    cfg = _served_reduced(name)
+    params = tlm.init_params(0, cfg, device=cuda_device)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                            generator=torch.Generator().manual_seed(1)).to(
+        cuda_device)
+    engine = ServingEngine(cfg, params, max_len=48)
+    cuda_lib.reset_launch_counts()
+    with monkeypatch.context() as m:
+        def refuse(*args, **kwargs):
+            raise AssertionError("the plain version ran on the card path")
+        m.setattr(fa, "flash_attention_plain", refuse)
+        m.setattr(blocks, "flash_attention_plain", refuse)
+        out = engine.generate(prompts, 4)
+    counts = cuda_lib.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "flash_attention": cfg.num_layers}
+    with torch.inference_mode():
+        for i in range(4):
+            seq = torch.cat([prompts, out[:, :i].to(prompts.dtype)], 1)
+            ref = tlm.forward(params, seq, cfg)[0][:, -1].float()
+            if i == 0:
+                got = engine.prefill_logits.float()
+            else:
+                got = _decode_logits(engine, cfg, params, prompts, out, i)
+            assert float((got - ref).abs().max()) <= 0.0625
+
+
+def _decode_logits(engine, cfg, params, prompts, tokens, i):
+    """The logits of decode step i (fed tokens[:, :i]) from a fresh
+    prefill of ``prompts``."""
+    from repro_torch.serving.engine import pad_prefill_cache
+    with torch.inference_mode():
+        _, cache = engine.prefill(params, prompts)
+        cache = pad_prefill_cache(cfg, cache, prompts.shape[0],
+                                  engine.max_len)
+        for j in range(i):
+            logits, cache = tlm.forward(params, tokens[:, j:j + 1], cfg,
+                                        mode="decode", cache=cache)
+    return logits[:, -1].float()
+
+
+@pytest.mark.cuda
+def test_moe_route_on_card_equals_cpu_without_host_sync(cuda_device):
+    """The routing of a bf16 logit matrix with exact ties (columns 3 and
+    5 equal) on the card equals the CPU's, index for index and slot for
+    slot (the stable sort orders ties by index on both), and runs without
+    a device-to-host copy."""
+    from repro_torch.models import blocks
+    gen = torch.Generator().manual_seed(3)
+    logits = torch.randn((4096, 160), generator=gen).to(torch.bfloat16)
+    logits[:, 5] = logits[:, 3]
+    cpu = blocks.moe_route(logits, 6, 192)
+    on_card = logits.to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # a host sync raises
+    try:
+        card = blocks.moe_route(on_card, 6, 192)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
 
 
 # --- recurrentgemma-2b: the windowed and D 256 flash kernels, the RG-LRU

@@ -111,11 +111,15 @@ def test_window_across_every_kernel_tile_boundary(window, dtype):
 
 
 def test_card_operands_by_dtype_and_head_dim():
-    """bf16 takes head dim 256 (recurrentgemma-2b), float32 does not; a
-    negative window is refused (CPU tensors: the check reads dtype, shape,
-    strides and alignment only)."""
-    assert fa.HEAD_DIMS[torch.bfloat16] == (16, 32, 64, 80, 128, 256)
-    assert fa.HEAD_DIMS[torch.float32] == (16, 32, 64, 80, 128)
+    """bf16 takes head dim 256 (recurrentgemma-2b), 112 (kimi-k2) and the
+    MLA pair, qk 192 over v 128 (deepseek-v2); float32 takes none of them;
+    a negative window is refused (CPU tensors: the check reads dtype,
+    shape, strides and alignment only)."""
+    assert fa.HEAD_DIM_PAIRS[torch.bfloat16] == (
+        (16, 16), (32, 32), (64, 64), (80, 80), (112, 112), (128, 128),
+        (192, 128), (256, 256))
+    assert fa.HEAD_DIM_PAIRS[torch.float32] == (
+        (16, 16), (32, 32), (64, 64), (80, 80), (128, 128))
     q = torch.zeros((1, 8, 10, 256), dtype=torch.bfloat16)
     k = torch.zeros((1, 8, 1, 256), dtype=torch.bfloat16)
     fa._check_card_operands(q, k, k, window=2048)
@@ -208,17 +212,19 @@ def test_row_error_limit_passes_tile_order_and_fails_a_dropped_tile(dtype):
     assert _row_rel_err(dropped, ref) > 10 * ROW_TOL[dtype]
 
 
-# the configs the LM path serves (the dense GQA ones and the hybrid)
+# the configs the LM path serves (the dense GQA ones, the hybrid, the MoE
+# ones)
 SERVED = {"granite-8b", "yi-34b", "stablelm-3b", "glm4-9b", "chameleon-34b",
-          "recurrentgemma-2b"}
+          "recurrentgemma-2b", "deepseek-v2-236b", "kimi-k2-1t-a32b"}
 
 
 @pytest.mark.parametrize("name", sorted(tconfigs.ARCHS))
 def test_card_wrapper_takes_every_served_head_dim(name):
     """Every config the LM path serves has a head dim the card kernels take:
-    ``_check_card_operands`` passes bf16 operands of its width (CPU tensors
-    here: the check reads only dtype, shape, strides and alignment). The
-    configs it does not serve are refused before any attention runs."""
+    ``_check_card_operands`` passes bf16 operands of its widths, an MLA
+    config's at its prefill's qk and v dims (CPU tensors here: the check
+    reads only dtype, shape, strides and alignment). The configs it does
+    not serve are refused before any attention runs."""
     cfg = tconfigs.get_arch(name)
     try:
         tlm.check_supported(cfg)
@@ -226,10 +232,13 @@ def test_card_wrapper_takes_every_served_head_dim(name):
         assert name not in SERVED
         return
     assert name in SERVED
-    d = cfg.resolved_head_dim
+    d = dv = cfg.resolved_head_dim
+    if "mla" in cfg.block_pattern:     # nope + rope columns over v's width
+        d = dv + cfg.rope_head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     q = torch.zeros((1, 8, h, d), dtype=torch.bfloat16)
     k = torch.zeros((1, 8, hkv, d), dtype=torch.bfloat16)
-    fa._check_shapes(q, k, k)
-    fa._check_card_operands(q, k, k)
+    v = torch.zeros((1, 8, hkv, dv), dtype=torch.bfloat16)
+    fa._check_shapes(q, k, v)
+    fa._check_card_operands(q, k, v)
 

@@ -35,8 +35,9 @@ from repro_torch.serving import ServingEngine
 from repro_torch.serving import engine as tengine
 
 DENSE = ["granite-8b", "yi-34b", "stablelm-3b", "glm4-9b", "chameleon-34b"]
-# every config the port serves: the dense ones and the hybrid
-SERVED = DENSE + ["recurrentgemma-2b"]
+# every config the port serves: the dense ones, the hybrid and the MoE ones
+# (MLA and MoE: tests/test_torch_mla_moe.py)
+SERVED = DENSE + ["recurrentgemma-2b", "deepseek-v2-236b", "kimi-k2-1t-a32b"]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -324,9 +325,7 @@ def test_from_numpy_carries_bf16_bits():
 # ----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,what", [
-    ("xlstm-350m", "mixers"),
-    ("deepseek-v2-236b", "mixers"), ("kimi-k2-1t-a32b", "MoE"),
-    ("whisper-base", "encoder-decoder")])
+    ("xlstm-350m", "mixers"), ("whisper-base", "encoder-decoder")])
 def test_unported_configs_raise(name, what):
     cfg = treduced(tconfigs.get_arch(name))
     with pytest.raises(NotImplementedError, match=what):

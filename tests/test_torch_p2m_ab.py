@@ -93,7 +93,7 @@ def test_geometries_are_chip_smokes(scripts):
     "granite_d128_b4", "stablelm_d80_b4", "stablelm_d80_b1", "mha_d64_b4",
     "mha_d128_b4", "narrow_d32_toy", "f32_d128_toy", "narrow_d32_b4",
     "narrow_d16_b4", "f32_d128_b4", "f32_d16_b4", "rg_d256_b4",
-    "rg_d256_s8192"])
+    "rg_d256_s8192", "mla_d192_v128_b4", "kimi_d112_b4"])
 def test_flash_geometries_name_their_dtype(scripts, name):
     """Each flash_ab.py geometry names its dtype and mode, is checked
     against chip_smoke.py's limit for that dtype, and the toy, _b4 and
@@ -101,7 +101,7 @@ def test_flash_geometries_name_their_dtype(scripts, name):
     ab = scripts("flash_ab")
     geoms = ab.geometries()          # puts the checkout's root on the path
     import chip_smoke as cs
-    assert len(geoms) == 13
+    assert len(geoms) == 15
     geom = geoms[name]
     assert geom["dtype"] in ("bfloat16", "float32")
     assert isinstance(geom["causal"], bool)
@@ -124,6 +124,29 @@ def test_flash_geometries_name_their_dtype(scripts, name):
     if name.startswith("rg_"):
         assert geom in cs.FLASH_WINDOWED and geom["head_dim"] == 256
         assert (geom["window"], geom["dtype"]) == (2048, "bfloat16")
+    if name.startswith(("mla_", "kimi_")):     # deepseek-v2's, kimi-k2's
+        assert geom in cs.FLASH_MOE and geom["dtype"] == "bfloat16"
+        assert (geom["head_dim"], geom.get("v_dim", 112)) in (
+            (192, 128), (112, 112))
+
+
+def test_a_source_from_before_the_value_dim_gets_the_shim(tmp_path,
+                                                          scripts):
+    """The current source is built as it is; one whose
+    ``flash_attention_fwd`` takes no value dim is built from a copy with
+    its entries renamed and wrapped in the current signatures."""
+    ab = scripts("flash_ab")
+    src = os.path.join(CSRC, "flash_attention.cu")
+    assert ab.with_value_dim(src, str(tmp_path), 0) == src
+    text = open(src).read()
+    old = tmp_path / "old.cu"
+    old.write_text(text.replace("int head_dim, int v_dim",
+                                "int head_dim"))
+    shimmed = ab.with_value_dim(str(old), str(tmp_path), 1)
+    body = open(shimmed).read()
+    assert shimmed != str(old)
+    assert body.startswith(ab.SHIM_HEAD) and body.endswith(ab.SHIM_TAIL)
+    assert "int v_dim" in ab.SHIM_TAIL and "_no_dv(" in ab.SHIM_TAIL
 
 
 def test_flagless_instances_compare_with_a_first_version_before_the_flag(
