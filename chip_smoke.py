@@ -3597,6 +3597,56 @@ def sdpa_backend_ms(q, k, v, causal: bool, device):
     return "none", None
 
 
+def flash_operands(geom: dict, device):
+    """q, k, v of a flash geometry, from seed 23 (the flash lines' and
+    ``--flash-symbols``'s inputs)."""
+    import torch
+    b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
+                                         "kv_heads", "head_dim"))
+    dv = geom.get("v_dim", d)
+    gen = torch.Generator().manual_seed(23)
+    return tuple(torch.randn(shape, generator=gen).to(
+        device=device, dtype=getattr(torch, geom["dtype"]))
+        for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
+
+
+def flash_symbols_main(geom_json: str) -> int:
+    """``python3 chip_smoke.py --flash-symbols GEOM``: the flash kernels a
+    profiler session of one call at the JSON geometry records in this
+    fresh process, as one JSON list (on the libraries ``main`` built)."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import flash_attention as fa
+    geom = json.loads(geom_json)
+    q, k, v = flash_operands(geom, torch.device("cuda"))
+
+    def kernel():
+        return fa.flash_attention(q, k, v, causal=geom["causal"],
+                                  window=geom.get("window", 0))
+
+    kernel()
+    prof, _ = profile_session(kernel, cpu=False, expect="flash")
+    print(json.dumps(sorted({e.key for e in prof.key_averages()
+                             if "flash" in e.key})), flush=True)
+    return 0
+
+
+def flash_symbols_in_child(geom: dict) -> list:
+    """The flash kernels a profiler session in a fresh process records at
+    ``geom`` (``--flash-symbols``). Late in this long script every session
+    of one flash line once kept the marker kernels and lost the flash
+    kernel's events (kimi-k2's prefill, six sessions in a row), where a
+    fresh process records that call's kernel; the census's
+    ``collect_in_child`` is the same remedy."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--flash-symbols", json.dumps(geom)],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=ROOT)
+    check(res.returncode == 0,
+          f"--flash-symbols failed:\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.splitlines()[-1])
+
+
 def flash_phase(geom: dict, device, hgmma=None):
     """The flash-attention kernel at one geometry: held against its plain
     version on the same card tensors and timed beside it, its bound and
@@ -3613,10 +3663,7 @@ def flash_phase(geom: dict, device, hgmma=None):
     dv = geom.get("v_dim", d)
     dtype, causal = getattr(torch, geom["dtype"]), geom["causal"]
     window = geom.get("window", 0)
-    gen = torch.Generator().manual_seed(23)
-    q, k, v = (torch.randn(shape, generator=gen).to(device=device,
-                                                    dtype=dtype)
-               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
+    q, k, v = flash_operands(geom, device)
     tag = (f"B{b} S{s} H{h}/{hkv} D{d}" + (f"/{dv}" if dv != d else "")
            + f" {geom['dtype']} {'causal' if causal else 'full'}"
            + (f" window {window}" if window else ""))
@@ -3628,6 +3675,9 @@ def flash_phase(geom: dict, device, hgmma=None):
 
     prof, out = profile_session(kernel, cpu=False, expect="flash")
     ran = sorted({e.key for e in prof.key_averages() if "flash" in e.key})
+    symbols_from = "session"
+    if not ran:   # every session here lost it: a fresh process's profiler
+        ran, symbols_from = flash_symbols_in_child(geom), "child"
     check(len(ran) == 1 and symbol in ran[0],
           f"flash kernels {ran} ran at {tag}, want {symbol} alone")
     plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -3690,7 +3740,12 @@ def flash_phase(geom: dict, device, hgmma=None):
                         device) if causal else None
     unwindowed_ms = device_ms(lambda: kernel(window=0),
                               device) if window else None
-    emit("flash", geometry=tag, kernel=symbol, hgmma=hgmma,
+    # the instance's design as the library reports it (q and kv rows a
+    # tile, K/V stages, the consumers' turns, work from a counter, chained
+    # work items)
+    design = fa.design(dtype, d, v_dim=dv)
+    emit("flash", geometry=tag, kernel=symbol, symbols_from=symbols_from,
+         hgmma=hgmma, design=design,
          library_backend=backend, tolerance=FLASH_TOL[geom["dtype"]],
          row_rel_err=row_err, row_tolerance=FLASH_ROW_TOL[geom["dtype"]],
          **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
@@ -5012,4 +5067,6 @@ PHASES = {"--obs-phase": obs_phase, "--census-phase": census_phase}
 
 if __name__ == "__main__":
     flag = sys.argv[1] if len(sys.argv) > 1 else None
+    if flag == "--flash-symbols":
+        sys.exit(flash_symbols_main(sys.argv[2]))
     sys.exit(phase_main(flag) if flag in PHASES else main())

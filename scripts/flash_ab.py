@@ -42,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import sys
 
@@ -62,6 +63,21 @@ DIAGNOSTICS = {
     # no O += P V product
     "no_pv": ("    wgmma_rs<Dv>(acc, pa[kk], smem_desc(v_tile + kk * 2048, "
               "kBoxBytes, 1024));", "    ;"),
+    # no rescale of the accumulator by alpha after each kv tile
+    "no_rescale": ("#pragma unroll\n  for (int i = 0; i < N; ++i) "
+                   "acc[i] *= alpha[(i >> 1) & 1];\n", ""),
+    # no K / V loads past a block's first ring of stages: the producer
+    # completes each later stage's barriers without a copy, and the
+    # products read the stale tiles (L2 to shared traffic left out)
+    "no_kv_loads": (
+        "          mbar_expect_tx(full_k + 8 * s, kTileBytes);\n",
+        "          if (round > 0) {\n"
+        "            mbar_wait(empty_v + 8 * s, (round - 1) & 1);\n"
+        "            mbar_arrive(full_k + 8 * s);\n"
+        "            mbar_arrive(full_v + 8 * s);\n"
+        "            continue;\n"
+        "          }\n"
+        "          mbar_expect_tx(full_k + 8 * s, kTileBytes);\n"),
     # the FFMA kernel (float32): e^x as the exponent's FMA alone
     "f32_no_exp": ("          float p = exp_diff(s[i][cc], c, mc);",
                    "          float p = fmaf(s[i][cc], c, -mc);"),
@@ -139,6 +155,33 @@ def geometries() -> dict:
             "kimi_d112_b4": cs.FLASH_KIMI_SERVING}
 
 
+def ptxas_usage(log: str) -> dict:
+    """``{"wgmma<D, W>" or "ffma<D, W>": [registers, spill store bytes +
+    spill load bytes]}`` of each flash kernel instance, from nvcc's
+    ``-Xptxas -v`` log (a setmaxnreg kernel reports its launch bound's
+    registers)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?\S*flash_(wgmma|ffma)_kernelILi(\d+)ELb([01])E",
+                      line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            out.setdefault(name, [0, 0])[1] = int(spill.group(1)) + int(
+                spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out.setdefault(name, [0, 0])[0] = int(used.group(1))
+            name = None
+    return out
+
+
 def first_name(kernel: str, first: dict) -> str:
     """The first version's name of ``kernel``: its own, or, for an instance
     without the window flag (``...ILi128ELb0EE...``) where the first
@@ -181,12 +224,13 @@ def main(argv) -> int:
     sources += sorted(unchecked)
     built = {with_value_dim(src, out_dir, i): src
              for i, src in enumerate(sources)}
-    libs, serialized = {}, {}
+    libs, serialized, usage = {}, {}, {}
     for path, (lib, log) in ab_versions.build_versions(
             list(built), cuda_lib.FLASH.flags, out_dir).items():
         src = built[path]
         serialized[src] = [ln.strip() for ln in log.splitlines()
                            if "serialized" in ln]
+        usage[src] = ptxas_usage(log)
         cuda_lib._bind_flash(lib)
         libs[src] = lib
 
@@ -254,7 +298,10 @@ def main(argv) -> int:
                               "ms": times[src],
                               "median_ms": {key: statistics.median(t)
                                             for key, t in times[src].items()},
-                              "wgmma_serialized": serialized[src]}),
+                              "wgmma_serialized": serialized[src],
+                              "registers_spill_bytes": {
+                                  k: u for k, u in usage[src].items()
+                                  if f"<{d}, " in k}}),
                   flush=True)
         if dv != d:
             backend, sdpa = cs.sdpa_backend_ms(

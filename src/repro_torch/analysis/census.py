@@ -67,6 +67,8 @@ import json
 import math
 import os
 import re
+import subprocess
+import sys
 import threading
 from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
@@ -429,6 +431,40 @@ def collect(groups: Optional[Sequence[str]] = None,
     if device.type == "cuda":
         return {name: card_census(fn) for name, fn in entries(groups, device)}
     return {name: op_census(fn) for name, fn in entries(groups, device)}
+
+
+# the child's program: the census of argv[1]'s groups (JSON, null for all)
+# on argv[2], as one JSON line on its standard output
+_CHILD = ("import json, sys\n"
+          "from repro_torch.analysis import census\n"
+          "out = census.collect(json.loads(sys.argv[1]), sys.argv[2])\n"
+          "print(json.dumps(out))\n")
+CHILD_TIMEOUT_S = 900
+
+
+def collect_in_child(groups: Optional[Sequence[str]] = None,
+                     device="cpu") -> Dict[str, Dict]:
+    """``collect(groups, device)`` in a fresh interpreter, returned through
+    JSON (every census is plain dicts of strings and numbers). On the card
+    every ``torch.profiler`` session of a process can miss the device
+    events of the port's kernels while keeping torch's own (its markers):
+    a pytest process, alone or late in a run, and a plain ``python``
+    process did so in most runs; a child started by a running Python
+    process held in every run. The child starts with an empty tile table,
+    as a fresh process does."""
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (src, env.get("PYTHONPATH")) if p)
+    arg = json.dumps(None if groups is None else list(groups))
+    res = subprocess.run(
+        [sys.executable, "-c", _CHILD, arg, str(torch.device(device))],
+        capture_output=True, text=True, env=env, timeout=CHILD_TIMEOUT_S)
+    if res.returncode != 0:
+        raise RuntimeError(f"the census child failed ({res.returncode}):\n"
+                           f"{res.stderr[-4000:]}")
+    return json.loads(res.stdout.splitlines()[-1])
 
 
 # --- the card census ---------------------------------------------------------

@@ -102,13 +102,26 @@
 //    GFLOP, 0.087 ms at the tensor-core peak, against 0.028 ms for its 92
 //    MB.
 //  * bf16, D = 112: flash_wgmma_kernel<112> (kimi-k2: 64 heads over 8 kv
-//    heads). The D 128 design as it is: a tile row is two 64-column boxes,
-//    the second read 48 columns wide (its map ends at column 112, so the
-//    rest arrive as zeros), 7 k-steps of m64n128k16 scores and m64n112k16
-//    for P.V (56 accumulator registers a consumer thread), 3 stages of 32
-//    KB tiles. Bound at kimi-k2's prefill (B 4, S 2048, H 64, Hkv 8,
-//    causal): 2 products of 112 multiply-adds a visible pair, 240 GFLOP,
-//    0.243 ms at the tensor-core peak, against 0.079 ms for its bytes.
+//    heads). The D 128 layout (a tile row is two 64-column boxes, the
+//    second read 48 columns wide: its map ends at column 112, so the rest
+//    arrive as zeros; 7 k-steps of m64n128k16 scores, m64n112k16 for P.V,
+//    56 accumulator registers a consumer thread; 3 stages of 32 KB tiles)
+//    with consumers of their own (chained_consumer, HopperLayout::kChained).
+//    Bound at kimi-k2's prefill (B 4, S 2048, H 64, Hkv 8, causal): 2
+//    products of 112 multiply-adds a visible pair, 240 GFLOP, 0.243 ms at
+//    the tensor-core peak, against 0.079 ms for its bytes and 0.128 ms for
+//    its exponentials. Timed without each stage there (scripts/flash_ab.py
+//    --diagnose, H100), the D 128 design lost no more than 8% of its time
+//    to the softmax, 5% to the K/V copies and 2% to the rescale; but a
+//    causal call of its 4,096 work items took 0.60 of the non-causal one
+//    for 0.53 of its kv tiles: the cost sat at each item's boundary, where
+//    both consumers waited for the first tile's scores and softmax and the
+//    tensor cores for the last tile's product and the store. So a consumer
+//    chains its items: the next item's first S is issued with this item's
+//    last P.V and its softmax runs under that product; the output is
+//    stored with one reciprocal a row (an IEEE division an element there
+//    cost 6%); and the rescale of the accumulator runs between the next
+//    S's issue and the P.V's, under the S.
 //  * bf16, D = 192 with Dv = 128: flash_wgmma_kernel<192> (deepseek-v2's
 //    MLA prefill: q and k carry 128 nope and 64 rope columns, v 128; 128
 //    heads, MHA after the latent's expansion). The only D 192 instance:
@@ -255,6 +268,10 @@ struct HopperLayout {
   // At D 256 without the turns it ran 1.8% faster at S 2048 and 8192
   // (scripts/flash_ab.py, H100)
   static constexpr bool kPingPong = D > 32 && D < 256;
+  // At D 112 (kimi-k2) a consumer chains its work items: the next item's
+  // first S is issued with this item's last P V (chained_consumer; why:
+  // the D 112 entry at the top of this file)
+  static constexpr bool kChained = D == 112;
   static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;  // per row
   static constexpr int kVBoxes = (kDv + kBoxCols - 1) / kBoxCols;  // of V
   static constexpr int kQBoxBytes = kHopperBM * kBoxCols * 2;
@@ -754,6 +771,199 @@ __device__ __forceinline__ void pack_p(const float (&p)[8 * NK],
   }
 }
 
+// acc *= alpha by rows: register i holds row (i >> 1) & 1
+template <int N>
+__device__ __forceinline__ void rescale_acc(float (&acc)[N],
+                                            const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+
+// a consumer thread's two output rows of tile t, acc / max(l, 1e-30) in
+// bf16, as one reciprocal a row and a product an element: the IEEE
+// division an element (flash_wgmma_kernel's own store) cost kimi-k2's
+// prefill 6% chained, where the store sits between two products
+// (scripts/flash_ab.py, H100); rows past S are not stored
+template <int Dv>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
+                                           const FlashGeom& g, const Tile& t,
+                                           const int (&rows)[2], int tig,
+                                           const float (&acc)[Dv / 2],
+                                           const float (&l_r)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= g.seq) continue;
+    const float inv = 1.f / fmaxf(l_r[r], 1e-30f);
+    __nv_bfloat16* op = o + t.b * g.o_b + rows[r] * g.o_s + t.h * g.o_h +
+                        tig * 2;
+#pragma unroll
+    for (int dt = 0; dt < Dv / 8; ++dt) {
+      const uint32_t w = pack_bf16(acc[4 * dt + 2 * r] * inv,
+                                   acc[4 * dt + 2 * r + 1] * inv);
+      *reinterpret_cast<uint32_t*>(op + dt * 8) = w;
+    }
+  }
+}
+
+// The consumers of a chained layout (HopperLayout::kChained, D 112): the
+// loop of flash_wgmma_kernel's consumers, but the last kv tile of a work
+// item (its O += P V) is issued together with the first S of the next
+// item, whose softmax runs under that product; then the finished item's
+// rows are stored and the accumulator cleared for the next. m, l and P of
+// the next item live across the boundary, the finished item's l beside
+// them. The accumulator's rescale by alpha runs between the issue of the
+// next S and that of the P V it feeds (as FlashAttention-3 orders it), in
+// the shadow of the S, not between a P V's completion and the next issue.
+// Every path between a wgmma's issue and its wait is straight-line. The
+// producer is flash_wgmma_kernel's: Q of the next item is loaded once the
+// last S of this one is in (q_empty), under this item's last softmax
+template <int D, bool kWindow>
+__device__ __forceinline__ void chained_consumer(
+    const FlashGeom& g, __nv_bfloat16* __restrict__ o, uint32_t base, int c,
+    int n_qb, int n_items) {
+  using L = HopperLayout<D>;
+  static_assert(!L::kDynamic, "chained: the static pairs");
+  constexpr int kTileBytes = L::kTileBytes, kStages = L::kStages;
+  constexpr int kStageBytes = L::kStageBytes, Dv = L::kDv, BN = L::kBN;
+  const uint32_t q_full = base + L::kBarOff;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t full_k = q_empty + 8;                // + 8 * stage
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const int row0 = c * 64 + warp * 16 + lane / 4;   // rows row0, row0 + 8
+  const uint32_t q_rows = base + c * 64 * 128;
+  const uint32_t kv_base = base + L::kKOff;   // + st kStageBytes
+  const int my_turn = 1 + c, next_turn = 2 - c;
+  if (L::kPingPong && c == 1) bar_arrive(1);
+
+  float s[L::kScores], acc[Dv / 2];
+  uint32_t pa[BN / 16][4];
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+  for (int i = 0; i < Dv / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  int k = 0, it = 0;
+  Tile t = work_tile<D, kWindow>(g, item_of(0), n_qb);
+
+  {  // the block's first item: its first tile's scores and softmax
+    const int kv0 = kWindow ? t.kv0 : 0;
+    const int rows[2] = {t.q0 + row0, t.q0 + row0 + 8};
+    mbar_wait(q_full, 0);
+    mbar_wait(full_k, 0);
+    if (L::kPingPong) bar_sync(my_turn);
+    issue_scores<D>(s, q_rows, kv_base);
+    wgmma_commit();
+    if (L::kPingPong) bar_arrive(next_turn);
+    wgmma_wait<0>();
+    fence_regs(s);
+    mbar_arrive(empty_k);
+    if (t.n_kv == 1) mbar_arrive(q_empty);
+    softmax_tile<L::kScores, kWindow>(
+        s, alpha, m_r, l_r, g, rows, kv0 * BN, tig,
+        masked_tile<BN, kWindow>(g, t.q0, kv0 * BN, t.n_kv == 1));
+    pack_p(s, pa);
+    fence_frags(pa);
+  }
+
+  while (true) {
+    const int kv0 = kWindow ? t.kv0 : 0;
+    const int rows[2] = {t.q0 + row0, t.q0 + row0 + 8};
+    // tile j < n_kv - 1: as flash_wgmma_kernel's consumers
+    for (int j = 0; j + 1 < t.n_kv; ++j) {
+      const int cur = it + j, nxt = cur + 1;
+      const int st = cur % kStages, st1 = nxt % kStages;
+      mbar_wait(full_k + 8 * st1, (nxt / kStages) & 1);
+      mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
+      if (L::kPingPong) bar_sync(my_turn);
+      issue_scores<D>(s, q_rows, kv_base + st1 * kStageBytes);
+      wgmma_commit();
+      // tile j's factor, under S of tile j + 1 (pinned between the issues)
+      fence_regs(acc);
+      rescale_acc(acc, alpha);
+      fence_regs(acc);
+      issue_pv<D>(acc, pa, kv_base + st * kStageBytes + kTileBytes);
+      wgmma_commit();
+      if (L::kPingPong) bar_arrive(next_turn);
+      wgmma_wait<1>();
+      fence_regs(s);
+      mbar_arrive(empty_k + 8 * st1);
+      if (j + 2 == t.n_kv) mbar_arrive(q_empty);
+      const int k0 = (kv0 + j + 1) * BN;
+      softmax_tile<L::kScores, kWindow>(
+          s, alpha, m_r, l_r, g, rows, k0, tig,
+          masked_tile<BN, kWindow>(g, t.q0, k0, j + 2 == t.n_kv));
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frags(pa);
+      mbar_arrive(empty_v + 8 * st);
+      pack_p(s, pa);
+      fence_frags(pa);
+    }
+    const int cur = it + t.n_kv - 1, st = cur % kStages;
+    const int next = item_of(k + 1);
+    if (next >= n_items) {  // the block's last item: its last P V alone
+      mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
+      if (L::kPingPong) bar_sync(my_turn);
+      fence_regs(acc);
+      rescale_acc(acc, alpha);
+      fence_regs(acc);
+      issue_pv<D>(acc, pa, kv_base + st * kStageBytes + kTileBytes);
+      wgmma_commit();
+      if (L::kPingPong && c == 0)   // consumer 1's last turn: none
+        bar_arrive(next_turn);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frags(pa);
+      mbar_arrive(empty_v + 8 * st);
+      store_rows<Dv>(o, g, t, rows, tig, acc, l_r);
+      return;
+    }
+    // the last P V of this item with the first S of the next
+    const Tile tn = work_tile<D, kWindow>(g, next, n_qb);
+    const int kv0n = kWindow ? tn.kv0 : 0;
+    const int rows_n[2] = {tn.q0 + row0, tn.q0 + row0 + 8};
+    const int nxt = cur + 1, st1 = nxt % kStages;
+    mbar_wait(q_full, (k + 1) & 1);
+    mbar_wait(full_k + 8 * st1, (nxt / kStages) & 1);
+    mbar_wait(full_v + 8 * st, (cur / kStages) & 1);
+    if (L::kPingPong) bar_sync(my_turn);
+    issue_scores<D>(s, q_rows, kv_base + st1 * kStageBytes);
+    wgmma_commit();
+    fence_regs(acc);
+    rescale_acc(acc, alpha);
+    fence_regs(acc);
+    issue_pv<D>(acc, pa, kv_base + st * kStageBytes + kTileBytes);
+    wgmma_commit();
+    if (L::kPingPong) bar_arrive(next_turn);
+    wgmma_wait<1>();   // the next item's first scores are in
+    fence_regs(s);
+    mbar_arrive(empty_k + 8 * st1);
+    if (tn.n_kv == 1) mbar_arrive(q_empty);
+    const float l_done[2] = {l_r[0], l_r[1]};
+    m_r[0] = m_r[1] = kNegInf;
+    l_r[0] = l_r[1] = 0.f;
+    softmax_tile<L::kScores, kWindow>(
+        s, alpha, m_r, l_r, g, rows_n, kv0n * BN, tig,
+        masked_tile<BN, kWindow>(g, tn.q0, kv0n * BN, tn.n_kv == 1));
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(pa);
+    mbar_arrive(empty_v + 8 * st);
+    store_rows<Dv>(o, g, t, rows, tig, acc, l_done);
+#pragma unroll
+    for (int i = 0; i < Dv / 2; ++i) acc[i] = 0.f;
+    pack_p(s, pa);
+    fence_regs(acc);
+    fence_frags(pa);
+    it += t.n_kv;
+    ++k;
+    t = tn;
+  }
+}
+
 struct HopperMaps {
   CUtensorMap q, k, v;
 };
@@ -857,6 +1067,10 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
   } else {
     // consumers: warpgroup c owns q rows [64 c, 64 c + 64) of each tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (L::kChained) {
+      chained_consumer<D, kWindow>(g, o, base, warpgroup - 1, n_qb, n_items);
+      return;
+    }
     const int c = warpgroup - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int tig = lane % 4;
@@ -935,8 +1149,7 @@ flash_wgmma_kernel(const __grid_constant__ HopperMaps maps,
         fence_regs(acc);
         fence_frags(pa);
         mbar_arrive(empty_v + 8 * st);
-#pragma unroll
-        for (int i = 0; i < Dv / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        rescale_acc(acc, alpha);
         pack_p(s, pa);
         // pinned here: sunk below the next S issue, these writes to the next
         // second product's inputs would serialize the wgmmas
@@ -1374,6 +1587,17 @@ Route route_of(int dtype, int head_dim, int v_dim) {
   return dtype == 0 && built ? kFfma : kNoKernel;
 }
 
+// the design of the kernel of (dtype, D, Dv) (flash_attention_design)
+constexpr int kDesignFields = 6;
+
+template <int D>
+void wgmma_design(int* out) {
+  using L = HopperLayout<D>;
+  const int design[kDesignFields] = {kHopperBM, L::kBN, L::kStages,
+                                     L::kPingPong, L::kDynamic, L::kChained};
+  for (int i = 0; i < kDesignFields; ++i) out[i] = design[i];
+}
+
 // whether a window hides any key: one of S or more keys hides none (row -
 // col < S), so such a call computes what the instance without it computes,
 // and runs that instance, free of the window's bounds and tests
@@ -1442,6 +1666,38 @@ const char* flash_attention_kernel(int dtype, int head_dim, int v_dim,
            route == kWgmma ? "flash_wgmma_kernel" : "flash_ffma_kernel",
            head_dim, masks(window, seq) ? "true" : "false");
   return name;
+}
+
+// the design of the kernel flash_attention_fwd launches for (dtype, D,
+// Dv), as kDesignFields ints into out: q rows and kv rows a tile, K/V
+// stages, whether the consumers take turns, whether the work items come
+// from a counter, whether a consumer chains its items (the FFMA kernel:
+// 128, 64, 1, 0, 0, 0). Returns the number of fields, 0 where no kernel
+// is built
+int flash_attention_design(int dtype, int head_dim, int v_dim, int* out) {
+  switch (route_of(dtype, head_dim, v_dim)) {
+    case kWgmma:
+      switch (head_dim) {
+        case 16: wgmma_design<16>(out); break;
+        case 32: wgmma_design<32>(out); break;
+        case 64: wgmma_design<64>(out); break;
+        case 80: wgmma_design<80>(out); break;
+        case 112: wgmma_design<112>(out); break;
+        case 128: wgmma_design<128>(out); break;
+        case 192: wgmma_design<192>(out); break;
+        case 256: wgmma_design<256>(out); break;
+        default: return 0;
+      }
+      return kDesignFields;
+    case kFfma: {
+      const int design[kDesignFields] = {kFfmaBM, FfmaLayout<128>::kBN, 1, 0,
+                                         0, 0};
+      for (int i = 0; i < kDesignFields; ++i) out[i] = design[i];
+      return kDesignFields;
+    }
+    case kNoKernel: break;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -202,6 +202,12 @@ def _bind_flash(lib: ctypes.CDLL) -> None:
     # (dtype, head dim, value dim, window, seq)
     lib.flash_attention_kernel.argtypes = [i32, i32, i32, i32, i32]
     lib.flash_attention_kernel.restype = ctypes.c_char_p
+    # (dtype, head dim, value dim, out): an older source may lack it
+    # (scripts/flash_ab.py binds every version)
+    if hasattr(lib, "flash_attention_design"):
+        lib.flash_attention_design.argtypes = [i32, i32, i32,
+                                               ctypes.POINTER(i32)]
+        lib.flash_attention_design.restype = i32
 
 
 def _bind_rglru(lib: ctypes.CDLL) -> None:

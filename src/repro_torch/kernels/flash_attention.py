@@ -26,7 +26,10 @@ reference's ``blocks.flash_attention`` takes it. One kernel serves each
   D 80's and 112's second box and D 16's and 32's only one read zeros
   past the head, never the next head of a packed projection; D / 16
   k-steps of the first product, an N = Dv second product; D 192 is built
-  only with Dv 128, its K and V tiles of their own widths in 2 stages). A
+  only with Dv 128, its K and V tiles of their own widths in 2 stages; at
+  D 112 a consumer chains its work items, issuing the next item's first
+  scores with this item's last product; ``design`` reports each
+  instance's layout). A
   tensor map the CUDA driver refuses raises through ``check_launch``:
   there is no fallback to another kernel;
 - float32, D == Dv at 16, 32, 64, 80, 128: ``flash_ffma_kernel<D, W>``
@@ -204,6 +207,29 @@ def kernel_symbol(dtype: torch.dtype, head_dim: int, window: int = 0,
         raise ValueError(f"no flash kernel for {dtype}, head dim {head_dim}"
                          f", value dim {dv}")
     return name.decode()
+
+
+# what flash_attention_design reports of a kernel instance, in its order
+DESIGN_FIELDS = ("q_rows", "kv_rows", "stages", "ping_pong", "dynamic",
+                 "chained")
+
+
+def design(dtype: torch.dtype, head_dim: int, v_dim: int = 0) -> dict:
+    """The design of the kernel ``flash_attention`` launches for CUDA
+    operands of this dtype, head dim and value dim (0: the head dim), as
+    the library reports it (``DESIGN_FIELDS``): q and kv rows a tile, K/V
+    stages, whether the consumers take turns, whether the work items come
+    from a counter, whether a consumer chains its items (the next item's
+    first scores issued with this one's last product; builds the
+    library)."""
+    dv = v_dim or head_dim
+    out = (ctypes.c_int * len(DESIGN_FIELDS))()
+    n = cuda_lib.load_flash().flash_attention_design(
+        _DTYPE_CODES.get(dtype, -1), head_dim, dv, out)
+    if n != len(DESIGN_FIELDS):
+        raise ValueError(f"no flash kernel for {dtype}, head dim {head_dim}"
+                         f", value dim {dv}")
+    return dict(zip(DESIGN_FIELDS, out))
 
 
 cuda_lib.register(flash_attention)

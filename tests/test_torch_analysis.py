@@ -463,6 +463,17 @@ def test_cli_without_a_device_raises_without_a_gpu(monkeypatch):
         cli.main(["--ast-only"])
 
 
+def test_census_in_a_child_equals_the_census_in_process(results):
+    """``collect_in_child`` (the card test's census, in a fresh
+    interpreter) returns what ``collect`` returns here, through JSON."""
+    assert census.collect_in_child(device="cpu") == results
+
+
+def test_census_child_failure_names_the_cause():
+    with pytest.raises(RuntimeError, match="unknown census group"):
+        census.collect_in_child(["no_such_group"], device="cpu")
+
+
 def test_budget_file_is_beside_the_census_module():
     assert os.path.dirname(census.default_budgets_path()) == \
         str(ROOT / "src" / "repro_torch" / "analysis")

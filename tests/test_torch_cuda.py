@@ -1333,6 +1333,92 @@ def test_mla_and_d112_flash_kernels_match_plain_on_card(
     assert float(row_err.max()) <= FLASH_ROW_TOL[torch.bfloat16]
 
 
+def _hold_flash_to_plain(q, k, v, causal, window):
+    """One launch of the kernel on (q, k, v), held to the plain version at
+    the bf16 gates (max-abs, and the row error over the row's RMS)."""
+    fa.flash_attention.launches = 0
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.flash_attention.launches == 1
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == q.dtype and out.shape == plain.shape
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0,
+                               atol=FLASH_TOL[q.dtype])
+    row_err = (out.float() - plain.float()).abs().amax(dim=-1) / \
+        plain.float().square().mean(dim=-1).sqrt().clamp_min(1e-30)
+    assert float(row_err.max()) <= FLASH_ROW_TOL[q.dtype]
+
+
+# D 112 at its kv tiles' boundaries: S one short of, at and one past one,
+# two and five tiles (the design's kv rows), causal and not, and windows
+# one short of and one past a tile, whose back edge crosses every tile
+# boundary: (tiles, offset, causal, window tiles, window offset)
+D112_TILE_CASES = [(1, -1, True, 0, 0), (1, 0, True, 0, 0),
+                   (1, 1, True, 0, 0), (2, -1, False, 0, 0),
+                   (2, 0, True, 0, 0), (2, 1, True, 0, 0),
+                   (2, 1, False, 0, 0), (5, 3, True, 1, -1),
+                   (5, 3, True, 1, 1), (5, -1, False, 2, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles,offset,causal,w_tiles,w_offset",
+                         D112_TILE_CASES)
+def test_d112_flash_kernel_at_its_kv_tile_boundaries(
+        cuda_device, tiles, offset, causal, w_tiles, w_offset):
+    rows = fa.design(torch.bfloat16, 112)["kv_rows"]
+    s = tiles * rows + offset
+    window = w_tiles * rows + w_offset if w_tiles else 0
+    gen = torch.Generator().manual_seed(s + window)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda_device,
+                                                    torch.bfloat16)
+               for shape in ((2, s, 8, 112), (2, s, 2, 112), (2, s, 2, 112)))
+    _hold_flash_to_plain(q, k, v, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", ["linear", "random"])
+def test_d112_flash_kernel_over_the_whole_exponent_range(cuda_device,
+                                                         sweep):
+    """Scores whose exponents e^(scale (s - m)) = 2^x sweep x from 0 to
+    below -126 along each row, where exp2 underflows: "linear" gives key j
+    the score -0.955 j (x = -0.13 j, every row's max at key 0), "random"
+    scales q by 14 (a raw-score spread of ~950). Across ex2's whole range
+    and its underflow the kernel holds to the plain version at the bf16
+    gates."""
+    gen = torch.Generator().manual_seed(31)
+    s = 1000
+    q = torch.randn((2, s, 8, 112), generator=gen) * 0.01
+    k = torch.randn((2, s, 2, 112), generator=gen) * 0.01
+    v = torch.randn((2, s, 2, 112), generator=gen)
+    if sweep == "linear":
+        q[..., 0] = 1.0
+        k[..., 0] = -0.955 * torch.arange(s, dtype=torch.float32)[:, None]
+    else:
+        q, k = q * 1400.0, k * 100.0
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    for causal in (True, False):
+        _hold_flash_to_plain(q, k, v, causal, 0)
+
+
+@pytest.mark.cuda
+def test_flash_design_names_each_instance(cuda_device):
+    """``fa.design`` reports each built instance's layout: 128-row q
+    tiles; 128-row kv tiles but at D 256 (80 rows, work from a counter, no
+    turns); the consumers' turns from D 64 to 192; D 112 alone chains its
+    work items; float32's 64-row kv tiles; an unbuilt pair raises."""
+    for d, dv in fa.HEAD_DIM_PAIRS[torch.bfloat16]:
+        got = fa.design(torch.bfloat16, d, dv)
+        assert tuple(got) == fa.DESIGN_FIELDS and got["q_rows"] == 128
+        assert got["kv_rows"] == (80 if d == 256 else 128)
+        assert got["dynamic"] == (d == 256)
+        assert got["ping_pong"] == (32 < d < 256)
+        assert got["chained"] == (d == 112)
+        assert got["stages"] == (2 if d in (192, 256) else 3)
+    assert fa.design(torch.float32, 128)["kv_rows"] == 64
+    with pytest.raises(ValueError, match="no flash kernel"):
+        fa.design(torch.bfloat16, 96)
+
+
 @pytest.mark.cuda
 def test_mla_flash_reads_strided_operands(cuda_device):
     """MLA's k and v sliced out of one packed (192 + 128)-wide projection
@@ -1797,7 +1883,9 @@ def test_card_census_launches_what_the_cpu_census_calls(cuda_device,
     from repro_torch.analysis import census
     monkeypatch.setattr(autotune, "_TABLE", {})
     cpu = census.collect()
-    card = census.collect(device=cuda_device)
+    # the card census in a fresh interpreter: in the test's own process
+    # every profiler session could lose the port's kernels' device events
+    card = census.collect_in_child(device=cuda_device)
     assert sorted(card) == sorted(cpu)
     assert census.card_failures(cpu, card) == []
     one_a_one_b = {"p2m_phase_a_implicit_fleet": 1, "p2m_phase_b_fleet": 1}

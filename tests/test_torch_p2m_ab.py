@@ -41,8 +41,8 @@ def scripts(monkeypatch):
         "f32_no_curve", "f32_no_store", "f32_short_mac", "legacy_no_chain",
         "legacy_short_mac", "legacy_no_store")),
     *(("flash_ab", "flash_attention.cu", n) for n in (
-        "no_exp", "no_softmax", "no_pv", "f32_no_exp", "f32_no_pv",
-        "f32_no_loads", "f32_no_scores"))])
+        "no_exp", "no_softmax", "no_pv", "no_rescale", "no_kv_loads",
+        "f32_no_exp", "f32_no_pv", "f32_no_loads", "f32_no_scores"))])
 def test_each_diagnostic_changes_the_current_source(tmp_path, scripts,
                                                     script, source, name):
     ab = scripts(script)
