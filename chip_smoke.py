@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and exits non-zero without one. It builds the port's
-three kernel libraries from ``src/repro_torch/csrc`` (one nvcc each, started
+four kernel libraries from ``src/repro_torch/csrc`` (one nvcc each, started
 together, into ``build/repro_torch/``), then, printing one JSON object per
 line:
 
@@ -18,8 +18,8 @@ line:
    float32 MACs use no TF32; every ``flash_wgmma_kernel`` instance, each
    (D, Dv) pair with and without a window (``flash_wgmma_kernel<256,
    true>`` and MLA's ``flash_wgmma_kernel<192, false>`` among them), runs
-   HGMMA and no HMMA, the float32 flash kernel and the RG-LRU scan's three
-   instances neither);
+   HGMMA and no HMMA, the float32 flash kernel, the RG-LRU scan's three
+   instances and the sLSTM kernel's two neither);
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32), three odd geometries (one at C 48) and
    the paper's ImageNet frame size (16, 224, 224, 3) -> (200704, 32). Each
@@ -108,7 +108,16 @@ line:
    in float32) bit for bit against the unfused chain (tail, ``rglru_scan``,
    cast) on the same card tensors and against its plain version (h_last at
    1e-5, hs within one bf16 ulp), timed beside its plain version, its
-   bound and the unfused chain (``unfused_chain_ms``);
+   bound and the unfused chain (``unfused_chain_ms``); ``slstm_scan``: the
+   sLSTM recurrence kernel at xlstm-350m's prefill (B 4, S 2048, 4 heads
+   of 256, bf16 weights) and at head dim 16 (float32 weights), hs and the
+   last carry against its plain version (the reference's step looped in
+   PyTorch ops) at 1e-4, timed (event pairs, median of 30; the profiler's
+   own duration) beside the plain loop (one run), its bound (the
+   products' FFMAs or the bytes); then as a decode step runs it: 4
+   one-token steps chained through a drawn carry that the kernel advances
+   in place, each step's h and carry against the plain version at 1e-4,
+   one step timed beside its bound (``decode_ms``, ``decode_bound_ms``);
 10. ``lm``: full-width, full-depth granite-8b, then stablelm-3b (head dim
    80), then recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention at
    head dim 256 with a 2048-key window, 3.55 B parameters), with seeded
@@ -130,6 +139,13 @@ line:
    (``init_peak_memory_gb``), the prefill's MoE stages by device time
    (route, dispatch, expert products, combine: profiler ranges around the
    port's functions) and the LM head over every prompt position alone;
+   ``lm_xlstm``: xlstm-350m at full width and depth (21 mLSTM and 3 sLSTM
+   layers, d 1024, 4 heads of 256, no attention) the same way: one
+   ``slstm_scan_kernel<__nv_bfloat16>`` launch an sLSTM layer in the
+   prefill and in each decode step (96 a generate) and no flash launch,
+   its ``lm_profile`` with the prefill split into the mLSTM layers'
+   chunkwise ops and projections, the sLSTM kernel and the sLSTM layers'
+   projections (profiler ranges) and the rest;
 11. ``lm_vs_cpu``: granite-8b at full width but 2 layers (a depth cut: the
    CPU engine at 36 layers would take minutes), the card's engine against
    the CPU engine on a (1, 128) prompt and 8 new tokens, with its flash
@@ -145,7 +161,10 @@ line:
    experts cut to 64 on both sides so that the host holds the layer),
    card against CPU as above, where a token whose top-k set differs must
    sit at a near tie (2 bf16 ulps) and a compared position routed
-   differently leaves the comparison (counted); ``lm_moe_routing``: one
+   differently leaves the comparison (counted); ``lm_xlstm_vs_cpu``:
+   xlstm-350m at full width, 8 layers (one period of its pattern: 7 mLSTM,
+   1 sLSTM), card against CPU as above on a 512-token prompt (two of the
+   mLSTM's 256-row chunks, so the carry between chunks is compared); ``lm_moe_routing``: one
    deepseek-v2 MoE layer at full width on a seeded 4 x 2048 bf16 input,
    card against CPU: the share of tokens whose top-k sets differ, each
    such token's CPU gap at the k-th logit (within 2 bf16 ulps), the
@@ -285,7 +304,8 @@ line:
    recurrentgemma-2b's, (192, 128) with deepseek-v2's and D 112 with
    kimi-k2's; the ``rglru_scan`` and ``rglru_scan_gated`` rows
    with recurrentgemma-2b's: 0 for the ungated instance, which its
-   prefill never launches, and one an RG-LRU layer for the gated one),
+   prefill never launches, and one an RG-LRU layer for the gated one; the
+   ``slstm_scan`` row with xlstm-350m's),
    and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -391,6 +411,8 @@ PATH_KERNELS = {
     # the hybrid: local attention through flash, RG-LRU through the scan
     # with its gates fused (never the ungated instance)
     "lm_rg": ("flash_attention", "rglru_scan_gated"),
+    # xLSTM: the sLSTM recurrence in prefill and decode, no attention
+    "lm_xlstm": ("slstm_scan",),
     # the device backend runs one cuDNN conv and plain PyTorch: no kernel
     "engine_device": (),
     # a sampled, calibrated chip: its (4, C) rows in B and the fused kernel
@@ -523,6 +545,37 @@ RGLRU_GATED_REPLACES = (
     "none (no TPU kernel): src/repro/models/recurrent.py:62-71 and 102 "
     "(_rglru_gates' float32 tail as XLA elementwise ops, then "
     "jax.lax.associative_scan in rglru_apply)")
+# the sLSTM recurrence at xlstm-350m's prefill (B 4, S 2048, 4 heads of 256,
+# bf16 weights) and at the reduced configs' head dim 16 (float32 weights),
+# against its plain version (the reference's step looped in PyTorch ops):
+# the kernel's dot sums dh float32 products in order, cuBLAS the plain
+# version's in another (~1e-7 of |pre| a step), and the stabilized
+# recurrence (|h| <= 1, f_s <= 1) keeps that far under 1e-4 over S 2048
+SLSTM_SERVING = dict(batch=4, seq=2048, heads=4, head_dim=256,
+                     w_dtype="bfloat16")
+SLSTM_NARROW = dict(batch=4, seq=2048, heads=4, head_dim=16,
+                    w_dtype="float32")
+SLSTM_TOL = 1e-4
+# the plain loop is ~60 k launches, 1.3-2.2 s, a call: timed once (its
+# spread does not matter beside its ~75x gap to the kernel)
+SLSTM_PLAIN_REPS = 1
+# the decode check: one-token steps chained through one carry, in place
+SLSTM_DECODE_STEPS = 4
+SLSTM_SOURCE = "src/repro_torch/csrc/slstm_scan.cu"
+SLSTM_REPLACES = ("none (no TPU kernel): src/repro/models/recurrent.py:312 "
+                  "(jax.lax.scan of _slstm_step, :267-286, in slstm_apply)")
+# xlstm-350m (21 mLSTM + 3 sLSTM layers, no attention) at full width and
+# depth; its card-vs-CPU phase at one period of its pattern (8 layers) ...
+LM_XLSTM_ARCH = "xlstm-350m"
+LM_XLSTM_CPU_LAYERS = 8
+# ... on a prompt of two of the mLSTM's 256-row chunks (the carry between
+# chunks compared card against CPU)
+LM_XLSTM_CPU_PROMPT = 512
+# the mixers' stages of an xLSTM prefill, each timed on the device as a
+# profiler range (the sLSTM kernel by its own name)
+XLSTM_STAGES = {"mlstm_layers": "mlstm_apply",
+                "mlstm_chunk_ops": "_mlstm_chunk_step",
+                "slstm_layers": "slstm_apply"}
 # the MoE models at full width, every expert, top-k and capacity factor,
 # cut in depth only (neither fits one 80 GB card whole): deepseek-v2 at its
 # dense first layer + 5 MoE layers (about 42.5 GB of bf16 weights), kimi-k2
@@ -564,10 +617,11 @@ def nvidia_smi_line() -> str:
 
 
 def device_ms(fn, device, reps: int = REPS,
-              sleep_cycles: int = 2_000_000) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` runs. On a card
-    each run is queued behind a sleep kernel (~1 ms by default), so the
-    event pair brackets the device work and not Python's enqueue time."""
+              sleep_cycles: int = 2_000_000, warmup: int = 3) -> float:
+    """Median device time of ``fn()`` in ms over ``reps`` runs after
+    ``warmup`` untimed ones. On a card each run is queued behind a sleep
+    kernel (~1 ms by default), so the event pair brackets the device work
+    and not Python's enqueue time."""
     import torch
     if device.type != "cuda":
         times = []
@@ -576,7 +630,7 @@ def device_ms(fn, device, reps: int = REPS,
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
@@ -3486,7 +3540,7 @@ def device_breakdown(prof, families, n_top: int = 0):
     """Device ms of a profile by family, and the ``n_top`` device events
     with the most time. Only device-side events (kernels, copies) count:
     the CPU ops that launched them carry the same time and are skipped, and
-    so are the device-side copies of ``moe_spans``' ranges.
+    so are the device-side copies of ``stage_spans``' ranges.
     ``families``: (name, substrings of the lower-case event name) pairs,
     the first match wins; the rest is ``other``."""
     from torch.autograd import DeviceType
@@ -3495,7 +3549,7 @@ def device_breakdown(prof, families, n_top: int = 0):
     rows = []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or is_marker(evt) \
-                or evt.key.startswith("moe:"):
+                or evt.key.startswith(SPAN_PREFIXES):
             continue
         us = event_us(evt)
         if not us:
@@ -3523,6 +3577,7 @@ VISION_FAMILIES = (("frontend_kernels", ("phase_a_kernel", "phase_b_kernel",
 LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel",
                                      "flash_ffma_kernel")),
                ("rglru_scan", ("rglru_scan_kernel",)),
+               ("slstm_scan", ("slstm_scan_kernel",)),
                ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
                            "nvjet")))
 
@@ -3868,6 +3923,124 @@ def rglru_gated_phase(device):
     return row
 
 
+def slstm_work(geom: dict, carry_in: bool = False) -> dict:
+    """What one sLSTM call at ``geom`` must do: the four float32
+    pre-activations and r and b read once (and the carry, where one is
+    given, as in a decode step; a prefill starts it at zero), hs and the
+    last carry written once; per element of hs the four products' dh FMAs
+    a gate and ~20 float32 operations of the gates' chain. With the bound
+    (``bound``: FFMA peak or bytes)."""
+    b, s, h, dh = (geom[x] for x in ("batch", "seq", "heads", "head_dim"))
+    w_size = 2 if geom["w_dtype"] == "bfloat16" else 4
+    n = b * s * h * dh
+    carry = 4 * b * h * dh * 4
+    moved = 5 * n * 4 + 4 * (h * dh * dh + h * dh) * w_size \
+        + carry * (2 if carry_in else 1)
+    ops = 2 * 4 * n * dh + 20 * n
+    t, by = bound(moved, ops)
+    return dict(bytes=moved, flops=ops, bound_ms=t, bound_by=by)
+
+
+def slstm_operands(geom: dict, device, seed: int):
+    """x_g normal, r_g at the spec's init (0.5 / sqrt(h dh)) and b_g normal
+    / 2 in the geometry's weight dtype."""
+    import torch
+    b, s, h, dh = (geom[x] for x in ("batch", "seq", "heads", "head_dim"))
+    w_dtype = getattr(torch, geom["w_dtype"])
+    gen = torch.Generator().manual_seed(seed)
+    xs = [torch.randn(b, s, h, dh, generator=gen).to(device)
+          for _ in range(4)]
+    rs_ = [(0.5 / (h * dh) ** 0.5 * torch.randn(h, dh, dh, generator=gen))
+           .to(device=device, dtype=w_dtype) for _ in range(4)]
+    bs = [(0.5 * torch.randn(h, dh, generator=gen)).to(device=device,
+                                                       dtype=w_dtype)
+          for _ in range(4)]
+    return xs, rs_, bs
+
+
+def slstm_decode(geom: dict, device, rs_, bs) -> dict:
+    """The kernel as a decode step runs it: SLSTM_DECODE_STEPS chained
+    one-token calls at ``geom``'s batch, heads and head dim from a drawn
+    carry (c normal, n >= 0.5, h in (-1, 1), m normal), the kernel
+    advancing the carry in place, the plain version a copy of it. Each
+    step's h and carry are held at SLSTM_TOL, and the carry must come back
+    as the very tensors given; then one step is timed beside its bound."""
+    import torch
+    from repro_torch.kernels import slstm_scan as ss
+
+    b, h, dh = (geom[x] for x in ("batch", "heads", "head_dim"))
+    one = dict(geom, seq=SLSTM_DECODE_STEPS)
+    xs = slstm_operands(one, device, 43 + dh)[0]
+    gen = torch.Generator().manual_seed(47 + dh)
+    draw = [torch.randn(b, h, dh, generator=gen) for _ in range(4)]
+    carry = (draw[0], 0.5 + draw[1].abs(), torch.tanh(draw[2]), draw[3])
+    carry = tuple(t.to(device) for t in carry)
+    mine = tuple(t.clone() for t in carry)
+    ptrs = [t.data_ptr() for t in mine]
+    errs = []
+    for t in range(SLSTM_DECODE_STEPS):
+        x_t = [x[:, t:t + 1].contiguous() for x in xs]
+        hs, out = ss.slstm_scan(x_t, rs_, bs, mine)
+        check([o.data_ptr() for o in out] == ptrs,
+              "slstm_scan did not advance the given carry in place")
+        hs_p, carry = ss.slstm_scan_plain(x_t, rs_, bs, carry)
+        errs.append(max([max_abs(hs, hs_p)]
+                        + [max_abs(a, b_) for a, b_ in zip(mine, carry)]))
+        check(bool(torch.isfinite(hs).all()),
+              "non-finite slstm_scan decode output")
+    check(max(errs) <= SLSTM_TOL, f"slstm_scan decode vs plain max-abs "
+          f"per step {errs} > {SLSTM_TOL}")
+    x_1 = [x[:, :1].contiguous() for x in xs]
+    work = slstm_work(dict(geom, seq=1), carry_in=True)
+    return dict(decode_steps=SLSTM_DECODE_STEPS,
+                decode_max_abs_per_step=errs,
+                decode_ms=device_ms(lambda: ss.slstm_scan(x_1, rs_, bs, mine),
+                                    device),
+                decode_bound_ms=work["bound_ms"],
+                decode_bound_by=work["bound_by"])
+
+
+def slstm_phase(geom: dict, device):
+    """The sLSTM recurrence kernel at ``geom`` against its plain version on
+    the same card tensors (hs and the last carry at SLSTM_TOL), timed
+    beside it and its bound, and as a decode step runs it
+    (``slstm_decode``). Returns the summary row."""
+    import torch
+    from repro_torch.kernels import slstm_scan as ss
+
+    b, s, h, dh = (geom[x] for x in ("batch", "seq", "heads", "head_dim"))
+    xs, rs_, bs = slstm_operands(geom, device, 41 + dh)
+    hs, last = ss.slstm_scan(xs, rs_, bs)
+    hs_p, last_p = ss.slstm_scan_plain(xs, rs_, bs)
+    err_hs = max_abs(hs, hs_p)
+    err_carry = max(max_abs(a, b_) for a, b_ in zip(last, last_p))
+    err = max(err_hs, err_carry)
+    check(bool(torch.isfinite(hs).all()), "non-finite slstm_scan output")
+    check(err <= SLSTM_TOL, f"slstm_scan vs plain max-abs {err} > "
+          f"{SLSTM_TOL}")
+    decode = slstm_decode(geom, device, rs_, bs)
+    work = slstm_work(geom)
+    symbol = ss.kernel_symbol(rs_[0].dtype)
+    # (the comparison's plain call above was the plain version's warm-up)
+    row = {"name": "slstm_scan", "route": "cuda", "source": SLSTM_SOURCE,
+           "replaces": SLSTM_REPLACES, "launches": 0, "max_abs_err": err,
+           "ms": device_ms(lambda: ss.slstm_scan(xs, rs_, bs), device),
+           "plain_ms": device_ms(lambda: ss.slstm_scan_plain(xs, rs_, bs),
+                                 device, reps=SLSTM_PLAIN_REPS, warmup=0),
+           "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+           "library_ms": None,
+           "profiler_ms": profiled_ms(lambda: ss.slstm_scan(xs, rs_, bs),
+                                      symbol)}
+    emit("slstm_scan", geometry=f"B{b} S{s} H{h} dh{dh} "
+         f"weights {geom['w_dtype']}", kernel=symbol, tolerance=SLSTM_TOL,
+         hs_max_abs=err_hs, carry_max_abs=err_carry, bytes=work["bytes"],
+         flops=work["flops"], plain_reps=SLSTM_PLAIN_REPS,
+         library_note="no single PyTorch call computes the sLSTM recurrence",
+         achieved_tflop_per_s=work["flops"] / (row["ms"] * 1e-3) / 1e12,
+         **decode, **{k_: v_ for k_, v_ in row.items() if k_ != "launches"})
+    return row
+
+
 def _lm_prompts(cfg, batch: int, length: int, seed: int):
     import torch
     return torch.randint(0, cfg.vocab_size, (batch, length),
@@ -3884,23 +4057,29 @@ def scan_wrapper() -> str:
             else "rglru_scan")
 
 
-def lm_launches(cfg) -> dict:
-    """The kernel launches of one prefill of ``cfg``: one flash launch an
-    attention layer (global, local or MLA), one gated scan an RG-LRU layer;
-    decode launches none, and the MoE none (plain products)."""
+def lm_launches(cfg, new_tokens: int) -> dict:
+    """The kernel launches of one generate of ``new_tokens`` tokens of
+    ``cfg``: in the prefill one flash launch an attention layer (global,
+    local or MLA), one gated scan an RG-LRU layer and one sLSTM launch an
+    sLSTM layer; in each of the ``new_tokens - 1`` decode steps one sLSTM
+    launch an sLSTM layer and nothing else; the MoE none (plain
+    products)."""
     mixers = [mx for mx, _ in cfg.layer_kinds()]
     want = {"flash_attention": sum(mx in ("attn", "local_attn", "mla")
                                    for mx in mixers),
-            scan_wrapper(): mixers.count("rglru")}
+            scan_wrapper(): mixers.count("rglru"),
+            "slstm_scan": mixers.count("slstm") * new_tokens}
     return {k: v for k, v in want.items() if v}
 
 
-def lm_symbol(cfg, seq: int = LM_PROMPT) -> str:
+def lm_symbol(cfg, seq: int = LM_PROMPT):
     """The flash instance every attention layer of ``cfg`` launches at a
     prompt of ``seq`` tokens (a local layer's with the config's window,
-    where that hides a key)."""
+    where that hides a key); None for a model without attention."""
     import inspect
     from repro_torch.kernels import flash_attention as fa
+    if not {"attn", "local_attn", "mla"} & set(cfg.block_pattern):
+        return None
     if "mla" in cfg.block_pattern:     # qk: nope + rope columns; v: nope
         dh = cfg.resolved_head_dim
         return fa.kernel_symbol(cfg.dtype, dh + cfg.rope_head_dim, v_dim=dh)
@@ -3915,38 +4094,43 @@ def lm_symbol(cfg, seq: int = LM_PROMPT) -> str:
     return fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim)
 
 
+# the profiler ranges of ``stage_spans``: the MoE stages, the xLSTM mixers
+SPAN_PREFIXES = ("moe:", "xlstm:")
+
+
 @contextlib.contextmanager
-def moe_spans():
-    """For the length of the block, each MoE stage of the port
-    (``MOE_STAGES``) runs inside a profiler range ``moe:<stage>``, whose
-    device time (``moe_stage_ms``) is that of the kernels it launched."""
+def stage_spans(module, stages: dict, prefix: str):
+    """For the length of the block, each function of ``module`` named in
+    ``stages`` (``{stage: function name}``) runs inside a profiler range
+    ``<prefix>:<stage>``, whose device time (``stage_ms``) is that of the
+    kernels it launched (a nested range's kernels count in both)."""
     import torch
-    from repro_torch.models import blocks
-    saved = {name: getattr(blocks, fn) for name, fn in MOE_STAGES.items()}
+    saved = {name: getattr(module, fn) for name, fn in stages.items()}
 
     def spanned(name, fn):
         def call(*args, **kwargs):
-            with torch.profiler.record_function(f"moe:{name}"):
+            with torch.profiler.record_function(f"{prefix}:{name}"):
                 return fn(*args, **kwargs)
         return call
 
-    for name, fn in MOE_STAGES.items():
-        setattr(blocks, fn, spanned(name, saved[name]))
+    for name, fn in stages.items():
+        setattr(module, fn, spanned(name, saved[name]))
     try:
         yield
     finally:
-        for name, fn in MOE_STAGES.items():
-            setattr(blocks, fn, saved[name])
+        for name, fn in stages.items():
+            setattr(module, fn, saved[name])
 
 
-def moe_stage_ms(prof) -> dict:
-    """Device ms of the kernels launched inside each ``moe:<stage>`` range
-    of a profile taken under ``moe_spans``."""
+def stage_ms(prof, stages: dict, prefix: str) -> dict:
+    """Device ms of the kernels launched inside each ``<prefix>:<stage>``
+    range of a profile taken under ``stage_spans``."""
     from torch.autograd import DeviceType
-    out = {name: 0.0 for name in MOE_STAGES}
+    out = {name: 0.0 for name in stages}
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CPU and evt.key.startswith("moe:"):
-            out[evt.key[4:]] += evt.device_time_total / 1e3
+        if evt.device_type == DeviceType.CPU \
+                and evt.key.startswith(f"{prefix}:"):
+            out[evt.key[len(prefix) + 1:]] += evt.device_time_total / 1e3
     return out
 
 
@@ -3989,10 +4173,11 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
     check_path_counts(counts, path, tuple(
         scan_wrapper() if k_ == "rglru_scan_gated" else k_
         for k_ in PATH_KERNELS[path]))
-    want = lm_launches(cfg)
+    want = lm_launches(cfg, LM_NEW)
     check({k_: v_ for k_, v_ in counts.items() if v_} == want,
           f"{arch} launched {counts}, want {want} (one flash launch an "
-          "attention layer, one scan an RG-LRU layer)")
+          "attention layer, one scan an RG-LRU layer, one sLSTM launch an "
+          "sLSTM layer in the prefill and in each decode step)")
     logits = engine.prefill_logits.float()
     check(tuple(tokens.shape) == (LM_BATCH, LM_NEW), "generated shape")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
@@ -4016,7 +4201,9 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
     for _ in range(2):
         engine.generate(prompts, LM_NEW)
         steady.append(dict(engine.stats))
-    emit("lm", model=arch, layers=cfg.num_layers, cut=cut,
+    # (xlstm-350m's line is named for its path; the others are "lm")
+    emit("lm_xlstm" if path == "lm_xlstm" else "lm", model=arch,
+         path=path, layers=cfg.num_layers, cut=cut,
          d_model=cfg.d_model,
          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
          head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
@@ -4041,15 +4228,23 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
          teacher_forcing_checked_rows=int(sure.sum()), nvidia_smi=smi)
 
     # device time of one prefill by family and by kernel (and, with experts,
-    # by MoE stage), and of one decode step against its wall time (the
-    # device's idle share while decoding)
-    with torch.inference_mode(), (moe_spans() if cfg.num_experts
-                                  else contextlib.nullcontext()):
+    # by MoE stage; in an xLSTM by mixer stage), and of one decode step
+    # against its wall time (the device's idle share while decoding)
+    symbol = lm_symbol(cfg)
+    n_flash = want.get("flash_attention", 0)
+    n_slstm = want.get("slstm_scan", 0) // LM_NEW
+    xlstm = bool({"mlstm", "slstm"} & set(cfg.block_pattern))
+    from repro_torch.models import blocks, recurrent
+    spans = (stage_spans(blocks, MOE_STAGES, "moe") if cfg.num_experts else
+             stage_spans(recurrent, XLSTM_STAGES, "xlstm") if xlstm
+             else contextlib.nullcontext())
+    with torch.inference_mode(), spans:
         prof, (_, cache) = profile_session(
-            lambda: engine.prefill(engine.params, prompts), expect="flash")
+            lambda: engine.prefill(engine.params, prompts),
+            expect="flash" if n_flash else "slstm_scan_kernel")
     fam, top = device_breakdown(prof, LM_FAMILIES, 12)
     total = sum(fam.values())
-    moe_ms = moe_stage_ms(prof) if cfg.num_experts else None
+    moe_ms = stage_ms(prof, MOE_STAGES, "moe") if cfg.num_experts else None
     # the LM head over every prompt position, alone
     head = (params["embed"]["w"].T if cfg.tie_embeddings
             else params["lm_head"]["w"])
@@ -4060,15 +4255,45 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
                            reps=5)
     del hidden
     # every flash launch of the prefill is the serving width's one kernel
-    # instance, and every scan the scan kernel
+    # instance (a model without attention launches none), every scan the
+    # scan kernel and every sLSTM launch the weights' dtype's instance
     from torch.autograd import DeviceType
-    symbol = lm_symbol(cfg)
     flash_ran = {e.key: e.count for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and "flash" in e.key}
-    n_flash = want["flash_attention"]
-    check(len(flash_ran) == 1 and symbol in next(iter(flash_ran))
-          and next(iter(flash_ran.values())) == n_flash,
+    check((not n_flash and not flash_ran)
+          or (len(flash_ran) == 1 and symbol in next(iter(flash_ran))
+              and next(iter(flash_ran.values())) == n_flash),
           f"prefill flash launches {flash_ran}, want {n_flash} of {symbol}")
+    slstm_ran = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and "slstm_scan_kernel" in e.key}
+    slstm_symbol = None
+    if n_slstm:     # (a port from before the kernel has no sLSTM layer)
+        from repro_torch.kernels import slstm_scan as ss
+        slstm_symbol = ss.kernel_symbol(cfg.pdtype)
+    check(sum(slstm_ran.values()) == n_slstm
+          and all(slstm_symbol in key for key in slstm_ran),
+          f"prefill sLSTM launches {slstm_ran}, want {n_slstm} of "
+          f"{slstm_symbol}")
+    # an xLSTM prefill by stage: the mLSTM layers' chunkwise ops and
+    # projections, the sLSTM kernel and the sLSTM layers' projections, and
+    # the rest (embedding, norms, residuals, the LM head). The profiler
+    # ties a PyTorch op's kernels to the range around it, but not the
+    # sLSTM kernel, launched through ctypes: the sLSTM range holds the
+    # projections alone, and the kernel comes from its family
+    xlstm_ms = None
+    if xlstm:
+        st = stage_ms(prof, XLSTM_STAGES, "xlstm")
+        check(st["slstm_layers"] < fam["slstm_scan"],
+              f"the sLSTM range ({st['slstm_layers']} ms) holds the kernel "
+              f"({fam['slstm_scan']} ms): the split would count it twice")
+        xlstm_ms = dict(
+            mlstm_chunk_ops=st["mlstm_chunk_ops"],
+            mlstm_projections=st["mlstm_layers"] - st["mlstm_chunk_ops"],
+            slstm_kernel=fam["slstm_scan"],
+            slstm_projections=st["slstm_layers"],
+            rest=(total - st["mlstm_layers"] - st["slstm_layers"]
+                  - fam["slstm_scan"]))
     # every scan of the prefill is the gated instance of the compute dtype
     # (in a port from before it, the one scan kernel)
     from repro_torch.kernels import rglru_scan as rs
@@ -4096,6 +4321,9 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
          flash_kernel=symbol,
          flash_launches_in_prefill=n_flash, scan_launches_in_prefill=scans,
          scan_kernels_in_prefill=scan_ran,
+         slstm_kernels_in_prefill=slstm_ran,
+         slstm_share=fam["slstm_scan"] / total if total else None,
+         prefill_xlstm_device_ms=xlstm_ms,
          prefill_device_ms=fam, prefill_device_ms_total=total,
          flash_share=fam["flash_attention"] / total if total else None,
          scan_share=fam["rglru_scan"] / total if total else None,
@@ -4179,10 +4407,10 @@ def route_diffs(card: dict, cpu: dict) -> dict:
 
 
 def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
-                    layers: int = 2, experts: int = 0):
+                    layers: int = 2, experts: int = 0, prompt: int = 128):
     """``arch`` at full width, ``layers`` layers (and ``experts`` experts,
     where given: a cut of an MoE config on both sides): the card's engine
-    against the CPU engine on one prompt, with its launch counts (one flash
+    against the CPU engine on one ``prompt``-token prompt, with its launch counts (one flash
     launch an attention or MLA layer, one scan an RG-LRU layer, nothing
     else). Prefill logits, and the logits of every decode step fed the
     CPU's tokens, within LM_CPU_TOL; greedy tokens equal up to the first
@@ -4211,16 +4439,18 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
         check(all(m != "moe" for _, m in cfg.layer_kinds()[:-1]),
               f"{arch} at {layers} layers has an MoE layer before the last")
     params = lm.init_params(1, cfg, device=device)
-    prompts = _lm_prompts(cfg, 1, 128, 31)
+    prompts = _lm_prompts(cfg, 1, prompt, 31)
     n_new = 8
-    gpu = ServingEngine(cfg, params, max_len=128 + n_new, device=device)
+    gpu = ServingEngine(cfg, params, max_len=prompt + n_new, device=device)
     cuda_lib.reset_launch_counts()
     tok_gpu = gpu.generate(prompts, n_new).cpu()
     counts = cuda_lib.launch_counts()
-    check({k_: v_ for k_, v_ in counts.items() if v_} == lm_launches(cfg),
-          f"{arch} launches {counts}, want {lm_launches(cfg)}")
+    want = lm_launches(cfg, n_new)
+    check({k_: v_ for k_, v_ in counts.items() if v_} == want,
+          f"{arch} launches {counts}, want {want}")
     params_cpu = to_device(params, torch.device("cpu"))
-    cpu = ServingEngine(cfg, params_cpu, max_len=128 + n_new, device="cpu")
+    cpu = ServingEngine(cfg, params_cpu, max_len=prompt + n_new,
+                        device="cpu")
     tok_cpu = cpu.generate(prompts, n_new)
     # both devices decode the CPU's tokens: the logits of every step, so the
     # decode path is compared too, and the CPU's margins
@@ -4261,8 +4491,9 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
             break
         equal += 1
     emit(phase, model=arch, layers=layers, cut=cut,
-         head_dim=cfg.resolved_head_dim, flash_kernel=lm_symbol(cfg, 128),
-         launches=counts, prompt=128, new_tokens=n_new,
+         head_dim=cfg.resolved_head_dim,
+         flash_kernel=lm_symbol(cfg, prompt), launches=counts,
+         prompt=prompt, new_tokens=n_new,
          prefill_logits_max_abs=err,
          tolerance=LM_CPU_TOL, decode_logits_max_abs_per_step=step_err,
          positions_routed_differently=[i for i, m_ in enumerate(moved)
@@ -4377,8 +4608,9 @@ def lm_ring_phase(device):
     cuda_lib.reset_launch_counts()
     tokens = engine.generate(prompts, n_new)
     counts = cuda_lib.launch_counts()
-    check({k_: v_ for k_, v_ in counts.items() if v_} == lm_launches(cfg),
-          f"ring launches {counts}, want {lm_launches(cfg)}")
+    want = lm_launches(cfg, n_new)
+    check({k_: v_ for k_, v_ in counts.items() if v_} == want,
+          f"ring launches {counts}, want {want}")
     ring = engine.prefill(params, prompts)[1]["decoder"]["body"]["l2"]
     check(ring["mixer"]["k"].shape[1] == cfg.window,
           f"the local layer's prefill cache holds "
@@ -4942,6 +5174,14 @@ def main() -> int:
           f"tensor-core instructions in the scan library: {scan}")
     emit("tensor_cores", library="rglru_scan", kernels=len(scan),
          hmma_hgmma={k: list(v) for k, v in scan.items()})
+    # the sLSTM kernel's two instances (float32 and bf16 weights): float32
+    # FMAs, no tensor-core instruction
+    slstm = cuda_lib.tensor_core_census(built["slstm_scan"][0],
+                                        ("HMMA", "HGMMA"))
+    check(len(slstm) == 2 and all(v == (0, 0) for v in slstm.values()),
+          f"tensor-core instructions in the sLSTM library: {slstm}")
+    emit("tensor_cores", library="slstm_scan", kernels=len(slstm),
+         hmma_hgmma={k: list(v) for k, v in slstm.items()})
 
     t_kernels = time.perf_counter()
     rows = kernel_phase(SERVING, device)
@@ -4971,8 +5211,11 @@ def main() -> int:
         if f"ILi{geom['head_dim']}ELb0E" in k_)) for geom in FLASH_MOE]
     scan_row = rglru_phase(device)
     gated_row = rglru_gated_phase(device)
+    slstm_row = slstm_phase(SLSTM_SERVING, device)
+    slstm_phase(SLSTM_NARROW, device)
     # every served head dim runs the Hopper kernel; lm_phase checks that
-    # every prefill launch was the instance named here (MLA's qk width)
+    # every prefill launch was the instance named here (MLA's qk width);
+    # xlstm-350m has no attention
     for arch in (LM_ARCH, LM_D80_ARCH, LM_RG_ARCH, LM_MLA_ARCH,
                  LM_KIMI_ARCH):
         cfg_ = get_arch(arch)
@@ -4986,12 +5229,15 @@ def main() -> int:
     counts_rg = lm_phase(device, smi, LM_RG_ARCH, "lm_rg")
     counts_mla = lm_phase(device, smi, LM_MLA_ARCH, layers=LM_MLA_LAYERS)
     counts_kimi = lm_phase(device, smi, LM_KIMI_ARCH, layers=LM_KIMI_LAYERS)
+    counts_xlstm = lm_phase(device, smi, LM_XLSTM_ARCH, "lm_xlstm")
     lm_vs_cpu_phase(device)
     lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
     lm_vs_cpu_phase(device, LM_RG_ARCH, "lm_rg_vs_cpu", LM_RG_LAYERS)
     lm_vs_cpu_phase(device, LM_MLA_ARCH, "lm_mla_vs_cpu")
     lm_vs_cpu_phase(device, LM_KIMI_ARCH, "lm_kimi_vs_cpu",
                     experts=LM_KIMI_CPU_EXPERTS)
+    lm_vs_cpu_phase(device, LM_XLSTM_ARCH, "lm_xlstm_vs_cpu",
+                    LM_XLSTM_CPU_LAYERS, prompt=LM_XLSTM_CPU_PROMPT)
     moe_routing_phase(device)
     lm_ring_phase(device)
     t_train = time.perf_counter()
@@ -5051,6 +5297,9 @@ def main() -> int:
     # never launches the ungated one (0 there)
     rows.append({**scan_row, "launches": counts_rg["rglru_scan"]})
     rows.append({**gated_row, "launches": counts_rg["rglru_scan_gated"]})
+    # the sLSTM kernel's from xlstm-350m's (3 in the prefill, 3 in each
+    # decode step)
+    rows.append({**slstm_row, "launches": counts_xlstm["slstm_scan"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

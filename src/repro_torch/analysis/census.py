@@ -476,7 +476,7 @@ PORT_KERNELS = ("phase_a_kernel", "phase_a_warp_kernel",
                 "phase_b_fleet_kernel", "fused_stream_kernel",
                 "fused_stream_pix_kernel", "legacy_conv_kernel",
                 "legacy_warp_kernel", "flash_wgmma_kernel",
-                "flash_ffma_kernel", "rglru_scan_kernel")
+                "flash_ffma_kernel", "rglru_scan_kernel", "slstm_scan_kernel")
 _PORT_RE = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(PORT_KERNELS)
                       + r")(?![A-Za-z0-9_])")
 # library kernels by their names: cuDNN's convolutions, cuBLAS's products

@@ -2,9 +2,9 @@
 
 The sources under ``repro_torch/csrc`` have a plain C interface, so one
 ``nvcc`` call per library builds it in seconds without PyTorch's headers.
-Three libraries: ``p2m`` (the sensor frontend's seven kernels, five of
-them also with a chip grid dimension), ``flash_attention`` and
-``rglru_scan``. A build runs at first use, into ``build/repro_torch/``
+Four libraries: ``p2m`` (the sensor frontend's seven kernels, five of
+them also with a chip grid dimension), ``flash_attention``, ``rglru_scan``
+and ``slstm_scan``. A build runs at first use, into ``build/repro_torch/``
 at the root of the checkout, under a name keyed by a hash of the library's
 sources and flags: an edited source never loads a stale library. Nothing
 here runs at import time. The launch helpers shared by the kernel wrappers
@@ -57,7 +57,10 @@ P2M = Library("p2m", ("p2m_kernels.cu", "p2m_physics.cuh"),
 FLASH = Library("flash_attention", ("flash_attention.cu",), _COMMON_FLAGS)
 RGLRU = Library("rglru_scan", ("rglru_scan.cu",),
                 _COMMON_FLAGS + ("--fmad=false",))
-LIBRARIES = (P2M, FLASH, RGLRU)
+# the sLSTM's elementwise chain rounds where the plain version's ops do
+SLSTM = Library("slstm_scan", ("slstm_scan.cu",),
+                _COMMON_FLAGS + ("--fmad=false",))
+LIBRARIES = (P2M, FLASH, RGLRU, SLSTM)
 
 
 class P2MPhysics(ctypes.Structure):
@@ -89,6 +92,17 @@ class FlashGeom(ctypes.Structure):
         + [("scale", ctypes.c_float)]
         + [(f"{t}_{a}", ctypes.c_int64) for t in "qkvo" for a in "bsh"]
         + [("window", ctypes.c_int32)])
+
+
+class SlstmArgs(ctypes.Structure):
+    """Mirror of ``struct SlstmArgs`` in csrc/slstm_scan.cu: the four
+    gates' pre-activations, recurrent weights and biases, the carry (c, n,
+    h, m) in and out, hs, and the geometry."""
+    _fields_ = ([(name, ctypes.c_void_p * 4) for name in (
+        "x", "r", "b", "carry_in", "carry_out")]
+        + [("hs", ctypes.c_void_p)]
+        + [(name, ctypes.c_int32) for name in ("batch", "seq", "heads",
+                                               "dh")])
 
 
 def _nvcc() -> str:
@@ -219,6 +233,13 @@ def _bind_rglru(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
+def _bind_slstm(lib: ctypes.CDLL) -> None:
+    # (operands, r and b's dtype, stream)
+    lib.slstm_scan.argtypes = [ctypes.POINTER(SlstmArgs), ctypes.c_int,
+                               ctypes.c_void_p]
+    lib.slstm_scan.restype = ctypes.c_int
+
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -243,6 +264,12 @@ def load_flash() -> ctypes.CDLL:
 def load_rglru() -> ctypes.CDLL:
     """The RG-LRU scan library (built on first use), its entries typed."""
     return _load(RGLRU, _bind_rglru)
+
+
+def load_slstm() -> ctypes.CDLL:
+    """The sLSTM recurrence library (built on first use), its entry
+    typed."""
+    return _load(SLSTM, _bind_slstm)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +311,8 @@ def stream_of(device: torch.device) -> ctypes.c_void_p:
 # the modules whose wrappers register below: one for each library
 _WRAPPER_MODULES = ("repro_torch.kernels.p2m_conv",
                     "repro_torch.kernels.flash_attention",
-                    "repro_torch.kernels.rglru_scan")
+                    "repro_torch.kernels.rglru_scan",
+                    "repro_torch.kernels.slstm_scan")
 _WRAPPERS: List[Callable] = []
 # observers of wrapper calls (``repro_torch.analysis.census``), and how deep
 # the current thread is inside a wrapper's body

@@ -12,23 +12,26 @@ copies).
 Modes: "train" (logits), "prefill" (logits + cache), "decode" (one token).
 Prefill attention runs through the flash-attention kernel on the card, a
 ``local_attn`` layer's with the config's sliding window, an ``mla`` layer's
-at its (qk, v) widths (192, 128), and an ``rglru`` layer's recurrence
-through the RG-LRU scan kernel. A ``moe`` layer's MLP is the reference's
-single-shard mixture of experts (``blocks.moe_apply``); the leading dense
-layers of an MoE config take ``dense_d_ff``.
+at its (qk, v) widths (192, 128), an ``rglru`` layer's recurrence through
+the RG-LRU scan kernel, and an ``slstm`` layer's through the sLSTM kernel
+(in decode too); an ``mlstm`` layer's chunkwise form is plain PyTorch ops,
+as the reference's is plain einsums. A ``moe`` layer's MLP is the
+reference's single-shard mixture of experts (``blocks.moe_apply``); the
+leading dense layers of an MoE config take ``dense_d_ff``; an xLSTM layer
+(MLP kind ``none``) has no MLP.
 
 The cache: the reference updates it functionally. Here a decode step
 writes the new K/V row IN PLACE into the cache it is given (at slot
 ``pos``, or ``pos % window`` in a local layer's ring; an MLA layer's
-latent row at ``pos``), and an RG-LRU layer's state too, and returns a
-cache whose leaves are those same tensors, so a cache must not be reused
-after a decode step.
+latent row at ``pos``), and a recurrent layer's state (RG-LRU, mLSTM,
+sLSTM) too, and returns a cache whose leaves are those same tensors, so a
+cache must not be reused after a decode step.
 
-Ported: configs whose mixers are ``attn``, ``local_attn``, ``mla`` and
-``rglru``, with dense or MoE MLPs (the dense GQA models, recurrentgemma-2b,
-deepseek-v2 and kimi-k2). mLSTM/sLSTM and encoder-decoder configs raise
-``NotImplementedError``, and so do a ``mesh`` and ``rules``: one card has
-no mesh.
+Ported: configs whose mixers are ``attn``, ``local_attn``, ``mla``,
+``rglru``, ``mlstm`` and ``slstm``, with dense, MoE or no MLPs (the dense
+GQA models, recurrentgemma-2b, deepseek-v2, kimi-k2 and xlstm-350m).
+Encoder-decoder configs raise ``NotImplementedError``, and so do a
+``mesh`` and ``rules``: one card has no mesh.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from repro_torch.models import blocks, recurrent
 from repro_torch.models.params import ParamSpec, init_tree, stack_specs
 
 # the mixers this port runs
-MIXERS = ("attn", "local_attn", "mla", "rglru")
+MIXERS = ("attn", "local_attn", "mla", "rglru", "mlstm", "slstm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -50,8 +53,7 @@ def check_supported(cfg: ArchConfig) -> None:
     mixers = sorted({mx for mx, _ in cfg.layer_kinds()} - set(MIXERS))
     if mixers:
         raise NotImplementedError(
-            f"{cfg.name}: mixers {mixers} are not ported yet (mLSTM/sLSTM "
-            "come with a later slice)")
+            f"{cfg.name}: mixers {mixers} are not ported")
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet")
@@ -99,6 +101,10 @@ def _mixer_spec(cfg: ArchConfig, mixer: str) -> Dict[str, Any]:
         return blocks.mla_spec(cfg)
     if mixer == "rglru":
         return recurrent.rglru_spec(cfg)
+    if mixer == "mlstm":
+        return recurrent.mlstm_spec(cfg)
+    if mixer == "slstm":
+        return recurrent.slstm_spec(cfg)
     raise ValueError(mixer)
 
 
@@ -154,6 +160,10 @@ def _mixer_cache_spec(cfg: ArchConfig, mixer: str, batch: int,
         return blocks.mla_cache_spec(cfg, batch, max_len)
     if mixer == "rglru":
         return recurrent.rglru_cache_spec(cfg, batch)
+    if mixer == "mlstm":
+        return recurrent.mlstm_cache_spec(cfg, batch)
+    if mixer == "slstm":
+        return recurrent.slstm_cache_spec(cfg, batch)
     raise ValueError(mixer)
 
 
@@ -196,6 +206,12 @@ def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                                    cache=mc)
     elif mixer == "rglru":
         out, nm = recurrent.rglru_apply(lp["mixer"], h, cfg, mode=mode,
+                                        cache=mc)
+    elif mixer == "mlstm":
+        out, nm = recurrent.mlstm_apply(lp["mixer"], h, cfg, mode=mode,
+                                        cache=mc)
+    elif mixer == "slstm":
+        out, nm = recurrent.slstm_apply(lp["mixer"], h, cfg, mode=mode,
                                         cache=mc)
     else:
         raise ValueError(mixer)

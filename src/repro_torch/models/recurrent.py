@@ -1,11 +1,15 @@
-"""The RG-LRU mixer (RecurrentGemma / Griffin): port of the RG-LRU part of
-``repro.models.recurrent``.
+"""The recurrent mixers: port of ``repro.models.recurrent``, the RG-LRU
+(RecurrentGemma / Griffin) and xLSTM's mLSTM and sLSTM (xlstm-350m).
 
-``rglru_spec`` / ``rglru_cache_spec`` are the reference's leaves, shapes
-and inits; ``rglru_apply`` runs train, prefill and decode as the reference
-does, in its precision: the projections and the depthwise causal conv in
-the compute dtype (the conv's four taps summed in the reference's order,
-so bf16 rounds where it does), the gates' ``a`` and ``b`` and the state in
+Each ``*_spec`` / ``*_cache_spec`` is the reference's leaves, shapes,
+inits and dtypes; each ``*_apply`` runs train, prefill and decode as the
+reference does, in its precision, and a decode step writes its new state
+IN PLACE into the cache it is given (the reference returns new ones), as
+the attention cache does (``models/lm.py``).
+
+RG-LRU: the projections and the depthwise causal conv in the compute
+dtype (the conv's four taps summed in the reference's order, so bf16
+rounds where it does), the gates' ``a`` and ``b`` and the state in
 float32. The gates come in two parts: ``_rglru_gate_inputs`` (the two
 gate projections and sigmoids in the compute dtype, and c = -8
 softplus(lam)) and ``_rglru_ab`` (their float32 tail, a and b);
@@ -16,10 +20,20 @@ card that writes h in the compute dtype and the last step's h; on the CPU
 the tail, the reference's associative scan in PyTorch ops and the cast);
 decode advances it one token in plain ops, as the reference computes it.
 
-The cache: a decode step writes the new state ``h`` and conv window IN
-PLACE into the cache it is given (the reference returns new ones), as the
-attention cache does (``models/lm.py``). mLSTM and sLSTM (xlstm-350m) come
-with a later slice.
+mLSTM: q, k, v, the input and forget gates' pre-activations (``f_pre +
+1.0`` a compute-dtype add) and the output gate (``_sigmoid``, op by op)
+in the compute dtype; ``_mlstm_chunk_step``, the reference's stabilized
+chunkwise form, in float32 in PyTorch ops (the reference computes it in
+plain einsums, no Pallas kernel), over chunks of ``chunk`` = 256 tokens
+in train and prefill (a prompt longer than a chunk must be a whole number
+of chunks: the reference's reshape fails otherwise, and the port raises
+``ValueError``) and at T = 1 in decode.
+
+sLSTM: the four x-projections in the compute dtype, cast to float32; the
+recurrence over the whole sequence in train and prefill, and over one
+token in decode, through ``kernels.slstm_scan.slstm_scan`` (one
+hand-written kernel launch on the card; on the CPU the reference's step
+in PyTorch ops, looped); hs cast to the compute dtype through ``wo``.
 """
 from __future__ import annotations
 
@@ -31,7 +45,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rglru_scan import rglru_ab as _rglru_ab
 from repro_torch.kernels.rglru_scan import rglru_scan_gated
+from repro_torch.kernels.slstm_scan import slstm_scan
+from repro_torch.models.blocks import _project
 from repro_torch.models.params import ParamSpec
+
+NEG_INF = -1e30
 
 _RGLRU_C = 8.0
 _CONV_W = 4
@@ -143,4 +161,185 @@ def rglru_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
         if mode == "prefill":   # a copy: no view keeps the conv alive
             new_cache = {"h": h_last, "conv": conv_state.clone()}
     y = (hs.to(x.dtype) * gate) @ params["w_out"].to(x.dtype)
+    return y, new_cache
+
+
+# ----------------------------------------------------------------------------
+# mLSTM (matrix-memory LSTM, chunkwise-parallel, stabilized)
+# ----------------------------------------------------------------------------
+
+def mlstm_spec(cfg: ArchConfig) -> Dict[str, Any]:
+    d, h = cfg.d_model, cfg.num_heads
+    dh = cfg.resolved_head_dim
+    return {
+        "wq": ParamSpec((d, h, dh)),
+        "wk": ParamSpec((d, h, dh)),
+        "wv": ParamSpec((d, h, dh)),
+        "wi": ParamSpec((d, h), scale=0.1),
+        "wf": ParamSpec((d, h), scale=0.1),
+        "wo_gate": ParamSpec((d, h, dh)),
+        "wo": ParamSpec((h, dh, d)),
+    }
+
+
+def mlstm_cache_spec(cfg: ArchConfig, batch: int) -> Dict[str, Any]:
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    return {
+        "C": ParamSpec((batch, h, dh, dh), init="zeros", dtype="float32"),
+        "n": ParamSpec((batch, h, dh), init="zeros", dtype="float32"),
+        "m": ParamSpec((batch, h), init="zeros", dtype="float32"),
+    }
+
+
+def _mlstm_chunk_step(carry, inp, dh: int):
+    """One chunk, the reference's function op for op in float32. carry: C
+    (B, H, dk, dv), n (B, H, dk), m (B, H); inp: q, k, v (B, T, H, dh),
+    i_pre, f_pre (B, T, H). Returns ((C, n, m) after the chunk, h (B, T, H,
+    dh))."""
+    f32 = torch.float32
+    C, n, m = carry
+    q, k, v, i_pre, f_pre = inp
+    cc = q.shape[1]
+    lf = -_softplus(-f_pre.to(f32))       # log_sigmoid: (B, T, H)
+    bcum = torch.cumsum(lf, dim=1)                            # inclusive
+    total = bcum[:, -1]                                       # (B, H)
+    ip = i_pre.to(f32)
+
+    # intra-chunk log weights w[t, j] = bcum_t - bcum_j + ip_j (j <= t)
+    w = bcum[:, :, None, :] - bcum[:, None, :, :] + ip[:, None, :, :]
+    tri = torch.tril(torch.ones((cc, cc), dtype=torch.bool,
+                                device=q.device))
+    w = torch.where(tri[None, :, :, None], w, NEG_INF)        # (B, T, J, H)
+    inter = bcum + m[:, None, :]                              # (B, T, H)
+    m_t = torch.maximum(w.amax(dim=2), inter)
+    # the reference's "no-op" maximum with -NEG_INF * 0.0: max(m_t, 0),
+    # which cancels between num and den but moves their roundings
+    m_t = torch.clamp(m_t, min=-NEG_INF * 0.0)
+
+    wexp = torch.exp(w - m_t[:, :, None, :])
+    qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
+    scores = torch.einsum("bthd,bjhd->btjh", qf, kf) * (dh ** -0.5)
+    sw = scores * wexp
+    num_intra = torch.einsum("btjh,bjhd->bthd", sw, vf)
+    den_intra = sw.sum(dim=2)
+
+    inter_scale = torch.exp(inter - m_t)                      # (B, T, H)
+    qs = qf * dh ** -0.5
+    qC = torch.einsum("bthd,bhde->bthe", qs, C)
+    qn = torch.einsum("bthd,bhd->bth", qs, n)
+    num = num_intra + inter_scale[..., None] * qC
+    den = den_intra + inter_scale * qn
+    hdn = torch.maximum(den.abs(), torch.exp(-m_t))
+    h_out = num / hdn[..., None]                              # (B, T, H, dh)
+
+    # state update
+    m_next = torch.maximum(m + total,
+                           (total[:, None] - bcum + ip).amax(dim=1))
+    kv_w = torch.exp(total[:, None] - bcum + ip - m_next[:, None])
+    decay = torch.exp(m + total - m_next)
+    C_new = (decay[:, :, None, None] * C
+             + torch.einsum("bthd,bthe->bhde", kv_w[..., None] * kf, vf))
+    n_new = (decay[:, :, None] * n
+             + torch.einsum("bth,bthd->bhd", kv_w, kf))
+    return (C_new, n_new, m_next), h_out
+
+
+def mlstm_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
+                mode: str = "train", cache: Optional[Dict] = None,
+                chunk: int = 256) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The mLSTM block on x (B, S, d). mode: train | prefill | decode.
+    Train and prefill run the chunk step over chunks of ``chunk`` tokens
+    (all of S where that is shorter); prefill returns the cache ``{"C",
+    "n", "m"}`` (float32); decode runs the chunk step at T = 1 from the
+    given cache and writes it in place."""
+    b, s, _ = x.shape
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    i_pre = x @ params["wi"].to(dt)
+    f_pre = x @ params["wf"].to(dt) + 1.0
+    og = _sigmoid(_project(x, params["wo_gate"]))
+
+    new_cache = None
+    if mode == "decode":
+        carry = (cache["C"], cache["n"], cache["m"])
+        (C, n, m), hs = _mlstm_chunk_step(carry, (q, k, v, i_pre, f_pre), dh)
+        for name, value in zip(("C", "n", "m"), (C, n, m)):
+            cache[name].copy_(value)
+        new_cache = {name: cache[name] for name in ("C", "n", "m")}
+    else:
+        chunk = min(chunk, s)
+        if s % chunk:
+            raise ValueError(
+                f"mLSTM: {s} tokens are not a whole number of {chunk}-token "
+                "chunks (the reference's chunk reshape fails there too)")
+        f32 = torch.float32
+        carry = (x.new_zeros((b, h, dh, dh), dtype=f32),
+                 x.new_zeros((b, h, dh), dtype=f32),
+                 x.new_zeros((b, h), dtype=f32))
+        outs = []
+        for j in range(0, s, chunk):
+            sl = slice(j, j + chunk)
+            carry, hj = _mlstm_chunk_step(
+                carry, (q[:, sl], k[:, sl], v[:, sl], i_pre[:, sl],
+                        f_pre[:, sl]), dh)
+            outs.append(hj)
+        hs = torch.cat(outs, dim=1)
+        if mode == "prefill":
+            new_cache = dict(zip(("C", "n", "m"), carry))
+    out = hs.to(dt) * og
+    y = out.reshape(b, s, h * dh) @ params["wo"].to(dt).reshape(h * dh, -1)
+    return y, new_cache
+
+
+# ----------------------------------------------------------------------------
+# sLSTM (scalar-memory LSTM with block-diagonal recurrence)
+# ----------------------------------------------------------------------------
+
+GATES = ("z", "i", "f", "o")
+
+def slstm_spec(cfg: ArchConfig) -> Dict[str, Any]:
+    d, h = cfg.d_model, cfg.num_heads
+    dh = cfg.resolved_head_dim
+    gates: Dict[str, Any] = {}
+    for g in GATES:
+        gates[f"w_{g}"] = ParamSpec((d, h, dh))
+        gates[f"r_{g}"] = ParamSpec((h, dh, dh), scale=0.5)
+        gates[f"b_{g}"] = ParamSpec((h, dh), init="zeros")
+    gates["wo"] = ParamSpec((h, dh, d))
+    return gates
+
+
+def slstm_cache_spec(cfg: ArchConfig, batch: int) -> Dict[str, Any]:
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    leaf = ParamSpec((batch, h, dh), init="zeros", dtype="float32")
+    return {"c": leaf, "n": leaf, "h": leaf, "m": leaf}
+
+
+def slstm_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
+                mode: str = "train", cache: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The sLSTM block on x (B, S, d). mode: train | prefill | decode.
+    Prefill returns the cache ``{"c", "n", "h", "m"}`` of the last position
+    (float32); decode advances the given cache one token, in place."""
+    b, s, _ = x.shape
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    xs = [_project(x, params[f"w_{g}"]).to(torch.float32) for g in GATES]
+    rs = [params[f"r_{g}"] for g in GATES]
+    bs = [params[f"b_{g}"] for g in GATES]
+    names = ("c", "n", "h", "m")
+
+    new_cache = None
+    if mode == "decode":
+        hs, _ = slstm_scan(xs, rs, bs, tuple(cache[k] for k in names))
+        new_cache = {k: cache[k] for k in names}
+    else:
+        hs, last = slstm_scan(xs, rs, bs)
+        if mode == "prefill":
+            new_cache = dict(zip(names, last))
+    y = hs.to(dt).reshape(b, s, h * dh) @ params["wo"].to(dt).reshape(
+        h * dh, -1)
     return y, new_cache

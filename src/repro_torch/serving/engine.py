@@ -1,19 +1,20 @@
 """Batched LM serving engine: prefill -> KV cache -> greedy decode.
 
 Port of ``repro.serving.engine`` for one device, the dense GQA models,
-recurrentgemma-2b, deepseek-v2 (MLA, MoE) and kimi-k2 (MoE)
-(``models/lm.py``):
+recurrentgemma-2b, deepseek-v2 (MLA, MoE), kimi-k2 (MoE) and xlstm-350m
+(mLSTM, sLSTM) (``models/lm.py``):
 
     engine = ServingEngine(cfg, params, max_len=2080)      # runs on the GPU
     tokens = engine.generate(prompts, max_new_tokens=32)   # (B, 32) int32
     engine.stats     # prefill_ms, decode_ms_per_token, tokens_per_s
 
 Prefill runs every layer's attention through the flash-attention kernel
-and every RG-LRU layer's recurrence through the scan kernel, fills a
+and every RG-LRU and sLSTM layer's recurrence through its kernel, fills a
 (B, max_len) KV cache (a ring of ``window`` slots for local attention, the
-MLA latent ``c_kv`` / ``k_rope`` for an MLA layer, the float32 state for an
-RG-LRU layer), and decode then attends to that cache
-one token at a time, writing each new K/V row and state in place. This slice decodes
+MLA latent ``c_kv`` / ``k_rope`` for an MLA layer, the float32 state for a
+recurrent layer), and decode then attends to that cache
+one token at a time, writing each new K/V row and state in place (an
+sLSTM layer's through one launch of its kernel). This slice decodes
 greedily: ``temperature > 0`` (sampling, which needs key splitting) and a
 ``mesh`` raise. ``device=None`` means the GPU; without CUDA the engine
 raises rather than moving to the CPU on its own. ``device="cpu"`` runs the
@@ -70,8 +71,10 @@ def pad_prefill_cache(cfg: ArchConfig, prefill_cache, batch: int,
     prefill already holds the last ``window`` positions in their ring
     slots (``blocks.attn_apply``), where the reference copies the first
     ``window`` (ROADMAP §3). An MLA layer's latent ``c_kv`` (B, S, r) and
-    ``k_rope`` (B, S, dr) grow along S as a K/V cache does; RG-LRU states
-    are copied leaf for leaf."""
+    ``k_rope`` (B, S, dr) grow along S as a K/V cache does; the fixed-size
+    recurrent states (RG-LRU's h and conv window, mLSTM's C, n, m, sLSTM's
+    c, n, h, m) have equal shapes on both sides and are copied leaf for
+    leaf."""
     target = lm.init_cache(cfg, batch, max_len,
                            device=prefill_cache["pos"].device)
 

@@ -56,7 +56,12 @@ against the plain version at their served prefills, ragged and strided;
 an unbuilt (D, Dv) pair raises; reduced deepseek-v2 and kimi-k2 in bf16 at
 the full models' attention widths launch one flash kernel a layer in a
 generate and match a card train-mode forward, and the MoE routing of tied
-bf16 logits on the card equals the CPU's without a host sync.
+bf16 logits on the card equals the CPU's without a host sync. The sLSTM
+recurrence kernel (xlstm-350m) is held against its plain version at 1e-4
+at dh 16 to 256 (float32 and bf16 weights, from a drawn carry and from
+none), one-token calls that advance the carry in place equal one sequence
+call bit for bit, and reduced xlstm-350m's engine on the card launches it
+once in the prefill and once a decode step and equals the CPU engine.
 """
 import dataclasses
 import itertools
@@ -73,6 +78,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import p2m_conv as tk
 from repro_torch.kernels import rglru_scan as rs
+from repro_torch.kernels import slstm_scan as ss
 from repro_torch.models import lm as tlm
 from repro_torch.models import vision as tv
 from repro_torch.serving import ServingEngine, VisionEngine
@@ -1757,6 +1763,122 @@ def test_hybrid_engine_on_card_matches_the_cpu(cuda_device, monkeypatch,
     assert {k: v for k, v in counts.items() if v} == {
         "flash_attention": 1, "rglru_scan_gated": 2}
     cpu = ServingEngine(cfg, params, max_len=40, device="cpu")
+    assert torch.equal(out.cpu(), cpu.generate(prompts, 6))
+    torch.testing.assert_close(engine.prefill_logits.cpu(),
+                               cpu.prefill_logits, rtol=0, atol=1e-4)
+
+
+# --- xlstm-350m: the sLSTM recurrence kernel --------------------------------
+
+# the kernel's dot sums dh float32 products in order, the plain version's
+# cuBLAS product in another (~1e-7 of |pre| a step); the recurrence is
+# stabilized (|h| <= 1, f_s <= 1), so over 2048 steps that stays far under
+SLSTM_TOL = 1e-4
+
+
+def slstm_operands(b, s, h, dh, w_dtype, device, seed=0):
+    """x_g normal, r_g at the spec's init (0.5 / sqrt(h dh)), b_g normal /
+    2, in ``w_dtype``; a drawn carry (n >= 0.5)."""
+    gen = torch.Generator().manual_seed(seed)
+    xs = [torch.randn(b, s, h, dh, generator=gen).to(device)
+          for _ in range(4)]
+    rs_ = [(0.5 / (h * dh) ** 0.5 * torch.randn(h, dh, dh, generator=gen)
+            ).to(device=device, dtype=w_dtype) for _ in range(4)]
+    bs = [(0.5 * torch.randn(h, dh, generator=gen)).to(device=device,
+                                                       dtype=w_dtype)
+          for _ in range(4)]
+    carry = [torch.randn(b, h, dh, generator=gen) for _ in range(4)]
+    carry[1] = carry[1].abs() + 0.5
+    return xs, rs_, bs, tuple(t.to(device) for t in carry)
+
+
+# xlstm-350m's prefill (dh 256, bf16 weights), the reduced configs' dh 16
+# (float32 weights), a ragged head count and one decode step
+SLSTM_SHAPES = [(4, 2048, 4, 256, torch.bfloat16),
+                (2, 37, 4, 16, torch.float32),
+                (3, 100, 3, 64, torch.bfloat16),
+                (4, 1, 4, 256, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dh,w_dtype", SLSTM_SHAPES)
+def test_slstm_scan_matches_plain_on_card(cuda_device, b, s, h, dh,
+                                          w_dtype):
+    """hs and the last carry against the plain version from a drawn carry
+    (advanced in place), one launch; from no carry too."""
+    xs, rs_, bs, carry = slstm_operands(b, s, h, dh, w_dtype, cuda_device,
+                                        seed=s + dh)
+    state = tuple(t.clone() for t in carry)
+    cuda_lib.reset_launch_counts()
+    hs, last = ss.slstm_scan(xs, rs_, bs, state)
+    assert {k: v for k, v in cuda_lib.launch_counts().items() if v} == {
+        "slstm_scan": 1}
+    assert all(a is b_ for a, b_ in zip(last, state))
+    hs_p, last_p = ss.slstm_scan_plain(xs, rs_, bs, carry)
+    torch.testing.assert_close(hs, hs_p, rtol=0, atol=SLSTM_TOL)
+    for got, want in zip(last, last_p):
+        torch.testing.assert_close(got, want, rtol=0, atol=SLSTM_TOL)
+    hs0, _ = ss.slstm_scan(xs, rs_, bs)
+    torch.testing.assert_close(hs0, ss.slstm_scan_plain(xs, rs_, bs)[0],
+                               rtol=0, atol=SLSTM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,w_dtype", [(16, torch.float32),
+                                        (256, torch.bfloat16)])
+def test_slstm_decode_steps_equal_the_sequence_call_on_card(cuda_device, dh,
+                                                            w_dtype):
+    """Eight one-token calls writing the carry in place equal one eight-step
+    call bit for bit (the same per-step arithmetic), the carry's tensors
+    kept."""
+    xs, rs_, bs, carry = slstm_operands(2, 8, 4, dh, w_dtype, cuda_device)
+    state = tuple(t.clone() for t in carry)
+    hs, last = ss.slstm_scan(xs, rs_, bs, carry)
+    for t in range(8):
+        h_t, out = ss.slstm_scan([x[:, t:t + 1] for x in xs], rs_, bs, state)
+        assert all(a is b for a, b in zip(out, state))
+        assert torch.equal(h_t[:, 0], hs[:, t])
+    assert all(torch.equal(a, b) for a, b in zip(state, last))
+
+
+@pytest.mark.cuda
+def test_slstm_scan_refuses_what_it_does_not_take(cuda_device):
+    xs, rs_, bs, _ = slstm_operands(1, 4, 2, 16, torch.bfloat16,
+                                    cuda_device)
+    with pytest.raises(ValueError, match="even head dim"):
+        ss.slstm_scan([x[..., :15] for x in xs], [r[:, :15, :15] for r in rs_],
+                      [b[:, :15] for b in bs])
+    with pytest.raises(TypeError, match="share float32 or bfloat16"):
+        ss.slstm_scan(xs, [r.half() for r in rs_], [b.half() for b in bs])
+    with pytest.raises(TypeError, match="float32"):
+        ss.slstm_scan([x.bfloat16() for x in xs], rs_, bs)
+    with pytest.raises(ValueError, match="several devices"):
+        ss.slstm_scan(xs, rs_, [b.cpu() for b in bs])
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.slstm_scan(xs, rs_, bs, [torch.zeros(1, 16, 2, device=cuda_device)
+                                    .transpose(1, 2) for _ in range(4)])
+
+
+@pytest.mark.cuda
+def test_xlstm_engine_on_card_matches_the_cpu(cuda_device, monkeypatch):
+    """Reduced xlstm-350m (float32, dh 16) on the card against the CPU
+    engine: one sLSTM launch in the prefill and one a decode step, the
+    plain version never run, no other kernel; greedy tokens equal, prefill
+    logits within 1e-4."""
+    cfg = reduced(get_arch("xlstm-350m"))
+    params = tlm.init_params(0, cfg)              # float32, on the CPU
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16),
+                            generator=torch.Generator().manual_seed(16))
+    engine = ServingEngine(cfg, params, max_len=24)
+    cuda_lib.reset_launch_counts()
+    with monkeypatch.context() as m:
+        def refuse(*args, **kwargs):
+            raise AssertionError("a plain version ran on the card path")
+        m.setattr(ss, "slstm_scan_plain", refuse)
+        out = engine.generate(prompts, 6)
+    assert {k: v for k, v in cuda_lib.launch_counts().items() if v} == {
+        "slstm_scan": 6}
+    cpu = ServingEngine(cfg, params, max_len=24, device="cpu")
     assert torch.equal(out.cpu(), cpu.generate(prompts, 6))
     torch.testing.assert_close(engine.prefill_logits.cpu(),
                                cpu.prefill_logits, rtol=0, atol=1e-4)

@@ -213,18 +213,20 @@ def test_row_error_limit_passes_tile_order_and_fails_a_dropped_tile(dtype):
 
 
 # the configs the LM path serves (the dense GQA ones, the hybrid, the MoE
-# ones)
+# ones, xLSTM)
 SERVED = {"granite-8b", "yi-34b", "stablelm-3b", "glm4-9b", "chameleon-34b",
-          "recurrentgemma-2b", "deepseek-v2-236b", "kimi-k2-1t-a32b"}
+          "recurrentgemma-2b", "deepseek-v2-236b", "kimi-k2-1t-a32b",
+          "xlstm-350m"}
 
 
 @pytest.mark.parametrize("name", sorted(tconfigs.ARCHS))
 def test_card_wrapper_takes_every_served_head_dim(name):
-    """Every config the LM path serves has a head dim the card kernels take:
-    ``_check_card_operands`` passes bf16 operands of its widths, an MLA
-    config's at its prefill's qk and v dims (CPU tensors here: the check
-    reads only dtype, shape, strides and alignment). The configs it does
-    not serve are refused before any attention runs."""
+    """Every config the LM path serves with attention has a head dim the
+    card kernels take: ``_check_card_operands`` passes bf16 operands of its
+    widths, an MLA config's at its prefill's qk and v dims (CPU tensors
+    here: the check reads only dtype, shape, strides and alignment). A
+    served config without attention (xlstm-350m) calls no flash kernel.
+    The configs it does not serve are refused before any attention runs."""
     cfg = tconfigs.get_arch(name)
     try:
         tlm.check_supported(cfg)
@@ -232,6 +234,8 @@ def test_card_wrapper_takes_every_served_head_dim(name):
         assert name not in SERVED
         return
     assert name in SERVED
+    if not {"attn", "local_attn", "mla"} & set(cfg.block_pattern):
+        return
     d = dv = cfg.resolved_head_dim
     if "mla" in cfg.block_pattern:     # nope + rope columns over v's width
         d = dv + cfg.rope_head_dim

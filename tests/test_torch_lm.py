@@ -325,7 +325,7 @@ def test_from_numpy_carries_bf16_bits():
 # ----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,what", [
-    ("xlstm-350m", "mixers"), ("whisper-base", "encoder-decoder")])
+    ("whisper-base", "encoder-decoder")])
 def test_unported_configs_raise(name, what):
     cfg = treduced(tconfigs.get_arch(name))
     with pytest.raises(NotImplementedError, match=what):
