@@ -110,14 +110,17 @@ line:
    1e-5, hs within one bf16 ulp), timed beside its plain version, its
    bound and the unfused chain (``unfused_chain_ms``); ``slstm_scan``: the
    sLSTM recurrence kernel at xlstm-350m's prefill (B 4, S 2048, 4 heads
-   of 256, bf16 weights) and at head dim 16 (float32 weights), hs and the
-   last carry against its plain version (the reference's step looped in
-   PyTorch ops) at 1e-4, timed (event pairs, median of 30; the profiler's
-   own duration) beside the plain loop (one run), its bound (the
-   products' FFMAs or the bytes); then as a decode step runs it: 4
-   one-token steps chained through a drawn carry that the kernel advances
-   in place, each step's h and carry against the plain version at 1e-4,
-   one step timed beside its bound (``decode_ms``, ``decode_bound_ms``);
+   of 256, bf16 weights), at the same shape with float32 weights and at
+   head dim 16 (float32 weights), hs and the last carry against its plain
+   version (the reference's step looped in PyTorch ops) at 1e-4, timed
+   (event pairs, median of 30; the profiler's own duration; ``us_per_step``)
+   beside the plain loop (one run), its bound (the products' FFMAs or the
+   bytes), with the launch's ``design`` (cluster, blocks, the SMs its
+   blocks ran on, rows a cluster, shared memory a block, the clusters the
+   card holds at once); then as a decode step runs it: 4 one-token steps
+   chained through a drawn carry that the kernel advances in place, each
+   step's h and carry against the plain version at 1e-4, one step timed
+   beside its bound (``decode_us``, ``decode_bound_us``);
 10. ``lm``: full-width, full-depth granite-8b, then stablelm-3b (head dim
    80), then recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention at
    head dim 256 with a 2048-key window, 3.55 B parameters), with seeded
@@ -141,7 +144,7 @@ line:
    port's functions) and the LM head over every prompt position alone;
    ``lm_xlstm``: xlstm-350m at full width and depth (21 mLSTM and 3 sLSTM
    layers, d 1024, 4 heads of 256, no attention) the same way: one
-   ``slstm_scan_kernel<__nv_bfloat16>`` launch an sLSTM layer in the
+   ``slstm_cluster_kernel<__nv_bfloat16, 4>`` launch an sLSTM layer in the
    prefill and in each decode step (96 a generate) and no flash launch,
    its ``lm_profile`` with the prefill split into the mLSTM layers'
    chunkwise ops and projections, the sLSTM kernel and the sLSTM layers'
@@ -546,13 +549,17 @@ RGLRU_GATED_REPLACES = (
     "(_rglru_gates' float32 tail as XLA elementwise ops, then "
     "jax.lax.associative_scan in rglru_apply)")
 # the sLSTM recurrence at xlstm-350m's prefill (B 4, S 2048, 4 heads of 256,
-# bf16 weights) and at the reduced configs' head dim 16 (float32 weights),
-# against its plain version (the reference's step looped in PyTorch ops):
-# the kernel's dot sums dh float32 products in order, cuBLAS the plain
-# version's in another (~1e-7 of |pre| a step), and the stabilized
-# recurrence (|h| <= 1, f_s <= 1) keeps that far under 1e-4 over S 2048
+# bf16 weights), at that shape with float32 weights (128 KB of them a block)
+# and at the reduced configs' head dim 16 (float32 weights), against its
+# plain version (the reference's step looped in PyTorch ops): the kernel's
+# dot sums dh float32 products in order, as cuBLAS sums the plain
+# version's at these shapes (the two agree bit for bit); a cuBLAS that
+# summed in another order would move |pre| ~1e-7 a step, and the
+# stabilized recurrence (|h| <= 1, f_s <= 1) keeps that far under 1e-4
+# over S 2048
 SLSTM_SERVING = dict(batch=4, seq=2048, heads=4, head_dim=256,
                      w_dtype="bfloat16")
+SLSTM_F32 = dict(SLSTM_SERVING, w_dtype="float32")
 SLSTM_NARROW = dict(batch=4, seq=2048, heads=4, head_dim=16,
                     w_dtype="float32")
 SLSTM_TOL = 1e-4
@@ -561,6 +568,9 @@ SLSTM_TOL = 1e-4
 SLSTM_PLAIN_REPS = 1
 # the decode check: one-token steps chained through one carry, in place
 SLSTM_DECODE_STEPS = 4
+# the sLSTM kernel's name, and the one before the cluster design (a port
+# that scripts/lm_ab.py runs may be older)
+SLSTM_KERNELS = ("slstm_cluster_kernel", "slstm_scan_kernel")
 SLSTM_SOURCE = "src/repro_torch/csrc/slstm_scan.cu"
 SLSTM_REPLACES = ("none (no TPU kernel): src/repro/models/recurrent.py:312 "
                   "(jax.lax.scan of _slstm_step, :267-286, in slstm_apply)")
@@ -3577,7 +3587,7 @@ VISION_FAMILIES = (("frontend_kernels", ("phase_a_kernel", "phase_b_kernel",
 LM_FAMILIES = (("flash_attention", ("flash_wgmma_kernel",
                                      "flash_ffma_kernel")),
                ("rglru_scan", ("rglru_scan_kernel",)),
-               ("slstm_scan", ("slstm_scan_kernel",)),
+               ("slstm_scan", SLSTM_KERNELS),
                ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
                            "nvjet")))
 
@@ -3992,19 +4002,46 @@ def slstm_decode(geom: dict, device, rs_, bs) -> dict:
           f"per step {errs} > {SLSTM_TOL}")
     x_1 = [x[:, :1].contiguous() for x in xs]
     work = slstm_work(dict(geom, seq=1), carry_in=True)
+    ms = device_ms(lambda: ss.slstm_scan(x_1, rs_, bs, mine), device)
     return dict(decode_steps=SLSTM_DECODE_STEPS,
-                decode_max_abs_per_step=errs,
-                decode_ms=device_ms(lambda: ss.slstm_scan(x_1, rs_, bs, mine),
-                                    device),
-                decode_bound_ms=work["bound_ms"],
-                decode_bound_by=work["bound_by"])
+                decode_max_abs_per_step=errs, decode_us=ms * 1e3,
+                decode_bound_us=work["bound_ms"] * 1e3,
+                decode_bound_by=work["bound_by"],
+                decode_over_bound=ms / work["bound_ms"])
+
+
+def slstm_design(geom: dict, device, xs, rs_, bs) -> dict:
+    """What a call at ``geom`` launches: ``design``'s cluster, blocks, rows
+    a cluster (a row group) and shared memory a block, the library's own
+    report of it (which must agree) with the clusters the card holds at
+    once, and the distinct SMs the blocks of one launch ran on."""
+    import torch
+    from repro_torch.kernels import slstm_scan as ss
+    w_dtype = rs_[0].dtype
+    want = ss.design(geom["batch"], geom["heads"], geom["head_dim"],
+                     w_dtype)
+    lib = ss.library_design(geom["batch"], geom["heads"], geom["head_dim"],
+                            w_dtype)
+    check(all(lib[k] == v for k, v in want.items() if k != "grid"),
+          f"the library's sLSTM design {lib} is not design()'s {want}")
+    sm_ids = torch.full((want["blocks"],), -1, dtype=torch.int32,
+                        device=device)
+    ss.slstm_scan(xs, rs_, bs, sm_ids=sm_ids)
+    ids = sm_ids.cpu()
+    check(bool((ids >= 0).all()), f"a block reported no SM: {ids}")
+    return dict(cluster=want["cluster"], cols=want["cols"],
+                blocks=want["blocks"], sms=len(set(ids.tolist())),
+                rows=want["rows"], slots=want["slots"],
+                groups=want["groups"], threads=want["threads"],
+                smem_bytes=want["smem_bytes"],
+                max_active_clusters=lib["max_active_clusters"])
 
 
 def slstm_phase(geom: dict, device):
     """The sLSTM recurrence kernel at ``geom`` against its plain version on
     the same card tensors (hs and the last carry at SLSTM_TOL), timed
-    beside it and its bound, and as a decode step runs it
-    (``slstm_decode``). Returns the summary row."""
+    beside it and its bound, with its design (``slstm_design``), and as a
+    decode step runs it (``slstm_decode``). Returns the summary row."""
     import torch
     from repro_torch.kernels import slstm_scan as ss
 
@@ -4019,8 +4056,9 @@ def slstm_phase(geom: dict, device):
     check(err <= SLSTM_TOL, f"slstm_scan vs plain max-abs {err} > "
           f"{SLSTM_TOL}")
     decode = slstm_decode(geom, device, rs_, bs)
+    design = slstm_design(geom, device, xs, rs_, bs)
     work = slstm_work(geom)
-    symbol = ss.kernel_symbol(rs_[0].dtype)
+    symbol = ss.kernel_symbol(rs_[0].dtype, b)
     # (the comparison's plain call above was the plain version's warm-up)
     row = {"name": "slstm_scan", "route": "cuda", "source": SLSTM_SOURCE,
            "replaces": SLSTM_REPLACES, "launches": 0, "max_abs_err": err,
@@ -4037,6 +4075,7 @@ def slstm_phase(geom: dict, device):
          flops=work["flops"], plain_reps=SLSTM_PLAIN_REPS,
          library_note="no single PyTorch call computes the sLSTM recurrence",
          achieved_tflop_per_s=work["flops"] / (row["ms"] * 1e-3) / 1e12,
+         us_per_step=row["ms"] * 1e3 / s, design=design,
          **decode, **{k_: v_ for k_, v_ in row.items() if k_ != "launches"})
     return row
 
@@ -4241,7 +4280,7 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
     with torch.inference_mode(), spans:
         prof, (_, cache) = profile_session(
             lambda: engine.prefill(engine.params, prompts),
-            expect="flash" if n_flash else "slstm_scan_kernel")
+            expect="flash" if n_flash else "slstm_")
     fam, top = device_breakdown(prof, LM_FAMILIES, 12)
     total = sum(fam.values())
     moe_ms = stage_ms(prof, MOE_STAGES, "moe") if cfg.num_experts else None
@@ -4266,11 +4305,17 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
           f"prefill flash launches {flash_ran}, want {n_flash} of {symbol}")
     slstm_ran = {e.key: e.count for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA
-                 and "slstm_scan_kernel" in e.key}
+                 and any(name in e.key for name in SLSTM_KERNELS)}
     slstm_symbol = None
     if n_slstm:     # (a port from before the kernel has no sLSTM layer)
+        import inspect
         from repro_torch.kernels import slstm_scan as ss
-        slstm_symbol = ss.kernel_symbol(cfg.pdtype)
+        # (scripts/lm_ab.py runs this on older versions, whose instance
+        # the weights' dtype alone named)
+        slstm_symbol = (
+            ss.kernel_symbol(cfg.pdtype, LM_BATCH)
+            if len(inspect.signature(ss.kernel_symbol).parameters) > 1
+            else ss.kernel_symbol(cfg.pdtype))
     check(sum(slstm_ran.values()) == n_slstm
           and all(slstm_symbol in key for key in slstm_ran),
           f"prefill sLSTM launches {slstm_ran}, want {n_slstm} of "
@@ -5174,11 +5219,14 @@ def main() -> int:
           f"tensor-core instructions in the scan library: {scan}")
     emit("tensor_cores", library="rglru_scan", kernels=len(scan),
          hmma_hgmma={k: list(v) for k, v in scan.items()})
-    # the sLSTM kernel's two instances (float32 and bf16 weights): float32
-    # FMAs, no tensor-core instruction
+    # the sLSTM kernel's eight instances (float32 and bf16 weights, row
+    # groups of 1, 2, 4 and 8 rows): float32 FMAs, no tensor-core
+    # instruction
     slstm = cuda_lib.tensor_core_census(built["slstm_scan"][0],
                                         ("HMMA", "HGMMA"))
-    check(len(slstm) == 2 and all(v == (0, 0) for v in slstm.values()),
+    check(len(slstm) == 8
+          and all("slstm_cluster_kernel" in k for k in slstm)
+          and all(v == (0, 0) for v in slstm.values()),
           f"tensor-core instructions in the sLSTM library: {slstm}")
     emit("tensor_cores", library="slstm_scan", kernels=len(slstm),
          hmma_hgmma={k: list(v) for k, v in slstm.items()})
@@ -5212,6 +5260,7 @@ def main() -> int:
     scan_row = rglru_phase(device)
     gated_row = rglru_gated_phase(device)
     slstm_row = slstm_phase(SLSTM_SERVING, device)
+    slstm_phase(SLSTM_F32, device)
     slstm_phase(SLSTM_NARROW, device)
     # every served head dim runs the Hopper kernel; lm_phase checks that
     # every prefill launch was the instance named here (MLA's qk width);

@@ -13,10 +13,13 @@ prompts of 2048 tokens for 32 new tokens, its launch and teacher-forcing
 checks, then the ``lm`` and ``lm_profile`` lines. The sources run in
 order, then in reverse (A B B A for two), so that versions are compared on
 one card within one call. Prints every run's lines tagged with its source
-and round, then the card's ``nvidia-smi`` line. recurrentgemma-2b runs
-with the hybrid's launch counts (``chip_smoke.PATH_KERNELS["lm_rg"]``:
-its scan is the gated instance, or in a port from before it the ungated
-one). Needs a CUDA card and exits non-zero without one.
+and round, then the card's ``nvidia-smi`` line. Each arch runs as
+``chip_smoke.py`` runs it (``phase_args``): recurrentgemma-2b with the
+hybrid's launch counts (``chip_smoke.PATH_KERNELS["lm_rg"]``: its scan is
+the gated instance, or in a port from before it the ungated one),
+xlstm-350m with the sLSTM kernel's (``"lm_xlstm"``: no flash launch), the
+MoE models cut in depth as there. Needs a CUDA card and exits non-zero
+without one.
 """
 from __future__ import annotations
 
@@ -30,6 +33,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUNDS = 2
 
 
+def phase_args(arch: str) -> dict:
+    """The path (whose launch counts are checked) and depth cut with which
+    ``chip_smoke.py`` runs ``arch``'s LM phase."""
+    import chip_smoke as cs
+    path = {cs.LM_RG_ARCH: "lm_rg", cs.LM_XLSTM_ARCH: "lm_xlstm"}
+    layers = {cs.LM_MLA_ARCH: cs.LM_MLA_LAYERS,
+              cs.LM_KIMI_ARCH: cs.LM_KIMI_LAYERS}
+    return dict(path=path.get(arch, "lm"), layers=layers.get(arch, 0))
+
+
 def child(src: str, arch: str) -> int:
     """One run: the LM phase of ``chip_smoke.py`` with the port from src."""
     sys.path[:0] = [os.path.abspath(src), ROOT]
@@ -37,7 +50,7 @@ def child(src: str, arch: str) -> int:
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.lm_phase(torch.device("cuda"), cs.nvidia_smi_line(), arch,
-                "lm_rg" if arch == cs.LM_RG_ARCH else "lm")
+                **phase_args(arch))
     return 0
 
 

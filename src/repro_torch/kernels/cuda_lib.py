@@ -97,12 +97,15 @@ class FlashGeom(ctypes.Structure):
 class SlstmArgs(ctypes.Structure):
     """Mirror of ``struct SlstmArgs`` in csrc/slstm_scan.cu: the four
     gates' pre-activations, recurrent weights and biases, the carry (c, n,
-    h, m) in and out, hs, and the geometry."""
+    h, m) in and out, hs, the geometry, and where the blocks' SM ids go
+    (null for nowhere; last, so an older library reads the fields before
+    it)."""
     _fields_ = ([(name, ctypes.c_void_p * 4) for name in (
         "x", "r", "b", "carry_in", "carry_out")]
         + [("hs", ctypes.c_void_p)]
         + [(name, ctypes.c_int32) for name in ("batch", "seq", "heads",
-                                               "dh")])
+                                               "dh")]
+        + [("sm_ids", ctypes.c_void_p)])
 
 
 def _nvcc() -> str:
@@ -234,10 +237,17 @@ def _bind_rglru(lib: ctypes.CDLL) -> None:
 
 
 def _bind_slstm(lib: ctypes.CDLL) -> None:
+    i32 = ctypes.c_int
     # (operands, r and b's dtype, stream)
-    lib.slstm_scan.argtypes = [ctypes.POINTER(SlstmArgs), ctypes.c_int,
+    lib.slstm_scan.argtypes = [ctypes.POINTER(SlstmArgs), i32,
                                ctypes.c_void_p]
-    lib.slstm_scan.restype = ctypes.c_int
+    lib.slstm_scan.restype = i32
+    # (batch, heads, head dim, r and b's dtype, out): an older source lacks
+    # it (scripts/slstm_ab.py binds every version)
+    if hasattr(lib, "slstm_scan_design"):
+        lib.slstm_scan_design.argtypes = [i32, i32, i32, i32,
+                                          ctypes.POINTER(i32)]
+        lib.slstm_scan_design.restype = i32
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -58,8 +58,10 @@ the full models' attention widths launch one flash kernel a layer in a
 generate and match a card train-mode forward, and the MoE routing of tied
 bf16 logits on the card equals the CPU's without a host sync. The sLSTM
 recurrence kernel (xlstm-350m) is held against its plain version at 1e-4
-at dh 16 to 256 (float32 and bf16 weights, from a drawn carry and from
-none), one-token calls that advance the carry in place equal one sequence
+at dh 16 to 256 (float32 and bf16 weights, B 1 to 9, one to four heads,
+ragged columns, from a drawn carry and from none), each launch is the
+design ``slstm_scan.design`` reports (its cluster's blocks on SMs of their
+own), one-token calls that advance the carry in place equal one sequence
 call bit for bit, and reduced xlstm-350m's engine on the card launches it
 once in the prefill and once a decode step and equals the CPU engine.
 """
@@ -1792,12 +1794,24 @@ def slstm_operands(b, s, h, dh, w_dtype, device, seed=0):
     return xs, rs_, bs, tuple(t.to(device) for t in carry)
 
 
-# xlstm-350m's prefill (dh 256, bf16 weights), the reduced configs' dh 16
-# (float32 weights), a ragged head count and one decode step
+# xlstm-350m's prefill (dh 256, bf16 weights: a cluster of 8), the reduced
+# configs' dh 16 (float32 weights: a cluster of 1), a ragged head count and
+# one decode step; float32 weights at dh 256 (128 KB a block); B 1, 5 and 9
+# (instances of 1 and 8 rows; two row groups), one head; dh 64 and 128
+# (clusters of 2 and 4); ragged columns (dh 254 and 130: the cluster's last
+# block owns fewer) and a head dim that is not whole weight chunks (dh 18)
 SLSTM_SHAPES = [(4, 2048, 4, 256, torch.bfloat16),
                 (2, 37, 4, 16, torch.float32),
                 (3, 100, 3, 64, torch.bfloat16),
-                (4, 1, 4, 256, torch.bfloat16)]
+                (4, 1, 4, 256, torch.bfloat16),
+                (4, 2048, 4, 256, torch.float32),
+                (1, 300, 4, 256, torch.bfloat16),
+                (5, 200, 2, 128, torch.bfloat16),
+                (9, 120, 2, 64, torch.float32),
+                (4, 500, 1, 256, torch.bfloat16),
+                (2, 60, 2, 254, torch.float32),
+                (2, 40, 3, 130, torch.float32),
+                (3, 50, 2, 18, torch.bfloat16)]
 
 
 @pytest.mark.cuda
@@ -1821,6 +1835,31 @@ def test_slstm_scan_matches_plain_on_card(cuda_device, b, s, h, dh,
     hs0, _ = ss.slstm_scan(xs, rs_, bs)
     torch.testing.assert_close(hs0, ss.slstm_scan_plain(xs, rs_, bs)[0],
                                rtol=0, atol=SLSTM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dh,w_dtype", SLSTM_SHAPES)
+def test_slstm_launch_is_its_design_on_card(cuda_device, b, s, h, dh,
+                                            w_dtype):
+    """The library launches what ``design`` says (the same fields, and at
+    least one such cluster fits on the card), and a launch's blocks all
+    report an SM: a cluster's blocks on SMs of their own."""
+    want = ss.design(b, h, dh, w_dtype)
+    got = ss.library_design(b, h, dh, w_dtype)
+    assert got.pop("max_active_clusters") >= 1
+    assert got == {k: v for k, v in want.items() if k != "grid"}
+    xs, rs_, bs, _ = slstm_operands(b, min(s, 8), h, dh, w_dtype,
+                                    cuda_device)
+    sm_ids = torch.full((want["blocks"],), -1, dtype=torch.int32,
+                        device=cuda_device)
+    hs, _ = ss.slstm_scan(xs, rs_, bs, sm_ids=sm_ids)
+    torch.testing.assert_close(hs, ss.slstm_scan_plain(xs, rs_, bs)[0],
+                               rtol=0, atol=SLSTM_TOL)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ids = sm_ids.cpu().view(want["groups"], h, want["cluster"])
+    assert bool(((ids >= 0) & (ids < sms)).all())
+    assert all(len(set(c.tolist())) == want["cluster"]
+               for c in ids.reshape(-1, want["cluster"]))
 
 
 @pytest.mark.cuda

@@ -1,12 +1,14 @@
 """The A/B scripts (scripts/p2m_ab.py, scripts/flash_ab.py,
-scripts/rglru_ab.py and their shared scripts/ab_versions.py) on the CPU:
-what they can be asked without a card.
+scripts/rglru_ab.py, scripts/slstm_ab.py, scripts/lm_ab.py and the shared
+scripts/ab_versions.py) on the CPU: what they can be asked without a card.
 
 Every diagnostic copy must apply to the kernel source in this tree (a
 renamed line would otherwise drop a stage from ``--diagnose`` unseen), the
-turns must alternate the versions, and the geometries are chip_smoke.py's,
-the C 48 and ImageNet ones included.
+turns must alternate the versions, the geometries are chip_smoke.py's,
+the C 48 and ImageNet ones included, and lm_ab.py runs each served arch
+as chip_smoke.py runs it.
 """
+import ast
 import importlib.util
 import os
 
@@ -42,7 +44,9 @@ def scripts(monkeypatch):
         "legacy_short_mac", "legacy_no_store")),
     *(("flash_ab", "flash_attention.cu", n) for n in (
         "no_exp", "no_softmax", "no_pv", "no_rescale", "no_kv_loads",
-        "f32_no_exp", "f32_no_pv", "f32_no_loads", "f32_no_scores"))])
+        "f32_no_exp", "f32_no_pv", "f32_no_loads", "f32_no_scores")),
+    *(("slstm_ab", "slstm_scan.cu", n) for n in (
+        "no_fma", "no_h_loads", "no_chain", "no_staging", "cluster16"))])
 def test_each_diagnostic_changes_the_current_source(tmp_path, scripts,
                                                     script, source, name):
     ab = scripts(script)
@@ -163,7 +167,7 @@ def test_flagless_instances_compare_with_a_first_version_before_the_flag(
     assert ab.first_name(windowed, {old: ""}) not in {old: ""}
 
 
-@pytest.mark.parametrize("script", ["p2m_ab", "flash_ab"])
+@pytest.mark.parametrize("script", ["p2m_ab", "flash_ab", "slstm_ab"])
 def test_without_sources_it_prints_usage_and_fails(capsys, scripts, script):
     assert scripts(script).main([]) == 1
     assert "usage" in capsys.readouterr().err
@@ -181,3 +185,70 @@ def test_rglru_ab_binds_versions_with_and_without_the_gated_entry(scripts):
     assert ab.bind(new) is True
     assert len(new.rglru_scan_gated.argtypes) == 11
     assert ab.main(["a.cu"]) == 1
+
+
+def test_slstm_ab_geometries_are_chip_smokes(scripts):
+    ab = scripts("slstm_ab")
+    geoms = ab.geometries()          # puts the checkout's root on the path
+    import chip_smoke as cs
+    assert geoms == {"serving": cs.SLSTM_SERVING, "f32_dh256": cs.SLSTM_F32,
+                     "narrow": cs.SLSTM_NARROW}
+    assert geoms["serving"] == dict(batch=4, seq=2048, heads=4, head_dim=256,
+                                    w_dtype="bfloat16")
+    assert geoms["f32_dh256"] == dict(geoms["serving"], w_dtype="float32")
+    assert ab.SOURCE == os.path.join(CSRC, "slstm_scan.cu")
+    assert set(ab.EXACT) <= set(ab.DIAGNOSTICS)
+
+
+def test_slstm_ab_binds_versions_with_and_without_the_design_entry(scripts):
+    """A version from before the cluster design binds ``slstm_scan`` alone;
+    a newer one its design query too."""
+    import types
+    ab = scripts("slstm_ab")
+    old = types.SimpleNamespace(slstm_scan=types.SimpleNamespace())
+    new = types.SimpleNamespace(slstm_scan=types.SimpleNamespace(),
+                                slstm_scan_design=types.SimpleNamespace())
+    assert ab.bind(old) is False and len(old.slstm_scan.argtypes) == 3
+    assert ab.bind(new) is True
+    assert len(new.slstm_scan_design.argtypes) == 5
+
+
+def _chip_smoke_lm_phases():
+    """{arch: {path, layers}} of every ``lm_phase`` call in chip_smoke.py's
+    ``main``, read from its source (defaults: granite-8b, "lm", 0)."""
+    import chip_smoke as cs
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+
+    def value(node):
+        return getattr(cs, node.id) if isinstance(node, ast.Name) \
+            else ast.literal_eval(node)
+
+    out = {}
+    for call in ast.walk(main):
+        if isinstance(call, ast.Call) and getattr(call.func, "id", "") \
+                == "lm_phase":
+            pos = [value(a) for a in call.args[2:]]
+            kw = {k.arg: value(k.value) for k in call.keywords}
+            arch = pos[0] if pos else kw.get("arch", cs.LM_ARCH)
+            out[arch] = dict(path=pos[1] if len(pos) > 1
+                             else kw.get("path", "lm"),
+                             layers=kw.get("layers", 0))
+    return out
+
+
+@pytest.mark.parametrize("arch", [
+    "granite-8b", "stablelm-3b", "recurrentgemma-2b", "deepseek-v2-236b",
+    "kimi-k2-1t-a32b", "xlstm-350m"])
+def test_lm_ab_runs_each_arch_as_chip_smoke_does(scripts, arch):
+    """lm_ab.py's child runs an arch's LM phase with the path and depth cut
+    that chip_smoke.py's own run uses (xlstm-350m: the sLSTM kernel's
+    path, so its launch check expects no flash launch)."""
+    ab = scripts("lm_ab")
+    scripts("ab_versions").import_checkout()
+    phases = _chip_smoke_lm_phases()
+    assert len(phases) == 6
+    assert ab.phase_args(arch) == phases[arch]
+    if arch == "xlstm-350m":
+        assert ab.phase_args(arch) == dict(path="lm_xlstm", layers=0)

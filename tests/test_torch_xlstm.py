@@ -287,6 +287,62 @@ def test_cpu_tensors_never_launch_the_kernel():
                       [b.to("meta") for b in bs])
 
 
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", range(1, 10))
+def test_slstm_design_covers_every_shape_it_takes(w_dtype, batch):
+    """At every even head dim from 16 to 256 and 1 to 4 heads: the block's
+    shared memory fits 227 KB, the cluster (at most 8, a power of two)
+    splits the head dim's columns so that every block owns some and they
+    cover dh exactly (evenly where C divides dh), a warp takes 8 columns,
+    and the row groups (at most 8 rows, computed as 1, 2, 4 or 8) cover
+    the batch exactly; the kernel's name carries the row count."""
+    w_size = 2 if w_dtype == torch.bfloat16 else 4
+    for dh in range(16, 257, 2):
+        for heads in range(1, 5):
+            d = ss.design(batch, heads, dh, w_dtype)
+            assert d["smem_bytes"] <= 227 * 1024
+            assert d["smem_bytes"] == (d["warps"] * 32 * 16
+                                       * -(-dh * w_size // 16)
+                                       + 2 * dh * d["slots"] * 4 + 16)
+            assert d["cluster"] in (1, 2, 4, 8)
+            assert (d["cluster"] - 1) * d["cols"] < dh <= (d["cluster"]
+                                                          * d["cols"])
+            if dh % d["cluster"] == 0:
+                assert d["cols"] * d["cluster"] == dh
+            assert d["cols"] >= 16 and d["warps"] == -(-d["cols"] // 8)
+            assert d["threads"] == 32 * d["warps"] <= 256
+            assert d["rows"] <= 8 and d["slots"] in (1, 2, 4, 8)
+            assert d["rows"] <= d["slots"] < 2 * d["rows"]
+            assert (d["groups"] - 1) * d["rows"] < batch <= (d["groups"]
+                                                            * d["rows"])
+            assert d["grid"] == (d["cluster"], heads, d["groups"])
+            assert d["blocks"] == d["cluster"] * heads * d["groups"]
+        assert ss.kernel_symbol(w_dtype, batch).endswith(
+            f", {d['slots']}>")
+    with pytest.raises(ValueError, match="even head dim from 16 to 256"):
+        ss.design(batch, 4, 258, w_dtype)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ss.design(batch, 4, 256, torch.float16)
+
+
+def test_slstm_design_at_xlstm_350m():
+    """xlstm-350m's sLSTM (4 heads of 256, bf16 weights, 4 prompts): one
+    cluster of 8 blocks a head, 32 columns a block (64 KB of weights), one
+    row group of the 4 rows; in float32 the same, 128 KB of weights."""
+    cfg = tconfigs.get_arch("xlstm-350m")
+    dh = cfg.d_model // cfg.num_heads
+    d = ss.design(4, cfg.num_heads, dh, cfg.pdtype)
+    assert (cfg.pdtype, cfg.num_heads, dh) == (torch.bfloat16, 4, 256)
+    assert (d["cluster"], d["cols"], d["groups"], d["rows"], d["slots"]) == (
+        8, 32, 1, 4, 4)
+    assert d["smem_bytes"] == 64 * 1024 + 2 * 256 * 4 * 4 + 16
+    assert d["blocks"] == 32 and d["threads"] == 128
+    f32 = ss.design(4, 4, 256, torch.float32)
+    assert (f32["cluster"], f32["smem_bytes"]) == (8, 128 * 1024 + 8208)
+    assert ss.kernel_symbol(torch.bfloat16, 4) == (
+        "slstm_cluster_kernel<__nv_bfloat16, 4>")
+
+
 # ----------------------------------------------------------------------------
 # the model and the engine
 # ----------------------------------------------------------------------------
