@@ -99,6 +99,12 @@ line:
    over v 128, ``flash_wgmma_kernel<192, false>``; its yardstick the first
    SDPA backend that takes Dv != D, named in ``library_backend``) and
    kimi-k2's (H 64 over 8, D 112), each with its instance's HGMMA count;
+   three at whisper-base's prefill (B 16, H 8, D 64, bf16: the encoder's
+   1500 frames non-causal, the decoder's 224-token prompt causal, and the
+   cross-attention of the 224 queries over the 1500 frames, Sq != Sk,
+   non-causal) and two of the float32 kernel at unequal lengths (Sq 8
+   over Sk 24 at D 16, reduced whisper-base's cross block; Sq 130 over Sk
+   1500 at D 64), each bound counted at Sq x Sk;
    ``rglru_scan``: the
    RG-LRU scan kernel at recurrentgemma-2b's prefill (B 4, S 2048, R
    2560, a near 1) against its plain version (an associative scan) at
@@ -148,7 +154,15 @@ line:
    prefill and in each decode step (96 a generate) and no flash launch,
    its ``lm_profile`` with the prefill split into the mLSTM layers'
    chunkwise ops and projections, the sLSTM kernel and the sLSTM layers'
-   projections (profiler ranges) and the rest;
+   projections (profiler ranges) and the rest; whisper-base
+   (``lm_whisper``: 6 encoder and 6 decoder layers, d 512, 8 heads of 64,
+   vocab 51,865) at full width and depth on 16 clips of 1500 seeded
+   frame embeddings (the audio frontend is a stub), a 224-token prompt
+   and 32 new tokens: 18 flash launches of ``flash_wgmma_kernel<64,
+   false>`` a prefill (6 encoder, 6 decoder self, 6 cross at Sq != Sk)
+   and none a decode step, teacher forcing over the same frames, the
+   prefill by stage (encoder, decoder, the rest: profiler ranges) and one
+   layer's plain cross-attention decode over the 1500 cached rows alone;
 11. ``lm_vs_cpu``: granite-8b at full width but 2 layers (a depth cut: the
    CPU engine at 36 layers would take minutes), the card's engine against
    the CPU engine on a (1, 128) prompt and 8 new tokens, with its flash
@@ -167,7 +181,10 @@ line:
    differently leaves the comparison (counted); ``lm_xlstm_vs_cpu``:
    xlstm-350m at full width, 8 layers (one period of its pattern: 7 mLSTM,
    1 sLSTM), card against CPU as above on a 512-token prompt (two of the
-   mLSTM's 256-row chunks, so the carry between chunks is compared); ``lm_moe_routing``: one
+   mLSTM's 256-row chunks, so the carry between chunks is compared);
+   ``lm_whisper_vs_cpu``: whisper-base at full width and depth, card
+   against CPU on 2 clips of 1500 frames and a 64-token prompt;
+   ``lm_moe_routing``: one
    deepseek-v2 MoE layer at full width on a seeded 4 x 2048 bf16 input,
    card against CPU: the share of tokens whose top-k sets differ, each
    such token's CPU gap at the k-th logit (within 2 bf16 ulps), the
@@ -304,8 +321,9 @@ line:
    kernel's launches from its own path's run, the fleet rows' from the
    ``fleet`` and int8 fleet paths; one flash row per served head dim: D
    128 with granite-8b's launches, D 80 with stablelm-3b's, D 256 with
-   recurrentgemma-2b's, (192, 128) with deepseek-v2's and D 112 with
-   kimi-k2's; the ``rglru_scan`` and ``rglru_scan_gated`` rows
+   recurrentgemma-2b's, (192, 128) with deepseek-v2's, D 112 with
+   kimi-k2's and D 64 with whisper-base's, timed at its encoder's
+   geometry; the ``rglru_scan`` and ``rglru_scan_gated`` rows
    with recurrentgemma-2b's: 0 for the ungated instance, which its
    prefill never launches, and one an RG-LRU layer for the gated one; the
    ``slstm_scan`` row with xlstm-350m's),
@@ -416,6 +434,9 @@ PATH_KERNELS = {
     "lm_rg": ("flash_attention", "rglru_scan_gated"),
     # xLSTM: the sLSTM recurrence in prefill and decode, no attention
     "lm_xlstm": ("slstm_scan",),
+    # the encoder-decoder: the encoder's, the decoder's and the cross
+    # attention through flash (at Sq != Sk), decode in plain ops
+    "lm_whisper": ("flash_attention",),
     # the device backend runs one cuDNN conv and plain PyTorch: no kernel
     "engine_device": (),
     # a sampled, calibrated chip: its (4, C) rows in B and the fused kernel
@@ -513,6 +534,23 @@ FLASH_MLA_SERVING = dict(batch=4, seq=2048, heads=128, kv_heads=128,
 FLASH_KIMI_SERVING = dict(batch=4, seq=2048, heads=64, kv_heads=8,
                           head_dim=112, dtype="bfloat16", causal=True)
 FLASH_MOE = (FLASH_MLA_SERVING, FLASH_KIMI_SERVING)
+# whisper-base's prefill (B 16, 8 heads of 64, bf16): the encoder's
+# self-attention over its 1500 frames (non-causal; 11 x 128 + 92 rows, so
+# the last q and kv tiles are ragged at once), the decoder's over the
+# 224-token prompt (causal) and its cross-attention of the prompt over the
+# frames (non-causal, Sq != Sk: ``kv_seq``); then flash_ffma_kernel at
+# unequal lengths: reduced whisper-base's cross geometry (Sq 8 over Sk 24,
+# D 16) and a larger ragged pair (Sq 130 over Sk 1500, D 64)
+FLASH_WHISPER_ENCODER = dict(batch=16, seq=1500, heads=8, kv_heads=8,
+                             head_dim=64, dtype="bfloat16", causal=False)
+FLASH_WHISPER = (FLASH_WHISPER_ENCODER,
+                 {**FLASH_WHISPER_ENCODER, "seq": 224, "causal": True},
+                 {**FLASH_WHISPER_ENCODER, "seq": 224, "kv_seq": 1500})
+FLASH_UNEQUAL_F32 = (dict(batch=2, seq=8, kv_seq=24, heads=4, kv_heads=4,
+                          head_dim=16, dtype="float32", causal=False),
+                     dict(batch=16, seq=130, kv_seq=1500, heads=8,
+                          kv_heads=8, head_dim=64, dtype="float32",
+                          causal=False))
 # kernel vs plain: bf16 output rounding (one ulp is 2^-8 relative) plus a
 # different summation order; float32: the summation order alone
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -600,6 +638,17 @@ LM_KIMI_CPU_EXPERTS = 64
 MOE_STAGES = {"route": "moe_route", "dispatch": "_moe_dispatch",
               "experts": "_expert_ffn", "combine": "_moe_combine"}
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+# whisper-base (6 encoder + 6 decoder layers, d 512, 8 heads of 64) at full
+# width and depth: 16 clips of 1500 frame embeddings (the audio frontend is
+# a stub in both packages), a 224-token prompt and 32 new tokens, 256 of
+# the published model's 448 text positions; its card-vs-CPU phase at full
+# depth, 2 clips and a 64-token prompt
+LM_WHISPER_ARCH = "whisper-base"
+LM_WHISPER_BATCH, LM_WHISPER_PROMPT = 16, 224
+LM_WHISPER_CPU_BATCH, LM_WHISPER_CPU_PROMPT = 2, 64
+# the stages of an encoder-decoder prefill, each timed on the device as a
+# profiler range (the rest: the embedding, the final norm and the LM head)
+WHISPER_STAGES = {"encoder": "_run_encoder", "decoder": "_run_decoder"}
 # prefill logits vs a train-mode forward of the same prompt: the same
 # kernels on the same inputs, so equal up to bf16 rounding of the logits
 # (|logit| < 8 here, one bf16 ulp there is 2^-5)
@@ -761,12 +810,14 @@ def bound(bytes_moved: float, ops: float, int8_ops: float = 0.0,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def visible_pairs(s: int, causal: bool, window: int = 0) -> int:
+def visible_pairs(s: int, causal: bool, window: int = 0,
+                  kv_seq: int = 0) -> int:
     """(q, kv) pairs one head of length s attends to: row i sees the keys
-    j <= i (causal) with i - j < window (a window > 0)."""
+    j <= i (causal) with i - j < window (a window > 0); non-causal without
+    a window, every one of ``kv_seq`` keys (s where 0)."""
     if not causal:
         if window <= 0:
-            return s * s
+            return s * (kv_seq or s)
         # row i sees j in (i - window, s): min(s, s - i + window - 1) keys
         return sum(min(s, s - i + window - 1) for i in range(s))
     w = s if window <= 0 else min(window, s)
@@ -778,15 +829,17 @@ def flash_work(geom: dict) -> dict:
     (inside the window, where the geometry has one) takes a product of D
     multiply-adds (the score) and one of Dv (the output; Dv is
     ``v_dim``, D where the geometry has none) and one exponential; each
-    input is read once and the output written once. With the bound
-    (``bound``)."""
+    input is read once and the output written once (q and o at ``seq``
+    rows, k and v at ``kv_seq``, ``seq`` where the geometry has none).
+    With the bound (``bound``)."""
     b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
                                          "kv_heads", "head_dim"))
-    dv = geom.get("v_dim", d)
-    pairs = b * h * visible_pairs(s, geom["causal"], geom.get("window", 0))
+    dv, sk = geom.get("v_dim", d), geom.get("kv_seq", s)
+    pairs = b * h * visible_pairs(s, geom["causal"], geom.get("window", 0),
+                                  sk)
     size = 2 if geom["dtype"] == "bfloat16" else 4
     work = dict(flops=2 * pairs * (d + dv), exps=pairs,
-                bytes=(b * s * h + b * s * hkv) * (d + dv) * size)
+                bytes=(b * s * h + b * sk * hkv) * (d + dv) * size)
     if geom["dtype"] == "bfloat16":
         t, by = bound(work["bytes"], 0.0, bf16_ops=work["flops"],
                       exps=pairs)
@@ -3664,15 +3717,16 @@ def sdpa_backend_ms(q, k, v, causal: bool, device):
 
 def flash_operands(geom: dict, device):
     """q, k, v of a flash geometry, from seed 23 (the flash lines' and
-    ``--flash-symbols``'s inputs)."""
+    ``--flash-symbols``'s inputs); k and v ``kv_seq`` rows long where the
+    geometry has it."""
     import torch
     b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
                                          "kv_heads", "head_dim"))
-    dv = geom.get("v_dim", d)
+    dv, sk = geom.get("v_dim", d), geom.get("kv_seq", s)
     gen = torch.Generator().manual_seed(23)
     return tuple(torch.randn(shape, generator=gen).to(
         device=device, dtype=getattr(torch, geom["dtype"]))
-        for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
+        for shape in ((b, s, h, d), (b, sk, hkv, d), (b, sk, hkv, dv)))
 
 
 def flash_symbols_main(geom_json: str) -> int:
@@ -3725,15 +3779,16 @@ def flash_phase(geom: dict, device, hgmma=None):
 
     b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
                                          "kv_heads", "head_dim"))
-    dv = geom.get("v_dim", d)
+    dv, sk = geom.get("v_dim", d), geom.get("kv_seq", s)
     dtype, causal = getattr(torch, geom["dtype"]), geom["causal"]
     window = geom.get("window", 0)
     q, k, v = flash_operands(geom, device)
-    tag = (f"B{b} S{s} H{h}/{hkv} D{d}" + (f"/{dv}" if dv != d else "")
+    tag = (f"B{b} S{s}" + (f"/{sk}" if sk != s else "") + f" H{h}/{hkv} D{d}"
+           + (f"/{dv}" if dv != d else "")
            + f" {geom['dtype']} {'causal' if causal else 'full'}"
            + (f" window {window}" if window else ""))
-    symbol = (fa.kernel_symbol(dtype, d, window, s, v_dim=dv) if dv != d
-              else fa.kernel_symbol(dtype, d, window, s))
+    symbol = (fa.kernel_symbol(dtype, d, window, sk, v_dim=dv) if dv != d
+              else fa.kernel_symbol(dtype, d, window, sk))
 
     def kernel(causal=causal, window=window):
         return fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -4087,6 +4142,19 @@ def _lm_prompts(cfg, batch: int, length: int, seed: int):
                          dtype=torch.int32)
 
 
+def _lm_frames(cfg, batch: int, seed: int, device):
+    """An encoder-decoder's encoder input, (batch, encoder_seq, d_model)
+    frame embeddings drawn from a seeded normal distribution on ``device``
+    (as the reference's launcher draws them; the audio frontend is a stub),
+    or None for a decoder-only config."""
+    import torch
+    if not cfg.is_encdec:
+        return None
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                       generator=torch.Generator(device).manual_seed(seed),
+                       device=device)
+
+
 def scan_wrapper() -> str:
     """The scan wrapper an RG-LRU layer's prefill launches: the gated
     instance, or, in a port from before it (scripts/lm_ab.py runs the LM
@@ -4099,13 +4167,15 @@ def scan_wrapper() -> str:
 def lm_launches(cfg, new_tokens: int) -> dict:
     """The kernel launches of one generate of ``new_tokens`` tokens of
     ``cfg``: in the prefill one flash launch an attention layer (global,
-    local or MLA), one gated scan an RG-LRU layer and one sLSTM launch an
-    sLSTM layer; in each of the ``new_tokens - 1`` decode steps one sLSTM
-    launch an sLSTM layer and nothing else; the MoE none (plain
+    local or MLA; an encoder-decoder's encoder layers too, and its decoder
+    layers' cross-attention), one gated scan an RG-LRU layer and one sLSTM
+    launch an sLSTM layer; in each of the ``new_tokens - 1`` decode steps
+    one sLSTM launch an sLSTM layer and nothing else; the MoE none (plain
     products)."""
     mixers = [mx for mx, _ in cfg.layer_kinds()]
+    cross = cfg.encoder_layers + len(mixers) if cfg.is_encdec else 0
     want = {"flash_attention": sum(mx in ("attn", "local_attn", "mla")
-                                   for mx in mixers),
+                                   for mx in mixers) + cross,
             scan_wrapper(): mixers.count("rglru"),
             "slstm_scan": mixers.count("slstm") * new_tokens}
     return {k: v for k, v in want.items() if v}
@@ -4134,7 +4204,7 @@ def lm_symbol(cfg, seq: int = LM_PROMPT):
 
 
 # the profiler ranges of ``stage_spans``: the MoE stages, the xLSTM mixers
-SPAN_PREFIXES = ("moe:", "xlstm:")
+SPAN_PREFIXES = ("moe:", "xlstm:", "whisper:")
 
 
 @contextlib.contextmanager
@@ -4174,11 +4244,14 @@ def stage_ms(prof, stages: dict, prefix: str) -> dict:
 
 
 def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
-             layers: int = 0):
+             layers: int = 0, batch: int = LM_BATCH, prompt: int = LM_PROMPT,
+             new_tokens: int = LM_NEW):
     """``arch`` at full width and depth (or ``layers`` layers: a depth
-    cut) through ``ServingEngine.generate``, the launch counts read from
-    that run alone (checked against ``path``'s kernels and
-    ``lm_launches``); returns them."""
+    cut) through ``ServingEngine.generate`` of ``batch`` prompts of
+    ``prompt`` tokens for ``new_tokens`` (an encoder-decoder's with seeded
+    frame embeddings, ``_lm_frames``), the launch counts read from that
+    run alone (checked against ``path``'s kernels and ``lm_launches``);
+    returns them."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cuda_lib
@@ -4198,13 +4271,17 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
     init_s = time.perf_counter() - t0
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in _leaves(params))
-    prompts = _lm_prompts(cfg, LM_BATCH, LM_PROMPT, 29).to(device)
-    engine = ServingEngine(cfg, params, max_len=LM_PROMPT + LM_NEW,
+    prompts = _lm_prompts(cfg, batch, prompt, 29).to(device)
+    frames = _lm_frames(cfg, batch, 37, device)
+    # (scripts/lm_ab.py runs this on older versions, whose engine takes no
+    # encoder input)
+    enc = {} if frames is None else {"encoder_embeddings": frames}
+    engine = ServingEngine(cfg, params, max_len=prompt + new_tokens,
                            device=device)
 
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
-    tokens = engine.generate(prompts, LM_NEW)
+    tokens = engine.generate(prompts, new_tokens, **enc)
     counts = cuda_lib.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     first = dict(engine.stats)
@@ -4212,13 +4289,13 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
     check_path_counts(counts, path, tuple(
         scan_wrapper() if k_ == "rglru_scan_gated" else k_
         for k_ in PATH_KERNELS[path]))
-    want = lm_launches(cfg, LM_NEW)
+    want = lm_launches(cfg, new_tokens)
     check({k_: v_ for k_, v_ in counts.items() if v_} == want,
           f"{arch} launched {counts}, want {want} (one flash launch an "
           "attention layer, one scan an RG-LRU layer, one sLSTM launch an "
           "sLSTM layer in the prefill and in each decode step)")
     logits = engine.prefill_logits.float()
-    check(tuple(tokens.shape) == (LM_BATCH, LM_NEW), "generated shape")
+    check(tuple(tokens.shape) == (batch, new_tokens), "generated shape")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           "token ids out of range")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
@@ -4226,7 +4303,7 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
     # teacher forcing: the prefill's last-position logits == a train-mode
     # forward over the prompt
     with torch.inference_mode():
-        ref, _ = lm.forward(engine.params, prompts, cfg, mode="train")
+        ref, _ = lm.forward(engine.params, prompts, cfg, mode="train", **enc)
     ref = ref[:, -1].float()
     tf_err = max_abs(logits, ref)
     check(tf_err <= LM_TEACHER_TOL,
@@ -4238,7 +4315,7 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
 
     steady = []
     for _ in range(2):
-        engine.generate(prompts, LM_NEW)
+        engine.generate(prompts, new_tokens, **enc)
         steady.append(dict(engine.stats))
     # (xlstm-350m's line is named for its path; the others are "lm")
     emit("lm_xlstm" if path == "lm_xlstm" else "lm", model=arch,
@@ -4255,12 +4332,14 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
          mla=dict(kv_lora_rank=cfg.kv_lora_rank, q_lora_rank=cfg.q_lora_rank,
                   rope_head_dim=cfg.rope_head_dim)
          if "mla" in cfg.block_pattern else None,
+         encoder=dict(layers=cfg.encoder_layers, frames=cfg.encoder_seq)
+         if cfg.is_encdec else None,
          mixers={mx: [k_ for k_, _ in cfg.layer_kinds()].count(mx)
                  for mx in cfg.block_pattern},
          window=cfg.window if "local_attn" in cfg.block_pattern else None,
          vocab=cfg.vocab_size, dtype=cfg.param_dtype, params=n_params,
-         init_s=init_s, init_peak_memory_gb=init_peak_gb, batch=LM_BATCH,
-         prompt=LM_PROMPT, new_tokens=LM_NEW,
+         init_s=init_s, init_peak_memory_gb=init_peak_gb, batch=batch,
+         prompt=prompt, new_tokens=new_tokens,
          launches=counts, first_run=first, steady_runs=steady,
          peak_memory_gb=peak_gb, teacher_forcing_max_abs=tf_err,
          teacher_forcing_tol=LM_TEACHER_TOL,
@@ -4269,17 +4348,18 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
     # device time of one prefill by family and by kernel (and, with experts,
     # by MoE stage; in an xLSTM by mixer stage), and of one decode step
     # against its wall time (the device's idle share while decoding)
-    symbol = lm_symbol(cfg)
+    symbol = lm_symbol(cfg, prompt)
     n_flash = want.get("flash_attention", 0)
-    n_slstm = want.get("slstm_scan", 0) // LM_NEW
+    n_slstm = want.get("slstm_scan", 0) // new_tokens
     xlstm = bool({"mlstm", "slstm"} & set(cfg.block_pattern))
     from repro_torch.models import blocks, recurrent
     spans = (stage_spans(blocks, MOE_STAGES, "moe") if cfg.num_experts else
              stage_spans(recurrent, XLSTM_STAGES, "xlstm") if xlstm
+             else stage_spans(lm, WHISPER_STAGES, "whisper") if cfg.is_encdec
              else contextlib.nullcontext())
     with torch.inference_mode(), spans:
         prof, (_, cache) = profile_session(
-            lambda: engine.prefill(engine.params, prompts),
+            lambda: engine.prefill(engine.params, prompts, *enc.values()),
             expect="flash" if n_flash else "slstm_")
     fam, top = device_breakdown(prof, LM_FAMILIES, 12)
     total = sum(fam.values())
@@ -4287,7 +4367,7 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
     # the LM head over every prompt position, alone
     head = (params["embed"]["w"].T if cfg.tie_embeddings
             else params["lm_head"]["w"])
-    hidden = torch.randn((LM_BATCH * LM_PROMPT, cfg.d_model),
+    hidden = torch.randn((batch * prompt, cfg.d_model),
                          generator=torch.Generator(device).manual_seed(3),
                          device=device, dtype=cfg.dtype)
     lm_head_ms = device_ms(lambda: hidden @ head.to(cfg.dtype), device,
@@ -4313,7 +4393,7 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
         # (scripts/lm_ab.py runs this on older versions, whose instance
         # the weights' dtype alone named)
         slstm_symbol = (
-            ss.kernel_symbol(cfg.pdtype, LM_BATCH)
+            ss.kernel_symbol(cfg.pdtype, batch)
             if len(inspect.signature(ss.kernel_symbol).parameters) > 1
             else ss.kernel_symbol(cfg.pdtype))
     check(sum(slstm_ran.values()) == n_slstm
@@ -4353,15 +4433,35 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
           and all(scan_symbol in key for key in scan_ran),
           f"prefill scan launches {scan_ran}, want {want.get(scan_name, 0)} "
           f"of {scan_symbol}")
+    # an encoder-decoder prefill by stage: the encoder, the decoder (its
+    # self-attention, cross blocks and MLPs) and the rest (the embedding,
+    # the final norm, the LM head over every position)
+    whisper_ms = None
+    if cfg.is_encdec:
+        st = stage_ms(prof, WHISPER_STAGES, "whisper")
+        whisper_ms = dict(**st, rest=total - st["encoder"] - st["decoder"])
     with torch.inference_mode():
-        cache = pad_prefill_cache(cfg, cache, LM_BATCH, LM_PROMPT + LM_NEW)
+        cache = pad_prefill_cache(cfg, cache, batch, prompt + new_tokens)
         tok = tokens[:, :1]
         tok, cache = engine.decode(engine.params, cache, tok)   # warm-up
         prof_d, _ = profile_session(
             lambda: engine.decode(engine.params, cache, tok))
+        # decode's cross block: one layer's plain attention of a token over
+        # the cached encoder K/V (the reference's ops), alone
+        cross_decode_ms = None
+        if cfg.is_encdec:
+            lc = cache["decoder"]["body"]["l0"]
+            q1 = torch.randn((batch, 1, cfg.num_heads,
+                              cfg.resolved_head_dim), device=device,
+                             dtype=cfg.dtype)
+            cross_decode_ms = device_ms(lambda: blocks.decode_attention(
+                q1, lc["enc_k"][0], lc["enc_v"][0], cfg.encoder_seq),
+                device)
     fam_d, top_d = device_breakdown(prof_d, LM_FAMILIES, 12)
     decode_device = sum(fam_d.values())
     decode_wall = statistics.median(r["decode_ms_per_token"] for r in steady)
+    check(fam_d["flash_attention"] == 0.0,
+          f"a decode step of {arch} ran a flash kernel")
     emit("lm_profile", model=arch, layers=cfg.num_layers,
          flash_kernel=symbol,
          flash_launches_in_prefill=n_flash, scan_launches_in_prefill=scans,
@@ -4373,6 +4473,8 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
          flash_share=fam["flash_attention"] / total if total else None,
          scan_share=fam["rglru_scan"] / total if total else None,
          prefill_moe_device_ms=moe_ms,
+         prefill_encdec_device_ms=whisper_ms,
+         cross_decode_attention_ms_per_layer=cross_decode_ms,
          moe_share=(sum(moe_ms.values()) / total
                     if moe_ms and total else None),
          lm_head_ms=lm_head_ms,
@@ -4452,15 +4554,19 @@ def route_diffs(card: dict, cpu: dict) -> dict:
 
 
 def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
-                    layers: int = 2, experts: int = 0, prompt: int = 128):
+                    layers: int = 2, experts: int = 0, prompt: int = 128,
+                    batch: int = 1):
     """``arch`` at full width, ``layers`` layers (and ``experts`` experts,
     where given: a cut of an MoE config on both sides): the card's engine
-    against the CPU engine on one ``prompt``-token prompt, with its launch counts (one flash
-    launch an attention or MLA layer, one scan an RG-LRU layer, nothing
-    else). Prefill logits, and the logits of every decode step fed the
-    CPU's tokens, within LM_CPU_TOL; greedy tokens equal up to the first
-    step whose CPU top-1/top-2 margin is within twice the tolerance (after
-    a divergence the contexts differ). With experts (the one MoE layer
+    against the CPU engine on ``batch`` prompts of ``prompt`` tokens (an
+    encoder-decoder's with seeded frame embeddings, the same on both
+    sides), with its launch counts (one flash launch an attention or MLA
+    layer, an encoder layer or a cross block, one scan an RG-LRU layer,
+    nothing else). Prefill logits, and the logits of every decode step fed
+    the CPU's tokens, within LM_CPU_TOL; each row's greedy tokens equal up
+    to the first step whose CPU top-1/top-2 margin is within twice the
+    tolerance (after a divergence the contexts differ). With experts (the
+    one MoE layer
     last, so that a routing reaches no other position), a token whose
     top-k set differs between card and CPU must sit at a near tie (2 bf16
     ulps), and a compared position whose own routing differs leaves the
@@ -4474,21 +4580,26 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
 
     full = get_arch(arch)
     over = dict(num_layers=layers)
-    cut = f"depth {full.num_layers} -> {layers}"
+    cut = (f"depth {full.num_layers} -> {layers}"
+           if layers != full.num_layers else None)
     if experts:
         over["num_experts"] = experts
         cut += f", experts {full.num_experts} -> {experts}"
     cfg = dataclasses.replace(full, **over)
     moe = cfg.num_experts > 0
     if moe:
-        check(all(m != "moe" for _, m in cfg.layer_kinds()[:-1]),
-              f"{arch} at {layers} layers has an MoE layer before the last")
+        check(all(m != "moe" for _, m in cfg.layer_kinds()[:-1])
+              and batch == 1,
+              f"{arch} at {layers} layers has an MoE layer before the last,"
+              f" or a batch of {batch} (the routing comparison takes one)")
     params = lm.init_params(1, cfg, device=device)
-    prompts = _lm_prompts(cfg, 1, prompt, 31)
+    prompts = _lm_prompts(cfg, batch, prompt, 31)
+    frames = _lm_frames(cfg, batch, 43, torch.device("cpu"))
+    enc = {} if frames is None else {"encoder_embeddings": frames}
     n_new = 8
     gpu = ServingEngine(cfg, params, max_len=prompt + n_new, device=device)
     cuda_lib.reset_launch_counts()
-    tok_gpu = gpu.generate(prompts, n_new).cpu()
+    tok_gpu = gpu.generate(prompts, n_new, **enc).cpu()
     counts = cuda_lib.launch_counts()
     want = lm_launches(cfg, n_new)
     check({k_: v_ for k_, v_ in counts.items() if v_} == want,
@@ -4496,14 +4607,14 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
     params_cpu = to_device(params, torch.device("cpu"))
     cpu = ServingEngine(cfg, params_cpu, max_len=prompt + n_new,
                         device="cpu")
-    tok_cpu = cpu.generate(prompts, n_new)
+    tok_cpu = cpu.generate(prompts, n_new, **enc)
     # both devices decode the CPU's tokens: the logits of every step, so the
     # decode path is compared too, and the CPU's margins
     forced, logs = [], []
     for p_, dev_ in ((params, device), (params_cpu, cpu.device)):
         with recording_routes() as log:
             forced.append(_forced_decode_logits(cfg, p_, prompts, tok_cpu,
-                                                dev_))
+                                                dev_, frames))
         logs.append(log)
     # per compared position (the prefill's last, then each decode step's
     # token): whether its own routing differs; every set flip a near tie
@@ -4522,19 +4633,24 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
                   cpu.prefill_logits.float())
     check(moved[0] or err <= LM_CPU_TOL,
           f"card vs CPU prefill logits max-abs {err} > {LM_CPU_TOL}")
-    step_err = (forced[0] - forced[1]).abs().amax(dim=-1)[0].tolist()
+    # per step, the largest error over the batch's rows
+    step_err = (forced[0] - forced[1]).abs().amax(dim=-1).amax(dim=0)
+    step_err = step_err.tolist()
     held = [e_ for e_, m_ in zip(step_err, moved) if not m_]
     check(max(held, default=0.0) <= LM_CPU_TOL,
           f"card vs CPU decode logits max-abs {max(held, default=0.0)}")
-    top2 = torch.topk(forced[1][0], 2, dim=-1).values
-    margins = (top2[:, 0] - top2[:, 1]).tolist()
-    equal = 0
-    for i in range(n_new):
-        if int(tok_gpu[0, i]) != int(tok_cpu[0, i]):
-            check(moved[i] or margins[i] <= 2 * LM_CPU_TOL,
-                  f"token {i} differs at a CPU margin {margins[i]}")
-            break
-        equal += 1
+    top2 = torch.topk(forced[1], 2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).tolist()     # (B, n)
+    equal = []
+    for r in range(batch):
+        equal.append(0)
+        for i in range(n_new):
+            if int(tok_gpu[r, i]) != int(tok_cpu[r, i]):
+                check(moved[i] or margins[r][i] <= 2 * LM_CPU_TOL,
+                      f"row {r} token {i} differs at a CPU margin "
+                      f"{margins[r][i]}")
+                break
+            equal[r] += 1
     emit(phase, model=arch, layers=layers, cut=cut,
          head_dim=cfg.resolved_head_dim,
          flash_kernel=lm_symbol(cfg, prompt), launches=counts,
@@ -4543,10 +4659,13 @@ def lm_vs_cpu_phase(device, arch: str = LM_ARCH, phase: str = "lm_vs_cpu",
          tolerance=LM_CPU_TOL, decode_logits_max_abs_per_step=step_err,
          positions_routed_differently=[i for i, m_ in enumerate(moved)
                                        if m_],
-         route_flips=flips,
-         tokens_equal_before_divergence=equal,
-         tokens_gpu=tok_gpu[0].tolist(), tokens_cpu=tok_cpu[0].tolist(),
-         cpu_margins=margins, gpu_stats=gpu.stats, cpu_stats=cpu.stats)
+         route_flips=flips, batch=batch,
+         encoder_frames=cfg.encoder_seq if cfg.is_encdec else None,
+         tokens_equal_before_divergence=equal if batch > 1 else equal[0],
+         tokens_gpu=tok_gpu.tolist() if batch > 1 else tok_gpu[0].tolist(),
+         tokens_cpu=tok_cpu.tolist() if batch > 1 else tok_cpu[0].tolist(),
+         cpu_margins=margins if batch > 1 else margins[0],
+         gpu_stats=gpu.stats, cpu_stats=cpu.stats)
     del gpu, params
     torch.cuda.empty_cache()
 
@@ -4686,16 +4805,20 @@ def lm_ring_phase(device):
     torch.cuda.empty_cache()
 
 
-def _forced_decode_logits(cfg, params, prompts, tokens, device):
-    """Last-position logits of the prefill and of each decode step fed
-    ``tokens[:, i]``, float32 on the host: (B, n, vocab)."""
+def _forced_decode_logits(cfg, params, prompts, tokens, device,
+                          frames=None):
+    """Last-position logits of the prefill (over the encoder's ``frames``,
+    where given) and of each decode step fed ``tokens[:, i]``, float32 on
+    the host: (B, n, vocab)."""
     import torch
     from repro_torch.models import lm
     from repro_torch.serving.engine import make_prefill_step, pad_prefill_cache
 
     n = tokens.shape[1]
+    enc = () if frames is None else (frames.to(device),)
     with torch.inference_mode():
-        last, cache = make_prefill_step(cfg)(params, prompts.to(device))
+        last, cache = make_prefill_step(cfg)(params, prompts.to(device),
+                                             *enc)
         cache = pad_prefill_cache(cfg, cache, prompts.shape[0],
                                   prompts.shape[1] + n)
         out = [last.float().cpu()]
@@ -5257,6 +5380,11 @@ def main() -> int:
     moe_rows = [flash_phase(geom, device, hgmma=next(
         g_ for k_, (_, g_) in wgmma.items()
         if f"ILi{geom['head_dim']}ELb0E" in k_)) for geom in FLASH_MOE]
+    # whisper-base's three prefill geometries (the cross-attention at Sq !=
+    # Sk), then the float32 kernel at unequal lengths
+    whisper_rows = [flash_phase(geom, device) for geom in FLASH_WHISPER]
+    for geom in FLASH_UNEQUAL_F32:
+        flash_phase(geom, device)
     scan_row = rglru_phase(device)
     gated_row = rglru_gated_phase(device)
     slstm_row = slstm_phase(SLSTM_SERVING, device)
@@ -5266,7 +5394,7 @@ def main() -> int:
     # every prefill launch was the instance named here (MLA's qk width);
     # xlstm-350m has no attention
     for arch in (LM_ARCH, LM_D80_ARCH, LM_RG_ARCH, LM_MLA_ARCH,
-                 LM_KIMI_ARCH):
+                 LM_KIMI_ARCH, LM_WHISPER_ARCH):
         cfg_ = get_arch(arch)
         d = cfg_.resolved_head_dim + (cfg_.rope_head_dim
                                       if "mla" in cfg_.block_pattern else 0)
@@ -5279,6 +5407,9 @@ def main() -> int:
     counts_mla = lm_phase(device, smi, LM_MLA_ARCH, layers=LM_MLA_LAYERS)
     counts_kimi = lm_phase(device, smi, LM_KIMI_ARCH, layers=LM_KIMI_LAYERS)
     counts_xlstm = lm_phase(device, smi, LM_XLSTM_ARCH, "lm_xlstm")
+    counts_whisper = lm_phase(device, smi, LM_WHISPER_ARCH, "lm_whisper",
+                              batch=LM_WHISPER_BATCH,
+                              prompt=LM_WHISPER_PROMPT)
     lm_vs_cpu_phase(device)
     lm_vs_cpu_phase(device, LM_D80_ARCH, "lm_stablelm")
     lm_vs_cpu_phase(device, LM_RG_ARCH, "lm_rg_vs_cpu", LM_RG_LAYERS)
@@ -5287,6 +5418,9 @@ def main() -> int:
                     experts=LM_KIMI_CPU_EXPERTS)
     lm_vs_cpu_phase(device, LM_XLSTM_ARCH, "lm_xlstm_vs_cpu",
                     LM_XLSTM_CPU_LAYERS, prompt=LM_XLSTM_CPU_PROMPT)
+    lm_vs_cpu_phase(device, LM_WHISPER_ARCH, "lm_whisper_vs_cpu",
+                    get_arch(LM_WHISPER_ARCH).num_layers,
+                    prompt=LM_WHISPER_CPU_PROMPT, batch=LM_WHISPER_CPU_BATCH)
     moe_routing_phase(device)
     lm_ring_phase(device)
     t_train = time.perf_counter()
@@ -5333,13 +5467,15 @@ def main() -> int:
                            else counts_fleet8)[name]
     rows += fleet_rows
     # one flash row per served head dim, its launches from its own model's
-    # generate (the wrapper's count is one for every head dim); the scan's
-    # from recurrentgemma-2b's
+    # generate (the wrapper's count is one for every head dim; D 64's row
+    # timed at whisper-base's encoder geometry, the most work of its three);
+    # the scan's from recurrentgemma-2b's
     for row, n_launch, d in ((flash_row, counts_lm, 128),
                              (flash_d80_row, counts_d80, 80),
                              (flash_d256_row, counts_rg, 256),
                              (moe_rows[0], counts_mla, "192_v128"),
-                             (moe_rows[1], counts_kimi, 112)):
+                             (moe_rows[1], counts_kimi, 112),
+                             (whisper_rows[0], counts_whisper, 64)):
         rows.append({**row, "name": f"flash_attention_bf16_d{d}",
                      "launches": n_launch["flash_attention"]})
     # the scans': the gated instance's from recurrentgemma-2b's, which

@@ -17,9 +17,10 @@ and round, then the card's ``nvidia-smi`` line. Each arch runs as
 ``chip_smoke.py`` runs it (``phase_args``): recurrentgemma-2b with the
 hybrid's launch counts (``chip_smoke.PATH_KERNELS["lm_rg"]``: its scan is
 the gated instance, or in a port from before it the ungated one),
-xlstm-350m with the sLSTM kernel's (``"lm_xlstm"``: no flash launch), the
-MoE models cut in depth as there. Needs a CUDA card and exits non-zero
-without one.
+xlstm-350m with the sLSTM kernel's (``"lm_xlstm"``: no flash launch),
+whisper-base on ``"lm_whisper"`` at its own shape (16 clips of 1500 frames,
+a 224-token prompt), the MoE models cut in depth as there. Needs a CUDA
+card and exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -34,13 +35,18 @@ ROUNDS = 2
 
 
 def phase_args(arch: str) -> dict:
-    """The path (whose launch counts are checked) and depth cut with which
-    ``chip_smoke.py`` runs ``arch``'s LM phase."""
+    """The path (whose launch counts are checked), depth cut and, where it
+    differs from the default, the shape with which ``chip_smoke.py`` runs
+    ``arch``'s LM phase."""
     import chip_smoke as cs
-    path = {cs.LM_RG_ARCH: "lm_rg", cs.LM_XLSTM_ARCH: "lm_xlstm"}
+    path = {cs.LM_RG_ARCH: "lm_rg", cs.LM_XLSTM_ARCH: "lm_xlstm",
+            cs.LM_WHISPER_ARCH: "lm_whisper"}
     layers = {cs.LM_MLA_ARCH: cs.LM_MLA_LAYERS,
               cs.LM_KIMI_ARCH: cs.LM_KIMI_LAYERS}
-    return dict(path=path.get(arch, "lm"), layers=layers.get(arch, 0))
+    shape = {cs.LM_WHISPER_ARCH: dict(batch=cs.LM_WHISPER_BATCH,
+                                      prompt=cs.LM_WHISPER_PROMPT)}
+    return dict(path=path.get(arch, "lm"), layers=layers.get(arch, 0),
+                **shape.get(arch, {}))
 
 
 def child(src: str, arch: str) -> int:

@@ -6,11 +6,15 @@
 //                      GQA head repeat and the 128-lane D padding that
 //                      repro/kernels/ops.py::flash_attention adds around it
 //
-// What it computes, as _kernel does: online-softmax attention over q (B, S,
-// H, D), k (B, S, Hkv, D) and v (B, S, Hkv, Dv), read in place through
-// their strides, into o (B, S, H, Dv) (Dv = D but for MLA's (192, 128), as
-// the reference's repro/models/blocks.py::flash_attention takes v's width;
-// the Pallas kernel assumes Dv = D). The
+// What it computes, as _kernel does: online-softmax attention over q (B,
+// Sq, H, D), k (B, Sk, Hkv, D) and v (B, Sk, Hkv, Dv), read in place
+// through their strides, into o (B, Sq, H, Dv) (Dv = D but for MLA's (192,
+// 128), as the reference's repro/models/blocks.py::flash_attention takes
+// v's width; the Pallas kernel assumes Dv = D; Sq = Sk but for a
+// non-causal call without a window, whisper-base's cross-attention of
+// its decoder's tokens over the encoder's 1500 frames, which the
+// reference's blocks.flash_attention computes and the Pallas kernel does
+// not). The
 // scores and the accumulator are float32; the scale D^-0.5 is applied to the
 // float32 scores after the dot; masked scores are NEG_INF = -1e30 with the
 // reference's m_safe / alpha guards; the row sum l adds the float32 p, while
@@ -26,12 +30,14 @@
 // skipped, not masked; with a window it starts at the kv tile of the q
 // tile's first row's oldest visible key, so the tiles wholly behind the
 // window are skipped too. Query head h reads kv head h / (H / Hkv) directly:
-// no repeated K/V. A ragged tail is masked: kv columns past S score NEG_INF,
-// q rows past S are not stored. q tiles are issued last-first so the long
-// causal rows start early. One kernel serves each (dtype, D, window or
-// not): the window is a template flag (kWindow), so each kernel has an
-// instance without it, whose code is the one it had before the window
-// existed, and one with it (its bounds, its mask):
+// no repeated K/V. A ragged tail is masked: kv columns past Sk score
+// NEG_INF, q rows past Sq are not stored. The q tiles (the work items and
+// the grid) count Sq, and the kv tiles, the key mask and K's and V's
+// tensor maps and loads Sk (FlashGeom::kv_seq). q tiles are issued
+// last-first so the long causal rows start early. One kernel serves each
+// (dtype, D, window or not): the window is a template flag (kWindow), so
+// each kernel has an instance without it, whose code is the one it had
+// before the window existed, and one with it (its bounds, its mask):
 //
 //  * bf16, D = 16, 32, 64, 80, 128: flash_wgmma_kernel<D>, the Hopper
 //    design, one instance per head dim (D 128: every dense serving config
@@ -178,12 +184,16 @@ constexpr float kNegInf = -1e30f;
 }  // namespace
 
 // Mirror: FlashGeom in repro_torch/kernels/cuda_lib.py. Strides in elements.
-// `window` comes last, so the other fields keep their offsets
+// `window` and `kv_seq` come last, so the other fields keep their offsets.
+// `seq` is q's (and o's) length, `kv_seq` k's and v's; they differ only
+// in a non-causal call without a window (flash_attention_fwd refuses the
+// rest)
 struct FlashGeom {
   int32_t batch, seq, heads, kv_heads, causal;
   float scale;
   int64_t q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
   int32_t window;   // > 0: the sliding window (read by kWindow instances)
+  int32_t kv_seq;
 };
 
 namespace {
@@ -206,13 +216,14 @@ __device__ Tile tile_of(const FlashGeom& g, int qi, int bh) {
   // causal: kv tiles wholly in the future of the q tile are never visited;
   // a window: nor those wholly behind its first row's oldest visible key
   t.kv0 = kWindow ? max(t.q0 - g.window + 1, 0) / BN : 0;
-  t.n_kv = (g.causal ? last_row / BN + 1 : (g.seq + BN - 1) / BN) - t.kv0;
+  t.n_kv =
+      (g.causal ? last_row / BN + 1 : (g.kv_seq + BN - 1) / BN) - t.kv0;
   return t;
 }
 
 template <bool kWindow>
 __device__ __forceinline__ bool visible(const FlashGeom& g, int row, int col) {
-  return col < g.seq && (!g.causal || row >= col) &&
+  return col < g.kv_seq && (!g.causal || row >= col) &&
          (!kWindow || row - col < g.window);
 }
 
@@ -1250,7 +1261,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // every thread's share of rows [row0, row0 + rows) of a (seq, D) float32
-// slice into shared rows `stride` floats apart; rows past seq are zeros
+// slice (q's Sq rows, or k's or v's Sk) into shared rows `stride` floats
+// apart; rows past seq are zeros
 template <int D>
 __device__ __forceinline__ void load_rows_f32(uint32_t dst, int stride,
                                               const float* src,
@@ -1292,9 +1304,9 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // (issued once every warp's P_j V_j is in): each load runs under the
   // other product
   load_rows_f32<D>(smem_u32(qs), L::kQK, qp, g.q_s, t.q0, kFfmaBM, g.seq);
-  load_rows_f32<D>(k_sh, L::kQK, kp, g.k_s, kv0 * BN, BN, g.seq);
+  load_rows_f32<D>(k_sh, L::kQK, kp, g.k_s, kv0 * BN, BN, g.kv_seq);
   cp_async_commit();
-  load_rows_f32<D>(v_sh, D, vp, g.v_s, kv0 * BN, BN, g.seq);
+  load_rows_f32<D>(v_sh, D, vp, g.v_s, kv0 * BN, BN, g.kv_seq);
   cp_async_commit();
 
   const int rg = lane / 16, cg = lane % 16;      // score lanes
@@ -1354,16 +1366,17 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_async_wait<0>();   // V_j is in
     __syncthreads();      // and every warp is done with K_j
-    if (more) load_rows_f32<D>(k_sh, L::kQK, kp, g.k_s, k0 + BN, BN, g.seq);
+    if (more)
+      load_rows_f32<D>(k_sh, L::kQK, kp, g.k_s, k0 + BN, BN, g.kv_seq);
     cp_async_commit();
 
     if (active) {
       // online softmax on the raw scores (the scale is positive, so it
       // commutes with the max), e^(scale (s - m)) as exp_diff; the mask
-      // only where the tile reaches past the warp's first row or past S,
+      // only where the tile reaches past the warp's first row or past Sk,
       // or behind its last row's window
       const bool edge = (g.causal && k0 + BN - 1 > first_row) ||
-                        k0 + BN > g.seq ||
+                        k0 + BN > g.kv_seq ||
                         (kWindow && k0 <= last_row - g.window);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -1432,7 +1445,7 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();      // every warp is done with V_j and its P
-    if (more) load_rows_f32<D>(v_sh, D, vp, g.v_s, k0 + BN, BN, g.seq);
+    if (more) load_rows_f32<D>(v_sh, D, vp, g.v_s, k0 + BN, BN, g.kv_seq);
     cp_async_commit();
   }
 
@@ -1510,17 +1523,18 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// a rank-4 (D, S, heads, B) bf16 map read in (64 columns, `rows` rows)
-// boxes; strides in elements. The map ends at column D, so a box reaching
-// past it (D 80's second, the only one of D 16 and 32) reads zeros there,
-// never the next head's columns
+// a rank-4 (D, seq, heads, B) bf16 map read in (64 columns, `rows` rows)
+// boxes; strides in elements; seq the rows it maps (q's Sq, k's and v's
+// Sk). The map ends at column D, so a box reaching past it (D 80's second,
+// the only one of D 16 and 32) reads zeros there, never the next head's
+// columns, and at row seq: the rows past it read zeros
 template <int D>
 int encode_map(CUtensorMap* map, const void* ptr, const FlashGeom& g,
-               int heads, int64_t s_stride, int64_t h_stride,
+               int seq, int heads, int64_t s_stride, int64_t h_stride,
                int64_t b_stride, int rows) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(g.seq),
+  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(g.batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_stride) * 2,
@@ -1542,14 +1556,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  const FlashGeom& g, void* stream) {
   using L = HopperLayout<D>;
   HopperMaps maps;
-  int err = encode_map<D>(&maps.q, q, g, g.heads, g.q_s, g.q_h, g.q_b,
-                          kHopperBM);
+  int err = encode_map<D>(&maps.q, q, g, g.seq, g.heads, g.q_s, g.q_h,
+                          g.q_b, kHopperBM);
   if (err == 0)
-    err = encode_map<D>(&maps.k, k, g, g.kv_heads, g.k_s, g.k_h, g.k_b,
-                        L::kBN);
+    err = encode_map<D>(&maps.k, k, g, g.kv_seq, g.kv_heads, g.k_s, g.k_h,
+                        g.k_b, L::kBN);
   if (err == 0)   // V's map ends at its own width, Dv
-    err = encode_map<L::kDv>(&maps.v, v, g, g.kv_heads, g.v_s, g.v_h, g.v_b,
-                             L::kBN);
+    err = encode_map<L::kDv>(&maps.v, v, g, g.kv_seq, g.kv_heads, g.v_s,
+                             g.v_h, g.v_b, L::kBN);
   if (err != 0) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_wgmma_kernel<D, kWindow>,
@@ -1598,10 +1612,11 @@ void wgmma_design(int* out) {
   for (int i = 0; i < kDesignFields; ++i) out[i] = design[i];
 }
 
-// whether a window hides any key: one of S or more keys hides none (row -
-// col < S), so such a call computes what the instance without it computes,
-// and runs that instance, free of the window's bounds and tests
-bool masks(int window, int seq) { return window > 0 && window < seq; }
+// whether a window hides any key: one of Sk or more keys hides none (row -
+// col < Sk, as a window comes only with Sq = Sk), so such a call computes
+// what the instance without it computes, and runs that instance, free of
+// the window's bounds and tests
+bool masks(int window, int kv_seq) { return window > 0 && window < kv_seq; }
 
 template <bool kWindow>
 int launch(const void* q, const void* k, const void* v, void* o, int dtype,
@@ -1640,31 +1655,33 @@ extern "C" {
 // dtype 0: float32, 1: bfloat16; (head_dim, v_dim) q's and k's width and
 // v's and o's: equal at 16, 32, 64, 80 or 128 (and 112 and 256 in
 // bfloat16), or (192, 128) in bfloat16; g->window 0 (none) or the sliding
-// window (one of g->seq keys or more hides none: the instance without it
-// runs). Returns the cudaError_t of the launch (0 = success), kErrNoEncoder
-// or kErrEncode + CUresult when a tensor map cannot be made.
+// window (one of g->kv_seq keys or more hides none: the instance without
+// it runs); g->seq != g->kv_seq only without causal and window. Returns the
+// cudaError_t of the launch (0 = success), kErrNoEncoder or kErrEncode +
+// CUresult when a tensor map cannot be made.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int head_dim, int v_dim, const FlashGeom* g,
                         void* stream) {
-  if (g->seq <= 0 || g->kv_heads <= 0 || g->heads % g->kv_heads != 0 ||
-      g->window < 0)
+  if (g->seq <= 0 || g->kv_seq <= 0 || g->kv_heads <= 0 ||
+      g->heads % g->kv_heads != 0 || g->window < 0 ||
+      (g->seq != g->kv_seq && (g->causal || g->window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return masks(g->window, g->seq)
+  return masks(g->window, g->kv_seq)
              ? launch<true>(q, k, v, o, dtype, head_dim, v_dim, *g, stream)
              : launch<false>(q, k, v, o, dtype, head_dim, v_dim, *g, stream);
 }
 
 // the demangled name of the kernel flash_attention_fwd launches for (dtype,
-// D, Dv, window, seq), e.g. "flash_wgmma_kernel<256, true>" (the MLA pair's
-// "flash_wgmma_kernel<192, false>"), or null where it launches none
+// D, Dv, window, kv length), e.g. "flash_wgmma_kernel<256, true>" (the MLA
+// pair's "flash_wgmma_kernel<192, false>"), or null where it launches none
 const char* flash_attention_kernel(int dtype, int head_dim, int v_dim,
-                                   int window, int seq) {
+                                   int window, int kv_seq) {
   static char name[48];
   const Route route = route_of(dtype, head_dim, v_dim);
   if (route == kNoKernel) return nullptr;
   snprintf(name, sizeof(name), "%s<%d, %s>",
            route == kWgmma ? "flash_wgmma_kernel" : "flash_ffma_kernel",
-           head_dim, masks(window, seq) ? "true" : "false");
+           head_dim, masks(window, kv_seq) ? "true" : "false");
   return name;
 }
 

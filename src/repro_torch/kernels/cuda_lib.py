@@ -85,13 +85,14 @@ class ConvGeom(ctypes.Structure):
 
 class FlashGeom(ctypes.Structure):
     """Mirror of ``struct FlashGeom`` in csrc/flash_attention.cu (strides in
-    elements; ``window`` 0 for none, last so the other fields keep their
+    elements; ``seq`` q's length, ``kv_seq`` k's and v's; ``window`` 0 for
+    none; ``window`` and ``kv_seq`` last so the other fields keep their
     offsets)."""
     _fields_ = ([(name, ctypes.c_int32) for name in (
         "batch", "seq", "heads", "kv_heads", "causal")]
         + [("scale", ctypes.c_float)]
         + [(f"{t}_{a}", ctypes.c_int64) for t in "qkvo" for a in "bsh"]
-        + [("window", ctypes.c_int32)])
+        + [("window", ctypes.c_int32), ("kv_seq", ctypes.c_int32)])
 
 
 class SlstmArgs(ctypes.Structure):

@@ -13,10 +13,16 @@ local attention) none that lies wholly behind its window.
 
 The reference wrapper (``repro.kernels.ops.flash_attention``) repeats the kv
 heads and pads D to 128 lanes: both are TPU layout choices. Here the kernel
-reads q (B, S, H, D), k (B, S, Hkv, D) and v (B, S, Hkv, Dv) in place
-through their strides and indexes kv head ``h // (H / Hkv)`` itself; any S
-works (a ragged tail is masked). The scale is D^-0.5 over q's width, as the
-reference's ``blocks.flash_attention`` takes it. One kernel serves each
+reads q (B, Sq, H, D), k (B, Sk, Hkv, D) and v (B, Sk, Hkv, Dv) in place
+through their strides and indexes kv head ``h // (H / Hkv)`` itself; any
+length works (a ragged tail is masked). Sq and Sk may differ in a
+non-causal call without a window (whisper-base's cross-attention over its
+1500 encoder frames, which ``repro.models.blocks.flash_attention``
+computes and the Pallas kernel, at one S, does not): the q tiles count Sq,
+the kv tiles, the key mask and K's and V's loads Sk; a causal or windowed
+call at unequal lengths has no caller in either package and raises. The
+scale is D^-0.5 over q's width, as the reference's
+``blocks.flash_attention`` takes it. One kernel serves each
 (dtype, D, Dv, window or not), with no switch:
 - bfloat16, D == Dv at 16, 32, 64, 80, 112, 128, 256, and (D 192, Dv 128),
   deepseek-v2's MLA pair: ``flash_wgmma_kernel<D, W>`` (TMA, an mbarrier
@@ -38,7 +44,7 @@ reference's ``blocks.flash_attention`` takes it. One kernel serves each
   Float32 at D 112 or 256 and any other (D, Dv) pair have no kernel (no
   served config needs them) and raise.
 W is ``true`` for a call whose window hides some key and ``false``
-otherwise (no window, or one of S keys or more, which computes the same
+otherwise (no window, or one of Sk keys or more, which computes the same
 function): the window is a template flag, so the instances without it keep
 the code they had before it. ``kernel_symbol`` asks the library which one
 a call launches.
@@ -127,21 +133,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
             or v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"want q (B, S, H, D), k (B, S, Hkv, D) and v (B, "
-                         f"S, Hkv, Dv), got "
+        raise ValueError(f"want q (B, Sq, H, D), k (B, Sk, Hkv, D) and v "
+                         f"(B, Sk, Hkv, Dv), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    b, s, h, d = q.shape
-    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k, v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)} in batch, length or head dim")
+                         f"{tuple(q.shape)} in batch or head dim")
     if h % k.shape[2]:
         raise ValueError(f"{h} query heads are not a multiple of "
                          f"{k.shape[2]} kv heads")
 
 
 def _check_card_operands(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor, window: int = 0) -> None:
+                         v: torch.Tensor, window: int = 0,
+                         causal: bool = False) -> None:
+    if q.shape[1] != k.shape[1] and (causal or window):
+        raise ValueError(f"q length {q.shape[1]} != kv length {k.shape[1]}: "
+                         f"the kernel takes unequal lengths only without "
+                         f"causal and window (got causal={causal}, "
+                         f"window={window})")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -165,22 +177,23 @@ def _check_card_operands(q: torch.Tensor, k: torch.Tensor,
 @cuda_lib.kernel_wrapper
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Attention of q (B, S, H, D) over k (B, S, Hkv, D) and v (B, S, Hkv,
-    Dv), H % Hkv == 0, scaled by D^-0.5; ``window > 0`` also hides keys
-    ``window`` or more positions behind a query. Returns (B, S, H, Dv) in
-    q's dtype: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    """Attention of q (B, Sq, H, D) over k (B, Sk, Hkv, D) and v (B, Sk,
+    Hkv, Dv), H % Hkv == 0, scaled by D^-0.5; ``window > 0`` also hides
+    keys ``window`` or more positions behind a query. Returns (B, Sq, H,
+    Dv) in q's dtype: the CUDA kernel for CUDA tensors (which takes Sq !=
+    Sk only without causal and window, and raises otherwise), the plain
+    version for CPU tensors."""
     _check_shapes(q, k, v)
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    _check_card_operands(q, k, v, window)
+    _check_card_operands(q, k, v, window, causal)
     b, s, h, d = q.shape
     dv = v.shape[3]
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     geom = cuda_lib.FlashGeom(
         b, s, h, k.shape[2], int(causal), d ** -0.5,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], window)
+        *out.stride()[:3], window, k.shape[1])
     lib = cuda_lib.load_flash()
     check_launch(lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -195,8 +208,8 @@ def kernel_symbol(dtype: torch.dtype, head_dim: int, window: int = 0,
                   seq: int = 2 ** 31 - 1, v_dim: int = 0) -> str:
     """The kernel instance ``flash_attention`` launches for CUDA operands
     of this dtype, head dim and value dim (0: the head dim), with or
-    without a window, at length ``seq`` (a window of ``seq`` keys or more
-    hides none, and the instance without it runs), as the library
+    without a window, at kv length ``seq`` (a window of ``seq`` keys or
+    more hides none, and the instance without it runs), as the library
     dispatches and the profiler names it, e.g. ``flash_wgmma_kernel<256,
     true>``, or ``flash_wgmma_kernel<192, false>`` for MLA's (192, 128)
     (builds the library)."""
@@ -237,13 +250,14 @@ cuda_lib.register(flash_attention)
 
 def _attention_dots(q, k, v, *, causal: bool = True, window: int = 0):
     """The two products of each (batch, head), for the op census: scores
-    Q K^T (S, D) x (D, S) and the output P V (S, S) x (S, Dv), at their
-    full shapes (a causal kernel skips the key tiles above the diagonal, a
-    windowed one those behind the window too)."""
-    b, s, h, d = q.shape
+    Q K^T (Sq, D) x (D, Sk) and the output P V (Sq, Sk) x (Sk, Dv), at
+    their full shapes (a causal kernel skips the key tiles above the
+    diagonal, a windowed one those behind the window too)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     dtype = str(q.dtype).removeprefix("torch.")
-    return (cuda_lib.Dot((b, h, s, d), (d, s), dtype, "float32"),
-            cuda_lib.Dot((b, h, s, s), (s, v.shape[3]), dtype, "float32"))
+    return (cuda_lib.Dot((b, h, sq, d), (d, sk), dtype, "float32"),
+            cuda_lib.Dot((b, h, sq, sk), (sk, v.shape[3]), dtype, "float32"))
 
 
 cuda_lib.declare_dots({flash_attention: _attention_dots})

@@ -247,9 +247,10 @@ def p2m_conv(images: torch.Tensor, w: torch.Tensor, theta, key, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """GQA-aware attention: (B, S, H, D) x (B, S, Hkv, D) -> (B, S, H, D),
-    the counterpart of ``repro.kernels.ops.flash_attention``, with the
-    sliding ``window`` of the reference's model layer (0: none). The
+    """GQA-aware attention: (B, Sq, H, D) x (B, Sk, Hkv, D) -> (B, Sq, H,
+    D), the counterpart of ``repro.kernels.ops.flash_attention``, with the
+    sliding ``window`` and the unequal lengths (non-causal, no window) of
+    the reference's model layer (window 0: none). The
     reference's kv-head repeat, 128-lane D padding and block sizes are TPU
     layout choices: the kernel reads kv head ``h // (H / Hkv)`` in place
     and picks its own tiles."""

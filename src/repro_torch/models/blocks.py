@@ -11,7 +11,9 @@ projections, (E, D, F) expert weights). Mixed precision follows the
 reference: norms and RoPE promote to float32 and cast back, attention
 scores and accumulators are float32. One card has no mesh, so there are no
 sharding constraints, and the MoE runs the reference's single-shard path.
-Cross-attention (``kv_override``) comes with a later slice of the port.
+Cross-attention (``attn_apply(kv_override=)``, whisper-base's decoder over
+its encoder's frames) is the reference's: q projected and not rotated, the
+given K/V attended in full.
 """
 from __future__ import annotations
 
@@ -76,19 +78,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     attention. Returns (B, Sq, H, Dv).
 
     On CUDA tensors it launches the flash-attention kernel
-    (``ops.flash_attention``); the kernel computes equal-length self
-    attention, with or without a window, at the (D, Dv) pairs it is built
-    for (D == Dv, and MLA's (192, 128)); an unbuilt pair raises there, and
-    unequal lengths raise here. On CPU tensors it runs the reference's
-    chunked scan in PyTorch ops, over kv chunks of the reference's size
-    (the reference's q chunking does not change the result, so the scan
-    takes every query row at once)."""
-    sq, sk = q.shape[1], k.shape[1]
+    (``ops.flash_attention``); the kernel computes self attention, with or
+    without a window, and non-causal attention over a kv length of its own
+    (cross-attention), at the (D, Dv) pairs it is built for (D == Dv, and
+    MLA's (192, 128)); an unbuilt pair, or a causal or windowed call at
+    unequal lengths, raises there, and a q offset (no caller passes one)
+    raises here. On CPU tensors it runs the reference's chunked scan in
+    PyTorch ops, over kv chunks of the reference's size (the reference's q
+    chunking does not change the result, so the scan takes every query
+    row at once)."""
+    sk = k.shape[1]
     if q.device.type == "cuda":
-        if sq != sk or q_offset:
+        if q_offset:
             raise NotImplementedError(
-                "attention with unequal or offset q / kv lengths on the "
-                "card comes with the encoder-decoder slice")
+                "a q offset on the card: no caller passes one, and the "
+                "kernel has none")
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset,
@@ -100,7 +104,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      window: int = 0) -> torch.Tensor:
     """Single-token attention against a KV cache, in plain PyTorch ops (the
     reference computes it outside any kernel). q: (B, 1, H, D); caches
-    (B, Smax, Hkv, D); cur_len: () valid length, on the cache's device."""
+    (B, Smax, Hkv, D); cur_len: the valid length, a () tensor on the
+    cache's device or an int."""
     b, _, h, d = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     dv = v_cache.shape[-1]
@@ -142,9 +147,18 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attn_apply(params: Dict, x: torch.Tensor, positions: torch.Tensor,
                cfg: ArchConfig, *, causal: bool = True, window: int = 0,
-               mode: str = "train", cache: Optional[Dict] = None
+               mode: str = "train", cache: Optional[Dict] = None,
+               kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention. mode: train | prefill | decode.
+
+    ``kv_override``: (k, v) already projected (cross-attention over an
+    encoder's output, (B, S_enc, Hkv, Dh) each), as the reference's: q is
+    projected and not rotated (the reference applies RoPE only without an
+    override); decode attends to the whole override through
+    ``decode_attention`` and returns ``cache`` unchanged; train and prefill
+    attend through ``flash_attention`` (non-causal where the caller says,
+    at Sq != Sk) and return no cache.
 
     Decode writes this token's K/V row into ``cache["k"]`` / ``cache["v"]``
     IN PLACE at slot ``cache["pos"]`` (the reference returns updated copies)
@@ -158,6 +172,16 @@ def attn_apply(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     the reference returns all of them and its ``pad_prefill_cache`` then
     keeps the first ``window``, so that its decode attends to stale keys
     (ROADMAP §3). Up to the window the prefill cache is the reference's."""
+    if kv_override is not None:
+        q = _project(x, params["wq"])
+        k, v = kv_override
+        if mode == "decode":
+            out, new_cache = decode_attention(q, k, v, k.shape[1]), cache
+        else:
+            out, new_cache = flash_attention(
+                q, k, v, causal=causal, window=window,
+                kv_chunk=cfg.kv_chunk), None
+        return _attn_out(params, x, out), new_cache
     q = rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = rope(_project(x, params["wk"]), positions, cfg.rope_theta)
     v = _project(x, params["wv"])
@@ -185,10 +209,15 @@ def attn_apply(params: Dict, x: torch.Tensor, positions: torch.Tensor,
                              "pos": pos}
             else:
                 new_cache = {"k": k, "v": v, "pos": pos}
+    return _attn_out(params, x, out), new_cache
+
+
+def _attn_out(params: Dict, x: torch.Tensor, out: torch.Tensor
+              ) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd", out, wo) as one matrix product."""
     b, s, h, dh = out.shape
     wo = params["wo"].to(x.dtype)
-    y = out.reshape(b, s, h * dh) @ wo.reshape(h * dh, wo.shape[-1])
-    return y, new_cache
+    return out.reshape(b, s, h * dh) @ wo.reshape(h * dh, wo.shape[-1])
 
 
 def _ring(t: torch.Tensor, window: int) -> torch.Tensor:

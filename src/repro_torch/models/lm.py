@@ -1,4 +1,4 @@
-"""Causal decoder-only LM: port of ``repro.models.lm``.
+"""Causal LM / encoder-decoder model: port of ``repro.models.lm``.
 
 The per-layer kinds come from ``ArchConfig.layer_kinds()`` and the layers
 are grouped by ``segment_plan`` as in the reference, so the parameter and
@@ -20,18 +20,32 @@ reference's single-shard mixture of experts (``blocks.moe_apply``); the
 leading dense layers of an MoE config take ``dense_d_ff``; an xLSTM layer
 (MLP kind ``none``) has no MLP.
 
+An encoder-decoder config (whisper-base) adds the reference's encoder: a
+stack of ``encoder_layers`` non-causal attention layers (``enc_attn``,
+RoPE at the frame positions) with dense MLPs over the given frame
+embeddings (the audio frontend is a stub in both packages: the caller
+passes ``encoder_embeddings`` of shape (B, encoder_seq, d_model), not
+scaled by sqrt(d)), then the final rmsnorm; each decoder layer has a
+cross-attention block (``ln_x``, ``cross``) after its mixer, over K/V
+projected from the encoder's output in train and prefill and read from
+the cache's ``enc_k`` / ``enc_v`` in decode. The prefill's attention,
+the encoder's and the cross block's included, runs through the flash
+kernel on the card (the cross block's at Sq != Sk); decode's cross block
+attends in plain ops, as the reference's does.
+
 The cache: the reference updates it functionally. Here a decode step
 writes the new K/V row IN PLACE into the cache it is given (at slot
 ``pos``, or ``pos % window`` in a local layer's ring; an MLA layer's
 latent row at ``pos``), and a recurrent layer's state (RG-LRU, mLSTM,
-sLSTM) too, and returns a cache whose leaves are those same tensors, so a
-cache must not be reused after a decode step.
+sLSTM) too, and returns a cache whose leaves are those same tensors (the
+encoder's ``enc_k`` / ``enc_v`` unchanged), so a cache must not be reused
+after a decode step.
 
 Ported: configs whose mixers are ``attn``, ``local_attn``, ``mla``,
-``rglru``, ``mlstm`` and ``slstm``, with dense, MoE or no MLPs (the dense
-GQA models, recurrentgemma-2b, deepseek-v2, kimi-k2 and xlstm-350m).
-Encoder-decoder configs raise ``NotImplementedError``, and so do a
-``mesh`` and ``rules``: one card has no mesh.
+``rglru``, ``mlstm`` and ``slstm``, with dense, MoE or no MLPs, with or
+without an encoder (the dense GQA models, recurrentgemma-2b, deepseek-v2,
+kimi-k2, xlstm-350m and whisper-base). A ``mesh`` and ``rules`` raise
+``NotImplementedError``: one card has no mesh.
 """
 from __future__ import annotations
 
@@ -54,9 +68,6 @@ def check_supported(cfg: ArchConfig) -> None:
     if mixers:
         raise NotImplementedError(
             f"{cfg.name}: mixers {mixers} are not ported")
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet")
 
 
 # ----------------------------------------------------------------------------
@@ -95,7 +106,7 @@ def segment_plan(cfg: ArchConfig) -> Tuple[Segment, ...]:
 # ----------------------------------------------------------------------------
 
 def _mixer_spec(cfg: ArchConfig, mixer: str) -> Dict[str, Any]:
-    if mixer in ("attn", "local_attn"):
+    if mixer in ("attn", "local_attn", "enc_attn"):
         return blocks.attn_spec(cfg)
     if mixer == "mla":
         return blocks.mla_spec(cfg)
@@ -108,10 +119,14 @@ def _mixer_spec(cfg: ArchConfig, mixer: str) -> Dict[str, Any]:
     raise ValueError(mixer)
 
 
-def _layer_spec(cfg: ArchConfig, mixer: str, mlp: str) -> Dict[str, Any]:
+def _layer_spec(cfg: ArchConfig, mixer: str, mlp: str,
+                cross: bool = False) -> Dict[str, Any]:
     d = cfg.d_model
     spec: Dict[str, Any] = {"ln1": blocks.rmsnorm_spec(d),
                             "mixer": _mixer_spec(cfg, mixer)}
+    if cross:   # an encoder-decoder's decoder layer: the cross block
+        spec["ln_x"] = blocks.rmsnorm_spec(d)
+        spec["cross"] = blocks.attn_spec(cfg)
     if mlp == "dense":
         spec["ln2"] = blocks.rmsnorm_spec(d)
         # an MoE config's leading dense layers are dense_d_ff wide
@@ -134,10 +149,16 @@ def model_spec(cfg: ArchConfig) -> Dict[str, Any]:
         spec["lm_head"] = {"w": ParamSpec((d, v))}
     spec["decoder"] = {}
     for seg in segment_plan(cfg):
-        unit = {f"l{j}": _layer_spec(cfg, mx, mlp)
+        unit = {f"l{j}": _layer_spec(cfg, mx, mlp, cfg.is_encdec)
                 for j, (mx, mlp) in enumerate(seg.kinds)}
         spec["decoder"][seg.name] = (stack_specs(unit, seg.repeats)
                                      if seg.repeats > 1 else unit)
+    if cfg.is_encdec:   # stacked over the encoder's layers, even one
+        spec["encoder"] = {
+            "body": stack_specs({"l0": _layer_spec(cfg, "enc_attn",
+                                                   "dense")},
+                                cfg.encoder_layers),
+            "norm": blocks.rmsnorm_spec(d)}
     return spec
 
 
@@ -171,9 +192,14 @@ def cache_spec(cfg: ArchConfig, batch: int, max_len: int) -> Dict[str, Any]:
     check_supported(cfg)
     spec: Dict[str, Any] = {"decoder": {}}
     for seg in segment_plan(cfg):
-        unit = {f"l{j}": {"mixer": _mixer_cache_spec(cfg, mx, batch,
-                                                     max_len)}
-                for j, (mx, _) in enumerate(seg.kinds)}
+        unit = {}
+        for j, (mx, _) in enumerate(seg.kinds):
+            c = {"mixer": _mixer_cache_spec(cfg, mx, batch, max_len)}
+            if cfg.is_encdec:   # the cross block's K/V of the encoder
+                c["enc_k"] = c["enc_v"] = ParamSpec(
+                    (batch, cfg.encoder_seq, cfg.num_kv_heads,
+                     cfg.resolved_head_dim), init="zeros")
+            unit[f"l{j}"] = c
         spec["decoder"][seg.name] = (stack_specs(unit, seg.repeats)
                                      if seg.repeats > 1 else unit)
     spec["pos"] = ParamSpec((), init="zeros", dtype="int32")
@@ -192,13 +218,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
 
 def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ArchConfig, mixer: str, mlp: str, *, mode: str,
-                 cache: Optional[Dict]
+                 cache: Optional[Dict], enc_out: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    new_cache: Dict[str, Any] = {}
     h = blocks.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     mc = cache["mixer"] if cache else None
-    if mixer in ("attn", "local_attn"):
+    if mixer in ("attn", "local_attn", "enc_attn"):
         out, nm = blocks.attn_apply(
-            lp["mixer"], h, positions, cfg, causal=True,
+            lp["mixer"], h, positions, cfg, causal=mixer != "enc_attn",
             window=cfg.window if mixer == "local_attn" else 0, mode=mode,
             cache=mc)
     elif mixer == "mla":
@@ -215,23 +242,44 @@ def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                                         cache=mc)
     else:
         raise ValueError(mixer)
+    if nm is not None:
+        new_cache["mixer"] = nm
     x = x + out
+    # the cross block: over K/V projected from the encoder's output (train,
+    # prefill) or the cache's (decode); without either (a train forward with
+    # no embeddings) the reference skips it
+    if "cross" in lp and (enc_out is not None or
+                          (cache and "enc_k" in cache)):
+        hx = blocks.rmsnorm(lp["ln_x"], x, cfg.norm_eps)
+        if enc_out is not None:
+            ek = blocks._project(enc_out, lp["cross"]["wk"])
+            ev = blocks._project(enc_out, lp["cross"]["wv"])
+        else:
+            ek, ev = cache["enc_k"], cache["enc_v"]
+        cout, _ = blocks.attn_apply(
+            lp["cross"], hx, positions, cfg, causal=False,
+            mode="decode" if mode == "decode" else "train",
+            kv_override=(ek, ev))
+        x = x + cout
+        if mode in ("prefill", "decode"):
+            new_cache["enc_k"], new_cache["enc_v"] = ek, ev
     if "mlp" in lp:
         h2 = blocks.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         if mlp == "moe":
             x = x + blocks.moe_apply(lp["mlp"], h2, cfg)
         else:
             x = x + blocks.mlp_apply(lp["mlp"], h2, cfg)
-    return x, ({"mixer": nm} if nm is not None else None)
+    return x, (new_cache if new_cache else None)
 
 
-def _apply_unit(up: Dict, x, positions, cfg, seg: Segment, *, mode, cache):
+def _apply_unit(up: Dict, x, positions, cfg, seg: Segment, *, mode, cache,
+                enc_out=None):
     """Apply one period (len(seg.kinds) layers)."""
     new_cache = {}
     for j, (mx, mlp) in enumerate(seg.kinds):
         lc = cache.get(f"l{j}") if cache else None
         x, nc = _apply_layer(up[f"l{j}"], x, positions, cfg, mx, mlp,
-                             mode=mode, cache=lc)
+                             mode=mode, cache=lc, enc_out=enc_out)
         if nc is not None:
             new_cache[f"l{j}"] = nc
     return x, (new_cache if new_cache else None)
@@ -257,25 +305,42 @@ def _stack(leaves: List, stacked=None):
     return torch.stack(leaves)
 
 
-def _run_decoder(params, x, positions, cfg: ArchConfig, *, mode, cache):
+def _run_decoder(params, x, positions, cfg: ArchConfig, *, mode, cache,
+                 enc_out=None):
     new_cache: Dict[str, Any] = {}
     for seg in segment_plan(cfg):
         sp = params["decoder"][seg.name]
         sc = cache["decoder"].get(seg.name) if cache else None
         if seg.repeats == 1:
             x, nc = _apply_unit(sp, x, positions, cfg, seg, mode=mode,
-                                cache=sc)
+                                cache=sc, enc_out=enc_out)
         else:
             ncs = []
             for j in range(seg.repeats):
                 x, nc_j = _apply_unit(
                     _layer_view(sp, j), x, positions, cfg, seg, mode=mode,
-                    cache=_layer_view(sc, j) if sc is not None else None)
+                    cache=_layer_view(sc, j) if sc is not None else None,
+                    enc_out=enc_out)
                 ncs.append(nc_j)
             nc = None if mode == "train" else _stack(ncs, sc)
         if nc is not None:
             new_cache[seg.name] = nc
     return x, new_cache
+
+
+def _run_encoder(params, emb: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The encoder over frame embeddings (B, S_enc, d) in the compute
+    dtype: ``encoder_layers`` non-causal attention layers (RoPE at
+    positions 0 .. S_enc - 1) with dense MLPs, each a view of the stacked
+    ``encoder.body``, then the final rmsnorm. The input is not scaled."""
+    positions = torch.arange(emb.shape[1], device=emb.device)[None, :]
+    seg = Segment("enc", (("enc_attn", "dense"),), cfg.encoder_layers,
+                  tuple(range(cfg.encoder_layers)))
+    x = emb
+    for j in range(cfg.encoder_layers):
+        x, _ = _apply_unit(_layer_view(params["encoder"]["body"], j), x,
+                           positions, cfg, seg, mode="train", cache=None)
+    return blocks.rmsnorm(params["encoder"]["norm"], x, cfg.norm_eps)
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -284,14 +349,14 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig,
             encoder_embeddings: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """tokens: (B, S) integer ids. Returns (logits, new_cache | None)."""
+    """tokens: (B, S) integer ids; ``encoder_embeddings`` (B, S_enc, d) of
+    an encoder-decoder config (ignored by a decoder-only one, as the
+    reference ignores them), run through the encoder in the compute dtype
+    for the decoder's cross blocks. Returns (logits, new_cache | None)."""
     check_supported(cfg)
     if mesh is not None or rules is not None:
         raise NotImplementedError("one card has no mesh: sharding comes "
                                   "with the multi-card slice")
-    if encoder_embeddings is not None:
-        raise NotImplementedError("encoder-decoder models are not ported "
-                                  "yet")
     emb = params["embed"]["w"]
     ids = torch.clamp(tokens.to(torch.long), 0, emb.shape[0] - 1)
     x = emb[ids].to(cfg.dtype)
@@ -304,8 +369,12 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig,
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
 
+    enc_out = None
+    if cfg.is_encdec and encoder_embeddings is not None:
+        enc_out = _run_encoder(params, encoder_embeddings.to(cfg.dtype), cfg)
+
     x, new_cache = _run_decoder(params, x, positions, cfg, mode=mode,
-                                cache=cache)
+                                cache=cache, enc_out=enc_out)
     x = blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ emb.to(x.dtype).T

@@ -1,12 +1,18 @@
 """Batched LM serving engine: prefill -> KV cache -> greedy decode.
 
 Port of ``repro.serving.engine`` for one device, the dense GQA models,
-recurrentgemma-2b, deepseek-v2 (MLA, MoE), kimi-k2 (MoE) and xlstm-350m
-(mLSTM, sLSTM) (``models/lm.py``):
+recurrentgemma-2b, deepseek-v2 (MLA, MoE), kimi-k2 (MoE), xlstm-350m
+(mLSTM, sLSTM) and whisper-base (encoder-decoder) (``models/lm.py``):
 
     engine = ServingEngine(cfg, params, max_len=2080)      # runs on the GPU
     tokens = engine.generate(prompts, max_new_tokens=32)   # (B, 32) int32
     engine.stats     # prefill_ms, decode_ms_per_token, tokens_per_s
+
+An encoder-decoder config takes the encoder's input as the reference's
+engine does, ``generate(prompts, n, encoder_embeddings=emb)`` with emb
+(B, encoder_seq, d_model) precomputed frame embeddings (whisper's audio
+frontend is a stub in both packages); the prefill runs the encoder, and
+its K/V stay in the cache for decode's cross-attention.
 
 Prefill runs every layer's attention through the flash-attention kernel
 and every RG-LRU and sLSTM layer's recurrence through its kernel, fills a
@@ -38,9 +44,10 @@ from repro_torch.obs.clock import now
 
 
 def make_prefill_step(cfg: ArchConfig, mesh=None, rules=None):
-    def prefill(params, tokens):
+    def prefill(params, tokens, encoder_embeddings=None):
         logits, cache = lm.forward(params, tokens, cfg, mesh, rules,
-                                   mode="prefill")
+                                   mode="prefill",
+                                   encoder_embeddings=encoder_embeddings)
         return logits[:, -1], cache
     return prefill
 
@@ -73,8 +80,9 @@ def pad_prefill_cache(cfg: ArchConfig, prefill_cache, batch: int,
     ``window`` (ROADMAP §3). An MLA layer's latent ``c_kv`` (B, S, r) and
     ``k_rope`` (B, S, dr) grow along S as a K/V cache does; the fixed-size
     recurrent states (RG-LRU's h and conv window, mLSTM's C, n, m, sLSTM's
-    c, n, h, m) have equal shapes on both sides and are copied leaf for
-    leaf."""
+    c, n, h, m) and an encoder-decoder's ``enc_k`` / ``enc_v`` (B,
+    encoder_seq, Hkv, Dh) have equal shapes on both sides and are taken
+    leaf for leaf."""
     target = lm.init_cache(cfg, batch, max_len,
                            device=prefill_cache["pos"].device)
 
@@ -112,18 +120,29 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def generate(self, prompts, max_new_tokens: int) -> torch.Tensor:
-        """prompts: (B, S) integer ids. Returns (B, max_new_tokens) int32 on
-        the engine's device. Keeps the prefill's last-position logits in
-        ``prefill_logits`` and the step times in ``stats``: ``prefill_ms``,
-        ``decode_ms_per_token`` (per decode step of the batch) and
-        ``tokens_per_s`` (generated tokens over the whole call)."""
+    def generate(self, prompts, max_new_tokens: int,
+                 encoder_embeddings=None) -> torch.Tensor:
+        """prompts: (B, S) integer ids; ``encoder_embeddings`` (B,
+        encoder_seq, d_model), which an encoder-decoder config needs (a
+        ``ValueError`` without them, where the reference's cache merge
+        fails). Returns (B, max_new_tokens) int32 on the engine's device.
+        Keeps the prefill's last-position logits in ``prefill_logits`` and
+        the step times in ``stats``: ``prefill_ms`` (the encoder
+        included), ``decode_ms_per_token`` (per decode step of the batch)
+        and ``tokens_per_s`` (generated tokens over the whole call)."""
+        if self.cfg.is_encdec and encoder_embeddings is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder model: "
+                             "generate needs encoder_embeddings")
         prompts = torch.as_tensor(prompts, device=self.device)
+        if encoder_embeddings is not None:
+            encoder_embeddings = torch.as_tensor(encoder_embeddings,
+                                                 device=self.device)
         b = prompts.shape[0]
         with torch.inference_mode():
             self._sync()
             t0 = now()
-            last_logits, cache = self.prefill(self.params, prompts)
+            last_logits, cache = self.prefill(self.params, prompts,
+                                              encoder_embeddings)
             cache = pad_prefill_cache(self.cfg, cache, b, self.max_len)
             tok = torch.argmax(last_logits.to(torch.float32), dim=-1)
             out = [tok[:, None].to(torch.int32)]

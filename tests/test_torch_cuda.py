@@ -56,7 +56,12 @@ against the plain version at their served prefills, ragged and strided;
 an unbuilt (D, Dv) pair raises; reduced deepseek-v2 and kimi-k2 in bf16 at
 the full models' attention widths launch one flash kernel a layer in a
 generate and match a card train-mode forward, and the MoE routing of tied
-bf16 logits on the card equals the CPU's without a host sync. The sLSTM
+bf16 logits on the card equals the CPU's without a host sync. Both flash
+routes take unequal q and kv lengths (non-causal, no window) at every
+(D, Dv) they are built for, ragged on both sides, and reduced
+whisper-base's engine (encoder, decoder, cross-attention) on the card
+launches one flash kernel an encoder layer and two a decoder layer in the
+prefill and equals the CPU engine. The sLSTM
 recurrence kernel (xlstm-350m) is held against its plain version at 1e-4
 at dh 16 to 256 (float32 and bf16 weights, B 1 to 9, one to four heads,
 ragged columns, from a drawn carry and from none), each launch is the
@@ -1267,9 +1272,10 @@ def test_lm_engine_launches_flash_once_per_layer(cuda_device, monkeypatch):
 def test_model_attention_refuses_what_the_kernel_does_not_compute(
         cuda_device):
     """No silent plain fallback on the card: a (D, Dv) pair no kernel is
-    built for raises, and unequal or offset lengths raise, naming the
-    slice that brings them; a window launches the kernel (its windowed
-    instance), and so does MLA's (192, 128)."""
+    built for raises, a causal call at unequal lengths raises (naming the
+    rule) and so does a q offset; a window launches the kernel (its
+    windowed instance), and so do MLA's (192, 128) and a non-causal call
+    at unequal lengths (the cross-attention)."""
     from repro_torch.models import blocks
     q = torch.zeros((1, 32, 4, 16), device=cuda_device)
     k = torch.zeros((1, 32, 2, 16), device=cuda_device)
@@ -1287,13 +1293,89 @@ def test_model_attention_refuses_what_the_kernel_does_not_compute(
         causal=True)
     assert cuda_lib.launch_counts()["flash_attention"] == 1
     assert tuple(out.shape) == (1, 32, 4, 128)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+    with pytest.raises(ValueError, match="unequal lengths only without"):
         blocks.flash_attention(q[:, :16], k, k, causal=True)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+    with pytest.raises(NotImplementedError, match="q offset"):
         blocks.flash_attention(q, k, k, causal=True, q_offset=4)
     cuda_lib.reset_launch_counts()
     blocks.flash_attention(q, k, k, causal=True)
-    assert cuda_lib.launch_counts()["flash_attention"] == 1
+    out = blocks.flash_attention(q[:, :16], k, k, causal=False)
+    assert cuda_lib.launch_counts()["flash_attention"] == 2
+    assert tuple(out.shape) == (1, 16, 4, 16)
+
+
+# (Sq, Sk): kv longer and shorter than q, each ragged against the 128-row q
+# tiles and the 64-, 80- and 128-row kv tiles, one row of queries, and
+# whisper-base's three prefill geometries at a reduced batch (the encoder's
+# 1500 frames, 11 x 128 + 92, ragged on both sides at once; the cross
+# block's 224 queries over them)
+UNEQUAL_LENGTHS = [(8, 24), (24, 8), (130, 1500), (1500, 130), (1, 77),
+                   (77, 1), (200, 129), (1500, 1500), (224, 1500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", UNEQUAL_LENGTHS)
+@pytest.mark.parametrize("dtype,d,dv", [
+    *((torch.bfloat16, d, dv) for d, dv in fa.HEAD_DIM_PAIRS[torch.bfloat16]),
+    *((torch.float32, d, dv) for d, dv in fa.HEAD_DIM_PAIRS[torch.float32])])
+def test_flash_kernels_take_unequal_lengths(cuda_device, sq, sk, dtype, d,
+                                            dv):
+    """Both routes, at every (D, Dv) they are built for, non-causal over a
+    kv length of its own: one launch, against the plain version on the
+    same card tensors (max-abs and the row gate); a kernel that mapped or
+    masked K and V at Sq would drop or zero keys, far outside both."""
+    gen = torch.Generator().manual_seed(sq * 7 + sk + d)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda_device, dtype)
+               for shape in ((2, sq, 4, d), (2, sk, 2, d), (2, sk, 2, dv)))
+    fa.flash_attention.launches = 0
+    out = fa.flash_attention(q, k, v, causal=False)
+    assert fa.flash_attention.launches == 1
+    plain = fa.flash_attention_plain(q, k, v, causal=False)
+    assert out.dtype == dtype and tuple(out.shape) == (2, sq, 4, dv)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0,
+                               atol=FLASH_TOL[dtype])
+    row_err = (out.float() - plain.float()).abs().amax(dim=-1) / \
+        plain.float().square().mean(dim=-1).sqrt()
+    assert float(row_err.max()) <= FLASH_ROW_TOL[dtype]
+    # the keys past Sq count: the same queries over the first Sq keys only
+    # give another answer
+    if sk > sq and sq > 1:
+        short = fa.flash_attention(q, k[:, :sq].contiguous(),
+                                   v[:, :sq].contiguous(), causal=False)
+        assert float((short.float() - out.float()).abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+def test_whisper_engine_on_card_matches_the_cpu(cuda_device, monkeypatch):
+    """Reduced whisper-base (float32, D 16: ``flash_ffma_kernel<16,
+    false>``) on the card against the CPU engine: in the prefill one flash
+    launch an encoder layer and two a decoder layer (its self-attention,
+    causal, and its cross-attention over the 24 frames at Sq != Sk), none
+    in decode, the plain version never run; greedy tokens equal, prefill
+    logits within 1e-4."""
+    cfg = reduced(get_arch("whisper-base"))
+    params = tlm.init_params(0, cfg)              # float32, on the CPU
+    prompts = torch.randint(0, cfg.vocab_size, (2, 10),
+                            generator=torch.Generator().manual_seed(10))
+    emb = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                      generator=torch.Generator().manual_seed(11))
+    engine = ServingEngine(cfg, params, max_len=20)
+    cuda_lib.reset_launch_counts()
+    with monkeypatch.context() as m:
+        from repro_torch.models import blocks
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the plain version ran on the card path")
+        m.setattr(fa, "flash_attention_plain", refuse)
+        m.setattr(blocks, "flash_attention_plain", refuse)
+        out = engine.generate(prompts, 6, encoder_embeddings=emb)
+    assert {k: v for k, v in cuda_lib.launch_counts().items() if v} == {
+        "flash_attention": cfg.encoder_layers + 2 * cfg.num_layers}
+    cpu = ServingEngine(cfg, params, max_len=20, device="cpu")
+    assert torch.equal(out.cpu(), cpu.generate(prompts, 6,
+                                               encoder_embeddings=emb))
+    torch.testing.assert_close(engine.prefill_logits.cpu(),
+                               cpu.prefill_logits, rtol=0, atol=1e-4)
 
 
 # --- deepseek-v2 and kimi-k2: the (192, 128) and D 112 flash instances, MLA

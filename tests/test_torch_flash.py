@@ -9,6 +9,9 @@ counterparts in the port: ``flash_attention_plain``, the port's
 tensors) and the port's ``blocks.flash_attention``. Tolerances: 2e-5 for
 float32 (summation order), 2e-2 for bfloat16 outputs (one bf16 ulp of the
 output plus another kv-tile order), as in tests/test_kernels.py.
+Unequal q and kv lengths (whisper-base's cross-attention: its decoder's
+tokens over its encoder's frames) against the JAX model layer, which
+takes them where the Pallas kernel does not.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import blocks as jblocks
 from repro_torch import configs as tconfigs
+from repro_torch.analysis import census
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import ops as tops
@@ -154,6 +158,72 @@ def test_model_layer_bf16_matches_jax_scan():
            jblocks.flash_attention(qj, kj, vj, q_chunk=16, **kw), 2e-2)
 
 
+# (Sq, Sk, D): kv longer and shorter than q, ragged against the kernels'
+# 128-row q tiles and 64 / 128-row kv tiles, and whisper-base's cross
+# geometry (a 130-row slice of queries over its 1500 frames at D 64)
+UNEQUAL = [(8, 24, 16), (24, 8, 16), (33, 150, 16), (130, 1500, 64)]
+
+
+@pytest.mark.parametrize("sq,sk,d", UNEQUAL)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unequal_lengths_match_jax_model_layer(sq, sk, d, dtype):
+    """Non-causal attention of Sq queries over Sk keys: the plain version,
+    the port's ``ops`` wrapper (CPU tensors: the plain version) and its
+    model layer against the JAX model layer's scan."""
+    (qj, kj, vj), (q, k, v) = _inputs(sq + sk, 2, sq, 4, 2, d, dtype, sk=sk)
+    ref = jblocks.flash_attention(qj, kj, vj, causal=False)
+    plain = fa.flash_attention_plain(q, k, v, causal=False)
+    assert tuple(plain.shape) == (2, sq, 4, d)
+    _close(plain, ref, TOL[dtype])
+    assert torch.equal(tops.flash_attention(q, k, v, causal=False), plain)
+    _close(tblocks.flash_attention(q, k, v, causal=False), ref, TOL[dtype])
+
+
+def test_shapes_take_unequal_lengths_and_refuse_a_short_v():
+    """``_check_shapes`` takes Sq != Sk; it still wants batch and head dim
+    equal, whole groups of query heads, and v as long as k."""
+    _, (q, k, v) = _inputs(12, 1, 8, 4, 2, 16, sk=24)
+    fa._check_shapes(q, k, v)
+    with pytest.raises(ValueError, match="want q"):
+        fa._check_shapes(q, k, v[:, :20])
+    with pytest.raises(ValueError, match="do not match"):
+        fa._check_shapes(q, k[..., :8], v)
+    with pytest.raises(ValueError, match="do not match"):
+        fa._check_shapes(q, torch.cat([k, k]), torch.cat([v, v]))
+    with pytest.raises(ValueError, match="multiple"):
+        fa._check_shapes(q[:, :, :3], k, v)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 4),
+                                           (True, 4)])
+def test_card_operands_refuse_causal_or_window_at_unequal_lengths(causal,
+                                                                  window):
+    """The kernel takes Sq != Sk only without causal and window: neither
+    package has such a call, and the wrapper says so (the check reads
+    only shapes here); the plain version computes them."""
+    _, (q, k, v) = _inputs(13, 1, 8, 4, 2, 16, sk=24)
+    fa._check_card_operands(q, k, v)
+    with pytest.raises(ValueError, match="unequal lengths only without"):
+        fa._check_card_operands(q, k, v, window=window, causal=causal)
+    fa._check_card_operands(q, k[:, :8], v[:, :8], window=window,
+                            causal=causal)
+    assert fa.flash_attention(q, k, v, causal=causal,
+                              window=window).shape == q.shape
+
+
+def test_census_declares_products_at_both_lengths():
+    """The op census takes the kernel's two products at (Sq, D) x (D, Sk)
+    and (Sq, Sk) x (Sk, Dv)."""
+    _, (q, k, v) = _inputs(14, 2, 8, 4, 2, 16, "bfloat16", sk=24)
+    dots = fa._attention_dots(q, k, v, causal=False)
+    assert [(d.lhs, d.rhs) for d in dots] == [((2, 4, 8, 16), (16, 24)),
+                                              ((2, 4, 8, 24), (24, 16))]
+    res = census.op_census(lambda: fa.flash_attention(q, k, v,
+                                                      causal=False))
+    assert res["ops"]["kernel_calls"] == 1
+    assert res["flops"]["dot_flops"] == 2 * 2 * 4 * 8 * 24 * (16 + 16)
+
+
 def test_kernel_tiles_do_not_change_the_function():
     """The plain version at the kernel's kv tile equals it at the JAX
     layer's chunk (and the oracle) up to summation order."""
@@ -177,7 +247,7 @@ def test_wrapper_refuses_mismatched_operands():
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention(q[:, :, :3], k, v)
     with pytest.raises(ValueError, match="do not match"):
-        fa.flash_attention(q, k[:, :16], v[:, :16])
+        fa.flash_attention(q, k[..., :8], v)
     with pytest.raises(ValueError):
         fa.flash_attention(q[0], k, v)
     with pytest.raises(ValueError, match="no kernel"):
@@ -213,20 +283,22 @@ def test_row_error_limit_passes_tile_order_and_fails_a_dropped_tile(dtype):
 
 
 # the configs the LM path serves (the dense GQA ones, the hybrid, the MoE
-# ones, xLSTM)
+# ones, xLSTM, the encoder-decoder)
 SERVED = {"granite-8b", "yi-34b", "stablelm-3b", "glm4-9b", "chameleon-34b",
           "recurrentgemma-2b", "deepseek-v2-236b", "kimi-k2-1t-a32b",
-          "xlstm-350m"}
+          "xlstm-350m", "whisper-base"}
 
 
 @pytest.mark.parametrize("name", sorted(tconfigs.ARCHS))
 def test_card_wrapper_takes_every_served_head_dim(name):
     """Every config the LM path serves with attention has a head dim the
     card kernels take: ``_check_card_operands`` passes bf16 operands of its
-    widths, an MLA config's at its prefill's qk and v dims (CPU tensors
-    here: the check reads only dtype, shape, strides and alignment). A
-    served config without attention (xlstm-350m) calls no flash kernel.
-    The configs it does not serve are refused before any attention runs."""
+    widths, an MLA config's at its prefill's qk and v dims, an
+    encoder-decoder's cross-attention at its encoder's length too (CPU
+    tensors here: the check reads only dtype, shape, strides and
+    alignment). A served config without attention (xlstm-350m) calls no
+    flash kernel. The configs it does not serve are refused before any
+    attention runs."""
     cfg = tconfigs.get_arch(name)
     try:
         tlm.check_supported(cfg)
@@ -245,4 +317,8 @@ def test_card_wrapper_takes_every_served_head_dim(name):
     v = torch.zeros((1, 8, hkv, dv), dtype=torch.bfloat16)
     fa._check_shapes(q, k, v)
     fa._check_card_operands(q, k, v)
+    if cfg.is_encdec:   # the cross block: 8 queries over every frame
+        k = torch.zeros((1, cfg.encoder_seq, hkv, d), dtype=torch.bfloat16)
+        fa._check_shapes(q, k, k)
+        fa._check_card_operands(q, k, k)
 

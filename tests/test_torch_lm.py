@@ -35,9 +35,11 @@ from repro_torch.serving import ServingEngine
 from repro_torch.serving import engine as tengine
 
 DENSE = ["granite-8b", "yi-34b", "stablelm-3b", "glm4-9b", "chameleon-34b"]
-# every config the port serves: the dense ones, the hybrid and the MoE ones
-# (MLA and MoE: tests/test_torch_mla_moe.py)
-SERVED = DENSE + ["recurrentgemma-2b", "deepseek-v2-236b", "kimi-k2-1t-a32b"]
+# every config the port serves: the dense ones, the hybrid, the MoE ones
+# (MLA and MoE: tests/test_torch_mla_moe.py) and the encoder-decoder
+# (tests/test_torch_whisper.py)
+SERVED = DENSE + ["recurrentgemma-2b", "deepseek-v2-236b", "kimi-k2-1t-a32b",
+                  "whisper-base"]
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -324,16 +326,6 @@ def test_from_numpy_carries_bf16_bits():
 # refusals
 # ----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name,what", [
-    ("whisper-base", "encoder-decoder")])
-def test_unported_configs_raise(name, what):
-    cfg = treduced(tconfigs.get_arch(name))
-    with pytest.raises(NotImplementedError, match=what):
-        tlm.model_spec(cfg)
-    with pytest.raises(NotImplementedError, match=what):
-        ServingEngine(cfg, {}, device="cpu")
-
-
 def test_mesh_temperature_and_missing_card_raise():
     cfg, _ = _cfgs(0)
     params = tlm.init_params(0, cfg)
@@ -344,9 +336,6 @@ def test_mesh_temperature_and_missing_card_raise():
         ServingEngine(cfg, params, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="temperature"):
         ServingEngine(cfg, params, temperature=0.7, device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder"):
-        tlm.forward(params, toks, cfg,
-                    encoder_embeddings=torch.zeros((1, 4, 64)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServingEngine(cfg, params)

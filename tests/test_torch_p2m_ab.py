@@ -234,21 +234,24 @@ def _chip_smoke_lm_phases():
             arch = pos[0] if pos else kw.get("arch", cs.LM_ARCH)
             out[arch] = dict(path=pos[1] if len(pos) > 1
                              else kw.get("path", "lm"),
-                             layers=kw.get("layers", 0))
+                             layers=kw.get("layers", 0),
+                             **{k: kw[k] for k in ("batch", "prompt")
+                                if k in kw})
     return out
 
 
 @pytest.mark.parametrize("arch", [
     "granite-8b", "stablelm-3b", "recurrentgemma-2b", "deepseek-v2-236b",
-    "kimi-k2-1t-a32b", "xlstm-350m"])
+    "kimi-k2-1t-a32b", "xlstm-350m", "whisper-base"])
 def test_lm_ab_runs_each_arch_as_chip_smoke_does(scripts, arch):
-    """lm_ab.py's child runs an arch's LM phase with the path and depth cut
-    that chip_smoke.py's own run uses (xlstm-350m: the sLSTM kernel's
-    path, so its launch check expects no flash launch)."""
+    """lm_ab.py's child runs an arch's LM phase with the path, depth cut
+    and shape that chip_smoke.py's own run uses (xlstm-350m: the sLSTM
+    kernel's path, so its launch check expects no flash launch;
+    whisper-base: its own path, 16 clips and a 224-token prompt)."""
     ab = scripts("lm_ab")
     scripts("ab_versions").import_checkout()
     phases = _chip_smoke_lm_phases()
-    assert len(phases) == 6
+    assert len(phases) == 7
     assert ab.phase_args(arch) == phases[arch]
     if arch == "xlstm-350m":
         assert ab.phase_args(arch) == dict(path="lm_xlstm", layers=0)
