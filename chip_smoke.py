@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and exits non-zero without one. It builds the port's
-four kernel libraries from ``src/repro_torch/csrc`` (one nvcc each, started
+five kernel libraries from ``src/repro_torch/csrc`` (one nvcc each, started
 together, into ``build/repro_torch/``), then, printing one JSON object per
 line:
 
@@ -19,7 +19,9 @@ line:
    (D, Dv) pair with and without a window (``flash_wgmma_kernel<256,
    true>`` and MLA's ``flash_wgmma_kernel<192, false>`` among them), runs
    HGMMA and no HMMA, the float32 flash kernel, the RG-LRU scan's three
-   instances and the sLSTM kernel's two neither);
+   instances, the sLSTM kernel's two and the flash backward's float32
+   dq and dk / dv kernels neither; its four bf16 kernels run HMMA, the
+   mma.sync of their products, and no HGMMA);
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32), three odd geometries (one at C 48) and
    the paper's ImageNet frame size (16, 224, 224, 3) -> (200704, 32). Each
@@ -190,7 +192,43 @@ line:
    such token's CPU gap at the k-th logit (within 2 bf16 ulps), the
    output's max-abs on the tokens routed alike (LM_CPU_TOL), and each
    stage's event-pair ms on the card;
-12. ``train``: full-width vgg16 (P2M 3x3 stride 2 to 32 channels, 13
+12. LM training: ``flash_bwd`` lines, the flash backward kernel
+   (``csrc/flash_attention_bwd.cu``: a dq pass then a dk / dv pass,
+   ``flash_bwd_dq_mma_kernel<D>`` and ``flash_bwd_dkdv_mma_kernel<D>`` in
+   bf16, ``flash_bwd_*_kernel<float, 16>`` in float32) at stablelm-3b's
+   step (B 4, S 2048, 32 heads of 80, bf16, causal), granite-8b's (32
+   heads over 8 of 128) and the reduced configs' float32 D 16 (B 8, S
+   128, 4 heads): dq, dk and dv against the plain version (autograd
+   through the plain forward in float32) on the same card tensors, each
+   gradient row's largest error over its RMS within 0.1 (bf16) / 1e-4
+   (float32) over the rows above 1e-3 of the largest RMS, two launches
+   bit for bit equal, the two kernels named
+   from a profile, timed beside the plain version, the bound (five
+   products of D a visible pair, one exponential, each operand once) and
+   the backward of ``scaled_dot_product_attention`` (torch.autograd; the
+   port never calls it); ``lm_train``: ``Trainer.fit`` on stablelm-3b at
+   full width and depth (2.8 B bf16 parameters, seeded), the default
+   ``OptimizerConfig`` (AdamW, float32 moments), ``TokenStream`` batches
+   of 4 x 2048, remat "full", 5 steps one ``fit`` call each (no
+   checkpoint: 34 GB of state), 64 forward and 32 backward flash launches
+   a step, finite losses near ln(vocab), the step walls, the device ms of
+   one more step by family (profiler), peak memory; ``lm_train_d128``:
+   one step of granite-8b at full width, 2 layers, 4 x 2048 (the D 128
+   backward's launches); ``lm_train_vs_cpu``: one AdamW step (lr 1e-3,
+   no warmup) of stablelm-3b at full width, 2 layers, 2 x 256 tokens,
+   bf16, card against CPU from the same weights and batch: loss within
+   2e-3 and gradient norm within 2e-2 relative, every updated weight
+   within 2 lr (1 + wd |w|) + a bf16 ulp and over lr apart in at most 2%
+   of a leaf; ``lm_sample``: sampled ``generate`` (temperature 0.8, key
+   3) card against CPU, reduced glm4-9b in float32 and stablelm-3b at full
+   width, 2 layers, in bf16: each row's tokens equal, or differing first
+   where the CPU's top-2 margin of the Gumbel-perturbed scaled logits is
+   within twice the logits' limit over T; ``lm_train_tiny``: ``python -m
+   repro_torch.launch.train --arch stablelm-3b --scale tiny --steps 5``
+   on the card (float32, D 16; its checkpoints under build/, a second
+   run resuming with no step) against the same command on the CPU, the
+   losses within 1e-4 relative;
+13. ``train``: full-width vgg16 (P2M 3x3 stride 2 to 32 channels, 13
    binary convs) at CIFAR-10 geometry, seeded weights, trained through
    the ``analog`` backend by ``repro_torch.train.vision.fit`` for 20 SGD
    steps on batches of 64 ``ImageStream`` frames: finite losses, no P2M
@@ -205,7 +243,7 @@ line:
    rounding bound, maps by it, EMA stats and gradients held to the CPU's
    float64 result, TF32 in the backward visibly off it), and the whole
    step's loss;
-13. the lifetime phases, on the variation phases' calibrated chip aging
+14. the lifetime phases, on the variation phases' calibrated chip aging
    under BENCH_lifetime.json's drift profile: ``engine_lifetime`` (the
    vgg16 engine with ``VisionEngine(drift=, schedule=SchedulePolicy(
    period_frames=64, cal_iters=12), calibration_frames=)``, a classify and
@@ -228,7 +266,7 @@ line:
    2e-5 of the CPU's chain at the card's trims); ``accuracy_lifetime``
    (``accuracy_vs_age`` of one chip at two ages through ``device``, card
    vs CPU, and the maintenance energy per frame);
-14. the fleet phases (``repro_torch.serving.FleetEngine``): ``fleet_kernel``
+15. the fleet phases (``repro_torch.serving.FleetEngine``): ``fleet_kernel``
    lines, the five fleet instances (kernels A f32 and int8, B, fused f32
    and int8 with the chip axis as a grid dimension) at G 4 at the serving
    shape and (``fleet_kernel_odd``) at a per-chip N of 126, each (a)
@@ -258,7 +296,7 @@ line:
    sleep kernel (no host sync); with the step wall
    and frames/s at ``chips_per_step`` 1, 2, 4 and 8, a sweep's wall and
    peak memory;
-15. the variation phases, on a sampled chip (BENCH_variation.json's
+16. the variation phases, on a sampled chip (BENCH_variation.json's
    profile at sigma 1.0, chip 3): ``calibrate`` (16 frames on the card and
    on the CPU, the trims within 8 bisection steps, the rate errors and
    walls); ``engine_variation`` / ``engine_variation_device`` (the vgg16
@@ -275,7 +313,7 @@ line:
    chips at sigma 0.1, 0.5 and 1.0 on the card against the CPU (yield
    fractions equal, error figures at rtol 1e-5 above 4 ulps of 1, read
    margin within 1e-6 V) and its walls;
-16. ``obs`` (``repro_torch.obs``, run last, in a process of its own:
+17. ``obs`` (``repro_torch.obs``, run last, in a process of its own:
    ``python3 chip_smoke.py --obs-phase``):
    the vgg16 engine of phase 4 streaming 8 batches of 16 at microbatch 8,
    on the cuda path's fused stream and pinned to the deferred exact path,
@@ -297,7 +335,7 @@ line:
    async one without obs, in turns; the p50 / p95 / p99 of the async
    engine's ``serving_microbatch_wall_ms``; the host's dispatch time of a
    deferred exact step with and without obs (behind a sleep, in turns);
-17. ``census`` lines (``repro_torch.analysis.census``; after ``obs``, in
+18. ``census`` lines (``repro_torch.analysis.census``; after ``obs``, in
    a process of its own: ``python3 chip_smoke.py --census-phase``), one an
    entry: the ten entry points of the op census at their census shapes
    (the four
@@ -313,11 +351,12 @@ line:
    an undeferred fleet step makes its two host syncs, the structural
    rules hold; with each line the cuDNN / GEMM kernels, all device events
    and the host syncs (reported, not pinned);
-18. ``seconds``: the wall time of the build, the kernel lines, the vision
+19. ``seconds``: the wall time of the build, the kernel lines, the vision
    phases, the frontend backends' phases, the flash lines, the LM phases,
-   the train phase, the lifetime phases, the fleet phases, the variation
-   phases, the obs phase and the census phase;
-19. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
+   the LM training phases, the train phase, the lifetime phases, the
+   fleet phases, the variation phases, the obs phase and the census
+   phase;
+20. the card's ``nvidia-smi`` line, the ``kernels`` summary line (each
    kernel's launches from its own path's run, the fleet rows' from the
    ``fleet`` and int8 fleet paths; one flash row per served head dim: D
    128 with granite-8b's launches, D 80 with stablelm-3b's, D 256 with
@@ -326,7 +365,9 @@ line:
    geometry; the ``rglru_scan`` and ``rglru_scan_gated`` rows
    with recurrentgemma-2b's: 0 for the ungated instance, which its
    prefill never launches, and one an RG-LRU layer for the gated one; the
-   ``slstm_scan`` row with xlstm-350m's),
+   ``slstm_scan`` row with xlstm-350m's; the three flash backward rows
+   with ``lm_train``'s (D 80), ``lm_train_d128``'s and
+   ``lm_train_tiny``'s (float32 D 16)),
    and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -336,6 +377,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -3732,31 +3774,41 @@ def flash_operands(geom: dict, device):
 def flash_symbols_main(geom_json: str) -> int:
     """``python3 chip_smoke.py --flash-symbols GEOM``: the flash kernels a
     profiler session of one call at the JSON geometry records in this
-    fresh process, as one JSON list (on the libraries ``main`` built)."""
+    fresh process, as one JSON list (on the libraries ``main`` built): the
+    forward's, or with ``"backward": true`` in GEOM the backward's
+    (``flash_attention_bwd`` on ``flash_bwd_operands``)."""
     import torch
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import flash_attention as fa
     geom = json.loads(geom_json)
-    q, k, v = flash_operands(geom, torch.device("cuda"))
+    if geom.get("backward"):
+        q, k, v, do = flash_bwd_operands(geom, torch.device("cuda"))
+        key = "flash_bwd_"
 
-    def kernel():
-        return fa.flash_attention(q, k, v, causal=geom["causal"],
-                                  window=geom.get("window", 0))
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, do, causal=geom["causal"])
+    else:
+        q, k, v = flash_operands(geom, torch.device("cuda"))
+        key = "flash"
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=geom["causal"],
+                                      window=geom.get("window", 0))
 
     kernel()
-    prof, _ = profile_session(kernel, cpu=False, expect="flash")
+    prof, _ = profile_session(kernel, cpu=False, expect=key)
     print(json.dumps(sorted({e.key for e in prof.key_averages()
-                             if "flash" in e.key})), flush=True)
+                             if key in e.key})), flush=True)
     return 0
 
 
 def flash_symbols_in_child(geom: dict) -> list:
     """The flash kernels a profiler session in a fresh process records at
-    ``geom`` (``--flash-symbols``). Late in this long script every session
-    of one flash line once kept the marker kernels and lost the flash
-    kernel's events (kimi-k2's prefill, six sessions in a row), where a
-    fresh process records that call's kernel; the census's
-    ``collect_in_child`` is the same remedy."""
+    ``geom`` (``--flash-symbols``; the backward's with ``"backward":
+    true``). Late in this long script every session of one flash line once
+    kept the marker kernels and lost the flash kernel's events (kimi-k2's
+    prefill, six sessions in a row), where a fresh process records that
+    call's kernel; the census's ``collect_in_child`` is the same remedy."""
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--flash-symbols", json.dumps(geom)],
                          capture_output=True, text=True, timeout=600,
@@ -5253,6 +5305,578 @@ def census_phase(device, smi: str) -> None:
     check(not fails, "census: " + "; ".join(fails))
 
 
+# ---------------------------------------------------------------------------
+# LM training: the flash backward kernel, a Trainer on stablelm-3b at full
+# width and depth, card against CPU, sampled decoding
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+FLASH_BWD_REPLACES = (
+    "none (no TPU kernel): the Pallas kernel of "
+    "src/repro/kernels/flash_attention.py:72 has no backward; the "
+    "reference trains through XLA's autodiff of "
+    "src/repro/models/blocks.py:63 (flash_attention) under "
+    "jax.value_and_grad, src/repro/train/loop.py:49-52")
+# the backward's instances at the geometries that train them: stablelm-3b's
+# step (B 4, S 2048, 32 heads of 80), granite-8b's (32 heads over 8 of 128)
+# and the reduced configs' float32 D 16 at the tiny launcher's batch (8 x
+# 128, 4 heads)
+FLASH_BWD_GEOMS = {
+    "bf16_d80": dict(batch=4, seq=2048, heads=32, kv_heads=32, head_dim=80,
+                     dtype="bfloat16", causal=True),
+    "bf16_d128": dict(batch=4, seq=2048, heads=32, kv_heads=8, head_dim=128,
+                      dtype="bfloat16", causal=True),
+    "f32_d16": dict(batch=8, seq=128, heads=4, kv_heads=4, head_dim=16,
+                    dtype="float32", causal=True),
+}
+# kernel vs plain (autograd through the plain forward in float32), as the
+# forward's row gate: the largest error of a gradient row (dq, dk, dv over
+# D) over that row's RMS; a row whose RMS is under 1e-3 of the largest
+# row's is held over the largest row's RMS instead (a causal q tile's
+# first rows have a gradient at ~0: dS = P (dP - delta) cancels exactly
+# for a query that sees one key, and then it is rounding on both sides,
+# which over its own RMS read 4.8e23). float32: the summation order;
+# bf16: both sides round the gradients to bf16 (2^-8 each; the plain
+# version takes its gradient in float32: on the CPU at S 130, D 128, the
+# kernel's arithmetic lies 0.013 from the float64 gradient);
+# tests/test_torch_cuda.py holds the same limits
+FLASH_BWD_TOL = {"bfloat16": 0.1, "float32": 1e-4}
+GRAD_ROW_FLOOR = 1e-3
+# stablelm-3b trained at full width and depth: the default OptimizerConfig
+# (AdamW, float32 moments, lr 3e-4 after 100 warmup steps), TokenStream
+# batches of 4 x 2048, remat "full", no checkpoint written (34 GB of state)
+LM_TRAIN_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = (
+    "stablelm-3b", 4, 2048, 5)
+# granite-8b at full width cut to 2 layers (its D 128 backward's launches),
+# one step
+LM_TRAIN_D128_ARCH, LM_TRAIN_D128_LAYERS = "granite-8b", 2
+# the card-vs-CPU step: stablelm-3b at full width, 2 layers, 2 x 256
+# tokens, bf16 on both sides, one AdamW step at lr 1e-3 without warmup
+# (a step that moves a bf16 weight: the default's first lr, 3e-6, is under
+# a bf16 ulp of the weights). Gates, about 10x the readings on an H100
+# 80GB HBM3 at 700 W (loss 9.4e-6, grad norm 4.2e-5 relative): the loss
+# within 1e-4 relative, the gradient norm within 5e-4; each leaf's
+# gradient, before the optimizer, within 2e-2 of its norm (Frobenius;
+# the readings 4.5e-3 .. 8.5e-3, the worst the stacked mixer wq; a dq or
+# dk off by a constant factor moves wq / wk by that factor); an updated
+# weight may differ by at most 2 lr (1 + wd |w|) + one bf16 ulp (Adam's
+# first step is lr g / |g|: a g near 0 may take either sign), and by more
+# than lr (half such a flip) in at most 2% of a leaf's entries
+LM_TRAIN_CPU_LAYERS, LM_TRAIN_CPU_BATCH, LM_TRAIN_CPU_SEQ = 2, 2, 256
+LM_TRAIN_CPU_LR = 1e-3
+LM_TRAIN_LOSS_RTOL, LM_TRAIN_GNORM_RTOL = 1e-4, 5e-4
+LM_TRAIN_GRAD_RTOL = 2e-2
+LM_TRAIN_MOVED_FRAC = 0.02
+# sampled decoding card vs CPU: reduced glm4-9b (float32) and stablelm-3b
+# at full width, 2 layers (bf16), temperature 0.8 from key 3; a token may
+# differ only where the CPU's top-2 margin of the Gumbel-perturbed scaled
+# logits is within twice the logits' card-vs-CPU limit over T (float32:
+# 1e-4), and the rows are compared up to their first differing token
+LM_SAMPLE_T = 0.8
+LM_SAMPLE_F32_TOL = 1e-4
+LM_TRAIN_FAMILIES = (("flash_forward", ("flash_wgmma_kernel",
+                                        "flash_ffma_kernel")),
+                     ("flash_backward", ("flash_bwd_",)),
+                     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
+                                 "nvjet")))
+
+
+def flash_bwd_work(geom: dict) -> dict:
+    """What the gradient at ``geom`` must do: five products of D
+    multiply-adds a visible pair (S and dP recomputed, dV, dK, dQ) and one
+    exponential; q, k, v and do read once, dq, dk and dv written once.
+    With the bound."""
+    b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
+                                         "kv_heads", "head_dim"))
+    pairs = b * h * visible_pairs(s, geom["causal"])
+    size = 2 if geom["dtype"] == "bfloat16" else 4
+    work = dict(flops=2 * 5 * pairs * d, exps=pairs,
+                bytes=(3 * b * s * h + 4 * b * s * hkv) * d * size)
+    if geom["dtype"] == "bfloat16":
+        t, by = bound(work["bytes"], 0.0, bf16_ops=work["flops"],
+                      exps=pairs)
+    else:
+        t, by = bound(work["bytes"], work["flops"], exps=pairs)
+    return {**work, "bound_ms": t, "bound_by": by}
+
+
+def grad_row_err(got, ref) -> float:
+    """The largest over the rows (last axis) of max |got - ref| over the
+    row's RMS(ref) where that RMS is above GRAD_ROW_FLOOR of the largest
+    row's, and over the largest row's RMS where it is not: every row is
+    held, a gradient row at ~0 on its absolute error."""
+    import torch
+    got, ref = got.float(), ref.float()
+    rms = ref.square().mean(dim=-1).sqrt()
+    top = rms.max()
+    if float(top) == 0.0:          # a gradient that is 0 everywhere
+        return float((got - ref).abs().max())
+    scale = torch.where(rms > GRAD_ROW_FLOOR * top, rms, top)
+    return float(((got - ref).abs().amax(dim=-1) / scale).max())
+
+
+def grad_fro_err(got, ref) -> float:
+    """||got - ref|| / ||ref|| (Frobenius), reported beside the gate."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def flash_bwd_operands(geom: dict, device):
+    """q, k, v of a flash geometry (``flash_operands``) and the upstream
+    gradient do, from seed 29."""
+    import torch
+    q, k, v = flash_operands(geom, device)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(29)
+                     ).to(device=device, dtype=q.dtype)
+    return q, k, v, do
+
+
+def flash_bwd_phase(name: str, device) -> dict:
+    """The flash backward kernel at one geometry: held against its plain
+    version (autograd through the plain forward in float32) on the same card
+    tensors, the two kernels it launches named from a profile, timed
+    beside its plain version, its bound and the backward of
+    ``scaled_dot_product_attention`` (torch.autograd, the library's
+    yardstick; the port never calls it). Returns the summary row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    geom = FLASH_BWD_GEOMS[name]
+    b, s, h, hkv, d = (geom[x] for x in ("batch", "seq", "heads",
+                                         "kv_heads", "head_dim"))
+    dtype, causal = getattr(torch, geom["dtype"]), geom["causal"]
+    q, k, v, do = flash_bwd_operands(geom, device)
+    symbols = fa.backward_symbols(dtype, d)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, do, causal=causal)
+
+    prof, got = profile_session(kernel, cpu=False, expect="flash_bwd_")
+    ran = sorted({e.key for e in prof.key_averages() if "flash_bwd" in e.key})
+    symbols_from = "session"
+    if not ran:   # every session here lost them: a fresh process's profiler
+        ran = flash_symbols_in_child(dict(geom, backward=True))
+        symbols_from = "child"
+    check(len(ran) == 2 and all(any(sym in r for r in ran)
+                                for sym in symbols),
+          f"flash backward kernels {ran} ran, want {symbols}")
+    ref = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal)
+    errs = {n_: grad_row_err(g_, r_)
+            for n_, g_, r_ in zip(("dq", "dk", "dv"), got, ref)}
+    fro = {n_: grad_fro_err(g_, r_)
+           for n_, g_, r_ in zip(("dq", "dk", "dv"), got, ref)}
+    err = max(max_abs(g_.float(), r_.float()) for g_, r_ in zip(got, ref))
+    check(all(bool(torch.isfinite(g_).all()) for g_ in got),
+          f"non-finite flash gradient at {name}")
+    check(max(errs.values()) <= FLASH_BWD_TOL[geom["dtype"]],
+          f"flash backward vs plain {errs} > "
+          f"{FLASH_BWD_TOL[geom['dtype']]} at {name}")
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, kernel())),
+          f"flash backward not deterministic at {name}")
+    work = flash_bwd_work(geom)
+    # SDPA's backward (the library yardstick): its forward once, then the
+    # gradient of the same upstream gradient, timed alone
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_ms, lib_error = None, None
+    try:
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=h != hkv)
+        dot = do.transpose(1, 2)
+        lib_ms = device_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), device)
+    except (RuntimeError, TypeError) as exc:     # a yardstick only
+        lib_error = str(exc).splitlines()[0]
+    plain_reps = 3 if s >= 1024 else REPS
+    row = {"name": f"flash_attention_bwd_{name}", "route": "cuda",
+           "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
+           "launches": 0, "max_abs_err": err,
+           "ms": device_ms(kernel, device),
+           "plain_ms": device_ms(lambda: fa.flash_attention_bwd_plain(
+               q, k, v, do, causal=causal), device, reps=plain_reps,
+               warmup=1),
+           "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+           "library_ms": lib_ms}
+    emit("flash_bwd", geometry=name, kernels=symbols, symbols_ran=ran,
+         symbols_from=symbols_from,
+         **geom, grad_row_rel_err=errs, grad_fro_rel_err=fro,
+         tolerance=FLASH_BWD_TOL[geom["dtype"]], row_floor=GRAD_ROW_FLOOR,
+         **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
+         flops=work["flops"], bytes=work["bytes"], exps=work["exps"],
+         library="torch.autograd of scaled_dot_product_attention",
+         library_error=lib_error,
+         achieved_tflops=work["flops"] / (row["ms"] * 1e-3) / 1e12,
+         times_bound=row["ms"] / work["bound_ms"])
+    del prof, got, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def _train_run(cfg, batch: int, seq: int, device, opt=None):
+    """A Trainer (no checkpoints) on ``cfg`` with its stream of ``batch``
+    x ``seq`` tokens on ``device``, and its initial params and optimizer
+    state (seeded weights drawn on the device)."""
+    from repro_torch.configs.base import OptimizerConfig, RunConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.models import lm
+    from repro_torch.train import Trainer
+
+    run = RunConfig(arch=cfg, optimizer=opt or OptimizerConfig(),
+                    log_every=1)
+    stream = TokenStream(cfg.vocab_size, seq, batch, seed=5, device=device)
+    trainer = Trainer(run, stream, device=device, checkpoints=False)
+    params, opt_state, start = trainer.restore_or_init(
+        lambda: lm.init_params(0, cfg, device=device))
+    check(start == 0, "a Trainer without checkpoints restored one")
+    return trainer, params, opt_state
+
+
+def lm_train_phase(device, smi: str) -> dict:
+    """``Trainer.fit`` on stablelm-3b at full width and depth: LM_TRAIN_STEPS
+    steps of AdamW on TokenStream batches, every attention forward and
+    backward through the hand-written kernels (launches counted over the
+    run: the forward twice a layer a step under remat, the backward once),
+    the step walls, the device time of one more step by kernel family, the
+    peak memory and the losses (finite, near ln(vocab) at random
+    weights). Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_arch(LM_TRAIN_ARCH)
+    check(cfg.remat == "full", f"{cfg.name} remat {cfg.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, params, opt = _train_run(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                      device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    walls = []
+    cuda_lib.reset_launch_counts()
+    for step in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, _ = trainer.fit(params, opt, step, step + 1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = cuda_lib.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_layers = cfg.num_layers
+    want = {"flash_attention": 2 * n_layers * LM_TRAIN_STEPS,
+            "flash_attention_bwd": n_layers * LM_TRAIN_STEPS}
+    check({k_: v_ for k_, v_ in counts.items() if v_} == want,
+          f"{cfg.name} training launched {counts}, want {want}")
+    losses = [h_["loss"] for h_ in trainer.history]
+    check(len(losses) == LM_TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses)
+          and all(h_["skipped"] == 0 for h_ in trainer.history)
+          and abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"{cfg.name} losses {losses}")
+    check(int(opt.step) == LM_TRAIN_STEPS, f"optimizer step {int(opt.step)}")
+    # one more step, profiled: device time by family (the session retried
+    # while it keeps no event of the port's kernels, which the tracer drops
+    # now and then late in a long process; then "not measured")
+    prof, _ = profile_session(lambda: trainer.fit(
+        params, opt, LM_TRAIN_STEPS, LM_TRAIN_STEPS + 1), tries=3,
+        expect="flash_bwd_")
+    fam, top = device_breakdown(prof, LM_TRAIN_FAMILIES, n_top=8)
+    if not fam["flash_backward"]:
+        fam, top = None, None
+    busy = sum(fam.values()) if fam else None
+    step_flops = 6 * n_params * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    emit("lm_train", model=cfg.name, layers=n_layers, d_model=cfg.d_model,
+         heads=cfg.num_heads, head_dim=cfg.resolved_head_dim,
+         params=n_params, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+         remat=cfg.remat, optimizer=dataclasses.asdict(trainer.run.optimizer),
+         steps=LM_TRAIN_STEPS, init_s=init_s, step_walls_s=walls,
+         steady_step_s=statistics.median(walls[1:]),
+         tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ
+         / statistics.median(walls[1:]),
+         model_flops_per_step=step_flops,
+         device_ms_by_family=fam, device_ms=busy, top_kernels=top,
+         launches=counts,
+         flash_forward_per_step=counts["flash_attention"] // LM_TRAIN_STEPS,
+         flash_backward_per_step=(counts["flash_attention_bwd"]
+                                  // LM_TRAIN_STEPS),
+         kernels=[fa.kernel_symbol(cfg.dtype, cfg.resolved_head_dim),
+                  *fa.backward_symbols(cfg.dtype, cfg.resolved_head_dim)],
+         peak_memory_gb=peak_gb, losses=losses,
+         grad_norms=[h_["grad_norm"] for h_ in trainer.history],
+         lrs=[h_["lr"] for h_ in trainer.history], nvidia_smi=smi)
+    del trainer, params, opt, prof
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lm_train_d128_phase(device) -> dict:
+    """One Trainer step of granite-8b at full width cut to 2 layers (4 x
+    2048 tokens): its attention's forward and backward at head dim 128
+    (GQA 32 over 8) through the kernels. Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda_lib
+
+    full = get_arch(LM_TRAIN_D128_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LM_TRAIN_D128_LAYERS)
+    trainer, params, opt = _train_run(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                      device)
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, opt, _ = trainer.fit(params, opt, 0, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda_lib.launch_counts()
+    n = cfg.num_layers
+    want = {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    check({k_: v_ for k_, v_ in counts.items() if v_} == want,
+          f"{cfg.name} training launched {counts}, want {want}")
+    loss = trainer.history[-1]["loss"]
+    check(math.isfinite(loss), f"{cfg.name} loss {loss}")
+    emit("lm_train_d128", model=cfg.name,
+         cut=f"depth {full.num_layers} -> {n}", head_dim=128,
+         kv_heads=cfg.num_kv_heads, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+         step_wall_s=wall, loss=loss, launches=counts)
+    del trainer, params, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _step_from(cfg, params, batch, ocfg, device):
+    """One AdamW step of ``cfg`` on ``device`` from copies of ``params``:
+    (new params, the step's gradient, metrics as floats), the trees on the
+    host. The gradient is read by hooks on the leaves the step
+    differentiates, as ``make_train_step`` hands it to the optimizer."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import to_device
+    from repro_torch.optim.optimizer import init_opt_state, leafwise
+    from repro_torch.train import make_train_step
+
+    import torch
+    cpu = torch.device("cpu")
+    grads = {}
+
+    def loss_fn(live, b_):
+        for path, t in _named_leaves(live):
+            t.register_hook(lambda g, path=path: grads.__setitem__(
+                path, g.to(cpu)))
+        return lm.lm_loss(live, b_, cfg)
+
+    # the step updates in place: a copy even on the host
+    p = leafwise(lambda t: t.to(device, copy=True), params)
+    b = {k_: v_.to(device) for k_, v_ in batch.items()}
+    new, _, m = make_train_step(cfg, ocfg, loss_fn=loss_fn)(
+        p, init_opt_state(p, ocfg), b)
+    return (to_device(new, cpu), grads,
+            {k_: float(v_) for k_, v_ in m.items()})
+
+
+def lm_train_vs_cpu_phase(device) -> None:
+    """One AdamW step of stablelm-3b at full width cut to 2 layers on the
+    card and on the CPU, from the same bf16 weights and TokenStream batch:
+    loss, gradient norm and updated weights within the LM_TRAIN_* gates;
+    the card's launches (one forward per layer, twice under remat, one
+    backward)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+
+    full = get_arch(LM_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LM_TRAIN_CPU_LAYERS)
+    ocfg = OptimizerConfig(lr=LM_TRAIN_CPU_LR, warmup_steps=0)
+    params = lm.init_params(3, cfg)               # on the host
+    batch = TokenStream(cfg.vocab_size, LM_TRAIN_CPU_SEQ,
+                        LM_TRAIN_CPU_BATCH, seed=9, device="cpu").next_batch()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    card, g_card, m_card = _step_from(cfg, params, batch, ocfg, device)
+    card_s = time.perf_counter() - t0
+    counts = cuda_lib.launch_counts()
+    n = cfg.num_layers
+    want = {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    check({k_: v_ for k_, v_ in counts.items() if v_} == want,
+          f"card step launched {counts}, want {want}")
+    t0 = time.perf_counter()
+    cpu, g_cpu, m_cpu = _step_from(cfg, params, batch, ocfg,
+                                   torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    gnorm_rel = abs(m_card["grad_norm"] - m_cpu["grad_norm"]) / abs(
+        m_cpu["grad_norm"])
+    check(loss_rel <= LM_TRAIN_LOSS_RTOL,
+          f"card vs CPU loss {m_card['loss']} vs {m_cpu['loss']}")
+    check(gnorm_rel <= LM_TRAIN_GNORM_RTOL,
+          f"card vs CPU grad norm {m_card['grad_norm']} vs "
+          f"{m_cpu['grad_norm']}")
+    lr, wd = m_cpu["lr"], ocfg.weight_decay
+    leaves_ = []
+    check(sorted(g_card) == sorted(g_cpu),
+          f"gradients of {sorted(g_card)} read on the card, "
+          f"{sorted(g_cpu)} on the CPU")
+    for (path, c_), (_, g_), (_, w_) in zip(_named_leaves(cpu),
+                                            _named_leaves(card),
+                                            _named_leaves(params)):
+        # the gradient, before the optimizer (Adam's first step is about
+        # lr sign(g): the weights alone cannot see its size)
+        zero = torch.zeros(w_.shape)      # a leaf the loss does not reach
+        gc_ = g_cpu.get(path, zero).float()
+        gg_ = g_card.get(path, zero).float()
+        grad_rel = float((gg_ - gc_).norm() / gc_.norm().clamp_min(1e-30))
+        diff = (g_.float() - c_.float()).abs()
+        ulp = bf16_ulp(c_.float())
+        limit = 2 * lr * (1 + wd * float(w_.float().abs().max())) \
+            + float(ulp.max())
+        moved = float((diff > lr).float().mean())
+        leaves_.append({"leaf": path, "grad_rel": grad_rel,
+                        "grad_norm_cpu": float(gc_.norm()),
+                        "max_abs": float(diff.max()),
+                        "frac_over_lr": moved,
+                        "frac_over_ulp": float((diff > ulp).float().mean())})
+        check(grad_rel <= LM_TRAIN_GRAD_RTOL,
+              f"card vs CPU gradient of {path}: {grad_rel} relative "
+              f"(limit {LM_TRAIN_GRAD_RTOL})")
+        check(float(diff.max()) <= limit and moved <= LM_TRAIN_MOVED_FRAC,
+              f"card vs CPU updated {path}: max {float(diff.max())} "
+              f"(limit {limit}), {moved} of it over lr")
+    worst = max(leaves_, key=lambda r: r["grad_rel"])
+    emit("lm_train_vs_cpu", model=cfg.name,
+         cut=f"depth {full.num_layers} -> {n}", batch=LM_TRAIN_CPU_BATCH,
+         seq=LM_TRAIN_CPU_SEQ, lr=lr, launches=counts,
+         loss_gpu=m_card["loss"], loss_cpu=m_cpu["loss"], loss_rel=loss_rel,
+         grad_norm_gpu=m_card["grad_norm"], grad_norm_cpu=m_cpu["grad_norm"],
+         grad_norm_rel=gnorm_rel, loss_rtol=LM_TRAIN_LOSS_RTOL,
+         grad_norm_rtol=LM_TRAIN_GNORM_RTOL,
+         grad_rel_worst={"leaf": worst["leaf"], "rel": worst["grad_rel"]},
+         grad_rtol=LM_TRAIN_GRAD_RTOL,
+         moved_frac_limit=LM_TRAIN_MOVED_FRAC, leaves=leaves_,
+         gpu_step_s=card_s, cpu_step_s=cpu_s)
+    torch.cuda.empty_cache()
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def _sampled_on(cfg, params, prompts, n_new, device):
+    from repro_torch import prng
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(cfg, params, max_len=prompts.shape[1] + n_new,
+                        temperature=LM_SAMPLE_T, device=device)
+    return eng.generate(prompts, n_new, rng=prng.PRNGKey(3)).cpu()
+
+
+def lm_sample_phase(device) -> None:
+    """Sampled decoding (temperature LM_SAMPLE_T, key 3) card against CPU:
+    reduced glm4-9b in float32 and stablelm-3b at full width, 2 layers, in
+    bf16. Each row's tokens equal up to the first that differs, and that
+    one only where the CPU's top-2 margin of the perturbed logits (the
+    logits of each step fed the CPU's tokens, over T, plus the step's
+    Gumbel noise) is within the limit; the first token is the prefill's
+    argmax."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import gumbel
+
+    cases = (("glm4-9b (reduced)", reduced(get_arch("glm4-9b")), 4, 32, 16,
+              LM_SAMPLE_F32_TOL),
+             ("stablelm-3b (full width, 2 layers)",
+              dataclasses.replace(get_arch(LM_TRAIN_ARCH), num_layers=2), 2,
+              64, 8, LM_CPU_TOL))
+    for tag, cfg, batch, prompt, n_new, tol in cases:
+        params = lm.init_params(4, cfg)
+        prompts = _lm_prompts(cfg, batch, prompt, 41)
+        cuda_lib.reset_launch_counts()
+        tok_gpu = _sampled_on(cfg, params, prompts, n_new, device)
+        counts = cuda_lib.launch_counts()
+        check(counts["flash_attention"] == cfg.num_layers,
+              f"{tag}: {counts}")
+        tok_cpu = _sampled_on(cfg, params, prompts, n_new, "cpu")
+        logits = _forced_decode_logits(cfg, params, prompts, tok_cpu,
+                                       torch.device("cpu"))
+        margins = []
+        for i in range(n_new):
+            x = logits[:, i]
+            if i:      # step i - 1 of decode draws with fold_in(rng, i - 1)
+                x = x / LM_SAMPLE_T + gumbel(
+                    prng.fold_in(prng.PRNGKey(3), i - 1), tuple(x.shape))
+            top2 = torch.topk(x, 2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).tolist())
+        limit = 2 * tol / LM_SAMPLE_T
+        equal = []
+        for r in range(batch):
+            equal.append(n_new)
+            for i in range(n_new):
+                if int(tok_gpu[r, i]) != int(tok_cpu[r, i]):
+                    check(margins[i][r] <= limit,
+                          f"{tag} row {r} token {i} differs at a CPU "
+                          f"margin {margins[i][r]} > {limit}")
+                    equal[r] = i
+                    break
+        greedy = _lm_greedy(cfg, params, prompts, n_new)
+        emit("lm_sample", model=tag, dtype=str(cfg.dtype), batch=batch,
+             prompt=prompt, new_tokens=n_new, temperature=LM_SAMPLE_T,
+             tokens_equal_before_divergence=equal, margin_limit=limit,
+             min_cpu_margin=min(min(m_) for m_ in margins),
+             tokens_gpu=tok_gpu.tolist(), tokens_cpu=tok_cpu.tolist(),
+             tokens_greedy_cpu=greedy.tolist(), launches=counts)
+
+
+def _lm_greedy(cfg, params, prompts, n_new):
+    from repro_torch.serving import ServingEngine
+    return ServingEngine(cfg, params, max_len=prompts.shape[1] + n_new,
+                         device="cpu").generate(prompts, n_new)
+
+
+def lm_train_tiny_phase(device) -> dict:
+    """``python -m repro_torch.launch.train --arch stablelm-3b --scale tiny
+    --steps 5`` on the card (the reduced config, float32, head dim 16;
+    checkpoints under build/, resumed by a second run that trains no
+    step) against the same command with ``--device cpu``: the logged
+    losses within 1e-4 relative. Returns the card run's launch counts."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import train as launch_train
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", LM_TRAIN_ARCH, "--scale", "tiny", "--steps", "5",
+            "--ckpt-dir"]
+    printed = io.StringIO()     # the launcher's own report stays off stdout
+    with contextlib.redirect_stdout(printed):
+        cuda_lib.reset_launch_counts()
+        card = launch_train.main(argv + [os.path.join(ckpt, "gpu")])
+        counts = cuda_lib.launch_counts()
+        again = launch_train.main(argv + [os.path.join(ckpt, "gpu")])
+        cpu = launch_train.main(argv + [os.path.join(ckpt, "cpu"),
+                                        "--device", "cpu"])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    layers = 2            # the reduced config's depth, remat "none"
+    want = {"flash_attention": 5 * layers, "flash_attention_bwd": 5 * layers}
+    check({k_: v_ for k_, v_ in counts.items() if v_} == want,
+          f"tiny launcher launched {counts}, want {want}")
+    lg = [h_["loss"] for h_ in card.history]
+    lc = [h_["loss"] for h_ in cpu.history]
+    check(len(lg) == len(lc) == 5 and again.history == []
+          and all(abs(a - b_) <= 1e-4 * abs(b_) for a, b_ in zip(lg, lc)),
+          f"tiny launcher losses card {lg} vs CPU {lc}")
+    emit("lm_train_tiny", command="python -m repro_torch.launch.train "
+         + " ".join(argv[:-1]), losses_gpu=lg, losses_cpu=lc,
+         launches=counts, resumed_steps=len(again.history))
+    torch.cuda.empty_cache()
+    return counts
+
+
 def build_libraries() -> dict:
     """Build every kernel library at once (one nvcc each); returns
     ``{name: (path, seconds)}``."""
@@ -5354,6 +5978,20 @@ def main() -> int:
     emit("tensor_cores", library="slstm_scan", kernels=len(slstm),
          hmma_hgmma={k: list(v) for k, v in slstm.items()})
 
+    # the flash backward's six kernels (a dq and a dk / dv kernel for each
+    # of its three instances): the four bf16 ones run mma.sync (HMMA) and
+    # no wgmma, the two float32 ones IEEE FFMA, no tensor-core instruction
+    bwd = cuda_lib.tensor_core_census(built["flash_attention_bwd"][0],
+                                      ("HMMA", "HGMMA"))
+    bwd_mma = {k: v for k, v in bwd.items() if "mma_kernel" in k}
+    check(len(bwd) == 6 and all("flash_bwd_" in k for k in bwd)
+          and len(bwd_mma) == 4
+          and all(h_ >= 1 and g_ == 0 for h_, g_ in bwd_mma.values())
+          and all(v == (0, 0) for k, v in bwd.items() if k not in bwd_mma),
+          f"tensor-core instructions in the flash backward library: {bwd}")
+    emit("tensor_cores", library="flash_attention_bwd", kernels=len(bwd),
+         hmma_hgmma={k: list(v) for k, v in bwd.items()})
+
     t_kernels = time.perf_counter()
     rows = kernel_phase(SERVING, device)
     for geom in ODD_GEOMETRIES:
@@ -5390,6 +6028,8 @@ def main() -> int:
     slstm_row = slstm_phase(SLSTM_SERVING, device)
     slstm_phase(SLSTM_F32, device)
     slstm_phase(SLSTM_NARROW, device)
+    bwd_rows = {name: flash_bwd_phase(name, device)
+                for name in FLASH_BWD_GEOMS}
     # every served head dim runs the Hopper kernel; lm_phase checks that
     # every prefill launch was the instance named here (MLA's qk width);
     # xlstm-350m has no attention
@@ -5423,6 +6063,12 @@ def main() -> int:
                     prompt=LM_WHISPER_CPU_PROMPT, batch=LM_WHISPER_CPU_BATCH)
     moe_routing_phase(device)
     lm_ring_phase(device)
+    t_lm_train = time.perf_counter()
+    counts_train = lm_train_phase(device, smi)
+    counts_train_d128 = lm_train_d128_phase(device)
+    lm_train_vs_cpu_phase(device)
+    lm_sample_phase(device)
+    counts_train_tiny = lm_train_tiny_phase(device)
     t_train = time.perf_counter()
     train_phase(device, smi)
     t_lifetime = time.perf_counter()
@@ -5448,7 +6094,8 @@ def main() -> int:
     # wall seconds of each group of phases, and from the build to here
     emit("seconds", build=build_s, kernels=t_vision - t_kernels,
          vision=t_frontends - t_vision, frontends=t_flash - t_frontends,
-         flash=t_lm - t_flash, lm=t_train - t_lm,
+         flash=t_lm - t_flash, lm=t_lm_train - t_lm,
+         lm_train=t_train - t_lm_train,
          train=t_lifetime - t_train, lifetime=t_fleet - t_lifetime,
          fleet=t_variation - t_fleet,
          variation=t_obs - t_variation, obs=t_census - t_obs,
@@ -5485,6 +6132,13 @@ def main() -> int:
     # the sLSTM kernel's from xlstm-350m's (3 in the prefill, 3 in each
     # decode step)
     rows.append({**slstm_row, "launches": counts_xlstm["slstm_scan"]})
+    # the flash backward's: D 80 from stablelm-3b's training run, D 128
+    # from granite-8b's 2-layer step, float32 D 16 from the tiny launcher
+    for name, n_launch in (("bf16_d80", counts_train),
+                           ("bf16_d128", counts_train_d128),
+                           ("f32_d16", counts_train_tiny)):
+        rows.append({**bwd_rows[name],
+                     "launches": n_launch["flash_attention_bwd"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

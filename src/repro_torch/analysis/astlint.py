@@ -54,6 +54,8 @@ PACKAGE = "repro_torch"
 # python -m entry points with no importer: reachable by declaration
 CLI_ROOTS = (
     "repro_torch.launch.train",       # python -m repro_torch.launch.train
+    "repro_torch.launch.serve",       # python -m repro_torch.launch.serve
+    "repro_torch.serve_lm",           # python -m repro_torch.serve_lm
     "repro_torch.analysis.__main__",  # python -m repro_torch.analysis
     "repro_torch.obs.__main__",       # python -m repro_torch.obs smoke
     "repro_torch.quickstart",         # python -m repro_torch.quickstart

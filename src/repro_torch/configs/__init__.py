@@ -5,7 +5,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import (ALL_SHAPES, ArchConfig,  # noqa: F401
-                                      ShapeSpec)
+                                      OptimizerConfig, RunConfig, ShapeSpec)
 
 from repro_torch.configs.chameleon_34b import CONFIG as _chameleon
 from repro_torch.configs.granite_8b import CONFIG as _granite

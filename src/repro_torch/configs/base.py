@@ -5,12 +5,17 @@ training shape. Both are frozen dataclasses, overridable with
 ``dataclasses.replace``. The fields are the reference's, held equal to it by
 ``tests/test_torch_lm.py`` (``dataclasses.asdict`` against
 ``dataclasses.asdict``), so a fork of any number fails a test. ``dtype`` /
-``pdtype`` return torch dtypes. The run and optimizer configs come with the
-training slice.
+``pdtype`` return torch dtypes. ``OptimizerConfig`` and ``RunConfig`` are
+the training run's, held equal to the reference's by
+``tests/test_torch_train_lm.py``, but for ``RunConfig.checkpoint_dir``,
+whose default lies under the process's temporary directory (``TMPDIR``)
+rather than a fixed path.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Tuple
 
 import torch
@@ -113,3 +118,35 @@ PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
 DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
 LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
 ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"              # adamw | sgd
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    # memory-reduced state
+    factored_second_moment: bool = False   # Adafactor-style row/col factoring
+    momentum_dtype: str = "float32"        # "bfloat16" to halve mu
+    use_momentum: bool = True              # False: pure Adafactor (no mu)
+    # int8 gradient compression with error feedback
+    grad_compression: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    arch: ArchConfig
+    shape: ShapeSpec = TRAIN_4K
+    optimizer: OptimizerConfig = OptimizerConfig()
+    microbatches: int = 1            # gradient accumulation
+    seed: int = 0
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    log_every: int = 10

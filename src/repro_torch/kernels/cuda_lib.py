@@ -2,9 +2,9 @@
 
 The sources under ``repro_torch/csrc`` have a plain C interface, so one
 ``nvcc`` call per library builds it in seconds without PyTorch's headers.
-Four libraries: ``p2m`` (the sensor frontend's seven kernels, five of
-them also with a chip grid dimension), ``flash_attention``, ``rglru_scan``
-and ``slstm_scan``. A build runs at first use, into ``build/repro_torch/``
+Five libraries: ``p2m`` (the sensor frontend's seven kernels, five of
+them also with a chip grid dimension), ``flash_attention``, its backward
+``flash_attention_bwd``, ``rglru_scan`` and ``slstm_scan``. A build runs at first use, into ``build/repro_torch/``
 at the root of the checkout, under a name keyed by a hash of the library's
 sources and flags: an edited source never loads a stale library. Nothing
 here runs at import time. The launch helpers shared by the kernel wrappers
@@ -14,7 +14,10 @@ port-wide launch count: each wrapper module registers its wrappers, and
 ``kernel_wrapper`` and declares the ``Dot`` products its kernel computes
 (``declare_dots``), so the op census (``repro_torch.analysis.census``)
 counts a wrapper call as one kernel call with those dots, in place of the
-tensor ops of its plain version.
+tensor ops of its plain version. A wrapper refuses operands that autograd
+is recording (``needs_backward``) on the card: its kernel's output has no
+graph, so a train forward through a kernel without a backward raises
+rather than training a model cut off from its weights.
 """
 from __future__ import annotations
 
@@ -55,12 +58,14 @@ class Library:
 P2M = Library("p2m", ("p2m_kernels.cu", "p2m_physics.cuh"),
               _COMMON_FLAGS + ("--fmad=false",))
 FLASH = Library("flash_attention", ("flash_attention.cu",), _COMMON_FLAGS)
+FLASH_BWD = Library("flash_attention_bwd", ("flash_attention_bwd.cu",),
+                    _COMMON_FLAGS)
 RGLRU = Library("rglru_scan", ("rglru_scan.cu",),
                 _COMMON_FLAGS + ("--fmad=false",))
 # the sLSTM's elementwise chain rounds where the plain version's ops do
 SLSTM = Library("slstm_scan", ("slstm_scan.cu",),
                 _COMMON_FLAGS + ("--fmad=false",))
-LIBRARIES = (P2M, FLASH, RGLRU, SLSTM)
+LIBRARIES = (P2M, FLASH, FLASH_BWD, RGLRU, SLSTM)
 
 
 class P2MPhysics(ctypes.Structure):
@@ -93,6 +98,14 @@ class FlashGeom(ctypes.Structure):
         + [("scale", ctypes.c_float)]
         + [(f"{t}_{a}", ctypes.c_int64) for t in "qkvo" for a in "bsh"]
         + [("window", ctypes.c_int32), ("kv_seq", ctypes.c_int32)])
+
+
+class FlashBwdGeom(ctypes.Structure):
+    """Mirror of ``struct FlashBwdGeom`` in csrc/flash_attention_bwd.cu
+    (every operand contiguous, Sq == Sk)."""
+    _fields_ = ([(name, ctypes.c_int32) for name in (
+        "batch", "seq", "heads", "kv_heads", "causal")]
+        + [("scale", ctypes.c_float)])
 
 
 class SlstmArgs(ctypes.Structure):
@@ -228,6 +241,18 @@ def _bind_flash(lib: ctypes.CDLL) -> None:
         lib.flash_attention_design.restype = i32
 
 
+def _bind_flash_bwd(lib: ctypes.CDLL) -> None:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    # (q, k, v, do, dq, dk, dv, lse, delta, dtype, head dim, geometry,
+    # stream)
+    lib.flash_attention_bwd.argtypes = [p] * 9 + [
+        i32, i32, ctypes.POINTER(FlashBwdGeom), p]
+    lib.flash_attention_bwd.restype = i32
+    # (dtype, head dim, which: 0 the dq kernel, 1 the dk / dv kernel)
+    lib.flash_attention_bwd_kernel.argtypes = [i32, i32, i32]
+    lib.flash_attention_bwd_kernel.restype = ctypes.c_char_p
+
+
 def _bind_rglru(lib: ctypes.CDLL) -> None:
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.rglru_scan.argtypes = [p, p, p, i32, i32, i32, p]
@@ -272,6 +297,12 @@ def load_flash() -> ctypes.CDLL:
     return _load(FLASH, _bind_flash)
 
 
+def load_flash_bwd() -> ctypes.CDLL:
+    """The flash-attention backward library (built on first use), its
+    entries typed."""
+    return _load(FLASH_BWD, _bind_flash_bwd)
+
+
 def load_rglru() -> ctypes.CDLL:
     """The RG-LRU scan library (built on first use), its entries typed."""
     return _load(RGLRU, _bind_rglru)
@@ -299,6 +330,39 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     return False
+
+
+def _tensors(operands):
+    """The tensors among ``operands`` and one level of lists and tuples in
+    them (the sLSTM wrapper takes its gates as sequences)."""
+    for x in operands:
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (list, tuple)):
+            yield from (t for t in x if isinstance(t, torch.Tensor))
+
+
+def needs_backward(*operands) -> bool:
+    """True when autograd is recording and an operand (or a tensor in a
+    list or tuple of them) requires grad: a kernel's output, which has no
+    graph, would cut the gradient off there."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensors(operands))
+
+
+def refuse_detached(name: str, args, kwargs) -> None:
+    """Raise NotImplementedError where wrapper ``name`` would launch its
+    kernel on operands that ``needs_backward``: a CUDA operand while
+    autograd records one that requires grad. CPU operands run the plain
+    version, which autograd differentiates."""
+    operands = (*args, *kwargs.values())
+    if needs_backward(*operands) and any(
+            t.device.type == "cuda" for t in _tensors(operands)):
+        raise NotImplementedError(
+            f"{name}: no backward kernel, and autograd is recording an "
+            f"operand that requires grad; its output would have no graph. "
+            f"Run it under torch.no_grad(), or on the CPU (the plain "
+            f"version); its backward kernel is ROADMAP item 16")
 
 
 def check_launch(err: int, name: str) -> None:
@@ -357,10 +421,12 @@ def kernel_wrapper(fn: Callable) -> Callable:
     """Mark ``fn`` as a kernel wrapper: a census sees each call as one
     kernel call (an observer gets the wrapper and its arguments) and none
     of the tensor ops inside it, kernel launch or plain version
-    (``inside_kernel_wrapper()`` is true for the body)."""
+    (``inside_kernel_wrapper()`` is true for the body). A call on CUDA
+    operands that autograd records raises (``refuse_detached``)."""
 
     @functools.wraps(fn)
     def call(*args, **kwargs):
+        refuse_detached(fn.__name__, args, kwargs)
         if not _OBSERVERS:
             return fn(*args, **kwargs)
         depth = getattr(_INSIDE, "depth", 0)

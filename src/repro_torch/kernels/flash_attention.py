@@ -55,6 +55,18 @@ there is no fallback: a CUDA tensor launches the kernel or raises. Its
 launches are counted in ``flash_attention.launches`` (and in
 ``cuda_lib.launch_counts()``, which covers every kernel of the port).
 
+``flash_attention_bwd`` is the gradient on the card (dq, dk, dv from q,
+k, v and the output's upstream gradient), a kernel of its own
+library (``csrc/flash_attention_bwd.cu``) that replaces no TPU kernel: the
+Pallas kernel has no backward, and the reference trains through XLA's
+autodiff of its chunked scan. Its plain version
+``flash_attention_bwd_plain`` is autograd through
+``flash_attention_plain``. ``flash_attention_trainable`` is the
+``torch.autograd.Function`` whose forward is ``flash_attention`` and whose
+backward is ``flash_attention_bwd``, for the instances ``BWD_HEAD_DIMS``
+(causal or not, Sq == Sk, no window, D == Dv); ``check_backward`` raises
+``NotImplementedError`` for any other call.
+
 ``flash_attention_plain`` is the port's counterpart of
 ``repro.kernels.ref.flash_attention_ref`` computed with the kernel's own
 arithmetic (online softmax over kv tiles, p rounded to v's type). It also
@@ -82,6 +94,9 @@ HEAD_DIM_PAIRS = {
                      (128, 128), (192, 128), (256, 256)),
     torch.float32: ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128))}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the head dims the backward kernel is built for, by dtype: stablelm-3b's
+# 80 and granite-8b's 128 in bf16, the reduced configs' 16 in float32
+BWD_HEAD_DIMS = {torch.bfloat16: (80, 128), torch.float32: (16,)}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -204,6 +219,131 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def check_backward(dtype: torch.dtype, head_dim: int, v_dim: int = 0, *,
+                   window: int = 0, q_len: int = 0, kv_len: int = 0) -> None:
+    """Raise NotImplementedError for an attention call on the card whose
+    gradient ``flash_attention_bwd`` does not compute: a window, unequal q
+    and kv lengths, a value dim other than the head dim (MLA's (192,
+    128)), or a (dtype, head dim) outside ``BWD_HEAD_DIMS``."""
+    dims = BWD_HEAD_DIMS.get(dtype, ())
+    why = None
+    if window:
+        why = f"a sliding window ({window})"
+    elif q_len != kv_len:
+        why = f"q length {q_len} != kv length {kv_len} (cross-attention)"
+    elif v_dim and v_dim != head_dim:
+        why = f"head dim {head_dim} over value dim {v_dim} (MLA)"
+    elif head_dim not in dims:
+        why = f"{dtype} at head dim {head_dim} (built: {BWD_HEAD_DIMS})"
+    if why:
+        raise NotImplementedError(
+            f"flash_attention_bwd: no backward kernel for {why}; it is "
+            f"ROADMAP item 16")
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention_plain(q, k, v, causal=causal)``
+    against the upstream gradient ``dout``: autograd through the plain
+    version taken in float32 whatever the inputs' dtype, then cast to it
+    (a window and a q offset, which the kernel does not take, are not
+    arguments). In bf16, autograd through the plain version's cast of p
+    would round dp to bf16 as well, which swamps the small gradient of a
+    query that sees few keys (the first rows of a causal call: 0.34 of
+    such a dq row's RMS at S 130, D 128, against the float64 gradient;
+    the kernel's arithmetic 0.013)."""
+    with torch.enable_grad():
+        live = [t.detach().to(torch.float32).requires_grad_(True)
+                for t in (q, k, v)]
+        out = flash_attention_plain(*live, causal=causal)
+        grads = torch.autograd.grad(out, live, dout.to(torch.float32))
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+@cuda_lib.kernel_wrapper
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal)`` against
+    its output's upstream gradient ``dout``: q, dout (B, S, H, D), k, v
+    (B, S, Hkv, D), no window. The CUDA kernels (the dq pass with the row
+    statistics, then the dk / dv pass) for CUDA tensors at
+    ``BWD_HEAD_DIMS`` (else NotImplementedError), the plain version for
+    CPU tensors."""
+    _check_shapes(q, k, v)
+    if on_cpu(q, k, v, dout):
+        return flash_attention_bwd_plain(q, k, v, dout, causal=causal)
+    check_backward(q.dtype, q.shape[3], v.shape[3], q_len=q.shape[1],
+                   kv_len=k.shape[1])
+    if any(t.dtype != q.dtype for t in (k, v, dout)) \
+            or dout.shape != q.shape:
+        raise ValueError(f"dout must be q's shape {tuple(q.shape)} and "
+                         f"every operand its dtype {q.dtype}")
+    b, s, h, d = q.shape
+    # contiguous rows on 16-byte boundaries (the bf16 kernels copy 16 bytes
+    # at a time)
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    q, k, v, dout = (t.clone() if t.data_ptr() % 16 else t
+                     for t in (q, k, v, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    geom = cuda_lib.FlashBwdGeom(b, s, h, k.shape[2], int(causal), d ** -0.5)
+    lib = cuda_lib.load_flash_bwd()
+    check_launch(lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _DTYPE_CODES[q.dtype], d,
+        ctypes.byref(geom), stream_of(q.device)), "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def backward_symbols(dtype: torch.dtype, head_dim: int) -> tuple:
+    """The two kernels ``flash_attention_bwd`` launches for CUDA operands
+    of this dtype and head dim, as the profiler names them: the dq pass
+    and the dk / dv pass (builds the library)."""
+    lib = cuda_lib.load_flash_bwd()
+    names = [lib.flash_attention_bwd_kernel(_DTYPE_CODES.get(dtype, -1),
+                                            head_dim, which)
+             for which in (0, 1)]
+    if None in names:
+        raise ValueError(f"no flash backward kernel for {dtype}, head dim "
+                         f"{head_dim}")
+    return tuple(n.decode() for n in names)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient. The
+    inputs are saved through ``ctx.save_for_backward`` (the output is not:
+    the backward recomputes its row statistics), so under
+    ``torch.utils.checkpoint`` they are the recomputed forward's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0) -> torch.Tensor:
+    """``flash_attention`` with a gradient: the forward kernel, and
+    ``flash_attention_bwd`` in the backward. Raises NotImplementedError
+    (``check_backward``) for a call the backward kernel does not take,
+    before any launch."""
+    check_backward(q.dtype, q.shape[3], v.shape[3], window=window,
+                   q_len=q.shape[1], kv_len=k.shape[1])
+    return _FlashAttention.apply(q, k, v, causal)
+
+
 def kernel_symbol(dtype: torch.dtype, head_dim: int, window: int = 0,
                   seq: int = 2 ** 31 - 1, v_dim: int = 0) -> str:
     """The kernel instance ``flash_attention`` launches for CUDA operands
@@ -245,7 +385,7 @@ def design(dtype: torch.dtype, head_dim: int, v_dim: int = 0) -> dict:
     return dict(zip(DESIGN_FIELDS, out))
 
 
-cuda_lib.register(flash_attention)
+cuda_lib.register(flash_attention, flash_attention_bwd)
 
 
 def _attention_dots(q, k, v, *, causal: bool = True, window: int = 0):
@@ -260,4 +400,18 @@ def _attention_dots(q, k, v, *, causal: bool = True, window: int = 0):
             cuda_lib.Dot((b, h, sq, sk), (sk, v.shape[3]), dtype, "float32"))
 
 
-cuda_lib.declare_dots({flash_attention: _attention_dots})
+def _attention_bwd_dots(q, k, v, dout, *, causal: bool = True):
+    """The five products of the gradient of each (batch, head), at their
+    full shapes: S = Q K^T and dP = dO V^T (Sq, D) x (D, Sk), dV = P^T dO
+    and dK = dS^T Q (Sk, Sq) x (Sq, D), dQ = dS K (Sq, Sk) x (Sk, D) (the
+    kernel computes S and dP twice more: for the row statistics and in
+    the dq pass)."""
+    b, s, h, d = q.shape
+    dtype = str(q.dtype).removeprefix("torch.")
+    score = cuda_lib.Dot((b, h, s, d), (d, s), dtype, "float32")
+    grad = cuda_lib.Dot((b, h, s, s), (s, d), dtype, "float32")
+    return (score, score, grad, grad, grad)
+
+
+cuda_lib.declare_dots({flash_attention: _attention_dots,
+                       flash_attention_bwd: _attention_bwd_dots})

@@ -1,27 +1,51 @@
-"""Training launcher for the P2M sparse-BNN vision models.
+"""End-to-end training launcher: port of ``repro.launch.train``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
+        --steps 200 --scale tiny --batch 8 --seq 128 [--device cpu]
+
+Vision archs (the paper's P2M sparse-BNNs) train through the
+SensorFrontend:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg_tiny \\
         --steps 30 --batch 32 [--device cpu]
 
-Port of ``repro.launch.train``'s vision path: SGD through the
-SensorFrontend's ``analog`` (or ``ideal``) backend with straight-through
-gradients, then accuracy on held-out batches through the training backend
-and through a hardware backend (``--eval-backend device``, or ``cuda``, the
-kernels; ``pallas``, the reference's name for it, is read as ``cuda``).
-Runs on the GPU unless ``--device`` names another device. LM training is
-not ported: an LM arch exits non-zero.
+The LM path: ``--scale tiny`` trains the reduced config, ``--scale full``
+the full config on one card (the reference's production mesh has no
+counterpart on one card: sharding is ROADMAP item 15), with the
+reference's weights (``lm.init_params_from_key(PRNGKey(seed))``), its
+``TokenStream`` and its ``Trainer``, AdamW with a warmup of
+min(20, steps / 5). Fault tolerance as the reference's: a checkpoint every
+``--ckpt-every`` steps under ``--ckpt-dir/<arch>`` (by default under the
+temporary directory), re-running the same command resumes from the
+latest one, and SIGTERM checkpoints at the next step boundary. A config
+whose train forward reaches a kernel without a backward raises on the
+card (``lm.check_trainable``); on the CPU every config trains.
+
+The vision path: SGD through the SensorFrontend's ``analog`` (or
+``ideal``) backend with straight-through gradients, then accuracy on
+held-out batches through the training backend and through a hardware
+backend (``--eval-backend device``, or ``cuda``, the kernels; ``pallas``,
+the reference's name for it, is read as ``cuda``).
+
+Runs on the GPU unless ``--device`` names another device.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import signal
+import tempfile
 
 import torch
 
-from repro_torch import frontend, prng
-from repro_torch.data import ImageStream
+from repro_torch import configs, frontend, prng
+from repro_torch.configs.base import OptimizerConfig, RunConfig
+from repro_torch.configs.reduced import reduced
+from repro_torch.data import ImageStream, TokenStream
 from repro_torch.devices import resolve_device
-from repro_torch.models import vision
+from repro_torch.models import lm, vision
 from repro_torch.obs.clock import now
+from repro_torch.train import Trainer
 from repro_torch.train import vision as vision_loop
 
 VISION_ARCHS = ("vgg16", "vgg_tiny", "resnet18", "resnet20")
@@ -73,24 +97,70 @@ def train_vision(args) -> None:
           f"{eval_backend} {acc_hw * 100:.1f}%")
 
 
-def main(argv=None) -> None:
+def train_lm(args) -> Trainer:
+    """Train an LM config with the reference's ``Trainer``; prints the
+    logged metrics and the step rate; returns the trainer (its
+    ``history``)."""
+    device = resolve_device(args.device)
+    cfg = configs.get_arch(args.arch)
+    if args.scale == "tiny":
+        cfg = reduced(cfg)
+    run = RunConfig(
+        arch=cfg,
+        optimizer=OptimizerConfig(lr=args.lr, total_steps=args.steps,
+                                  warmup_steps=min(20, args.steps // 5),
+                                  grad_compression=args.grad_compression),
+        microbatches=args.microbatches,
+        checkpoint_dir=os.path.join(args.ckpt_dir, args.arch),
+        checkpoint_every=args.ckpt_every,
+        log_every=max(1, args.steps // 20),
+    )
+    stream = TokenStream(cfg.vocab_size, args.seq, args.batch, device=device)
+    trainer = Trainer(run, stream, device=device)
+    signal.signal(signal.SIGTERM, lambda *_: trainer.request_stop())
+
+    params, opt, start = trainer.restore_or_init(
+        lambda: lm.init_params_from_key(prng.PRNGKey(run.seed), cfg,
+                                        device=device))
+    if start:
+        print(f"resumed from checkpoint at step {start}")
+    t0 = now()
+    params, opt, step = trainer.fit(params, opt, start, args.steps)
+    _sync(device)
+    dt = now() - t0
+    for h in trainer.history:
+        print({k: round(v, 4) for k, v in h.items()})
+    steps_done = max(step - start, 1)
+    print(f"\n{steps_done} steps in {dt:.1f}s "
+          f"({1e3 * dt / steps_done:.0f} ms/step); final loss "
+          f"{trainer.history[-1]['loss']:.4f}" if trainer.history else "")
+    return trainer
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--frontend-backend", default="analog",
                     help="SensorFrontend backend for vision training")
     ap.add_argument("--eval-backend", default="device",
                     help="SensorFrontend backend for vision hardware eval")
+    ap.add_argument("--scale", choices=("tiny", "full"), default="tiny")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_train"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
-    if args.arch not in VISION_ARCHS:
-        raise SystemExit(f"--arch {args.arch!r}: the port trains the vision "
-                         f"archs {list(VISION_ARCHS)}; LM training is "
-                         "ROADMAP item 14")
-    train_vision(args)
+    if args.arch in VISION_ARCHS:
+        train_vision(args)
+        return None
+    return train_lm(args)
 
 
 if __name__ == "__main__":

@@ -24,8 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
+from repro_torch.kernels import cuda_lib, ops
+from repro_torch.kernels.flash_attention import (NEG_INF,
+                                                 flash_attention_plain,
+                                                 flash_attention_trainable)
 from repro_torch.models.params import ParamSpec
 
 
@@ -86,13 +88,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     raises here. On CPU tensors it runs the reference's chunked scan in
     PyTorch ops, over kv chunks of the reference's size (the reference's q
     chunking does not change the result, so the scan takes every query
-    row at once)."""
+    row at once).
+
+    On the card, where autograd records and an input requires grad (a
+    train forward), it runs ``flash_attention_trainable``: the same kernel
+    with the backward kernel as its gradient, which raises
+    NotImplementedError for a call it does not take (a window, unequal
+    lengths, MLA's widths, an unbuilt head dim)."""
     sk = k.shape[1]
     if q.device.type == "cuda":
         if q_offset:
             raise NotImplementedError(
                 "a q offset on the card: no caller passes one, and the "
                 "kernel has none")
+        if cuda_lib.needs_backward(q, k, v):
+            return flash_attention_trainable(q, k, v, causal=causal,
+                                             window=window)
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset,

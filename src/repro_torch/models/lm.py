@@ -41,6 +41,19 @@ sLSTM) too, and returns a cache whose leaves are those same tensors (the
 encoder's ``enc_k`` / ``enc_v`` unchanged), so a cache must not be reused
 after a decode step.
 
+Training: ``lm_loss`` is the reference's next-token cross-entropy (float32
+log-softmax, mean NLL, and its exp as ``ppl``). A train forward under
+autograd recomputes each layer of a stacked ``body`` segment in the
+backward (``torch.utils.checkpoint``, non-reentrant, one layer a segment)
+where ``cfg.remat`` is not ``"none"``, as the reference's
+``jax.checkpoint`` of its scan body: the reference's memory policy, which
+stablelm-3b at full depth needs to fit one card; the numbers do not
+change. On the card an attention layer's gradient runs through the flash
+backward kernel; ``check_trainable`` names the layers of a config whose
+train forward would reach a kernel without one (windowed, MLA or cross
+attention, the RG-LRU and sLSTM scans) and raises before a first step. On
+the CPU every config trains through the plain versions.
+
 Ported: configs whose mixers are ``attn``, ``local_attn``, ``mla``,
 ``rglru``, ``mlstm`` and ``slstm``, with dense, MoE or no MLPs, with or
 without an encoder (the dense GQA models, recurrentgemma-2b, deepseek-v2,
@@ -53,10 +66,14 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import blocks, recurrent
-from repro_torch.models.params import ParamSpec, init_tree, stack_specs
+from repro_torch.models.params import (ParamSpec, init_tree,
+                                       init_tree_from_key, stack_specs)
 
 # the mixers this port runs
 MIXERS = ("attn", "local_attn", "mla", "rglru", "mlstm", "slstm")
@@ -68,6 +85,40 @@ def check_supported(cfg: ArchConfig) -> None:
     if mixers:
         raise NotImplementedError(
             f"{cfg.name}: mixers {mixers} are not ported")
+
+
+# a mixer whose train forward on the card reaches a kernel without a
+# backward, and that kernel
+_NO_BACKWARD = {"local_attn": "flash_attention with a sliding window",
+                "mla": "flash_attention at MLA's (192, 128) widths",
+                "rglru": "rglru_scan_gated",
+                "slstm": "slstm_scan"}
+
+
+def check_trainable(cfg: ArchConfig, device) -> None:
+    """Raise NotImplementedError where a train step of ``cfg`` on
+    ``device`` would reach a kernel that has no backward (on the card: a
+    windowed, MLA or cross attention layer, an RG-LRU or sLSTM layer, an
+    attention head dim the flash backward is not built for), naming the
+    kernel. On the CPU every config trains through the plain versions."""
+    check_supported(cfg)
+    if torch.device(device).type != "cuda":
+        return
+    why = sorted({f"{mx} ({_NO_BACKWARD[mx]})" for mx, _ in cfg.layer_kinds()
+                  if mx in _NO_BACKWARD})
+    if cfg.is_encdec:
+        why.append("the cross-attention (flash_attention at Sq != Sk)")
+    if not why and any(mx == "attn" for mx, _ in cfg.layer_kinds()):
+        try:
+            fa.check_backward(cfg.dtype, cfg.resolved_head_dim)
+        except NotImplementedError as exc:
+            why.append(str(exc))
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name} does not train on the card: its train forward "
+            f"reaches kernels without a backward: {'; '.join(why)}; they "
+            f"are ROADMAP item 16 (on the CPU it trains through the plain "
+            f"versions)")
 
 
 # ----------------------------------------------------------------------------
@@ -169,6 +220,16 @@ def init_params(seed: int, cfg: ArchConfig, device=None) -> Dict:
     dev = torch.device(device) if device is not None else torch.device("cpu")
     gen = torch.Generator(device=dev).manual_seed(seed)
     return init_tree(gen, model_spec(cfg), device=dev, dtype=cfg.pdtype)
+
+
+def init_params_from_key(key, cfg: ArchConfig, device=None) -> Dict:
+    """The reference's ``init_params(key, cfg)`` draw: one key a leaf from
+    ``prng.split(key, n)`` in the reference's leaf order, each leaf
+    ``prng.normal`` (within 3 float32 ulps of ``jax.random.normal``) times
+    its init scale, in ``cfg.param_dtype`` on ``device`` (the launchers'
+    weights, so that their runs can be held against the reference's)."""
+    return init_tree_from_key(key, model_spec(cfg), device=device,
+                              dtype=cfg.pdtype)
 
 
 def _mixer_cache_spec(cfg: ArchConfig, mixer: str, batch: int,
@@ -292,6 +353,17 @@ def _layer_view(tree, j: int):
     return tree[j]
 
 
+def _layers_of(tree, n: int) -> List:
+    """The n per-layer trees of a stacked tree, as views: one
+    ``torch.unbind`` a leaf, whose backward stacks the layers' gradients
+    once (indexing layer by layer would add a whole stacked leaf's
+    gradient for every layer)."""
+    if isinstance(tree, dict):
+        per = {k: _layers_of(v, n) for k, v in tree.items()}
+        return [{k: per[k][j] for k in per} for j in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _stack(leaves: List, stacked=None):
     """Stack per-layer cache trees. A leaf that is already layer j of
     ``stacked`` (a decode cache written in place) is not copied."""
@@ -314,11 +386,21 @@ def _run_decoder(params, x, positions, cfg: ArchConfig, *, mode, cache,
         if seg.repeats == 1:
             x, nc = _apply_unit(sp, x, positions, cfg, seg, mode=mode,
                                 cache=sc, enc_out=enc_out)
+        elif _remat(cfg, mode):
+            # recompute each layer in the backward, as the reference's
+            # jax.checkpoint of its scan body; a train unit returns no cache
+            def unit(up, x_):
+                return _apply_unit(up, x_, positions, cfg, seg, mode=mode,
+                                   cache=None, enc_out=enc_out)[0]
+
+            for up in _layers_of(sp, seg.repeats):
+                x = checkpoint(unit, up, x, use_reentrant=False)
+            nc = None
         else:
             ncs = []
-            for j in range(seg.repeats):
+            for j, up in enumerate(_layers_of(sp, seg.repeats)):
                 x, nc_j = _apply_unit(
-                    _layer_view(sp, j), x, positions, cfg, seg, mode=mode,
+                    up, x, positions, cfg, seg, mode=mode,
                     cache=_layer_view(sc, j) if sc is not None else None,
                     enc_out=enc_out)
                 ncs.append(nc_j)
@@ -326,6 +408,13 @@ def _run_decoder(params, x, positions, cfg: ArchConfig, *, mode, cache,
         if nc is not None:
             new_cache[seg.name] = nc
     return x, new_cache
+
+
+def _remat(cfg: ArchConfig, mode: str) -> bool:
+    """Whether a stacked segment's layers recompute in the backward: a
+    train forward that autograd records, under a remat policy."""
+    return (cfg.remat != "none" and mode == "train"
+            and torch.is_grad_enabled())
 
 
 def _run_encoder(params, emb: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -337,9 +426,9 @@ def _run_encoder(params, emb: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     seg = Segment("enc", (("enc_attn", "dense"),), cfg.encoder_layers,
                   tuple(range(cfg.encoder_layers)))
     x = emb
-    for j in range(cfg.encoder_layers):
-        x, _ = _apply_unit(_layer_view(params["encoder"]["body"], j), x,
-                           positions, cfg, seg, mode="train", cache=None)
+    for up in _layers_of(params["encoder"]["body"], cfg.encoder_layers):
+        x, _ = _apply_unit(up, x, positions, cfg, seg, mode="train",
+                           cache=None)
     return blocks.rmsnorm(params["encoder"]["norm"], x, cfg.norm_eps)
 
 
@@ -385,3 +474,16 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig,
             else torch.tensor(0, dtype=torch.int32, device=tokens.device)
         return logits, {"decoder": new_cache, "pos": prev + tokens.shape[1]}
     return logits, None
+
+
+def lm_loss(params: Dict, batch: Dict, cfg: ArchConfig, mesh=None,
+            rules=None) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy. batch: {tokens, labels[,
+    encoder_embeddings]}. Returns (loss, {"loss", "ppl"}), 0-d float32."""
+    logits, _ = forward(params, batch["tokens"], cfg, mesh, rules,
+                        mode="train",
+                        encoder_embeddings=batch.get("encoder_embeddings"))
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].to(torch.long)[..., None])
+    loss = torch.mean(nll)
+    return loss, {"loss": loss, "ppl": torch.exp(loss)}

@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
@@ -81,6 +83,39 @@ def init_tree(generator: torch.Generator, spec_tree, *, device=None,
         return _init_leaf(generator, spec_tree, device, dtype)
     return {k: init_tree(generator, spec_tree[k], device=device, dtype=dtype)
             for k in sorted(spec_tree)}
+
+
+def _spec_leaves(spec_tree):
+    if isinstance(spec_tree, ParamSpec):
+        return [spec_tree]
+    return [s for k in sorted(spec_tree) for s in _spec_leaves(spec_tree[k])]
+
+
+def init_tree_from_key(key, spec_tree, *, device=None, dtype=torch.float32):
+    """Materialize a spec tree as the reference's ``init_tree(key, ...)``
+    draws it: ``prng.split(key, n)`` over the n leaves in sorted-key order,
+    each "normal" leaf ``prng.normal(k, shape) * scale / sqrt(fan_in)`` in
+    float32 (within 3 ulps of ``jax.random.normal``; a stacked leaf is
+    drawn whole, as the reference draws it), cast to its dtype, on
+    ``device``."""
+    keys = iter(prng.split(key, len(_spec_leaves(spec_tree))))
+
+    def one(s: ParamSpec):
+        k = next(keys)
+        dt = getattr(torch, s.dtype) if s.dtype else dtype
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dt, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=dt, device=device)
+        std = s.scale / _fan_in(s.shape) ** 0.5
+        return (prng.normal(k, s.shape, device) * std).to(dt)
+
+    def walk(tree):
+        if isinstance(tree, ParamSpec):
+            return one(tree)
+        return {k: walk(tree[k]) for k in sorted(tree)}
+
+    return walk(spec_tree)
 
 
 def _tuple_like(tree, items):

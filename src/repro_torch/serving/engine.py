@@ -1,4 +1,4 @@
-"""Batched LM serving engine: prefill -> KV cache -> greedy decode.
+"""Batched LM serving engine: prefill -> KV cache -> greedy/sampled decode.
 
 Port of ``repro.serving.engine`` for one device, the dense GQA models,
 recurrentgemma-2b, deepseek-v2 (MLA, MoE), kimi-k2 (MoE), xlstm-350m
@@ -20,11 +20,17 @@ and every RG-LRU and sLSTM layer's recurrence through its kernel, fills a
 MLA latent ``c_kv`` / ``k_rope`` for an MLA layer, the float32 state for a
 recurrent layer), and decode then attends to that cache
 one token at a time, writing each new K/V row and state in place (an
-sLSTM layer's through one launch of its kernel). This slice decodes
-greedily: ``temperature > 0`` (sampling, which needs key splitting) and a
-``mesh`` raise. ``device=None`` means the GPU; without CUDA the engine
-raises rather than moving to the CPU on its own. ``device="cpu"`` runs the
-kernels' plain PyTorch versions.
+sLSTM layer's through one launch of its kernel). With ``temperature > 0``
+and a key (``generate(..., rng=key)``, a ``prng`` key) decode samples as
+the reference's ``jax.random.categorical(fold_in(rng, i), logits /
+temperature)`` does at step i: Gumbel noise -log(-log(u)) over u from
+``prng.uniform`` on [tiny, 1) (jax's default "low" mode; the uniforms bit
+for bit, the logs PyTorch's, within an ulp of XLA's), added to the scaled
+float32 logits, then the first argmax. As in the reference, the first
+token is the prefill's argmax even when sampling, and ``rng=None`` decodes
+greedily. A ``mesh`` raises. ``device=None`` means the GPU; without CUDA
+the engine raises rather than moving to the CPU on its own.
+``device="cpu"`` runs the kernels' plain PyTorch versions.
 
 Timing is synchronous: the device is synchronized around the prefill (which
 includes growing its cache to ``max_len``) and around the decode loop, so
@@ -36,6 +42,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models import lm
@@ -52,20 +59,38 @@ def make_prefill_step(cfg: ArchConfig, mesh=None, rules=None):
     return prefill
 
 
+_TINY_F32 = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in jax's default "low" mode:
+    -log(-log(u)), u uniform on [tiny, 1) (the uniforms bit for bit)."""
+    tiny = torch.tensor(_TINY_F32, dtype=torch.float32, device=device)
+    span = torch.tensor(1.0, dtype=torch.float32, device=device) - tiny
+    u = torch.maximum(tiny, prng.uniform(key, shape, device) * span + tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)``: the first argmax
+    of Gumbel noise plus the logits, over the last axis."""
+    g = gumbel(key, tuple(logits.shape), logits.device)
+    return torch.argmax(g + logits, dim=-1)
+
+
 def make_decode_step(cfg: ArchConfig, mesh=None, rules=None,
                      temperature: float = 0.0):
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature sampling comes with a later slice of the port "
-            "(it needs prng.split and a distribution test); this engine "
-            "decodes greedily")
-
-    def decode(params, cache, tokens):
-        """tokens: (B, 1) current token. Returns (next_token, new_cache);
+    def decode(params, cache, tokens, rng=None):
+        """tokens: (B, 1) current token; ``rng`` this step's key (samples
+        where ``temperature > 0``). Returns (next_token, new_cache);
         ``cache`` is updated in place and must not be reused."""
         logits, new_cache = lm.forward(params, tokens, cfg, mesh, rules,
                                        mode="decode", cache=cache)
-        nxt = torch.argmax(logits[:, -1].to(torch.float32), dim=-1)
+        logits = logits[:, -1].to(torch.float32)
+        if temperature > 0.0 and rng is not None:
+            nxt = categorical(rng, logits / temperature)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
         return nxt[:, None].to(torch.int32), new_cache
     return decode
 
@@ -99,7 +124,8 @@ def pad_prefill_cache(cfg: ArchConfig, prefill_cache, batch: int,
 
 
 class ServingEngine:
-    """Synchronous batched engine: prefill + greedy decode on one device."""
+    """Synchronous batched engine: prefill + greedy or sampled decode on
+    one device."""
 
     def __init__(self, cfg: ArchConfig, params, max_len: int = 512,
                  mesh=None, temperature: float = 0.0, device=None):
@@ -121,11 +147,13 @@ class ServingEngine:
             torch.cuda.synchronize(self.device)
 
     def generate(self, prompts, max_new_tokens: int,
-                 encoder_embeddings=None) -> torch.Tensor:
+                 encoder_embeddings=None, rng=None) -> torch.Tensor:
         """prompts: (B, S) integer ids; ``encoder_embeddings`` (B,
         encoder_seq, d_model), which an encoder-decoder config needs (a
         ``ValueError`` without them, where the reference's cache merge
-        fails). Returns (B, max_new_tokens) int32 on the engine's device.
+        fails); ``rng`` a ``prng`` key, from which decode step i samples
+        with ``fold_in(rng, i)`` at the engine's temperature (None:
+        greedy). Returns (B, max_new_tokens) int32 on the engine's device.
         Keeps the prefill's last-position logits in ``prefill_logits`` and
         the step times in ``stats``: ``prefill_ms`` (the encoder
         included), ``decode_ms_per_token`` (per decode step of the batch)
@@ -148,8 +176,10 @@ class ServingEngine:
             out = [tok[:, None].to(torch.int32)]
             self._sync()
             t1 = now()
-            for _ in range(max_new_tokens - 1):
-                nxt, cache = self.decode(self.params, cache, out[-1])
+            for i in range(max_new_tokens - 1):
+                step_rng = prng.fold_in(rng, i) if rng is not None else None
+                nxt, cache = self.decode(self.params, cache, out[-1],
+                                         step_rng)
                 out.append(nxt)
             self._sync()
             t2 = now()

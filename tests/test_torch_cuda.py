@@ -69,6 +69,17 @@ design ``slstm_scan.design`` reports (its cluster's blocks on SMs of their
 own), one-token calls that advance the carry in place equal one sequence
 call bit for bit, and reduced xlstm-350m's engine on the card launches it
 once in the prefill and once a decode step and equals the CPU engine.
+LM training: the flash backward kernel (float32 D 16, bf16 D 80 and 128)
+against its plain version (autograd through the plain forward in float32)
+at ragged lengths, causal and not, MHA and GQA, deterministic from launch to
+launch; a train forward through ``blocks.flash_attention`` launching the
+forward and backward kernels (the forward twice under checkpointing, the
+same gradient bits); the calls the backward does not take (a window,
+unequal lengths, MLA's widths, another head dim) and every kernel wrapper
+without a backward refusing operands that autograd records; one AdamW step
+of reduced stablelm-3b and granite-8b (remat) on the card against the
+CPU; the Trainer refusing configs whose kernels have no backward; and
+sampled decoding on the card against the CPU.
 """
 import dataclasses
 import itertools
@@ -2135,3 +2146,218 @@ def test_card_census_launches_what_the_cpu_census_calls(cuda_device,
     assert card["fleet.g1"]["launches"] == one_a_one_b
     assert card["fleet.g2"]["launches"] == one_a_one_b
     assert card["quant.fused_q8"]["launches"] == {"p2m_fused_stream_q8": 1}
+
+
+# --- LM training on the card: the flash backward kernel and the guard -------
+
+# (dtype, head dim) of each backward instance
+BWD_INSTANCES = [("float32", 16), ("bfloat16", 80), ("bfloat16", 128)]
+# (B, S, H, Hkv): ragged tails (S 77, 130), GQA 2:1 and 4:1
+BWD_GEOMETRIES = [(2, 77, 4, 4), (1, 130, 8, 2), (2, 64, 4, 1)]
+# the largest error of a gradient row (over D) over that row's RMS; a row
+# whose RMS is under 1e-3 of the largest row's over the largest row's RMS
+# instead (a query that sees one key has a gradient at ~0, rounding on
+# both sides): float32, the summation order; bf16, both sides round the
+# gradients to bf16 (2^-8 each; the plain version takes its gradient in
+# float32) (chip_smoke.FLASH_BWD_TOL, chip_smoke.grad_row_err)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 0.1}
+
+
+def _grad_err(got, ref) -> float:
+    got, ref = got.float(), ref.float()
+    rms = ref.square().mean(dim=-1).sqrt()
+    top = rms.max()
+    if float(top) == 0.0:          # a gradient that is 0 everywhere
+        return float((got - ref).abs().max())
+    scale = torch.where(rms > 1e-3 * top, rms, top)
+    return float(((got - ref).abs().amax(dim=-1) / scale).max())
+
+
+def _bwd_operands(b, s, h, hkv, d, dtype, device, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen).to(device, dtype)
+                 for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
+                               (b, s, h, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", BWD_INSTANCES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,hkv", BWD_GEOMETRIES)
+def test_flash_backward_kernel_matches_plain_on_card(cuda_device, dtype, d,
+                                                     causal, b, s, h, hkv):
+    q, k, v, do = _bwd_operands(b, s, h, hkv, d, getattr(torch, dtype),
+                                cuda_device)
+    cuda_lib.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, do, causal=causal)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["flash_attention_bwd"] == 1
+    ref = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal)
+    for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+        assert g_.dtype == q.dtype and g_.shape == r_.shape
+        assert bool(torch.isfinite(g_).all()), name
+        assert _grad_err(g_, r_) <= BWD_TOL[dtype], name
+    # deterministic: no atomics, a second launch gives the same bits
+    again = fa.flash_attention_bwd(q, k, v, do, causal=causal)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", BWD_INSTANCES)
+def test_flash_attention_gradient_runs_the_kernels(cuda_device, dtype, d):
+    """A train forward on the card (``blocks.flash_attention`` with inputs
+    that require grad) launches the forward kernel, and its backward the
+    backward kernel; under ``torch.utils.checkpoint`` the forward runs
+    again in the backward, and the gradients are the same bits."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import blocks
+    q, k, v, do = _bwd_operands(2, 96, 4, 2, d, getattr(torch, dtype),
+                                cuda_device)
+    grads = []
+    for remat in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        cuda_lib.reset_launch_counts()
+
+        def attend(q_, k_, v_):
+            return blocks.flash_attention(q_, k_, v_, causal=True)
+
+        out = (checkpoint(attend, *leaves, use_reentrant=False) if remat
+               else attend(*leaves))
+        out.backward(do)
+        counts = cuda_lib.launch_counts()
+        assert counts["flash_attention"] == 1 + remat
+        assert counts["flash_attention_bwd"] == 1
+        grads.append([t.grad for t in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    ref = fa.flash_attention_bwd_plain(q, k, v, do, causal=True)
+    for g_, r_ in zip(grads[0], ref):
+        assert _grad_err(g_, r_) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_what_it_does_not_take(cuda_device):
+    """A train forward that would need a backward the kernel does not
+    compute raises before any launch: a window, unequal lengths, MLA's
+    (192, 128), an unbuilt head dim or dtype."""
+    from repro_torch.models import blocks
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def operands(sq, sk, d, dv, dtype):
+        q = torch.randn(1, sq, 2, d, device=cuda_device, dtype=dtype)
+        k = torch.randn(1, sk, 2, d, device=cuda_device, dtype=dtype)
+        v = torch.randn(1, sk, 2, dv, device=cuda_device, dtype=dtype)
+        return q.requires_grad_(True), k, v
+
+    cases = [(operands(64, 64, 80, 80, bf16), dict(causal=True, window=16)),
+             (operands(8, 24, 80, 80, bf16), dict(causal=False)),
+             (operands(64, 64, 192, 128, bf16), dict(causal=True)),
+             (operands(64, 64, 64, 64, bf16), dict(causal=True)),
+             (operands(64, 64, 80, 80, f32), dict(causal=True))]
+    for (q, k, v), kw in cases:
+        cuda_lib.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+            blocks.flash_attention(q, k, v, **kw)
+        assert not any(cuda_lib.launch_counts().values())
+        with torch.no_grad():     # without a gradient each still serves
+            blocks.flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_operands_autograd_records(cuda_device):
+    """Every card kernel without a backward refuses CUDA operands while
+    autograd records one that requires grad (its output would have no
+    graph); the check comes before the operands' own."""
+    x = torch.ones(2, 8, 4, device=cuda_device, requires_grad=True)
+    y = torch.ones(2, 8, 4, device=cuda_device)
+    calls = [lambda: fa.flash_attention(x[..., None].expand(2, 8, 4, 16),
+                                        y[..., None].expand(2, 8, 4, 16),
+                                        y[..., None].expand(2, 8, 4, 16)),
+             lambda: rs.rglru_scan(x, y),
+             lambda: rs.rglru_scan_gated(x, y, y, y[0, 0]),
+             lambda: ss.slstm_scan([x] * 4, [y] * 4, [y] * 4),
+             lambda: tk.p2m_phase_a_implicit(x, y, y, kernel=3, stride=1),
+             lambda: tk.p2m_phase_b(x, y, prng.PRNGKey(0))]
+    for call in calls:
+        cuda_lib.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="no backward kernel"):
+            call()
+        assert not any(cuda_lib.launch_counts().values())
+
+
+def _train_cfg(arch, **over):
+    return dataclasses.replace(reduced(get_arch(arch)), **over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,remat", [("stablelm-3b", "none"),
+                                        ("granite-8b", "full")])
+def test_lm_train_step_on_card_matches_cpu(cuda_device, arch, remat):
+    """One AdamW step of a reduced config (float32, D 16) on the card
+    against the same step on the CPU: loss and grad norm within 1e-5
+    relative, every parameter within 1e-6 of its leaf's largest entry
+    plus 1e-4 of lr (Adam's division by sqrt(v) where a gradient entry is
+    small); one forward launch an attention layer (two under remat) and
+    one backward launch."""
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.optim.optimizer import init_opt_state, leaves
+    from repro_torch.train import make_train_step
+    cfg = _train_cfg(arch, remat=remat)
+    ocfg = OptimizerConfig(warmup_steps=1, total_steps=4, lr=1e-2)
+    out = {}
+    from repro_torch.models.params import to_device
+    for dev in (cuda_device, torch.device("cpu")):
+        # the same weights on both sides (drawn on the host)
+        params = to_device(tlm.init_params(0, cfg), dev)
+        batch = TokenStream(cfg.vocab_size, 64, 4, device=dev).next_batch()
+        cuda_lib.reset_launch_counts()
+        p, _, m = make_train_step(cfg, ocfg)(
+            params, init_opt_state(params, ocfg), batch)
+        out[dev.type] = (p, m, cuda_lib.launch_counts())
+    (pc, mc, counts), (pp, mp, _) = out["cuda"], out["cpu"]
+    n_attn = cfg.num_layers
+    assert counts["flash_attention"] == n_attn * (2 if remat != "none"
+                                                  else 1)
+    assert counts["flash_attention_bwd"] == n_attn
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mc[key]) - float(mp[key])) <= 1e-5 * abs(
+            float(mp[key]))
+    for a, b in zip(leaves(pc), leaves(pp)):
+        tol = 1e-6 * float(b.abs().max()) + 1e-4 * ocfg.lr
+        assert float((a.cpu() - b).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_trainer_refuses_a_config_without_backward_kernels(cuda_device):
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.train import Trainer
+    for arch, kernel in (("recurrentgemma-2b", "rglru_scan_gated"),
+                         ("xlstm-350m", "slstm_scan"),
+                         ("deepseek-v2-236b", "MLA")):
+        cfg = reduced(get_arch(arch))
+        stream = TokenStream(cfg.vocab_size, 16, 2, device=cuda_device)
+        with pytest.raises(NotImplementedError, match=kernel):
+            Trainer(RunConfig(arch=cfg), stream, device=cuda_device,
+                    checkpoints=False)
+        assert stream.step == 0
+
+
+@pytest.mark.cuda
+def test_sampled_generate_on_card_matches_cpu(cuda_device):
+    """Temperature sampling on the card: reduced glm4-9b (float32) gives
+    the CPU's tokens at the same key, but where the CPU's top-2 margin of
+    noise plus scaled logits is within 1e-4 (none at this seed: the
+    first such token would end the comparison)."""
+    cfg = reduced(get_arch("glm4-9b"))
+    params = tlm.init_params(0, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 12),
+                            generator=torch.Generator().manual_seed(2),
+                            dtype=torch.int32)
+    toks = {}
+    for dev in (cuda_device, "cpu"):
+        eng = ServingEngine(cfg, params, max_len=40, temperature=0.8,
+                            device=dev)
+        toks[str(dev)] = eng.generate(prompts, 12,
+                                      rng=prng.PRNGKey(3)).cpu()
+    assert torch.equal(toks[str(cuda_device)], toks["cpu"])

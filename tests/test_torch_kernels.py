@@ -350,7 +350,8 @@ def test_cpu_tensors_never_launch():
     assert set(cuda_lib.launch_counts()) == {
         "p2m_phase_a_implicit", "p2m_phase_b", "p2m_fused_stream",
         "p2m_phase_a_implicit_q8", "p2m_fused_stream_q8", "p2m_phase_a",
-        "p2m_conv", "flash_attention", "rglru_scan", "rglru_scan_gated",
+        "p2m_conv", "flash_attention", "flash_attention_bwd", "rglru_scan",
+        "rglru_scan_gated",
         "slstm_scan",
         "p2m_phase_a_implicit_fleet",
         "p2m_phase_a_implicit_q8_fleet", "p2m_phase_b_fleet",

@@ -334,8 +334,15 @@ def test_mesh_temperature_and_missing_card_raise():
         tlm.forward(params, toks, cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         ServingEngine(cfg, params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="temperature"):
-        ServingEngine(cfg, params, temperature=0.7, device="cpu")
+    # temperature sampling is ported: without a key the engine decodes
+    # greedily, as the reference's does (sampled tokens:
+    # tests/test_torch_sampling.py)
+    prompts = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    hot = ServingEngine(cfg, params, max_len=16, temperature=0.7,
+                        device="cpu").generate(prompts, 4)
+    cold = ServingEngine(cfg, params, max_len=16,
+                         device="cpu").generate(prompts, 4)
+    assert torch.equal(hot, cold)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServingEngine(cfg, params)

@@ -570,9 +570,15 @@ def test_launcher_refuses_backends_without_a_gradient(backend, capsys):
 
 
 def test_launcher_refuses_lm_archs():
-    with pytest.raises(SystemExit) as exc:
-        t_launch.main(["--arch", "granite-8b", "--device", "cpu"])
-    assert "ROADMAP item 14" in str(exc.value)
+    """On the card the launcher refuses an LM arch whose train forward
+    reaches a kernel without a backward (recurrentgemma-2b's RG-LRU scan
+    and windowed attention), before any step and before the card is
+    touched (so this runs without one); on the CPU it trains every LM arch
+    (tests/test_torch_train_lm.py)."""
+    with pytest.raises(NotImplementedError) as exc:
+        t_launch.main(["--arch", "recurrentgemma-2b", "--device", "cuda"])
+    assert "ROADMAP item 16" in str(exc.value)
+    assert "rglru_scan_gated" in str(exc.value)
 
 
 def test_launcher_trains_and_evaluates_on_the_cpu(capsys):
