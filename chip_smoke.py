@@ -756,14 +756,15 @@ def is_marker(evt) -> bool:
 
 
 def profile_session(run, cuda: bool = True, cpu: bool = True,
-                    tries: int = 6, expect: str = None):
+                    tries: int = 6, expect=None):
     """``(profile, run())``: ``run()`` inside a torch.profiler session that
     kept all of its device events, as far as can be seen. The tracer now and
     then drops a session's device events, all of them, those from its
     start or those of the kernel between the markers, so ``run()`` is
     bracketed by two short marker kernels (``MARKER``; readers skip them
     with ``is_marker``), and a session that did not keep both, or (with
-    ``expect``) kept no device event whose name holds that text, runs
+    ``expect``, a text or a tuple of texts) kept no device event whose
+    name holds it, or one of them, runs
     ``run()`` again, up to ``tries`` sessions, with one ``run()`` outside
     the profiler before each retry (late in a long process three sessions
     in a row once dropped a flash kernel's events; 120 sessions of a fresh
@@ -774,6 +775,7 @@ def profile_session(run, cuda: bool = True, cpu: bool = True,
     from torch.profiler import ProfilerActivity, profile
     acts = ([ProfilerActivity.CPU] if cpu else []) + (
         [ProfilerActivity.CUDA] if cuda else [])
+    expect = (expect,) if isinstance(expect, str) else expect or ()
     for attempt in range(tries if cuda else 1):
         if attempt:
             run()
@@ -789,8 +791,8 @@ def profile_session(run, cuda: bool = True, cpu: bool = True,
         kept = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         if not cuda or (sum(e.count for e in kept if is_marker(e)) == 2
-                        and (expect is None
-                             or any(expect in e.key for e in kept))):
+                        and all(any(x in e.key for e in kept)
+                                for x in expect)):
             break
     return prof, out
 
@@ -3784,19 +3786,20 @@ def flash_symbols_main(geom_json: str) -> int:
     if geom.get("backward"):
         q, k, v, do = flash_bwd_operands(geom, torch.device("cuda"))
         key = "flash_bwd_"
+        expect = fa.backward_symbols(q.dtype, geom["head_dim"])
 
         def kernel():
             return fa.flash_attention_bwd(q, k, v, do, causal=geom["causal"])
     else:
         q, k, v = flash_operands(geom, torch.device("cuda"))
-        key = "flash"
+        key = expect = "flash"
 
         def kernel():
             return fa.flash_attention(q, k, v, causal=geom["causal"],
                                       window=geom.get("window", 0))
 
     kernel()
-    prof, _ = profile_session(kernel, cpu=False, expect=key)
+    prof, _ = profile_session(kernel, cpu=False, expect=expect)
     print(json.dumps(sorted({e.key for e in prof.key_averages()
                              if key in e.key})), flush=True)
     return 0
@@ -5452,10 +5455,12 @@ def flash_bwd_phase(name: str, device) -> dict:
     def kernel():
         return fa.flash_attention_bwd(q, k, v, do, causal=causal)
 
-    prof, got = profile_session(kernel, cpu=False, expect="flash_bwd_")
+    prof, got = profile_session(kernel, cpu=False, expect=symbols)
     ran = sorted({e.key for e in prof.key_averages() if "flash_bwd" in e.key})
     symbols_from = "session"
-    if not ran:   # every session here lost them: a fresh process's profiler
+    if not all(any(sym in r for r in ran) for sym in symbols):
+        # every session here lost one of them (the dq pass's, once, while
+        # it kept the dk / dv pass's): a fresh process's profiler
         ran = flash_symbols_in_child(dict(geom, backward=True))
         symbols_from = "child"
     check(len(ran) == 2 and all(any(sym in r for r in ran)
@@ -5580,7 +5585,7 @@ def lm_train_phase(device, smi: str) -> dict:
     # now and then late in a long process; then "not measured")
     prof, _ = profile_session(lambda: trainer.fit(
         params, opt, LM_TRAIN_STEPS, LM_TRAIN_STEPS + 1), tries=3,
-        expect="flash_bwd_")
+        expect=fa.backward_symbols(cfg.dtype, cfg.resolved_head_dim))
     fam, top = device_breakdown(prof, LM_TRAIN_FAMILIES, n_top=8)
     if not fam["flash_backward"]:
         fam, top = None, None
