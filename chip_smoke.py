@@ -10,7 +10,8 @@ line:
 
 1. ``env``: torch/CUDA versions and the card's name and power limit;
 2. ``build``: seconds for each library's nvcc build and the compiler's
-   register report (a wgmma serialization warning fails the run);
+   register report (a wgmma serialization warning fails the run, and so
+   does a spill in a flash backward kernel);
    ``tensor_cores``: the tensor-core instructions of each kernel, from
    the libraries' machine code (the int8 P2M kernels, A's two and fused,
    single-chip and with the chip axis, must run s8 IMMA, no other P2M
@@ -18,10 +19,11 @@ line:
    float32 MACs use no TF32; every ``flash_wgmma_kernel`` instance, each
    (D, Dv) pair with and without a window (``flash_wgmma_kernel<256,
    true>`` and MLA's ``flash_wgmma_kernel<192, false>`` among them), runs
-   HGMMA and no HMMA, the float32 flash kernel, the RG-LRU scan's three
+   HGMMA and no HMMA, and so do the flash backward's four bf16 kernels
+   (``flash_bwd_dq_wgmma_kernel<D>`` and ``flash_bwd_dkdv_wgmma_kernel<D>``
+   at D 80 and 128); the float32 flash kernel, the RG-LRU scan's three
    instances, the sLSTM kernel's two and the flash backward's float32
-   dq and dk / dv kernels neither; its four bf16 kernels run HMMA, the
-   mma.sync of their products, and no HGMMA);
+   dq and dk / dv kernels run neither);
 3. one ``kernel`` line per kernel and geometry: the serving shape
    (16, 32, 32, 3) -> (4096, 32), three odd geometries (one at C 48) and
    the paper's ImageNet frame size (16, 224, 224, 3) -> (200704, 32). Each
@@ -194,15 +196,17 @@ line:
    stage's event-pair ms on the card;
 12. LM training: ``flash_bwd`` lines, the flash backward kernel
    (``csrc/flash_attention_bwd.cu``: a dq pass then a dk / dv pass,
-   ``flash_bwd_dq_mma_kernel<D>`` and ``flash_bwd_dkdv_mma_kernel<D>`` in
-   bf16, ``flash_bwd_*_kernel<float, 16>`` in float32) at stablelm-3b's
+   ``flash_bwd_dq_wgmma_kernel<D>`` and ``flash_bwd_dkdv_wgmma_kernel<D>``
+   in bf16, warp-specialised wgmma fed by TMA, with the layout the library
+   reports as ``design``; ``flash_bwd_*_kernel<float, 16>`` in float32) at
+   stablelm-3b's
    step (B 4, S 2048, 32 heads of 80, bf16, causal), granite-8b's (32
    heads over 8 of 128) and the reduced configs' float32 D 16 (B 8, S
    128, 4 heads): dq, dk and dv against the plain version (autograd
    through the plain forward in float32) on the same card tensors, each
    gradient row's largest error over its RMS within 0.1 (bf16) / 1e-4
    (float32) over the rows above 1e-3 of the largest RMS, two launches
-   bit for bit equal, the two kernels named
+   bit for bit equal, every kernel it launches named
    from a profile, timed beside the plain version, the bound (five
    products of D a visible pair, one exponential, each operand once) and
    the backward of ``scaled_dot_product_attention`` (torch.autograd; the
@@ -381,6 +385,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -764,18 +769,23 @@ def profile_session(run, cuda: bool = True, cpu: bool = True,
     bracketed by two short marker kernels (``MARKER``; readers skip them
     with ``is_marker``), and a session that did not keep both, or (with
     ``expect``, a text or a tuple of texts) kept no device event whose
-    name holds it, or one of them, runs
+    name holds it, or one of them, or (with ``expect`` a dict of text, or
+    tuple of texts, to count) fewer than that count of events whose name
+    holds the text, or one of the texts, for one of its keys, runs
     ``run()`` again, up to ``tries`` sessions, with one ``run()`` outside
     the profiler before each retry (late in a long process three sessions
-    in a row once dropped a flash kernel's events; 120 sessions of a fresh
-    process dropped none); after that the last session is returned, and a
-    check that reads it fails. ``cuda=False`` traces the CPU alone, once."""
+    in a row once dropped a flash kernel's events, and one session kept 31
+    of a prefill's 32 flash launches; 120 sessions of a fresh process
+    dropped none); after that the last session is returned, and a check
+    that reads it fails. ``cuda=False`` traces the CPU alone, once."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = ([ProfilerActivity.CPU] if cpu else []) + (
         [ProfilerActivity.CUDA] if cuda else [])
-    expect = (expect,) if isinstance(expect, str) else expect or ()
+    expect = ({expect: 1} if isinstance(expect, str) else
+              dict(expect) if isinstance(expect, dict) else
+              dict.fromkeys(expect or (), 1))
     for attempt in range(tries if cuda else 1):
         if attempt:
             run()
@@ -791,8 +801,11 @@ def profile_session(run, cuda: bool = True, cpu: bool = True,
         kept = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         if not cuda or (sum(e.count for e in kept if is_marker(e)) == 2
-                        and all(any(x in e.key for e in kept)
-                                for x in expect)):
+                        and all(sum(e.count for e in kept
+                                    if any(t in e.key for t in
+                                           ((x,) if isinstance(x, str)
+                                            else x)))
+                                >= n for x, n in expect.items())):
             break
     return prof, out
 
@@ -4412,10 +4425,17 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
              stage_spans(recurrent, XLSTM_STAGES, "xlstm") if xlstm
              else stage_spans(lm, WHISPER_STAGES, "whisper") if cfg.is_encdec
              else contextlib.nullcontext())
+    # (every launch the checks below count must be kept: the tracer once
+    # dropped one of a prefill's 32 flash launches)
+    from repro_torch.kernels import rglru_scan as rs
+    scan_name = scan_wrapper()
+    n_scan = want.get(scan_name, 0)
+    expect = {x: n for x, n in (("flash", n_flash), (SLSTM_KERNELS, n_slstm),
+                                ("rglru_scan_kernel", n_scan)) if n}
     with torch.inference_mode(), spans:
         prof, (_, cache) = profile_session(
             lambda: engine.prefill(engine.params, prompts, *enc.values()),
-            expect="flash" if n_flash else "slstm_")
+            expect=expect)
     fam, top = device_breakdown(prof, LM_FAMILIES, 12)
     total = sum(fam.values())
     moe_ms = stage_ms(prof, MOE_STAGES, "moe") if cfg.num_experts else None
@@ -4476,18 +4496,15 @@ def lm_phase(device, smi: str, arch: str = LM_ARCH, path: str = "lm",
                   - fam["slstm_scan"]))
     # every scan of the prefill is the gated instance of the compute dtype
     # (in a port from before it, the one scan kernel)
-    from repro_torch.kernels import rglru_scan as rs
-    scan_name = scan_wrapper()
     scan_symbol = (rs.kernel_symbol(cfg.dtype)
                    if scan_name == "rglru_scan_gated" else "rglru_scan_kernel")
     scan_ran = {e.key: e.count for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and "rglru_scan_kernel" in e.key}
     scans = sum(scan_ran.values())
-    check(scans == want.get(scan_name, 0)
+    check(scans == n_scan
           and all(scan_symbol in key for key in scan_ran),
-          f"prefill scan launches {scan_ran}, want {want.get(scan_name, 0)} "
-          f"of {scan_symbol}")
+          f"prefill scan launches {scan_ran}, want {n_scan} of {scan_symbol}")
     # an encoder-decoder prefill by stage: the encoder, the decoder (its
     # self-attention, cross blocks and MLPs) and the rest (the embedding,
     # the final norm, the LM head over every position)
@@ -5463,8 +5480,8 @@ def flash_bwd_phase(name: str, device) -> dict:
         # it kept the dk / dv pass's): a fresh process's profiler
         ran = flash_symbols_in_child(dict(geom, backward=True))
         symbols_from = "child"
-    check(len(ran) == 2 and all(any(sym in r for r in ran)
-                                for sym in symbols),
+    check(len(ran) == len(symbols) and all(any(sym in r for r in ran)
+                                           for sym in symbols),
           f"flash backward kernels {ran} ran, want {symbols}")
     ref = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal)
     errs = {n_: grad_row_err(g_, r_)
@@ -5504,7 +5521,7 @@ def flash_bwd_phase(name: str, device) -> dict:
            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
            "library_ms": lib_ms}
     emit("flash_bwd", geometry=name, kernels=symbols, symbols_ran=ran,
-         symbols_from=symbols_from,
+         symbols_from=symbols_from, design=fa.backward_design(dtype, d),
          **geom, grad_row_rel_err=errs, grad_fro_rel_err=fro,
          tolerance=FLASH_BWD_TOL[geom["dtype"]], row_floor=GRAD_ROW_FLOOR,
          **{k_: v_ for k_, v_ in row.items() if k_ != "launches"},
@@ -5882,6 +5899,24 @@ def lm_train_tiny_phase(device) -> dict:
     return counts
 
 
+def spilled_kernels(log, key: str) -> list:
+    """The kernels whose name holds ``key`` that nvcc's ``-Xptxas -v`` log
+    (its lines) reports with spill stores or loads."""
+    out, name = [], None
+    for line in log:
+        found = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\S+?)'?( for|$)", line.strip())
+        if found:
+            name = found.group(1)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and name and key in name and (int(spill.group(1))
+                                               or int(spill.group(2))):
+            out.append(name)
+    return sorted(set(out))
+
+
 def build_libraries() -> dict:
     """Build every kernel library at once (one nvcc each); returns
     ``{name: (path, seconds)}``."""
@@ -5931,6 +5966,11 @@ def main() -> int:
         # ptxas C7513/C7514: a register of an in-flight wgmma is touched,
         # so every wgmma waits for the one before (the overlap is lost)
         check(not serialized, f"{name}: ptxas serialized the wgmmas")
+        # the flash backward's kernels hold their accumulators (and the
+        # wgmma kernels their A fragments) in registers under setmaxnreg: a
+        # spill would put them in memory
+        spills = spilled_kernels(log, "flash_bwd_")
+        check(not spills, f"{name}: ptxas spilled in {spills}")
     # the int8 kernels' MAC (int8 A, block-shared and warp-owned, and int8
     # fused in both chip layouts) runs on the s8 tensor cores; no other P2M
     # kernel runs IMMA, and none HMMA (the float32 MACs use no TF32)
@@ -5984,15 +6024,16 @@ def main() -> int:
          hmma_hgmma={k: list(v) for k, v in slstm.items()})
 
     # the flash backward's six kernels (a dq and a dk / dv kernel for each
-    # of its three instances): the four bf16 ones run mma.sync (HMMA) and
-    # no wgmma, the two float32 ones IEEE FFMA, no tensor-core instruction
+    # of its three instances): the four bf16 ones run wgmma (HGMMA) and no
+    # mma.sync (HMMA), the two float32 ones IEEE FFMA, no tensor-core
+    # instruction
     bwd = cuda_lib.tensor_core_census(built["flash_attention_bwd"][0],
                                       ("HMMA", "HGMMA"))
-    bwd_mma = {k: v for k, v in bwd.items() if "mma_kernel" in k}
+    bwd_wgmma = {k: v for k, v in bwd.items() if "wgmma_kernel" in k}
     check(len(bwd) == 6 and all("flash_bwd_" in k for k in bwd)
-          and len(bwd_mma) == 4
-          and all(h_ >= 1 and g_ == 0 for h_, g_ in bwd_mma.values())
-          and all(v == (0, 0) for k, v in bwd.items() if k not in bwd_mma),
+          and len(bwd_wgmma) == 4
+          and all(h_ == 0 and g_ >= 1 for h_, g_ in bwd_wgmma.values())
+          and all(v == (0, 0) for k, v in bwd.items() if k not in bwd_wgmma),
           f"tensor-core instructions in the flash backward library: {bwd}")
     emit("tensor_cores", library="flash_attention_bwd", kernels=len(bwd),
          hmma_hgmma={k: list(v) for k, v in bwd.items()})

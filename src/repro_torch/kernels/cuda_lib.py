@@ -248,9 +248,15 @@ def _bind_flash_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd.argtypes = [p] * 9 + [
         i32, i32, ctypes.POINTER(FlashBwdGeom), p]
     lib.flash_attention_bwd.restype = i32
-    # (dtype, head dim, which: 0 the dq kernel, 1 the dk / dv kernel)
+    # (dtype, head dim, which: the kernels in launch order)
     lib.flash_attention_bwd_kernel.argtypes = [i32, i32, i32]
     lib.flash_attention_bwd_kernel.restype = ctypes.c_char_p
+    # (dtype, head dim, out): an older source lacks it
+    # (scripts/flash_bwd_ab.py binds every version)
+    if hasattr(lib, "flash_attention_bwd_design"):
+        lib.flash_attention_bwd_design.argtypes = [i32, i32,
+                                                   ctypes.POINTER(i32)]
+        lib.flash_attention_bwd_design.restype = i32
 
 
 def _bind_rglru(lib: ctypes.CDLL) -> None:

@@ -59,7 +59,12 @@ launches are counted in ``flash_attention.launches`` (and in
 k, v and the output's upstream gradient), a kernel of its own
 library (``csrc/flash_attention_bwd.cu``) that replaces no TPU kernel: the
 Pallas kernel has no backward, and the reference trains through XLA's
-autodiff of its chunked scan. Its plain version
+autodiff of its chunked scan. In bf16 it is two warp-specialised wgmma
+kernels fed by TMA (``flash_bwd_dq_wgmma_kernel<D>``, which also takes
+each row's log-sum-exp and delta = rowsum(P dP), then
+``flash_bwd_dkdv_wgmma_kernel<D>``; ``backward_symbols`` names them and
+``backward_design`` reports their layout); in float32 two FFMA kernels. Its
+plain version
 ``flash_attention_bwd_plain`` is autograd through
 ``flash_attention_plain``. ``flash_attention_trainable`` is the
 ``torch.autograd.Function`` whose forward is ``flash_attention`` and whose
@@ -77,6 +82,7 @@ dims.
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 
@@ -280,13 +286,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"dout must be q's shape {tuple(q.shape)} and "
                          f"every operand its dtype {q.dtype}")
     b, s, h, d = q.shape
-    # contiguous rows on 16-byte boundaries (the bf16 kernels copy 16 bytes
-    # at a time)
+    # contiguous, on 16-byte boundaries (the bf16 kernels' tensor maps want
+    # 16-byte aligned bases)
     q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
     q, k, v, dout = (t.clone() if t.data_ptr() % 16 else t
                      for t in (q, k, v, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, _stat_rows(q.dtype, s)), dtype=torch.float32,
+                      device=q.device)
     delta = torch.empty_like(lse)
     geom = cuda_lib.FlashBwdGeom(b, s, h, k.shape[2], int(causal), d ** -0.5)
     lib = cuda_lib.load_flash_bwd()
@@ -299,18 +306,52 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _stat_rows(dtype: torch.dtype, seq: int) -> int:
+    """Rows a (batch, head) of the backward's log-sum-exp and delta scratch:
+    S in float32; in bf16 S rounded up to the dq kernel's 128-row q tiles,
+    all of which it writes and the dk / dv kernel's copies read whole."""
+    return seq if dtype == torch.float32 else -(-seq // 128) * 128
+
+
 def backward_symbols(dtype: torch.dtype, head_dim: int) -> tuple:
-    """The two kernels ``flash_attention_bwd`` launches for CUDA operands
-    of this dtype and head dim, as the profiler names them: the dq pass
-    and the dk / dv pass (builds the library)."""
+    """Every kernel ``flash_attention_bwd`` launches for CUDA operands of
+    this dtype and head dim, in launch order, as the profiler names them:
+    the dq pass (with the row statistics), then the dk / dv pass (builds the
+    library)."""
     lib = cuda_lib.load_flash_bwd()
-    names = [lib.flash_attention_bwd_kernel(_DTYPE_CODES.get(dtype, -1),
-                                            head_dim, which)
-             for which in (0, 1)]
-    if None in names:
+    names = []
+    for which in itertools.count():
+        name = lib.flash_attention_bwd_kernel(_DTYPE_CODES.get(dtype, -1),
+                                              head_dim, which)
+        if name is None:
+            break
+        names.append(name.decode())
+    if not names:
         raise ValueError(f"no flash backward kernel for {dtype}, head dim "
                          f"{head_dim}")
-    return tuple(n.decode() for n in names)
+    return tuple(names)
+
+
+# what flash_attention_bwd_design reports, in its order: the dq kernel's q
+# rows a block, kv rows a tile and ring stages; the dk / dv kernel's kv
+# rows a block, q rows a tile and ring stages; the products a visible pair;
+# whether dq is summed across blocks in a fixed order
+BWD_DESIGN_FIELDS = ("dq_q_rows", "dq_kv_rows", "dq_stages", "dkdv_kv_rows",
+                     "dkdv_q_rows", "dkdv_stages", "products",
+                     "dq_in_order")
+
+
+def backward_design(dtype: torch.dtype, head_dim: int) -> dict:
+    """The design of the kernels ``flash_attention_bwd`` launches for CUDA
+    operands of this dtype and head dim, as the library reports it
+    (``BWD_DESIGN_FIELDS``; builds the library)."""
+    out = (ctypes.c_int * len(BWD_DESIGN_FIELDS))()
+    n = cuda_lib.load_flash_bwd().flash_attention_bwd_design(
+        _DTYPE_CODES.get(dtype, -1), head_dim, out)
+    if n != len(BWD_DESIGN_FIELDS):
+        raise ValueError(f"no flash backward kernel for {dtype}, head dim "
+                         f"{head_dim}")
+    return dict(zip(BWD_DESIGN_FIELDS, out))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -404,8 +445,8 @@ def _attention_bwd_dots(q, k, v, dout, *, causal: bool = True):
     """The five products of the gradient of each (batch, head), at their
     full shapes: S = Q K^T and dP = dO V^T (Sq, D) x (D, Sk), dV = P^T dO
     and dK = dS^T Q (Sk, Sq) x (Sq, D), dQ = dS K (Sq, Sk) x (Sk, D) (the
-    kernel computes S and dP twice more: for the row statistics and in
-    the dq pass)."""
+    kernels compute S and dP twice more: for the row statistics and in
+    the dq pass; ``backward_design``'s ``products``)."""
     b, s, h, d = q.shape
     dtype = str(q.dtype).removeprefix("torch.")
     score = cuda_lib.Dot((b, h, s, d), (d, s), dtype, "float32")

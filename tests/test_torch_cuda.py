@@ -71,8 +71,9 @@ call bit for bit, and reduced xlstm-350m's engine on the card launches it
 once in the prefill and once a decode step and equals the CPU engine.
 LM training: the flash backward kernel (float32 D 16, bf16 D 80 and 128)
 against its plain version (autograd through the plain forward in float32)
-at ragged lengths, causal and not, MHA and GQA, deterministic from launch to
-launch; a train forward through ``blocks.flash_attention`` launching the
+at ragged lengths (S 300: three kv tiles a head, the last ragged), causal
+and not, MHA and GQA, deterministic from launch to launch, and at the seeds
+where a delta taken from the output would fail; a train forward through ``blocks.flash_attention`` launching the
 forward and backward kernels (the forward twice under checkpointing, the
 same gradient bits); the calls the backward does not take (a window,
 unequal lengths, MLA's widths, another head dim) and every kernel wrapper
@@ -2152,8 +2153,10 @@ def test_card_census_launches_what_the_cpu_census_calls(cuda_device,
 
 # (dtype, head dim) of each backward instance
 BWD_INSTANCES = [("float32", 16), ("bfloat16", 80), ("bfloat16", 128)]
-# (B, S, H, Hkv): ragged tails (S 77, 130), GQA 2:1 and 4:1
-BWD_GEOMETRIES = [(2, 77, 4, 4), (1, 130, 8, 2), (2, 64, 4, 1)]
+# (B, S, H, Hkv): ragged tails (S 77, 130), GQA 2:1 and 4:1; S 300 holds
+# three 128-row kv tiles a head, the last ragged
+BWD_GEOMETRIES = [(2, 77, 4, 4), (1, 130, 8, 2), (2, 64, 4, 1),
+                  (1, 300, 8, 2)]
 # the largest error of a gradient row (over D) over that row's RMS; a row
 # whose RMS is under 1e-3 of the largest row's over the largest row's RMS
 # instead (a query that sees one key has a gradient at ~0, rounding on
@@ -2199,6 +2202,32 @@ def test_flash_backward_kernel_matches_plain_on_card(cuda_device, dtype, d,
         assert _grad_err(g_, r_) <= BWD_TOL[dtype], name
     # deterministic: no atomics, a second launch gives the same bits
     again = fa.flash_attention_bwd(q, k, v, do, causal=causal)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+# (seed, head dim) at (B 1, S 130, H 8/2), causal, bf16: the inputs where a
+# delta taken from the output fails. Emulating the kernel's arithmetic on
+# the CPU against a float64 gradient, the worst dq row over its RMS with
+# delta = rowsum(do * o) from a float32 o read 0.541 (seed 4, D 80) and
+# 0.131 (seed 5, D 128), from the bf16 o 0.422 and 1.509; with delta =
+# rowsum(P dP) taken in float32 over the whole row, 0.018 and 0.016
+BWD_DELTA_CASES = [(4, 80), (4, 128), (5, 80), (5, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,d", BWD_DELTA_CASES)
+def test_flash_backward_takes_delta_exactly_on_card(cuda_device, seed, d):
+    """The kernel's delta is rowsum(P dP) in float32 from S and dP over the
+    whole row: a kernel that derived it from the output would fail these
+    inputs' first causal rows."""
+    q, k, v, do = _bwd_operands(1, 130, 8, 2, d, torch.bfloat16, cuda_device,
+                                seed=seed)
+    got = fa.flash_attention_bwd(q, k, v, do, causal=True)
+    ref = fa.flash_attention_bwd_plain(q, k, v, do, causal=True)
+    for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+        assert bool(torch.isfinite(g_).all()), name
+        assert _grad_err(g_, r_) <= BWD_TOL["bfloat16"], name
+    again = fa.flash_attention_bwd(q, k, v, do, causal=True)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 

@@ -1,12 +1,14 @@
 """The A/B scripts (scripts/p2m_ab.py, scripts/flash_ab.py,
-scripts/rglru_ab.py, scripts/slstm_ab.py, scripts/lm_ab.py and the shared
-scripts/ab_versions.py) on the CPU: what they can be asked without a card.
+scripts/flash_bwd_ab.py, scripts/rglru_ab.py, scripts/slstm_ab.py,
+scripts/lm_ab.py and the shared scripts/ab_versions.py) on the CPU: what
+they can be asked without a card.
 
 Every diagnostic copy must apply to the kernel source in this tree (a
 renamed line would otherwise drop a stage from ``--diagnose`` unseen), the
 turns must alternate the versions, the geometries are chip_smoke.py's,
 the C 48 and ImageNet ones included, and lm_ab.py runs each served arch
-as chip_smoke.py runs it.
+as chip_smoke.py runs it. chip_smoke.py's reading of the compiler's
+report finds a flash backward kernel that spilled.
 """
 import ast
 import importlib.util
@@ -45,6 +47,8 @@ def scripts(monkeypatch):
     *(("flash_ab", "flash_attention.cu", n) for n in (
         "no_exp", "no_softmax", "no_pv", "no_rescale", "no_kv_loads",
         "f32_no_exp", "f32_no_pv", "f32_no_loads", "f32_no_scores")),
+    *(("flash_bwd_ab", "flash_attention_bwd.cu", n) for n in (
+        "no_exp", "no_kv_loads", "no_q_loads")),
     *(("slstm_ab", "slstm_scan.cu", n) for n in (
         "no_fma", "no_h_loads", "no_chain", "no_staging", "cluster16"))])
 def test_each_diagnostic_changes_the_current_source(tmp_path, scripts,
@@ -91,6 +95,44 @@ def test_geometries_are_chip_smokes(scripts):
     assert len(geoms) == 5
     assert scripts("flash_ab").geometries()["granite_d128_b4"]["head_dim"] \
         == 128
+
+
+def test_flash_bwd_geometries_are_chip_smokes(scripts):
+    """flash_bwd_ab.py times the backward at chip_smoke.py's own flash_bwd
+    geometries: stablelm-3b's and granite-8b's training steps in bf16 and
+    the reduced configs' float32 D 16."""
+    geoms = scripts("flash_bwd_ab").geometries()
+    import chip_smoke as cs
+    assert geoms == cs.FLASH_BWD_GEOMS
+    assert {n: (g["head_dim"], g["dtype"]) for n, g in geoms.items()} == {
+        "bf16_d80": (80, "bfloat16"), "bf16_d128": (128, "bfloat16"),
+        "f32_d16": (16, "float32")}
+
+
+# an nvcc -Xptxas -v report: a backward kernel that spilled, one that did
+# not, and a kernel of another library that spilled
+PTXAS_LOG = """\
+ptxas info : Compiling entry function '_Z1a_flash_bwd_dq_k' for 'sm_90a'
+ptxas info : Function properties for _Z1a_flash_bwd_dq_k
+    8 bytes stack frame, 8 bytes spill stores, 68 bytes spill loads
+ptxas info : Used 168 registers, used 1 barriers
+ptxas info : Compiling entry function '_Z1a_flash_bwd_dkdv_k' for 'sm_90a'
+ptxas info : Function properties for _Z1a_flash_bwd_dkdv_k
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info : Used 168 registers, used 1 barriers
+ptxas info : Compiling entry function '_Z12other_kernelv' for 'sm_90a'
+ptxas info : Function properties for _Z12other_kernelv
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+"""
+
+
+def test_spilled_kernels_names_the_backward_kernel_that_spilled(monkeypatch):
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke as cs
+    log = PTXAS_LOG.splitlines()
+    assert cs.spilled_kernels(log, "flash_bwd_") == ["_Z1a_flash_bwd_dq_k"]
+    assert cs.spilled_kernels(log, "other_kernel") == ["_Z12other_kernelv"]
+    assert cs.spilled_kernels(log[4:8], "flash_bwd_") == []
 
 
 @pytest.mark.parametrize("name", [
